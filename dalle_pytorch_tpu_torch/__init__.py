@@ -1,12 +1,14 @@
 """dalle_pytorch_tpu_torch — the PyTorch and CUDA port of dalle_pytorch_tpu,
 for NVIDIA Hopper (H100).
 
-This slice serves: text token ids in, images out, through the DALL-E
-transformer (prefill + cached decode, classifier-free guidance, image
-priming) and the DiscreteVAE decoder, plus the scoring forward.  Full-sequence
-attention runs on a hand-written CUDA flash-attention forward
-(`kernels/csrc/flash_fwd.cu`).  The port never imports JAX; weights come
-from a seed or from the JAX package's parameter trees and v3 checkpoints
+It serves text token ids in, images out, through the DALL-E transformer
+(prefill + cached decode, classifier-free guidance, image priming) and the
+DiscreteVAE decoder, plus the scoring forward; and it trains the DALL-E
+transformer (`parallel/train_step.py`, `cli/train_dalle.py`).  Full-sequence
+attention runs on hand-written CUDA flash-attention kernels, forward
+(`kernels/csrc/flash_fwd.cu`) and backward (`kernels/csrc/flash_bwd.cu`).
+The port never imports JAX; weights come from a seed or from the JAX
+package's parameter trees and v3 checkpoints, and go back to them
 (`weights.py`, `checkpoint.py`)."""
 from dalle_pytorch_tpu_torch.api import DALLE, DiscreteVAE
 from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, forward as dalle_forward, init_dalle

@@ -1,4 +1,4 @@
-"""A numpy-only reader of the JAX package's v3 checkpoints.
+"""A numpy-only reader and writer of the JAX package's v3 checkpoints.
 
 The file is one `.npz`: a JSON meta blob (`__meta`), the format stamp
 (`__format`), and per named tree its leaves (`<name>:<i>`), their key paths
@@ -11,10 +11,15 @@ same-width unsigned bit-views; they are decoded here through torch, with no
 Nothing is unpickled: v1 and v2 files, whose tree structure is a pickle, are
 refused, as is a tree stored without a structure descriptor (an optimizer
 state, which only a template can rebuild).
+
+`save_checkpoint` writes the same format from trees of dicts (string keys),
+lists, tuples and None around tensor, numpy or scalar leaves, so that the
+JAX package's `load_checkpoint` reads what the port trains.
 """
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -84,3 +89,86 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
             struct = json.loads(bytes(data[skey]).decode())
             trees[name] = _rebuild_pure(struct, _load_leaves(data, name, n))
     return trees, meta
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+# torch dtypes numpy lacks -> the unsigned view of their bits and the dtype
+# name the JAX package's reader decodes the view back into
+_TORCH_BIT_VIEWS = {
+    torch.bfloat16: (torch.int16, np.uint16, "bfloat16"),
+    torch.float8_e4m3fn: (torch.int8, np.uint8, "float8_e4m3fn"),
+    torch.float8_e5m2: (torch.int8, np.uint8, "float8_e5m2"),
+}
+
+
+def _flatten(tree, path, paths, leaves):
+    """The JSON structure descriptor of a pure tree, in the JAX package's
+    flatten order (dict keys sorted); appends key paths and leaves."""
+    if tree is None:
+        return {"_": "none"}
+    if type(tree) is dict:
+        if not all(isinstance(key, str) for key in tree):
+            raise TypeError("checkpoint tree dicts take string keys only")
+        return {"_": "dict", "items": [[key, _flatten(tree[key], path + [["k", key]], paths, leaves)]
+                                       for key in sorted(tree)]}
+    if type(tree) in (list, tuple):
+        kind = "list" if type(tree) is list else "tuple"
+        return {"_": kind, "items": [_flatten(v, path + [["i", i]], paths, leaves)
+                                     for i, v in enumerate(tree)]}
+    paths.append(path)
+    leaves.append(tree)
+    return {"_": "leaf", "i": len(leaves) - 1}
+
+
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(stored array, dtype name) of one leaf."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu").contiguous()
+        if t.dtype in _TORCH_BIT_VIEWS:
+            signed, unsigned, name = _TORCH_BIT_VIEWS[t.dtype]
+            return t.view(signed).numpy().view(unsigned), name
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, arr.dtype.name
+
+
+def _json_bytes(obj) -> np.ndarray:
+    return np.frombuffer(json.dumps(obj).encode(), dtype=np.uint8)
+
+
+def save_checkpoint(path: str, trees: Dict[str, Any], meta: Dict[str, Any]) -> None:
+    """Write named pure trees and JSON meta as one v3 `.npz`, atomically:
+    to `<path>.tmp`, flushed and fsynced, then renamed over `path` (and the
+    directory fsynced), so a crash leaves the old file or the new one."""
+    payload = {"__meta": _json_bytes(meta), "__format": np.array(FORMAT_VERSION, dtype=np.int64)}
+    for name, tree in trees.items():
+        if tree is None:
+            continue
+        paths, leaves = [], []
+        struct = _flatten(tree, [], paths, leaves)
+        dtypes = []
+        for i, leaf in enumerate(leaves):
+            arr, dtype = _to_numpy(leaf)
+            payload[f"{name}:{i}"] = arr
+            dtypes.append(dtype)
+        payload[f"__paths_{name}"] = _json_bytes(paths)
+        payload[f"__struct_{name}"] = _json_bytes(struct)
+        payload[f"__dtypes_{name}"] = _json_bytes(dtypes)
+    path = str(path)
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    dirfd = os.open(parent, os.O_RDONLY)
+    try:
+        os.fsync(dirfd)
+    finally:
+        os.close(dirfd)

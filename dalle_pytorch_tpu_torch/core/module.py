@@ -103,6 +103,18 @@ def conv2d_transpose(
     return _nhwc(y)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate).  The identity when rate is 0 or no
+    generator is given (the JAX package: no key).  `generator` lies on x's
+    device; the same generator state draws the same mask."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 @torch.no_grad()
 def fan_in_uniform_(layer: torch.nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """The JAX package's initialisation of a linear or conv layer, in

@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -72,8 +73,12 @@ def build(name: str) -> Tuple[Path, float]:
 
 
 def build_all() -> Dict[str, float]:
-    """Build every `csrc/*.cu`.  Returns {name: seconds spent compiling}."""
-    return {p.stem: build(p.stem)[1] for p in sorted(CSRC.glob("*.cu"))}
+    """Build every `csrc/*.cu`, one `nvcc` per source, all started together.
+    Returns {name: seconds spent compiling}."""
+    names = [p.stem for p in sorted(CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result()[1] for name, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

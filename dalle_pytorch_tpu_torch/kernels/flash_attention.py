@@ -1,16 +1,20 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-Counterpart of `dalle_pytorch_tpu/kernels/flash_attention.py`'s forward
-(`_fwd_kernel` / `_flash_fwd`).  Attention runs on (b·h, n, d) with f32
-accumulation, causal masking and an optional per-batch key-padding row;
+Counterpart of `dalle_pytorch_tpu/kernels/flash_attention.py`: the forward
+(`_fwd_kernel` / `_flash_fwd`), the two-pass backward (`_dq_kernel` and
+`_dkv_kernel` / `_flash_bwd`) and the `custom_vjp` that joins them
+(`_flash_vjp_fwd` / `_flash_vjp_bwd`).  Attention runs on (b·h, n, d) with
+f32 accumulation, causal masking and an optional per-batch key-padding row;
 the log-sum-exp comes back as (b·h, n), not broadcast over 128 lanes as on
 the TPU.
 
-`flash_fwd` launches `csrc/flash_fwd.cu` for CUDA tensors and takes the
-plain version, `flash_attention_reference`, only for CPU tensors.  There is
-no fallback from the kernel to the plain version.  The kernel takes no
-gradient yet: the backward pair (`_dq_kernel` / `_dkv_kernel`) comes with
-the training slice.
+`flash_fwd` launches `csrc/flash_fwd.cu` and `flash_bwd` the two kernels of
+`csrc/flash_bwd.cu` for CUDA tensors; each takes its plain version
+(`flash_attention_reference`, `flash_attention_backward_reference`) only for
+CPU tensors.  There is no fallback from a kernel to a plain version.
+`flash_attention` goes through the autograd function `FlashAttention`
+whenever a gradient is wanted, and straight to `flash_fwd` otherwise.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import torch
 from dalle_pytorch_tpu_torch.kernels import build
 
 _NEG = -1e30  # the TPU kernel's fill for masked scores
+# lse at or below this: the row sees no key (its lse is -1e30, see _delta)
+_DEAD_LSE = _NEG / 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
@@ -70,6 +76,50 @@ def flash_attention_reference(
     return out.to(q.dtype), lse
 
 
+def _delta(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * out), (bh, n) f32, as `_flash_bwd` computes it.
+
+    A row that sees no key has lse = -1e30, so p = exp(s - lse) is 1 for
+    every one of its n keys and the JAX package's `_dense_recompute_grads`
+    takes delta = do . sum_j v_j for it, not do . out (out averages v)."""
+    do32 = do.float()
+    live = (do32 * out.float()).sum(-1)
+    dead = (do32 * v.float().sum(1, keepdim=True)).sum(-1)
+    return torch.where(lse <= _DEAD_LSE, dead, live)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    h: int = 1,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of the same function as the kernels: the math
+    of the JAX package's `_dense_recompute_grads`, with p = exp(s - lse)
+    recomputed over all n keys and delta from `_delta`.
+
+    out, lse: the forward's; do: (bh, n, d).  Returns (dq, dk, dv) in the
+    dtypes of q, k and v, computed in f32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _masked_scores(q, k, causal, scale, mask, key_mask, h)
+    p = torch.exp(s - lse[..., None])
+    do32 = do.float()
+    dv = torch.einsum("bij,bid->bjd", p, do32)
+    dp = torch.einsum("bid,bjd->bij", do32, v.float())
+    ds = p * (dp - _delta(out, lse, do, v)[..., None])
+    dq = torch.einsum("bij,bjd->bid", ds, k.float()) * scale
+    dk = torch.einsum("bij,bid->bjd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
@@ -78,12 +128,12 @@ def _check_cuda_inputs(q, k, v, h, key_mask):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must all lie on the same CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_fwd takes float32 or bfloat16 q, k, v of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"flash attention takes float32 or bfloat16 q, k, v of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_fwd takes q, k, v of one shape (bh, n, d); got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"flash attention takes q, k, v of one shape (bh, n, d); got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     bh, n, d = q.shape
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd takes head dims {_HEAD_DIMS}; got {d}")
+        raise ValueError(f"flash attention takes head dims {_HEAD_DIMS}; got {d}")
     if bh % h or not 0 < bh <= 65535:
         raise ValueError(f"bh = {bh} must be a positive multiple of h = {h}, at most 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -96,31 +146,56 @@ def _check_cuda_inputs(q, k, v, h, key_mask):
             raise ValueError("key_mask must be contiguous on q's device")
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("flash_fwd")
-    fn = lib.flash_fwd
+def _check_cuda_residuals(q, out, lse, do):
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's shape, dtype and device; got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 of shape {tuple(q.shape[:2])}; got {lse.dtype} {tuple(lse.shape)}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> (its source in csrc/, how many pointers it takes first)
+_ENTRIES = {
+    "flash_fwd": ("flash_fwd", 6),
+    "flash_bwd_dq": ("flash_bwd", 8),
+    "flash_bwd_dkv": ("flash_bwd", 9),
+}
+
+
+def _entry(name: str):
+    """The C entry point `name`, its library built and loaded at first use.
+    Every entry takes its pointers, then (bh, n, d, h, scale, causal, dtype,
+    stream)."""
+    source, n_ptrs = _ENTRIES[name]
+    fn = getattr(build.load(source), name)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
+        fn.argtypes = [_P] * n_ptrs + [_I, _I, _I, _I, _F, _I, _I, _P]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _call(name: str, q, tensors, h, causal, scale) -> None:
+    """Launch entry `name` on q's card, on its current stream; `tensors` are
+    its pointer arguments in order (None for a null pointer)."""
+    bh, n, d = q.shape
+    fn = _entry(name)
+    with torch.cuda.device(q.device):
+        rc = fn(*(None if t is None else t.data_ptr() for t in tensors), bh, n, d, h,
+                float(scale), int(causal), _DTYPES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with code {rc}")
 
 
 def _launch(q, k, v, h, causal, scale, key_mask):
-    bh, n, d = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
-    lib = _library()
-    with torch.cuda.device(q.device):  # launch on q's card, on its current stream
-        rc = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if key_mask is None else key_mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), bh, n, d, h, float(scale), int(causal),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed with code {rc}")
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _call("flash_fwd", q, (q, k, v, key_mask, out, lse), h, causal, scale)
     return out, lse
 
 
@@ -138,14 +213,9 @@ def flash_fwd(
 
     On CUDA tensors this launches the kernel (and counts the launch in
     `flash_fwd.launches`) or raises; on CPU tensors it runs the plain
-    version.  `mask` (a static pattern) is taken on the CPU only until the
-    sparse slice brings it to the kernel."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash_fwd takes no gradient yet: the backward kernels "
-            "(_dq_kernel / _dkv_kernel) come with the training slice; run "
-            "under torch.no_grad()"
-        )
+    version.  It builds no autograd graph of its own: `flash_attention`
+    gives it its gradient.  `mask` (a static pattern) is taken on the CPU
+    only until the sparse slice brings it to the kernel."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if key_mask is not None:
@@ -168,6 +238,73 @@ def flash_fwd(
 flash_fwd.launches = 0
 
 
+def flash_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    h: int = 1,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(bh, n, d) attention backward -> (dq, dk, dv), from the forward's
+    out and lse and the output gradient do.
+
+    On CUDA tensors delta = rowsum(do * out) is a torch op, as it is XLA in
+    the JAX package, and then the dq kernel and the dk/dv kernel launch,
+    each counted in `flash_bwd.dq_launches` / `flash_bwd.dkv_launches`, or
+    it raises; on CPU tensors it runs the plain version."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if key_mask is not None:
+        key_mask = key_mask.to(torch.int32).contiguous()
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, scale, mask, key_mask)
+    if not _is_cuda(q):
+        raise ValueError(f"flash_bwd runs on CUDA or CPU tensors, not {q.device}")
+    if mask is not None:
+        raise NotImplementedError(
+            "the CUDA flash kernels take no pattern mask yet: it comes with "
+            "the sparse-attention slice"
+        )
+    _check_cuda_inputs(q, k, v, h, key_mask)
+    _check_cuda_residuals(q, out, lse, do)
+    delta = _delta(out, lse, do, v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _call("flash_bwd_dq", q, (q, k, v, do, lse, delta, key_mask, dq), h, causal, scale)
+    flash_bwd.dq_launches += 1
+    _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, dk, dv), h, causal, scale)
+    flash_bwd.dkv_launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.dq_launches = 0
+flash_bwd.dkv_launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """(bh, n, d) flash attention with its gradient: the forward saves
+    (q, k, v, out, lse) as `_flash_vjp_fwd` does, and the backward is
+    `flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, h, causal, scale, mask, key_mask):
+        out, lse = flash_fwd(q, k, v, h, causal, scale, mask, key_mask)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (h, causal, scale, mask, key_mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -179,11 +316,13 @@ def flash_attention(
 ) -> torch.Tensor:
     """(b, h, n, d) attention, the counterpart of the JAX package's
     `flash_attention`.  q is unscaled (scale defaults to d^-1/2);
-    key_mask: optional (b, n), nonzero = attend."""
+    key_mask: optional (b, n), nonzero = attend.  Differentiable through
+    `FlashAttention` when grad is enabled and an input requires it; a plain
+    `flash_fwd` call otherwise."""
     b, h, n, d = q.shape
-    out, _ = flash_fwd(
-        q.reshape(b * h, n, d).contiguous(), k.reshape(b * h, n, d).contiguous(),
-        v.reshape(b * h, n, d).contiguous(), h=h, causal=causal, scale=scale,
-        mask=mask, key_mask=key_mask,
-    )
+    qf, kf, vf = (t.reshape(b * h, n, d).contiguous() for t in (q, k, v))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttention.apply(qf, kf, vf, h, causal, scale, mask, key_mask)
+    else:
+        out, _ = flash_fwd(qf, kf, vf, h=h, causal=causal, scale=scale, mask=mask, key_mask=key_mask)
     return out.reshape(b, h, n, d)

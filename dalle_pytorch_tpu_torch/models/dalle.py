@@ -5,7 +5,8 @@ A joint text + image vocabulary with a unique padding id per text position,
 <bos> prepended, rotary positions, logits masked so that text positions
 predict text and image positions predict image, and the (text + 7·img)/8
 weighted cross-entropy.  The model works on image *codes*; the VAE that turns
-pixels into codes is composed by the caller.
+pixels into codes is composed by the caller.  The forward is differentiable:
+the training step takes its gradient (`parallel/train_step.py`).
 """
 from __future__ import annotations
 
@@ -26,10 +27,10 @@ from dalle_pytorch_tpu_torch.models.transformer import (
 )
 
 # execution knobs of the JAX package's config that do not change what the
-# model computes (scan, remat, kernel and grid choice, sharding axes): a
+# model computes (scan, kernel and grid choice, sharding axes): a
 # checkpoint's hparams carry them, the port ignores them
 _EXECUTION_ONLY = (
-    "scan_layers", "remat_policy", "attn_kernel", "attn_grid", "attn_vfa",
+    "scan_layers", "attn_kernel", "attn_grid", "attn_vfa",
     "sparse_decode", "seq_shard_axis", "pipeline_axis", "pp_interleave",
     "pp_num_micro", "conv_kernel_size", "conv_dilation", "sparse_block_size",
     "sparse_per_head",
@@ -57,6 +58,7 @@ class DALLEConfig:
     shared_ff_ids: Optional[Tuple[int, ...]] = None
     share_input_output_emb: bool = False
     execution: Optional[str] = None
+    remat_policy: str = "full"
     num_image_tokens: int = 512
     image_fmap_size: int = 32
 
@@ -109,6 +111,7 @@ class DALLEConfig:
             shared_attn_ids=self.shared_attn_ids,
             shared_ff_ids=self.shared_ff_ids,
             execution=self.execution or "sequential",
+            remat_policy=self.remat_policy,
         )
 
     def to_dict(self) -> dict:
@@ -145,8 +148,9 @@ class DALLE(nn.Module):
         """The weight dtype: activations and the decode cache run in it."""
         return self.logits_linear.weight.dtype
 
-    def forward(self, text, image_codes=None, return_loss=False):
-        return forward(self, text, image_codes, return_loss)
+    def forward(self, text, image_codes=None, return_loss=False, null_cond_prob=0.0,
+                generator=None):
+        return forward(self, text, image_codes, return_loss, null_cond_prob, generator)
 
 
 @torch.no_grad()
@@ -157,7 +161,8 @@ def init_dalle(
 ) -> DALLE:
     """A DALL-E with seeded random float32 weights, drawn as the JAX package
     draws them: uniform ±1/sqrt(fan_in) for linear layers, N(0, 1) embeddings,
-    LayerScale by depth.  `generator` must live on `device`."""
+    LayerScale by depth.  `generator` must live on `device`.  The model comes
+    frozen, in eval mode, for serving; a trainer unfreezes its own."""
     device = resolve_device(device)
     with torch.device(device):
         model = DALLE(cfg)
@@ -213,19 +218,29 @@ def to_logits(model: DALLE, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def forward(
     model: DALLE,
     text: torch.Tensor,
     image_codes: Optional[torch.Tensor] = None,
     return_loss: bool = False,
+    null_cond_prob: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Scoring forward.  text: (b, text_seq_len) ids, 0 = padding;
-    image_codes: (b, image_seq_len) VAE codes.  Returns the masked logits
-    (b, n, total_tokens) or the weighted CE loss."""
+    """Training and scoring forward.  text: (b, text_seq_len) ids, 0 =
+    padding; image_codes: (b, image_seq_len) VAE codes.  Returns the masked
+    logits (b, n, total_tokens) or the weighted CE loss.
+
+    `generator` draws the null-conditioning mask (each caption is blanked
+    with probability `null_cond_prob`, for classifier-free guidance) and
+    then the transformer's dropout masks; without it neither is drawn."""
     cfg = model.cfg
     if text.shape[-1] != cfg.text_seq_len:
         raise ValueError(f"text length {text.shape[-1]} != text_seq_len {cfg.text_seq_len}")
+    if null_cond_prob > 0.0:
+        if generator is None:
+            raise ValueError("null_cond_prob needs a generator")
+        null = torch.rand(text.shape[0], generator=generator, device=generator.device) < null_cond_prob
+        text = text * (~null).to(text.device, text.dtype)[:, None]
     text_ids = remap_and_bos(cfg, text)
     tokens = embed_text_ids(model, text_ids)
     if image_codes is not None and image_codes.numel() > 0:
@@ -234,7 +249,7 @@ def forward(
     tokens = tokens[:, : cfg.total_seq_len]
     n = tokens.shape[1]
 
-    out = apply_transformer(model.transformer, tokens)
+    out = apply_transformer(model.transformer, tokens, generator=generator)
     logits = to_logits(model, out)
     logits = logits.masked_fill(
         logits_mask_slice(cfg, n, logits.device)[None], torch.finfo(logits.dtype).min

@@ -1,13 +1,16 @@
 """The transformer core (counterpart of `dalle_pytorch_tpu/models/transformer.py`),
-for sequential execution of unshared, full-attention layers.
+for sequential or rematerialised execution of unshared, full-attention
+layers.
 
-Each layer is PreShiftToken? -> PreNorm -> attention or GEGLU feed-forward ->
-LayerScale, run in three modes: a full sequence (`apply_transformer`), a
-prompt that also fills the KV cache (`prefill`), and one cached token
-(`decode_step`).  Full-sequence attention, in the first two modes, goes
-through the flash-attention forward (`kernels/flash_attention.py`): the CUDA
-kernel on the card, at any sequence length.  The one-token decode attention
-is plain tensor ops over the cache, as in the JAX package.
+Each layer is PreShiftToken? -> PreNorm -> attention or GEGLU feed-forward
+(-> dropout) -> LayerScale, run in three modes: a full sequence
+(`apply_transformer`, differentiable, the training mode), a prompt that also
+fills the KV cache (`prefill`), and one cached token (`decode_step`).
+Full-sequence attention, in the first two modes, goes through the flash
+attention of `kernels/flash_attention.py`: the CUDA kernels on the card, at
+any sequence length, with the backward kernels under autograd.  The
+one-token decode attention is plain tensor ops over the cache, as in the JAX
+package.
 
 The decode cache is a dict `{"offset": int, "layers": [per-layer dict]}`
 whose k/v buffers and token-shift rings are updated in place (the JAX
@@ -21,8 +24,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from dalle_pytorch_tpu_torch.core.module import LayerNorm, fan_in_uniform_
+from dalle_pytorch_tpu_torch.core.module import LayerNorm, dropout, fan_in_uniform_
 from dalle_pytorch_tpu_torch.kernels.flash_attention import flash_attention
 from dalle_pytorch_tpu_torch.ops.attention import attend
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary, build_dalle_rotary
@@ -38,7 +42,7 @@ class TransformerConfig:
     heads: int = 8
     dim_head: int = 64
     ff_mult: int = 4
-    # dropout is the identity at inference, the only mode the port runs yet
+    # drawn only in `apply_transformer` with a generator (training)
     attn_dropout: float = 0.0
     ff_dropout: float = 0.0
     attn_types: Tuple[str, ...] = ("full",)
@@ -50,6 +54,9 @@ class TransformerConfig:
     shared_attn_ids: Optional[Tuple[int, ...]] = None
     shared_ff_ids: Optional[Tuple[int, ...]] = None
     execution: str = "sequential"
+    # what execution="remat" saves across a layer: the port runs "full"
+    # (recompute everything); the JAX package's selective policies wait
+    remat_policy: str = "full"
 
     def __post_init__(self):
         unsupported = {
@@ -210,8 +217,10 @@ def _attention_full(attn, cfg, x, rotary, key_mask, causal, layer_cache=None):
     return attn.out(_merge_heads(out))
 
 
-def _feed_forward(ff: FeedForward, x: torch.Tensor) -> torch.Tensor:
-    return ff.w2(ff.w1(x) * F.gelu(ff.w1g(x)))  # exact-erf gelu
+def _feed_forward(ff: FeedForward, x: torch.Tensor, rate: float = 0.0,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    h = ff.w1(x) * F.gelu(ff.w1g(x))  # exact-erf gelu
+    return ff.w2(dropout(h, rate, generator))
 
 
 def _attention_cached(attn, cfg, layer_cache, x, rotary, offset: int):
@@ -264,9 +273,12 @@ def _fill_ring(cfg, rb: torch.Tensor, pre_shift: torch.Tensor) -> None:
 
 def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
                      key_mask=None, layer_cache=None, offset: int = 0,
-                     text_mode: bool = False):
-    """PreShiftToken? -> PreNorm -> attention or feed-forward -> LayerScale,
-    in mode 'full', 'prefill' or 'decode'."""
+                     text_mode: bool = False, dropout_seed: Optional[int] = None):
+    """PreShiftToken? -> PreNorm -> attention or feed-forward (-> dropout)
+    -> LayerScale, in mode 'full', 'prefill' or 'decode'.  The dropout
+    generator is built here from `dropout_seed`, so a rematerialised layer
+    draws the same masks again when it is recomputed."""
+    gen = None if dropout_seed is None else torch.Generator(device=x.device).manual_seed(dropout_seed)
     h = (layer.attn_norm if kind == "attn" else layer.ff_norm)(x)
     if cfg.shift_tokens:
         if mode == "decode":
@@ -285,22 +297,44 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
                 causal=cfg.causal or mode == "prefill",
                 layer_cache=layer_cache if mode == "prefill" else None,
             )
+            h = dropout(h, cfg.attn_dropout, gen)
     else:
-        h = _feed_forward(layer.ff, h)
+        h = _feed_forward(layer.ff, h, cfg.ff_dropout, gen)
     scale = layer.attn_scale if kind == "attn" else layer.ff_scale
     return h * scale.to(h.dtype)
 
 
-def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mode=False):
+def _layer_step(cfg, layer: Layer, x, mode, rotary, key_mask, layer_cache, offset,
+                text_mode, seeds):
+    for kind, seed in zip(("attn", "ff"), seeds):
+        x = x + _residual_branch(cfg, layer, x, kind, mode, rotary, key_mask,
+                                 layer_cache, offset, text_mode, seed)
+    return x
+
+
+def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mode=False,
+                seeds=None, remat=False):
+    """seeds: per layer, the (attention, feed-forward) dropout seeds, or
+    None.  remat: wrap each layer in a non-reentrant checkpoint, the JAX
+    package's "full" remat policy: the backward recomputes the layer."""
     cfg = model.cfg
     rotary = model.rotary(x.device)
     offset = 0 if cache is None else cache["offset"]
     for i, layer in enumerate(model.layers):
         lc = None if cache is None else cache["layers"][i]
-        for kind in ("attn", "ff"):
-            x = x + _residual_branch(cfg, layer, x, kind, mode, rotary, key_mask,
-                                     lc, offset, text_mode)
+        args = (cfg, layer, x, mode, rotary, key_mask, lc, offset, text_mode,
+                (None, None) if seeds is None else seeds[i])
+        x = checkpoint(_layer_step, *args, use_reentrant=False) if remat else _layer_step(*args)
     return x
+
+
+def _dropout_seeds(cfg: TransformerConfig, generator: Optional[torch.Generator]):
+    """One seed per layer and branch, drawn up front from `generator`, as the
+    JAX package splits its dropout key per layer; None without dropout."""
+    if generator is None or (cfg.attn_dropout == 0 and cfg.ff_dropout == 0):
+        return None
+    seeds = torch.randint(0, 2 ** 62, (cfg.depth, 2), generator=generator, device=generator.device)
+    return [tuple(pair) for pair in seeds.tolist()]
 
 
 # ---------------------------------------------------------------------------
@@ -308,11 +342,24 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def apply_transformer(model: Transformer, x: torch.Tensor,
-                      key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (batch, n, dim), n <= seq_len.  Full-sequence mode."""
-    return _run_layers(model, x, "full", key_mask=key_mask)
+                      key_mask: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x: (batch, n, dim), n <= seq_len.  Full-sequence (training) mode,
+    differentiable.  `generator` draws the dropout masks (none when it is
+    None); a CPU generator draws the per-layer seeds without a device sync.
+    execution="remat" recomputes each layer in the backward; it only
+    matters while a gradient is taken."""
+    cfg = model.cfg
+    remat = cfg.execution == "remat" and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: the port trains with the 'full' "
+            "policy only; the selective policies (flash, flash_qkv, flash_qkv_ff) "
+            "come with a later PR"
+        )
+    return _run_layers(model, x, "full", key_mask=key_mask,
+                       seeds=_dropout_seeds(cfg, generator), remat=remat)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, dtype=torch.float32, device=None) -> dict:

@@ -56,6 +56,9 @@ class DiscreteVAEConfig:
     def image_seq_len(self) -> int:
         return self.fmap_size ** 2
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
     @classmethod
     def from_dict(cls, meta: dict) -> "DiscreteVAEConfig":
         meta = dict(meta)

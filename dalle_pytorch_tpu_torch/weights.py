@@ -5,7 +5,9 @@ weights (in, out), convolution kernels HWIO, the transposed convolution as
 the flipped kernel of an input-dilated convolution, LayerScale as (1, 1,
 dim).  The functions here take such a tree, as `jax.device_get` or
 `checkpoint.load_checkpoint` gives it (leaves numpy arrays or CPU tensors),
-and return the port's state dicts or modules, in PyTorch's layouts.
+and return the port's state dicts or modules, in PyTorch's layouts; and back
+again (`dalle_tree`, `vae_tree`), for the checkpoint writer and for tests that
+hold the port's gradients against the JAX package's.
 """
 from __future__ import annotations
 
@@ -90,6 +92,86 @@ def vae_state_dict(params: dict, cfg: DiscreteVAEConfig) -> StateDict:
         if name in params:
             sd.update(_conv(name, params[name]))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the port -> the JAX package's trees
+# ---------------------------------------------------------------------------
+
+
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu").contiguous()
+
+
+def _linear_tree(sd: StateDict, prefix: str) -> dict:
+    out = {"w": _leaf(sd[f"{prefix}.weight"].t())}
+    if f"{prefix}.bias" in sd:
+        out["b"] = _leaf(sd[f"{prefix}.bias"])
+    return out
+
+
+def _norm_tree(sd: StateDict, prefix: str) -> dict:
+    return {"scale": _leaf(sd[f"{prefix}.scale"]), "bias": _leaf(sd[f"{prefix}.bias"])}
+
+
+def _conv_tree(sd: StateDict, prefix: str, transpose: bool = False) -> dict:
+    w = sd[f"{prefix}.weight"]
+    # (I, O, kh, kw) -> flipped HWIO, or (O, I, kh, kw) -> HWIO
+    w = w.permute(2, 3, 0, 1).flip(0, 1) if transpose else w.permute(2, 3, 1, 0)
+    out = {"w": _leaf(w)}
+    if f"{prefix}.bias" in sd:
+        out["b"] = _leaf(sd[f"{prefix}.bias"])
+    return out
+
+
+def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
+    """The inverse of `dalle_state_dict`: a `DALLE` state dict (or any dict
+    of tensors under its parameter names, such as gradients or optimizer
+    moments) -> the JAX package's parameter tree, (in, out) linears, layer
+    i's attention and feed-forward under id str(i).  Leaves are detached
+    CPU tensors in their own dtype (`.numpy()` gives the JAX package's
+    arrays where numpy has the dtype)."""
+    layers, shared_attn, shared_ff = [], {}, {}
+    for i in range(cfg.depth):
+        pre = f"transformer.layers.{i}"
+        layers.append({
+            "attn_norm": _norm_tree(sd, f"{pre}.attn_norm"),
+            "ff_norm": _norm_tree(sd, f"{pre}.ff_norm"),
+            "attn_scale": _leaf(sd[f"{pre}.attn_scale"]),
+            "ff_scale": _leaf(sd[f"{pre}.ff_scale"]),
+        })
+        shared_attn[str(i)] = {"qkv": _linear_tree(sd, f"{pre}.attn.qkv"),
+                               "out": _linear_tree(sd, f"{pre}.attn.out")}
+        shared_ff[str(i)] = {name: _linear_tree(sd, f"{pre}.ff.{name}") for name in ("w1", "w1g", "w2")}
+    return {
+        "transformer": {"layers": layers, "shared_attn": shared_attn, "shared_ff": shared_ff},
+        "logits_norm": _norm_tree(sd, "logits_norm"),
+        "logits_linear": _linear_tree(sd, "logits_linear"),
+        "text_emb": {"table": _leaf(sd["text_emb.weight"])},
+        "image_emb": {"table": _leaf(sd["image_emb.weight"])},
+    }
+
+
+def vae_tree(sd: StateDict, cfg: DiscreteVAEConfig) -> dict:
+    """The inverse of `vae_state_dict`."""
+    tree = {
+        "codebook": {"table": _leaf(sd["codebook.weight"])},
+        "enc_convs": [_conv_tree(sd, f"enc_convs.{i}") for i in range(cfg.num_layers)],
+        "dec_deconvs": [_conv_tree(sd, f"dec_deconvs.{i}", transpose=True) for i in range(cfg.num_layers)],
+        "enc_res": [{c: _conv_tree(sd, f"enc_res.{i}.{c}") for c in ("c1", "c2", "c3")}
+                    for i in range(cfg.num_resnet_blocks)],
+        "dec_res": [{c: _conv_tree(sd, f"dec_res.{i}.{c}") for c in ("c1", "c2", "c3")}
+                    for i in range(cfg.num_resnet_blocks)],
+    }
+    for name in ("enc_out", "dec_out", "dec_in"):
+        if f"{name}.weight" in sd:
+            tree[name] = _conv_tree(sd, name)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
 
 
 def _load(module: torch.nn.Module, sd: StateDict, device) -> torch.nn.Module:

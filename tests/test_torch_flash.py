@@ -120,14 +120,6 @@ def test_cuda_tensor_without_kernel_raises_rather_than_falling_back(monkeypatch,
     assert tfa.flash_fwd.launches == before
 
 
-def test_gradient_is_refused():
-    q = torch.randn(2, 8, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_fwd(q, q, q)
-    with torch.no_grad():
-        tfa.flash_fwd(q, q, q)
-
-
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
