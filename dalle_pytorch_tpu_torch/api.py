@@ -4,7 +4,10 @@ one device.  Weights are drawn from a seed in float32, or carried over from
 a JAX package parameter tree with `params=`, in the tree's own dtype.
 
 Both run on the first CUDA device unless `device="cpu"` is passed; with no
-card and no explicit CPU request they raise.
+card and no explicit CPU request they raise.  `DALLE(...)` passes every
+other keyword to `DALLEConfig`: the attention types and their pattern knobs
+(`attn_types`, `conv_kernel_size`, `conv_dilation`, `sparse_block_size`,
+`sparse_per_head`), `attn_grid` and `sparse_decode` among them.
 """
 from __future__ import annotations
 

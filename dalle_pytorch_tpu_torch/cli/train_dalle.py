@@ -64,6 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
     for name in ("dim", "depth", "heads", "dim_head", "text_seq_len", "num_text_tokens"):
         parser.add_argument(f"--{name}", type=int, default=None)
     parser.add_argument("--shift_tokens", action="store_true", help="use token shift")
+    parser.add_argument("--attn_types", type=str, default="full",
+                        help="comma-separated attention types, cycled over depth: "
+                             "full, axial_row, axial_col, conv_like, sparse")
+    parser.add_argument("--sparse_per_head", action="store_true",
+                        help="sparse layers draw one random-block layout per head")
     parser.add_argument("--attn_dropout", type=float, default=0.0)
     parser.add_argument("--ff_dropout", type=float, default=0.0)
     parser.add_argument("--execution", type=str, default=None, choices=["sequential", "remat", "reversible"])
@@ -177,7 +182,8 @@ def main(argv=None) -> int:
         vae_cfg, dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
         text_seq_len=args.text_seq_len, num_text_tokens=args.num_text_tokens,
         attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout, execution=args.execution,
-        shift_tokens=args.shift_tokens,
+        shift_tokens=args.shift_tokens, attn_types=tuple(args.attn_types.split(",")),
+        sparse_per_head=args.sparse_per_head,
     )
     model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
     model.train().requires_grad_(True)

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled with `nvcc`
 into a shared library under `kernels/build/`, at first use, then loaded with
-`ctypes`.  The library's file name carries a hash of its source and flags, so
-an edited source is rebuilt (replacing its old library) and a stale library
-is never loaded.  Nothing is
+`ctypes`.  The library's file name carries a hash of its source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source or header is
+rebuilt (replacing the old library) and a stale library is never loaded.
+Nothing is
 compiled when this module is imported: a machine with no `nvcc` imports the
 port and runs its plain PyTorch versions on the CPU.
 """
@@ -42,8 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -1,248 +1,75 @@
-// Flash-attention forward for Hopper (sm_90a), in plain CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), dense grid, in plain CUDA C++.
 //
 // Replaces: dalle_pytorch_tpu/kernels/flash_attention.py `_fwd_kernel`
 // (launched by `_flash_fwd`), the dense-grid online-softmax forward.
 //
 // Computes, for q, k, v of shape (bh, n, d), contiguous, f32 or bf16:
-//   s   = (q * scale) k^T in f32; causal-future keys and keys whose
-//         per-batch key-padding flag (kmask (b, n), row bh / h) is 0 are
-//         filled with -1e30, as the TPU kernel does;
+//   s   = (q * scale) k^T in f32, masked as flash_tiles.cuh says (causal,
+//         per-batch key padding, an optional (n, n) or (h, n, n) pattern);
 //   out = softmax(s) v, stored in the input dtype;
 //   lse = m + log(max(l, 1e-30)), f32, shape (bh, n).
-// A row whose keys are all masked gets the uniform average of v over all n
-// keys: the -1e30 fill makes every masked score equal, as the dense softmax
-// has it.  Any n works; the ragged last tile is masked here, not padded by
-// the caller.
+// With a pattern, a tile-liveness table (uint8 (H, ceil(n/64), ceil(n/BK)),
+// built by the caller at this kernel's tile) lets the block skip the key
+// tiles the pattern leaves empty, as `_tile_live` does on the TPU.  Any n
+// works; the ragged last tile is masked here, not padded by the caller.
 //
-// What bounds it on this card: at the shapes the slice runs (n = 257 and
-// n = 1280, d = 64) the two matrix products are 4*n*n*d operations
-// (halved under causality) against 4*n*d elements moved, so the work is
-// bound by operations, not bytes.  This first version runs those
-// operations on the f32 FMA units (67 TFLOP/s), not on the tensor cores,
-// so it cannot reach the bf16 tensor-core bound; wgmma and TMA are later
-// work.
+// What bounds it on this card: at the shapes the port runs (n = 257 to 1280,
+// d = 64) the two matrix products are 4*n*n*d operations (halved under
+// causality, cut further by a pattern) against 4*n*d elements moved, so the
+// work is bound by operations, not bytes.  This first version runs those
+// operations on the f32 FMA units (67 TFLOP/s), not on the tensor cores, so
+// it cannot reach the bf16 tensor-core bound; wgmma and TMA are later work.
 //
-// What the design does about it: one block owns 64 query rows of one
-// (batch, head) and loops over key tiles itself (blocks run in parallel, in
-// no order, so no state is carried between blocks).  Each K/V tile is
-// staged once in shared memory, converted to f32, and read by all 64 rows,
-// so device memory sees each key once per query tile.  Four threads share a
-// query row, each holding d/4 interleaved channels of q and of the
-// accumulator in registers; a score is four partial dot products joined by
-// two warp shuffles.  Causally dead key tiles are never loaded: the key loop
-// stops at the query tile's last row.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What the design does about it: one block owns 64 query rows of one (batch,
+// head) and loops over key tiles itself.  Each K/V tile is staged once in
+// shared memory, converted to f32, and read by all 64 rows, so device memory
+// sees each key once per query tile.  Four threads share a query row, each
+// holding d/4 interleaved channels of q and of the accumulator in registers;
+// a score is four partial dot products joined by two warp shuffles.  Dead key
+// tiles (causal or pattern) are never loaded.
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;  // the TPU kernel's fill (_NEG)
-constexpr int kBlockQ = 64;     // query rows per block
-constexpr int kRowThreads = 4;  // threads sharing one query row
-constexpr int kThreads = kBlockQ * kRowThreads;
-constexpr int kChunk = 16;      // keys scored per online-softmax update
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-  p2[0] = __floats2bfloat162_rn(x.x, x.y);
-  p2[1] = __floats2bfloat162_rn(x.z, x.w);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float p, float4 x, float4& y) {
-  y.x = fmaf(p, x.x, y.x);
-  y.y = fmaf(p, x.y, y.y);
-  y.z = fmaf(p, x.z, y.z);
-  y.w = fmaf(p, x.w, y.w);
-}
-
-template <typename T, int D, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int32_t* __restrict__ kmask,
-                 T* __restrict__ out, float* __restrict__ lse, int n, int h,
-                 float scale, int causal) {
-  constexpr int V4 = D / 4;   // float4 columns of one row
-  constexpr int NV = D / 16;  // float4 columns one thread holds
-  __shared__ float4 ks[BK][V4];
-  __shared__ float4 vs[BK][V4];
-  __shared__ int kflag[BK];  // 1 attend, 0 masked (-1e30), -1 past the end
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int g = threadIdx.x % kRowThreads;
-  const int row = q0 + threadIdx.x / kRowThreads;
-  const bool live_row = row < n;
-  const size_t base = static_cast<size_t>(bh) * n * D;
-  const int32_t* km = kmask ? kmask + static_cast<size_t>(bh / h) * n : nullptr;
-
-  // thread g of a row holds channels i*16 + g*4 .. +3: the four threads of
-  // a row read 64 contiguous bytes of a shared-memory row, conflict-free
-  float4 qr[NV], acc[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live_row) x = load4(q + base + static_cast<size_t>(row) * D + i * 16 + g * 4);
-    qr[i] = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = kNeg;
-  float l = 0.f;
-
-  int kend = causal ? min(q0 + kBlockQ, n) : n;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < BK * V4; idx += kThreads) {
-      const int j = idx / V4;
-      const int c4 = idx % V4;
-      const int kp = k0 + j;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (kp < n) {
-        const size_t off = base + static_cast<size_t>(kp) * D + c4 * 4;
-        kx = load4(k + off);
-        vx = load4(v + off);
-      }
-      ks[j][c4] = kx;
-      vs[j][c4] = vx;
-    }
-    for (int j = threadIdx.x; j < BK; j += kThreads) {
-      const int kp = k0 + j;
-      kflag[j] = kp >= n ? -1 : ((km != nullptr && km[kp] <= 0) ? 0 : 1);
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int j0 = 0; j0 < BK; j0 += kChunk) {
-      float s[kChunk];
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < NV; ++i) part = dot4(qr[i], ks[j0 + jj][i * 4 + g], part);
-        s[jj] = part;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        s[jj] += __shfl_xor_sync(0xffffffffu, s[jj], 1);
-        s[jj] += __shfl_xor_sync(0xffffffffu, s[jj], 2);
-      }
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int f = kflag[j0 + jj];
-        if (f < 0) {
-          s[jj] = -INFINITY;
-        } else if (f == 0 || (causal && k0 + j0 + jj > row)) {
-          s[jj] = kNeg;
-        }
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float alpha = expf(m - mx);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        acc[i].x *= alpha;
-        acc[i].y *= alpha;
-        acc[i].z *= alpha;
-        acc[i].w *= alpha;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = expf(s[jj] - mx);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < NV; ++i) axpy4(p, vs[j0 + jj][i * 4 + g], acc[i]);
-      }
-      m = mx;
-    }
-
-    // A row that has seen no unmasked key by the end of its causal range
-    // takes the uniform average over all n keys, as the dense softmax gives
-    // it; only then are the causally dead tiles visited.
-    if (causal && k0 + BK >= kend && kend < n) {
-      if (__syncthreads_or(live_row && m == kNeg)) kend = n;
-    }
-  }
-
-  if (live_row) {
-    const float lc = fmaxf(l, 1e-30f);
-    T* o = out + base + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      store4(o + i * 16 + g * 4,
-             make_float4(acc[i].x / lc, acc[i].y / lc, acc[i].z / lc, acc[i].w / lc));
-    }
-    if (g == 0) lse[static_cast<size_t>(bh) * n + row] = m + logf(lc);
-  }
-}
+using namespace flash;
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const void* kmask,
-            void* out, void* lse, int bh, int n, int h, float scale, int causal,
-            cudaStream_t stream) {
-  constexpr int BK = D <= 64 ? 64 : 32;  // K+V tiles stay at 32 KB of shared memory
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<T, D, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(kmask), static_cast<T*>(out),
-      static_cast<float*>(lse), n, h, scale, causal);
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* kmask,
-             void* out, void* lse, int bh, int n, int d, int h, float scale,
-             int causal, cudaStream_t stream) {
-  switch (d) {
-    case 32: launch<T, 32>(q, k, v, kmask, out, lse, bh, n, h, scale, causal, stream); return 0;
-    case 64: launch<T, 64>(q, k, v, kmask, out, lse, bh, n, h, scale, causal, stream); return 0;
-    case 128: launch<T, 128>(q, k, v, kmask, out, lse, bh, n, h, scale, causal, stream); return 0;
-    default: return -1;
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(Args a) {
+  constexpr int BK = inner_tile<D>();
+  const int nk = ceil_div(a.n, BK);
+  const int i = blockIdx.x;
+  const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
+                                 a.mask, a.mask_heads);
+  const int end = a.causal ? ceil_div(min((i + 1) * kTileRows, a.n), BK) : nk;
+  const uint8_t* live = nullptr;
+  if (a.live != nullptr) {
+    const int head = a.tab_heads > 1 ? blockIdx.y % a.h : 0;
+    live = a.live + (static_cast<size_t>(head) * ceil_div(a.n, kTileRows) + i) * nk;
   }
+  fwd_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p,
+                  dense_list(live, 0, end), nk);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// kmask may be null.  Returns 0, -1 for a shape or dtype the kernel does not
-// take, or the CUDA error code of the launch.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         const void* kmask, void* out, void* lse, int bh, int n,
-                         int d, int h, float scale, int causal, int dtype,
+// kmask, mask and live may be null.  Returns 0, -1 for a shape or dtype the
+// kernel does not take, -2 for a liveness table built at another tile, or
+// the CUDA error code of the launch.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kmask,
+                         const void* mask, const void* live, void* out, void* lse, int bh,
+                         int n, int d, int h, int mask_heads, int tab_heads, int tab_len,
+                         int tile_q, int tile_k, float scale, int causal, int dtype,
                          void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || h <= 0) return -1;
-  cudaGetLastError();  // report this launch's error, not an earlier one
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (dtype == 0) {
-    rc = dispatch<float>(q, k, v, kmask, out, lse, bh, n, d, h, scale, causal, s);
-  } else if (dtype == 1) {
-    rc = dispatch<__nv_bfloat16>(q, k, v, kmask, out, lse, bh, n, d, h, scale, causal, s);
-  } else {
-    rc = -1;
-  }
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  const Args a = make_args(q, k, v, nullptr, nullptr, nullptr, kmask, mask, live, nullptr, nullptr,
+                           out, nullptr, lse, bh, n, h, mask_heads, tab_heads, tab_len, scale,
+                           causal, stream);
+  return run(a, d, dtype, false, tile_q, tile_k, live != nullptr, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    constexpr int D = decltype(tag)::dim;
+    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
+    flash_fwd_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+  });
 }

@@ -1,35 +1,54 @@
 """Flash attention, forward and backward: the CUDA kernels' wrappers and
 their plain versions.
 
-Counterpart of `dalle_pytorch_tpu/kernels/flash_attention.py`: the forward
-(`_fwd_kernel` / `_flash_fwd`), the two-pass backward (`_dq_kernel` and
-`_dkv_kernel` / `_flash_bwd`) and the `custom_vjp` that joins them
+Counterpart of `dalle_pytorch_tpu/kernels/flash_attention.py`: the dense-grid
+forward (`_fwd_kernel` / `_flash_fwd`) and two-pass backward (`_dq_kernel`
+and `_dkv_kernel` / `_flash_bwd`), their compacted-grid twins for static
+patterns (`_fwd_kernel_compact` / `_flash_fwd_compact`, `_dq_kernel_compact`
+and `_dkv_kernel_compact` / `_flash_bwd_compact`), the grid choice
+(`_resolve_tables`) and the `custom_vjp` that joins forward and backward
 (`_flash_vjp_fwd` / `_flash_vjp_bwd`).  Attention runs on (b·h, n, d) with
-f32 accumulation, causal masking and an optional per-batch key-padding row;
-the log-sum-exp comes back as (b·h, n), not broadcast over 128 lanes as on
-the TPU.
+f32 accumulation, causal masking, an optional static pattern ((n, n) or
+per-head (h, n, n), True = may attend) and an optional per-batch key-padding
+row; the log-sum-exp comes back as (b·h, n), not broadcast over 128 lanes as
+on the TPU.
 
-`flash_fwd` launches `csrc/flash_fwd.cu` and `flash_bwd` the two kernels of
-`csrc/flash_bwd.cu` for CUDA tensors; each takes its plain version
-(`flash_attention_reference`, `flash_attention_backward_reference`) only for
-CPU tensors.  There is no fallback from a kernel to a plain version.
-`flash_attention` goes through the autograd function `FlashAttention`
-whenever a gradient is wanted, and straight to `flash_fwd` otherwise.
+For CUDA tensors `flash_fwd` and `flash_bwd` launch the dense-grid kernels of
+`csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, or hand a pattern whose tiles
+die inside the causal triangle to `flash_fwd_compact` and
+`flash_bwd_compact` (`csrc/flash_compact.cu`); the tile tables come from
+`pattern_tables`, built on the host at the kernels' own tile shape.  CPU
+tensors take the plain versions (`flash_attention_reference`,
+`flash_attention_backward_reference`).  There is no fallback from a kernel
+to a plain version.  `flash_attention` goes through the autograd function
+`FlashAttention` whenever a gradient is wanted, and straight to `flash_fwd`
+otherwise.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+import functools
+import re
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dalle_pytorch_tpu_torch.kernels import build
+from dalle_pytorch_tpu_torch.kernels.sparse_index import (
+    block_causal_live_np,
+    build_compacted_tables,
+    csr_tables,
+)
+from dalle_pytorch_tpu_torch.ops.masks import block_live_np
 
 _NEG = -1e30  # the TPU kernel's fill for masked scores
 # lse at or below this: the row sees no key (its lse is -1e30, see _delta)
 _DEAD_LSE = _NEG / 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_GRIDS = ("auto", "dense", "compact")
 
 
 def _masked_scores(q, k, causal, scale, mask, key_mask, h):
@@ -40,6 +59,7 @@ def _masked_scores(q, k, causal, scale, mask, key_mask, h):
         pos = torch.arange(n, device=s.device)
         s = torch.where(pos[None, :] <= pos[:, None], s, neg)
     if mask is not None:
+        mask = mask.to(s.device)
         if mask.ndim == 3:  # per-head (h, n, n): tile over the batch
             mask = mask.repeat(q.shape[0] // mask.shape[0], 1, 1)
         s = torch.where(mask.to(torch.bool), s, neg)
@@ -59,7 +79,7 @@ def flash_attention_reference(
     mask: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch forward of the same function as the kernel, the
+    """Plain PyTorch forward of the same function as the kernels, the
     forward math of the JAX package's `_dense_recompute_grads`.
 
     q, k, v: (bh, n, d); key_mask: optional (bh // h, n), nonzero = attend;
@@ -120,6 +140,153 @@ def flash_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# ---------------------------------------------------------------------------
+# tile tables of a static pattern
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_constants() -> Dict[str, int]:
+    """The `constexpr int kTile... = N;` lines of csrc/flash_tiles.cuh: the
+    one definition of the kernels' tile shape."""
+    text = (build.CSRC / "flash_tiles.cuh").read_text()
+    return {name: int(value) for name, value in re.findall(r"constexpr int (kTile\w+) = (\d+);", text)}
+
+
+def tile_shapes(d: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((query rows, keys) of the forward and dq kernels' tile, (query rows,
+    keys) of the dk/dv kernel's tile) at head dim d, as the kernels define
+    them: 64 x 64 at d <= 64; 64 x 32 and 32 x 64 at d = 128."""
+    c = _tile_constants()
+    inner = c["kTileInnerNarrow"] if d <= 64 else c["kTileInnerWide"]
+    return (c["kTileRows"], inner), (inner, c["kTileRows"])
+
+
+@dataclasses.dataclass(frozen=True)
+class PatternTables:
+    """A static pattern's tile tables at one length n and head dim, on one
+    device, for the kernels (the counterpart of `_resolve_tables`' output).
+
+    `live_rows` (H, ceil(n/tq), ceil(n/tk)) uint8 is the pattern's tile
+    liveness at the forward/dq tile `row_tile` = (tq, tk), for the dense
+    kernels; `live_cols` (H, ceil(n/ck), ceil(n/cq)) uint8 the same at the
+    dk/dv tile `col_tile` = (cq, ck), stored by key tile.  `row_ptr`/`col`
+    and `col_ptr`/`row` are the CSR lists (`sparse_index.csr_tables`) of the
+    live tiles inside the causal triangle, by query tile and by key tile, for
+    the compacted kernels.  H is 1 (shared) or the head count.  `compact` is
+    the grid the rule chose: compacted exactly when the pattern kills a tile
+    inside the causal triangle at `row_tile`.  `live_tiles` and
+    `causal_tiles` count (query tile, key tile) pairs at `row_tile`, summed
+    over the H heads; `live_tiles_dkv` and `causal_tiles_dkv` at
+    `col_tile`."""
+
+    n: int
+    heads: int
+    causal: bool
+    row_tile: Tuple[int, int]
+    col_tile: Tuple[int, int]
+    compact: bool
+    live_rows: torch.Tensor
+    live_cols: torch.Tensor
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    col_ptr: torch.Tensor
+    row: torch.Tensor
+    live_tiles: int
+    causal_tiles: int
+    live_tiles_dkv: int
+    causal_tiles_dkv: int
+
+
+def pattern_tables(
+    mask,
+    n: int,
+    d: int,
+    causal: bool = True,
+    grid: str = "auto",
+    device=None,
+) -> PatternTables:
+    """Build a pattern's tables on the host with numpy and put them on
+    `device`.  mask: (n, n) or (h, n, n) bool (numpy or torch), True = may
+    attend, or None for no pattern (every tile live).  grid: "auto" (compact
+    exactly when the pattern kills a tile inside the causal triangle, the
+    JAX package's rule computed at this port's tile), "dense" or
+    "compact"."""
+    if grid not in _GRIDS:
+        raise ValueError(f"grid must be one of {_GRIDS}, got {grid!r}")
+    (tq, tk), (cq, ck) = tile_shapes(d)
+    if mask is None:
+        m = np.ones((1, n, n), bool)
+    else:
+        m = (mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)) != 0
+        if m.ndim == 2:
+            m = m[None]
+    if m.shape[1:] != (n, n):
+        raise ValueError(f"mask of shape {m.shape[1:]} for length {n}")
+    live_r = block_live_np(m, tq, tk)
+    live_c = block_live_np(m, cq, ck)
+    heads, nq, nk = live_r.shape
+    nq2, nk2 = live_c.shape[1:]
+    causal_r = block_causal_live_np(nq, nk, tq, tk) if causal else np.ones((nq, nk), bool)
+    causal_c = block_causal_live_np(nq2, nk2, cq, ck) if causal else np.ones((nq2, nk2), bool)
+    rows = csr_tables(build_compacted_tables(live_r, tq, tk, causal=causal), nq, nk)
+    cols = csr_tables(build_compacted_tables(live_c, cq, ck, causal=causal), nq2, nk2)
+    compact = grid == "compact" or (grid == "auto" and bool(np.any(~live_r & causal_r[None])))
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return PatternTables(
+        n=n, heads=heads, causal=causal, row_tile=(tq, tk), col_tile=(cq, ck), compact=compact,
+        live_rows=put(live_r.astype(np.uint8)),
+        live_cols=put(live_c.transpose(0, 2, 1).astype(np.uint8)),
+        row_ptr=put(rows["row_ptr"]), col=put(rows["col"]),
+        col_ptr=put(cols["col_ptr"]), row=put(cols["row"]),
+        live_tiles=int((live_r & causal_r).sum()), causal_tiles=int(causal_r.sum()) * heads,
+        live_tiles_dkv=int((live_c & causal_c).sum()), causal_tiles_dkv=int(causal_c.sum()) * heads,
+    )
+
+
+def _check_pattern(q, h, mask, tables, causal, grid) -> None:
+    """The checks of `_resolve_tables`, on any device."""
+    if grid not in _GRIDS:
+        raise ValueError(f"grid must be one of {_GRIDS}, got {grid!r}")
+    bh, n, d = q.shape
+    if mask is not None and tuple(mask.shape) not in ((n, n), (h, n, n)):
+        raise ValueError(f"mask must be ({n}, {n}) or ({h}, {n}, {n}); got {tuple(mask.shape)}")
+    if tables is None:
+        return
+    if tables.heads not in (1, h):
+        raise ValueError(f"tables head dim {tables.heads} incompatible with h={h}")
+    if mask is not None and mask.ndim == 3 and tables.heads != h:
+        # shared tables would skip tiles that a head's own pattern needs
+        raise ValueError("per-head mask requires per-head compacted tables")
+    if tables.n != n or tables.causal != causal:
+        raise ValueError(f"tables for n={tables.n}, causal={tables.causal}; the call has n={n}, causal={causal}")
+    if (tables.row_tile, tables.col_tile) != tile_shapes(d):
+        raise ValueError(f"tables built at tiles {tables.row_tile}, {tables.col_tile}; "
+                         f"the kernels' tiles at d={d} are {tile_shapes(d)}")
+
+
+def _tables_for(q, mask, causal, grid, tables) -> Optional[PatternTables]:
+    """The tables a CUDA call runs with: the caller's, or built here from the
+    mask (a copy of the mask to the host: callers on a hot path build them
+    once with `pattern_tables`); None for the dense grid without a
+    pattern."""
+    if tables is None and (mask is not None or grid == "compact"):
+        tables = pattern_tables(mask, q.shape[1], q.shape[2], causal, grid, q.device)
+    return tables
+
+
+def _compact(tables: Optional[PatternTables], grid: str) -> bool:
+    return tables is not None and (tables.compact if grid == "auto" else grid == "compact")
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
 def _is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
@@ -158,45 +325,61 @@ def _check_cuda_residuals(q, out, lse, do):
         raise ValueError("lse must be contiguous")
 
 
+def _device_mask(q, mask, h):
+    """(the pattern as contiguous 1-byte 0/1 on q's device or None, its head
+    count for the kernels)."""
+    if mask is None:
+        return None, 1
+    m = mask.to(q.device)
+    if m.dtype not in (torch.bool, torch.uint8):
+        m = m != 0
+    return m.contiguous(), (h if m.ndim == 3 else 1)
+
+
+def _device_tables(q, tables: PatternTables) -> PatternTables:
+    if tables.row_ptr.device != q.device:
+        raise ValueError(f"tables on {tables.row_ptr.device}, q on {q.device}")
+    return tables
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (its source in csrc/, how many pointers it takes first)
 _ENTRIES = {
-    "flash_fwd": ("flash_fwd", 6),
-    "flash_bwd_dq": ("flash_bwd", 8),
-    "flash_bwd_dkv": ("flash_bwd", 9),
+    "flash_fwd": ("flash_fwd", 8),
+    "flash_bwd_dq": ("flash_bwd", 10),
+    "flash_bwd_dkv": ("flash_bwd", 11),
+    "flash_fwd_compact": ("flash_compact", 9),
+    "flash_dq_compact": ("flash_compact", 11),
+    "flash_dkv_compact": ("flash_compact", 12),
 }
 
 
 def _entry(name: str):
     """The C entry point `name`, its library built and loaded at first use.
-    Every entry takes its pointers, then (bh, n, d, h, scale, causal, dtype,
-    stream)."""
+    Every entry takes its pointers, then (bh, n, d, h, mask_heads,
+    tab_heads, tab_len, tile_q, tile_k, scale, causal, dtype, stream)."""
     source, n_ptrs = _ENTRIES[name]
     fn = getattr(build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptrs + [_I, _I, _I, _I, _F, _I, _I, _P]
+        fn.argtypes = [_P] * n_ptrs + [_I] * 9 + [_F, _I, _I, _P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _call(name: str, q, tensors, h, causal, scale) -> None:
+def _call(name: str, q, tensors, h, causal, scale, mask_heads=1, tab_heads=1, tab_len=0,
+          tile=(0, 0)) -> None:
     """Launch entry `name` on q's card, on its current stream; `tensors` are
-    its pointer arguments in order (None for a null pointer)."""
+    its pointer arguments in order (None for a null pointer); `tile` is the
+    tile the tables were built at ((0, 0) without tables)."""
     bh, n, d = q.shape
     fn = _entry(name)
     with torch.cuda.device(q.device):
         rc = fn(*(None if t is None else t.data_ptr() for t in tensors), bh, n, d, h,
+                mask_heads, tab_heads, tab_len, tile[0], tile[1],
                 float(scale), int(causal), _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with code {rc}")
-
-
-def _launch(q, k, v, h, causal, scale, key_mask):
-    out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _call("flash_fwd", q, (q, k, v, key_mask, out, lse), h, causal, scale)
-    return out, lse
 
 
 def flash_fwd(
@@ -208,34 +391,85 @@ def flash_fwd(
     scale: Optional[float] = None,
     mask: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
+    grid: str = "auto",
+    tables: Optional[PatternTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(bh, n, d) attention forward -> (out (bh, n, d), lse (bh, n) f32).
 
-    On CUDA tensors this launches the kernel (and counts the launch in
-    `flash_fwd.launches`) or raises; on CPU tensors it runs the plain
-    version.  It builds no autograd graph of its own: `flash_attention`
-    gives it its gradient.  `mask` (a static pattern) is taken on the CPU
-    only until the sparse slice brings it to the kernel."""
+    On CUDA tensors this launches the dense-grid kernel, counted in
+    `flash_fwd.launches` (and in `flash_fwd.masked_launches` when it takes a
+    pattern), or, where `grid` and the tables choose the compacted grid,
+    `flash_fwd_compact`; or it raises.  On CPU tensors it runs the plain
+    version.  It builds no autograd graph of its own: `flash_attention` gives
+    it its gradient."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
+    _check_pattern(q, h, mask, tables, causal, grid)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, h, causal, scale, mask, key_mask)
     if not _is_cuda(q):
         raise ValueError(f"flash_fwd runs on CUDA or CPU tensors, not {q.device}")
-    if mask is not None:
-        raise NotImplementedError(
-            "the CUDA flash kernel takes no pattern mask yet: it comes with "
-            "the sparse-attention slice"
-        )
+    tables = _tables_for(q, mask, causal, grid, tables)
+    if _compact(tables, grid):
+        return flash_fwd_compact(q, k, v, tables, h, causal, scale, mask, key_mask)
     _check_cuda_inputs(q, k, v, h, key_mask)
-    out, lse = _launch(q, k, v, h, causal, scale, key_mask)
+    m, mask_heads = _device_mask(q, mask, h)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if tables is None:
+        _call("flash_fwd", q, (q, k, v, key_mask, None, None, out, lse), h, causal, scale)
+    else:
+        t = _device_tables(q, tables)
+        _call("flash_fwd", q, (q, k, v, key_mask, m, t.live_rows, out, lse), h, causal, scale,
+              mask_heads, t.heads, 0, t.row_tile)
+        flash_fwd.masked_launches += int(m is not None)
     flash_fwd.launches += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.masked_launches = 0
+
+
+def flash_fwd_compact(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tables: PatternTables,
+    h: int = 1,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward over the live tiles of `tables` only, equal to the dense
+    grid given the same mask bit for bit.  On CUDA tensors it launches
+    `csrc/flash_compact.cu`'s forward (counted in
+    `flash_fwd_compact.launches`) or raises; on CPU tensors it runs the
+    plain version."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if key_mask is not None:
+        key_mask = key_mask.to(torch.int32).contiguous()
+    _check_pattern(q, h, mask, tables, causal, "compact")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, h, causal, scale, mask, key_mask)
+    if not _is_cuda(q):
+        raise ValueError(f"flash_fwd_compact runs on CUDA or CPU tensors, not {q.device}")
+    _check_cuda_inputs(q, k, v, h, key_mask)
+    t = _device_tables(q, tables)
+    m, mask_heads = _device_mask(q, mask, h)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _call("flash_fwd_compact", q, (q, k, v, key_mask, m, t.row_ptr, t.col, out, lse), h, causal,
+          scale, mask_heads, t.heads, t.col.shape[1], t.row_tile)
+    flash_fwd_compact.launches += 1
+    return out, lse
+
+
+flash_fwd_compact.launches = 0
 
 
 def flash_bwd(
@@ -250,34 +484,47 @@ def flash_bwd(
     scale: Optional[float] = None,
     mask: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
+    grid: str = "auto",
+    tables: Optional[PatternTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(bh, n, d) attention backward -> (dq, dk, dv), from the forward's
     out and lse and the output gradient do.
 
     On CUDA tensors delta = rowsum(do * out) is a torch op, as it is XLA in
-    the JAX package, and then the dq kernel and the dk/dv kernel launch,
-    each counted in `flash_bwd.dq_launches` / `flash_bwd.dkv_launches`, or
-    it raises; on CPU tensors it runs the plain version."""
+    the JAX package, and then the dense-grid dq kernel and dk/dv kernel
+    launch, each counted in `flash_bwd.dq_launches` /
+    `flash_bwd.dkv_launches`, or, where `grid` and the tables choose the
+    compacted grid, `flash_bwd_compact`; or it raises.  On CPU tensors it
+    runs the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
+    _check_pattern(q, h, mask, tables, causal, grid)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, scale, mask, key_mask)
     if not _is_cuda(q):
         raise ValueError(f"flash_bwd runs on CUDA or CPU tensors, not {q.device}")
-    if mask is not None:
-        raise NotImplementedError(
-            "the CUDA flash kernels take no pattern mask yet: it comes with "
-            "the sparse-attention slice"
-        )
+    tables = _tables_for(q, mask, causal, grid, tables)
+    if _compact(tables, grid):
+        return flash_bwd_compact(q, k, v, out, lse, do, tables, h, causal, scale, mask, key_mask)
     _check_cuda_inputs(q, k, v, h, key_mask)
     _check_cuda_residuals(q, out, lse, do)
+    m, mask_heads = _device_mask(q, mask, h)
     delta = _delta(out, lse, do, v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _call("flash_bwd_dq", q, (q, k, v, do, lse, delta, key_mask, dq), h, causal, scale)
+    if tables is None:
+        _call("flash_bwd_dq", q, (q, k, v, do, lse, delta, key_mask, None, None, dq), h, causal, scale)
+        flash_bwd.dq_launches += 1
+        _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, None, None, dk, dv), h, causal, scale)
+        flash_bwd.dkv_launches += 1
+        return dq, dk, dv
+    t = _device_tables(q, tables)
+    _call("flash_bwd_dq", q, (q, k, v, do, lse, delta, key_mask, m, t.live_rows, dq), h, causal, scale,
+          mask_heads, t.heads, 0, t.row_tile)
     flash_bwd.dq_launches += 1
-    _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, dk, dv), h, causal, scale)
+    _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, m, t.live_cols, dk, dv), h, causal,
+          scale, mask_heads, t.heads, 0, t.col_tile)
     flash_bwd.dkv_launches += 1
     return dq, dk, dv
 
@@ -286,23 +533,73 @@ flash_bwd.dq_launches = 0
 flash_bwd.dkv_launches = 0
 
 
+def flash_bwd_compact(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    tables: PatternTables,
+    h: int = 1,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward over the live tiles of `tables` only: dq by query tile
+    from the row lists, dk/dv by key tile from the column lists, each equal
+    to the dense kernel given the same mask bit for bit.  On CUDA tensors it
+    launches `csrc/flash_compact.cu`'s two backward kernels (counted in
+    `flash_bwd_compact.dq_launches` / `dkv_launches`) or raises; on CPU
+    tensors it runs the plain version."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if key_mask is not None:
+        key_mask = key_mask.to(torch.int32).contiguous()
+    _check_pattern(q, h, mask, tables, causal, "compact")
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, scale, mask, key_mask)
+    if not _is_cuda(q):
+        raise ValueError(f"flash_bwd_compact runs on CUDA or CPU tensors, not {q.device}")
+    _check_cuda_inputs(q, k, v, h, key_mask)
+    _check_cuda_residuals(q, out, lse, do)
+    t = _device_tables(q, tables)
+    m, mask_heads = _device_mask(q, mask, h)
+    delta = _delta(out, lse, do, v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _call("flash_dq_compact", q, (q, k, v, do, lse, delta, key_mask, m, t.row_ptr, t.col, dq), h,
+          causal, scale, mask_heads, t.heads, t.col.shape[1], t.row_tile)
+    flash_bwd_compact.dq_launches += 1
+    _call("flash_dkv_compact", q, (q, k, v, do, lse, delta, key_mask, m, t.col_ptr, t.row, dk, dv), h,
+          causal, scale, mask_heads, t.heads, t.row.shape[1], t.col_tile)
+    flash_bwd_compact.dkv_launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_compact.dq_launches = 0
+flash_bwd_compact.dkv_launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
     """(bh, n, d) flash attention with its gradient: the forward saves
-    (q, k, v, out, lse) as `_flash_vjp_fwd` does, and the backward is
-    `flash_bwd`."""
+    (q, k, v, out, lse) as `_flash_vjp_fwd` does, and carries the pattern,
+    the grid and the tables it ran with to the backward, `flash_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, h, causal, scale, mask, key_mask):
-        out, lse = flash_fwd(q, k, v, h, causal, scale, mask, key_mask)
+    def forward(ctx, q, k, v, h, causal, scale, mask, key_mask, grid, tables):
+        if _is_cuda(q):
+            tables = _tables_for(q, mask, causal, grid, tables)
+        out, lse = flash_fwd(q, k, v, h, causal, scale, mask, key_mask, grid, tables)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (h, causal, scale, mask, key_mask)
+        ctx.args = (h, causal, scale, mask, key_mask, grid, tables)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, lse, do.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -313,16 +610,22 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     key_mask: Optional[torch.Tensor] = None,
+    grid: str = "auto",
+    tables: Optional[PatternTables] = None,
 ) -> torch.Tensor:
     """(b, h, n, d) attention, the counterpart of the JAX package's
-    `flash_attention`.  q is unscaled (scale defaults to d^-1/2);
-    key_mask: optional (b, n), nonzero = attend.  Differentiable through
-    `FlashAttention` when grad is enabled and an input requires it; a plain
-    `flash_fwd` call otherwise."""
+    `flash_attention`.  q is unscaled (scale defaults to d^-1/2); mask:
+    optional static (n, n) or per-head (h, n, n) pattern, True = may attend;
+    key_mask: optional (b, n), nonzero = attend; grid: "auto" | "dense" |
+    "compact"; tables: the pattern's `pattern_tables` (built from the mask
+    on each CUDA call when None).  Differentiable through `FlashAttention`
+    when grad is enabled and an input requires it; a plain `flash_fwd` call
+    otherwise."""
     b, h, n, d = q.shape
     qf, kf, vf = (t.reshape(b * h, n, d).contiguous() for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttention.apply(qf, kf, vf, h, causal, scale, mask, key_mask)
+        out = FlashAttention.apply(qf, kf, vf, h, causal, scale, mask, key_mask, grid, tables)
     else:
-        out, _ = flash_fwd(qf, kf, vf, h=h, causal=causal, scale=scale, mask=mask, key_mask=key_mask)
+        out, _ = flash_fwd(qf, kf, vf, h=h, causal=causal, scale=scale, mask=mask, key_mask=key_mask,
+                           grid=grid, tables=tables)
     return out.reshape(b, h, n, d)

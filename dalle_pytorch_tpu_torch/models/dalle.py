@@ -27,13 +27,13 @@ from dalle_pytorch_tpu_torch.models.transformer import (
 )
 
 # execution knobs of the JAX package's config that do not change what the
-# model computes (scan, kernel and grid choice, sharding axes): a
-# checkpoint's hparams carry them, the port ignores them
+# model computes (layer scan, XLA-or-Pallas choice, sharding axes): a
+# checkpoint's hparams carry them, the port ignores them.  The pattern knobs
+# (conv_kernel_size, conv_dilation, sparse_block_size, sparse_per_head) are
+# real fields: they define the attention pattern.
 _EXECUTION_ONLY = (
-    "scan_layers", "attn_kernel", "attn_grid", "attn_vfa",
-    "sparse_decode", "seq_shard_axis", "pipeline_axis", "pp_interleave",
-    "pp_num_micro", "conv_kernel_size", "conv_dilation", "sparse_block_size",
-    "sparse_per_head",
+    "scan_layers", "attn_kernel", "seq_shard_axis", "pipeline_axis",
+    "pp_interleave", "pp_num_micro",
 )
 
 
@@ -61,6 +61,14 @@ class DALLEConfig:
     remat_policy: str = "full"
     num_image_tokens: int = 512
     image_fmap_size: int = 32
+    # the pattern knobs and the flash grid (TransformerConfig)
+    conv_kernel_size: int = 5
+    conv_dilation: int = 1
+    sparse_block_size: int = 16
+    sparse_per_head: bool = False
+    attn_grid: str = "auto"
+    attn_vfa: bool = False
+    sparse_decode: bool = True
 
     def __post_init__(self):
         unsupported = [
@@ -112,6 +120,13 @@ class DALLEConfig:
             shared_ff_ids=self.shared_ff_ids,
             execution=self.execution or "sequential",
             remat_policy=self.remat_policy,
+            conv_kernel_size=self.conv_kernel_size,
+            conv_dilation=self.conv_dilation,
+            sparse_block_size=self.sparse_block_size,
+            sparse_per_head=self.sparse_per_head,
+            attn_grid=self.attn_grid,
+            attn_vfa=self.attn_vfa,
+            sparse_decode=self.sparse_decode,
         )
 
     def to_dict(self) -> dict:

@@ -1,6 +1,7 @@
 """The transformer core (counterpart of `dalle_pytorch_tpu/models/transformer.py`),
-for sequential or rematerialised execution of unshared, full-attention
-layers.
+for sequential or rematerialised execution of unshared layers with full or
+pattern attention (`axial_row`, `axial_col`, `conv_like`, `sparse`, shared
+or per head).
 
 Each layer is PreShiftToken? -> PreNorm -> attention or GEGLU feed-forward
 (-> dropout) -> LayerScale, run in three modes: a full sequence
@@ -8,9 +9,13 @@ Each layer is PreShiftToken? -> PreNorm -> attention or GEGLU feed-forward
 fills the KV cache (`prefill`), and one cached token (`decode_step`).
 Full-sequence attention, in the first two modes, goes through the flash
 attention of `kernels/flash_attention.py`: the CUDA kernels on the card, at
-any sequence length, with the backward kernels under autograd.  The
-one-token decode attention is plain tensor ops over the cache, as in the JAX
-package.
+any sequence length, with the backward kernels under autograd.  A pattern
+layer passes its static mask and the mask's tile tables, built once per
+pattern, length and device; the kernels take the compacted grid where the
+pattern kills tiles.  The one-token decode attention is plain tensor ops
+over the cache, as in the JAX package: a pattern layer gathers only the keys
+its pattern row permits (`sparse_decode`) or masks the full cache with that
+row.
 
 The decode cache is a dict `{"offset": int, "layers": [per-layer dict]}`
 whose k/v buffers and token-shift rings are updated in place (the JAX
@@ -19,16 +24,19 @@ package returns new arrays instead).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dalle_pytorch_tpu_torch.core.module import LayerNorm, dropout, fan_in_uniform_
-from dalle_pytorch_tpu_torch.kernels.flash_attention import flash_attention
+from dalle_pytorch_tpu_torch.kernels.flash_attention import PatternTables, flash_attention, pattern_tables
+from dalle_pytorch_tpu_torch.kernels.sparse_index import build_decode_tables
 from dalle_pytorch_tpu_torch.ops.attention import attend
+from dalle_pytorch_tpu_torch.ops.masks import ATTN_TYPES, _block_sparse_mask_np, _block_sparse_mask_np_heads, _pattern_mask_np
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary, build_dalle_rotary
 from dalle_pytorch_tpu_torch.ops.shift import token_shift
 
@@ -57,6 +65,23 @@ class TransformerConfig:
     # what execution="remat" saves across a layer: the port runs "full"
     # (recompute everything); the JAX package's selective policies wait
     remat_policy: str = "full"
+    # the patterns: conv_like's kernel and dilation; sparse's block size,
+    # random blocks per query block (None: seq_len // block // 4) and
+    # whether each head draws its own layout
+    conv_kernel_size: int = 5
+    conv_dilation: int = 1
+    sparse_block_size: int = 16
+    sparse_num_random_blocks: Optional[int] = None
+    sparse_per_head: bool = False
+    # flash grid: "auto" runs the compacted (live tiles only) grid where a
+    # layer's pattern kills tiles inside the causal triangle, the dense grid
+    # otherwise; "compact" / "dense" force.  The two give equal results.
+    attn_grid: str = "auto"
+    # the VFA global-max forward on the compacted grid (not ported yet)
+    attn_vfa: bool = False
+    # cached decode: a pattern layer gathers only the keys its pattern row
+    # permits (Kmax per step) instead of masking the whole cache
+    sparse_decode: bool = True
 
     def __post_init__(self):
         unsupported = {
@@ -65,14 +90,20 @@ class TransformerConfig:
             "shared_attn_ids": self.shared_attn_ids is not None,
             "shared_ff_ids": self.shared_ff_ids is not None,
             "execution": self.execution not in ("sequential", "remat"),
-            "attn_types": any(t != "full" for t in self.attn_types),
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(
-                f"the PyTorch port runs unshared, sequential, full-attention "
+                f"the PyTorch port runs unshared, sequential or rematerialised "
                 f"layers only; unsupported settings: {', '.join(bad)}"
             )
+        if self.attn_vfa:
+            raise NotImplementedError(
+                "attn_vfa: the VFA forward (`_max_kernel_compact`, `_fwd_kernel_compact_vfa`) "
+                "comes with a later slice of the port (ROADMAP.md Queue 2)"
+            )
+        if self.attn_grid not in ("auto", "dense", "compact"):
+            raise ValueError(f"attn_grid must be auto|dense|compact, got {self.attn_grid!r}")
 
     @property
     def inner_dim(self) -> int:
@@ -99,7 +130,7 @@ def derive_layer_specs(cfg: TransformerConfig) -> List[LayerSpec]:
     specs = []
     for i in range(cfg.depth):
         attn_type = cfg.attn_types[i % len(cfg.attn_types)]
-        if attn_type not in ("full", "axial_row", "axial_col", "conv_like", "sparse"):
+        if attn_type not in ATTN_TYPES:
             raise ValueError(f'attention type "{attn_type}" is not valid')
         specs.append(LayerSpec(i, attn_type, str(i), str(i)))
     return specs
@@ -111,6 +142,57 @@ def _layerscale_eps(layer_one_indexed: int) -> float:
     if layer_one_indexed <= 24:
         return 1e-5
     return 1e-6
+
+
+# ---------------------------------------------------------------------------
+# patterns
+# ---------------------------------------------------------------------------
+
+
+def _pattern_for(cfg: TransformerConfig, attn_type: str, seed: int = 0) -> Optional[np.ndarray]:
+    """(seq_len, seq_len), or (heads, seq_len, seq_len) for per-head
+    'sparse', numpy pattern mask; None for 'full'.  `seed` picks the random
+    block layout of 'sparse' (see `_pattern_seed`)."""
+    if attn_type == "full":
+        return None
+    if attn_type == "sparse":
+        nr = cfg.sparse_num_random_blocks
+        if nr is None:
+            nr = cfg.seq_len // cfg.sparse_block_size // 4
+        if cfg.sparse_per_head:
+            return _block_sparse_mask_np_heads(
+                cfg.seq_len, cfg.image_fmap_size, cfg.sparse_block_size, nr, 4, seed, cfg.heads)
+        return _block_sparse_mask_np(cfg.seq_len, cfg.image_fmap_size, cfg.sparse_block_size, nr, 4, seed)
+    return _pattern_mask_np(attn_type, cfg.seq_len, cfg.image_fmap_size, cfg.conv_kernel_size,
+                            cfg.conv_dilation)
+
+
+def _pattern_seed(spec: LayerSpec) -> int:
+    """Random-layout seed of a 'sparse' layer: its attention id (the layer
+    index: the port runs no shared layers), so distinct layers draw
+    distinct layouts, as the JAX package has it."""
+    return int(spec.attn_id)
+
+
+def _pattern_key(spec: LayerSpec) -> Tuple[str, int]:
+    """Key of a layer's pattern: (type, layout seed)."""
+    return (spec.attn_type, _pattern_seed(spec) if spec.attn_type == "sparse" else 0)
+
+
+def spec_patterns(cfg: TransformerConfig, specs: List[LayerSpec]) -> Dict[Tuple[str, int], Optional[np.ndarray]]:
+    """One pattern mask per distinct (type, seed) of the given layers."""
+    return {key: _pattern_for(cfg, key[0], key[1]) for key in dict.fromkeys(_pattern_key(s) for s in specs)}
+
+
+class DecodePattern(NamedTuple):
+    """A pattern layer's cached-decode inputs on one device: the gather
+    tables (`idx` (n, Kmax) or (h, n, Kmax) key positions, `valid` the same
+    shape, True on the live prefix) when `sparse_decode` is on, else the
+    pattern itself (`rows`, (n, n) or (h, n, n))."""
+
+    idx: Optional[torch.Tensor]
+    valid: Optional[torch.Tensor]
+    rows: Optional[torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +235,16 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.layers = nn.ModuleList(Layer(cfg, s.index) for s in derive_layer_specs(cfg))
+        self.specs = derive_layer_specs(cfg)
+        self.layers = nn.ModuleList(Layer(cfg, s.index) for s in self.specs)
         # f32 angle tables by device; kept out of the buffers so that casting
         # the module to bf16 leaves the angles in f32
         self._rotary: Dict[torch.device, torch.Tensor] = {}
+        # numpy masks by pattern key, and what attention reads of them on a
+        # device, built at first use
+        self.patterns = spec_patterns(cfg, self.specs)
+        self._attn_inputs: Dict[tuple, Tuple[Optional[torch.Tensor], Optional[PatternTables]]] = {}
+        self._decode_inputs: Dict[tuple, DecodePattern] = {}
 
     def rotary(self, device: torch.device) -> Optional[torch.Tensor]:
         cfg = self.cfg
@@ -167,6 +255,44 @@ class Transformer(nn.Module):
             table = build_dalle_rotary(cfg.dim_head, cfg.text_len, cfg.image_fmap_size, device)
             self._rotary[device] = table
         return table
+
+    def attention_inputs(self, key, n: int, causal: bool, device: torch.device):
+        """(mask, tables) of the layers with pattern key `key` for
+        full-sequence attention at length n: the pattern cut to (n, n) on
+        `device` (None for 'full'), and on a CUDA device its kernel tables
+        (None on the CPU, and for 'full' unless attn_grid is "compact")."""
+        cfg = self.cfg
+        pattern = self.patterns[key]
+        if pattern is None and cfg.attn_grid != "compact":
+            return None, None
+        cache_key = (key, n, causal, device)
+        got = self._attn_inputs.get(cache_key)
+        if got is None:
+            mask_np = None if pattern is None else np.ascontiguousarray(pattern[..., :n, :n])
+            mask = None if mask_np is None else torch.from_numpy(mask_np).to(device)
+            tables = None
+            if device.type == "cuda":
+                tables = pattern_tables(mask_np, n, cfg.dim_head, causal, cfg.attn_grid, device)
+            got = self._attn_inputs[cache_key] = (mask, tables)
+        return got
+
+    def decode_inputs(self, key, device: torch.device) -> Optional[DecodePattern]:
+        """The cached-decode inputs of the layers with pattern key `key`, or
+        None for 'full'."""
+        pattern = self.patterns[key]
+        if pattern is None:
+            return None
+        got = self._decode_inputs.get((key, device))
+        if got is None:
+            if self.cfg.sparse_decode:
+                idx, counts = build_decode_tables(pattern)
+                valid = np.arange(idx.shape[-1]) < counts[..., None]
+                got = DecodePattern(torch.from_numpy(idx).long().to(device), torch.from_numpy(valid).to(device),
+                                    None)
+            else:
+                got = DecodePattern(None, None, torch.from_numpy(np.ascontiguousarray(pattern)).to(device))
+            self._decode_inputs[(key, device)] = got
+        return got
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return apply_transformer(self, x, key_mask)
@@ -201,18 +327,20 @@ def _qkv_heads(attn: Attention, cfg: TransformerConfig, x: torch.Tensor, ang):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _attention_full(attn, cfg, x, rotary, key_mask, causal, layer_cache=None):
-    """Full-sequence attention through the flash forward.  With a
-    `layer_cache` (prefill) the keys and values also fill the cache from
-    position 0."""
+def _attention_full(attn, cfg, x, rotary, key_mask, causal, layer_cache=None, pattern=(None, None)):
+    """Full-sequence attention through flash attention; `pattern` is the
+    layer's (mask, tables) at this length.  With a `layer_cache` (prefill)
+    the keys and values also fill the cache from position 0."""
     n = x.shape[1]
     q, k, v = _qkv_heads(attn, cfg, x, None if rotary is None else rotary[:n])
     if layer_cache is not None:
         layer_cache["k"][:, :, :n] = k
         layer_cache["v"][:, :, :n] = v
+    mask, tables = pattern
     out = flash_attention(
-        q, k, v, causal=causal, scale=cfg.dim_head ** -0.5,
+        q, k, v, mask=mask, causal=causal, scale=cfg.dim_head ** -0.5,
         key_mask=None if key_mask is None else key_mask[:, :n],
+        grid=cfg.attn_grid, tables=tables,
     )
     return attn.out(_merge_heads(out))
 
@@ -223,15 +351,36 @@ def _feed_forward(ff: FeedForward, x: torch.Tensor, rate: float = 0.0,
     return ff.w2(dropout(h, rate, generator))
 
 
-def _attention_cached(attn, cfg, layer_cache, x, rotary, offset: int):
+def _attention_cached(attn, cfg, layer_cache, x, rotary, offset: int,
+                      pattern: Optional[DecodePattern] = None):
     """One cached token x: (b, 1, dim) at position `offset`; writes its key
-    and value into the cache and attends over positions 0..offset."""
+    and value into the cache and attends over positions 0..offset, or, in a
+    pattern layer, over those its pattern row permits: the gathered Kmax
+    keys (padded slots masked off) or the cache masked with the row."""
     ang = None if rotary is None else rotary[offset:offset + 1]
     q, k, v = _qkv_heads(attn, cfg, x, ang)
     q = q * (cfg.dim_head ** -0.5)
-    layer_cache["k"][:, :, offset] = k[:, :, 0]
-    layer_cache["v"][:, :, offset] = v[:, :, 0]
-    out = attend(q, layer_cache["k"][:, :, :offset + 1], layer_cache["v"][:, :, :offset + 1])
+    k_buf, v_buf = layer_cache["k"], layer_cache["v"]
+    k_buf[:, :, offset] = k[:, :, 0]
+    v_buf[:, :, offset] = v[:, :, 0]
+    if pattern is None:
+        out = attend(q, k_buf[:, :, :offset + 1], v_buf[:, :, :offset + 1])
+    elif pattern.idx is not None:
+        sel = pattern.idx[..., offset, :]  # (Kmax,) or per head (h, Kmax)
+        if sel.ndim == 2:
+            b, h, _, d = k_buf.shape
+            gather = sel[None, :, :, None].expand(b, h, sel.shape[-1], d)
+            k_sel, v_sel = torch.gather(k_buf, 2, gather), torch.gather(v_buf, 2, gather)
+            amask = pattern.valid[:, offset][None, :, None, :]
+        else:
+            k_sel, v_sel = k_buf.index_select(2, sel), v_buf.index_select(2, sel)
+            amask = pattern.valid[offset][None, None, None, :]
+        out = attend(q, k_sel, v_sel, mask=amask)
+        decode_step.gathers += 1
+    else:
+        row = pattern.rows[..., offset, :offset + 1]  # (offset+1,) or per head (h, offset+1)
+        amask = row[None, :, None, :] if row.ndim == 2 else row[None, None, None, :]
+        out = attend(q, k_buf[:, :, :offset + 1], v_buf[:, :, :offset + 1], mask=amask)
     return attn.out(_merge_heads(out))
 
 
@@ -273,11 +422,13 @@ def _fill_ring(cfg, rb: torch.Tensor, pre_shift: torch.Tensor) -> None:
 
 def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
                      key_mask=None, layer_cache=None, offset: int = 0,
-                     text_mode: bool = False, dropout_seed: Optional[int] = None):
+                     text_mode: bool = False, dropout_seed: Optional[int] = None,
+                     pattern=None):
     """PreShiftToken? -> PreNorm -> attention or feed-forward (-> dropout)
-    -> LayerScale, in mode 'full', 'prefill' or 'decode'.  The dropout
-    generator is built here from `dropout_seed`, so a rematerialised layer
-    draws the same masks again when it is recomputed."""
+    -> LayerScale, in mode 'full', 'prefill' or 'decode'; `pattern` is the
+    layer's `Transformer.attention_inputs` (or, decoding, `decode_inputs`).
+    The dropout generator is built here from `dropout_seed`, so a
+    rematerialised layer draws the same masks again when it is recomputed."""
     gen = None if dropout_seed is None else torch.Generator(device=x.device).manual_seed(dropout_seed)
     h = (layer.attn_norm if kind == "attn" else layer.ff_norm)(x)
     if cfg.shift_tokens:
@@ -290,12 +441,13 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
             h = token_shift(h, cfg.seq_len, cfg.image_fmap_size)
     if kind == "attn":
         if mode == "decode":
-            h = _attention_cached(layer.attn, cfg, layer_cache, h, rotary, offset)
+            h = _attention_cached(layer.attn, cfg, layer_cache, h, rotary, offset, pattern)
         else:
             h = _attention_full(
                 layer.attn, cfg, h, rotary, key_mask,
                 causal=cfg.causal or mode == "prefill",
                 layer_cache=layer_cache if mode == "prefill" else None,
+                pattern=pattern,
             )
             h = dropout(h, cfg.attn_dropout, gen)
     else:
@@ -305,10 +457,10 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
 
 
 def _layer_step(cfg, layer: Layer, x, mode, rotary, key_mask, layer_cache, offset,
-                text_mode, seeds):
+                text_mode, seeds, pattern):
     for kind, seed in zip(("attn", "ff"), seeds):
         x = x + _residual_branch(cfg, layer, x, kind, mode, rotary, key_mask,
-                                 layer_cache, offset, text_mode, seed)
+                                 layer_cache, offset, text_mode, seed, pattern)
     return x
 
 
@@ -320,10 +472,16 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
     cfg = model.cfg
     rotary = model.rotary(x.device)
     offset = 0 if cache is None else cache["offset"]
-    for i, layer in enumerate(model.layers):
+    causal = cfg.causal or mode == "prefill"
+    for i, (layer, spec) in enumerate(zip(model.layers, model.specs)):
         lc = None if cache is None else cache["layers"][i]
+        key = _pattern_key(spec)
+        if mode == "decode":
+            pattern = model.decode_inputs(key, x.device)
+        else:
+            pattern = model.attention_inputs(key, x.shape[1], causal, x.device)
         args = (cfg, layer, x, mode, rotary, key_mask, lc, offset, text_mode,
-                (None, None) if seeds is None else seeds[i])
+                (None, None) if seeds is None else seeds[i], pattern)
         x = checkpoint(_layer_step, *args, use_reentrant=False) if remat else _layer_step(*args)
     return x
 
@@ -399,3 +557,6 @@ def decode_step(model: Transformer, x: torch.Tensor, cache: dict,
     out = _run_layers(model, x, "decode", cache=cache, text_mode=text_only)
     cache["offset"] += 1
     return out, cache
+
+
+decode_step.gathers = 0  # pattern-layer decode steps that took the gather branch

@@ -94,11 +94,18 @@ def _fake_cuda(monkeypatch):
 
 
 def test_pattern_mask_on_cuda_raises(monkeypatch):
+    """A pattern the kernels cannot run as given raises before any launch:
+    a per-head mask with tables shared by all heads (they would skip tiles a
+    head's own pattern needs), and a mask of the wrong shape."""
     q, k, v = _fake_cuda(monkeypatch)
-    before = tfa.flash_fwd.launches
-    with pytest.raises(NotImplementedError, match="pattern mask"):
-        tfa.flash_fwd(q, k, v, h=2, mask=torch.ones(64, 64, dtype=torch.bool))
-    assert tfa.flash_fwd.launches == before
+    per_head = torch.ones(2, 64, 64, dtype=torch.bool)
+    shared = tfa.pattern_tables(np.ones((64, 64), bool), 64, 64, device="meta")
+    before = (tfa.flash_fwd.launches, tfa.flash_fwd_compact.launches)
+    with pytest.raises(ValueError, match="per-head mask requires per-head"):
+        tfa.flash_fwd(q, k, v, h=2, mask=per_head, tables=shared)
+    with pytest.raises(ValueError, match="mask must be"):
+        tfa.flash_fwd(q, k, v, h=2, mask=torch.ones(63, 63, dtype=torch.bool))
+    assert (tfa.flash_fwd.launches, tfa.flash_fwd_compact.launches) == before
 
 
 def test_cuda_tensor_without_kernel_raises_rather_than_falling_back(monkeypatch, tmp_path):
@@ -154,3 +161,39 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, bh, h, n, d, caus
     assert out.dtype == dtype and lse.shape == (bh, n)
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kind,n,d", [("axial_row", 1280, 64), ("conv_like", 705, 128),
+                                      ("sparse_per_head", 300, 32), ("axial_col", 257, 64)])
+def test_compact_equals_dense_and_plain_on_card(cuda_device, dtype, tol, kind, n, d):
+    """A pattern's forward and backward on both grids: the compacted kernels
+    equal the dense kernels with the same mask bit for bit, and both hold
+    against the plain versions (backward: max abs error over the
+    reference's max abs value)."""
+    from dalle_pytorch_tpu_torch.ops import masks
+
+    h = 2
+    if kind == "sparse_per_head":
+        mask = masks.build_block_sparse_mask(1280, 32, heads=h)[:, :n, :n]
+    else:
+        mask = masks.build_pattern_mask(kind, 1280, 32)[:n, :n]
+    mask = mask.contiguous().to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, do = (torch.randn(2 * h, n, d, generator=g, device=cuda_device).to(dtype) for _ in range(4))
+    res = {}
+    for grid in ("dense", "compact"):
+        tables = tfa.pattern_tables(mask, n, d, grid=grid, device=cuda_device)
+        out, lse = tfa.flash_fwd(q, k, v, h=h, mask=mask, grid=grid, tables=tables)
+        res[grid] = (out, lse, *tfa.flash_bwd(q, k, v, out, lse, do, h=h, mask=mask, grid=grid, tables=tables))
+    torch.cuda.synchronize()
+    for a, b in zip(res["dense"], res["compact"]):
+        assert torch.equal(a, b)
+    out, lse = res["dense"][:2]
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, h, True, d ** -0.5, mask)
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    ref = tfa.flash_attention_backward_reference(q, k, v, out, lse, do, h, True, d ** -0.5, mask)
+    for port, r in zip(res["dense"][2:], ref):
+        assert (port.float() - r.float()).abs().max().item() / r.float().abs().max().item() <= tol

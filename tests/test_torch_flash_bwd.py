@@ -127,9 +127,18 @@ def _fake_cuda(monkeypatch, bh=4, n=64, d=64):
 
 
 def test_pattern_mask_on_cuda_raises(monkeypatch):
+    """The backward refuses, before any launch, a per-head mask with shared
+    tables and tables built for another length."""
     args = _fake_cuda(monkeypatch)
-    with pytest.raises(NotImplementedError, match="pattern mask"):
-        tfa.flash_bwd(*args, h=2, mask=torch.ones(64, 64, dtype=torch.bool))
+    per_head = torch.ones(2, 64, 64, dtype=torch.bool)
+    shared = tfa.pattern_tables(np.ones((64, 64), bool), 64, 64, device="meta")
+    before = (tfa.flash_bwd.dq_launches, tfa.flash_bwd_compact.dq_launches)
+    with pytest.raises(ValueError, match="per-head mask requires per-head"):
+        tfa.flash_bwd(*args, h=2, mask=per_head, tables=shared)
+    other = tfa.pattern_tables(np.ones((2, 128, 128), bool), 128, 64, device="meta")
+    with pytest.raises(ValueError, match="tables for n=128"):
+        tfa.flash_bwd(*args, h=2, mask=per_head, tables=other)
+    assert (tfa.flash_bwd.dq_launches, tfa.flash_bwd_compact.dq_launches) == before
 
 
 def test_cuda_tensor_without_kernel_raises_rather_than_falling_back(monkeypatch, tmp_path):
@@ -202,3 +211,40 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, tol, bh, h, n,
         assert port.dtype == dtype
         err = (port.float() - r.float()).abs().max().item() / r.float().abs().max().item()
         assert err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_compact_rows_that_see_no_key_on_card(cuda_device, dtype, tol):
+    """A pattern that kills tiles (axial_row on a 16 x 16 map, n = 300) with
+    a key mask that leaves rows seeing no key: the compacted grid gives such
+    rows the dense grid's second pass (forward) and visits (backward), so
+    out, lse, dq, dk and dv equal the dense grid bit for bit, and both hold
+    against the plain versions (forward: max abs error; backward: over the
+    reference's max abs value)."""
+    from dalle_pytorch_tpu_torch.ops import masks
+
+    bh, h, n, d = 8, 2, 300, 64
+    mask = masks.build_pattern_mask("axial_row", n, 16).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(bh, n, d, generator=g, device=cuda_device).to(dtype) for _ in range(4))
+    kmask = (torch.rand(bh // h, n, generator=g, device=cuda_device) > 0.2).to(torch.int32)
+    kmask[0, :40] = 0  # rows 0..39 of the first batch see no key
+    res = {}
+    for grid in ("dense", "compact"):
+        tables = tfa.pattern_tables(mask, n, d, grid=grid, device=cuda_device)
+        out, lse = tfa.flash_fwd(q, k, v, h=h, mask=mask, key_mask=kmask, grid=grid, tables=tables)
+        res[grid] = (out, lse, *tfa.flash_bwd(q, k, v, out, lse, do, h=h, mask=mask, key_mask=kmask,
+                                              grid=grid, tables=tables))
+    torch.cuda.synchronize()
+    assert tfa.pattern_tables(mask, n, d).compact
+    for a, b in zip(res["dense"], res["compact"]):
+        assert torch.equal(a, b)
+    out, lse = res["dense"][:2]
+    assert bool((lse[:h, :40] <= -1e29).all())
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, h, True, d ** -0.5, mask, kmask)
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    ref = tfa.flash_attention_backward_reference(q, k, v, out, lse, do, h, True, d ** -0.5, mask, kmask)
+    for port, r in zip(res["dense"][2:], ref):
+        assert (port.float() - r.float()).abs().max().item() / r.float().abs().max().item() <= tol

@@ -77,7 +77,11 @@ def test_prefill_then_decode_matches(models, n_pre):
 
 
 def test_unsupported_settings_raise():
-    with pytest.raises(NotImplementedError, match="attn_types"):
-        ttr.TransformerConfig(dim=8, depth=1, seq_len=8, attn_types=("axial_row",))
+    """Pattern layers run; the VFA forward raises, naming the later slice
+    that brings it, and so do shared layers."""
+    ttr.TransformerConfig(dim=8, depth=1, seq_len=8, image_fmap_size=2, attn_types=("axial_row",))
+    with pytest.raises(NotImplementedError, match="VFA.*later slice"):
+        ttr.TransformerConfig(dim=8, depth=1, seq_len=8, image_fmap_size=2, attn_types=("axial_row",),
+                              attn_vfa=True)
     with pytest.raises(NotImplementedError, match="shared_attn_ids"):
         ttr.TransformerConfig(dim=8, depth=2, seq_len=8, shared_attn_ids=(0, 0))
