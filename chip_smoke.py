@@ -14,8 +14,13 @@ rematerialised), holds a small model's train steps on the card against the
 CPU, and runs the training CLI's dummy run.  Then the same for the README's
 pattern-attention model (depth 16 cycling full, axial_row, axial_col and
 conv_like): generation plain and primed, a decode profile, card-vs-CPU
-parity of a small pattern model, and training.  Each path runs with every
-launch counter set to 0 just before it and read just after.
+parity of a small pattern model, and training.  Then the flagship 1.3B
+DALL-E (dim 1152, depth 64, 8 heads x 128, the same cycle, tied input and
+output embeddings, the VFA forward on the compacted grid): one primed
+generation, a decode profile, card-vs-CPU parity of a small model with its
+features, and training (bf16 compute sequential and rematerialised, f32
+compute rematerialised).  Each path runs with every launch counter set to 0
+just before it and read just after.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.  The
 last two lines are the kernel table and `{"ok": true, "device": {...}}`.  It
@@ -49,9 +54,15 @@ LSE_TOLERANCE = 1e-4
 FULL = dict(dim=1024, depth=12, heads=16, dim_head=64, num_text_tokens=10000, text_seq_len=256,
             attn_types=("full",), rotary_emb=True, shift_tokens=True)
 FULL_VAE = dict(image_size=256, num_tokens=8192, num_layers=3)
+VFA_KERNELS = ("flash_max_compact", "flash_fwd_compact_vfa")
 # the README quick-start model: pattern attention, depth 16 (each type 4 times)
 SLICE = dict(FULL, depth=16, attn_types=("full", "axial_row", "axial_col", "conv_like"))
 PATTERNS = ("axial_row", "axial_col", "conv_like", "sparse", "sparse_per_head")
+
+# the flagship 1.3B model (BASELINE.json configs[3], tools/flagship_sweep.py)
+FLAGSHIP = dict(dim=1152, depth=64, heads=8, dim_head=128, num_text_tokens=10000, text_seq_len=256,
+                attn_types=SLICE["attn_types"], rotary_emb=True, shift_tokens=True,
+                share_input_output_emb=True, attn_vfa=True)
 
 # kernels-line name -> (wrapper in kernels/flash_attention.py, its counter);
 # flash_fwd_masked counts the flash_fwd launches that took a pattern
@@ -61,6 +72,8 @@ COUNTERS = {
     "flash_dq": ("flash_bwd", "dq_launches"),
     "flash_dkv": ("flash_bwd", "dkv_launches"),
     "flash_fwd_compact": ("flash_fwd_compact", "launches"),
+    "flash_max_compact": ("flash_fwd_compact", "max_launches"),
+    "flash_fwd_compact_vfa": ("flash_fwd_compact", "vfa_launches"),
     "flash_dq_compact": ("flash_bwd_compact", "dq_launches"),
     "flash_dkv_compact": ("flash_bwd_compact", "dkv_launches"),
 }
@@ -140,21 +153,40 @@ def read_launches(fa) -> dict:
     return {name: getattr(getattr(fa, wrapper), counter) for name, (wrapper, counter) in COUNTERS.items()}
 
 
-def launches_per_step(cfg, execution):
-    """The launches one training step makes, from the layer cycle: a 'full'
-    layer takes the dense grid without a mask; at n = 1280, d = 64
-    `axial_col` takes the dense grid with its mask (it kills no tile),
-    `axial_row` and `conv_like` the compacted grid.  Remat runs each
-    forward twice."""
-    fwd = 2 if execution == "remat" else 1
-    types = [cfg.attn_types[i % len(cfg.attn_types)] for i in range(cfg.depth)]
-    full = types.count("full")
-    masked = types.count("axial_col")
-    compact = types.count("axial_row") + types.count("conv_like")
-    check(full + masked + compact == cfg.depth, f"no expected launches for the layer cycle {cfg.attn_types}")
-    return {"flash_fwd": fwd * (full + masked), "flash_fwd_masked": fwd * masked, "flash_dq": full + masked,
-            "flash_dkv": full + masked, "flash_fwd_compact": fwd * compact, "flash_dq_compact": compact,
-            "flash_dkv_compact": compact}
+def forward_launches(model, n):
+    """The flash launches of one full-sequence pass of `model` at length n
+    and of its backward, from the layer cycle and the grid each pattern
+    takes at the model's head dim (`Transformer.attention_inputs`, the
+    tables the layers run with): a dense layer launches flash_fwd (counted
+    in flash_fwd_masked too when it takes a pattern), then flash_dq and
+    flash_dkv; a compacted one flash_fwd_compact or, with attn_vfa,
+    flash_max_compact and flash_fwd_compact_vfa, then flash_dq_compact and
+    flash_dkv_compact.  Returns (forward launches, backward launches)."""
+    from dalle_pytorch_tpu_torch.models.transformer import _pattern_key
+
+    tr, vfa = model.transformer, model.cfg.attn_vfa
+    fwd, bwd = dict.fromkeys(COUNTERS, 0), dict.fromkeys(COUNTERS, 0)
+    for spec in tr.specs:
+        mask, tables = tr.attention_inputs(_pattern_key(spec), n, True, torch.device("cuda"))
+        if tables is not None and tables.compact:
+            for name in (("flash_max_compact", "flash_fwd_compact_vfa") if vfa else ("flash_fwd_compact",)):
+                fwd[name] += 1
+            bwd["flash_dq_compact"] += 1
+            bwd["flash_dkv_compact"] += 1
+        else:
+            fwd["flash_fwd"] += 1
+            fwd["flash_fwd_masked"] += int(mask is not None)
+            bwd["flash_dq"] += 1
+            bwd["flash_dkv"] += 1
+    return fwd, bwd
+
+
+def launches_per_step(model, n):
+    """The flash launches one training step of `model` at length n makes;
+    remat runs each forward twice."""
+    fwd, bwd = forward_launches(model, n)
+    times = 2 if model.cfg.execution == "remat" else 1
+    return {name: times * fwd[name] + bwd[name] for name in COUNTERS}
 
 
 def device_profile(fn) -> list:
@@ -324,6 +356,60 @@ def pattern_mask(masks, kind, n, h):
     return masks.build_pattern_mask(kind, n, 32)
 
 
+def vfa_vs_plain(fa, q, k, v, do, mask, h, t, online):
+    """The VFA pair on the compacted grid of tables `t`: the max pass's gmax
+    against `vfa_max_reference` (1e-4 relative), the fixed-max pass against
+    `vfa_fwd_reference` on that gmax and against the online compacted
+    kernel's (out, lse) `online` (out at the dtype's tolerance, lse 1e-4),
+    the compacted backward run from the VFA lse against the plain backward
+    (over the reference's max); then each pass's time against its bound over
+    the live tiles and its plain version's."""
+    bh, n, d = q.shape
+    dtype, scale = q.dtype, d ** -0.5
+    out, lse = fa.flash_fwd_compact(q, k, v, t, h, mask=mask, vfa=True)
+    m, mh = fa._device_mask(q, mask, h)
+    gmax, o, l_ = torch.empty_like(lse), torch.empty_like(q), torch.empty_like(lse)
+    tab = (h, True, scale, mh, t.heads, t.col.shape[1], t.row_tile)
+
+    def max_pass():
+        fa._call("flash_max_compact", q, (q, k, None, m, t.row_ptr, t.col, gmax), *tab)
+
+    def fixed_max_pass():
+        fa._call("flash_fwd_compact_vfa", q, (q, k, v, None, m, t.row_ptr, t.col, gmax, o, l_), *tab)
+
+    max_pass()
+    torch.cuda.synchronize()
+    name = f"VFA {tuple(q.shape)} {dtype}"
+    ref_gmax = fa.vfa_max_reference(q, k, h, True, scale, mask)
+    gmax_abs_err = (gmax - ref_gmax).abs()
+    gmax_err = (gmax_abs_err / ref_gmax.abs().clamp_min(1.0)).max().item()
+    check(gmax_err <= 1e-4, f"{name}: gmax relative error {gmax_err}")
+    ref_out, ref_lse = fa.vfa_fwd_reference(q, k, v, gmax, h, True, scale, mask)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    online_err = (out.float() - online[0].float()).abs().max().item()
+    online_lse_err = (lse - online[1]).abs().max().item()
+    check(max(err, online_err) <= TOLERANCE[dtype] and max(lse_err, online_lse_err) <= LSE_TOLERANCE,
+          f"{name}: out err {err} (online {online_err}), lse err {lse_err} (online {online_lse_err})")
+    grads = fa.flash_bwd_compact(q, k, v, out, lse, do, t, h, mask=mask)
+    ref = fa.flash_attention_backward_reference(q, k, v, out, lse, do, h, True, scale, mask)
+    bwd_err = {g: (a.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+               for g, a, r in zip(("dq", "dk", "dv"), grads, ref)}
+    check(max(bwd_err.values()) <= TOLERANCE[dtype], f"{name}: backward from the VFA lse {bwd_err}")
+    live = t.live_tiles / t.heads
+    max_bound = pattern_bound_ms(bh, n, d, dtype, live, t.row_tile, 1, 1, 1, 1)
+    fwd_bound = pattern_bound_ms(bh, n, d, dtype, live, t.row_tile, 2, 2, 2, 2)
+    return dict(vfa_gmax_rel_err=gmax_err, vfa_gmax_max_abs_err=gmax_abs_err.max().item(),
+                vfa_max_abs_err=err, vfa_lse_err=lse_err,
+                vfa_vs_online_max_abs_err=online_err, vfa_vs_online_lse_err=online_lse_err,
+                vfa_bwd_err_over_ref_max=bwd_err,
+                vfa_max_ms=time_ms(max_pass, 10), vfa_fwd_ms=time_ms(fixed_max_pass, 10),
+                vfa_plain_max_ms=time_ms(lambda: fa.vfa_max_reference(q, k, h, True, scale, mask), 10),
+                vfa_plain_fwd_ms=time_ms(lambda: fa.vfa_fwd_reference(q, k, v, gmax, h, True, scale, mask), 10),
+                vfa_max_bound_ms=max_bound[0], vfa_max_bound_by=max_bound[1],
+                vfa_fwd_bound_ms=fwd_bound[0], vfa_fwd_bound_by=fwd_bound[1])
+
+
 def phase_sparse_kernel_vs_plain(fa, masks):
     """For each pattern at bh 64, n 1280, d 64 and bh 32, n 1280, d 128, in
     f32 and bf16: forward, dq and dk/dv on the dense grid with the mask and
@@ -331,7 +417,8 @@ def phase_sparse_kernel_vs_plain(fa, masks):
     versions (forward: max abs error; backward: over the reference's max),
     and their times against the bound over the live tiles, the plain
     versions and SDPA with the boolean mask pattern & causal (forward, and
-    forward + backward - forward for the backward)."""
+    forward + backward - forward for the backward).  Where the grid rule
+    compacts the pattern, also the VFA pair (`vfa_vs_plain`)."""
     dev = torch.device("cuda")
     results = []
     for b, h, d in ((4, 16, 64), (4, 8, 128)):
@@ -401,6 +488,8 @@ def phase_sparse_kernel_vs_plain(fa, masks):
 
                 sdpa_ms = time_ms(sdpa_fwd, 10)
                 sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, 10) - sdpa_ms
+                compact_auto = fa.pattern_tables(mask, n, d, device=dev).compact
+                vfa = vfa_vs_plain(fa, q, k, v, do, mask, h, tc, res["compact"][:2]) if compact_auto else {}
                 # live tiles per (batch, head), at each kernel's tile
                 live_fwd, live_dkv = tc.live_tiles / tc.heads, tc.live_tiles_dkv / tc.heads
                 bound = {
@@ -409,7 +498,7 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                     "dkv": pattern_bound_ms(bh, n, d, dtype, live_dkv, tc.col_tile[::-1], 4, 4, 2, 2),
                 }
                 row = dict(pattern=kind, dtype=str(dtype).replace("torch.", ""), bh=bh, h=h, n=n, d=d,
-                           grid_auto="compact" if fa.pattern_tables(mask, n, d, device=dev).compact else "dense",
+                           grid_auto="compact" if compact_auto else "dense",
                            live_tiles=live_fwd, causal_tiles=tc.causal_tiles / tc.heads,
                            live_tiles_dkv=live_dkv, causal_tiles_dkv=tc.causal_tiles_dkv / tc.heads,
                            row_tile=tc.row_tile, col_tile=tc.col_tile, bit_equal=bit_equal,
@@ -420,7 +509,7 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                            plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_ms,
                            sdpa_bwd_ms=sdpa_bwd_ms,
                            **{f"{key}_bound_ms": value[0] for key, value in bound.items()},
-                           **{f"{key}_bound_by": value[1] for key, value in bound.items()})
+                           **{f"{key}_bound_by": value[1] for key, value in bound.items()}, **vfa)
                 emit("sparse_kernel_vs_plain", **row)
                 results.append(row)
     return results
@@ -441,9 +530,9 @@ def generate(fa, dalle, text, cond_scale, img=None):
     launches = read_launches(fa)
     check(tuple(images.shape) == (2, 256, 256, 3), f"images of shape {tuple(images.shape)}")
     check(bool(torch.isfinite(images).all()), "non-finite pixels")
-    dense_and_compact = launches["flash_fwd"] + launches["flash_fwd_compact"]
-    check(dense_and_compact == cfg.depth, f"{dense_and_compact} forward launches for one prefill of depth {cfg.depth}")
     prime_len = 0 if img is None else int(DEFAULT_PRIME_FRACTION * cfg.image_seq_len)
+    want, _ = forward_launches(dalle.module, cfg.text_seq_len + 1 + prime_len)
+    check(launches == want, f"one prefill launched {launches}; its layer cycle gives {want}")
     return dict(cond_scale=cond_scale, primed=img is not None, prefill_s=timings["prefill_s"],
                 decode_s=timings["decode_s"], vae_s=timings["vae_s"], total_s=total_s, images_per_s=2 / total_s,
                 prefill_len=cfg.text_seq_len + 1 + prime_len,
@@ -511,6 +600,33 @@ def phase_sparse_generate(fa, tr, port):
     return dalle, text, total
 
 
+def phase_flagship_generate(fa, tr, port):
+    """The flagship serves: one `generate_images` call at full width, two
+    prompts (one padded) with CFG 3.0, primed with an image at the default
+    prime fraction (448 codes, prefill n = 705: axial_row and conv_like
+    compact at d 128 and run the VFA pair), then 576 cached decode steps
+    and the VAE decode."""
+    vae = port.DiscreteVAE(seed=0, **FULL_VAE)
+    dalle = port.DALLE(vae=vae, seed=1, **FLAGSHIP)
+    cfg = dalle.cfg
+    n_params = sum(p.numel() for p in dalle.module.parameters())
+    text = torch.randint(1, cfg.num_text_tokens, (2, cfg.text_seq_len),
+                         generator=torch.Generator().manual_seed(22)).cuda()
+    text[1, 180:] = 0  # a padded prompt
+    pixels = torch.rand(2, vae.image_size, vae.image_size, 3, generator=torch.Generator().manual_seed(23)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.decode_step.gathers = 0
+    run, launches = generate(fa, dalle, text, 3.0, pixels)
+    check(launches["flash_max_compact"] > 0 and launches["flash_fwd_compact"] == 0,
+          f"the flagship's primed prefill did not run the VFA pair: {launches}")
+    emit("flagship_generate", params=n_params, seq_len=cfg.total_seq_len, vocab=cfg.total_tokens, depth=cfg.depth,
+         heads=cfg.heads, dim_head=cfg.dim_head, attn_types=cfg.attn_types, tied_embeddings=True, attn_vfa=True,
+         run=run, gather_decode_layer_steps=tr.decode_step.gathers,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return dalle, text, launches
+
+
 def phase_decode_profile(dalle, text, sampling, phase="decode_profile", steps=32):
     """Where a decode step's time goes: the last `steps` decode steps of a
     CFG generation (primed so that only they remain), under torch.profiler.
@@ -572,6 +688,10 @@ SMALL_VAE = dict(image_size=64, num_tokens=128, num_layers=3)
 # and conv_like kill tiles and take the compacted grid
 SMALL_SPARSE = dict(SMALL, depth=4, attn_types=SLICE["attn_types"])
 SMALL_SPARSE_VAE = dict(image_size=128, num_tokens=128, num_layers=3)
+# a small model with the flagship's features (tied embeddings, d_head 128,
+# the four-type cycle, VFA) at n = 319; primed with 128 codes, its prefill
+# (n = 192) compacts axial_row at the 64 x 32 tile and runs the VFA pair
+SMALL_FLAGSHIP = dict(SMALL_SPARSE, heads=2, dim_head=128, share_input_output_emb=True, attn_vfa=True)
 
 
 def phase_parity(fa, port, sampling, phase="slice_parity", small=SMALL, vae_kwargs=SMALL_VAE, prime_len=0):
@@ -609,12 +729,12 @@ def phase_parity(fa, port, sampling, phase="slice_parity", small=SMALL, vae_kwar
     return prefill_launches
 
 
-def phase_train(fa, port, phase, model_kwargs, steps):
+def phase_train(fa, port, phase, model_kwargs, runs):
     """The training path at full width: pixels through the frozen VAE, the
     DALL-E loss, backward through the flash kernels, clipping, the guard and
-    Adam, on one repeated batch of 4: `steps` steps in f32 compute, as many
-    in bf16 compute (the same model, a fresh Adam), then 2 rematerialised
-    steps of a fresh remat model.  One more step of each compute dtype runs
+    Adam, on one repeated batch of 4.  `runs`: (execution, compute dtype,
+    steps, profile) for each run, each on a fresh model and a fresh Adam;
+    the loss must fall over its steps.  With `profile`, one more step runs
     under the profiler for the device-time breakdown.  Each run's launches
     per step must match the layer cycle (`launches_per_step`)."""
     import dataclasses
@@ -633,12 +753,7 @@ def phase_train(fa, port, phase, model_kwargs, steps):
     batch = {"text": text, "image": pixels}
     adam = functools.partial(torch.optim.Adam, lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
 
-    def new_model(execution=None):
-        model = init_dalle(dataclasses.replace(cfg, execution=execution),
-                           torch.Generator(device=dev).manual_seed(1), dev)
-        return model.train().requires_grad_(True)
-
-    def run(model, dtype, steps, profile=True):
+    def run(model, dtype, steps, profile):
         init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae.module, dtype), adam,
                                            StepSettings(compute_dtype=dtype, clip_grad_norm=0.5))
         state = init_fn(dict(model.named_parameters()))
@@ -656,8 +771,9 @@ def phase_train(fa, port, phase, model_kwargs, steps):
         launches = read_launches(fa)
         name = str(dtype).replace("torch.", "") + ("_remat" if model.cfg.execution == "remat" else "")
         check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
         per_step = {key: value / steps for key, value in launches.items()}
-        want = launches_per_step(cfg, model.cfg.execution)
+        want = launches_per_step(model, cfg.total_seq_len)
         check(per_step == want, f"{name}: launches per step {per_step}, the layer cycle gives {want}")
         step_s = statistics.median(secs[1:]) if steps > 2 else secs[-1]
         out = dict(losses=losses, grad_norms=norms, step_s=step_s, first_step_s=secs[0], steps_s=secs,
@@ -668,25 +784,31 @@ def phase_train(fa, port, phase, model_kwargs, steps):
             total = sum(ms for _, ms, _ in rows)
             ours = {key: sum(ms for kname, ms, _ in rows if f"{key}_kernel" in kname)
                     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_compact",
-                                "flash_dq_compact", "flash_dkv_compact")}
+                                "flash_max_compact", "flash_fwd_compact_vfa", "flash_dq_compact",
+                                "flash_dkv_compact")}
             out["profile"] = dict(device_ms=total, flash_ms=ours, flash_share=sum(ours.values()) / total,
                                   top=[dict(name=kname[:90], device_ms=ms, count=c) for kname, ms, c in rows[:8]])
-        return out, launches
+        return name, out, launches
 
-    model = new_model()
-    f32, f32_launches = run(model, torch.float32, steps)
-    check(f32["losses"][-1] < f32["losses"][0], f"f32 loss did not fall: {f32['losses']}")
-    bf16, bf16_launches = run(model, torch.bfloat16, steps)
-    check(bf16["losses"][-1] < bf16["losses"][0], f"bf16 loss did not fall: {bf16['losses']}")
-    n_params = sum(p.numel() for p in model.parameters())
-    del model
-    torch.cuda.empty_cache()
-    remat, _ = run(new_model("remat"), torch.float32, 2, profile=False)
-    torch.cuda.empty_cache()
+    results, total, n_params = {}, dict.fromkeys(COUNTERS, 0), None
+    for execution, dtype, steps, profile in runs:
+        model = init_dalle(dataclasses.replace(cfg, execution=execution),
+                           torch.Generator(device=dev).manual_seed(1), dev).train().requires_grad_(True)
+        n_params = sum(p.numel() for p in model.parameters())
+        name, results[name], launches = run(model, dtype, steps, profile)
+        total = {key: total[key] + launches[key] for key in COUNTERS}
+        del model
+        torch.cuda.empty_cache()
     emit(phase, params=n_params, seq_len=cfg.total_seq_len, vocab=cfg.total_tokens, batch=4,
-         depth=cfg.depth, attn_types=cfg.attn_types, float32=f32, bfloat16=bf16, remat_float32=remat,
-         peak_memory_gib={"sequential_float32": f32["peak_memory_gib"], "remat_float32": remat["peak_memory_gib"]})
-    return {key: f32_launches[key] + bf16_launches[key] for key in f32_launches}
+         depth=cfg.depth, attn_types=cfg.attn_types, **results,
+         peak_memory_gib={name: r["peak_memory_gib"] for name, r in results.items()})
+    return total
+
+
+def standard_runs(steps):
+    """f32 then bf16 compute for `steps` steps each (the first profiled),
+    then 2 rematerialised f32 steps."""
+    return [(None, torch.float32, steps, True), (None, torch.bfloat16, steps, True), ("remat", torch.float32, 2, False)]
 
 
 def phase_train_parity(fa, port, phase="train_parity", small=SMALL, vae_kwargs=SMALL_VAE):
@@ -761,10 +883,10 @@ def phase_train_cli(weights, checkpoint):
          global_step=meta["global_step"])
 
 
-def pattern_readings(sparse, kernel):
-    """A kernel's readings at bh 64, n 1280, d 64, f32, one per pattern, from
-    `sparse_kernel_vs_plain` (every shape and dtype is in that phase's
-    lines)."""
+def pattern_readings(sparse, kernel, d=64):
+    """A kernel's readings at n 1280, f32, head dim d (bh 64 at d 64, 32 at
+    d 128), one per pattern that runs it, from `sparse_kernel_vs_plain`
+    (every shape and dtype is in that phase's lines)."""
     fields = {  # kernel -> (time, bound, plain, library, error)
         "fwd_dense": ("fwd_dense_ms", "fwd_bound_ms", "plain_fwd_ms", "sdpa_fwd_ms", "max_abs_err"),
         "fwd_compact": ("fwd_compact_ms", "fwd_bound_ms", "plain_fwd_ms", "sdpa_fwd_ms", "max_abs_err"),
@@ -772,12 +894,14 @@ def pattern_readings(sparse, kernel):
         "dq_compact": ("dq_compact_ms", "dq_bound_ms", "plain_bwd_ms", "sdpa_bwd_ms", "dq_max_abs_err"),
         "dkv_dense": ("dkv_dense_ms", "dkv_bound_ms", "plain_bwd_ms", "sdpa_bwd_ms", "dk_max_abs_err"),
         "dkv_compact": ("dkv_compact_ms", "dkv_bound_ms", "plain_bwd_ms", "sdpa_bwd_ms", "dk_max_abs_err"),
+        "vfa_max": ("vfa_max_ms", "vfa_max_bound_ms", "vfa_plain_max_ms", "sdpa_fwd_ms", "vfa_gmax_rel_err"),
+        "vfa_fwd": ("vfa_fwd_ms", "vfa_fwd_bound_ms", "vfa_plain_fwd_ms", "sdpa_fwd_ms", "vfa_max_abs_err"),
     }[kernel]
     tiles = ("live_tiles_dkv", "causal_tiles_dkv") if kernel.startswith("dkv") else ("live_tiles", "causal_tiles")
     return [dict(pattern=r["pattern"], grid_auto=r["grid_auto"], ms=r[fields[0]], bound_ms=r[fields[1]],
                  plain_ms=r[fields[2]], library_ms=r[fields[3]], max_abs_err=r[fields[4]],
                  live_tiles=r[tiles[0]], causal_tiles=r[tiles[1]])
-            for r in sparse if r["d"] == 64 and r["dtype"] == "float32"]
+            for r in sparse if r["d"] == d and r["dtype"] == "float32" and fields[0] in r]
 
 
 def main() -> int:
@@ -806,7 +930,7 @@ def main() -> int:
     phase_decode_profile(dalle, text, sampling)
     del dalle
     phase_parity(fa, port, sampling)
-    paths["train"] = phase_train(fa, port, "slice_train", FULL, 6)
+    paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
     phase_train_parity(fa, port)
     phase_train_cli(weights, checkpoint)
 
@@ -816,13 +940,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity = phase_parity(fa, port, sampling, "sparse_parity", SMALL_SPARSE, SMALL_SPARSE_VAE, prime_len=128)
     check(parity["flash_fwd_compact"] > 0, f"the small pattern model's primed prefill ran no compacted forward: {parity}")
+    online = [name for name in COUNTERS if name not in VFA_KERNELS]
     parity = phase_train_parity(fa, port, "sparse_train_parity", SMALL_SPARSE, SMALL_SPARSE_VAE)
-    check(min(parity.values()) > 0, f"the small pattern model's train steps left a kernel unlaunched: {parity}")
-    paths["sparse_train"] = phase_train(fa, port, "sparse_train", SLICE, 4)
-    check(min(paths["sparse_train"].values()) > 0, f"a kernel was not launched in sparse_train: {paths['sparse_train']}")
+    check(min(parity[k] for k in online) > 0,
+          f"the small pattern model's train steps left a kernel unlaunched: {parity}")
+    paths["sparse_train"] = phase_train(fa, port, "sparse_train", SLICE, standard_runs(4))
+    check(min(paths["sparse_train"][k] for k in online) > 0,
+          f"a kernel was not launched in sparse_train: {paths['sparse_train']}")
+
+    dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
+    phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16)
+    del dalle
+    torch.cuda.empty_cache()
+    parity = phase_parity(fa, port, sampling, "flagship_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE, prime_len=128)
+    check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's primed prefill ran no VFA pair: {parity}")
+    parity = phase_train_parity(fa, port, "flagship_train_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE)
+    check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's train steps ran no VFA pair: {parity}")
+    paths["flagship_train"] = phase_train(fa, port, "flagship_train", FLAGSHIP, [
+        (None, torch.bfloat16, 4, True), ("remat", torch.bfloat16, 3, False), ("remat", torch.float32, 3, False)])
 
     # each kernel at the training shape of the path it runs on; `launches`
-    # is its count on this slice's main path, the pattern model's training
+    # is its count on this slice's main path, the flagship's training (the
+    # online compacted forward, which VFA replaces there: the pattern
+    # model's training)
     main_shape = next(r for r in compared if r["case"] == "train" and r["dtype"] == "float32")
     prefill = next(r for r in compared if r["case"] == "prefill" and r["dtype"] == "float32")
     bwd = next(r for r in compared_bwd if r["case"] == "train" and r["dtype"] == "float32")
@@ -833,9 +973,9 @@ def main() -> int:
     source_compact = "dalle_pytorch_tpu_torch/kernels/csrc/flash_compact.cu"
     replaces = "dalle_pytorch_tpu/kernels/flash_attention.py:"
 
-    def launched(name):
-        return {"launches": paths["sparse_train"][name],
-                "launches_by_path": {path: counts[name] for path, counts in paths.items()}}
+    def launched(name, path="flagship_train"):
+        return {"launches": paths[path][name], "launches_path": path,
+                "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
 
     def worst(key, dtype):
         return max(r[key] for r in sparse if r["dtype"] == dtype)
@@ -868,7 +1008,7 @@ def main() -> int:
         "masked": pattern_readings(sparse, "dkv_dense"),
     }, {
         "name": "flash_fwd_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "524",
-        **launched("flash_fwd_compact"), "max_abs_err": row["max_abs_err"],
+        **launched("flash_fwd_compact", "sparse_train"), "max_abs_err": row["max_abs_err"],
         "max_abs_err_all_cases": {dt: worst("max_abs_err", dt) for dt in ("float32", "bfloat16")},
         "ms": row["fwd_compact_ms"], "plain_ms": row["plain_fwd_ms"], "bound_ms": row["fwd_bound_ms"],
         "bound_by": row["fwd_bound_by"], "library_ms": row["sdpa_fwd_ms"], "shape": compact_shape,
@@ -895,6 +1035,32 @@ def main() -> int:
         "bit_equal_to_dense_all_cases": all(r["bit_equal"] for r in sparse),
         "by_pattern": pattern_readings(sparse, "dkv_compact"),
     }]
+    vfa = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 128 and r["dtype"] == "float32")
+    vfa_shape = {k: vfa[k] for k in ("pattern", "dtype", "bh", "n", "d", "live_tiles", "causal_tiles")}
+
+    def worst_vfa(key, dtype):
+        return max(r[key] for r in sparse if r["dtype"] == dtype and key in r)
+
+    kernels += [{
+        "name": "flash_max_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "564",
+        **launched("flash_max_compact"), "max_abs_err": vfa["vfa_gmax_max_abs_err"],
+        "rel_err_all_cases": {dt: worst_vfa("vfa_gmax_rel_err", dt) for dt in ("float32", "bfloat16")},
+        "ms": vfa["vfa_max_ms"], "plain_ms": vfa["vfa_plain_max_ms"], "bound_ms": vfa["vfa_max_bound_ms"],
+        "bound_by": vfa["vfa_max_bound_by"], "library_ms": vfa["sdpa_fwd_ms"], "shape": vfa_shape,
+        "note": "library_ms is a whole forward (SDPA with the mask pattern & causal)",
+        "by_pattern": pattern_readings(sparse, "vfa_max", 128),
+    }, {
+        "name": "flash_fwd_compact_vfa", "route": "cuda", "source": source_compact, "replaces": replaces + "595",
+        **launched("flash_fwd_compact_vfa"), "max_abs_err": vfa["vfa_max_abs_err"],
+        "max_abs_err_all_cases": {dt: worst_vfa("vfa_max_abs_err", dt) for dt in ("float32", "bfloat16")},
+        "vs_online_max_abs_err_all_cases": {dt: worst_vfa("vfa_vs_online_max_abs_err", dt)
+                                            for dt in ("float32", "bfloat16")},
+        "ms": vfa["vfa_fwd_ms"], "plain_ms": vfa["vfa_plain_fwd_ms"], "bound_ms": vfa["vfa_fwd_bound_ms"],
+        "bound_by": vfa["vfa_fwd_bound_by"], "library_ms": vfa["sdpa_fwd_ms"], "shape": vfa_shape,
+        "online_compact_ms": vfa["fwd_compact_ms"], "by_pattern": pattern_readings(sparse, "vfa_fwd", 128),
+    }]
+    unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
+    check(not unlaunched, f"kernels never launched on their path: {unlaunched}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

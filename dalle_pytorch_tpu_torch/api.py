@@ -7,7 +7,8 @@ Both run on the first CUDA device unless `device="cpu"` is passed; with no
 card and no explicit CPU request they raise.  `DALLE(...)` passes every
 other keyword to `DALLEConfig`: the attention types and their pattern knobs
 (`attn_types`, `conv_kernel_size`, `conv_dilation`, `sparse_block_size`,
-`sparse_per_head`), `attn_grid` and `sparse_decode` among them.
+`sparse_per_head`), `attn_grid`, `attn_vfa`, `sparse_decode` and
+`share_input_output_emb` among them.
 """
 from __future__ import annotations
 

@@ -69,6 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "full, axial_row, axial_col, conv_like, sparse")
     parser.add_argument("--sparse_per_head", action="store_true",
                         help="sparse layers draw one random-block layout per head")
+    parser.add_argument("--share_input_output_emb", action="store_true",
+                        help="tie the text and image embeddings to the logits weight")
     parser.add_argument("--attn_dropout", type=float, default=0.0)
     parser.add_argument("--ff_dropout", type=float, default=0.0)
     parser.add_argument("--execution", type=str, default=None, choices=["sequential", "remat", "reversible"])
@@ -183,7 +185,7 @@ def main(argv=None) -> int:
         text_seq_len=args.text_seq_len, num_text_tokens=args.num_text_tokens,
         attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout, execution=args.execution,
         shift_tokens=args.shift_tokens, attn_types=tuple(args.attn_types.split(",")),
-        sparse_per_head=args.sparse_per_head,
+        sparse_per_head=args.sparse_per_head, share_input_output_emb=args.share_input_output_emb,
     )
     model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
     model.train().requires_grad_(True)

@@ -1,10 +1,11 @@
 // Block-sparse flash attention for Hopper (sm_90a), compacted grid, in plain
-// CUDA C++: the forward, dq and dk/dv kernels over live tiles only.
+// CUDA C++: the forward, the VFA forward's two passes, dq and dk/dv over live
+// tiles only.
 //
 // Replaces: dalle_pytorch_tpu/kernels/flash_attention.py
-// `_fwd_kernel_compact` (launched by `_flash_fwd_compact`),
-// `_dq_kernel_compact` and `_dkv_kernel_compact` (launched by
-// `_flash_bwd_compact`).
+// `_fwd_kernel_compact`, `_max_kernel_compact` and `_fwd_kernel_compact_vfa`
+// (launched by `_flash_fwd_compact`), `_dq_kernel_compact` and
+// `_dkv_kernel_compact` (launched by `_flash_bwd_compact`).
 //
 // Computes what the dense-grid kernels of flash_fwd.cu and flash_bwd.cu
 // compute for a static pattern (the same tile bodies, flash_tiles.cuh), but
@@ -18,65 +19,86 @@
 // element (causal, key padding, the pattern).  A row or column with no live
 // tile has an empty list.  Same tiles in the same order as the dense kernels
 // with the liveness table the tables came from, so the results are equal bit
-// for bit.
+// for bit.  The VFA pair walks the forward's row lists twice: the max pass
+// writes each row's score maximum gmax (bh, n) f32, the fixed-max pass
+// accumulates exp(s - gmax) with no rescale; it agrees with the online
+// forward to rounding (the sums run in another order), not bit for bit.
 //
 // What bounds it on this card: the dense kernels' operations, counted over
 // live tiles only: 4 * bh * T * 64 * BK * d for the forward (2x for dq, 3x
-// for dk/dv), against q, out, lse once per row and K, V once per live tile.
-// On the FMA units it is bound by operations; a pattern that kills half the
-// causal tiles halves the work.
+// for dk/dv; the VFA pair 2 * bh * T * 64 * BK * d for the max pass and the
+// forward's count for the fixed-max pass), against q, out, lse once per row
+// and K, V once per live tile.  On the FMA units it is bound by operations;
+// a pattern that kills half the causal tiles halves the work.
 //
 // What the design does about it: no grid slot, no load and no liveness test
 // for a dead tile.  The TPU's flat (bh, T) grid with first/last/valid flags
 // is sequential; here blocks run in parallel, so each block loops over its
-// own list and writes its rows (or keys) at the end.
+// own list and writes its rows (or keys) at the end.  The max pass stages K
+// alone and computes no exp; the fixed-max pass drops the per-chunk alpha
+// and the rescale of the accumulator.
 #include "flash_tiles.cuh"
 
 namespace {
 
 using namespace flash;
 
+// The block's list of tiles: entry blockIdx.x of its head's CSR table.
+__device__ __forceinline__ TileList block_csr(const Args& a) {
+  const int head = a.tab_heads > 1 ? blockIdx.y % a.h : 0;
+  const int32_t* ptr = a.ptr + static_cast<size_t>(head) * (ceil_div(a.n, kTileRows) + 1);
+  return csr_list(ptr, a.idx + static_cast<size_t>(head) * a.tab_len, blockIdx.x);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_compact_kernel(Args a) {
-  const int nk = ceil_div(a.n, inner_tile<D>());
-  const int head = a.tab_heads > 1 ? blockIdx.y % a.h : 0;
-  const int32_t* ptr = a.ptr + static_cast<size_t>(head) * (ceil_div(a.n, kTileRows) + 1);
-  const int32_t* idx = a.idx + static_cast<size_t>(head) * a.tab_len;
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
   fwd_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p,
-                  csr_list(ptr, idx, blockIdx.x), nk);
+                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p, block_csr(a),
+                  ceil_div(a.n, inner_tile<D>()));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_max_compact_kernel(Args a) {
+  const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
+                                 a.mask, a.mask_heads);
+  max_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k), a.lse_out, p,
+                  block_csr(a));
+}
+
+// gmax comes in as Args::lse
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_compact_vfa_kernel(Args a) {
+  const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, nullptr, a.kmask,
+                                 a.mask, a.mask_heads);
+  vfa_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p, block_csr(a),
+                  ceil_div(a.n, inner_tile<D>()));
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_compact_kernel(Args a) {
-  const int nk = ceil_div(a.n, inner_tile<D>());
-  const int head = a.tab_heads > 1 ? blockIdx.y % a.h : 0;
-  const int32_t* ptr = a.ptr + static_cast<size_t>(head) * (ceil_div(a.n, kTileRows) + 1);
-  const int32_t* idx = a.idx + static_cast<size_t>(head) * a.tab_len;
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, a.delta, a.kmask,
                                  a.mask, a.mask_heads);
   dq_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                  static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                 static_cast<T*>(a.out0), p, csr_list(ptr, idx, blockIdx.x), nk);
+                 static_cast<T*>(a.out0), p, block_csr(a), ceil_div(a.n, inner_tile<D>()));
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_compact_kernel(Args a) {
-  const int nq = ceil_div(a.n, inner_tile<D>());
-  const int head = a.tab_heads > 1 ? blockIdx.y % a.h : 0;
-  const int32_t* ptr = a.ptr + static_cast<size_t>(head) * (ceil_div(a.n, kTileRows) + 1);
-  const int32_t* idx = a.idx + static_cast<size_t>(head) * a.tab_len;
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, a.delta, a.kmask,
                                  a.mask, a.mask_heads);
   dkv_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                   static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                  static_cast<T*>(a.out0), static_cast<T*>(a.out1), p,
-                  csr_list(ptr, idx, blockIdx.x), nq);
+                  static_cast<T*>(a.out0), static_cast<T*>(a.out1), p, block_csr(a),
+                  ceil_div(a.n, inner_tile<D>()));
 }
 
 }  // namespace
@@ -99,6 +121,41 @@ extern "C" int flash_fwd_compact(const void* q, const void* k, const void* v, co
     constexpr int D = decltype(tag)::dim;
     const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
     flash_fwd_compact_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+  });
+}
+
+extern "C" int flash_max_compact(const void* q, const void* k, const void* kmask, const void* mask,
+                                 const void* row_ptr, const void* col, void* gmax, int bh, int n,
+                                 int d, int h, int mask_heads, int tab_heads, int tab_len,
+                                 int tile_q, int tile_k, float scale, int causal, int dtype,
+                                 void* stream) {
+  if (row_ptr == nullptr || col == nullptr || tab_len <= 0) return -1;
+  const Args a = make_args(q, k, nullptr, nullptr, nullptr, nullptr, kmask, mask, nullptr, row_ptr,
+                           col, nullptr, nullptr, gmax, bh, n, h, mask_heads, tab_heads, tab_len,
+                           scale, causal, stream);
+  return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    constexpr int D = decltype(tag)::dim;
+    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
+    flash_max_compact_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+  });
+}
+
+extern "C" int flash_fwd_compact_vfa(const void* q, const void* k, const void* v,
+                                     const void* kmask, const void* mask, const void* row_ptr,
+                                     const void* col, const void* gmax, void* out, void* lse,
+                                     int bh, int n, int d, int h, int mask_heads, int tab_heads,
+                                     int tab_len, int tile_q, int tile_k, float scale, int causal,
+                                     int dtype, void* stream) {
+  if (row_ptr == nullptr || col == nullptr || gmax == nullptr || tab_len <= 0) return -1;
+  const Args a = make_args(q, k, v, nullptr, gmax, nullptr, kmask, mask, nullptr, row_ptr, col, out,
+                           nullptr, lse, bh, n, h, mask_heads, tab_heads, tab_len, scale, causal,
+                           stream);
+  return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    constexpr int D = decltype(tag)::dim;
+    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
+    flash_fwd_compact_vfa_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
   });
 }
 

@@ -5,7 +5,9 @@ Counterpart of `dalle_pytorch_tpu/kernels/flash_attention.py`: the dense-grid
 forward (`_fwd_kernel` / `_flash_fwd`) and two-pass backward (`_dq_kernel`
 and `_dkv_kernel` / `_flash_bwd`), their compacted-grid twins for static
 patterns (`_fwd_kernel_compact` / `_flash_fwd_compact`, `_dq_kernel_compact`
-and `_dkv_kernel_compact` / `_flash_bwd_compact`), the grid choice
+and `_dkv_kernel_compact` / `_flash_bwd_compact`), the compacted grid's VFA
+forward (`_max_kernel_compact` then `_fwd_kernel_compact_vfa`, the
+`vfa=True` branch of `_flash_fwd_compact`), the grid choice
 (`_resolve_tables`) and the `custom_vjp` that joins forward and backward
 (`_flash_vjp_fwd` / `_flash_vjp_bwd`).  Attention runs on (b·h, n, d) with
 f32 accumulation, causal masking, an optional static pattern ((n, n) or
@@ -17,12 +19,15 @@ For CUDA tensors `flash_fwd` and `flash_bwd` launch the dense-grid kernels of
 `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, or hand a pattern whose tiles
 die inside the causal triangle to `flash_fwd_compact` and
 `flash_bwd_compact` (`csrc/flash_compact.cu`); the tile tables come from
-`pattern_tables`, built on the host at the kernels' own tile shape.  CPU
-tensors take the plain versions (`flash_attention_reference`,
-`flash_attention_backward_reference`).  There is no fallback from a kernel
-to a plain version.  `flash_attention` goes through the autograd function
-`FlashAttention` whenever a gradient is wanted, and straight to `flash_fwd`
-otherwise.
+`pattern_tables`, built on the host at the kernels' own tile shape.  With
+`vfa=True` a compacted forward runs the VFA pair instead of the online
+kernel; the dense grid ignores `vfa`, as the JAX package does.  CPU tensors
+take the plain versions (`flash_attention_reference`,
+`flash_attention_backward_reference`, and `vfa_max_reference` then
+`vfa_fwd_reference` where the grid rule compacts a `vfa=True` call).  There
+is no fallback from a kernel to a plain version.  `flash_attention` goes
+through the autograd function `FlashAttention` whenever a gradient is
+wanted, and straight to `flash_fwd` otherwise.
 """
 from __future__ import annotations
 
@@ -94,6 +99,50 @@ def flash_attention_reference(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bij,bjd->bid", p, v.float())
     return out.to(q.dtype), lse
+
+
+def vfa_max_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    h: int = 1,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the VFA max pass (`_max_kernel_compact`):
+    each row's maximum of the masked scores, (bh, n) f32; -1e30 for a row
+    that sees no key.  Arguments as `flash_attention_reference`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _masked_scores(q, k, causal, scale, mask, key_mask, h).amax(dim=-1)
+
+
+def vfa_fwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    gmax: torch.Tensor,
+    h: int = 1,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the VFA accumulation pass
+    (`_fwd_kernel_compact_vfa`): p = exp(s - gmax) against the max pass's
+    gmax (bh, n), l = sum p, out = p v / max(l, 1e-30), lse = gmax +
+    log(max(l, 1e-30)).  A row that sees no key has gmax = -1e30 and every
+    one of its n scores -1e30, so p = 1 for each: it averages v over all n
+    keys with lse -1e30, the port's rule for such rows.  Returns (out in q's
+    dtype, lse (bh, n) f32)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _masked_scores(q, k, causal, scale, mask, key_mask, h)
+    p = torch.exp(s - gmax[..., None])
+    lc = p.sum(dim=-1).clamp_min(1e-30)
+    out = torch.einsum("bij,bjd->bid", p, v.float()) / lc[..., None]
+    return out.to(q.dtype), gmax + torch.log(lc)
 
 
 def _delta(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -349,6 +398,8 @@ _ENTRIES = {
     "flash_bwd_dq": ("flash_bwd", 10),
     "flash_bwd_dkv": ("flash_bwd", 11),
     "flash_fwd_compact": ("flash_compact", 9),
+    "flash_max_compact": ("flash_compact", 7),
+    "flash_fwd_compact_vfa": ("flash_compact", 10),
     "flash_dq_compact": ("flash_compact", 11),
     "flash_dkv_compact": ("flash_compact", 12),
 }
@@ -393,27 +444,31 @@ def flash_fwd(
     key_mask: Optional[torch.Tensor] = None,
     grid: str = "auto",
     tables: Optional[PatternTables] = None,
+    vfa: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(bh, n, d) attention forward -> (out (bh, n, d), lse (bh, n) f32).
 
     On CUDA tensors this launches the dense-grid kernel, counted in
     `flash_fwd.launches` (and in `flash_fwd.masked_launches` when it takes a
     pattern), or, where `grid` and the tables choose the compacted grid,
-    `flash_fwd_compact`; or it raises.  On CPU tensors it runs the plain
-    version.  It builds no autograd graph of its own: `flash_attention` gives
-    it its gradient."""
+    `flash_fwd_compact` (with `vfa`, its VFA pair); or it raises.  On CPU
+    tensors it runs the plain version, the VFA pair's where the grid rule
+    compacts a `vfa` call.  The dense grid ignores `vfa`.  It builds no
+    autograd graph of its own: `flash_attention` gives it its gradient."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
     _check_pattern(q, h, mask, tables, causal, grid)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, h, causal, scale, mask, key_mask)
-    if not _is_cuda(q):
+    cpu = q.device.type == "cpu"
+    if not (cpu or _is_cuda(q)):
         raise ValueError(f"flash_fwd runs on CUDA or CPU tensors, not {q.device}")
-    tables = _tables_for(q, mask, causal, grid, tables)
-    if _compact(tables, grid):
-        return flash_fwd_compact(q, k, v, tables, h, causal, scale, mask, key_mask)
+    if vfa or not cpu:
+        tables = _tables_for(q, mask, causal, grid, tables)
+        if _compact(tables, grid):
+            return flash_fwd_compact(q, k, v, tables, h, causal, scale, mask, key_mask, vfa)
+    if cpu:
+        return flash_attention_reference(q, k, v, h, causal, scale, mask, key_mask)
     _check_cuda_inputs(q, k, v, h, key_mask)
     m, mask_heads = _device_mask(q, mask, h)
     out = torch.empty_like(q)
@@ -443,18 +498,24 @@ def flash_fwd_compact(
     scale: Optional[float] = None,
     mask: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
+    vfa: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward over the live tiles of `tables` only, equal to the dense
-    grid given the same mask bit for bit.  On CUDA tensors it launches
-    `csrc/flash_compact.cu`'s forward (counted in
-    `flash_fwd_compact.launches`) or raises; on CPU tensors it runs the
-    plain version."""
+    """The forward over the live tiles of `tables` only.  On CUDA tensors it
+    launches `csrc/flash_compact.cu`'s online forward, equal to the dense
+    grid given the same mask bit for bit (counted in
+    `flash_fwd_compact.launches`), or with `vfa` the max pass then the
+    fixed-max pass (counted in `flash_fwd_compact.max_launches` and
+    `vfa_launches`), equal to it to rounding; or it raises.  On CPU tensors
+    it runs the plain version of the same."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
     _check_pattern(q, h, mask, tables, causal, "compact")
     if q.device.type == "cpu":
+        if vfa:
+            gmax = vfa_max_reference(q, k, h, causal, scale, mask, key_mask)
+            return vfa_fwd_reference(q, k, v, gmax, h, causal, scale, mask, key_mask)
         return flash_attention_reference(q, k, v, h, causal, scale, mask, key_mask)
     if not _is_cuda(q):
         raise ValueError(f"flash_fwd_compact runs on CUDA or CPU tensors, not {q.device}")
@@ -463,13 +524,23 @@ def flash_fwd_compact(
     m, mask_heads = _device_mask(q, mask, h)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _call("flash_fwd_compact", q, (q, k, v, key_mask, m, t.row_ptr, t.col, out, lse), h, causal,
-          scale, mask_heads, t.heads, t.col.shape[1], t.row_tile)
+    grid_args = (h, causal, scale, mask_heads, t.heads, t.col.shape[1], t.row_tile)
+    if vfa:
+        gmax = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        _call("flash_max_compact", q, (q, k, key_mask, m, t.row_ptr, t.col, gmax), *grid_args)
+        flash_fwd_compact.max_launches += 1
+        _call("flash_fwd_compact_vfa", q, (q, k, v, key_mask, m, t.row_ptr, t.col, gmax, out, lse),
+              *grid_args)
+        flash_fwd_compact.vfa_launches += 1
+        return out, lse
+    _call("flash_fwd_compact", q, (q, k, v, key_mask, m, t.row_ptr, t.col, out, lse), *grid_args)
     flash_fwd_compact.launches += 1
     return out, lse
 
 
 flash_fwd_compact.launches = 0
+flash_fwd_compact.max_launches = 0
+flash_fwd_compact.vfa_launches = 0
 
 
 def flash_bwd(
@@ -584,13 +655,14 @@ flash_bwd_compact.dkv_launches = 0
 class FlashAttention(torch.autograd.Function):
     """(bh, n, d) flash attention with its gradient: the forward saves
     (q, k, v, out, lse) as `_flash_vjp_fwd` does, and carries the pattern,
-    the grid and the tables it ran with to the backward, `flash_bwd`."""
+    the grid and the tables it ran with to the backward, `flash_bwd`.  A
+    VFA forward's lse feeds the same backward, as in `_flash_vjp_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, h, causal, scale, mask, key_mask, grid, tables):
+    def forward(ctx, q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa):
         if _is_cuda(q):
             tables = _tables_for(q, mask, causal, grid, tables)
-        out, lse = flash_fwd(q, k, v, h, causal, scale, mask, key_mask, grid, tables)
+        out, lse = flash_fwd(q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (h, causal, scale, mask, key_mask, grid, tables)
         return out
@@ -599,7 +671,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, lse, do.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -612,20 +684,22 @@ def flash_attention(
     key_mask: Optional[torch.Tensor] = None,
     grid: str = "auto",
     tables: Optional[PatternTables] = None,
+    vfa: bool = False,
 ) -> torch.Tensor:
     """(b, h, n, d) attention, the counterpart of the JAX package's
     `flash_attention`.  q is unscaled (scale defaults to d^-1/2); mask:
     optional static (n, n) or per-head (h, n, n) pattern, True = may attend;
     key_mask: optional (b, n), nonzero = attend; grid: "auto" | "dense" |
     "compact"; tables: the pattern's `pattern_tables` (built from the mask
-    on each CUDA call when None).  Differentiable through `FlashAttention`
-    when grad is enabled and an input requires it; a plain `flash_fwd` call
-    otherwise."""
+    on each CUDA call when None); vfa: on the compacted grid, the two-pass
+    VFA forward (ignored on the dense grid).  Differentiable through
+    `FlashAttention` when grad is enabled and an input requires it; a plain
+    `flash_fwd` call otherwise."""
     b, h, n, d = q.shape
     qf, kf, vf = (t.reshape(b * h, n, d).contiguous() for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttention.apply(qf, kf, vf, h, causal, scale, mask, key_mask, grid, tables)
+        out = FlashAttention.apply(qf, kf, vf, h, causal, scale, mask, key_mask, grid, tables, vfa)
     else:
         out, _ = flash_fwd(qf, kf, vf, h=h, causal=causal, scale=scale, mask=mask, key_mask=key_mask,
-                           grid=grid, tables=tables)
+                           grid=grid, tables=tables, vfa=vfa)
     return out.reshape(b, h, n, d)

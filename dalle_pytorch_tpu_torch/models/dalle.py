@@ -4,8 +4,11 @@
 A joint text + image vocabulary with a unique padding id per text position,
 <bos> prepended, rotary positions, logits masked so that text positions
 predict text and image positions predict image, and the (text + 7·img)/8
-weighted cross-entropy.  The model works on image *codes*; the VAE that turns
-pixels into codes is composed by the caller.  The forward is differentiable:
+weighted cross-entropy.  With `share_input_output_emb` the text and image
+embedding tables are the rows of the logits weight (the tied flagship
+layout): no embedding modules, and the weight's gradient sums its three
+uses.  The model works on image *codes*; the VAE that turns pixels into
+codes is composed by the caller.  The forward is differentiable:
 the training step takes its gradient (`parallel/train_step.py`).
 """
 from __future__ import annotations
@@ -75,7 +78,6 @@ class DALLEConfig:
             name for name, bad in (
                 ("reversible", self.reversible),
                 ("rotary_emb=False", not self.rotary_emb),
-                ("share_input_output_emb", self.share_input_output_emb),
             ) if bad
         ]
         if unsupported:
@@ -155,8 +157,9 @@ class DALLE(nn.Module):
         self.transformer = Transformer(cfg.transformer_config())
         self.logits_norm = LayerNorm(cfg.dim)
         self.logits_linear = nn.Linear(cfg.dim, cfg.total_tokens)
-        self.text_emb = nn.Embedding(cfg.num_text_tokens_padded, cfg.dim)
-        self.image_emb = nn.Embedding(cfg.num_image_tokens, cfg.dim)
+        if not cfg.share_input_output_emb:
+            self.text_emb = nn.Embedding(cfg.num_text_tokens_padded, cfg.dim)
+            self.image_emb = nn.Embedding(cfg.num_image_tokens, cfg.dim)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -175,16 +178,18 @@ def init_dalle(
     device: DeviceLike = None,
 ) -> DALLE:
     """A DALL-E with seeded random float32 weights, drawn as the JAX package
-    draws them: uniform ±1/sqrt(fan_in) for linear layers, N(0, 1) embeddings,
-    LayerScale by depth.  `generator` must live on `device`.  The model comes
-    frozen, in eval mode, for serving; a trainer unfreezes its own."""
+    draws them: uniform ±1/sqrt(fan_in) for linear layers, N(0, 1) embeddings
+    (none when they are tied to the logits weight), LayerScale by depth.
+    `generator` must live on `device`.  The model comes frozen, in eval
+    mode, for serving; a trainer unfreezes its own."""
     device = resolve_device(device)
     with torch.device(device):
         model = DALLE(cfg)
     init_transformer_(model.transformer, generator)
     fan_in_uniform_(model.logits_linear, generator)
-    for emb in (model.text_emb, model.image_emb):
-        emb.weight.normal_(generator=generator)
+    if not cfg.share_input_output_emb:
+        for emb in (model.text_emb, model.image_emb):
+            emb.weight.normal_(generator=generator)
     return model.eval().requires_grad_(False)
 
 
@@ -205,15 +210,24 @@ def remap_and_bos(cfg: DALLEConfig, text: torch.Tensor) -> torch.Tensor:
 
 
 def embed_text_ids(model: DALLE, text_ids: torch.Tensor) -> torch.Tensor:
-    """text_ids: (b, n) post-remap ids incl. bos."""
-    return model.text_emb(text_ids)
+    """text_ids: (b, n) post-remap ids incl. bos.  Under the tie the table is
+    the logits weight's first num_text_tokens_padded rows, a view, so the
+    gradient reaches the weight."""
+    cfg = model.cfg
+    tied = cfg.share_input_output_emb
+    table = model.logits_linear.weight[: cfg.num_text_tokens_padded] if tied else model.text_emb.weight
+    return F.embedding(text_ids, table)
 
 
 def embed_image_codes(model: DALLE, codes: torch.Tensor) -> torch.Tensor:
     """codes: (b, m) image code ids, clipped into the codebook as the JAX
-    package's `mode="clip"` take does.  Positions come from rotary, so no
-    position table is added."""
-    return model.image_emb(codes.clamp(0, model.cfg.num_image_tokens - 1))
+    package's `mode="clip"` take does; under the tie the table is the
+    logits weight's image rows.  Positions come from rotary, so no position
+    table is added."""
+    cfg = model.cfg
+    tied = cfg.share_input_output_emb
+    table = model.logits_linear.weight[cfg.num_text_tokens_padded:] if tied else model.image_emb.weight
+    return F.embedding(codes.clamp(0, cfg.num_image_tokens - 1), table)
 
 
 def logits_mask_slice(cfg: DALLEConfig, n: int, device=None) -> torch.Tensor:

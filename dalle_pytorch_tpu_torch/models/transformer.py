@@ -12,10 +12,10 @@ attention of `kernels/flash_attention.py`: the CUDA kernels on the card, at
 any sequence length, with the backward kernels under autograd.  A pattern
 layer passes its static mask and the mask's tile tables, built once per
 pattern, length and device; the kernels take the compacted grid where the
-pattern kills tiles.  The one-token decode attention is plain tensor ops
-over the cache, as in the JAX package: a pattern layer gathers only the keys
-its pattern row permits (`sparse_decode`) or masks the full cache with that
-row.
+pattern kills tiles, and with `attn_vfa` run the two-pass VFA forward
+there.  The one-token decode attention is plain tensor ops over the cache,
+as in the JAX package: a pattern layer gathers only the keys its pattern
+row permits (`sparse_decode`) or masks the full cache with that row.
 
 The decode cache is a dict `{"offset": int, "layers": [per-layer dict]}`
 whose k/v buffers and token-shift rings are updated in place (the JAX
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from dalle_pytorch_tpu_torch.core.module import LayerNorm, dropout, fan_in_uniform_
@@ -77,7 +78,8 @@ class TransformerConfig:
     # layer's pattern kills tiles inside the causal triangle, the dense grid
     # otherwise; "compact" / "dense" force.  The two give equal results.
     attn_grid: str = "auto"
-    # the VFA global-max forward on the compacted grid (not ported yet)
+    # the compacted grid's forward as VFA: a max pass, then accumulation
+    # against the fixed row maxima (the dense grid ignores it)
     attn_vfa: bool = False
     # cached decode: a pattern layer gathers only the keys its pattern row
     # permits (Kmax per step) instead of masking the whole cache
@@ -96,11 +98,6 @@ class TransformerConfig:
             raise NotImplementedError(
                 f"the PyTorch port runs unshared, sequential or rematerialised "
                 f"layers only; unsupported settings: {', '.join(bad)}"
-            )
-        if self.attn_vfa:
-            raise NotImplementedError(
-                "attn_vfa: the VFA forward (`_max_kernel_compact`, `_fwd_kernel_compact_vfa`) "
-                "comes with a later slice of the port (ROADMAP.md Queue 2)"
             )
         if self.attn_grid not in ("auto", "dense", "compact"):
             raise ValueError(f"attn_grid must be auto|dense|compact, got {self.attn_grid!r}")
@@ -230,6 +227,14 @@ class Layer(nn.Module):
         self.attn = Attention(cfg)
         self.ff = FeedForward(cfg)
 
+    def forward(self, cfg, x, mode, rotary, key_mask, layer_cache, offset, text_mode, seeds, pattern):
+        """The layer's attention then feed-forward residual branches
+        (`_residual_branch`, with the branch's dropout seed)."""
+        for kind, seed in zip(("attn", "ff"), seeds):
+            x = x + _residual_branch(cfg, self, x, kind, mode, rotary, key_mask,
+                                     layer_cache, offset, text_mode, seed, pattern)
+        return x
+
 
 class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
@@ -340,7 +345,7 @@ def _attention_full(attn, cfg, x, rotary, key_mask, causal, layer_cache=None, pa
     out = flash_attention(
         q, k, v, mask=mask, causal=causal, scale=cfg.dim_head ** -0.5,
         key_mask=None if key_mask is None else key_mask[:, :n],
-        grid=cfg.attn_grid, tables=tables,
+        grid=cfg.attn_grid, tables=tables, vfa=cfg.attn_vfa,
     )
     return attn.out(_merge_heads(out))
 
@@ -456,19 +461,16 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
     return h * scale.to(h.dtype)
 
 
-def _layer_step(cfg, layer: Layer, x, mode, rotary, key_mask, layer_cache, offset,
-                text_mode, seeds, pattern):
-    for kind, seed in zip(("attn", "ff"), seeds):
-        x = x + _residual_branch(cfg, layer, x, kind, mode, rotary, key_mask,
-                                 layer_cache, offset, text_mode, seed, pattern)
-    return x
-
-
 def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mode=False,
                 seeds=None, remat=False):
     """seeds: per layer, the (attention, feed-forward) dropout seeds, or
     None.  remat: wrap each layer in a non-reentrant checkpoint, the JAX
-    package's "full" remat policy: the backward recomputes the layer."""
+    package's "full" remat policy: the backward recomputes the layer, its
+    forward kernels (the VFA pair with `attn_vfa`) included.  The recompute
+    runs on the parameter tensors the forward used (`functional_call` on the
+    layer): by the time the backward runs, a caller's `functional_call`,
+    such as the train step's bf16 working copy, has put the module's own
+    parameters back."""
     cfg = model.cfg
     rotary = model.rotary(x.device)
     offset = 0 if cache is None else cache["offset"]
@@ -480,9 +482,12 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
             pattern = model.decode_inputs(key, x.device)
         else:
             pattern = model.attention_inputs(key, x.shape[1], causal, x.device)
-        args = (cfg, layer, x, mode, rotary, key_mask, lc, offset, text_mode,
+        args = (cfg, x, mode, rotary, key_mask, lc, offset, text_mode,
                 (None, None) if seeds is None else seeds[i], pattern)
-        x = checkpoint(_layer_step, *args, use_reentrant=False) if remat else _layer_step(*args)
+        if remat:
+            x = checkpoint(functional_call, layer, dict(layer.named_parameters()), args, use_reentrant=False)
+        else:
+            x = layer(*args)
     return x
 
 

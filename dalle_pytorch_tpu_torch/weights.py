@@ -72,8 +72,9 @@ def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
         raise ValueError(f"tree has {len(tp['layers'])} layers, config depth {cfg.depth}")
     sd.update(_norm("logits_norm", params["logits_norm"]))
     sd.update(_linear("logits_linear", params["logits_linear"]))
-    sd["text_emb.weight"] = _t(params["text_emb"]["table"])
-    sd["image_emb.weight"] = _t(params["image_emb"]["table"])
+    if not cfg.share_input_output_emb:  # tied: the tree has no embedding tables
+        sd["text_emb.weight"] = _t(params["text_emb"]["table"])
+        sd["image_emb.weight"] = _t(params["image_emb"]["table"])
     return sd
 
 
@@ -143,13 +144,15 @@ def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
         shared_attn[str(i)] = {"qkv": _linear_tree(sd, f"{pre}.attn.qkv"),
                                "out": _linear_tree(sd, f"{pre}.attn.out")}
         shared_ff[str(i)] = {name: _linear_tree(sd, f"{pre}.ff.{name}") for name in ("w1", "w1g", "w2")}
-    return {
+    tree = {
         "transformer": {"layers": layers, "shared_attn": shared_attn, "shared_ff": shared_ff},
         "logits_norm": _norm_tree(sd, "logits_norm"),
         "logits_linear": _linear_tree(sd, "logits_linear"),
-        "text_emb": {"table": _leaf(sd["text_emb.weight"])},
-        "image_emb": {"table": _leaf(sd["image_emb.weight"])},
     }
+    if not cfg.share_input_output_emb:
+        tree["text_emb"] = {"table": _leaf(sd["text_emb.weight"])}
+        tree["image_emb"] = {"table": _leaf(sd["image_emb.weight"])}
+    return tree
 
 
 def vae_tree(sd: StateDict, cfg: DiscreteVAEConfig) -> dict:

@@ -207,7 +207,7 @@ def test_train_steps_match_jax():
 def test_from_dict_keeps_the_pattern_knobs():
     """A JAX config with conv_kernel_size 3 (and the other pattern knobs)
     rebuilds in the port with the same patterns; the execution-only knobs
-    are dropped; attn_vfa raises naming the later slice."""
+    are dropped; attn_vfa is kept and reaches the transformer."""
     jcfg = jdalle.DALLEConfig(**dict(MODEL, attn_types=("conv_like", "sparse")), conv_kernel_size=3,
                               conv_dilation=2, sparse_block_size=4, sparse_per_head=True,
                               scan_layers=False, attn_kernel="xla", attn_grid="dense", sparse_decode=False)
@@ -219,8 +219,9 @@ def test_from_dict_keeps_the_pattern_knobs():
     assert list(got) == list(ref)
     for key in ref:
         np.testing.assert_array_equal(got[key], ref[key])
-    with pytest.raises(NotImplementedError, match="VFA.*later slice"):
-        tdalle.DALLEConfig.from_dict(dict(jcfg.to_dict(), attn_vfa=True))
+    vfa = tdalle.DALLEConfig.from_dict(dict(jcfg.to_dict(), attn_vfa=True))
+    assert vfa.attn_vfa is True and vfa.transformer_config().attn_vfa is True
+    assert port.attn_vfa is False
 
 
 def test_api_takes_the_pattern_keywords():

@@ -331,6 +331,26 @@ def test_remat_gradients_equal_sequential_with_dropout():
     assert other.item() != seq_loss.item() and plain.item() != seq_loss.item()
 
 
+def test_remat_recomputes_on_the_bf16_working_copy():
+    """A bf16-compute train step of a remat model recomputes each layer on
+    the step's bf16 working copy (the module holds its f32 masters again by
+    the backward): loss and gradients equal the sequential model's."""
+    results = []
+    for execution in ("sequential", "remat"):
+        cfg = tdalle.DALLEConfig(**dict(STEP_CFG, depth=2), execution=execution)
+        model = tdalle.init_dalle(cfg, torch.Generator().manual_seed(0), device="cpu").requires_grad_(True)
+        params = {name: p.to(torch.bfloat16) for name, p in model.named_parameters()}
+        text, codes = torch.ones(2, 7, dtype=torch.long), torch.arange(18).reshape(2, 9) % 16
+        loss = torch.func.functional_call(model, params, (text, codes), {"return_loss": True})
+        loss.backward()
+        results.append((loss.detach(), [p.grad for p in model.parameters()]))
+    (seq_loss, seq_grads), (remat_loss, remat_grads) = results
+    torch.testing.assert_close(remat_loss, seq_loss, rtol=0, atol=0)
+    for a, b in zip(remat_grads, seq_grads):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_selective_remat_policy_waits():
     cfg = tdalle.DALLEConfig(**STEP_CFG, execution="remat", remat_policy="flash")
     model = tdalle.init_dalle(cfg, torch.Generator().manual_seed(0), device="cpu").requires_grad_(True)
