@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card (the flash forward, and the
+Builds the port's CUDA kernels from the sources in this checkout, counts the
+tensor-core instructions (HGMMA) the forward libraries hold, holds each
+kernel against its plain PyTorch version on the card (the flash forward, and the
 backward's dq and dk/dv kernels, on the dense grid and, for static attention
 patterns, on the compacted grid, which must equal the dense grid with the
 same mask bit for bit), drives the serving path at the full width of the
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -128,18 +130,17 @@ def backward_bound_ms(bh, n, d, dtype, causal, padded, b, products, outputs):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def pattern_bound_ms(bh, n, d, dtype, live_per_bh, tile, products, row_tensors, tile_tensors, row_floats):
-    """The least time for one pattern kernel over its live tiles: the
-    tensors it reads or writes once per row (`row_tensors` (bh, n, d) ones
-    and `row_floats` (bh, n) f32 ones), the `tile_tensors` it reads once per
-    live (tile[0] x tile[1]) tile, over the memory rate, against its
+def pattern_bound_ms(bh, n, d, dtype, live_tiles, heads, tile, products, tensors, floats):
+    """The least time for one pattern kernel: its `tensors` (bh, n, d)
+    inputs and outputs and its `floats` (bh, n) f32 ones each moved once, and
+    the pattern's bytes of its `live_tiles` (tile[0] x tile[1]) tiles, over
+    `heads` table heads, read once, over the memory rate; against its
     `products` matrix products over the live tiles' elements (2 flops a
     multiply-add) over the dtype's peak; the larger of the two."""
     esize = torch.tensor([], dtype=dtype).element_size()
     tq, tk = tile
-    nbytes = (row_tensors * bh * n * d * esize + row_floats * bh * n * 4
-              + tile_tensors * bh * live_per_bh * tk * d * esize)
-    flops = products * 2 * bh * live_per_bh * tq * tk * d
+    nbytes = tensors * bh * n * d * esize + floats * bh * n * 4 + live_tiles * tq * tk
+    flops = products * 2 * bh * live_tiles / heads * tq * tk * d
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -203,6 +204,24 @@ def device_profile(fn) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
+def device_times(calls: dict, reps: int = 10) -> dict:
+    """Device ms per call of each of `calls` ({label: fn}), run `reps` times
+    each in turn under one profiler window: a label's time sums the port's
+    kernels named `<label><...>(flash::Args)`; the label None takes every
+    other kernel (a library call).  Unlike `time_ms` it leaves out the host
+    time between launches, which bounds a wrapper's calls at small shapes."""
+    rows = device_profile(lambda: [fn() for fn in calls.values() for _ in range(reps)])
+
+    def ours(label, name):
+        return f"{label}<" in name and "flash::Args" in name
+
+    named = [label for label in calls if label is not None]
+    out = {label: sum(ms for name, ms, _ in rows if ours(label, name)) / reps for label in named}
+    if None in calls:
+        out[None] = sum(ms for name, ms, _ in rows if not any(ours(label, name) for label in named)) / reps
+    return out
+
+
 def sdpa_backend(fn) -> str:
     """Which scaled_dot_product_attention backend fn ran, from its kernels."""
     names = " ".join(name.lower() for name, _, _ in device_profile(fn))
@@ -211,6 +230,29 @@ def sdpa_backend(fn) -> str:
         if pattern in names:
             return backend
     return "math"
+
+
+def cuobjdump(build, name, *flags) -> str:
+    """`cuobjdump` of the built library of `csrc/<name>.cu`."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), *flags, str(build.library_path(name))], capture_output=True, text=True,
+                          timeout=120)
+    check(proc.returncode == 0, f"cuobjdump {' '.join(flags)} {name} failed: {proc.stderr}")
+    return proc.stdout
+
+
+def forward_resources(text: str) -> dict:
+    """Registers, stack and local bytes (spills land there) of each forward
+    entry's instantiation, from `cuobjdump -res-usage`, by (entry, dtype, d)."""
+    out = {}
+    for mangled, reg, stack, local in re.findall(
+            r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", text):
+        entry = re.search(r"(flash_fwd(?:_compact)?_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        if entry:
+            dtype = "float32" if entry.group(2) == "f" else "bfloat16"
+            out[f"{entry.group(1)} {dtype} d{entry.group(3)}"] = dict(
+                registers=int(reg), stack_bytes=int(stack), local_bytes=int(local))
+    return out
 
 
 def phase_environment(build):
@@ -225,20 +267,33 @@ def phase_environment(build):
     torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
     compile_s = build.build_all()
+    build_s = time.perf_counter() - t0
+    # the tensor cores are reached only if the forward libraries hold wgmma
+    # (HGMMA in SASS)
+    mma = {name: {op: sum(f" {op}." in line for line in sass.splitlines()) for op in ("HGMMA", "HMMA")}
+           for name in compile_s for sass in [cuobjdump(build, name, "-sass")]}
+    for name in ("flash_fwd", "flash_compact"):
+        check(mma[name]["HGMMA"] > 0, f"lib{name} holds no HGMMA instruction: {mma[name]}")
+    resources = {}
+    for name in ("flash_fwd", "flash_compact"):
+        resources.update(forward_resources(cuobjdump(build, name, "-res-usage")))
     emit("environment", device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
-         kernel_compile_s=compile_s, build_s=time.perf_counter() - t0,
-         tf32="off (cudnn.allow_tf32=False, matmul precision highest)")
+         kernel_compile_s=compile_s, build_s=build_s, tensor_core_instructions=mma,
+         forward_resources=resources, tf32="off (cudnn.allow_tf32=False, matmul precision highest)")
 
 
 def phase_kernel_vs_plain(fa):
-    """flash_fwd against flash_attention_reference at the slice's shapes."""
+    """flash_fwd against flash_attention_reference at the slices' shapes
+    (f32 runs the FMA body, bf16 the tensor-core body), with SDPA's time
+    and the backend it took."""
     dev = torch.device("cuda")
     cases = [  # (name, b, h, n, d, causal, padded)
         ("prefill", 4, 16, 257, 64, True, False),  # 2 prompts x CFG, bos + 256 text
         ("forward", 2, 16, 1280, 64, True, False),  # scoring forward, batch 2
         ("padded_noncausal", 2, 16, 300, 64, False, True),
         ("train", 4, 16, 1280, 64, True, False),  # the training step, batch 4
+        ("flagship", 4, 8, 1280, 128, True, False),  # the flagship's full layers, batch 4
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -260,16 +315,26 @@ def phase_kernel_vs_plain(fa):
             q4, k4, v4 = (t.view(b, h, n, d) for t in (q, k, v))
             sdpa_mask = None if kmask is None else (kmask > 0)[:, None, None, :]
             reps = 20 if n >= 1000 else 50
-            kernel_ms = time_ms(lambda: fa.flash_fwd(q, k, v, h=h, causal=causal, key_mask=kmask), reps)
+
+            def kernel():
+                return fa.flash_fwd(q, k, v, h=h, causal=causal, key_mask=kmask)
+
+            kernel_ms = time_ms(kernel, reps)
             plain_ms = time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, h, causal, d ** -0.5, None, kmask), reps)
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=sdpa_mask, is_causal=causal and sdpa_mask is None), reps)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=sdpa_mask,
+                                                      is_causal=causal and sdpa_mask is None)
+
+            library_ms = time_ms(sdpa, reps)
+            dtimes = device_times({"flash_fwd_kernel": kernel, None: sdpa})
             bound_ms, bound_by = flash_bound_ms(b * h, n, d, dtype, causal, padded, b)
             row = dict(case=name, dtype=str(dtype).replace("torch.", ""), bh=b * h, n=n, d=d,
                        causal=causal, key_padding=padded, max_abs_err=err, lse_err=lse_err,
                        tolerance=TOLERANCE[dtype], ms=kernel_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                       library_ms=library_ms, device_ms=dtimes["flash_fwd_kernel"], library_device_ms=dtimes[None],
+                       sdpa_backend=sdpa_backend(sdpa), bound_ms=bound_ms, bound_by=bound_by)
             emit("kernel_vs_plain", kernel="flash_fwd", **row)
             results.append(row)
     return results
@@ -396,9 +461,9 @@ def vfa_vs_plain(fa, q, k, v, do, mask, h, t, online):
     bwd_err = {g: (a.float() - r.float()).abs().max().item() / r.float().abs().max().item()
                for g, a, r in zip(("dq", "dk", "dv"), grads, ref)}
     check(max(bwd_err.values()) <= TOLERANCE[dtype], f"{name}: backward from the VFA lse {bwd_err}")
-    live = t.live_tiles / t.heads
-    max_bound = pattern_bound_ms(bh, n, d, dtype, live, t.row_tile, 1, 1, 1, 1)
-    fwd_bound = pattern_bound_ms(bh, n, d, dtype, live, t.row_tile, 2, 2, 2, 2)
+    # max pass: q, k in, gmax out; fixed-max pass: q, k, v, gmax in, out, lse out
+    max_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, 1, 2, 1)
+    fwd_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, 2, 4, 2)
     return dict(vfa_gmax_rel_err=gmax_err, vfa_gmax_max_abs_err=gmax_abs_err.max().item(),
                 vfa_max_abs_err=err, vfa_lse_err=lse_err,
                 vfa_vs_online_max_abs_err=online_err, vfa_vs_online_lse_err=online_lse_err,
@@ -469,10 +534,10 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                                     (q, k, v, do, lse, delta, None, m, tc.col_ptr, tc.row, gk, gv),
                                     tc.row.shape[1], tc.col_tile),
                 }
-                ms = {}
-                for key, (entry, ptrs, tab_len, tile) in calls.items():
-                    heads = (td if key.endswith("dense") else tc).heads
-                    ms[key] = time_ms(lambda: fa._call(entry, q, ptrs, h, True, scale, mh, heads, tab_len, tile), 10)
+                launch = {key: functools.partial(fa._call, entry, q, ptrs, h, True, scale, mh,
+                                                 (td if key.endswith("dense") else tc).heads, tab_len, tile)
+                          for key, (entry, ptrs, tab_len, tile) in calls.items()}
+                ms = {key: time_ms(fn, 10) for key, fn in launch.items()}
                 plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, h, True, scale, mask), 10)
                 plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
                     q, k, v, out, lse, do, h, True, scale, mask), 10)
@@ -488,14 +553,16 @@ def phase_sparse_kernel_vs_plain(fa, masks):
 
                 sdpa_ms = time_ms(sdpa_fwd, 10)
                 sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, 10) - sdpa_ms
+                dtimes = device_times({"flash_fwd_kernel": launch["fwd_dense"],
+                                       "flash_fwd_compact_kernel": launch["fwd_compact"], None: sdpa_fwd})
                 compact_auto = fa.pattern_tables(mask, n, d, device=dev).compact
                 vfa = vfa_vs_plain(fa, q, k, v, do, mask, h, tc, res["compact"][:2]) if compact_auto else {}
                 # live tiles per (batch, head), at each kernel's tile
                 live_fwd, live_dkv = tc.live_tiles / tc.heads, tc.live_tiles_dkv / tc.heads
-                bound = {
-                    "fwd": pattern_bound_ms(bh, n, d, dtype, live_fwd, tc.row_tile, 2, 2, 2, 1),
-                    "dq": pattern_bound_ms(bh, n, d, dtype, live_fwd, tc.row_tile, 3, 3, 2, 2),
-                    "dkv": pattern_bound_ms(bh, n, d, dtype, live_dkv, tc.col_tile[::-1], 4, 4, 2, 2),
+                bound = {  # fwd: q, k, v, out, lse; dq: q, k, v, do, dq, lse, delta; dk/dv: dk, dv too
+                    "fwd": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 2, 4, 1),
+                    "dq": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 3, 5, 2),
+                    "dkv": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles_dkv, tc.heads, tc.col_tile[::-1], 4, 6, 2),
                 }
                 row = dict(pattern=kind, dtype=str(dtype).replace("torch.", ""), bh=bh, h=h, n=n, d=d,
                            grid_auto="compact" if compact_auto else "dense",
@@ -507,7 +574,8 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                            **{f"{gname}_err_over_ref_max": e[1] for gname, e in bwd_err.items()},
                            **{f"{key}_ms": value for key, value in ms.items()},
                            plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_ms,
-                           sdpa_bwd_ms=sdpa_bwd_ms,
+                           sdpa_bwd_ms=sdpa_bwd_ms, fwd_dense_device_ms=dtimes["flash_fwd_kernel"],
+                           fwd_compact_device_ms=dtimes["flash_fwd_compact_kernel"], sdpa_fwd_device_ms=dtimes[None],
                            **{f"{key}_bound_ms": value[0] for key, value in bound.items()},
                            **{f"{key}_bound_by": value[1] for key, value in bound.items()}, **vfa)
                 emit("sparse_kernel_vs_plain", **row)
@@ -964,10 +1032,20 @@ def main() -> int:
     # online compacted forward, which VFA replaces there: the pattern
     # model's training)
     main_shape = next(r for r in compared if r["case"] == "train" and r["dtype"] == "float32")
+    fwd_keys = ("bh", "n", "d", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms", "sdpa_backend", "max_abs_err", "lse_err")
+    fwd_bf16 = {case: {k: r[k] for k in fwd_keys} for case in ("train", "flagship")
+                for r in compared if r["case"] == case and r["dtype"] == "bfloat16"}
     prefill = next(r for r in compared if r["case"] == "prefill" and r["dtype"] == "float32")
     bwd = next(r for r in compared_bwd if r["case"] == "train" and r["dtype"] == "float32")
     shape = {k: bwd[k] for k in ("dtype", "bh", "n", "d", "causal")}
     row = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 64 and r["dtype"] == "float32")
+    compact_bf16 = {d: {"ms": r["fwd_compact_ms"], "device_ms": r["fwd_compact_device_ms"],
+                        "dense_grid_ms": r["fwd_dense_ms"], "dense_grid_device_ms": r["fwd_dense_device_ms"],
+                        "plain_ms": r["plain_fwd_ms"], "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
+                        "library_ms": r["sdpa_fwd_ms"], "library_device_ms": r["sdpa_fwd_device_ms"],
+                        "max_abs_err": r["max_abs_err"], "lse_err": r["lse_err"], "bh": r["bh"]}
+                    for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
     compact_shape = {k: row[k] for k in ("pattern", "dtype", "bh", "n", "d", "live_tiles", "causal_tiles")}
     source_bwd = "dalle_pytorch_tpu_torch/kernels/csrc/flash_bwd.cu"
     source_compact = "dalle_pytorch_tpu_torch/kernels/csrc/flash_compact.cu"
@@ -989,7 +1067,9 @@ def main() -> int:
                                   for r in compared},
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
+        "sdpa_backend": main_shape["sdpa_backend"],
         "shape": {k: main_shape[k] for k in ("dtype", "bh", "n", "d", "causal")},
+        "bf16_tensor_cores": fwd_bf16,
         "prefill": {k: prefill[k] for k in ("bh", "n", "ms", "plain_ms", "bound_ms", "library_ms")},
         "masked": pattern_readings(sparse, "fwd_dense"),
     }, {
@@ -1013,6 +1093,7 @@ def main() -> int:
         "ms": row["fwd_compact_ms"], "plain_ms": row["plain_fwd_ms"], "bound_ms": row["fwd_bound_ms"],
         "bound_by": row["fwd_bound_by"], "library_ms": row["sdpa_fwd_ms"], "shape": compact_shape,
         "bit_equal_to_dense_all_cases": all(r["bit_equal"] for r in sparse),
+        "bf16_tensor_cores_axial_row": compact_bf16,
         "by_pattern": pattern_readings(sparse, "fwd_compact"),
     }, {
         "name": "flash_dq_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "723",

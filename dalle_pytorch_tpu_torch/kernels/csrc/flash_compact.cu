@@ -8,7 +8,8 @@
 // `_dkv_kernel_compact` (launched by `_flash_bwd_compact`).
 //
 // Computes what the dense-grid kernels of flash_fwd.cu and flash_bwd.cu
-// compute for a static pattern (the same tile bodies, flash_tiles.cuh), but
+// compute for a static pattern (the same tile bodies: flash_tiles.cuh, and
+// flash_fwd_tc.cuh for the bf16 online forward), but
 // each block reads the tiles it visits from a per-head CSR table instead of
 // scanning every tile below the causal diagonal: the forward and dq blocks
 // (one per 64 query rows) walk ptr/idx = row_ptr (H, ceil(n/64) + 1) and the
@@ -22,14 +23,19 @@
 // for bit.  The VFA pair walks the forward's row lists twice: the max pass
 // writes each row's score maximum gmax (bh, n) f32, the fixed-max pass
 // accumulates exp(s - gmax) with no rescale; it agrees with the online
-// forward to rounding (the sums run in another order), not bit for bit.
+// forward to rounding (the sums run in another order, and in bf16 the online
+// forward runs on the tensor cores), not bit for bit, except on rows that see
+// no key, which every forward body hands to store_dead_rows.
 //
 // What bounds it on this card: the dense kernels' operations, counted over
 // live tiles only: 4 * bh * T * 64 * BK * d for the forward (2x for dq, 3x
 // for dk/dv; the VFA pair 2 * bh * T * 64 * BK * d for the max pass and the
-// forward's count for the fixed-max pass), against q, out, lse once per row
-// and K, V once per live tile.  On the FMA units it is bound by operations;
-// a pattern that kills half the causal tiles halves the work.
+// forward's count for the fixed-max pass), against q, k, v, out and lse each
+// moved once.  In f32 it is bound by operations on the FMA units, and a
+// pattern that kills half the causal tiles halves the work; in bf16 the
+// tensor cores' products over the live tiles take less time than moving the
+// tensors once (axial_row, n 1280, d 64: 0.008 against 0.013 ms), so there
+// it is bound by bytes.
 //
 // What the design does about it: no grid slot, no load and no liveness test
 // for a dead tile.  The TPU's flat (bh, T) grid with first/last/valid flags
@@ -37,7 +43,7 @@
 // own list and writes its rows (or keys) at the end.  The max pass stages K
 // alone and computes no exp; the fixed-max pass drops the per-chunk alpha
 // and the rescale of the accumulator.
-#include "flash_tiles.cuh"
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -50,14 +56,20 @@ __device__ __forceinline__ TileList block_csr(const Args& a) {
   return csr_list(ptr, a.idx + static_cast<size_t>(head) * a.tab_len, blockIdx.x);
 }
 
+// the online forward: the tensor-core body for bf16, the FMA body for f32,
+// as in flash_fwd.cu
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(fwd_threads<T>())
 flash_fwd_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
-  fwd_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p, block_csr(a),
-                  ceil_div(a.n, inner_tile<D>()));
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    fwd_block_tc<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
+  else
+    fwd_block<T, D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
 template <typename T, int D>
@@ -76,8 +88,7 @@ flash_fwd_compact_vfa_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
   vfa_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p, block_csr(a),
-                  ceil_div(a.n, inner_tile<D>()));
+                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
 template <typename T, int D>
@@ -119,8 +130,7 @@ extern "C" int flash_fwd_compact(const void* q, const void* k, const void* v, co
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
-    flash_fwd_compact_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+    launch_fwd<T, D, flash_fwd_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 

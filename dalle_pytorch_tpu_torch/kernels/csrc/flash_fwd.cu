@@ -14,27 +14,30 @@
 // works; the ragged last tile is masked here, not padded by the caller.
 //
 // What bounds it on this card: at the shapes the port runs (n = 257 to 1280,
-// d = 64) the two matrix products are 4*n*n*d operations (halved under
+// d = 32 to 128) the two matrix products are 4*n*n*d operations (halved under
 // causality, cut further by a pattern) against 4*n*d elements moved, so the
-// work is bound by operations, not bytes.  This first version runs those
-// operations on the f32 FMA units (67 TFLOP/s), not on the tensor cores, so
-// it cannot reach the bf16 tensor-core bound; wgmma and TMA are later work.
+// work is bound by operations, not bytes: 989 TFLOP/s on the bf16 tensor
+// cores, 67 TFLOP/s on the f32 FMA units.
 //
 // What the design does about it: one block owns 64 query rows of one (batch,
-// head) and loops over key tiles itself.  Each K/V tile is staged once in
-// shared memory, converted to f32, and read by all 64 rows, so device memory
-// sees each key once per query tile.  Four threads share a query row, each
-// holding d/4 interleaved channels of q and of the accumulator in registers;
-// a score is four partial dot products joined by two warp shuffles.  Dead key
-// tiles (causal or pattern) are never loaded.
-#include "flash_tiles.cuh"
+// head) and loops over key tiles itself, staging each K/V tile once in shared
+// memory for all 64 rows; dead key tiles (causal or pattern) are never
+// loaded.  The dtype picks the tile body:
+//   bf16  fwd_block_tc (flash_fwd_tc.cuh): one warpgroup, both products on
+//         wgmma, bf16 tiles in a two-stage cp.async ring, the softmax once
+//         per key tile in registers;
+//   f32   fwd_block (flash_tiles.cuh): 256 threads on the FMA units, tiles
+//         widened to f32, four threads per query row joined by shuffles
+//         (the repo runs f32 with TF32 off, so f32 stays off the tensor
+//         cores).
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
 using namespace flash;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(fwd_threads<T>())
 flash_fwd_kernel(Args a) {
   constexpr int BK = inner_tile<D>();
   const int nk = ceil_div(a.n, BK);
@@ -47,9 +50,13 @@ flash_fwd_kernel(Args a) {
     const int head = a.tab_heads > 1 ? blockIdx.y % a.h : 0;
     live = a.live + (static_cast<size_t>(head) * ceil_div(a.n, kTileRows) + i) * nk;
   }
-  fwd_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p,
-                  dense_list(live, 0, end), nk);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    fwd_block_tc<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, dense_list(live, 0, end));
+  else
+    fwd_block<T, D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, dense_list(live, 0, end));
 }
 
 }  // namespace
@@ -69,7 +76,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   return run(a, d, dtype, false, tile_q, tile_k, live != nullptr, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
-    flash_fwd_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+    launch_fwd<T, D, flash_fwd_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }

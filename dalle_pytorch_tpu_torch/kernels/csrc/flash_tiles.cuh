@@ -26,12 +26,13 @@
 // Rows that see no key.  A query row whose keys are all masked follows the
 // plain PyTorch version (the dense softmax): its output averages v over all n
 // keys and its lse is -1e30, and in the backward p = exp(s - lse) = 1 for
-// each of its n keys.  The forward finds such rows after its walk and gives
-// them a second pass over every key tile; dq visits every key tile for a
-// block holding one, dk/dv the query tiles off its list that hold one.  Tiles
-// off the list add exact zeros to the other rows (their p underflows to 0),
-// so the rule keeps compacted and dense results equal bit for bit on every
-// row.
+// each of its n keys.  Every forward body (online, VFA, and the bf16
+// tensor-core body of flash_fwd_tc.cuh) finds such rows after its walk and
+// hands them to one routine, store_dead_rows, so the bodies agree on them bit
+// for bit; dq visits every key tile for a block holding one, dk/dv the query
+// tiles off its list that hold one.  Tiles off the list add exact zeros to
+// the other rows (their p underflows to 0), so the rule keeps compacted and
+// dense results equal bit for bit on every row.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -260,18 +261,15 @@ struct FwdRow {
   float m, l;
 };
 
-// One key tile of the online softmax for the block's 64 query rows.  In the
-// dead-row pass every key scores -1e30 and only the rows with `update` set
-// (the rows that saw no key) take it in, each key with p = 1.
+// One key tile of the online softmax for the block's 64 query rows.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_tile(const T* __restrict__ k, const T* __restrict__ v,
                                          const Problem& p, int q0, int k0, int r, int row,
-                                         int g, FwdSmem<D>& sm, FwdRow<D>& st, bool dead_pass,
-                                         bool update) {
+                                         int g, FwdSmem<D>& sm, FwdRow<D>& st) {
   constexpr int BK = FwdSmem<D>::BK;
   constexpr int NV = D / 16;
   __syncthreads();  // the previous tile is no longer read
-  const bool use_mask = p.mask != nullptr && !dead_pass;
+  const bool use_mask = p.mask != nullptr;
   const bool causal = p.causal != 0;
   stage_key_tile<T, D>(k, v, p, q0, k0, use_mask, sm);
   __syncthreads();
@@ -286,14 +284,13 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ k, const T* __res
       for (int i = 0; i < NV; ++i) part = dot4(st.qr[i], sm.ks[j0 + jj][i * 4 + g], part);
       s[jj] = row_sum(part);
     }
-    if (!update) continue;
     float mx = st.m;
 #pragma unroll
     for (int jj = 0; jj < kChunk; ++jj) {
       // no short-circuit: a branch per score here costs the block its
       // registers (the mask byte is read whether or not it counts)
       const int f = sm.kflag[j0 + jj];
-      const bool masked = dead_pass | (f == 0) | (causal & (k0 + j0 + jj > row)) |
+      const bool masked = (f == 0) | (causal & (k0 + j0 + jj > row)) |
                           (use_mask & (sm.ms[r][j0 + jj] == 0));
       s[jj] = f < 0 ? -INFINITY : (masked ? kNeg : s[jj]);
       mx = fmaxf(mx, s[jj]);
@@ -328,14 +325,49 @@ __device__ __forceinline__ void store_fwd_row(T* __restrict__ out, float* __rest
   if (g == 0) lse[p.base / D + row] = st.m + logf(lc);
 }
 
-// The forward for the block's 64 query rows over `tiles`, then the dead-row
-// pass over all `ntiles` key tiles; writes out (input dtype) and
-// lse = m + log(max(l, 1e-30)).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float x, float* y) { *y = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* y) { *y = __float2bfloat16_rn(x); }
+
+// The rows of the block (q0..q0+63) with `dead[r]` set saw no key: each gets
+// the average of v over all n keys, every channel summed over j = 0..n-1 in
+// ascending order with fmaf(1, v_j, acc) and divided by max(l, 1e-30), l = n,
+// and lse = -1e30 + log(max(l, 1e-30)).  That is the online softmax's answer
+// when every key scores -1e30 (alpha = 1 and p = 1 for each key), in the
+// same operations, so every forward body that calls this writes the same
+// bits on such rows.  The sum order depends on no thread layout: any block
+// size works.  Called by the whole block, after the caller's walk, when
+// __syncthreads_or found such a row (`dead` is in shared memory).
+template <typename T, int D>
+__device__ __noinline__ void store_dead_rows(const T* __restrict__ v, T* __restrict__ out,
+                                             float* __restrict__ lse, const Problem& p, int q0,
+                                             const uint8_t* dead) {
+  __shared__ float sum[D];
+  const T* vb = v + p.base;
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float acc = 0.f;
+    for (int j = 0; j < p.n; ++j) acc = fmaf(1.f, to_f32(vb[static_cast<size_t>(j) * D + c]), acc);
+    sum[c] = acc;
+  }
+  __syncthreads();
+  const float lc = fmaxf(static_cast<float>(p.n), 1e-30f);
+  for (int idx = threadIdx.x; idx < kTileRows * D; idx += blockDim.x) {
+    const int r = idx / D;
+    if (dead[r]) from_f32(sum[idx % D] / lc, out + p.base + static_cast<size_t>(q0 + r) * D + idx % D);
+  }
+  for (int r = threadIdx.x; r < kTileRows; r += blockDim.x)
+    if (dead[r]) lse[p.base / D + q0 + r] = kNeg + logf(lc);
+}
+
+// The forward for the block's 64 query rows over `tiles`; writes out (input
+// dtype) and lse = m + log(max(l, 1e-30)), rows that saw no key through
+// store_dead_rows.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_block(const T* __restrict__ q, const T* __restrict__ k,
                                           const T* __restrict__ v, T* __restrict__ out,
                                           float* __restrict__ lse, const Problem& p,
-                                          const TileList& tiles, int ntiles) {
+                                          const TileList& tiles) {
   constexpr int BK = FwdSmem<D>::BK;
   constexpr int NV = D / 16;
   __shared__ FwdSmem<D> sm;
@@ -353,18 +385,13 @@ __device__ __forceinline__ void fwd_block(const T* __restrict__ q, const T* __re
   st.l = 0.f;
 
   int cur = tiles.begin, jt;
-  while (tiles.next(cur, jt)) fwd_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st, false, true);
+  while (tiles.next(cur, jt)) fwd_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st);
 
+  __shared__ uint8_t dead_rows[kTileRows];
   const bool dead = live_row && st.m == kNeg;
-  if (__syncthreads_or(dead)) {
-    if (dead) {
-      st.l = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) st.acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    for (jt = 0; jt < ntiles; ++jt) fwd_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st, true, dead);
-  }
-  if (live_row) store_fwd_row<T, D>(out, lse, p, row, g, st);
+  if (g == 0) dead_rows[r] = dead;
+  if (live_row && !dead) store_fwd_row<T, D>(out, lse, p, row, g, st);
+  if (__syncthreads_or(dead)) store_dead_rows<T, D>(v, out, lse, p, q0, dead_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -376,8 +403,8 @@ __device__ __forceinline__ void fwd_block(const T* __restrict__ q, const T* __re
 // Pass 2 walks it again with p = exp(s - gmax), so l and acc only add: no
 // alpha = exp(m_old - m_new) and no rescale of acc per chunk.  Both compute
 // the scores exactly as fwd_tile does, so the row's largest score gives p = 1.
-// A row whose gmax is -1e30 takes the forward's dead-row pass (every key
-// tile, p = 1 for every key), as in fwd_block.
+// A row whose gmax is -1e30 saw no key and takes store_dead_rows, as in
+// fwd_block.
 
 template <int D>
 struct MaxSmem {
@@ -445,17 +472,15 @@ __device__ __forceinline__ void max_block(const T* __restrict__ q, const T* __re
 }
 
 // One key tile of pass 2 for the block's 64 query rows, against the row's
-// fixed maximum st.m.  In the dead-row pass every key scores -1e30 and only
-// the rows with `update` set take it in, each key with p = 1.
+// fixed maximum st.m; only the rows with `update` set take it in.
 template <typename T, int D>
 __device__ __forceinline__ void vfa_tile(const T* __restrict__ k, const T* __restrict__ v,
                                          const Problem& p, int q0, int k0, int r, int row,
-                                         int g, FwdSmem<D>& sm, FwdRow<D>& st, bool dead_pass,
-                                         bool update) {
+                                         int g, FwdSmem<D>& sm, FwdRow<D>& st, bool update) {
   constexpr int BK = FwdSmem<D>::BK;
   constexpr int NV = D / 16;
   __syncthreads();  // the previous tile is no longer read
-  const bool use_mask = p.mask != nullptr && !dead_pass;
+  const bool use_mask = p.mask != nullptr;
   const bool causal = p.causal != 0;
   stage_key_tile<T, D>(k, v, p, q0, k0, use_mask, sm);
   __syncthreads();
@@ -474,7 +499,7 @@ __device__ __forceinline__ void vfa_tile(const T* __restrict__ k, const T* __res
 #pragma unroll
     for (int jj = 0; jj < kChunk; ++jj) {
       const int f = sm.kflag[j0 + jj];
-      const bool masked = dead_pass | (f == 0) | (causal & (k0 + j0 + jj > row)) |
+      const bool masked = (f == 0) | (causal & (k0 + j0 + jj > row)) |
                           (use_mask & (sm.ms[r][j0 + jj] == 0));
       const float pr = expf((f < 0 ? -INFINITY : (masked ? kNeg : s[jj])) - st.m);
       st.l += pr;
@@ -484,14 +509,14 @@ __device__ __forceinline__ void vfa_tile(const T* __restrict__ k, const T* __res
   }
 }
 
-// Pass 2 for the block's 64 query rows over `tiles`, gmax read from p.lse,
-// then the dead-row pass over all `ntiles` key tiles; writes out and
-// lse = gmax + log(max(l, 1e-30)).
+// Pass 2 for the block's 64 query rows over `tiles`, gmax read from p.lse;
+// writes out and lse = gmax + log(max(l, 1e-30)), rows that saw no key
+// through store_dead_rows.
 template <typename T, int D>
 __device__ __forceinline__ void vfa_block(const T* __restrict__ q, const T* __restrict__ k,
                                           const T* __restrict__ v, T* __restrict__ out,
                                           float* __restrict__ lse, const Problem& p,
-                                          const TileList& tiles, int ntiles) {
+                                          const TileList& tiles) {
   constexpr int BK = FwdSmem<D>::BK;
   constexpr int NV = D / 16;
   __shared__ FwdSmem<D> sm;
@@ -510,11 +535,12 @@ __device__ __forceinline__ void vfa_block(const T* __restrict__ q, const T* __re
 
   const bool dead = live_row && st.m <= kDeadLse;
   int cur = tiles.begin, jt;
-  while (tiles.next(cur, jt)) vfa_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st, false, !dead);
-  if (__syncthreads_or(dead)) {
-    for (jt = 0; jt < ntiles; ++jt) vfa_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st, true, dead);
-  }
-  if (live_row) store_fwd_row<T, D>(out, lse, p, row, g, st);
+  while (tiles.next(cur, jt)) vfa_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st, !dead);
+
+  __shared__ uint8_t dead_rows[kTileRows];
+  if (g == 0) dead_rows[r] = dead;
+  if (live_row && !dead) store_fwd_row<T, D>(out, lse, p, row, g, st);
+  if (__syncthreads_or(dead)) store_dead_rows<T, D>(v, out, lse, p, q0, dead_rows);
 }
 
 // ---------------------------------------------------------------------------

@@ -142,25 +142,49 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize(
-    "bh,h,n,d,causal,padded",
-    [(64, 16, 257, 64, True, False), (32, 16, 1280, 64, True, False),
-     (8, 4, 300, 64, False, True), (4, 2, 100, 32, True, True), (4, 2, 130, 128, True, False)],
+    "bh,h,n,d,causal,padded,pattern",
+    [(64, 16, 257, 64, True, False, None), (32, 16, 1280, 64, True, False, None),
+     (8, 4, 300, 64, False, True, None), (4, 2, 100, 32, True, True, None), (4, 2, 130, 128, True, False, None),
+     # the bf16 body's head dims, lengths (prefill 257, primed 705, 1280), both
+     # maskings, rows that see no key, and a pattern on the dense grid
+     (8, 4, 257, 32, False, False, None), (8, 4, 705, 32, True, "dead", None),
+     (8, 4, 1280, 32, True, False, None), (8, 4, 705, 64, False, "dead", None),
+     (8, 4, 1280, 64, False, False, None), (8, 4, 257, 128, False, "dead", None),
+     (8, 4, 705, 128, True, False, None), (32, 8, 1280, 128, True, False, None),
+     (8, 4, 1280, 128, True, "dead", None), (8, 4, 1280, 64, True, False, "axial_col"),
+     (8, 4, 705, 128, True, True, "axial_col")],
 )
-def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, bh, h, n, d, causal, padded):
+def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, bh, h, n, d, causal, padded, pattern):
+    """The dense forward against the plain version: f32 on the FMA body,
+    bf16 on the tensor-core body.  padded: key padding with the first 7 keys
+    of batch 0 masked ("dead": every key of the last batch, whose rows then
+    see no key); pattern: a mask on the dense grid."""
+    from dalle_pytorch_tpu_torch.ops import masks
+
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(bh, n, d, generator=g, device=cuda_device).to(dtype) for _ in range(3))
     kmask = None
     if padded:
         kmask = (torch.rand(bh // h, n, generator=g, device=cuda_device) > 0.2).to(torch.int32)
         kmask[0, :7] = 0
+        if padded == "dead":
+            kmask[-1] = 0
+    mask = tables = None
+    if pattern is not None:
+        mask = masks.build_pattern_mask(pattern, 1280, 32)[:n, :n].contiguous().to(cuda_device)
+        tables = tfa.pattern_tables(mask, n, d, causal, grid="dense", device=cuda_device)
     before = tfa.flash_fwd.launches
-    out, lse = tfa.flash_fwd(q, k, v, h=h, causal=causal, key_mask=kmask)
+    out, lse = tfa.flash_fwd(q, k, v, h=h, causal=causal, mask=mask, key_mask=kmask, grid="dense", tables=tables)
     torch.cuda.synchronize()
     assert tfa.flash_fwd.launches == before + 1
-    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, h, causal, d ** -0.5, None, kmask)
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, h, causal, d ** -0.5, mask, kmask)
     assert out.dtype == dtype and lse.shape == (bh, n)
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+    if padded == "dead":
+        rows = slice(bh - h, bh)
+        assert torch.all(lse[rows] <= -1e29)
+        assert (out[rows].float() - v[rows].float().mean(1, keepdim=True)).abs().max().item() <= tol
 
 
 @pytest.mark.cuda

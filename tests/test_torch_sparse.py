@@ -7,19 +7,32 @@ package's own tests run it, and against the JAX dense `attend`.  The CUDA
 wrappers' dispatch is checked on tensors that pass for CUDA tensors (meta
 tensors with the device check patched), with the launch itself recorded
 instead of made (`tests/test_torch_flash.py` runs them on the card).
-`tests/test_torch_sparse_model.py` holds a pattern model."""
+`tests/test_torch_sparse_model.py` holds a pattern model.  The test
+marked `cuda` holds the bf16 tensor-core forward's two grids equal on the
+card, where there is no JAX and every other test here skips."""
 import numpy as np
 import pytest
 import torch
 
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
+from dalle_pytorch_tpu_torch.kernels import flash_attention as tfa
+from dalle_pytorch_tpu_torch.kernels import sparse_index as tsi
+from dalle_pytorch_tpu_torch.ops import masks as tmasks
 
-from dalle_pytorch_tpu.kernels import sparse_index as jsi  # noqa: E402
-from dalle_pytorch_tpu.ops import masks as jmasks  # noqa: E402
-from dalle_pytorch_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
-from dalle_pytorch_tpu_torch.kernels import sparse_index as tsi  # noqa: E402
-from dalle_pytorch_tpu_torch.ops import masks as tmasks  # noqa: E402
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from dalle_pytorch_tpu.kernels import sparse_index as jsi
+    from dalle_pytorch_tpu.ops import masks as jmasks
+except ImportError:  # the card's machine
+    jax = jnp = jsi = jmasks = None
+
+
+@pytest.fixture(autouse=True)
+def _reference(request):
+    """Every test here but the card test holds the port against JAX."""
+    if "cuda" not in request.keywords:
+        pytest.importorskip("jax")
 
 # ---------------------------------------------------------------------------
 # masks and tables
@@ -272,3 +285,48 @@ def test_cpu_tensors_take_the_plain_version_on_every_grid():
     out, _ = tfa.flash_fwd_compact(q, k, v, tfa.pattern_tables(mask, 130, 32), h=2, mask=mask)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert (tfa.flash_fwd.launches, tfa.flash_fwd_compact.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["axial_row", "conv_like", "sparse_per_head"])
+def test_bf16_compact_equals_dense_on_card(cuda_device, kind, d):
+    """The bf16 online forward (the tensor-core body) at n 1280: the
+    compacted grid equals the dense grid with the same mask, torch.equal on
+    out and lse, with key padding that leaves the second batch no key (rows
+    that see no key); both hold against the plain version (out 2e-2, lse
+    1e-4)."""
+    b, h, n = 2, 2, 1280
+    if kind == "sparse_per_head":
+        mask = tmasks.build_block_sparse_mask(n, 32, heads=h)
+    else:
+        mask = tmasks.build_pattern_mask(kind, n, 32)
+    mask = mask.contiguous().to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(b * h, n, d, generator=g, device=cuda_device).to(torch.bfloat16) for _ in range(3))
+    kmask = (torch.rand(b, n, generator=g, device=cuda_device) > 0.2).to(torch.int32)
+    kmask[-1] = 0
+    before = (tfa.flash_fwd.launches, tfa.flash_fwd_compact.launches)
+    res = {}
+    for grid in ("dense", "compact"):
+        tables = tfa.pattern_tables(mask, n, d, grid=grid, device=cuda_device)
+        res[grid] = tfa.flash_fwd(q, k, v, h=h, mask=mask, key_mask=kmask, grid=grid, tables=tables)
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_fwd_compact.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(res["dense"][0], res["compact"][0]) and torch.equal(res["dense"][1], res["compact"][1])
+    out, lse = res["compact"]
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, h, True, d ** -0.5, mask, kmask)
+    assert (out.float() - ref_out.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4

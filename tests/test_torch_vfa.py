@@ -274,3 +274,10 @@ def test_vfa_kernels_match_plain_and_online_on_card(cuda_device, dtype, tol, kin
         assert (lse - want_lse).abs().max().item() <= 1e-4
     if dead:
         assert torch.all(gmax[h:] == -1e30) and torch.equal(out[h:], online[h:])
+        # the rule itself, computed apart from the kernels: each channel of v
+        # summed over the n keys in ascending order in f32, divided by n
+        acc = torch.zeros(h, d)
+        for vj in v[h:].float().cpu().unbind(1):
+            acc = acc + vj
+        want = (acc / torch.full_like(acc, n)).to(dtype)
+        assert torch.equal(out[h:].cpu(), want[:, None].expand(h, n, d)) and torch.all(lse[h:] == -1e30)
