@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, counts the
-tensor-core instructions (HGMMA) the forward libraries hold, holds each
+tensor-core instructions (HGMMA) the libraries hold, holds each
 kernel against its plain PyTorch version on the card (the flash forward, and the
 backward's dq and dk/dv kernels, on the dense grid and, for static attention
 patterns, on the compacted grid, which must equal the dense grid with the
@@ -241,13 +241,18 @@ def cuobjdump(build, name, *flags) -> str:
     return proc.stdout
 
 
-def forward_resources(text: str) -> dict:
-    """Registers, stack and local bytes (spills land there) of each forward
-    entry's instantiation, from `cuobjdump -res-usage`, by (entry, dtype, d)."""
+# the entries whose bf16 instantiation runs a tensor-core body
+TC_ENTRIES = ("flash_fwd_kernel", "flash_fwd_compact_kernel", "flash_bwd_dkv_kernel", "flash_dkv_compact_kernel")
+
+
+def kernel_resources(text: str) -> dict:
+    """Registers, stack and local bytes (spills land there) of each
+    instantiation of the entries in TC_ENTRIES, from `cuobjdump -res-usage`,
+    by (entry, dtype, d)."""
     out = {}
     for mangled, reg, stack, local in re.findall(
             r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", text):
-        entry = re.search(r"(flash_fwd(?:_compact)?_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        entry = re.search(rf"({'|'.join(TC_ENTRIES)})I(f|13__nv_bfloat16)Li(\d+)E", mangled)
         if entry:
             dtype = "float32" if entry.group(2) == "f" else "bfloat16"
             out[f"{entry.group(1)} {dtype} d{entry.group(3)}"] = dict(
@@ -268,19 +273,23 @@ def phase_environment(build):
     t0 = time.perf_counter()
     compile_s = build.build_all()
     build_s = time.perf_counter() - t0
-    # the tensor cores are reached only if the forward libraries hold wgmma
-    # (HGMMA in SASS)
+    # the tensor cores are reached only if the libraries hold wgmma (HGMMA
+    # in SASS): the bf16 forward and dk/dv bodies
     mma = {name: {op: sum(f" {op}." in line for line in sass.splitlines()) for op in ("HGMMA", "HMMA")}
            for name in compile_s for sass in [cuobjdump(build, name, "-sass")]}
-    for name in ("flash_fwd", "flash_compact"):
+    for name in ("flash_fwd", "flash_bwd", "flash_compact"):
         check(mma[name]["HGMMA"] > 0, f"lib{name} holds no HGMMA instruction: {mma[name]}")
     resources = {}
-    for name in ("flash_fwd", "flash_compact"):
-        resources.update(forward_resources(cuobjdump(build, name, "-res-usage")))
+    for name in ("flash_fwd", "flash_bwd", "flash_compact"):
+        resources.update(kernel_resources(cuobjdump(build, name, "-res-usage")))
+    # every bf16 dk/dv instantiation keeps its accumulators in registers
+    dkv_bf16 = {key: r for key, r in resources.items() if "dkv" in key and "bfloat16" in key}
+    check(len(dkv_bf16) == 6 and all(r["local_bytes"] == 0 for r in dkv_bf16.values()),
+          f"the bf16 dk/dv instantiations spill or are missing: {dkv_bf16}")
     emit("environment", device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
          kernel_compile_s=compile_s, build_s=build_s, tensor_core_instructions=mma,
-         forward_resources=resources, tf32="off (cudnn.allow_tf32=False, matmul precision highest)")
+         kernel_resources=resources, tf32="off (cudnn.allow_tf32=False, matmul precision highest)")
 
 
 def phase_kernel_vs_plain(fa):
@@ -342,13 +351,15 @@ def phase_kernel_vs_plain(fa):
 
 def phase_backward_vs_plain(fa):
     """flash_bwd's two kernels against flash_attention_backward_reference at
-    the training shape, the ragged prefill length and a padded non-causal
-    case whose second batch masks every key (rows that see no key).  The
-    error is max abs error over the reference's max abs value.  The library
-    time is SDPA forward + backward minus SDPA forward, same inputs."""
+    the training shape, the flagship's (d 128), the ragged prefill length and
+    a padded non-causal case whose second batch masks every key (rows that
+    see no key).  The error is max abs error over the reference's max abs
+    value.  The library time is SDPA forward + backward minus SDPA forward,
+    same inputs; device times are the kernels' own (`device_times`)."""
     dev = torch.device("cuda")
     cases = [  # (name, b, h, n, d, causal, padded)
         ("train", 4, 16, 1280, 64, True, False),
+        ("flagship", 4, 8, 1280, 128, True, False),  # the flagship's full layers, batch 4
         ("prefill", 4, 16, 257, 64, True, False),
         ("padded_noncausal", 2, 16, 300, 64, False, True),
     ]
@@ -376,10 +387,14 @@ def phase_backward_vs_plain(fa):
             delta = fa._delta(out, lse, do, v)
             dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
             reps = 20 if n >= 1000 else 50
-            dq_ms = time_ms(lambda: fa._call("flash_bwd_dq", q, (q, k, v, do, lse, delta, kmask, None, None, dq),
-                                             h, causal, scale), reps)
-            dkv_ms = time_ms(lambda: fa._call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, kmask, None, None,
-                                                                   dk, dv), h, causal, scale), reps)
+            def dq_kernel():
+                fa._call("flash_bwd_dq", q, (q, k, v, do, lse, delta, kmask, None, None, dq), h, causal, scale)
+
+            def dkv_kernel():
+                fa._call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, kmask, None, None, dk, dv), h, causal,
+                         scale)
+
+            dq_ms, dkv_ms = time_ms(dq_kernel, reps), time_ms(dkv_kernel, reps)
             bwd_ms = time_ms(lambda: fa.flash_bwd(q, k, v, out, lse, do, h=h, causal=causal, key_mask=kmask),
                              reps)
             plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(
@@ -397,14 +412,19 @@ def phase_backward_vs_plain(fa):
                 return torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do4)
 
             library_ms = time_ms(sdpa_fwd_bwd, reps) - time_ms(sdpa_fwd, reps)
+            dtimes = device_times({"flash_bwd_dq_kernel": dq_kernel, "flash_bwd_dkv_kernel": dkv_kernel,
+                                   None: sdpa_fwd_bwd})
+            library_device_ms = dtimes[None] - device_times({None: sdpa_fwd})[None]
             dq_bound, dq_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 3, 1)
             dkv_bound, dkv_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 4, 2)
             row = dict(case=name, dtype=str(dtype).replace("torch.", ""), bh=b * h, n=n, d=d, causal=causal,
                        key_padding=padded, tolerance=TOLERANCE[dtype],
                        **{f"{gname}_max_abs_err": e[0] for gname, e in err.items()},
                        **{f"{gname}_err_over_ref_max": e[1] for gname, e in err.items()},
-                       dq_ms=dq_ms, dkv_ms=dkv_ms, flash_bwd_ms=bwd_ms, plain_ms=plain_ms,
-                       library_bwd_ms=library_ms, sdpa_backend=sdpa_backend(sdpa_fwd_bwd),
+                       dq_ms=dq_ms, dkv_ms=dkv_ms, dq_device_ms=dtimes["flash_bwd_dq_kernel"],
+                       dkv_device_ms=dtimes["flash_bwd_dkv_kernel"], flash_bwd_ms=bwd_ms, plain_ms=plain_ms,
+                       library_bwd_ms=library_ms, library_bwd_device_ms=library_device_ms,
+                       sdpa_backend=sdpa_backend(sdpa_fwd_bwd),
                        dq_bound_ms=dq_bound, dq_bound_by=dq_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by)
             emit("kernel_vs_plain", kernel="flash_dq+flash_dkv", **row)
             results.append(row)
@@ -554,7 +574,10 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                 sdpa_ms = time_ms(sdpa_fwd, 10)
                 sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, 10) - sdpa_ms
                 dtimes = device_times({"flash_fwd_kernel": launch["fwd_dense"],
-                                       "flash_fwd_compact_kernel": launch["fwd_compact"], None: sdpa_fwd})
+                                       "flash_fwd_compact_kernel": launch["fwd_compact"],
+                                       "flash_bwd_dkv_kernel": launch["dkv_dense"],
+                                       "flash_dkv_compact_kernel": launch["dkv_compact"], None: sdpa_fwd})
+                sdpa_bwd_device_ms = device_times({None: sdpa_fwd_bwd})[None] - dtimes[None]
                 compact_auto = fa.pattern_tables(mask, n, d, device=dev).compact
                 vfa = vfa_vs_plain(fa, q, k, v, do, mask, h, tc, res["compact"][:2]) if compact_auto else {}
                 # live tiles per (batch, head), at each kernel's tile
@@ -576,6 +599,9 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                            plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_ms,
                            sdpa_bwd_ms=sdpa_bwd_ms, fwd_dense_device_ms=dtimes["flash_fwd_kernel"],
                            fwd_compact_device_ms=dtimes["flash_fwd_compact_kernel"], sdpa_fwd_device_ms=dtimes[None],
+                           dkv_dense_device_ms=dtimes["flash_bwd_dkv_kernel"],
+                           dkv_compact_device_ms=dtimes["flash_dkv_compact_kernel"],
+                           sdpa_bwd_device_ms=sdpa_bwd_device_ms,
                            **{f"{key}_bound_ms": value[0] for key, value in bound.items()},
                            **{f"{key}_bound_by": value[1] for key, value in bound.items()}, **vfa)
                 emit("sparse_kernel_vs_plain", **row)
@@ -1038,6 +1064,10 @@ def main() -> int:
                 for r in compared if r["case"] == case and r["dtype"] == "bfloat16"}
     prefill = next(r for r in compared if r["case"] == "prefill" and r["dtype"] == "float32")
     bwd = next(r for r in compared_bwd if r["case"] == "train" and r["dtype"] == "float32")
+    dkv_keys = ("bh", "n", "d", "dkv_ms", "dkv_device_ms", "plain_ms", "dkv_bound_ms", "dkv_bound_by",
+                "library_bwd_ms", "library_bwd_device_ms", "sdpa_backend", "dk_err_over_ref_max", "dv_err_over_ref_max")
+    dkv_bf16 = {case: {k: r[k] for k in dkv_keys} for case in ("train", "flagship")
+                for r in compared_bwd if r["case"] == case and r["dtype"] == "bfloat16"}
     shape = {k: bwd[k] for k in ("dtype", "bh", "n", "d", "causal")}
     row = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 64 and r["dtype"] == "float32")
     compact_bf16 = {d: {"ms": r["fwd_compact_ms"], "device_ms": r["fwd_compact_device_ms"],
@@ -1046,6 +1076,13 @@ def main() -> int:
                         "library_ms": r["sdpa_fwd_ms"], "library_device_ms": r["sdpa_fwd_device_ms"],
                         "max_abs_err": r["max_abs_err"], "lse_err": r["lse_err"], "bh": r["bh"]}
                     for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
+    dkv_compact_bf16 = {d: {"ms": r["dkv_compact_ms"], "device_ms": r["dkv_compact_device_ms"],
+                            "dense_grid_ms": r["dkv_dense_ms"], "dense_grid_device_ms": r["dkv_dense_device_ms"],
+                            "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dkv_bound_ms"], "bound_by": r["dkv_bound_by"],
+                            "library_ms": r["sdpa_bwd_ms"], "library_device_ms": r["sdpa_bwd_device_ms"],
+                            "dk_err_over_ref_max": r["dk_err_over_ref_max"],
+                            "dv_err_over_ref_max": r["dv_err_over_ref_max"], "bh": r["bh"]}
+                        for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
     compact_shape = {k: row[k] for k in ("pattern", "dtype", "bh", "n", "d", "live_tiles", "causal_tiles")}
     source_bwd = "dalle_pytorch_tpu_torch/kernels/csrc/flash_bwd.cu"
     source_compact = "dalle_pytorch_tpu_torch/kernels/csrc/flash_compact.cu"
@@ -1085,7 +1122,7 @@ def main() -> int:
         "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dkv_bound_ms"],
         "bound_by": bwd["dkv_bound_by"], "library_ms": bwd["library_bwd_ms"],
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,
-        "masked": pattern_readings(sparse, "dkv_dense"),
+        "bf16_tensor_cores": dkv_bf16, "masked": pattern_readings(sparse, "dkv_dense"),
     }, {
         "name": "flash_fwd_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "524",
         **launched("flash_fwd_compact", "sparse_train"), "max_abs_err": row["max_abs_err"],
@@ -1114,7 +1151,7 @@ def main() -> int:
         "shape": dict(compact_shape, live_tiles=row["live_tiles_dkv"], causal_tiles=row["causal_tiles_dkv"]),
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)",
         "bit_equal_to_dense_all_cases": all(r["bit_equal"] for r in sparse),
-        "by_pattern": pattern_readings(sparse, "dkv_compact"),
+        "bf16_tensor_cores_axial_row": dkv_compact_bf16, "by_pattern": pattern_readings(sparse, "dkv_compact"),
     }]
     vfa = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 128 and r["dtype"] == "float32")
     vfa_shape = {k: vfa[k] for k in ("pattern", "dtype", "bh", "n", "d", "live_tiles", "causal_tiles")}

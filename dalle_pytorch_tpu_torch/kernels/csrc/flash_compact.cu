@@ -9,7 +9,8 @@
 //
 // Computes what the dense-grid kernels of flash_fwd.cu and flash_bwd.cu
 // compute for a static pattern (the same tile bodies: flash_tiles.cuh, and
-// flash_fwd_tc.cuh for the bf16 online forward), but
+// flash_fwd_tc.cuh and flash_bwd_tc.cuh for the bf16 online forward and
+// dk/dv), but
 // each block reads the tiles it visits from a per-head CSR table instead of
 // scanning every tile below the causal diagonal: the forward and dq blocks
 // (one per 64 query rows) walk ptr/idx = row_ptr (H, ceil(n/64) + 1) and the
@@ -43,6 +44,7 @@
 // own list and writes its rows (or keys) at the end.  The max pass stages K
 // alone and computes no exp; the fixed-max pass drops the per-chunk alpha
 // and the rescale of the accumulator.
+#include "flash_bwd_tc.cuh"
 #include "flash_fwd_tc.cuh"
 
 namespace {
@@ -59,7 +61,7 @@ __device__ __forceinline__ TileList block_csr(const Args& a) {
 // the online forward: the tensor-core body for bf16, the FMA body for f32,
 // as in flash_fwd.cu
 template <typename T, int D>
-__global__ void __launch_bounds__(fwd_threads<T>())
+__global__ void __launch_bounds__(block_threads<T>())
 flash_fwd_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
@@ -101,15 +103,22 @@ flash_dq_compact_kernel(Args a) {
                  static_cast<T*>(a.out0), p, block_csr(a), ceil_div(a.n, inner_tile<D>()));
 }
 
+// dk/dv: the tensor-core body for bf16, the FMA body for f32, as in
+// flash_bwd.cu
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<T>())
 flash_dkv_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, a.delta, a.kmask,
                                  a.mask, a.mask_heads);
-  dkv_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                  static_cast<T*>(a.out0), static_cast<T*>(a.out1), p, block_csr(a),
-                  ceil_div(a.n, inner_tile<D>()));
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const int nq = ceil_div(a.n, inner_tile<D>());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    dkv_block_tc<D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p, block_csr(a), nq);
+  else
+    dkv_block<T, D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p, block_csr(a), nq);
 }
 
 }  // namespace
@@ -130,7 +139,7 @@ extern "C" int flash_fwd_compact(const void* q, const void* k, const void* v, co
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_fwd<T, D, flash_fwd_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_tc<T, tc::Sizes<D>, flash_fwd_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 
@@ -199,7 +208,6 @@ extern "C" int flash_dkv_compact(const void* q, const void* k, const void* v, co
   return run(a, d, dtype, true, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
-    flash_dkv_compact_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+    launch_tc<T, tc::DkvSizes<D>, flash_dkv_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }

@@ -37,7 +37,7 @@ namespace {
 using namespace flash;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(fwd_threads<T>())
+__global__ void __launch_bounds__(block_threads<T>())
 flash_fwd_kernel(Args a) {
   constexpr int BK = inner_tile<D>();
   const int nk = ceil_div(a.n, BK);
@@ -76,6 +76,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   return run(a, d, dtype, false, tile_q, tile_k, live != nullptr, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_fwd<T, D, flash_fwd_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_tc<T, tc::Sizes<D>, flash_fwd_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }

@@ -43,6 +43,9 @@
 //     columns; the row's four threads join at the end.
 //   - Rows that see no key go to store_dead_rows, as in every forward body.
 //
+// The layout, descriptor, wgmma and staging helpers are flash_tc.cuh's,
+// shared with the dk/dv body (flash_bwd_tc.cuh).
+//
 // What remains: no warp specialisation (the one warpgroup issues the loads,
 // both products and the softmax in turn; other blocks on the SM fill its
 // gaps), no persistent blocks, no TMA, and the 64 x 32 tile at d 128, whose
@@ -50,219 +53,23 @@
 // the f32 body share the tile constants).
 #pragma once
 
-#include <type_traits>
-
-#include "flash_tiles.cuh"
+#include "flash_tc.cuh"
 
 namespace flash {
 namespace tc {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 128;  // one warpgroup: wgmma's 64 rows
-constexpr int kStages = 2;     // K/V tiles in flight
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// The shared-memory layout of a tile of R rows by D bf16 channels: the
-// channels in rows of W = min(128, 2D) bytes, D * 2 / W blocks of R such rows
-// one after the other, the 16-byte chunk c of a row stored at c ^ (address
-// bits 7..9) as wgmma's 128-byte swizzle (64-byte at d 32: bits 7..8) reads
-// it.  Every tile starts on 1024 bytes.
-template <int D>
-struct Layout {
-  static constexpr int kRowBytes = 2 * D < 128 ? 2 * D : 128;
-  static constexpr int kChunks = kRowBytes / 16;                   // 16-byte chunks in a row
-  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B, 64B
-
-  // byte offset of chunk c (of D / 8) of row r, in a tile of R rows
-  template <int R>
-  static __device__ __forceinline__ uint32_t chunk(int r, int c) {
-    const uint32_t off = (c / kChunks) * (R * kRowBytes) + r * kRowBytes + (c % kChunks) * 16;
-    return off ^ (((off >> 7) & (kChunks - 1)) << 4);
-  }
-};
 
 template <int D>
 struct Sizes {
   static constexpr int BK = inner_tile<D>();
   static constexpr uint32_t kQ = kTileRows * D * 2;  // bytes of the Q tile
   static constexpr uint32_t kKV = BK * D * 2;        // bytes of one K or V tile
-  // a staged pattern row: the 16-byte chunks that hold the row's BK bytes,
-  // which start up to 15 bytes into the first (a stride that also keeps the
-  // eight rows a warp reads on distinct banks)
-  static constexpr uint32_t kMaskRow = BK + 16;
+  static constexpr uint32_t kMaskRow = mask_row<BK>();  // a staged pattern row
   static constexpr uint32_t kMask = kTileRows * kMaskRow;
   // the dynamic shared memory a block asks for: Q, the K and V rings, and
   // with a pattern its ring
   static constexpr int kTiles = kQ + 2 * kStages * kKV;
+  static constexpr int kSmem = kTiles;
   static constexpr int kSmemMasked = kTiles + kStages * kMask;
-};
-
-// A wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (all in 16-byte units), swizzle mode.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t swizzle) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
-}
-
-// A K-major operand (Q as A, the K tile as B) of an R-row tile at `base`:
-// the 16 channels of k-step ks.  Eight-row groups lie 8 * W bytes apart; the
-// leading offset is unused under a swizzle.
-template <int D, int R>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int ks) {
-  using L = Layout<D>;
-  const int c = 2 * ks;
-  const uint32_t start = base + (c / L::kChunks) * (R * L::kRowBytes) + (c % L::kChunks) * 16;
-  return make_desc(start, 16, 8 * L::kRowBytes, L::kSwizzle);
-}
-
-// The V tile as an MN-major B (transposed): keys 16 * ks .. + 15, channel
-// block nb (64 channels; all 32 at d 32).
-template <int D, int R>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int ks, int nb) {
-  using L = Layout<D>;
-  const uint32_t start = base + nb * (R * L::kRowBytes) + ks * 16 * L::kRowBytes;
-  return make_desc(start, R * L::kRowBytes, 8 * L::kRowBytes, L::kSwizzle);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence, wait or issue.
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-#define FLASH_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define FLASH_F16(i) FLASH_F4(i), FLASH_F4(i + 4), FLASH_F4(i + 8), FLASH_F4(i + 12)
-
-// d (+)= A B, m64n64k16, A and B from shared memory, both K-major;
-// `accumulate` 0 overwrites d.
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : FLASH_F16(0), FLASH_F16(16)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// the same at m64n32k16
-__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : FLASH_F16(0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A B, m64n64k16, A (four registers of bf16 pairs) from registers, B
-// from shared memory MN-major (transposed)
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FLASH_F16(0), FLASH_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// the same at m64n32k16
-__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : FLASH_F16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef FLASH_F16
-#undef FLASH_F4
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// cp.async the rows [r0, r0 + R) of one (batch, head)'s (n, D) matrix `src`
-// into an R-row tile at `dst`; rows past n are zero-filled.
-template <int D, int R>
-__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, int r0, int n, uint32_t dst) {
-  constexpr int C = D / 8;
-#pragma unroll
-  for (int i = 0; i < R * C / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / C;
-    const int c = idx % C;
-    const bool valid = r0 + r < n;
-    cp_async16(dst + Layout<D>::template chunk<R>(r, c),
-               src + static_cast<size_t>(valid ? r0 + r : 0) * D + c * 8, valid);
-  }
-}
-
-// cp.async the pattern's bytes for the 64 query rows at q0 and the BK keys
-// at k0 into a mask tile: row r's bytes start `shift` = (address of the
-// row's first byte) & 15 bytes into its kMaskRow-byte row, as the mask's
-// 16-byte chunks that hold them are copied whole (the neighbouring rows'
-// bytes in them are never read).  Rows past n and chunks wholly past the
-// row's last key are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_mask(const uint8_t* __restrict__ mask, int n, int q0, int k0,
-                                           uint32_t dst) {
-  constexpr int BK = inner_tile<D>();
-  constexpr int C = BK / 16 + 1;  // chunks per row
-  for (int idx = threadIdx.x; idx < kTileRows * C; idx += kThreads) {
-    const int r = idx / C;
-    const int c = idx % C;
-    const int row = q0 + r;
-    const uint8_t* first = mask + static_cast<size_t>(row) * n + k0;
-    const uint8_t* end = mask + static_cast<size_t>(row) * n + min(k0 + BK, n);
-    const uint8_t* at =
-        reinterpret_cast<const uint8_t*>(reinterpret_cast<uintptr_t>(first) & ~uintptr_t{15}) + 16 * c;
-    const bool valid = (row < n) & (at < end);
-    cp_async16(dst + r * Sizes<D>::kMaskRow + 16 * c, valid ? at : mask, valid);
-  }
-}
-
-// One thread's place in the accumulator fragments: rows w*16 + lane/4 and
-// +8 of the block, columns 8j + 2*(lane%4) + {0, 1} of each 8-column group j.
-// Element 4j + 2*rr + e of a fragment is (row rr, column 8j + col + e).
-struct Frag {
-  int rows[2];   // block-relative
-  int col;
-  int shift[2];  // where each row's bytes start in a staged mask row
 };
 
 // Masks S (scaled into base 2) in registers, as fwd_tile does: -1e30 for a
@@ -431,10 +238,7 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
 
   const int lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * kTileRows;
-  Frag f;
-  f.rows[0] = (threadIdx.x / 32) * 16 + lane / 4;
-  f.rows[1] = f.rows[0] + 8;
-  f.col = (lane % 4) * 2;
+  Frag f = frag();
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr)
     f.shift[rr] = use_mask ? static_cast<int>(reinterpret_cast<uintptr_t>(
@@ -447,7 +251,7 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
   auto stage_tile = [&](int t, int s) {
     stage_rows<D, BK>(kb, t * BK, p.n, k_ring + s * S::kKV);
     stage_rows<D, BK>(vb, t * BK, p.n, v_ring + s * S::kKV);
-    if (use_mask) stage_mask<D>(p.mask, p.n, q0, t * BK, mask_ring + s * S::kMask);
+    if (use_mask) stage_mask<kTileRows, BK>(p.mask, p.n, q0, t * BK, mask_ring + s * S::kMask);
   };
   stage_rows<D, kTileRows>(q + p.base, q0, p.n, q_tile);
   int cur = tiles.begin, jt = 0;
@@ -505,30 +309,6 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
     }
   }
   if (__syncthreads_or(any_dead)) store_dead_rows<__nv_bfloat16, D>(v, out, lse, p, q0, dead_rows);
-}
-
-// The forward entries' block size: one warpgroup for the bf16 body, 256
-// threads for the f32 one.
-template <typename T>
-__host__ __device__ constexpr int fwd_threads() {
-  return std::is_same<T, __nv_bfloat16>::value ? tc::kThreads : kThreads;
-}
-
-// Launches a forward entry with its body's block: for bf16 one warpgroup and
-// the tiles (and the pattern's ring, with a pattern) in dynamic shared
-// memory, its limit raised on every launch (a cheap host call, and right on
-// any device) and a failure to raise it left as the error run() returns; for
-// f32 256 threads and static shared memory.
-template <typename T, int D, void (*Kernel)(Args)>
-void launch_fwd(dim3 grid, const Args& a) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using S = tc::Sizes<D>;
-    const int smem = a.mask != nullptr ? S::kSmemMasked : S::kTiles;
-    if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess) return;
-    Kernel<<<grid, tc::kThreads, smem, a.stream>>>(a);
-  } else {
-    Kernel<<<grid, kThreads, 0, a.stream>>>(a);
-  }
 }
 
 }  // namespace flash

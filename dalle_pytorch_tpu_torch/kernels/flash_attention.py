@@ -374,15 +374,35 @@ def _check_cuda_residuals(q, out, lse, do):
         raise ValueError("lse must be contiguous")
 
 
+# bytes past a pattern's last element that the kernels may read: the bf16
+# tensor-core bodies copy each pattern row's bytes as whole 16-byte chunks,
+# and the last chunk of the last row can reach up to 15 bytes past the mask
+_MASK_SLACK = 16
+
+
+def mask_with_slack(mask: torch.Tensor) -> torch.Tensor:
+    """The pattern as contiguous 1-byte 0/1 (bool or uint8 as given) whose
+    storage runs on at least `_MASK_SLACK` bytes (zeros) past its last
+    element, so that the kernels' 16-byte copies stay inside it: the mask
+    itself when its storage already does, else a copy.  A caller that keeps
+    a mask for many calls (`Transformer.attention_inputs`) keeps this one,
+    and no call copies it again."""
+    m = mask if mask.dtype in (torch.bool, torch.uint8) else mask != 0
+    m = m.contiguous()
+    if m.untyped_storage().nbytes() - (m.storage_offset() + m.numel()) * m.element_size() >= _MASK_SLACK:
+        return m
+    buf = torch.zeros(m.numel() + _MASK_SLACK, dtype=m.dtype, device=m.device)
+    buf[: m.numel()] = m.reshape(-1)
+    return buf[: m.numel()].view(m.shape)
+
+
 def _device_mask(q, mask, h):
-    """(the pattern as contiguous 1-byte 0/1 on q's device or None, its head
-    count for the kernels)."""
+    """(the pattern on q's device as `mask_with_slack` gives it, or None; its
+    head count for the kernels)."""
     if mask is None:
         return None, 1
-    m = mask.to(q.device)
-    if m.dtype not in (torch.bool, torch.uint8):
-        m = m != 0
-    return m.contiguous(), (h if m.ndim == 3 else 1)
+    m = mask_with_slack(mask.to(q.device))
+    return m, (h if m.ndim == 3 else 1)
 
 
 def _device_tables(q, tables: PatternTables) -> PatternTables:

@@ -34,7 +34,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from dalle_pytorch_tpu_torch.core.module import LayerNorm, dropout, fan_in_uniform_
-from dalle_pytorch_tpu_torch.kernels.flash_attention import PatternTables, flash_attention, pattern_tables
+from dalle_pytorch_tpu_torch.kernels.flash_attention import PatternTables, flash_attention, mask_with_slack, pattern_tables
 from dalle_pytorch_tpu_torch.kernels.sparse_index import build_decode_tables
 from dalle_pytorch_tpu_torch.ops.attention import attend
 from dalle_pytorch_tpu_torch.ops.masks import ATTN_TYPES, _block_sparse_mask_np, _block_sparse_mask_np_heads, _pattern_mask_np
@@ -274,7 +274,7 @@ class Transformer(nn.Module):
         got = self._attn_inputs.get(cache_key)
         if got is None:
             mask_np = None if pattern is None else np.ascontiguousarray(pattern[..., :n, :n])
-            mask = None if mask_np is None else torch.from_numpy(mask_np).to(device)
+            mask = None if mask_np is None else mask_with_slack(torch.from_numpy(mask_np).to(device))
             tables = None
             if device.type == "cuda":
                 tables = pattern_tables(mask_np, n, cfg.dim_head, causal, cfg.attn_grid, device)
