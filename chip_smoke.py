@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, counts the
-tensor-core instructions (HGMMA) the libraries hold, holds each
-kernel against its plain PyTorch version on the card (the flash forward, and the
-backward's dq and dk/dv kernels, on the dense grid and, for static attention
+tensor-core instructions (HGMMA) the libraries and each bf16 dq
+instantiation hold, holds each kernel against its plain PyTorch version on
+the card (the flash forward, and the backward's dq and dk/dv kernels and the
+delta the dq kernels write, on the dense grid and, for static attention
 patterns, on the compacted grid, which must equal the dense grid with the
 same mask bit for bit), drives the serving path at the full width of the
 12-layer DALL-E (dim 1024, 16 heads, seq 1280, OpenAI-dVAE geometry, seeded
@@ -116,14 +117,15 @@ def flash_bound_ms(bh, n, d, dtype, causal, padded, b):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def backward_bound_ms(bh, n, d, dtype, causal, padded, b, products, outputs):
-    """The least time for one backward kernel: its inputs (q, k, v, do,
-    lse, delta, the key mask) read once and its `outputs` (bh, n, d)
-    tensors written once over the memory rate, against its `products`
-    n x n x d matrix products (2 flops a multiply-add) over the dtype's
-    peak; the larger of the two."""
+def backward_bound_ms(bh, n, d, dtype, causal, padded, b, products):
+    """The least time for one backward kernel: six (bh, n, d) tensors (dq:
+    q, k, v, do and out read, dq written; dk/dv: q, k, v and do read, dk and
+    dv written), lse and delta (read, or delta written by dq) and the key
+    mask each moved once over the memory rate, against its `products` n x n x
+    d matrix products (2 flops a multiply-add) over the dtype's peak; the
+    larger of the two."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (4 + outputs) * bh * n * d * esize + 2 * bh * n * 4 + (b * n * 4 if padded else 0)
+    nbytes = 6 * bh * n * d * esize + 2 * bh * n * 4 + (b * n * 4 if padded else 0)
     pairs = n * (n + 1) // 2 if causal else n * n
     flops = products * 2 * bh * pairs * d
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
@@ -242,21 +244,40 @@ def cuobjdump(build, name, *flags) -> str:
 
 
 # the entries whose bf16 instantiation runs a tensor-core body
-TC_ENTRIES = ("flash_fwd_kernel", "flash_fwd_compact_kernel", "flash_bwd_dkv_kernel", "flash_dkv_compact_kernel")
+TC_ENTRIES = ("flash_fwd_kernel", "flash_fwd_compact_kernel", "flash_bwd_dq_kernel", "flash_dq_compact_kernel",
+              "flash_bwd_dkv_kernel", "flash_dkv_compact_kernel")
+
+
+def instance_key(mangled: str):
+    """'<entry> <dtype> d<D>' of an instantiation of an entry in TC_ENTRIES
+    from its mangled name, or None for another function."""
+    entry = re.search(rf"({'|'.join(TC_ENTRIES)})I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if entry is None:
+        return None
+    return f"{entry.group(1)} {'float32' if entry.group(2) == 'f' else 'bfloat16'} d{entry.group(3)}"
 
 
 def kernel_resources(text: str) -> dict:
     """Registers, stack and local bytes (spills land there) of each
     instantiation of the entries in TC_ENTRIES, from `cuobjdump -res-usage`,
-    by (entry, dtype, d)."""
+    by `instance_key`."""
     out = {}
     for mangled, reg, stack, local in re.findall(
             r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", text):
-        entry = re.search(rf"({'|'.join(TC_ENTRIES)})I(f|13__nv_bfloat16)Li(\d+)E", mangled)
-        if entry:
-            dtype = "float32" if entry.group(2) == "f" else "bfloat16"
-            out[f"{entry.group(1)} {dtype} d{entry.group(3)}"] = dict(
-                registers=int(reg), stack_bytes=int(stack), local_bytes=int(local))
+        key = instance_key(mangled)
+        if key:
+            out[key] = dict(registers=int(reg), stack_bytes=int(stack), local_bytes=int(local))
+    return out
+
+
+def hgmma_by_instance(sass: str) -> dict:
+    """The HGMMA instructions in each instantiation's own SASS (`cuobjdump
+    -sass`, one `Function : <mangled>` section each), by `instance_key`."""
+    out = {}
+    for mangled, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        key = instance_key(mangled)
+        if key:
+            out[key] = sum(" HGMMA." in line for line in body.splitlines())
     return out
 
 
@@ -274,22 +295,32 @@ def phase_environment(build):
     compile_s = build.build_all()
     build_s = time.perf_counter() - t0
     # the tensor cores are reached only if the libraries hold wgmma (HGMMA
-    # in SASS): the bf16 forward and dk/dv bodies
-    mma = {name: {op: sum(f" {op}." in line for line in sass.splitlines()) for op in ("HGMMA", "HMMA")}
-           for name in compile_s for sass in [cuobjdump(build, name, "-sass")]}
+    # in SASS): the bf16 forward, dq and dk/dv bodies
+    sass = {name: cuobjdump(build, name, "-sass") for name in compile_s}
+    mma = {name: {op: sum(f" {op}." in line for line in text.splitlines()) for op in ("HGMMA", "HMMA")}
+           for name, text in sass.items()}
     for name in ("flash_fwd", "flash_bwd", "flash_compact"):
         check(mma[name]["HGMMA"] > 0, f"lib{name} holds no HGMMA instruction: {mma[name]}")
+    hgmma = {}
+    for name in ("flash_fwd", "flash_bwd", "flash_compact"):
+        hgmma.update(hgmma_by_instance(sass[name]))
     resources = {}
     for name in ("flash_fwd", "flash_bwd", "flash_compact"):
         resources.update(kernel_resources(cuobjdump(build, name, "-res-usage")))
-    # every bf16 dk/dv instantiation keeps its accumulators in registers
-    dkv_bf16 = {key: r for key, r in resources.items() if "dkv" in key and "bfloat16" in key}
-    check(len(dkv_bf16) == 6 and all(r["local_bytes"] == 0 for r in dkv_bf16.values()),
-          f"the bf16 dk/dv instantiations spill or are missing: {dkv_bf16}")
+    # every bf16 dq and dk/dv instantiation keeps its accumulators in
+    # registers, and every bf16 dq instantiation runs wgmma in its own SASS
+    for part, label in (("_dq_", "dq"), ("dkv", "dk/dv")):
+        bf16 = {key: r for key, r in resources.items() if part in key and "bfloat16" in key}
+        check(len(bf16) == 6 and all(r["local_bytes"] == 0 for r in bf16.values()),
+              f"the bf16 {label} instantiations spill or are missing: {bf16}")
+    dq_hgmma = {key: count for key, count in hgmma.items() if "_dq_" in key and "bfloat16" in key}
+    check(len(dq_hgmma) == 6 and min(dq_hgmma.values()) > 0,
+          f"a bf16 dq instantiation holds no HGMMA instruction: {dq_hgmma}")
     emit("environment", device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
          kernel_compile_s=compile_s, build_s=build_s, tensor_core_instructions=mma,
-         kernel_resources=resources, tf32="off (cudnn.allow_tf32=False, matmul precision highest)")
+         hgmma_by_instance=hgmma, kernel_resources=resources,
+         tf32="off (cudnn.allow_tf32=False, matmul precision highest)")
 
 
 def phase_kernel_vs_plain(fa):
@@ -384,11 +415,18 @@ def phase_backward_vs_plain(fa):
                 check(err[gname][1] <= TOLERANCE[dtype],
                       f"flash_bwd {gname} {name} {dtype}: error {err[gname][1]} over the reference's max")
 
-            delta = fa._delta(out, lse, do, v)
             dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            delta = torch.empty_like(lse)
             reps = 20 if n >= 1000 else 50
+
             def dq_kernel():
-                fa._call("flash_bwd_dq", q, (q, k, v, do, lse, delta, kmask, None, None, dq), h, causal, scale)
+                fa._call("flash_bwd_dq", q, (q, k, v, do, out, lse, kmask, None, None, dq, delta), h, causal,
+                         scale)
+
+            dq_kernel()
+            torch.cuda.synchronize()
+            delta_err = delta_error(fa, delta, out, lse, do, v)
+            check(delta_err <= 1.0, f"flash_bwd_dq {name} {dtype}: delta at {delta_err} of its limit")
 
             def dkv_kernel():
                 fa._call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, kmask, None, None, dk, dv), h, causal,
@@ -415,10 +453,10 @@ def phase_backward_vs_plain(fa):
             dtimes = device_times({"flash_bwd_dq_kernel": dq_kernel, "flash_bwd_dkv_kernel": dkv_kernel,
                                    None: sdpa_fwd_bwd})
             library_device_ms = dtimes[None] - device_times({None: sdpa_fwd})[None]
-            dq_bound, dq_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 3, 1)
-            dkv_bound, dkv_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 4, 2)
+            dq_bound, dq_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 3)
+            dkv_bound, dkv_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 4)
             row = dict(case=name, dtype=str(dtype).replace("torch.", ""), bh=b * h, n=n, d=d, causal=causal,
-                       key_padding=padded, tolerance=TOLERANCE[dtype],
+                       key_padding=padded, tolerance=TOLERANCE[dtype], delta_err_over_limit=delta_err,
                        **{f"{gname}_max_abs_err": e[0] for gname, e in err.items()},
                        **{f"{gname}_err_over_ref_max": e[1] for gname, e in err.items()},
                        dq_ms=dq_ms, dkv_ms=dkv_ms, dq_device_ms=dtimes["flash_bwd_dq_kernel"],
@@ -429,6 +467,14 @@ def phase_backward_vs_plain(fa):
             emit("kernel_vs_plain", kernel="flash_dq+flash_dkv", **row)
             results.append(row)
     return results
+
+
+def delta_error(fa, delta, out, lse, do, v) -> float:
+    """The largest distance of the dq kernel's delta from `_delta` (the
+    plain version) over its limit, `_delta_limit` (another order of f32
+    sums): at most 1 where every row is within its limit."""
+    diff = (delta.double() - fa._delta(out, lse, do, v).double()).abs()
+    return (diff / fa._delta_limit(out, lse, do, v).clamp_min(1e-300)).max().item()
 
 
 def pattern_mask(masks, kind, n, h):
@@ -538,15 +584,17 @@ def phase_sparse_kernel_vs_plain(fa, masks):
 
                 # each kernel alone, through its entry point, as the wrappers call it
                 m, mh = fa._device_mask(q, mask, h)
-                delta = fa._delta(out, lse, do, v)
                 o, l_ = torch.empty_like(q), torch.empty_like(lse)
                 gq, gk, gv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+                gq2, delta, delta2 = torch.empty_like(q), torch.empty_like(lse), torch.empty_like(lse)
                 calls = {
                     "fwd_dense": ("flash_fwd", (q, k, v, None, m, td.live_rows, o, l_), 0, td.row_tile),
                     "fwd_compact": ("flash_fwd_compact", (q, k, v, None, m, tc.row_ptr, tc.col, o, l_),
                                     tc.col.shape[1], tc.row_tile),
-                    "dq_dense": ("flash_bwd_dq", (q, k, v, do, lse, delta, None, m, td.live_rows, gq), 0, td.row_tile),
-                    "dq_compact": ("flash_dq_compact", (q, k, v, do, lse, delta, None, m, tc.row_ptr, tc.col, gq),
+                    "dq_dense": ("flash_bwd_dq", (q, k, v, do, out, lse, None, m, td.live_rows, gq, delta), 0,
+                                 td.row_tile),
+                    "dq_compact": ("flash_dq_compact",
+                                   (q, k, v, do, out, lse, None, m, tc.row_ptr, tc.col, gq2, delta2),
                                    tc.col.shape[1], tc.row_tile),
                     "dkv_dense": ("flash_bwd_dkv", (q, k, v, do, lse, delta, None, m, td.live_cols, gk, gv), 0,
                                   td.col_tile),
@@ -557,6 +605,14 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                 launch = {key: functools.partial(fa._call, entry, q, ptrs, h, True, scale, mh,
                                                  (td if key.endswith("dense") else tc).heads, tab_len, tile)
                           for key, (entry, ptrs, tab_len, tile) in calls.items()}
+                # the dq kernels' delta, which dk/dv read: the same bits on both grids, near the plain one
+                launch["dq_dense"]()
+                launch["dq_compact"]()
+                torch.cuda.synchronize()
+                check(torch.equal(gq, gq2) and torch.equal(delta, delta2),
+                      f"{kind} d {d} {dtype}: the compacted dq kernel's dq or delta differs from the dense one's")
+                delta_err = delta_error(fa, delta, out, lse, do, v)
+                check(delta_err <= 1.0, f"{kind} d {d} {dtype}: delta at {delta_err} of its limit")
                 ms = {key: time_ms(fn, 10) for key, fn in launch.items()}
                 plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, h, True, scale, mask), 10)
                 plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
@@ -575,6 +631,8 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                 sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, 10) - sdpa_ms
                 dtimes = device_times({"flash_fwd_kernel": launch["fwd_dense"],
                                        "flash_fwd_compact_kernel": launch["fwd_compact"],
+                                       "flash_bwd_dq_kernel": launch["dq_dense"],
+                                       "flash_dq_compact_kernel": launch["dq_compact"],
                                        "flash_bwd_dkv_kernel": launch["dkv_dense"],
                                        "flash_dkv_compact_kernel": launch["dkv_compact"], None: sdpa_fwd})
                 sdpa_bwd_device_ms = device_times({None: sdpa_fwd_bwd})[None] - dtimes[None]
@@ -582,9 +640,10 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                 vfa = vfa_vs_plain(fa, q, k, v, do, mask, h, tc, res["compact"][:2]) if compact_auto else {}
                 # live tiles per (batch, head), at each kernel's tile
                 live_fwd, live_dkv = tc.live_tiles / tc.heads, tc.live_tiles_dkv / tc.heads
-                bound = {  # fwd: q, k, v, out, lse; dq: q, k, v, do, dq, lse, delta; dk/dv: dk, dv too
+                bound = {  # fwd: q, k, v, out, lse; dq: q, k, v, do, out, dq, lse, delta; dk/dv: q, k, v, do,
+                    # dk, dv, lse, delta
                     "fwd": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 2, 4, 1),
-                    "dq": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 3, 5, 2),
+                    "dq": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 3, 6, 2),
                     "dkv": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles_dkv, tc.heads, tc.col_tile[::-1], 4, 6, 2),
                 }
                 row = dict(pattern=kind, dtype=str(dtype).replace("torch.", ""), bh=bh, h=h, n=n, d=d,
@@ -592,6 +651,7 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                            live_tiles=live_fwd, causal_tiles=tc.causal_tiles / tc.heads,
                            live_tiles_dkv=live_dkv, causal_tiles_dkv=tc.causal_tiles_dkv / tc.heads,
                            row_tile=tc.row_tile, col_tile=tc.col_tile, bit_equal=bit_equal,
+                           delta_err_over_limit=delta_err,
                            max_abs_err=err, lse_err=lse_err, tolerance=TOLERANCE[dtype],
                            **{f"{gname}_max_abs_err": e[0] for gname, e in bwd_err.items()},
                            **{f"{gname}_err_over_ref_max": e[1] for gname, e in bwd_err.items()},
@@ -599,6 +659,8 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                            plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_ms,
                            sdpa_bwd_ms=sdpa_bwd_ms, fwd_dense_device_ms=dtimes["flash_fwd_kernel"],
                            fwd_compact_device_ms=dtimes["flash_fwd_compact_kernel"], sdpa_fwd_device_ms=dtimes[None],
+                           dq_dense_device_ms=dtimes["flash_bwd_dq_kernel"],
+                           dq_compact_device_ms=dtimes["flash_dq_compact_kernel"],
                            dkv_dense_device_ms=dtimes["flash_bwd_dkv_kernel"],
                            dkv_compact_device_ms=dtimes["flash_dkv_compact_kernel"],
                            sdpa_bwd_device_ms=sdpa_bwd_device_ms,
@@ -1068,6 +1130,11 @@ def main() -> int:
                 "library_bwd_ms", "library_bwd_device_ms", "sdpa_backend", "dk_err_over_ref_max", "dv_err_over_ref_max")
     dkv_bf16 = {case: {k: r[k] for k in dkv_keys} for case in ("train", "flagship")
                 for r in compared_bwd if r["case"] == case and r["dtype"] == "bfloat16"}
+    dq_keys = ("bh", "n", "d", "dq_ms", "dq_device_ms", "plain_ms", "dq_bound_ms", "dq_bound_by",
+               "library_bwd_ms", "library_bwd_device_ms", "sdpa_backend", "dq_err_over_ref_max",
+               "delta_err_over_limit")
+    dq_bf16 = {case: {k: r[k] for k in dq_keys} for case in ("train", "flagship")
+               for r in compared_bwd if r["case"] == case and r["dtype"] == "bfloat16"}
     shape = {k: bwd[k] for k in ("dtype", "bh", "n", "d", "causal")}
     row = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 64 and r["dtype"] == "float32")
     compact_bf16 = {d: {"ms": r["fwd_compact_ms"], "device_ms": r["fwd_compact_device_ms"],
@@ -1076,6 +1143,12 @@ def main() -> int:
                         "library_ms": r["sdpa_fwd_ms"], "library_device_ms": r["sdpa_fwd_device_ms"],
                         "max_abs_err": r["max_abs_err"], "lse_err": r["lse_err"], "bh": r["bh"]}
                     for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
+    dq_compact_bf16 = {d: {"ms": r["dq_compact_ms"], "device_ms": r["dq_compact_device_ms"],
+                           "dense_grid_ms": r["dq_dense_ms"], "dense_grid_device_ms": r["dq_dense_device_ms"],
+                           "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dq_bound_ms"], "bound_by": r["dq_bound_by"],
+                           "library_ms": r["sdpa_bwd_ms"], "library_device_ms": r["sdpa_bwd_device_ms"],
+                           "dq_err_over_ref_max": r["dq_err_over_ref_max"], "bh": r["bh"]}
+                       for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
     dkv_compact_bf16 = {d: {"ms": r["dkv_compact_ms"], "device_ms": r["dkv_compact_device_ms"],
                             "dense_grid_ms": r["dkv_dense_ms"], "dense_grid_device_ms": r["dkv_dense_device_ms"],
                             "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dkv_bound_ms"], "bound_by": r["dkv_bound_by"],
@@ -1115,7 +1188,8 @@ def main() -> int:
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
         "library_ms": bwd["library_bwd_ms"],
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,
-        "masked": pattern_readings(sparse, "dq_dense"),
+        "delta_err_over_limit_all_cases": max(r["delta_err_over_limit"] for r in compared_bwd + sparse),
+        "bf16_tensor_cores": dq_bf16, "masked": pattern_readings(sparse, "dq_dense"),
     }, {
         "name": "flash_dkv", "route": "cuda", "source": source_bwd, "replaces": replaces + "312",
         **launched("flash_dkv"), "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
@@ -1140,7 +1214,7 @@ def main() -> int:
         "bound_by": row["dq_bound_by"], "library_ms": row["sdpa_bwd_ms"], "shape": compact_shape,
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)",
         "bit_equal_to_dense_all_cases": all(r["bit_equal"] for r in sparse),
-        "by_pattern": pattern_readings(sparse, "dq_compact"),
+        "bf16_tensor_cores_axial_row": dq_compact_bf16, "by_pattern": pattern_readings(sparse, "dq_compact"),
     }, {
         "name": "flash_dkv_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "758",
         **launched("flash_dkv_compact"), "max_abs_err": max(row["dk_max_abs_err"], row["dv_max_abs_err"]),

@@ -9,10 +9,10 @@
 //
 // Computes what the dense-grid kernels of flash_fwd.cu and flash_bwd.cu
 // compute for a static pattern (the same tile bodies: flash_tiles.cuh, and
-// flash_fwd_tc.cuh and flash_bwd_tc.cuh for the bf16 online forward and
-// dk/dv), but
-// each block reads the tiles it visits from a per-head CSR table instead of
-// scanning every tile below the causal diagonal: the forward and dq blocks
+// flash_fwd_tc.cuh, flash_dq_tc.cuh and flash_bwd_tc.cuh for the bf16 online
+// forward, dq and dk/dv), but each block reads the tiles it visits from a
+// per-head CSR table instead of scanning every tile below the causal
+// diagonal: the forward and dq blocks
 // (one per 64 query rows) walk ptr/idx = row_ptr (H, ceil(n/64) + 1) and the
 // ascending key tiles col (H, T); the dk/dv block (one per 64 keys) walks
 // col_ptr (H, ceil(n/64) + 1) and the ascending query tiles row (H, T2).
@@ -45,6 +45,7 @@
 // alone and computes no exp; the fixed-max pass drops the per-chunk alpha
 // and the rescale of the accumulator.
 #include "flash_bwd_tc.cuh"
+#include "flash_dq_tc.cuh"
 #include "flash_fwd_tc.cuh"
 
 namespace {
@@ -93,14 +94,24 @@ flash_fwd_compact_vfa_kernel(Args a) {
                   static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
+// dq and delta: the tensor-core body for bf16, the FMA body for f32, as in
+// flash_bwd.cu
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<T>())
 flash_dq_compact_kernel(Args a) {
-  const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, a.delta, a.kmask,
+  const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
-  dq_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                 static_cast<T*>(a.out0), p, block_csr(a), ceil_div(a.n, inner_tile<D>()));
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* out = static_cast<const T*>(a.out);
+  float* delta = a.lse_out + static_cast<size_t>(blockIdx.y) * a.n;
+  const int nk = ceil_div(a.n, inner_tile<D>());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    dq_block_tc<D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, block_csr(a), nk);
+  else
+    dq_block<T, D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, block_csr(a), nk);
 }
 
 // dk/dv: the tensor-core body for bf16, the FMA body for f32, as in
@@ -178,21 +189,21 @@ extern "C" int flash_fwd_compact_vfa(const void* q, const void* k, const void* v
   });
 }
 
+// writes dq and delta (bh, n) f32, which flash_dkv_compact reads
 extern "C" int flash_dq_compact(const void* q, const void* k, const void* v, const void* dout,
-                                const void* lse, const void* delta, const void* kmask,
+                                const void* out, const void* lse, const void* kmask,
                                 const void* mask, const void* row_ptr, const void* col, void* dq,
-                                int bh, int n, int d, int h, int mask_heads, int tab_heads,
-                                int tab_len, int tile_q, int tile_k, float scale, int causal,
-                                int dtype, void* stream) {
-  if (row_ptr == nullptr || col == nullptr || tab_len <= 0) return -1;
-  const Args a = make_args(q, k, v, dout, lse, delta, kmask, mask, nullptr, row_ptr, col, dq,
-                           nullptr, nullptr, bh, n, h, mask_heads, tab_heads, tab_len, scale, causal,
-                           stream);
+                                void* delta, int bh, int n, int d, int h, int mask_heads,
+                                int tab_heads, int tab_len, int tile_q, int tile_k, float scale,
+                                int causal, int dtype, void* stream) {
+  if (row_ptr == nullptr || col == nullptr || tab_len <= 0 || out == nullptr || delta == nullptr) return -1;
+  Args a = make_args(q, k, v, dout, lse, nullptr, kmask, mask, nullptr, row_ptr, col, dq, nullptr,
+                     delta, bh, n, h, mask_heads, tab_heads, tab_len, scale, causal, stream);
+  a.out = out;
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
-    flash_dq_compact_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+    launch_tc<T, tc::DqSizes<D>, flash_dq_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 

@@ -43,8 +43,9 @@
 //     columns; the row's four threads join at the end.
 //   - Rows that see no key go to store_dead_rows, as in every forward body.
 //
-// The layout, descriptor, wgmma and staging helpers are flash_tc.cuh's,
-// shared with the dk/dv body (flash_bwd_tc.cuh).
+// The layout, descriptor, wgmma, staging and masking helpers are
+// flash_tc.cuh's, shared with the dq body (flash_dq_tc.cuh, which masks in
+// this orientation too) and the dk/dv body (flash_bwd_tc.cuh).
 //
 // What remains: no warp specialisation (the one warpgroup issues the loads,
 // both products and the softmax in turn; other blocks on the SM fill its
@@ -72,35 +73,6 @@ struct Sizes {
   static constexpr int kSmemMasked = kTiles + kStages * kMask;
 };
 
-// Masks S (scaled into base 2) in registers, as fwd_tile does: -1e30 for a
-// causal-future key, a key the pattern forbids or whose padding flag is 0,
-// -inf past n.  `allow` bit 2j + e: the key of column 8j + col + e passes
-// the pattern and the key padding for the row.
-template <int BK, bool kPlain>
-__device__ __forceinline__ void mask_scores(float (&s)[BK / 2], const Frag& f, const Problem& p, int q0,
-                                            int k0, float sc, const uint32_t (&allow)[2]) {
-  const bool causal = p.causal != 0;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = q0 + f.rows[rr];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 4 * j + 2 * rr + e;
-        const float x = s[i] * sc;
-        if constexpr (kPlain) {
-          s[i] = x;
-        } else {
-          const int col = k0 + 8 * j + f.col + e;
-          const bool masked = (((allow[rr] >> (2 * j + e)) & 1u) == 0u) | (causal & (col > row));
-          s[i] = col >= p.n ? -INFINITY : (masked ? kNeg : x);
-        }
-      }
-    }
-  }
-}
-
 // One key tile (stage `stage` of the ring) of the online softmax for the
 // block's 64 query rows: S = Q K^T, mask, rescale, O += P V.  `ms` is the
 // tile's staged pattern (null without one).
@@ -113,33 +85,9 @@ __device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, ui
   constexpr int BK = inner_tile<D>();
   constexpr int NB = D <= 64 ? 1 : D / 64;  // PV products per key step (64 channels each)
 
-  // the pattern bytes and padding flags of this thread's scores, read
-  // before the product so that it hides them; padding indices clamped into
-  // the array (a key past n scores -inf)
-  uint32_t allow[2] = {~0u, ~0u};
-  const bool use_mask = p.mask != nullptr;
-  const bool use_kmask = p.kmask != nullptr;
-  if (use_kmask) {
-    uint32_t bits = 0;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        bits |= static_cast<uint32_t>(p.kmask[min(k0 + 8 * j + f.col + e, p.n - 1)] > 0) << (2 * j + e);
-    allow[0] = allow[1] = bits;
-  }
-  if (use_mask) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const uint8_t* mrow = ms + f.rows[rr] * Sizes<D>::kMaskRow + f.shift[rr];
-      uint32_t bits = 0;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) bits |= static_cast<uint32_t>(mrow[8 * j + f.col + e] != 0) << (2 * j + e);
-      allow[rr] &= bits;
-    }
-  }
+  // read before the product, which hides them
+  uint32_t allow[2];
+  key_allow<BK>(p, ms, f, k0, allow);
 
   float s[BK / 2];
 #pragma unroll
@@ -153,11 +101,10 @@ __device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, ui
   hold(s);
 
   const float sc = p.scale * kLog2e;
-  const bool plain = !(use_mask | use_kmask) & (k0 + BK <= p.n) & ((p.causal == 0) | (k0 + BK - 1 <= q0));
-  if (plain)
-    mask_scores<BK, true>(s, f, p, q0, k0, sc, allow);
+  if (plain_tile<BK>(p, q0, k0))
+    mask_scores<BK, true>(s, f, p, q0, k0, sc, kNeg, allow);
   else
-    mask_scores<BK, false>(s, f, p, q0, k0, sc, allow);
+    mask_scores<BK, false>(s, f, p, q0, k0, sc, kNeg, allow);
 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -239,11 +186,7 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
   const int lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * kTileRows;
   Frag f = frag();
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr)
-    f.shift[rr] = use_mask ? static_cast<int>(reinterpret_cast<uintptr_t>(
-                                 p.mask + static_cast<size_t>(q0 + f.rows[rr]) * p.n) & 15)
-                           : 0;
+  mask_shifts(p, q0, f);
 
   const __nv_bfloat16* kb = k + p.base;
   const __nv_bfloat16* vb = v + p.base;

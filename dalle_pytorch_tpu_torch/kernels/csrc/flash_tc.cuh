@@ -1,11 +1,13 @@
 // The pieces the bf16 tensor-core tile bodies share (sm_90a, `wgmma`, in
 // plain CUDA C++ with inline PTX): the swizzled shared-memory layout of a
 // bf16 tile and its wgmma descriptors, the wgmma products, cp.async staging
-// of tiles and pattern bytes, the accumulator fragment's coordinates, and the
-// launch with dynamic shared memory.
+// of tiles and pattern bytes, the accumulator fragment's coordinates, the
+// masking of a query-row-owned score fragment, and the launch with dynamic
+// shared memory.
 //
-// Used by the forward body (flash_fwd_tc.cuh, fwd_block_tc) and the dk/dv
-// body (flash_bwd_tc.cuh, dkv_block_tc).  Every body is one warpgroup of 128
+// Used by the forward body (flash_fwd_tc.cuh, fwd_block_tc), the dq body
+// (flash_dq_tc.cuh, dq_block_tc) and the dk/dv body (flash_bwd_tc.cuh,
+// dkv_block_tc).  Every body is one warpgroup of 128
 // threads whose 64 rows are wgmma's M; the tiles of the other side are
 // staged once in one layout that serves both as a K-major operand and, read
 // through the transpose bit, as an MN-major one.
@@ -233,6 +235,88 @@ __device__ __forceinline__ Frag frag() {
   f.col = (lane % 4) * 2;
   f.shift[0] = f.shift[1] = 0;
   return f;
+}
+
+// The bodies that own query rows (the forward, dq) mask their m64 x n(BK)
+// score fragment with the helpers below, in that orientation.
+
+// Which of this thread's scores in the key tile at k0 pass the pattern and
+// the key padding: bit 2j + e of allow[rr] for the key of column 8j + col +
+// e.  `ms` is the tile's staged pattern (mask_row<BK>()-byte rows, row rr's
+// bytes from f.shift[rr]); padding indices are clamped into the array (a key
+// past n scores -inf anyway).
+template <int BK>
+__device__ __forceinline__ void key_allow(const Problem& p, const uint8_t* ms, const Frag& f, int k0,
+                                          uint32_t (&allow)[2]) {
+  allow[0] = allow[1] = ~0u;
+  if (p.kmask != nullptr) {
+    uint32_t bits = 0;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bits |= static_cast<uint32_t>(p.kmask[min(k0 + 8 * j + f.col + e, p.n - 1)] > 0) << (2 * j + e);
+    allow[0] = allow[1] = bits;
+  }
+  if (p.mask != nullptr) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const uint8_t* mrow = ms + f.rows[rr] * mask_row<BK>() + f.shift[rr];
+      uint32_t bits = 0;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) bits |= static_cast<uint32_t>(mrow[8 * j + f.col + e] != 0) << (2 * j + e);
+      allow[rr] &= bits;
+    }
+  }
+}
+
+// A key tile that needs no mask for the 64 rows at q0: no pattern, no key
+// padding, no key past n and, under causality, wholly at or below the
+// diagonal.
+template <int BK>
+__device__ __forceinline__ bool plain_tile(const Problem& p, int q0, int k0) {
+  return !((p.mask != nullptr) | (p.kmask != nullptr)) & (k0 + BK <= p.n) &
+         ((p.causal == 0) | (k0 + BK - 1 <= q0));
+}
+
+// Scales S into base 2 (sc = scale * log2 e) and masks it in registers, as
+// fwd_tile does, branch-free: `neg` for a causal-future key or one `allow`
+// does not have, -inf past n.  kPlain (plain_tile) skips the test.
+template <int BK, bool kPlain>
+__device__ __forceinline__ void mask_scores(float (&s)[BK / 2], const Frag& f, const Problem& p, int q0,
+                                            int k0, float sc, float neg, const uint32_t (&allow)[2]) {
+  const bool causal = p.causal != 0;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + f.rows[rr];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * rr + e;
+        const float x = s[i] * sc;
+        if constexpr (kPlain) {
+          s[i] = x;
+        } else {
+          const int col = k0 + 8 * j + f.col + e;
+          const bool masked = (((allow[rr] >> (2 * j + e)) & 1u) == 0u) | (causal & (col > row));
+          s[i] = col >= p.n ? -INFINITY : (masked ? neg : x);
+        }
+      }
+    }
+  }
+}
+
+// The shift of each of this thread's two rows (block rows at q0) in a
+// staged pattern row: where the row's first byte lies in its 16-byte chunk.
+__device__ __forceinline__ void mask_shifts(const Problem& p, int q0, Frag& f) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    f.shift[rr] = p.mask != nullptr ? static_cast<int>(reinterpret_cast<uintptr_t>(
+                                          p.mask + static_cast<size_t>(q0 + f.rows[rr]) * p.n) & 15)
+                                    : 0;
 }
 
 }  // namespace tc

@@ -330,26 +330,34 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void from_f32(float x, float* y) { *y = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* y) { *y = __float2bfloat16_rn(x); }
 
-// The rows of the block (q0..q0+63) with `dead[r]` set saw no key: each gets
-// the average of v over all n keys, every channel summed over j = 0..n-1 in
-// ascending order with fmaf(1, v_j, acc) and divided by max(l, 1e-30), l = n,
-// and lse = -1e30 + log(max(l, 1e-30)).  That is the online softmax's answer
-// when every key scores -1e30 (alpha = 1 and p = 1 for each key), in the
-// same operations, so every forward body that calls this writes the same
-// bits on such rows.  The sum order depends on no thread layout: any block
-// size works.  Called by the whole block, after the caller's walk, when
-// __syncthreads_or found such a row (`dead` is in shared memory).
+// The sum of v over this (batch, head)'s n keys, per channel, into sum[D]
+// (shared memory): j = 0..n-1 in ascending order with fmaf(1, v_j, acc), in
+// an order that depends on no thread layout (any block size).  Called by the
+// whole block; the caller syncs before reading it.
 template <typename T, int D>
-__device__ __noinline__ void store_dead_rows(const T* __restrict__ v, T* __restrict__ out,
-                                             float* __restrict__ lse, const Problem& p, int q0,
-                                             const uint8_t* dead) {
-  __shared__ float sum[D];
+__device__ __forceinline__ void column_sums(const T* __restrict__ v, const Problem& p, float* sum) {
   const T* vb = v + p.base;
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
     float acc = 0.f;
     for (int j = 0; j < p.n; ++j) acc = fmaf(1.f, to_f32(vb[static_cast<size_t>(j) * D + c]), acc);
     sum[c] = acc;
   }
+}
+
+// The rows of the block (q0..q0+63) with `dead[r]` set saw no key: each gets
+// the sum of v over all n keys (column_sums) divided by max(l, 1e-30), l =
+// n, and lse = -1e30 + log(max(l, 1e-30)).  That is the online softmax's
+// answer when every key scores -1e30 (alpha = 1 and p = 1 for each key), in
+// the same operations, so every forward body that calls this writes the
+// same bits on such rows, whatever its block size.  Called by the whole
+// block, after the caller's walk, when __syncthreads_or found such a row
+// (`dead` is in shared memory).
+template <typename T, int D>
+__device__ __noinline__ void store_dead_rows(const T* __restrict__ v, T* __restrict__ out,
+                                             float* __restrict__ lse, const Problem& p, int q0,
+                                             const uint8_t* dead) {
+  __shared__ float sum[D];
+  column_sums<T, D>(v, p, sum);
   __syncthreads();
   const float lc = fmaxf(static_cast<float>(p.n), 1e-30f);
   for (int idx = threadIdx.x; idx < kTileRows * D; idx += blockDim.x) {
@@ -604,11 +612,16 @@ __device__ __forceinline__ void dq_tile(const T* __restrict__ k, const T* __rest
 }
 
 // dq for the block's 64 query rows: over `tiles`, or over all `ntiles` key
-// tiles when a row of the block sees no key.
+// tiles when a row of the block sees no key.  First the rows' delta =
+// rowsum(do * out) in f32, written to `delta` (this (batch, head)'s row) for
+// the dk/dv pass; a row that sees no key takes do . sum_j v_j instead, as
+// `_dense_recompute_grads` has it (column_sums, only in a block that holds
+// such a row).
 template <typename T, int D>
 __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __restrict__ k,
                                          const T* __restrict__ v, const T* __restrict__ dout,
-                                         T* __restrict__ dq, const Problem& p,
+                                         const T* __restrict__ out, T* __restrict__ dq,
+                                         float* __restrict__ delta, const Problem& p,
                                          const TileList& tiles, int ntiles) {
   constexpr int BK = DqSmem<D>::BK;
   constexpr int NV = D / 16;
@@ -620,20 +633,35 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
   const bool live_row = row < p.n;
 
   float4 qr[NV], dor[NV], acc[NV];
+  float part = 0.f;  // this thread's share of do . out
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     const size_t off = p.base + static_cast<size_t>(row) * D + i * 16 + g * 4;
     qr[i] = live_row ? scale4(load4(q + off), p.scale) : zero;
     dor[i] = live_row ? load4(dout + off) : zero;
+    part = dot4(dor[i], live_row ? load4(out + off) : zero, part);
     acc[i] = zero;
   }
   // a row past the end has zero q and do, so its ds is 0 whatever p is
   const float row_lse = live_row ? p.lse[row] : 0.f;
-  const float row_delta = live_row ? p.delta[row] : 0.f;
+  const bool dead = live_row && row_lse <= kDeadLse;
 
   // one call site of the tile body: a second inlined copy costs registers
-  const bool every_tile = __syncthreads_or(live_row && row_lse <= kDeadLse);
+  const bool every_tile = __syncthreads_or(dead);
+  if (every_tile) {
+    __shared__ float4 vsum[D / 4];
+    column_sums<T, D>(v, p, reinterpret_cast<float*>(vsum));
+    __syncthreads();
+    if (dead) {
+      part = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) part = dot4(dor[i], vsum[i * 4 + g], part);
+    }
+  }
+  const float row_delta = row_sum(part);
+  if (live_row && g == 0) delta[row] = row_delta;
+
   int cur = tiles.begin, jt = -1;
   while (every_tile ? ++jt < ntiles : tiles.next(cur, jt))
     dq_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, qr, dor, acc, row_lse, row_delta);
@@ -795,20 +823,22 @@ __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __re
 // against the kernel's.
 struct Args {
   const void *q, *k, *v, *dout;
+  const void* out;  // the forward's out, read by the dq entries for delta
   const float *lse, *delta;
   const int32_t* kmask;
   const uint8_t* mask;
   const uint8_t* live;       // dense grid: tile liveness, or null
   const int32_t *ptr, *idx;  // compacted grid: CSR table
   void *out0, *out1;         // out, dq, or dk and dv
-  float* lse_out;
+  float* lse_out;            // the (bh, n) f32 output: lse, gmax or (dq entries) delta
   int bh, n, h, mask_heads, tab_heads, tab_len;
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-// The Args of a C entry point; the pointers it does not take are null.
+// The Args of a C entry point; the pointers it does not take are null (the
+// dq entries set Args::out after).
 inline Args make_args(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, const void* kmask, const void* mask,
                       const void* live, const void* ptr, const void* idx, void* out0, void* out1,

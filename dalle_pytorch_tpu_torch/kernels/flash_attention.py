@@ -146,7 +146,9 @@ def vfa_fwd_reference(
 
 
 def _delta(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(do * out), (bh, n) f32, as `_flash_bwd` computes it.
+    """delta = rowsum(do * out), (bh, n) f32, as `_flash_bwd` computes it:
+    the plain version of the delta the dq kernels compute before their walk
+    (and write for the dk/dv kernels).
 
     A row that sees no key has lse = -1e30, so p = exp(s - lse) is 1 for
     every one of its n keys and the JAX package's `_dense_recompute_grads`
@@ -154,6 +156,19 @@ def _delta(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, v: torch.Tens
     do32 = do.float()
     live = (do32 * out.float()).sum(-1)
     dead = (do32 * v.float().sum(1, keepdim=True)).sum(-1)
+    return torch.where(lse <= _DEAD_LSE, dead, live)
+
+
+def _delta_limit(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """How far a delta summed in another order of f32 additions (the
+    kernels') may lie from `_delta`'s, (bh, n) f64: d * 2^-24 of sum_d |do *
+    out|; for a row that sees no key the same of sum_d |do * sum_j v_j|,
+    plus n * 2^-24 of sum_d |do| sum_j |v_j| for the column sums of v."""
+    n, d = do.shape[1:]
+    do64, v64 = do.double(), v.double()
+    live = d * 2.0 ** -24 * (do64 * out.double()).abs().sum(-1)
+    dead = d * 2.0 ** -24 * (do64 * v64.sum(1, keepdim=True)).abs().sum(-1) + n * 2.0 ** -24 * (
+        do64.abs() * v64.abs().sum(1, keepdim=True)).sum(-1)
     return torch.where(lse <= _DEAD_LSE, dead, live)
 
 
@@ -415,12 +430,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (its source in csrc/, how many pointers it takes first)
 _ENTRIES = {
     "flash_fwd": ("flash_fwd", 8),
-    "flash_bwd_dq": ("flash_bwd", 10),
+    "flash_bwd_dq": ("flash_bwd", 11),
     "flash_bwd_dkv": ("flash_bwd", 11),
     "flash_fwd_compact": ("flash_compact", 9),
     "flash_max_compact": ("flash_compact", 7),
     "flash_fwd_compact_vfa": ("flash_compact", 10),
-    "flash_dq_compact": ("flash_compact", 11),
+    "flash_dq_compact": ("flash_compact", 12),
     "flash_dkv_compact": ("flash_compact", 12),
 }
 
@@ -581,12 +596,12 @@ def flash_bwd(
     """(bh, n, d) attention backward -> (dq, dk, dv), from the forward's
     out and lse and the output gradient do.
 
-    On CUDA tensors delta = rowsum(do * out) is a torch op, as it is XLA in
-    the JAX package, and then the dense-grid dq kernel and dk/dv kernel
-    launch, each counted in `flash_bwd.dq_launches` /
-    `flash_bwd.dkv_launches`, or, where `grid` and the tables choose the
-    compacted grid, `flash_bwd_compact`; or it raises.  On CPU tensors it
-    runs the plain version."""
+    On CUDA tensors the dense-grid dq kernel launches, which also writes
+    delta = rowsum(do * out) (XLA in the JAX package), then the dk/dv kernel,
+    which reads it, on the same stream, each counted in
+    `flash_bwd.dq_launches` / `flash_bwd.dkv_launches`; or, where `grid` and
+    the tables choose the compacted grid, `flash_bwd_compact`; or it raises.
+    On CPU tensors it runs the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if key_mask is not None:
@@ -602,16 +617,16 @@ def flash_bwd(
     _check_cuda_inputs(q, k, v, h, key_mask)
     _check_cuda_residuals(q, out, lse, do)
     m, mask_heads = _device_mask(q, mask, h)
-    delta = _delta(out, lse, do, v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if tables is None:
-        _call("flash_bwd_dq", q, (q, k, v, do, lse, delta, key_mask, None, None, dq), h, causal, scale)
+        _call("flash_bwd_dq", q, (q, k, v, do, out, lse, key_mask, None, None, dq, delta), h, causal, scale)
         flash_bwd.dq_launches += 1
         _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, None, None, dk, dv), h, causal, scale)
         flash_bwd.dkv_launches += 1
         return dq, dk, dv
     t = _device_tables(q, tables)
-    _call("flash_bwd_dq", q, (q, k, v, do, lse, delta, key_mask, m, t.live_rows, dq), h, causal, scale,
+    _call("flash_bwd_dq", q, (q, k, v, do, out, lse, key_mask, m, t.live_rows, dq, delta), h, causal, scale,
           mask_heads, t.heads, 0, t.row_tile)
     flash_bwd.dq_launches += 1
     _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, m, t.live_cols, dk, dv), h, causal,
@@ -641,8 +656,9 @@ def flash_bwd_compact(
     """The backward over the live tiles of `tables` only: dq by query tile
     from the row lists, dk/dv by key tile from the column lists, each equal
     to the dense kernel given the same mask bit for bit.  On CUDA tensors it
-    launches `csrc/flash_compact.cu`'s two backward kernels (counted in
-    `flash_bwd_compact.dq_launches` / `dkv_launches`) or raises; on CPU
+    launches `csrc/flash_compact.cu`'s two backward kernels, dq (which also
+    writes delta) then dk/dv, on one stream (counted in
+    `flash_bwd_compact.dq_launches` / `dkv_launches`), or raises; on CPU
     tensors it runs the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -657,9 +673,9 @@ def flash_bwd_compact(
     _check_cuda_residuals(q, out, lse, do)
     t = _device_tables(q, tables)
     m, mask_heads = _device_mask(q, mask, h)
-    delta = _delta(out, lse, do, v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _call("flash_dq_compact", q, (q, k, v, do, lse, delta, key_mask, m, t.row_ptr, t.col, dq), h,
+    delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _call("flash_dq_compact", q, (q, k, v, do, out, lse, key_mask, m, t.row_ptr, t.col, dq, delta), h,
           causal, scale, mask_heads, t.heads, t.col.shape[1], t.row_tile)
     flash_bwd_compact.dq_launches += 1
     _call("flash_dkv_compact", q, (q, k, v, do, lse, delta, key_mask, m, t.col_ptr, t.row, dk, dv), h,
