@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, counts the
-tensor-core instructions (HGMMA) the libraries and each bf16 dq
+tensor-core instructions (HGMMA) the libraries and each bf16 dq and VFA
 instantiation hold, holds each kernel against its plain PyTorch version on
 the card (the flash forward, and the backward's dq and dk/dv kernels and the
 delta the dq kernels write, on the dense grid and, for static attention
@@ -245,7 +245,8 @@ def cuobjdump(build, name, *flags) -> str:
 
 # the entries whose bf16 instantiation runs a tensor-core body
 TC_ENTRIES = ("flash_fwd_kernel", "flash_fwd_compact_kernel", "flash_bwd_dq_kernel", "flash_dq_compact_kernel",
-              "flash_bwd_dkv_kernel", "flash_dkv_compact_kernel")
+              "flash_bwd_dkv_kernel", "flash_dkv_compact_kernel", "flash_max_compact_kernel",
+              "flash_fwd_compact_vfa_kernel")
 
 
 def instance_key(mangled: str):
@@ -295,7 +296,7 @@ def phase_environment(build):
     compile_s = build.build_all()
     build_s = time.perf_counter() - t0
     # the tensor cores are reached only if the libraries hold wgmma (HGMMA
-    # in SASS): the bf16 forward, dq and dk/dv bodies
+    # in SASS): the bf16 forward, dq, dk/dv and VFA bodies
     sass = {name: cuobjdump(build, name, "-sass") for name in compile_s}
     mma = {name: {op: sum(f" {op}." in line for line in text.splitlines()) for op in ("HGMMA", "HMMA")}
            for name, text in sass.items()}
@@ -307,15 +308,25 @@ def phase_environment(build):
     resources = {}
     for name in ("flash_fwd", "flash_bwd", "flash_compact"):
         resources.update(kernel_resources(cuobjdump(build, name, "-res-usage")))
-    # every bf16 dq and dk/dv instantiation keeps its accumulators in
-    # registers, and every bf16 dq instantiation runs wgmma in its own SASS
-    for part, label in (("_dq_", "dq"), ("dkv", "dk/dv")):
-        bf16 = {key: r for key, r in resources.items() if part in key and "bfloat16" in key}
-        check(len(bf16) == 6 and all(r["local_bytes"] == 0 for r in bf16.values()),
-              f"the bf16 {label} instantiations spill or are missing: {bf16}")
-    dq_hgmma = {key: count for key, count in hgmma.items() if "_dq_" in key and "bfloat16" in key}
-    check(len(dq_hgmma) == 6 and min(dq_hgmma.values()) > 0,
-          f"a bf16 dq instantiation holds no HGMMA instruction: {dq_hgmma}")
+    # every bf16 dq, dk/dv and VFA instantiation (two entries at d 32, 64
+    # and 128 each) keeps its accumulators in registers, and every bf16 dq
+    # and VFA instantiation runs wgmma in its own SASS
+    entries = {"dq": ("flash_bwd_dq_kernel", "flash_dq_compact_kernel"),
+               "dk/dv": ("flash_bwd_dkv_kernel", "flash_dkv_compact_kernel"),
+               "VFA": ("flash_max_compact_kernel", "flash_fwd_compact_vfa_kernel")}
+
+    def bf16(table, label):
+        return {key: value for key, value in table.items()
+                if "bfloat16" in key and key.split()[0] in entries[label]}
+
+    for label in entries:
+        spills = bf16(resources, label)
+        check(len(spills) == 6 and all(r["local_bytes"] == 0 for r in spills.values()),
+              f"the bf16 {label} instantiations spill or are missing: {spills}")
+    for label in ("dq", "VFA"):
+        counts = bf16(hgmma, label)
+        check(len(counts) == 6 and min(counts.values()) > 0,
+              f"a bf16 {label} instantiation holds no HGMMA instruction: {counts}")
     emit("environment", device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
          kernel_compile_s=compile_s, build_s=build_s, tensor_core_instructions=mma,
@@ -493,8 +504,9 @@ def vfa_vs_plain(fa, q, k, v, do, mask, h, t, online):
     `vfa_fwd_reference` on that gmax and against the online compacted
     kernel's (out, lse) `online` (out at the dtype's tolerance, lse 1e-4),
     the compacted backward run from the VFA lse against the plain backward
-    (over the reference's max); then each pass's time against its bound over
-    the live tiles and its plain version's."""
+    (over the reference's max); then each pass's time (events, and its own
+    device time from the profiler) against its bound over the live tiles and
+    its plain version's."""
     bh, n, d = q.shape
     dtype, scale = q.dtype, d ** -0.5
     out, lse = fa.flash_fwd_compact(q, k, v, t, h, mask=mask, vfa=True)
@@ -530,11 +542,14 @@ def vfa_vs_plain(fa, q, k, v, do, mask, h, t, online):
     # max pass: q, k in, gmax out; fixed-max pass: q, k, v, gmax in, out, lse out
     max_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, 1, 2, 1)
     fwd_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, 2, 4, 2)
+    dtimes = device_times({"flash_max_compact_kernel": max_pass, "flash_fwd_compact_vfa_kernel": fixed_max_pass})
     return dict(vfa_gmax_rel_err=gmax_err, vfa_gmax_max_abs_err=gmax_abs_err.max().item(),
                 vfa_max_abs_err=err, vfa_lse_err=lse_err,
                 vfa_vs_online_max_abs_err=online_err, vfa_vs_online_lse_err=online_lse_err,
                 vfa_bwd_err_over_ref_max=bwd_err,
                 vfa_max_ms=time_ms(max_pass, 10), vfa_fwd_ms=time_ms(fixed_max_pass, 10),
+                vfa_max_device_ms=dtimes["flash_max_compact_kernel"],
+                vfa_fwd_device_ms=dtimes["flash_fwd_compact_vfa_kernel"],
                 vfa_plain_max_ms=time_ms(lambda: fa.vfa_max_reference(q, k, h, True, scale, mask), 10),
                 vfa_plain_fwd_ms=time_ms(lambda: fa.vfa_fwd_reference(q, k, v, gmax, h, True, scale, mask), 10),
                 vfa_max_bound_ms=max_bound[0], vfa_max_bound_by=max_bound[1],
@@ -1233,13 +1248,25 @@ def main() -> int:
     def worst_vfa(key, dtype):
         return max(r[key] for r in sparse if r["dtype"] == dtype and key in r)
 
+    def vfa_bf16(kind, *extra):
+        """a VFA pass's bf16 axial_row readings by head dim (the tensor-core
+        bodies), beside SDPA's whole forward with the mask"""
+        pre = f"vfa_{kind}"
+        return {r["d"]: {"ms": r[f"{pre}_ms"], "device_ms": r[f"{pre}_device_ms"],
+                         "plain_ms": r[f"vfa_plain_{kind}_ms"], "bound_ms": r[f"{pre}_bound_ms"],
+                         "bound_by": r[f"{pre}_bound_by"], "library_ms": r["sdpa_fwd_ms"],
+                         "library_device_ms": r["sdpa_fwd_device_ms"], "bh": r["bh"], **{k: r[k] for k in extra}}
+                for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" and f"{pre}_ms" in r}
+
     kernels += [{
         "name": "flash_max_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "564",
         **launched("flash_max_compact"), "max_abs_err": vfa["vfa_gmax_max_abs_err"],
         "rel_err_all_cases": {dt: worst_vfa("vfa_gmax_rel_err", dt) for dt in ("float32", "bfloat16")},
-        "ms": vfa["vfa_max_ms"], "plain_ms": vfa["vfa_plain_max_ms"], "bound_ms": vfa["vfa_max_bound_ms"],
-        "bound_by": vfa["vfa_max_bound_by"], "library_ms": vfa["sdpa_fwd_ms"], "shape": vfa_shape,
+        "ms": vfa["vfa_max_ms"], "device_ms": vfa["vfa_max_device_ms"], "plain_ms": vfa["vfa_plain_max_ms"],
+        "bound_ms": vfa["vfa_max_bound_ms"], "bound_by": vfa["vfa_max_bound_by"], "library_ms": vfa["sdpa_fwd_ms"],
+        "library_device_ms": vfa["sdpa_fwd_device_ms"], "shape": vfa_shape,
         "note": "library_ms is a whole forward (SDPA with the mask pattern & causal)",
+        "bf16_tensor_cores_axial_row": vfa_bf16("max", "vfa_gmax_rel_err"),
         "by_pattern": pattern_readings(sparse, "vfa_max", 128),
     }, {
         "name": "flash_fwd_compact_vfa", "route": "cuda", "source": source_compact, "replaces": replaces + "595",
@@ -1247,9 +1274,13 @@ def main() -> int:
         "max_abs_err_all_cases": {dt: worst_vfa("vfa_max_abs_err", dt) for dt in ("float32", "bfloat16")},
         "vs_online_max_abs_err_all_cases": {dt: worst_vfa("vfa_vs_online_max_abs_err", dt)
                                             for dt in ("float32", "bfloat16")},
-        "ms": vfa["vfa_fwd_ms"], "plain_ms": vfa["vfa_plain_fwd_ms"], "bound_ms": vfa["vfa_fwd_bound_ms"],
-        "bound_by": vfa["vfa_fwd_bound_by"], "library_ms": vfa["sdpa_fwd_ms"], "shape": vfa_shape,
-        "online_compact_ms": vfa["fwd_compact_ms"], "by_pattern": pattern_readings(sparse, "vfa_fwd", 128),
+        "ms": vfa["vfa_fwd_ms"], "device_ms": vfa["vfa_fwd_device_ms"], "plain_ms": vfa["vfa_plain_fwd_ms"],
+        "bound_ms": vfa["vfa_fwd_bound_ms"], "bound_by": vfa["vfa_fwd_bound_by"], "library_ms": vfa["sdpa_fwd_ms"],
+        "library_device_ms": vfa["sdpa_fwd_device_ms"], "shape": vfa_shape,
+        "online_compact_ms": vfa["fwd_compact_ms"], "online_compact_device_ms": vfa["fwd_compact_device_ms"],
+        "bf16_tensor_cores_axial_row": vfa_bf16("fwd", "vfa_max_abs_err", "vfa_lse_err", "vfa_vs_online_max_abs_err",
+                                                "fwd_compact_device_ms"),
+        "by_pattern": pattern_readings(sparse, "vfa_fwd", 128),
     }]
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not unlaunched, f"kernels never launched on their path: {unlaunched}")

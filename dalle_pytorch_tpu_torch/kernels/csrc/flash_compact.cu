@@ -10,11 +10,12 @@
 // Computes what the dense-grid kernels of flash_fwd.cu and flash_bwd.cu
 // compute for a static pattern (the same tile bodies: flash_tiles.cuh, and
 // flash_fwd_tc.cuh, flash_dq_tc.cuh and flash_bwd_tc.cuh for the bf16 online
-// forward, dq and dk/dv), but each block reads the tiles it visits from a
-// per-head CSR table instead of scanning every tile below the causal
-// diagonal: the forward and dq blocks
-// (one per 64 query rows) walk ptr/idx = row_ptr (H, ceil(n/64) + 1) and the
-// ascending key tiles col (H, T); the dk/dv block (one per 64 keys) walks
+// forward, dq and dk/dv; flash_vfa_tc.cuh for the bf16 VFA pair, the online
+// forward's walk in two other modes), but each block reads the tiles it
+// visits from a per-head CSR table instead of scanning every tile below the
+// causal diagonal: the forward and dq blocks (one per 64 query rows) walk
+// ptr/idx = row_ptr (H, ceil(n/64) + 1) and the ascending key tiles col (H,
+// T); the dk/dv block (one per 64 keys) walks
 // col_ptr (H, ceil(n/64) + 1) and the ascending query tiles row (H, T2).
 // H is 1 for tables shared by every head or h, indexed by bh % h.  The
 // tables fold causality in at tile granularity; the kernels still mask each
@@ -24,9 +25,9 @@
 // for bit.  The VFA pair walks the forward's row lists twice: the max pass
 // writes each row's score maximum gmax (bh, n) f32, the fixed-max pass
 // accumulates exp(s - gmax) with no rescale; it agrees with the online
-// forward to rounding (the sums run in another order, and in bf16 the online
-// forward runs on the tensor cores), not bit for bit, except on rows that see
-// no key, which every forward body hands to store_dead_rows.
+// forward to rounding (the sums run in another order), not bit for bit,
+// except on rows that see no key, which every forward body hands to
+// store_dead_rows.
 //
 // What bounds it on this card: the dense kernels' operations, counted over
 // live tiles only: 4 * bh * T * 64 * BK * d for the forward (2x for dq, 3x
@@ -47,6 +48,7 @@
 #include "flash_bwd_tc.cuh"
 #include "flash_dq_tc.cuh"
 #include "flash_fwd_tc.cuh"
+#include "flash_vfa_tc.cuh"
 
 namespace {
 
@@ -75,23 +77,35 @@ flash_fwd_compact_kernel(Args a) {
     fwd_block<T, D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
+// the VFA max pass: the tensor-core body for bf16 (flash_vfa_tc.cuh), the
+// FMA body for f32
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<T>())
 flash_max_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
-  max_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k), a.lse_out, p,
-                  block_csr(a));
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    max_block_tc<D>(q, k, a.lse_out, p, block_csr(a));
+  else
+    max_block<T, D>(q, k, a.lse_out, p, block_csr(a));
 }
 
-// gmax comes in as Args::lse
+// the VFA fixed-max pass, gmax in as Args::lse: the tensor-core body for
+// bf16 (flash_vfa_tc.cuh), the FMA body for f32
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<T>())
 flash_fwd_compact_vfa_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
-  vfa_block<T, D>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    vfa_block_tc<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
+  else
+    vfa_block<T, D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
 // dq and delta: the tensor-core body for bf16, the FMA body for f32, as in
@@ -166,8 +180,7 @@ extern "C" int flash_max_compact(const void* q, const void* k, const void* kmask
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
-    flash_max_compact_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+    launch_tc<T, tc::MaxSizes<D>, flash_max_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 
@@ -184,8 +197,7 @@ extern "C" int flash_fwd_compact_vfa(const void* q, const void* k, const void* v
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    const dim3 grid(ceil_div(a.n, kTileRows), a.bh);
-    flash_fwd_compact_vfa_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(a);
+    launch_tc<T, tc::Sizes<D>, flash_fwd_compact_vfa_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 

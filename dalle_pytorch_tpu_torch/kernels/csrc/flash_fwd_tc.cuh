@@ -43,6 +43,11 @@
 //     columns; the row's four threads join at the end.
 //   - Rows that see no key go to store_dead_rows, as in every forward body.
 //
+// The same walk, in another mode (tc::Walk), is the bf16 VFA pair's two
+// passes (flash_vfa_tc.cuh): the max pass (no V, no exp, no second product)
+// and the fixed-max pass (this tile with the rescale taken out).  Their
+// instantiations are separate; the forward's compiles as before.
+//
 // The layout, descriptor, wgmma, staging and masking helpers are
 // flash_tc.cuh's, shared with the dq body (flash_dq_tc.cuh, which masks in
 // this orientation too) and the dk/dv body (flash_bwd_tc.cuh).
@@ -59,37 +64,40 @@
 namespace flash {
 namespace tc {
 
-template <int D>
+// What a walk over the block's key tiles computes: the online softmax (the
+// forward), each row's score maximum (the VFA max pass), or accumulation
+// against that fixed maximum with no rescale (the VFA fixed-max pass).
+enum class Walk { kOnline, kMax, kFixed };
+
+// The dynamic shared memory of a walk: Q, the K ring and (kValues) the V
+// ring, and with a pattern its ring.
+template <int D, bool kValues = true>
 struct Sizes {
   static constexpr int BK = inner_tile<D>();
   static constexpr uint32_t kQ = kTileRows * D * 2;  // bytes of the Q tile
   static constexpr uint32_t kKV = BK * D * 2;        // bytes of one K or V tile
   static constexpr uint32_t kMaskRow = mask_row<BK>();  // a staged pattern row
   static constexpr uint32_t kMask = kTileRows * kMaskRow;
-  // the dynamic shared memory a block asks for: Q, the K and V rings, and
-  // with a pattern its ring
-  static constexpr int kTiles = kQ + 2 * kStages * kKV;
+  static constexpr int kTiles = kQ + (kValues ? 2 : 1) * kStages * kKV;
   static constexpr int kSmem = kTiles;
   static constexpr int kSmemMasked = kTiles + kStages * kMask;
 };
 
-// One key tile (stage `stage` of the ring) of the online softmax for the
-// block's 64 query rows: S = Q K^T, mask, rescale, O += P V.  `ms` is the
-// tile's staged pattern (null without one).
+// S = Q K^T for the block's 64 query rows and the key tile at k0 (stage
+// k_tile of the ring; ms: its pattern bytes or null), times `sc`, masked in
+// registers: `neg` for a causal-future, padded or pattern-forbidden key,
+// -inf past n.  Every walk computes its scores here, so the VFA pair's two
+// passes compute the same S bit for bit.
 template <int D>
-__device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, uint32_t q_tile,
-                                            uint32_t k_tile, uint32_t v_tile, const uint8_t* ms,
-                                            const Frag& f,
-                                            float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
-                                            float (&m)[2], float (&l)[2]) {
+__device__ __forceinline__ void scores_tc(const Problem& p, int q0, int k0, uint32_t q_tile, uint32_t k_tile,
+                                          const uint8_t* ms, const Frag& f, float sc, float neg,
+                                          float (&s)[inner_tile<D>() / 2]) {
   constexpr int BK = inner_tile<D>();
-  constexpr int NB = D <= 64 ? 1 : D / 64;  // PV products per key step (64 channels each)
 
   // read before the product, which hides them
   uint32_t allow[2];
   key_allow<BK>(p, ms, f, k0, allow);
 
-  float s[BK / 2];
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
   wgmma_fence();
@@ -100,39 +108,83 @@ __device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, ui
   wgmma_wait();
   hold(s);
 
-  const float sc = p.scale * kLog2e;
   if (plain_tile<BK>(p, q0, k0))
-    mask_scores<BK, true>(s, f, p, q0, k0, sc, kNeg, allow);
+    mask_scores<BK, true>(s, f, p, q0, k0, sc, neg, allow);
   else
-    mask_scores<BK, false>(s, f, p, q0, k0, sc, kNeg, allow);
+    mask_scores<BK, false>(s, f, p, q0, k0, sc, neg, allow);
+}
 
+// One key tile (stage `stage` of the ring) of a walk for the block's 64
+// query rows.  kOnline: S = Q K^T in base 2, mask, rescale, O += P V, with
+// the running maximum m.  kMax: S in natural units, masked, into each
+// thread's maximum m over its own columns.  kFixed: S in natural units,
+// masked, p = 2^((s - m) log2 e) against the row's fixed maximum m (gmax),
+// O += P V with no rescale.  `ms` is the tile's staged pattern (null
+// without one).
+template <int D, Walk W = Walk::kOnline>
+__device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, uint32_t q_tile,
+                                            uint32_t k_tile, uint32_t v_tile, const uint8_t* ms,
+                                            const Frag& f,
+                                            float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
+                                            float (&m)[2], float (&l)[2]) {
+  constexpr int BK = inner_tile<D>();
+  constexpr int NB = D <= 64 ? 1 : D / 64;  // PV products per key step (64 channels each)
+
+  // the VFA pair keeps gmax in natural units, as the JAX max pass writes it:
+  // a row that sees no key gets exactly -1e30
+  float s[BK / 2];
+  scores_tc<D>(p, q0, k0, q_tile, k_tile, ms, f, W == Walk::kOnline ? p.scale * kLog2e : p.scale, kNeg, s);
+
+  if constexpr (W == Walk::kMax) {
+    // each thread over its own columns; the row's four threads join at the end
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float mx = m[rr];
+    for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    // a row at -1e30 so far has alpha = 1 while its scores stay -1e30, and
-    // 0 at its first real score, which clears what the masked keys added
-    const float alpha = ex2(m[rr] - mx);
-    l[rr] *= alpha;
+      for (int j = 0; j < BK / 8; ++j) m[rr] = fmaxf(m[rr], fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
+    return;
+  } else if constexpr (W == Walk::kFixed) {
+    // s - gmax is exactly 0 at the row's largest score (no fused
+    // multiply-add: the intrinsics are never contracted), so p = 1 there
+    // and l >= 1 on every live row
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-      for (int j = 0; j < (D <= 64 ? D : 64) / 8; ++j) {
-        o[nb][4 * j + 2 * rr] *= alpha;
-        o[nb][4 * j + 2 * rr + 1] *= alpha;
-      }
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+        for (int e = 0; e < 2; ++e) {
+          const float pr = ex2(__fmul_rn(__fsub_rn(s[4 * j + 2 * rr + e], m[rr]), kLog2e));
+          l[rr] += pr;
+          s[4 * j + 2 * rr + e] = pr;
+        }
+  } else {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float pr = ex2(s[4 * j + 2 * rr + e] - mx);
-        l[rr] += pr;
-        s[4 * j + 2 * rr + e] = pr;
-      }
-    m[rr] = mx;
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = m[rr];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a row at -1e30 so far has alpha = 1 while its scores stay -1e30, and
+      // 0 at its first real score, which clears what the masked keys added
+      const float alpha = ex2(m[rr] - mx);
+      l[rr] *= alpha;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < (D <= 64 ? D : 64) / 8; ++j) {
+          o[nb][4 * j + 2 * rr] *= alpha;
+          o[nb][4 * j + 2 * rr + 1] *= alpha;
+        }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pr = ex2(s[4 * j + 2 * rr + e] - mx);
+          l[rr] += pr;
+          s[4 * j + 2 * rr + e] = pr;
+        }
+      m[rr] = mx;
+    }
   }
 
   // P as the A fragments of the PV product: k-step ks holds columns
@@ -158,12 +210,16 @@ __device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, ui
 
 }  // namespace tc
 
-// The bf16 forward for the block's 64 query rows over `tiles`, on the tensor
-// cores; writes out (bf16) and lse = m + log(max(l, 1e-30)), rows that saw
-// no key through store_dead_rows.  Launched with tc::kThreads threads and
-// tc::Sizes<D>::kTiles bytes of dynamic shared memory, kSmemMasked with a
-// pattern.
-template <int D>
+// The bf16 walk for the block's 64 query rows over `tiles`, on the tensor
+// cores.  kOnline, the forward: writes out (bf16) and lse = m + log(max(l,
+// 1e-30)).  kMax, the VFA max pass: writes each row's maximum of its masked
+// scores to `lse` as gmax (v and out unused, null).  kFixed, the VFA
+// fixed-max pass: reads gmax from p.lse, writes out and lse = gmax +
+// log(max(l, 1e-30)).  The forward and the fixed-max pass hand rows that saw
+// no key to store_dead_rows.  Launched with tc::kThreads threads and
+// tc::Sizes<D, W != Walk::kMax>::kSmem bytes of dynamic shared memory,
+// kSmemMasked with a pattern.
+template <int D, tc::Walk W = tc::Walk::kOnline>
 __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q,
                                              const __nv_bfloat16* __restrict__ k,
                                              const __nv_bfloat16* __restrict__ v,
@@ -173,7 +229,7 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
   constexpr int BK = inner_tile<D>();
   constexpr int NB = D <= 64 ? 1 : D / 64;
   constexpr int NO = D <= 64 ? D : 64;  // channels of one PV product
-  using S = Sizes<D>;
+  using S = Sizes<D, W != Walk::kMax>;
   // the swizzled tiles need 1024-byte alignment
   extern __shared__ __align__(1024) uint8_t dynamic_smem[];
   const uint32_t q_tile = static_cast<uint32_t>(__cvta_generic_to_shared(dynamic_smem));
@@ -189,11 +245,11 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
   mask_shifts(p, q0, f);
 
   const __nv_bfloat16* kb = k + p.base;
-  const __nv_bfloat16* vb = v + p.base;
-  // K, V and the pattern of key tile t into stage s of their rings
+  // K, V (not in the max pass) and the pattern of key tile t into stage s of
+  // their rings
   auto stage_tile = [&](int t, int s) {
     stage_rows<D, BK>(kb, t * BK, p.n, k_ring + s * S::kKV);
-    stage_rows<D, BK>(vb, t * BK, p.n, v_ring + s * S::kKV);
+    if constexpr (W != Walk::kMax) stage_rows<D, BK>(v + p.base, t * BK, p.n, v_ring + s * S::kKV);
     if (use_mask) stage_mask<kTileRows, BK>(p.mask, p.n, q0, t * BK, mask_ring + s * S::kMask);
   };
   stage_rows<D, kTileRows>(q + p.base, q0, p.n, q_tile);
@@ -209,6 +265,14 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
     for (int i = 0; i < NO / 2; ++i) o[nb][i] = 0.f;
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};
+  if constexpr (W == Walk::kFixed) {
+    // the thread's two rows' gmax; 0 past n, where nothing is stored
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = q0 + f.rows[rr];
+      m[rr] = row < p.n ? p.lse[row] : 0.f;
+    }
+  }
 
   int stage = 0;
   while (have) {
@@ -219,8 +283,8 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
     cp_async_wait_prev();  // all but the group just committed: this tile (and Q)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
     __syncthreads();
-    fwd_tile_tc<D>(p, q0, jt * BK, q_tile, k_ring + stage * S::kKV, v_ring + stage * S::kKV,
-                   dynamic_smem + S::kTiles + stage * S::kMask, f, o, m, l);
+    fwd_tile_tc<D, W>(p, q0, jt * BK, q_tile, k_ring + stage * S::kKV, v_ring + stage * S::kKV,
+                      dynamic_smem + S::kTiles + stage * S::kMask, f, o, m, l);
     __syncthreads();  // this stage is no longer read
     jt = jn;
     have = more;
@@ -228,30 +292,42 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");  // Q alone was staged when the list is empty
 
-  __shared__ uint8_t dead_rows[kTileRows];
-  bool any_dead = false;
+  if constexpr (W == Walk::kMax) {
+    // gmax: the row's four threads join; -1e30 for a row that sees no key
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-    const int row = q0 + f.rows[rr];
-    const bool live_row = row < p.n;
-    const bool dead = live_row && m[rr] == kNeg;
-    if (lane % 4 == 0) dead_rows[f.rows[rr]] = dead;
-    any_dead |= dead;
-    if (live_row && !dead) {
-      const float lc = fmaxf(l[rr], 1e-30f);
-      __nv_bfloat16* o_row = out + p.base + static_cast<size_t>(row) * D;
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int j = 0; j < NO / 8; ++j)
-          *reinterpret_cast<uint32_t*>(o_row + nb * NO + 8 * j + f.col) =
-              pack_bf16(o[nb][4 * j + 2 * rr] / lc, o[nb][4 * j + 2 * rr + 1] / lc);
-      if (lane % 4 == 0) lse[p.base / D + row] = m[rr] * kLn2 + logf(lc);
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = m[rr];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const int row = q0 + f.rows[rr];
+      if (row < p.n && lane % 4 == 0) lse[p.base / D + row] = mx;
     }
+  } else {
+    __shared__ uint8_t dead_rows[kTileRows];
+    bool any_dead = false;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+      const int row = q0 + f.rows[rr];
+      const bool live_row = row < p.n;
+      const bool dead = live_row && (W == Walk::kFixed ? m[rr] <= kDeadLse : m[rr] == kNeg);
+      if (lane % 4 == 0) dead_rows[f.rows[rr]] = dead;
+      any_dead |= dead;
+      if (live_row && !dead) {
+        const float lc = fmaxf(l[rr], 1e-30f);
+        __nv_bfloat16* o_row = out + p.base + static_cast<size_t>(row) * D;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int j = 0; j < NO / 8; ++j)
+            *reinterpret_cast<uint32_t*>(o_row + nb * NO + 8 * j + f.col) =
+                pack_bf16(o[nb][4 * j + 2 * rr] / lc, o[nb][4 * j + 2 * rr + 1] / lc);
+        if (lane % 4 == 0) lse[p.base / D + row] = W == Walk::kFixed ? m[rr] + logf(lc) : m[rr] * kLn2 + logf(lc);
+      }
+    }
+    if (__syncthreads_or(any_dead)) store_dead_rows<__nv_bfloat16, D>(v, out, lse, p, q0, dead_rows);
   }
-  if (__syncthreads_or(any_dead)) store_dead_rows<__nv_bfloat16, D>(v, out, lse, p, q0, dead_rows);
 }
 
 }  // namespace flash
