@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, counts the
-tensor-core instructions (HGMMA) the libraries and each bf16 dq and VFA
-instantiation hold, holds each kernel against its plain PyTorch version on
-the card (the flash forward, and the backward's dq and dk/dv kernels and the
+tensor-core instructions (HGMMA) the libraries and each f32 forward, bf16 dq
+and bf16 VFA instantiation hold, holds each kernel against its plain PyTorch
+version on the card (the flash forward, and the backward's dq and dk/dv kernels and the
 delta the dq kernels write, on the dense grid and, for static attention
 patterns, on the compacted grid, which must equal the dense grid with the
 same mask bit for bit), drives the serving path at the full width of the
@@ -50,7 +50,11 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 FMA units; bf16 tensor cores
+# bf16: the tensor cores.  f32: the least time for f32-accurate products on
+# this card is 3xTF32 (three TF32 tensor-core products for one, f32's 1e-4
+# kept; one TF32 product misses it), a third of the 494.7 TFLOP/s TF32 rate,
+# which beats the 67 TFLOP/s of the FMA units
+PEAK_FLOPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOLERANCE = 1e-4
 
@@ -296,7 +300,8 @@ def phase_environment(build):
     compile_s = build.build_all()
     build_s = time.perf_counter() - t0
     # the tensor cores are reached only if the libraries hold wgmma (HGMMA
-    # in SASS): the bf16 forward, dq, dk/dv and VFA bodies
+    # in SASS): the f32 and bf16 forward bodies, the bf16 dq, dk/dv and VFA
+    # bodies
     sass = {name: cuobjdump(build, name, "-sass") for name in compile_s}
     mma = {name: {op: sum(f" {op}." in line for line in text.splitlines()) for op in ("HGMMA", "HMMA")}
            for name, text in sass.items()}
@@ -308,25 +313,27 @@ def phase_environment(build):
     resources = {}
     for name in ("flash_fwd", "flash_bwd", "flash_compact"):
         resources.update(kernel_resources(cuobjdump(build, name, "-res-usage")))
-    # every bf16 dq, dk/dv and VFA instantiation (two entries at d 32, 64
-    # and 128 each) keeps its accumulators in registers, and every bf16 dq
-    # and VFA instantiation runs wgmma in its own SASS
-    entries = {"dq": ("flash_bwd_dq_kernel", "flash_dq_compact_kernel"),
-               "dk/dv": ("flash_bwd_dkv_kernel", "flash_dkv_compact_kernel"),
-               "VFA": ("flash_max_compact_kernel", "flash_fwd_compact_vfa_kernel")}
+    # every f32 forward and bf16 dq, dk/dv and VFA instantiation (two entries
+    # at d 32, 64 and 128 each) keeps its accumulators in registers, and
+    # every f32 forward (3xTF32) and bf16 dq and VFA instantiation runs
+    # wgmma in its own SASS
+    entries = {("float32", "forward"): ("flash_fwd_kernel", "flash_fwd_compact_kernel"),
+               ("bfloat16", "dq"): ("flash_bwd_dq_kernel", "flash_dq_compact_kernel"),
+               ("bfloat16", "dk/dv"): ("flash_bwd_dkv_kernel", "flash_dkv_compact_kernel"),
+               ("bfloat16", "VFA"): ("flash_max_compact_kernel", "flash_fwd_compact_vfa_kernel")}
 
-    def bf16(table, label):
+    def instances(table, label):
         return {key: value for key, value in table.items()
-                if "bfloat16" in key and key.split()[0] in entries[label]}
+                if key.split()[1] == label[0] and key.split()[0] in entries[label]}
 
     for label in entries:
-        spills = bf16(resources, label)
+        spills = instances(resources, label)
         check(len(spills) == 6 and all(r["local_bytes"] == 0 for r in spills.values()),
-              f"the bf16 {label} instantiations spill or are missing: {spills}")
-    for label in ("dq", "VFA"):
-        counts = bf16(hgmma, label)
+              f"the {' '.join(label)} instantiations spill or are missing: {spills}")
+    for label in (("float32", "forward"), ("bfloat16", "dq"), ("bfloat16", "VFA")):
+        counts = instances(hgmma, label)
         check(len(counts) == 6 and min(counts.values()) > 0,
-              f"a bf16 {label} instantiation holds no HGMMA instruction: {counts}")
+              f"a {' '.join(label)} instantiation holds no HGMMA instruction: {counts}")
     emit("environment", device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
          kernel_compile_s=compile_s, build_s=build_s, tensor_core_instructions=mma,
@@ -336,7 +343,7 @@ def phase_environment(build):
 
 def phase_kernel_vs_plain(fa):
     """flash_fwd against flash_attention_reference at the slices' shapes
-    (f32 runs the FMA body, bf16 the tensor-core body), with SDPA's time
+    (both dtypes on the tensor cores: f32 in 3xTF32, bf16), with SDPA's time
     and the backend it took."""
     dev = torch.device("cuda")
     cases = [  # (name, b, h, n, d, causal, padded)
@@ -672,7 +679,8 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                            **{f"{gname}_err_over_ref_max": e[1] for gname, e in bwd_err.items()},
                            **{f"{key}_ms": value for key, value in ms.items()},
                            plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_ms,
-                           sdpa_bwd_ms=sdpa_bwd_ms, fwd_dense_device_ms=dtimes["flash_fwd_kernel"],
+                           sdpa_bwd_ms=sdpa_bwd_ms, sdpa_backend=sdpa_backend(sdpa_fwd),
+                           fwd_dense_device_ms=dtimes["flash_fwd_kernel"],
                            fwd_compact_device_ms=dtimes["flash_fwd_compact_kernel"], sdpa_fwd_device_ms=dtimes[None],
                            dq_dense_device_ms=dtimes["flash_bwd_dq_kernel"],
                            dq_compact_device_ms=dtimes["flash_dq_compact_kernel"],
@@ -1137,8 +1145,9 @@ def main() -> int:
     main_shape = next(r for r in compared if r["case"] == "train" and r["dtype"] == "float32")
     fwd_keys = ("bh", "n", "d", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_device_ms", "sdpa_backend", "max_abs_err", "lse_err")
-    fwd_bf16 = {case: {k: r[k] for k in fwd_keys} for case in ("train", "flagship")
-                for r in compared if r["case"] == case and r["dtype"] == "bfloat16"}
+    fwd_by_dtype = {dt: {case: {k: r[k] for k in fwd_keys} for case in ("train", "flagship")
+                         for r in compared if r["case"] == case and r["dtype"] == dt}
+                    for dt in ("float32", "bfloat16")}
     prefill = next(r for r in compared if r["case"] == "prefill" and r["dtype"] == "float32")
     bwd = next(r for r in compared_bwd if r["case"] == "train" and r["dtype"] == "float32")
     dkv_keys = ("bh", "n", "d", "dkv_ms", "dkv_device_ms", "plain_ms", "dkv_bound_ms", "dkv_bound_by",
@@ -1152,12 +1161,12 @@ def main() -> int:
                for r in compared_bwd if r["case"] == case and r["dtype"] == "bfloat16"}
     shape = {k: bwd[k] for k in ("dtype", "bh", "n", "d", "causal")}
     row = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 64 and r["dtype"] == "float32")
-    compact_bf16 = {d: {"ms": r["fwd_compact_ms"], "device_ms": r["fwd_compact_device_ms"],
-                        "dense_grid_ms": r["fwd_dense_ms"], "dense_grid_device_ms": r["fwd_dense_device_ms"],
-                        "plain_ms": r["plain_fwd_ms"], "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
-                        "library_ms": r["sdpa_fwd_ms"], "library_device_ms": r["sdpa_fwd_device_ms"],
-                        "max_abs_err": r["max_abs_err"], "lse_err": r["lse_err"], "bh": r["bh"]}
-                    for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
+    compact_by_dtype = {dt: {r["d"]: {
+        "ms": r["fwd_compact_ms"], "device_ms": r["fwd_compact_device_ms"], "dense_grid_ms": r["fwd_dense_ms"],
+        "dense_grid_device_ms": r["fwd_dense_device_ms"], "plain_ms": r["plain_fwd_ms"], "bound_ms": r["fwd_bound_ms"],
+        "bound_by": r["fwd_bound_by"], "library_ms": r["sdpa_fwd_ms"], "library_device_ms": r["sdpa_fwd_device_ms"],
+        "sdpa_backend": r["sdpa_backend"], "max_abs_err": r["max_abs_err"], "lse_err": r["lse_err"], "bh": r["bh"]}
+        for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == dt} for dt in ("float32", "bfloat16")}
     dq_compact_bf16 = {d: {"ms": r["dq_compact_ms"], "device_ms": r["dq_compact_device_ms"],
                            "dense_grid_ms": r["dq_dense_ms"], "dense_grid_device_ms": r["dq_dense_device_ms"],
                            "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dq_bound_ms"], "bound_by": r["dq_bound_by"],
@@ -1190,11 +1199,12 @@ def main() -> int:
         "max_abs_err": main_shape["max_abs_err"],
         "max_abs_err_all_cases": {r["dtype"]: max(x["max_abs_err"] for x in compared if x["dtype"] == r["dtype"])
                                   for r in compared},
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
+        "ms": main_shape["ms"], "device_ms": main_shape["device_ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"], "library_device_ms": main_shape["library_device_ms"],
         "sdpa_backend": main_shape["sdpa_backend"],
         "shape": {k: main_shape[k] for k in ("dtype", "bh", "n", "d", "causal")},
-        "bf16_tensor_cores": fwd_bf16,
+        "f32_tensor_cores": fwd_by_dtype["float32"], "bf16_tensor_cores": fwd_by_dtype["bfloat16"],
         "prefill": {k: prefill[k] for k in ("bh", "n", "ms", "plain_ms", "bound_ms", "library_ms")},
         "masked": pattern_readings(sparse, "fwd_dense"),
     }, {
@@ -1216,10 +1226,12 @@ def main() -> int:
         "name": "flash_fwd_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "524",
         **launched("flash_fwd_compact", "sparse_train"), "max_abs_err": row["max_abs_err"],
         "max_abs_err_all_cases": {dt: worst("max_abs_err", dt) for dt in ("float32", "bfloat16")},
-        "ms": row["fwd_compact_ms"], "plain_ms": row["plain_fwd_ms"], "bound_ms": row["fwd_bound_ms"],
-        "bound_by": row["fwd_bound_by"], "library_ms": row["sdpa_fwd_ms"], "shape": compact_shape,
+        "ms": row["fwd_compact_ms"], "device_ms": row["fwd_compact_device_ms"], "plain_ms": row["plain_fwd_ms"],
+        "bound_ms": row["fwd_bound_ms"], "bound_by": row["fwd_bound_by"], "library_ms": row["sdpa_fwd_ms"],
+        "library_device_ms": row["sdpa_fwd_device_ms"], "shape": compact_shape,
         "bit_equal_to_dense_all_cases": all(r["bit_equal"] for r in sparse),
-        "bf16_tensor_cores_axial_row": compact_bf16,
+        "f32_tensor_cores_axial_row": compact_by_dtype["float32"],
+        "bf16_tensor_cores_axial_row": compact_by_dtype["bfloat16"],
         "by_pattern": pattern_readings(sparse, "fwd_compact"),
     }, {
         "name": "flash_dq_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "723",

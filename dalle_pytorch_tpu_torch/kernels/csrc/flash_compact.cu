@@ -8,10 +8,12 @@
 // `_dkv_kernel_compact` (launched by `_flash_bwd_compact`).
 //
 // Computes what the dense-grid kernels of flash_fwd.cu and flash_bwd.cu
-// compute for a static pattern (the same tile bodies: flash_tiles.cuh, and
-// flash_fwd_tc.cuh, flash_dq_tc.cuh and flash_bwd_tc.cuh for the bf16 online
-// forward, dq and dk/dv; flash_vfa_tc.cuh for the bf16 VFA pair, the online
-// forward's walk in two other modes), but each block reads the tiles it
+// compute for a static pattern (the same tile bodies: flash_fwd_tc.cuh and
+// flash_fwd_tf32.cuh for the online forward in bf16 and f32;
+// flash_dq_tc.cuh and flash_bwd_tc.cuh for the bf16 dq and dk/dv;
+// flash_vfa_tc.cuh for the bf16 VFA pair, the online forward's walk in two
+// other modes; flash_tiles.cuh for the f32 VFA pair, dq and dk/dv), but
+// each block reads the tiles it
 // visits from a per-head CSR table instead of scanning every tile below the
 // causal diagonal: the forward and dq blocks (one per 64 query rows) walk
 // ptr/idx = row_ptr (H, ceil(n/64) + 1) and the ascending key tiles col (H,
@@ -33,11 +35,12 @@
 // live tiles only: 4 * bh * T * 64 * BK * d for the forward (2x for dq, 3x
 // for dk/dv; the VFA pair 2 * bh * T * 64 * BK * d for the max pass and the
 // forward's count for the fixed-max pass), against q, k, v, out and lse each
-// moved once.  In f32 it is bound by operations on the FMA units, and a
-// pattern that kills half the causal tiles halves the work; in bf16 the
-// tensor cores' products over the live tiles take less time than moving the
-// tensors once (axial_row, n 1280, d 64: 0.008 against 0.013 ms), so there
-// it is bound by bytes.
+// moved once.  In f32 it is bound by operations (the forward on the tensor
+// cores as 3xTF32 at 165 TFLOP/s, the VFA pair, dq and dk/dv on the FMA
+// units at 67), and a pattern that kills half the causal tiles halves the
+// work; in bf16 the tensor cores' products over the live tiles take less
+// time than moving the tensors once (axial_row, n 1280, d 64: 0.008 against
+// 0.013 ms), so there it is bound by bytes.
 //
 // What the design does about it: no grid slot, no load and no liveness test
 // for a dead tile.  The TPU's flat (bh, T) grid with first/last/valid flags
@@ -47,7 +50,7 @@
 // and the rescale of the accumulator.
 #include "flash_bwd_tc.cuh"
 #include "flash_dq_tc.cuh"
-#include "flash_fwd_tc.cuh"
+#include "flash_fwd_tf32.cuh"
 #include "flash_vfa_tc.cuh"
 
 namespace {
@@ -61,10 +64,10 @@ __device__ __forceinline__ TileList block_csr(const Args& a) {
   return csr_list(ptr, a.idx + static_cast<size_t>(head) * a.tab_len, blockIdx.x);
 }
 
-// the online forward: the tensor-core body for bf16, the FMA body for f32,
-// as in flash_fwd.cu
+// the online forward: one warpgroup on the tensor cores, the bf16 body or the
+// f32 3xTF32 body, as in flash_fwd.cu
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_fwd_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
@@ -74,7 +77,7 @@ flash_fwd_compact_kernel(Args a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     fwd_block_tc<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
   else
-    fwd_block<T, D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
+    fwd_block_tf32<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
 // the VFA max pass: the tensor-core body for bf16 (flash_vfa_tc.cuh), the
@@ -164,7 +167,7 @@ extern "C" int flash_fwd_compact(const void* q, const void* k, const void* v, co
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::Sizes<D>, flash_fwd_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<FwdSizes<T, D>, flash_fwd_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 

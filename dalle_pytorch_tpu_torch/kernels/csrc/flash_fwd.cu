@@ -17,27 +17,29 @@
 // d = 32 to 128) the two matrix products are 4*n*n*d operations (halved under
 // causality, cut further by a pattern) against 4*n*d elements moved, so the
 // work is bound by operations, not bytes: 989 TFLOP/s on the bf16 tensor
-// cores, 67 TFLOP/s on the f32 FMA units.
+// cores; in f32 the products run as 3xTF32 (three TF32 products for one,
+// which keeps f32's 1e-4), 494.7 / 3 = 165 TFLOP/s on the same tensor cores.
 //
 // What the design does about it: one block owns 64 query rows of one (batch,
 // head) and loops over key tiles itself, staging each K/V tile once in shared
 // memory for all 64 rows; dead key tiles (causal or pattern) are never
-// loaded.  The dtype picks the tile body:
-//   bf16  fwd_block_tc (flash_fwd_tc.cuh): one warpgroup, both products on
-//         wgmma, bf16 tiles in a two-stage cp.async ring, the softmax once
-//         per key tile in registers;
-//   f32   fwd_block (flash_tiles.cuh): 256 threads on the FMA units, tiles
-//         widened to f32, four threads per query row joined by shuffles
-//         (the repo runs f32 with TF32 off, so f32 stays off the tensor
-//         cores).
-#include "flash_fwd_tc.cuh"
+// loaded.  The block is one warpgroup in both dtypes, and the dtype picks
+// the tile body:
+//   bf16  fwd_block_tc (flash_fwd_tc.cuh): both products on wgmma, bf16
+//         tiles in a two-stage cp.async ring, the softmax once per key tile
+//         in registers;
+//   f32   fwd_block_tf32 (flash_fwd_tf32.cuh): both products on wgmma as
+//         3xTF32, every operand split into TF32 hi and lo tiles, K and V
+//         split through registers (V transposed: TF32 operands are K-major
+//         only), the same softmax and masking as the bf16 body.
+#include "flash_fwd_tf32.cuh"
 
 namespace {
 
 using namespace flash;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_fwd_kernel(Args a) {
   constexpr int BK = inner_tile<D>();
   const int nk = ceil_div(a.n, BK);
@@ -56,7 +58,7 @@ flash_fwd_kernel(Args a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     fwd_block_tc<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, dense_list(live, 0, end));
   else
-    fwd_block<T, D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, dense_list(live, 0, end));
+    fwd_block_tf32<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, dense_list(live, 0, end));
 }
 
 }  // namespace
@@ -76,6 +78,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   return run(a, d, dtype, false, tile_q, tile_k, live != nullptr, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::Sizes<D>, flash_fwd_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<FwdSizes<T, D>, flash_fwd_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }

@@ -4,10 +4,10 @@
 // Replaces, for bf16 inputs: dalle_pytorch_tpu/kernels/flash_attention.py
 // `_fwd_kernel` (dense grid, flash_fwd.cu) and `_fwd_kernel_compact`
 // (compacted grid, flash_compact.cu).  Both entries call fwd_block_tc for
-// __nv_bfloat16 and fwd_block (flash_tiles.cuh, f32 FMA units) for float;
-// the dtype alone picks the body.  fwd_block_tc walks the same TileList as
-// fwd_block, so the compacted grid still equals the dense grid with the same
-// mask bit for bit.
+// __nv_bfloat16 and fwd_block_tf32 (flash_fwd_tf32.cuh, 3xTF32 on the same
+// tensor cores) for float; the dtype alone picks the body.  Each body walks
+// the entry's TileList, so the compacted grid still equals the dense grid
+// with the same mask bit for bit.
 //
 // What bounds it on this card: the two matrix products, 4 * n * n * d
 // operations per (batch, head), halved by causality and cut further by a
@@ -29,8 +29,8 @@
 //     and as an MN-major one (V).  The next key tile's K and V load
 //     (cp.async, zero-filled past n) while this one is in the products: a
 //     ring of two stages.
-//   - The S accumulator is masked in registers with fwd_tile's rule (-1e30
-//     for a causal-future, padded or pattern-forbidden key, -inf past n),
+//   - The S accumulator is masked in registers with the TPU kernel's rule
+//     (-1e30 for a causal-future, padded or pattern-forbidden key, -inf past n),
 //     branch-free per score; a tile wholly below the diagonal with no
 //     pattern and no key padding skips the test.  The pattern's bytes for
 //     the tile travel with K and V (cp.async into a ring beside theirs); the
@@ -50,7 +50,9 @@
 //
 // The layout, descriptor, wgmma, staging and masking helpers are
 // flash_tc.cuh's, shared with the dq body (flash_dq_tc.cuh, which masks in
-// this orientation too) and the dk/dv body (flash_bwd_tc.cuh).
+// this orientation too) and the dk/dv body (flash_bwd_tc.cuh).  The online
+// softmax step (online_softmax) and the rows' epilogue (finish_rows) are
+// shared with the f32 forward body (flash_fwd_tf32.cuh).
 //
 // What remains: no warp specialisation (the one warpgroup issues the loads,
 // both products and the softmax in turn; other blocks on the SM fill its
@@ -114,6 +116,47 @@ __device__ __forceinline__ void scores_tc(const Problem& p, int q0, int k0, uint
     mask_scores<BK, false>(s, f, p, q0, k0, sc, neg, allow);
 }
 
+// The online softmax's step over one key tile: s holds this thread's base-2
+// scores of its two rows (the S accumulator fragment); the running maximum m
+// takes the tile's, l and o are rescaled by alpha = 2^(m_old - m_new), s
+// becomes p = 2^(s - m) in f32 and l adds it.  Each thread keeps l over its
+// own columns; the row's four threads join at the end (finish_rows).
+template <int D>
+__device__ __forceinline__ void online_softmax(float (&s)[inner_tile<D>() / 2],
+                                               float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
+                                               float (&m)[2], float (&l)[2]) {
+  constexpr int BK = inner_tile<D>();
+  constexpr int NB = D <= 64 ? 1 : D / 64;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = m[rr];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // a row at -1e30 so far has alpha = 1 while its scores stay -1e30, and
+    // 0 at its first real score, which clears what the masked keys added
+    const float alpha = ex2(m[rr] - mx);
+    l[rr] *= alpha;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < (D <= 64 ? D : 64) / 8; ++j) {
+        o[nb][4 * j + 2 * rr] *= alpha;
+        o[nb][4 * j + 2 * rr + 1] *= alpha;
+      }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pr = ex2(s[4 * j + 2 * rr + e] - mx);
+        l[rr] += pr;
+        s[4 * j + 2 * rr + e] = pr;
+      }
+    m[rr] = mx;
+  }
+}
+
 // One key tile (stage `stage` of the ring) of a walk for the block's 64
 // query rows.  kOnline: S = Q K^T in base 2, mask, rescale, O += P V, with
 // the running maximum m.  kMax: S in natural units, masked, into each
@@ -157,34 +200,7 @@ __device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, ui
           s[4 * j + 2 * rr + e] = pr;
         }
   } else {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float mx = m[rr];
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // a row at -1e30 so far has alpha = 1 while its scores stay -1e30, and
-      // 0 at its first real score, which clears what the masked keys added
-      const float alpha = ex2(m[rr] - mx);
-      l[rr] *= alpha;
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int j = 0; j < (D <= 64 ? D : 64) / 8; ++j) {
-          o[nb][4 * j + 2 * rr] *= alpha;
-          o[nb][4 * j + 2 * rr + 1] *= alpha;
-        }
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pr = ex2(s[4 * j + 2 * rr + e] - mx);
-          l[rr] += pr;
-          s[4 * j + 2 * rr + e] = pr;
-        }
-      m[rr] = mx;
-    }
+    online_softmax<D>(s, o, m, l);
   }
 
   // P as the A fragments of the PV product: k-step ks holds columns
@@ -209,6 +225,53 @@ __device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, ui
 }
 
 }  // namespace tc
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = tc::pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+// The end of a forward walk (kOnline, or the VFA fixed-max pass kFixed) for
+// the block's 64 query rows: the row's four threads join l, live rows write
+// out = o / max(l, 1e-30) in T and lse (kOnline: m ln 2 + log(max(l,
+// 1e-30)) from the base-2 maximum; kFixed: gmax + log(max(l, 1e-30))), and
+// rows that saw no key (kOnline: m still -1e30; kFixed: gmax at or below
+// kDeadLse) go to store_dead_rows.  Called by the whole block.
+template <typename T, int D, tc::Walk W>
+__device__ __forceinline__ void finish_rows(const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                                            const Problem& p, int q0, const tc::Frag& f,
+                                            float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
+                                            const float (&m)[2], float (&l)[2]) {
+  using namespace tc;
+  constexpr int NB = D <= 64 ? 1 : D / 64;
+  constexpr int NO = D <= 64 ? D : 64;  // channels of one PV product
+  const int lane = threadIdx.x % 32;
+  __shared__ uint8_t dead_rows[kTileRows];
+  bool any_dead = false;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    const int row = q0 + f.rows[rr];
+    const bool live_row = row < p.n;
+    const bool dead = live_row && (W == Walk::kFixed ? m[rr] <= kDeadLse : m[rr] == kNeg);
+    if (lane % 4 == 0) dead_rows[f.rows[rr]] = dead;
+    any_dead |= dead;
+    if (live_row && !dead) {
+      const float lc = fmaxf(l[rr], 1e-30f);
+      T* o_row = out + p.base + static_cast<size_t>(row) * D;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < NO / 8; ++j)
+          store_pair(o_row + nb * NO + 8 * j + f.col, o[nb][4 * j + 2 * rr] / lc, o[nb][4 * j + 2 * rr + 1] / lc);
+      if (lane % 4 == 0) lse[p.base / D + row] = W == Walk::kFixed ? m[rr] + logf(lc) : m[rr] * kLn2 + logf(lc);
+    }
+  }
+  if (__syncthreads_or(any_dead)) store_dead_rows<T, D>(v, out, lse, p, q0, dead_rows);
+}
 
 // The bf16 walk for the block's 64 query rows over `tiles`, on the tensor
 // cores.  kOnline, the forward: writes out (bf16) and lse = m + log(max(l,
@@ -303,30 +366,7 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
       if (row < p.n && lane % 4 == 0) lse[p.base / D + row] = mx;
     }
   } else {
-    __shared__ uint8_t dead_rows[kTileRows];
-    bool any_dead = false;
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-      const int row = q0 + f.rows[rr];
-      const bool live_row = row < p.n;
-      const bool dead = live_row && (W == Walk::kFixed ? m[rr] <= kDeadLse : m[rr] == kNeg);
-      if (lane % 4 == 0) dead_rows[f.rows[rr]] = dead;
-      any_dead |= dead;
-      if (live_row && !dead) {
-        const float lc = fmaxf(l[rr], 1e-30f);
-        __nv_bfloat16* o_row = out + p.base + static_cast<size_t>(row) * D;
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-          for (int j = 0; j < NO / 8; ++j)
-            *reinterpret_cast<uint32_t*>(o_row + nb * NO + 8 * j + f.col) =
-                pack_bf16(o[nb][4 * j + 2 * rr] / lc, o[nb][4 * j + 2 * rr + 1] / lc);
-        if (lane % 4 == 0) lse[p.base / D + row] = W == Walk::kFixed ? m[rr] + logf(lc) : m[rr] * kLn2 + logf(lc);
-      }
-    }
-    if (__syncthreads_or(any_dead)) store_dead_rows<__nv_bfloat16, D>(v, out, lse, p, q0, dead_rows);
+    finish_rows<__nv_bfloat16, D, W>(v, out, lse, p, q0, f, o, m, l);
   }
 }
 

@@ -7,8 +7,10 @@
 //
 // Used by the forward body (flash_fwd_tc.cuh, fwd_block_tc), the dq body
 // (flash_dq_tc.cuh, dq_block_tc) and the dk/dv body (flash_bwd_tc.cuh,
-// dkv_block_tc).  Every body is one warpgroup of 128
-// threads whose 64 rows are wgmma's M; the tiles of the other side are
+// dkv_block_tc), and (descriptors, pattern staging, fragment coordinates,
+// masking, launch) by the f32 forward body on TF32 (flash_fwd_tf32.cuh,
+// fwd_block_tf32).  Every body is one warpgroup of 128
+// threads whose 64 rows are wgmma's M; the bf16 tiles of the other side are
 // staged once in one layout that serves both as a K-major operand and, read
 // through the transpose bit, as an MN-major one.
 #pragma once
@@ -281,9 +283,9 @@ __device__ __forceinline__ bool plain_tile(const Problem& p, int q0, int k0) {
          ((p.causal == 0) | (k0 + BK - 1 <= q0));
 }
 
-// Scales S into base 2 (sc = scale * log2 e) and masks it in registers, as
-// fwd_tile does, branch-free: `neg` for a causal-future key or one `allow`
-// does not have, -inf past n.  kPlain (plain_tile) skips the test.
+// Scales S into base 2 (sc = scale * log2 e) and masks it in registers,
+// branch-free: `neg` for a causal-future key or one `allow` does not have,
+// -inf past n.  kPlain (plain_tile) skips the test.
 template <int BK, bool kPlain>
 __device__ __forceinline__ void mask_scores(float (&s)[BK / 2], const Frag& f, const Problem& p, int q0,
                                             int k0, float sc, float neg, const uint32_t (&allow)[2]) {
@@ -322,23 +324,31 @@ __device__ __forceinline__ void mask_shifts(const Problem& p, int q0, Frag& f) {
 }  // namespace tc
 
 // The block size of an entry whose body the dtype picks: one warpgroup for a
-// bf16 tensor-core body, 256 threads for an f32 FMA body.
+// bf16 tensor-core body, 256 threads for an f32 FMA body (the f32 VFA pair,
+// dq and dk/dv; the forward entries take one warpgroup in both dtypes).
 template <typename T>
 __host__ __device__ constexpr int block_threads() {
   return std::is_same<T, __nv_bfloat16>::value ? tc::kThreads : kThreads;
 }
 
-// Launches an entry with its body's block: for bf16 one warpgroup and the
-// tiles (and the pattern's ring, with a pattern) in the dynamic shared memory
-// that `Smem` (kSmem, kSmemMasked) sizes, its limit raised on every launch
-// (a cheap host call, and right on any device) and a failure to raise it left
-// as the error run() returns; for f32 256 threads and static shared memory.
+// Launches an entry whose body is one warpgroup with its tiles (and the
+// pattern's ring, with a pattern) in the dynamic shared memory that `Smem`
+// (kSmem, kSmemMasked) sizes, its limit raised on every launch (a cheap host
+// call, and right on any device) and a failure to raise it left as the error
+// run() returns.
+template <typename Smem, void (*Kernel)(Args)>
+void launch_wg(dim3 grid, const Args& a) {
+  const int smem = a.mask != nullptr ? Smem::kSmemMasked : Smem::kSmem;
+  if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess) return;
+  Kernel<<<grid, tc::kThreads, smem, a.stream>>>(a);
+}
+
+// Launches an entry with its body's block: for bf16 one warpgroup
+// (launch_wg), for f32 256 threads and static shared memory.
 template <typename T, typename Smem, void (*Kernel)(Args)>
 void launch_tc(dim3 grid, const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int smem = a.mask != nullptr ? Smem::kSmemMasked : Smem::kSmem;
-    if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess) return;
-    Kernel<<<grid, tc::kThreads, smem, a.stream>>>(a);
+    launch_wg<Smem, Kernel>(grid, a);
   } else {
     Kernel<<<grid, kThreads, 0, a.stream>>>(a);
   }

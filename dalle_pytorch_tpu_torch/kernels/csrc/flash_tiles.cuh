@@ -1,6 +1,10 @@
 // Shared device code of the flash-attention kernels for Hopper (sm_90a), in
-// plain CUDA C++: the tile shape, the per-tile bodies of the forward, dq and
-// dk/dv passes, and the block loops that walk a list of tiles.
+// plain CUDA C++: the tile shape, the tile lists, the f32 FMA bodies of the
+// VFA forward, dq and dk/dv passes (the forward's bodies, f32 and bf16, and
+// the bf16 bodies of the other passes run on the tensor cores:
+// flash_fwd_tf32.cuh, flash_fwd_tc.cuh, flash_vfa_tc.cuh, flash_dq_tc.cuh,
+// flash_bwd_tc.cuh), the rows that see no key, and the C entry points'
+// arguments and dispatch.
 //
 // Each pass has two `__global__` entries, built from the same block loop:
 //   dense grid     every tile up to the causal diagonal, skipping those whose
@@ -26,8 +30,8 @@
 // Rows that see no key.  A query row whose keys are all masked follows the
 // plain PyTorch version (the dense softmax): its output averages v over all n
 // keys and its lse is -1e30, and in the backward p = exp(s - lse) = 1 for
-// each of its n keys.  Every forward body (online, VFA, and the bf16
-// tensor-core body of flash_fwd_tc.cuh) finds such rows after its walk and
+// each of its n keys.  Every forward body (the online forward's f32 and bf16
+// tensor-core bodies, and the VFA pair's) finds such rows after its walk and
 // hands them to one routine, store_dead_rows, so the bodies agree on them bit
 // for bit; dq visits every key tile for a block holding one, dk/dv the query
 // tiles off its list that hold one.  Tiles off the list add exact zeros to
@@ -238,7 +242,7 @@ __device__ __forceinline__ void load_q_row(const T* __restrict__ q, const Proble
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// the f32 VFA pair's key tile and row state; rows that see no key
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -260,55 +264,6 @@ struct FwdRow {
   float4 acc[D / 16];
   float m, l;
 };
-
-// One key tile of the online softmax for the block's 64 query rows.
-template <typename T, int D>
-__device__ __forceinline__ void fwd_tile(const T* __restrict__ k, const T* __restrict__ v,
-                                         const Problem& p, int q0, int k0, int r, int row,
-                                         int g, FwdSmem<D>& sm, FwdRow<D>& st) {
-  constexpr int BK = FwdSmem<D>::BK;
-  constexpr int NV = D / 16;
-  __syncthreads();  // the previous tile is no longer read
-  const bool use_mask = p.mask != nullptr;
-  const bool causal = p.causal != 0;
-  stage_key_tile<T, D>(k, v, p, q0, k0, use_mask, sm);
-  __syncthreads();
-
-#pragma unroll 1
-  for (int j0 = 0; j0 < BK; j0 += kChunk) {
-    float s[kChunk];
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) part = dot4(st.qr[i], sm.ks[j0 + jj][i * 4 + g], part);
-      s[jj] = row_sum(part);
-    }
-    float mx = st.m;
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      // no short-circuit: a branch per score here costs the block its
-      // registers (the mask byte is read whether or not it counts)
-      const int f = sm.kflag[j0 + jj];
-      const bool masked = (f == 0) | (causal & (k0 + j0 + jj > row)) |
-                          (use_mask & (sm.ms[r][j0 + jj] == 0));
-      s[jj] = f < 0 ? -INFINITY : (masked ? kNeg : s[jj]);
-      mx = fmaxf(mx, s[jj]);
-    }
-    const float alpha = expf(st.m - mx);
-    st.l *= alpha;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) st.acc[i] = scale4(st.acc[i], alpha);
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const float pr = expf(s[jj] - mx);
-      st.l += pr;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) axpy4(pr, sm.vs[j0 + jj][i * 4 + g], st.acc[i]);
-    }
-    st.m = mx;
-  }
-}
 
 // A finished query row: out = acc / max(l, 1e-30) in the input dtype and
 // lse = m + log(max(l, 1e-30)).
@@ -368,40 +323,6 @@ __device__ __noinline__ void store_dead_rows(const T* __restrict__ v, T* __restr
     if (dead[r]) lse[p.base / D + q0 + r] = kNeg + logf(lc);
 }
 
-// The forward for the block's 64 query rows over `tiles`; writes out (input
-// dtype) and lse = m + log(max(l, 1e-30)), rows that saw no key through
-// store_dead_rows.
-template <typename T, int D>
-__device__ __forceinline__ void fwd_block(const T* __restrict__ q, const T* __restrict__ k,
-                                          const T* __restrict__ v, T* __restrict__ out,
-                                          float* __restrict__ lse, const Problem& p,
-                                          const TileList& tiles) {
-  constexpr int BK = FwdSmem<D>::BK;
-  constexpr int NV = D / 16;
-  __shared__ FwdSmem<D> sm;
-  const int q0 = blockIdx.x * kTileRows;
-  const int g = threadIdx.x % kRowThreads;
-  const int r = threadIdx.x / kRowThreads;
-  const int row = q0 + r;
-  const bool live_row = row < p.n;
-
-  FwdRow<D> st;
-  load_q_row<T, D>(q, p, row, g, live_row, st.qr);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) st.acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  st.m = kNeg;
-  st.l = 0.f;
-
-  int cur = tiles.begin, jt;
-  while (tiles.next(cur, jt)) fwd_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st);
-
-  __shared__ uint8_t dead_rows[kTileRows];
-  const bool dead = live_row && st.m == kNeg;
-  if (g == 0) dead_rows[r] = dead;
-  if (live_row && !dead) store_fwd_row<T, D>(out, lse, p, row, g, st);
-  if (__syncthreads_or(dead)) store_dead_rows<T, D>(v, out, lse, p, q0, dead_rows);
-}
-
 // ---------------------------------------------------------------------------
 // forward, VFA: the rows' maxima first, then accumulation against them
 // ---------------------------------------------------------------------------
@@ -410,9 +331,9 @@ __device__ __forceinline__ void fwd_block(const T* __restrict__ q, const T* __re
 // maximum of the masked scores (gmax, -1e30 for a row that sees no key).
 // Pass 2 walks it again with p = exp(s - gmax), so l and acc only add: no
 // alpha = exp(m_old - m_new) and no rescale of acc per chunk.  Both compute
-// the scores exactly as fwd_tile does, so the row's largest score gives p = 1.
+// the scores in the same operations, so the row's largest score gives p = 1.
 // A row whose gmax is -1e30 saw no key and takes store_dead_rows, as in
-// fwd_block.
+// every forward body.
 
 template <int D>
 struct MaxSmem {
@@ -449,7 +370,8 @@ __device__ __forceinline__ void max_tile(const T* __restrict__ k, const Problem&
     }
 #pragma unroll
     for (int jj = 0; jj < kChunk; ++jj) {
-      // branch-free, as in fwd_tile
+      // no short-circuit: a branch per score here costs the block its
+      // registers (the mask byte is read whether or not it counts)
       const int f = sm.kflag[j0 + jj];
       const bool masked = (f == 0) | (causal & (k0 + j0 + jj > row)) |
                           (use_mask & (sm.ms[r][j0 + jj] == 0));

@@ -389,7 +389,7 @@ def _check_cuda_residuals(q, out, lse, do):
         raise ValueError("lse must be contiguous")
 
 
-# bytes past a pattern's last element that the kernels may read: the bf16
+# bytes past a pattern's last element that the kernels may read: the
 # tensor-core bodies copy each pattern row's bytes as whole 16-byte chunks,
 # and the last chunk of the last row can reach up to 15 bytes past the mask
 _MASK_SLACK = 16

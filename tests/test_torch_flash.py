@@ -155,10 +155,10 @@ def cuda_device():
      (8, 4, 705, 128, True, True, "axial_col")],
 )
 def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, bh, h, n, d, causal, padded, pattern):
-    """The dense forward against the plain version: f32 on the FMA body,
-    bf16 on the tensor-core body.  padded: key padding with the first 7 keys
-    of batch 0 masked ("dead": every key of the last batch, whose rows then
-    see no key); pattern: a mask on the dense grid."""
+    """The dense forward against the plain version: f32 on the 3xTF32
+    tensor-core body, bf16 on the bf16 one.  padded: key padding with the
+    first 7 keys of batch 0 masked ("dead": every key of the last batch,
+    whose rows then see no key); pattern: a mask on the dense grid."""
     from dalle_pytorch_tpu_torch.ops import masks
 
     g = torch.Generator(device=cuda_device).manual_seed(0)
