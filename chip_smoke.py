@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, counts the
-tensor-core instructions (HGMMA) the libraries and each f32 forward, bf16 dq
-and bf16 VFA instantiation hold, holds each kernel against its plain PyTorch
+tensor-core instructions (HGMMA) the libraries and each f32 forward, VFA
+(f32 and bf16) and bf16 dq instantiation hold, holds each kernel against its plain PyTorch
 version on the card (the flash forward, and the backward's dq and dk/dv kernels and the
 delta the dq kernels write, on the dense grid and, for static attention
 patterns, on the compacted grid, which must equal the dense grid with the
@@ -300,8 +300,8 @@ def phase_environment(build):
     compile_s = build.build_all()
     build_s = time.perf_counter() - t0
     # the tensor cores are reached only if the libraries hold wgmma (HGMMA
-    # in SASS): the f32 and bf16 forward bodies, the bf16 dq, dk/dv and VFA
-    # bodies
+    # in SASS): the f32 and bf16 forward and VFA bodies, the bf16 dq and
+    # dk/dv bodies
     sass = {name: cuobjdump(build, name, "-sass") for name in compile_s}
     mma = {name: {op: sum(f" {op}." in line for line in text.splitlines()) for op in ("HGMMA", "HMMA")}
            for name, text in sass.items()}
@@ -313,11 +313,12 @@ def phase_environment(build):
     resources = {}
     for name in ("flash_fwd", "flash_bwd", "flash_compact"):
         resources.update(kernel_resources(cuobjdump(build, name, "-res-usage")))
-    # every f32 forward and bf16 dq, dk/dv and VFA instantiation (two entries
-    # at d 32, 64 and 128 each) keeps its accumulators in registers, and
-    # every f32 forward (3xTF32) and bf16 dq and VFA instantiation runs
-    # wgmma in its own SASS
+    # every f32 forward and VFA and bf16 dq, dk/dv and VFA instantiation
+    # (two entries at d 32, 64 and 128 each) keeps its accumulators in
+    # registers, and every f32 forward and VFA (3xTF32) and bf16 dq and VFA
+    # instantiation runs wgmma in its own SASS
     entries = {("float32", "forward"): ("flash_fwd_kernel", "flash_fwd_compact_kernel"),
+               ("float32", "VFA"): ("flash_max_compact_kernel", "flash_fwd_compact_vfa_kernel"),
                ("bfloat16", "dq"): ("flash_bwd_dq_kernel", "flash_dq_compact_kernel"),
                ("bfloat16", "dk/dv"): ("flash_bwd_dkv_kernel", "flash_dkv_compact_kernel"),
                ("bfloat16", "VFA"): ("flash_max_compact_kernel", "flash_fwd_compact_vfa_kernel")}
@@ -330,7 +331,7 @@ def phase_environment(build):
         spills = instances(resources, label)
         check(len(spills) == 6 and all(r["local_bytes"] == 0 for r in spills.values()),
               f"the {' '.join(label)} instantiations spill or are missing: {spills}")
-    for label in (("float32", "forward"), ("bfloat16", "dq"), ("bfloat16", "VFA")):
+    for label in (("float32", "forward"), ("float32", "VFA"), ("bfloat16", "dq"), ("bfloat16", "VFA")):
         counts = instances(hgmma, label)
         check(len(counts) == 6 and min(counts.values()) > 0,
               f"a {' '.join(label)} instantiation holds no HGMMA instruction: {counts}")
@@ -1136,7 +1137,7 @@ def main() -> int:
     parity = phase_train_parity(fa, port, "flagship_train_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE)
     check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's train steps ran no VFA pair: {parity}")
     paths["flagship_train"] = phase_train(fa, port, "flagship_train", FLAGSHIP, [
-        (None, torch.bfloat16, 4, True), ("remat", torch.bfloat16, 3, False), ("remat", torch.float32, 3, False)])
+        (None, torch.bfloat16, 4, True), ("remat", torch.bfloat16, 3, False), ("remat", torch.float32, 3, True)])
 
     # each kernel at the training shape of the path it runs on; `launches`
     # is its count on this slice's main path, the flagship's training (the
@@ -1260,15 +1261,15 @@ def main() -> int:
     def worst_vfa(key, dtype):
         return max(r[key] for r in sparse if r["dtype"] == dtype and key in r)
 
-    def vfa_bf16(kind, *extra):
-        """a VFA pass's bf16 axial_row readings by head dim (the tensor-core
-        bodies), beside SDPA's whole forward with the mask"""
+    def vfa_by_d(kind, dtype, *extra):
+        """a VFA pass's axial_row readings in one dtype by head dim (the
+        tensor-core bodies), beside SDPA's whole forward with the mask"""
         pre = f"vfa_{kind}"
         return {r["d"]: {"ms": r[f"{pre}_ms"], "device_ms": r[f"{pre}_device_ms"],
                          "plain_ms": r[f"vfa_plain_{kind}_ms"], "bound_ms": r[f"{pre}_bound_ms"],
                          "bound_by": r[f"{pre}_bound_by"], "library_ms": r["sdpa_fwd_ms"],
                          "library_device_ms": r["sdpa_fwd_device_ms"], "bh": r["bh"], **{k: r[k] for k in extra}}
-                for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" and f"{pre}_ms" in r}
+                for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == dtype and f"{pre}_ms" in r}
 
     kernels += [{
         "name": "flash_max_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "564",
@@ -1278,7 +1279,8 @@ def main() -> int:
         "bound_ms": vfa["vfa_max_bound_ms"], "bound_by": vfa["vfa_max_bound_by"], "library_ms": vfa["sdpa_fwd_ms"],
         "library_device_ms": vfa["sdpa_fwd_device_ms"], "shape": vfa_shape,
         "note": "library_ms is a whole forward (SDPA with the mask pattern & causal)",
-        "bf16_tensor_cores_axial_row": vfa_bf16("max", "vfa_gmax_rel_err"),
+        "f32_tensor_cores_axial_row": vfa_by_d("max", "float32", "vfa_gmax_rel_err"),
+        "bf16_tensor_cores_axial_row": vfa_by_d("max", "bfloat16", "vfa_gmax_rel_err"),
         "by_pattern": pattern_readings(sparse, "vfa_max", 128),
     }, {
         "name": "flash_fwd_compact_vfa", "route": "cuda", "source": source_compact, "replaces": replaces + "595",
@@ -1290,8 +1292,9 @@ def main() -> int:
         "bound_ms": vfa["vfa_fwd_bound_ms"], "bound_by": vfa["vfa_fwd_bound_by"], "library_ms": vfa["sdpa_fwd_ms"],
         "library_device_ms": vfa["sdpa_fwd_device_ms"], "shape": vfa_shape,
         "online_compact_ms": vfa["fwd_compact_ms"], "online_compact_device_ms": vfa["fwd_compact_device_ms"],
-        "bf16_tensor_cores_axial_row": vfa_bf16("fwd", "vfa_max_abs_err", "vfa_lse_err", "vfa_vs_online_max_abs_err",
-                                                "fwd_compact_device_ms"),
+        **{f"{name}_tensor_cores_axial_row": vfa_by_d("fwd", dtype, "vfa_max_abs_err", "vfa_lse_err",
+                                                      "vfa_vs_online_max_abs_err", "fwd_compact_device_ms")
+           for name, dtype in (("f32", "float32"), ("bf16", "bfloat16"))},
         "by_pattern": pattern_readings(sparse, "vfa_fwd", 128),
     }]
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -10,11 +10,10 @@
 // Computes what the dense-grid kernels of flash_fwd.cu and flash_bwd.cu
 // compute for a static pattern (the same tile bodies: flash_fwd_tc.cuh and
 // flash_fwd_tf32.cuh for the online forward in bf16 and f32;
-// flash_dq_tc.cuh and flash_bwd_tc.cuh for the bf16 dq and dk/dv;
-// flash_vfa_tc.cuh for the bf16 VFA pair, the online forward's walk in two
-// other modes; flash_tiles.cuh for the f32 VFA pair, dq and dk/dv), but
-// each block reads the tiles it
-// visits from a per-head CSR table instead of scanning every tile below the
+// flash_vfa_tc.cuh for the VFA pair in both, the online forward's walk in
+// two other modes; flash_dq_tc.cuh and flash_bwd_tc.cuh for the bf16 dq and
+// dk/dv; flash_tiles.cuh for the f32 dq and dk/dv), but each block reads
+// the tiles it visits from a per-head CSR table instead of scanning every tile below the
 // causal diagonal: the forward and dq blocks (one per 64 query rows) walk
 // ptr/idx = row_ptr (H, ceil(n/64) + 1) and the ascending key tiles col (H,
 // T); the dk/dv block (one per 64 keys) walks
@@ -35,9 +34,9 @@
 // live tiles only: 4 * bh * T * 64 * BK * d for the forward (2x for dq, 3x
 // for dk/dv; the VFA pair 2 * bh * T * 64 * BK * d for the max pass and the
 // forward's count for the fixed-max pass), against q, k, v, out and lse each
-// moved once.  In f32 it is bound by operations (the forward on the tensor
-// cores as 3xTF32 at 165 TFLOP/s, the VFA pair, dq and dk/dv on the FMA
-// units at 67), and a pattern that kills half the causal tiles halves the
+// moved once.  In f32 it is bound by operations (the forward and the VFA
+// pair on the tensor cores as 3xTF32 at 165 TFLOP/s, dq and dk/dv on the
+// FMA units at 67), and a pattern that kills half the causal tiles halves the
 // work; in bf16 the tensor cores' products over the live tiles take less
 // time than moving the tensors once (axial_row, n 1280, d 64: 0.008 against
 // 0.013 ms), so there it is bound by bytes.
@@ -50,7 +49,6 @@
 // and the rescale of the accumulator.
 #include "flash_bwd_tc.cuh"
 #include "flash_dq_tc.cuh"
-#include "flash_fwd_tf32.cuh"
 #include "flash_vfa_tc.cuh"
 
 namespace {
@@ -80,10 +78,10 @@ flash_fwd_compact_kernel(Args a) {
     fwd_block_tf32<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
-// the VFA max pass: the tensor-core body for bf16 (flash_vfa_tc.cuh), the
-// FMA body for f32
+// the VFA max pass: one warpgroup on the tensor cores, the bf16 body or the
+// f32 3xTF32 body (flash_vfa_tc.cuh)
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_max_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, nullptr, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
@@ -92,13 +90,13 @@ flash_max_compact_kernel(Args a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     max_block_tc<D>(q, k, a.lse_out, p, block_csr(a));
   else
-    max_block<T, D>(q, k, a.lse_out, p, block_csr(a));
+    max_block_tf32<D>(q, k, a.lse_out, p, block_csr(a));
 }
 
-// the VFA fixed-max pass, gmax in as Args::lse: the tensor-core body for
-// bf16 (flash_vfa_tc.cuh), the FMA body for f32
+// the VFA fixed-max pass, gmax in as Args::lse: as the max pass, the bf16
+// body or the f32 3xTF32 body
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_fwd_compact_vfa_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
@@ -108,7 +106,7 @@ flash_fwd_compact_vfa_kernel(Args a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     vfa_block_tc<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
   else
-    vfa_block<T, D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
+    vfa_block_tf32<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
 // dq and delta: the tensor-core body for bf16, the FMA body for f32, as in
@@ -183,7 +181,7 @@ extern "C" int flash_max_compact(const void* q, const void* k, const void* kmask
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::MaxSizes<D>, flash_max_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<MaxSizes<T, D>, flash_max_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 
@@ -200,7 +198,7 @@ extern "C" int flash_fwd_compact_vfa(const void* q, const void* k, const void* v
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::Sizes<D>, flash_fwd_compact_vfa_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<FwdSizes<T, D>, flash_fwd_compact_vfa_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 

@@ -50,9 +50,10 @@
 //
 // The layout, descriptor, wgmma, staging and masking helpers are
 // flash_tc.cuh's, shared with the dq body (flash_dq_tc.cuh, which masks in
-// this orientation too) and the dk/dv body (flash_bwd_tc.cuh).  The online
-// softmax step (online_softmax) and the rows' epilogue (finish_rows) are
-// shared with the f32 forward body (flash_fwd_tf32.cuh).
+// this orientation too) and the dk/dv body (flash_bwd_tc.cuh).  A walk's
+// step between S and P V (walk_step, online_softmax), its rows' start
+// (start_rows) and its epilogue (finish_rows) are shared with the f32 body
+// (flash_fwd_tf32.cuh), whose walks have the same three modes.
 //
 // What remains: no warp specialisation (the one warpgroup issues the loads,
 // both products and the softmax in turn; other blocks on the SM fill its
@@ -157,38 +158,28 @@ __device__ __forceinline__ void online_softmax(float (&s)[inner_tile<D>() / 2],
   }
 }
 
-// One key tile (stage `stage` of the ring) of a walk for the block's 64
-// query rows.  kOnline: S = Q K^T in base 2, mask, rescale, O += P V, with
-// the running maximum m.  kMax: S in natural units, masked, into each
-// thread's maximum m over its own columns.  kFixed: S in natural units,
-// masked, p = 2^((s - m) log2 e) against the row's fixed maximum m (gmax),
-// O += P V with no rescale.  `ms` is the tile's staged pattern (null
-// without one).
-template <int D, Walk W = Walk::kOnline>
-__device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, uint32_t q_tile,
-                                            uint32_t k_tile, uint32_t v_tile, const uint8_t* ms,
-                                            const Frag& f,
-                                            float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
-                                            float (&m)[2], float (&l)[2]) {
+// The step of walk W over one key tile's masked scores s (this thread's two
+// rows, the S accumulator fragment).  kMax: s (natural units) into each
+// thread's maximum m over its own columns; the row's four threads join at
+// the end (finish_rows).  kFixed: s (natural units) becomes p = 2^((s - m)
+// log2 e) against the row's fixed maximum m (gmax), l adds it, no rescale.
+// kOnline: online_softmax (s in base 2).  Every body's walks take this step,
+// between S and O += P V.
+template <int D, Walk W>
+__device__ __forceinline__ void walk_step(float (&s)[inner_tile<D>() / 2],
+                                          float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
+                                          float (&m)[2], float (&l)[2]) {
   constexpr int BK = inner_tile<D>();
-  constexpr int NB = D <= 64 ? 1 : D / 64;  // PV products per key step (64 channels each)
-
-  // the VFA pair keeps gmax in natural units, as the JAX max pass writes it:
-  // a row that sees no key gets exactly -1e30
-  float s[BK / 2];
-  scores_tc<D>(p, q0, k0, q_tile, k_tile, ms, f, W == Walk::kOnline ? p.scale * kLog2e : p.scale, kNeg, s);
-
   if constexpr (W == Walk::kMax) {
-    // each thread over its own columns; the row's four threads join at the end
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) m[rr] = fmaxf(m[rr], fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
-    return;
   } else if constexpr (W == Walk::kFixed) {
     // s - gmax is exactly 0 at the row's largest score (no fused
     // multiply-add: the intrinsics are never contracted), so p = 1 there
-    // and l >= 1 on every live row
+    // and l >= 1 on every live row; a masked key (-1e30) or one past n
+    // (-inf) gives p = 0 exactly
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
@@ -202,6 +193,38 @@ __device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, ui
   } else {
     online_softmax<D>(s, o, m, l);
   }
+}
+
+// The thread's two rows' maximum before walk W: -1e30, or for kFixed the
+// rows' gmax read from p.lse (0 past n, where nothing is stored).
+template <Walk W>
+__device__ __forceinline__ void start_rows(const Problem& p, int q0, const Frag& f, float (&m)[2]) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + f.rows[rr];
+    m[rr] = W == Walk::kFixed ? (row < p.n ? p.lse[row] : 0.f) : kNeg;
+  }
+}
+
+// One key tile (stage `stage` of the ring) of a walk for the block's 64
+// query rows: S = Q K^T (scores_tc; times scale * log2 e for kOnline, in
+// natural units for the VFA pair, which keeps gmax so, as the JAX max pass
+// writes it: a row that sees no key gets exactly -1e30), the walk's step,
+// and but for kMax O += P V.  `ms` is the tile's staged pattern (null
+// without one).
+template <int D, Walk W = Walk::kOnline>
+__device__ __forceinline__ void fwd_tile_tc(const Problem& p, int q0, int k0, uint32_t q_tile,
+                                            uint32_t k_tile, uint32_t v_tile, const uint8_t* ms,
+                                            const Frag& f,
+                                            float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
+                                            float (&m)[2], float (&l)[2]) {
+  constexpr int BK = inner_tile<D>();
+  constexpr int NB = D <= 64 ? 1 : D / 64;  // PV products per key step (64 channels each)
+
+  float s[BK / 2];
+  scores_tc<D>(p, q0, k0, q_tile, k_tile, ms, f, W == Walk::kOnline ? p.scale * kLog2e : p.scale, kNeg, s);
+  walk_step<D, W>(s, o, m, l);
+  if constexpr (W == Walk::kMax) return;
 
   // P as the A fragments of the PV product: k-step ks holds columns
   // 16ks .. 16ks + 15, the S fragment's groups 2ks and 2ks + 1
@@ -233,12 +256,14 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
 
-// The end of a forward walk (kOnline, or the VFA fixed-max pass kFixed) for
-// the block's 64 query rows: the row's four threads join l, live rows write
-// out = o / max(l, 1e-30) in T and lse (kOnline: m ln 2 + log(max(l,
-// 1e-30)) from the base-2 maximum; kFixed: gmax + log(max(l, 1e-30))), and
-// rows that saw no key (kOnline: m still -1e30; kFixed: gmax at or below
-// kDeadLse) go to store_dead_rows.  Called by the whole block.
+// The end of a walk for the block's 64 query rows.  kMax: the row's four
+// threads join their maxima and rows below n write gmax to `lse` (-1e30 for
+// a row that sees no key; v and out unused).  kOnline, kFixed: the row's
+// four threads join l, live rows write out = o / max(l, 1e-30) in T and lse
+// (kOnline: m ln 2 + log(max(l, 1e-30)) from the base-2 maximum; kFixed:
+// gmax + log(max(l, 1e-30))), and rows that saw no key (kOnline: m still
+// -1e30; kFixed: gmax at or below kDeadLse) go to store_dead_rows.  Called
+// by the whole block.
 template <typename T, int D, tc::Walk W>
 __device__ __forceinline__ void finish_rows(const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
                                             const Problem& p, int q0, const tc::Frag& f,
@@ -248,29 +273,40 @@ __device__ __forceinline__ void finish_rows(const T* __restrict__ v, T* __restri
   constexpr int NB = D <= 64 ? 1 : D / 64;
   constexpr int NO = D <= 64 ? D : 64;  // channels of one PV product
   const int lane = threadIdx.x % 32;
-  __shared__ uint8_t dead_rows[kTileRows];
-  bool any_dead = false;
+  if constexpr (W == Walk::kMax) {
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-    const int row = q0 + f.rows[rr];
-    const bool live_row = row < p.n;
-    const bool dead = live_row && (W == Walk::kFixed ? m[rr] <= kDeadLse : m[rr] == kNeg);
-    if (lane % 4 == 0) dead_rows[f.rows[rr]] = dead;
-    any_dead |= dead;
-    if (live_row && !dead) {
-      const float lc = fmaxf(l[rr], 1e-30f);
-      T* o_row = out + p.base + static_cast<size_t>(row) * D;
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int j = 0; j < NO / 8; ++j)
-          store_pair(o_row + nb * NO + 8 * j + f.col, o[nb][4 * j + 2 * rr] / lc, o[nb][4 * j + 2 * rr + 1] / lc);
-      if (lane % 4 == 0) lse[p.base / D + row] = W == Walk::kFixed ? m[rr] + logf(lc) : m[rr] * kLn2 + logf(lc);
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = m[rr];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const int row = q0 + f.rows[rr];
+      if (row < p.n && lane % 4 == 0) lse[p.base / D + row] = mx;
     }
+  } else {
+    __shared__ uint8_t dead_rows[kTileRows];
+    bool any_dead = false;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+      const int row = q0 + f.rows[rr];
+      const bool live_row = row < p.n;
+      const bool dead = live_row && (W == Walk::kFixed ? m[rr] <= kDeadLse : m[rr] == kNeg);
+      if (lane % 4 == 0) dead_rows[f.rows[rr]] = dead;
+      any_dead |= dead;
+      if (live_row && !dead) {
+        const float lc = fmaxf(l[rr], 1e-30f);
+        T* o_row = out + p.base + static_cast<size_t>(row) * D;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int j = 0; j < NO / 8; ++j)
+            store_pair(o_row + nb * NO + 8 * j + f.col, o[nb][4 * j + 2 * rr] / lc, o[nb][4 * j + 2 * rr + 1] / lc);
+        if (lane % 4 == 0) lse[p.base / D + row] = W == Walk::kFixed ? m[rr] + logf(lc) : m[rr] * kLn2 + logf(lc);
+      }
+    }
+    if (__syncthreads_or(any_dead)) store_dead_rows<T, D>(v, out, lse, p, q0, dead_rows);
   }
-  if (__syncthreads_or(any_dead)) store_dead_rows<T, D>(v, out, lse, p, q0, dead_rows);
 }
 
 // The bf16 walk for the block's 64 query rows over `tiles`, on the tensor
@@ -302,7 +338,6 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
   const uint32_t mask_ring = q_tile + S::kTiles;
   const bool use_mask = p.mask != nullptr;
 
-  const int lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * kTileRows;
   Frag f = frag();
   mask_shifts(p, q0, f);
@@ -326,16 +361,8 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int i = 0; i < NO / 2; ++i) o[nb][i] = 0.f;
-  float m[2] = {kNeg, kNeg};
-  float l[2] = {0.f, 0.f};
-  if constexpr (W == Walk::kFixed) {
-    // the thread's two rows' gmax; 0 past n, where nothing is stored
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int row = q0 + f.rows[rr];
-      m[rr] = row < p.n ? p.lse[row] : 0.f;
-    }
-  }
+  float m[2], l[2] = {0.f, 0.f};
+  start_rows<W>(p, q0, f, m);
 
   int stage = 0;
   while (have) {
@@ -354,20 +381,7 @@ __device__ __forceinline__ void fwd_block_tc(const __nv_bfloat16* __restrict__ q
     stage ^= 1;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");  // Q alone was staged when the list is empty
-
-  if constexpr (W == Walk::kMax) {
-    // gmax: the row's four threads join; -1e30 for a row that sees no key
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float mx = m[rr];
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const int row = q0 + f.rows[rr];
-      if (row < p.n && lane % 4 == 0) lse[p.base / D + row] = mx;
-    }
-  } else {
-    finish_rows<__nv_bfloat16, D, W>(v, out, lse, p, q0, f, o, m, l);
-  }
+  finish_rows<__nv_bfloat16, D, W>(v, out, lse, p, q0, f, o, m, l);
 }
 
 }  // namespace flash

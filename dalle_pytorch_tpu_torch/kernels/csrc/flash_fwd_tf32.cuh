@@ -14,7 +14,14 @@
 // log2 e after the product, masked (-1e30 for a causal-future, padded or
 // pattern-forbidden key, -inf past n), the online softmax once per key tile
 // in base 2, out = P V / l in f32 and lse = m ln 2 + log(max(l, 1e-30));
-// rows that see no key go to store_dead_rows.
+// rows that see no key go to store_dead_rows.  The same walk in two more
+// modes (tc::Walk, as the bf16 body has them) is the f32 VFA pair
+// (flash_vfa_tc.cuh; `_max_kernel_compact` and `_fwd_kernel_compact_vfa`):
+// kMax keeps each row's maximum of S in natural units and stages no V
+// (Tf32Sizes<D, false>, KvRegs<D, false>), kFixed accumulates p = 2^((s -
+// gmax) log2 e) against it with no rescale.  All three walks compute S in
+// scores_tf32, so the VFA pair's two passes compute it bit for bit alike.
+// The walks' instantiations are separate; the forward's compiles as before.
 //
 // What bounds it on this card: the two matrix products, 4 * n * n * d
 // operations per (batch, head), halved by causality and cut further by a
@@ -91,15 +98,15 @@ __device__ __forceinline__ uint64_t f32_desc(uint32_t base, int ks) {
   return make_desc(base + (c / 8) * (R * 128) + (c % 8) * 16, 16, 1024, 1);
 }
 
-// The dynamic shared memory of the f32 forward: Q's hi and lo tiles, K's
-// and V^T's (one stage), and with a pattern its two-stage ring.
-template <int D>
+// The dynamic shared memory of an f32 walk: Q's hi and lo tiles, K's and
+// (kValues) V^T's, one stage each, and with a pattern its two-stage ring.
+template <int D, bool kValues = true>
 struct Tf32Sizes {
   static constexpr int BK = inner_tile<D>();
   static constexpr uint32_t kQ = kTileRows * D * 4;  // one of Q's two tiles
   static constexpr uint32_t kKV = BK * D * 4;        // one of K's, or of V^T's, two tiles
   static constexpr uint32_t kMask = kTileRows * mask_row<BK>();
-  static constexpr int kTiles = 2 * kQ + 4 * kKV;
+  static constexpr int kTiles = 2 * kQ + (kValues ? 4 : 2) * kKV;
   static constexpr int kSmem = kTiles;
   static constexpr int kSmemMasked = kTiles + kStages * kMask;
 };
@@ -238,8 +245,9 @@ __device__ __forceinline__ void stage_q(const float* __restrict__ q, int q0, int
 // channels 4b .. 4b + 3 for b = idx / A; the chunks vary fastest across a
 // warp, so its stores fill whole rows of V^T.  (The same offsets written as
 // tid / C + i * (kThreads / C) compiled to 216 registers instead of 252 and
-// ran 0.402 against 0.354 ms at bh 32, n 1280, d 128 on an H100.)
-template <int D>
+// ran 0.402 against 0.354 ms at bh 32, n 1280, d 128 on an H100.)  Without
+// kValues (the max pass) K alone.
+template <int D, bool kValues = true>
 struct KvRegs {
   static constexpr int BK = inner_tile<D>();
   static constexpr int C = D / 4;                     // float4s in a row of K or V
@@ -247,9 +255,10 @@ struct KvRegs {
   static constexpr int kK = BK * C / kThreads;        // K's float4s a thread carries
   static constexpr int kV = A * (D / 4) / kThreads;   // V's 4 x 4 blocks a thread carries
   float4 k[kK];
-  float4 v[kV][4];  // v[i][kk]: key 8(a / 2) + a % 2 + 2kk, channels 4b .. 4b + 3
+  float4 v[kValues ? kV : 1][4];  // v[i][kk]: key 8(a / 2) + a % 2 + 2kk, channels 4b .. 4b + 3
 
-  // the key tile at k0 of this (batch, head)'s K and V (kb, vb); zeros past n
+  // the key tile at k0 of this (batch, head)'s K and V (kb, vb; vb unused
+  // without kValues); zeros past n
   __device__ __forceinline__ void load(const float* __restrict__ kb, const float* __restrict__ vb, int k0,
                                        int n) {
 #pragma unroll
@@ -257,56 +266,63 @@ struct KvRegs {
       const int idx = threadIdx.x + i * kThreads;
       k[i] = load_row4<D>(kb, k0 + idx / C, n, idx % C);
     }
+    if constexpr (kValues) {
 #pragma unroll
-    for (int i = 0; i < kV; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int a = idx % A;
+      for (int i = 0; i < kV; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int a = idx % A;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) v[i][kk] = load_row4<D>(vb, k0 + 8 * (a / 2) + a % 2 + 2 * kk, n, idx / A);
+        for (int kk = 0; kk < 4; ++kk) v[i][kk] = load_row4<D>(vb, k0 + 8 * (a / 2) + a % 2 + 2 * kk, n, idx / A);
+      }
     }
   }
 
   // split into K's tiles at k_hi (BK rows of D floats) and V^T's at v_hi (D
-  // rows of BK floats), each lo tile `lo_off` bytes past its hi tile
+  // rows of BK floats; unused without kValues), each lo tile `lo_off` bytes
+  // past its hi tile
   __device__ __forceinline__ void store(uint32_t k_hi, uint32_t v_hi, uint32_t lo_off) const {
 #pragma unroll
     for (int i = 0; i < kK; ++i) {
       const int idx = threadIdx.x + i * kThreads;
       store_split(k_hi + f32_chunk<BK>(idx / C, idx % C), lo_off, k[i]);
     }
+    if constexpr (kValues) {
 #pragma unroll
-    for (int i = 0; i < kV; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int a = idx % A;
-      const int ch = 4 * (idx / A);
-      store_split(v_hi + f32_chunk<D>(ch, a), lo_off, make_float4(v[i][0].x, v[i][1].x, v[i][2].x, v[i][3].x));
-      store_split(v_hi + f32_chunk<D>(ch + 1, a), lo_off, make_float4(v[i][0].y, v[i][1].y, v[i][2].y, v[i][3].y));
-      store_split(v_hi + f32_chunk<D>(ch + 2, a), lo_off, make_float4(v[i][0].z, v[i][1].z, v[i][2].z, v[i][3].z));
-      store_split(v_hi + f32_chunk<D>(ch + 3, a), lo_off, make_float4(v[i][0].w, v[i][1].w, v[i][2].w, v[i][3].w));
+      for (int i = 0; i < kV; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int a = idx % A;
+        const int ch = 4 * (idx / A);
+        store_split(v_hi + f32_chunk<D>(ch, a), lo_off, make_float4(v[i][0].x, v[i][1].x, v[i][2].x, v[i][3].x));
+        store_split(v_hi + f32_chunk<D>(ch + 1, a), lo_off,
+                    make_float4(v[i][0].y, v[i][1].y, v[i][2].y, v[i][3].y));
+        store_split(v_hi + f32_chunk<D>(ch + 2, a), lo_off,
+                    make_float4(v[i][0].z, v[i][1].z, v[i][2].z, v[i][3].z));
+        store_split(v_hi + f32_chunk<D>(ch + 3, a), lo_off,
+                    make_float4(v[i][0].w, v[i][1].w, v[i][2].w, v[i][3].w));
+      }
     }
   }
 };
 
-// One key tile of the online forward for the block's 64 query rows: S = Q
-// K^T in 3xTF32 (the two cross terms, then hi hi), times scale * log2 e,
-// masked; the online softmax; O += P V in 3xTF32 (P from registers).
-// q_hi, k_hi, v_hi: the hi tiles, each lo tile beside its hi tile; ms: the
-// tile's staged pattern (null without one).
+// S = Q K^T in 3xTF32 for the block's 64 query rows and the key tile at k0
+// (ms: its staged pattern or null): the two cross terms, then hi hi, into
+// one accumulator; times `sc` after the product and masked in registers,
+// `neg` for a causal-future, padded or pattern-forbidden key, -inf past n.
+// Every f32 walk computes its scores here, so the VFA pair's two passes
+// compute the same S bit for bit.  q_hi, k_hi: the hi tiles, each lo tile
+// beside its hi tile.
 template <int D>
-__device__ __forceinline__ void fwd_tile_tf32(const Problem& p, int q0, int k0, uint32_t q_hi, uint32_t k_hi,
-                                              uint32_t v_hi, const uint8_t* ms, const Frag& f,
-                                              float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
-                                              float (&m)[2], float (&l)[2]) {
+__device__ __forceinline__ void scores_tf32(const Problem& p, int q0, int k0, uint32_t q_hi, uint32_t k_hi,
+                                            const uint8_t* ms, const Frag& f, float sc, float neg,
+                                            float (&s)[inner_tile<D>() / 2]) {
   using S = Tf32Sizes<D>;
   constexpr int BK = S::BK;
-  constexpr int NB = D <= 64 ? 1 : D / 64;  // PV products per k-step (64 channels each)
-  const uint32_t q_lo = q_hi + S::kQ, k_lo = k_hi + S::kKV, v_lo = v_hi + S::kKV;
+  const uint32_t q_lo = q_hi + S::kQ, k_lo = k_hi + S::kKV;
 
   // read before the product, which hides them
   uint32_t allow[2];
   key_allow<BK>(p, ms, f, k0, allow);
 
-  float s[BK / 2];
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
   wgmma_fence();
@@ -322,16 +338,37 @@ __device__ __forceinline__ void fwd_tile_tf32(const Problem& p, int q0, int k0, 
   hold(s);
 
   if (plain_tile<BK>(p, q0, k0))
-    mask_scores<BK, true>(s, f, p, q0, k0, p.scale * kLog2e, kNeg, allow);
+    mask_scores<BK, true>(s, f, p, q0, k0, sc, neg, allow);
   else
-    mask_scores<BK, false>(s, f, p, q0, k0, p.scale * kLog2e, kNeg, allow);
-  online_softmax<D>(s, o, m, l);
+    mask_scores<BK, false>(s, f, p, q0, k0, sc, neg, allow);
+}
 
-  // P as the A fragments of the PV product, split: k-step ks is the S
-  // fragment's group ks; A's column t is key 2t (the fragment's first
-  // element of the row), column t + 4 key 2t + 1 (its second), as V^T's
-  // keys are stored (KvRegs); registers (row g, t), (g + 8, t), (g, t + 4),
-  // (g + 8, t + 4)
+// One key tile of a walk for the block's 64 query rows: S (scores_tf32;
+// times scale * log2 e for kOnline, in natural units for the VFA pair), the
+// walk's step (walk_step: the online softmax, the row maxima, or p against
+// the fixed maximum), and but for kMax O += P V in 3xTF32 (P from
+// registers).  q_hi, k_hi, v_hi: the hi tiles, each lo tile beside its hi
+// tile; ms: the tile's staged pattern (null without one).
+template <int D, Walk W = Walk::kOnline>
+__device__ __forceinline__ void fwd_tile_tf32(const Problem& p, int q0, int k0, uint32_t q_hi, uint32_t k_hi,
+                                              uint32_t v_hi, const uint8_t* ms, const Frag& f,
+                                              float (&o)[D <= 64 ? 1 : D / 64][D <= 64 ? D / 2 : 32],
+                                              float (&m)[2], float (&l)[2]) {
+  using S = Tf32Sizes<D>;
+  constexpr int BK = S::BK;
+  constexpr int NB = D <= 64 ? 1 : D / 64;  // PV products per k-step (64 channels each)
+  const uint32_t v_lo = v_hi + S::kKV;
+
+  float s[BK / 2];
+  scores_tf32<D>(p, q0, k0, q_hi, k_hi, ms, f, W == Walk::kOnline ? p.scale * kLog2e : p.scale, kNeg, s);
+  walk_step<D, W>(s, o, m, l);
+  if constexpr (W == Walk::kMax) return;
+
+  // P as the A fragments of the PV product, split (p lies in [0, 1], so
+  // split<true>): k-step ks is the S fragment's group ks; A's column t is
+  // key 2t (the fragment's first element of the row), column t + 4 key 2t +
+  // 1 (its second), as V^T's keys are stored (KvRegs); registers (row g,
+  // t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
   uint32_t ph[BK / 8][4], pl[BK / 8][4];
 #pragma unroll
   for (int ks = 0; ks < BK / 8; ++ks)
@@ -367,18 +404,23 @@ __device__ __forceinline__ void fwd_tile_tf32(const Problem& p, int q0, int k0, 
 
 }  // namespace tc
 
-// The f32 forward for the block's 64 query rows over `tiles`, on the tensor
-// cores in 3xTF32: writes out (f32) and lse = m ln 2 + log(max(l, 1e-30))
-// (m the base-2 running maximum), rows that saw no key through
-// store_dead_rows.  Launched with tc::kThreads threads and
-// tc::Tf32Sizes<D>::kSmem bytes of dynamic shared memory, kSmemMasked with
-// a pattern.
-template <int D>
+// The f32 walk for the block's 64 query rows over `tiles`, on the tensor
+// cores in 3xTF32.  kOnline, the forward: writes out (f32) and lse = m ln 2
+// + log(max(l, 1e-30)) (m the base-2 running maximum).  kMax, the VFA max
+// pass: stages no V and writes each row's maximum of its masked scores to
+// `lse` as gmax (v and out unused, null).  kFixed, the VFA fixed-max pass:
+// reads gmax from p.lse, writes out and lse = gmax + log(max(l, 1e-30)).
+// The forward and the fixed-max pass hand rows that saw no key to
+// store_dead_rows.  Launched with tc::kThreads threads and tc::Tf32Sizes<D,
+// W != Walk::kMax>::kSmem bytes of dynamic shared memory, kSmemMasked with a
+// pattern.
+template <int D, tc::Walk W = tc::Walk::kOnline>
 __device__ __forceinline__ void fwd_block_tf32(const float* __restrict__ q, const float* __restrict__ k,
                                                const float* __restrict__ v, float* __restrict__ out,
                                                float* __restrict__ lse, const Problem& p, const TileList& tiles) {
   using namespace tc;
-  using S = Tf32Sizes<D>;
+  constexpr bool kValues = W != Walk::kMax;
+  using S = Tf32Sizes<D, kValues>;
   constexpr int BK = S::BK;
   constexpr int NB = D <= 64 ? 1 : D / 64;
   constexpr int NO = D <= 64 ? D : 64;  // channels of one PV product
@@ -387,7 +429,7 @@ __device__ __forceinline__ void fwd_block_tf32(const float* __restrict__ q, cons
   const uint32_t q_hi = static_cast<uint32_t>(__cvta_generic_to_shared(dynamic_smem));
   if (q_hi & 1023u) __trap();
   const uint32_t k_hi = q_hi + 2 * S::kQ;
-  const uint32_t v_hi = k_hi + 2 * S::kKV;
+  const uint32_t v_hi = k_hi + 2 * S::kKV;  // past the tiles in the max pass, never used
   const uint32_t mask_ring = q_hi + S::kTiles;
   const bool use_mask = p.mask != nullptr;
 
@@ -396,10 +438,11 @@ __device__ __forceinline__ void fwd_block_tf32(const float* __restrict__ q, cons
   mask_shifts(p, q0, f);
 
   const float* kb = k + p.base;
-  const float* vb = v + p.base;
-  KvRegs<D> kv;
-  // K and V of key tile t into registers, its pattern bytes into stage st
-  // of their ring
+  const float* vb = nullptr;
+  if constexpr (kValues) vb = v + p.base;
+  KvRegs<D, kValues> kv;
+  // K and V (not in the max pass) of key tile t into registers, its pattern
+  // bytes into stage st of their ring
   auto load_tile = [&](int t, int st) {
     kv.load(kb, vb, t * BK, p.n);
     if (use_mask) stage_mask<kTileRows, BK>(p.mask, p.n, q0, t * BK, mask_ring + st * S::kMask);
@@ -416,8 +459,8 @@ __device__ __forceinline__ void fwd_block_tf32(const float* __restrict__ q, cons
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int i = 0; i < NO / 2; ++i) o[nb][i] = 0.f;
-  float m[2] = {kNeg, kNeg};
-  float l[2] = {0.f, 0.f};
+  float m[2], l[2] = {0.f, 0.f};
+  start_rows<W>(p, q0, f, m);
 
   int st = 0;  // stage of the pattern's ring
   while (have) {
@@ -432,12 +475,13 @@ __device__ __forceinline__ void fwd_block_tf32(const float* __restrict__ q, cons
     const bool more = tiles.next(cur, jn);
     if (more) load_tile(jn, st ^ 1);
     cp_async_commit();
-    fwd_tile_tf32<D>(p, q0, jt * BK, q_hi, k_hi, v_hi, dynamic_smem + S::kTiles + st * S::kMask, f, o, m, l);
+    fwd_tile_tf32<D, W>(p, q0, jt * BK, q_hi, k_hi, v_hi, dynamic_smem + S::kTiles + st * S::kMask, f, o, m,
+                        l);
     jt = jn;
     have = more;
     st ^= 1;
   }
-  finish_rows<float, D, Walk::kOnline>(v, out, lse, p, q0, f, o, m, l);
+  finish_rows<float, D, W>(v, out, lse, p, q0, f, o, m, l);
 }
 
 // The block's tiles in dynamic shared memory for a forward entry: the bf16

@@ -324,8 +324,8 @@ __device__ __forceinline__ void mask_shifts(const Problem& p, int q0, Frag& f) {
 }  // namespace tc
 
 // The block size of an entry whose body the dtype picks: one warpgroup for a
-// bf16 tensor-core body, 256 threads for an f32 FMA body (the f32 VFA pair,
-// dq and dk/dv; the forward entries take one warpgroup in both dtypes).
+// bf16 tensor-core body, 256 threads for an f32 FMA body (the f32 dq and
+// dk/dv; the forward and VFA entries take one warpgroup in both dtypes).
 template <typename T>
 __host__ __device__ constexpr int block_threads() {
   return std::is_same<T, __nv_bfloat16>::value ? tc::kThreads : kThreads;

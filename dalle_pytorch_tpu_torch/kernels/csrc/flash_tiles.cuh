@@ -1,7 +1,7 @@
 // Shared device code of the flash-attention kernels for Hopper (sm_90a), in
 // plain CUDA C++: the tile shape, the tile lists, the f32 FMA bodies of the
-// VFA forward, dq and dk/dv passes (the forward's bodies, f32 and bf16, and
-// the bf16 bodies of the other passes run on the tensor cores:
+// dq and dk/dv passes (the forward's and the VFA pair's bodies, f32 and
+// bf16, and the bf16 bodies of dq and dk/dv run on the tensor cores:
 // flash_fwd_tf32.cuh, flash_fwd_tc.cuh, flash_vfa_tc.cuh, flash_dq_tc.cuh,
 // flash_bwd_tc.cuh), the rows that see no key, and the C entry points'
 // arguments and dispatch.
@@ -199,9 +199,9 @@ __device__ __forceinline__ void load_mask_tile(const Problem& p, int r0, int c0,
   }
 }
 
-// Stage the key tile at k0 as f32 (and its values where the shared memory S
-// holds them), each key's flag (1 attend, 0 masked, -1 past the end) and,
-// with `use_mask`, the pattern's (64 x BK) block at (q0, k0).
+// Stage the key tile at k0 and its values as f32, each key's flag (1
+// attend, 0 masked, -1 past the end) and, with `use_mask`, the pattern's (64
+// x BK) block at (q0, k0).
 template <typename T, int D, typename S>
 __device__ __forceinline__ void stage_key_tile(const T* __restrict__ k, const T* __restrict__ v,
                                                const Problem& p, int q0, int k0, bool use_mask,
@@ -217,10 +217,10 @@ __device__ __forceinline__ void stage_key_tile(const T* __restrict__ k, const T*
     if (kp < p.n) {
       const size_t off = p.base + static_cast<size_t>(kp) * D + c4 * 4;
       kx = load4(k + off);
-      if constexpr (S::kValues) vx = load4(v + off);
+      vx = load4(v + off);
     }
     sm.ks[j][c4] = kx;
-    if constexpr (S::kValues) sm.vs[j][c4] = vx;
+    sm.vs[j][c4] = vx;
   }
   for (int j = threadIdx.x; j < BK; j += kThreads) {
     const int kp = k0 + j;
@@ -229,56 +229,9 @@ __device__ __forceinline__ void stage_key_tile(const T* __restrict__ k, const T*
   if (use_mask) load_mask_tile(p, q0, k0, sm.ms);
 }
 
-// A query row's q times the scale, in the layout of FwdRow::qr; 0 past n.
-template <typename T, int D>
-__device__ __forceinline__ void load_q_row(const T* __restrict__ q, const Problem& p, int row, int g,
-                                           bool live_row, float4* qr) {
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live_row) x = load4(q + p.base + static_cast<size_t>(row) * D + i * 16 + g * 4);
-    qr[i] = scale4(x, p.scale);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// the f32 VFA pair's key tile and row state; rows that see no key
+// rows that see no key
 // ---------------------------------------------------------------------------
-
-template <int D>
-struct FwdSmem {
-  static constexpr int BK = inner_tile<D>();
-  static constexpr bool kValues = true;
-  float4 ks[BK][D / 4];
-  float4 vs[BK][D / 4];
-  int kflag[BK];  // 1 attend, 0 masked (-1e30), -1 past the end
-  uint8_t ms[kTileRows][BK];
-};
-
-// One query row's state, held by its four threads: thread g holds channels
-// i*16 + g*4 .. +3, so the four threads of a row read 64 contiguous bytes of
-// a shared-memory row, conflict-free.
-template <int D>
-struct FwdRow {
-  float4 qr[D / 16];
-  float4 acc[D / 16];
-  float m, l;
-};
-
-// A finished query row: out = acc / max(l, 1e-30) in the input dtype and
-// lse = m + log(max(l, 1e-30)).
-template <typename T, int D>
-__device__ __forceinline__ void store_fwd_row(T* __restrict__ out, float* __restrict__ lse,
-                                              const Problem& p, int row, int g, const FwdRow<D>& st) {
-  const float lc = fmaxf(st.l, 1e-30f);
-  T* o = out + p.base + static_cast<size_t>(row) * D;
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
-    const float4 a = st.acc[i];
-    store4(o + i * 16 + g * 4, make_float4(a.x / lc, a.y / lc, a.z / lc, a.w / lc));
-  }
-  if (g == 0) lse[p.base / D + row] = st.m + logf(lc);
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -324,163 +277,12 @@ __device__ __noinline__ void store_dead_rows(const T* __restrict__ v, T* __restr
 }
 
 // ---------------------------------------------------------------------------
-// forward, VFA: the rows' maxima first, then accumulation against them
-// ---------------------------------------------------------------------------
-//
-// Pass 1 walks the block's list staging K alone and keeps each row's running
-// maximum of the masked scores (gmax, -1e30 for a row that sees no key).
-// Pass 2 walks it again with p = exp(s - gmax), so l and acc only add: no
-// alpha = exp(m_old - m_new) and no rescale of acc per chunk.  Both compute
-// the scores in the same operations, so the row's largest score gives p = 1.
-// A row whose gmax is -1e30 saw no key and takes store_dead_rows, as in
-// every forward body.
-
-template <int D>
-struct MaxSmem {
-  static constexpr int BK = inner_tile<D>();
-  static constexpr bool kValues = false;
-  float4 ks[BK][D / 4];
-  int kflag[BK];
-  uint8_t ms[kTileRows][BK];
-};
-
-// One key tile of the max pass for the block's 64 query rows: the running
-// maximum m of the row's masked scores.
-template <typename T, int D>
-__device__ __forceinline__ void max_tile(const T* __restrict__ k, const Problem& p, int q0, int k0,
-                                         int r, int row, int g, MaxSmem<D>& sm, const float4* qr,
-                                         float& m) {
-  constexpr int BK = MaxSmem<D>::BK;
-  constexpr int NV = D / 16;
-  __syncthreads();  // the previous tile is no longer read
-  const bool use_mask = p.mask != nullptr;
-  const bool causal = p.causal != 0;
-  stage_key_tile<T, D>(k, static_cast<const T*>(nullptr), p, q0, k0, use_mask, sm);
-  __syncthreads();
-
-#pragma unroll 1
-  for (int j0 = 0; j0 < BK; j0 += kChunk) {
-    float s[kChunk];
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) part = dot4(qr[i], sm.ks[j0 + jj][i * 4 + g], part);
-      s[jj] = row_sum(part);
-    }
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      // no short-circuit: a branch per score here costs the block its
-      // registers (the mask byte is read whether or not it counts)
-      const int f = sm.kflag[j0 + jj];
-      const bool masked = (f == 0) | (causal & (k0 + j0 + jj > row)) |
-                          (use_mask & (sm.ms[r][j0 + jj] == 0));
-      m = fmaxf(m, f < 0 ? -INFINITY : (masked ? kNeg : s[jj]));
-    }
-  }
-}
-
-// Pass 1 for the block's 64 query rows over `tiles`: writes gmax (bh, n).
-template <typename T, int D>
-__device__ __forceinline__ void max_block(const T* __restrict__ q, const T* __restrict__ k,
-                                          float* __restrict__ gmax, const Problem& p,
-                                          const TileList& tiles) {
-  constexpr int BK = MaxSmem<D>::BK;
-  __shared__ MaxSmem<D> sm;
-  const int q0 = blockIdx.x * kTileRows;
-  const int g = threadIdx.x % kRowThreads;
-  const int r = threadIdx.x / kRowThreads;
-  const int row = q0 + r;
-  const bool live_row = row < p.n;
-
-  float4 qr[D / 16];
-  load_q_row<T, D>(q, p, row, g, live_row, qr);
-  float m = kNeg;
-  int cur = tiles.begin, jt;
-  while (tiles.next(cur, jt)) max_tile<T, D>(k, p, q0, jt * BK, r, row, g, sm, qr, m);
-  if (live_row && g == 0) gmax[p.base / D + row] = m;
-}
-
-// One key tile of pass 2 for the block's 64 query rows, against the row's
-// fixed maximum st.m; only the rows with `update` set take it in.
-template <typename T, int D>
-__device__ __forceinline__ void vfa_tile(const T* __restrict__ k, const T* __restrict__ v,
-                                         const Problem& p, int q0, int k0, int r, int row,
-                                         int g, FwdSmem<D>& sm, FwdRow<D>& st, bool update) {
-  constexpr int BK = FwdSmem<D>::BK;
-  constexpr int NV = D / 16;
-  __syncthreads();  // the previous tile is no longer read
-  const bool use_mask = p.mask != nullptr;
-  const bool causal = p.causal != 0;
-  stage_key_tile<T, D>(k, v, p, q0, k0, use_mask, sm);
-  __syncthreads();
-
-#pragma unroll 1
-  for (int j0 = 0; j0 < BK; j0 += kChunk) {
-    float s[kChunk];
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) part = dot4(st.qr[i], sm.ks[j0 + jj][i * 4 + g], part);
-      s[jj] = row_sum(part);
-    }
-    if (!update) continue;
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const int f = sm.kflag[j0 + jj];
-      const bool masked = (f == 0) | (causal & (k0 + j0 + jj > row)) |
-                          (use_mask & (sm.ms[r][j0 + jj] == 0));
-      const float pr = expf((f < 0 ? -INFINITY : (masked ? kNeg : s[jj])) - st.m);
-      st.l += pr;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) axpy4(pr, sm.vs[j0 + jj][i * 4 + g], st.acc[i]);
-    }
-  }
-}
-
-// Pass 2 for the block's 64 query rows over `tiles`, gmax read from p.lse;
-// writes out and lse = gmax + log(max(l, 1e-30)), rows that saw no key
-// through store_dead_rows.
-template <typename T, int D>
-__device__ __forceinline__ void vfa_block(const T* __restrict__ q, const T* __restrict__ k,
-                                          const T* __restrict__ v, T* __restrict__ out,
-                                          float* __restrict__ lse, const Problem& p,
-                                          const TileList& tiles) {
-  constexpr int BK = FwdSmem<D>::BK;
-  constexpr int NV = D / 16;
-  __shared__ FwdSmem<D> sm;
-  const int q0 = blockIdx.x * kTileRows;
-  const int g = threadIdx.x % kRowThreads;
-  const int r = threadIdx.x / kRowThreads;
-  const int row = q0 + r;
-  const bool live_row = row < p.n;
-
-  FwdRow<D> st;
-  load_q_row<T, D>(q, p, row, g, live_row, st.qr);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) st.acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  st.m = live_row ? p.lse[row] : 0.f;
-  st.l = 0.f;
-
-  const bool dead = live_row && st.m <= kDeadLse;
-  int cur = tiles.begin, jt;
-  while (tiles.next(cur, jt)) vfa_tile<T, D>(k, v, p, q0, jt * BK, r, row, g, sm, st, !dead);
-
-  __shared__ uint8_t dead_rows[kTileRows];
-  if (g == 0) dead_rows[r] = dead;
-  if (live_row && !dead) store_fwd_row<T, D>(out, lse, p, row, g, st);
-  if (__syncthreads_or(dead)) store_dead_rows<T, D>(v, out, lse, p, q0, dead_rows);
-}
-
-// ---------------------------------------------------------------------------
 // backward: dq
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct DqSmem {
   static constexpr int BK = inner_tile<D>();
-  static constexpr bool kValues = true;
   float4 ks[BK][D / 4];
   float4 vs[BK][D / 4];
   int kflag[BK];
