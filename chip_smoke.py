@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, counts the
-tensor-core instructions (HGMMA) the libraries and each f32 forward, VFA
-(f32 and bf16) and bf16 dq instantiation hold, holds each kernel against its plain PyTorch
+tensor-core instructions (HGMMA) the libraries and each f32 forward, VFA, dq
+and dk/dv and bf16 dq and VFA instantiation hold, holds each kernel against its plain PyTorch
 version on the card (the flash forward, and the backward's dq and dk/dv kernels and the
 delta the dq kernels write, on the dense grid and, for static attention
 patterns, on the compacted grid, which must equal the dense grid with the
@@ -210,22 +210,42 @@ def device_profile(fn) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_times(calls: dict, reps: int = 10) -> dict:
+def device_times(calls: dict, reps: int = 10, windows: int = 3) -> dict:
     """Device ms per call of each of `calls` ({label: fn}), run `reps` times
     each in turn under one profiler window: a label's time sums the port's
     kernels named `<label><...>(flash::Args)`; the label None takes every
     other kernel (a library call).  Unlike `time_ms` it leaves out the host
-    time between launches, which bounds a wrapper's calls at small shapes."""
-    rows = device_profile(lambda: [fn() for fn in calls.values() for _ in range(reps)])
+    time between launches, which bounds a wrapper's calls at small shapes.
+    Every label's calls launch, so none may read 0: a window in which one
+    does (the profiler kept none of its kernels) is taken again, up to
+    `windows` windows, and the phase fails if it still reads 0."""
 
     def ours(label, name):
         return f"{label}<" in name and "flash::Args" in name
 
     named = [label for label in calls if label is not None]
-    out = {label: sum(ms for name, ms, _ in rows if ours(label, name)) / reps for label in named}
-    if None in calls:
-        out[None] = sum(ms for name, ms, _ in rows if not any(ours(label, name) for label in named)) / reps
-    return out
+    for _ in range(windows):
+        rows = device_profile(lambda: [fn() for fn in calls.values() for _ in range(reps)])
+        out = {label: sum(ms for name, ms, _ in rows if ours(label, name)) / reps for label in named}
+        if None in calls:
+            out[None] = sum(ms for name, ms, _ in rows if not any(ours(label, name) for label in named)) / reps
+        unread = [label for label, ms in out.items() if not ms > 0]
+        if not unread:
+            return out
+    raise RuntimeError(f"device_times: {unread} read 0 ms in {windows} profiler windows")
+
+
+def device_difference(whole, part, windows: int = 3) -> float:
+    """Device ms of one call of `whole` less one of `part` (a library call
+    and the share of it to leave out, e.g. SDPA forward + backward less its
+    forward), each from its own `device_times` window; taken again, up to
+    `windows` times, where the difference comes out at 0 or below, and the
+    phase fails if it still does."""
+    for _ in range(windows):
+        diff = device_times({None: whole})[None] - device_times({None: part})[None]
+        if diff > 0:
+            return diff
+    raise RuntimeError(f"device_difference: {diff} ms in {windows} tries")
 
 
 def sdpa_backend(fn) -> str:
@@ -300,8 +320,7 @@ def phase_environment(build):
     compile_s = build.build_all()
     build_s = time.perf_counter() - t0
     # the tensor cores are reached only if the libraries hold wgmma (HGMMA
-    # in SASS): the f32 and bf16 forward and VFA bodies, the bf16 dq and
-    # dk/dv bodies
+    # in SASS): every body, f32 (3xTF32) and bf16
     sass = {name: cuobjdump(build, name, "-sass") for name in compile_s}
     mma = {name: {op: sum(f" {op}." in line for line in text.splitlines()) for op in ("HGMMA", "HMMA")}
            for name, text in sass.items()}
@@ -313,12 +332,14 @@ def phase_environment(build):
     resources = {}
     for name in ("flash_fwd", "flash_bwd", "flash_compact"):
         resources.update(kernel_resources(cuobjdump(build, name, "-res-usage")))
-    # every f32 forward and VFA and bf16 dq, dk/dv and VFA instantiation
-    # (two entries at d 32, 64 and 128 each) keeps its accumulators in
-    # registers, and every f32 forward and VFA (3xTF32) and bf16 dq and VFA
-    # instantiation runs wgmma in its own SASS
+    # every f32 forward, VFA, dq and dk/dv and bf16 dq, dk/dv and VFA
+    # instantiation (two entries at d 32, 64 and 128 each) keeps its
+    # accumulators in registers, and every f32 forward, VFA, dq and dk/dv
+    # (3xTF32) and bf16 dq and VFA instantiation runs wgmma in its own SASS
     entries = {("float32", "forward"): ("flash_fwd_kernel", "flash_fwd_compact_kernel"),
                ("float32", "VFA"): ("flash_max_compact_kernel", "flash_fwd_compact_vfa_kernel"),
+               ("float32", "dq"): ("flash_bwd_dq_kernel", "flash_dq_compact_kernel"),
+               ("float32", "dk/dv"): ("flash_bwd_dkv_kernel", "flash_dkv_compact_kernel"),
                ("bfloat16", "dq"): ("flash_bwd_dq_kernel", "flash_dq_compact_kernel"),
                ("bfloat16", "dk/dv"): ("flash_bwd_dkv_kernel", "flash_dkv_compact_kernel"),
                ("bfloat16", "VFA"): ("flash_max_compact_kernel", "flash_fwd_compact_vfa_kernel")}
@@ -331,7 +352,15 @@ def phase_environment(build):
         spills = instances(resources, label)
         check(len(spills) == 6 and all(r["local_bytes"] == 0 for r in spills.values()),
               f"the {' '.join(label)} instantiations spill or are missing: {spills}")
-    for label in (("float32", "forward"), ("float32", "VFA"), ("bfloat16", "dq"), ("bfloat16", "VFA")):
+    # the f32 dq and dk/dv bodies call no function, so a stack frame there
+    # is spilled registers (the forward bodies' frame is store_dead_rows'
+    # call)
+    for label in (("float32", "dq"), ("float32", "dk/dv")):
+        frames = instances(resources, label)
+        check(all(r["stack_bytes"] == 0 for r in frames.values()),
+              f"the {' '.join(label)} instantiations spill registers: {frames}")
+    for label in (("float32", "forward"), ("float32", "VFA"), ("float32", "dq"), ("float32", "dk/dv"),
+                  ("bfloat16", "dq"), ("bfloat16", "VFA")):
         counts = instances(hgmma, label)
         check(len(counts) == 6 and min(counts.values()) > 0,
               f"a {' '.join(label)} instantiation holds no HGMMA instruction: {counts}")
@@ -469,9 +498,8 @@ def phase_backward_vs_plain(fa):
                 return torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do4)
 
             library_ms = time_ms(sdpa_fwd_bwd, reps) - time_ms(sdpa_fwd, reps)
-            dtimes = device_times({"flash_bwd_dq_kernel": dq_kernel, "flash_bwd_dkv_kernel": dkv_kernel,
-                                   None: sdpa_fwd_bwd})
-            library_device_ms = dtimes[None] - device_times({None: sdpa_fwd})[None]
+            dtimes = device_times({"flash_bwd_dq_kernel": dq_kernel, "flash_bwd_dkv_kernel": dkv_kernel})
+            library_device_ms = device_difference(sdpa_fwd_bwd, sdpa_fwd)
             dq_bound, dq_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 3)
             dkv_bound, dkv_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 4)
             row = dict(case=name, dtype=str(dtype).replace("torch.", ""), bh=b * h, n=n, d=d, causal=causal,
@@ -658,7 +686,7 @@ def phase_sparse_kernel_vs_plain(fa, masks):
                                        "flash_dq_compact_kernel": launch["dq_compact"],
                                        "flash_bwd_dkv_kernel": launch["dkv_dense"],
                                        "flash_dkv_compact_kernel": launch["dkv_compact"], None: sdpa_fwd})
-                sdpa_bwd_device_ms = device_times({None: sdpa_fwd_bwd})[None] - dtimes[None]
+                sdpa_bwd_device_ms = device_difference(sdpa_fwd_bwd, sdpa_fwd)
                 compact_auto = fa.pattern_tables(mask, n, d, device=dev).compact
                 vfa = vfa_vs_plain(fa, q, k, v, do, mask, h, tc, res["compact"][:2]) if compact_auto else {}
                 # live tiles per (batch, head), at each kernel's tile
@@ -1153,13 +1181,15 @@ def main() -> int:
     bwd = next(r for r in compared_bwd if r["case"] == "train" and r["dtype"] == "float32")
     dkv_keys = ("bh", "n", "d", "dkv_ms", "dkv_device_ms", "plain_ms", "dkv_bound_ms", "dkv_bound_by",
                 "library_bwd_ms", "library_bwd_device_ms", "sdpa_backend", "dk_err_over_ref_max", "dv_err_over_ref_max")
-    dkv_bf16 = {case: {k: r[k] for k in dkv_keys} for case in ("train", "flagship")
-                for r in compared_bwd if r["case"] == case and r["dtype"] == "bfloat16"}
+    dkv_by_dtype = {dt: {case: {k: r[k] for k in dkv_keys} for case in ("train", "flagship")
+                         for r in compared_bwd if r["case"] == case and r["dtype"] == dt}
+                    for dt in ("float32", "bfloat16")}
     dq_keys = ("bh", "n", "d", "dq_ms", "dq_device_ms", "plain_ms", "dq_bound_ms", "dq_bound_by",
                "library_bwd_ms", "library_bwd_device_ms", "sdpa_backend", "dq_err_over_ref_max",
                "delta_err_over_limit")
-    dq_bf16 = {case: {k: r[k] for k in dq_keys} for case in ("train", "flagship")
-               for r in compared_bwd if r["case"] == case and r["dtype"] == "bfloat16"}
+    dq_by_dtype = {dt: {case: {k: r[k] for k in dq_keys} for case in ("train", "flagship")
+                        for r in compared_bwd if r["case"] == case and r["dtype"] == dt}
+                   for dt in ("float32", "bfloat16")}
     shape = {k: bwd[k] for k in ("dtype", "bh", "n", "d", "causal")}
     row = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 64 and r["dtype"] == "float32")
     compact_by_dtype = {dt: {r["d"]: {
@@ -1168,19 +1198,19 @@ def main() -> int:
         "bound_by": r["fwd_bound_by"], "library_ms": r["sdpa_fwd_ms"], "library_device_ms": r["sdpa_fwd_device_ms"],
         "sdpa_backend": r["sdpa_backend"], "max_abs_err": r["max_abs_err"], "lse_err": r["lse_err"], "bh": r["bh"]}
         for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == dt} for dt in ("float32", "bfloat16")}
-    dq_compact_bf16 = {d: {"ms": r["dq_compact_ms"], "device_ms": r["dq_compact_device_ms"],
-                           "dense_grid_ms": r["dq_dense_ms"], "dense_grid_device_ms": r["dq_dense_device_ms"],
-                           "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dq_bound_ms"], "bound_by": r["dq_bound_by"],
-                           "library_ms": r["sdpa_bwd_ms"], "library_device_ms": r["sdpa_bwd_device_ms"],
-                           "dq_err_over_ref_max": r["dq_err_over_ref_max"], "bh": r["bh"]}
-                       for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
-    dkv_compact_bf16 = {d: {"ms": r["dkv_compact_ms"], "device_ms": r["dkv_compact_device_ms"],
-                            "dense_grid_ms": r["dkv_dense_ms"], "dense_grid_device_ms": r["dkv_dense_device_ms"],
-                            "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dkv_bound_ms"], "bound_by": r["dkv_bound_by"],
-                            "library_ms": r["sdpa_bwd_ms"], "library_device_ms": r["sdpa_bwd_device_ms"],
-                            "dk_err_over_ref_max": r["dk_err_over_ref_max"],
-                            "dv_err_over_ref_max": r["dv_err_over_ref_max"], "bh": r["bh"]}
-                        for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == "bfloat16" for d in [r["d"]]}
+    dq_compact_by_dtype = {dt: {r["d"]: {
+        "ms": r["dq_compact_ms"], "device_ms": r["dq_compact_device_ms"], "dense_grid_ms": r["dq_dense_ms"],
+        "dense_grid_device_ms": r["dq_dense_device_ms"], "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dq_bound_ms"],
+        "bound_by": r["dq_bound_by"], "library_ms": r["sdpa_bwd_ms"], "library_device_ms": r["sdpa_bwd_device_ms"],
+        "dq_err_over_ref_max": r["dq_err_over_ref_max"], "bh": r["bh"]}
+        for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == dt} for dt in ("float32", "bfloat16")}
+    dkv_compact_by_dtype = {dt: {r["d"]: {
+        "ms": r["dkv_compact_ms"], "device_ms": r["dkv_compact_device_ms"], "dense_grid_ms": r["dkv_dense_ms"],
+        "dense_grid_device_ms": r["dkv_dense_device_ms"], "plain_ms": r["plain_bwd_ms"], "bound_ms": r["dkv_bound_ms"],
+        "bound_by": r["dkv_bound_by"], "library_ms": r["sdpa_bwd_ms"], "library_device_ms": r["sdpa_bwd_device_ms"],
+        "dk_err_over_ref_max": r["dk_err_over_ref_max"], "dv_err_over_ref_max": r["dv_err_over_ref_max"],
+        "bh": r["bh"]}
+        for r in sparse if r["pattern"] == "axial_row" and r["dtype"] == dt} for dt in ("float32", "bfloat16")}
     compact_shape = {k: row[k] for k in ("pattern", "dtype", "bh", "n", "d", "live_tiles", "causal_tiles")}
     source_bwd = "dalle_pytorch_tpu_torch/kernels/csrc/flash_bwd.cu"
     source_compact = "dalle_pytorch_tpu_torch/kernels/csrc/flash_compact.cu"
@@ -1215,14 +1245,16 @@ def main() -> int:
         "library_ms": bwd["library_bwd_ms"],
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,
         "delta_err_over_limit_all_cases": max(r["delta_err_over_limit"] for r in compared_bwd + sparse),
-        "bf16_tensor_cores": dq_bf16, "masked": pattern_readings(sparse, "dq_dense"),
+        "f32_tensor_cores": dq_by_dtype["float32"], "bf16_tensor_cores": dq_by_dtype["bfloat16"],
+        "masked": pattern_readings(sparse, "dq_dense"),
     }, {
         "name": "flash_dkv", "route": "cuda", "source": source_bwd, "replaces": replaces + "312",
         **launched("flash_dkv"), "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
         "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dkv_bound_ms"],
         "bound_by": bwd["dkv_bound_by"], "library_ms": bwd["library_bwd_ms"],
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,
-        "bf16_tensor_cores": dkv_bf16, "masked": pattern_readings(sparse, "dkv_dense"),
+        "f32_tensor_cores": dkv_by_dtype["float32"], "bf16_tensor_cores": dkv_by_dtype["bfloat16"],
+        "masked": pattern_readings(sparse, "dkv_dense"),
     }, {
         "name": "flash_fwd_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "524",
         **launched("flash_fwd_compact", "sparse_train"), "max_abs_err": row["max_abs_err"],
@@ -1242,7 +1274,9 @@ def main() -> int:
         "bound_by": row["dq_bound_by"], "library_ms": row["sdpa_bwd_ms"], "shape": compact_shape,
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)",
         "bit_equal_to_dense_all_cases": all(r["bit_equal"] for r in sparse),
-        "bf16_tensor_cores_axial_row": dq_compact_bf16, "by_pattern": pattern_readings(sparse, "dq_compact"),
+        "f32_tensor_cores_axial_row": dq_compact_by_dtype["float32"],
+        "bf16_tensor_cores_axial_row": dq_compact_by_dtype["bfloat16"],
+        "by_pattern": pattern_readings(sparse, "dq_compact"),
     }, {
         "name": "flash_dkv_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "758",
         **launched("flash_dkv_compact"), "max_abs_err": max(row["dk_max_abs_err"], row["dv_max_abs_err"]),
@@ -1253,7 +1287,9 @@ def main() -> int:
         "shape": dict(compact_shape, live_tiles=row["live_tiles_dkv"], causal_tiles=row["causal_tiles_dkv"]),
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)",
         "bit_equal_to_dense_all_cases": all(r["bit_equal"] for r in sparse),
-        "bf16_tensor_cores_axial_row": dkv_compact_bf16, "by_pattern": pattern_readings(sparse, "dkv_compact"),
+        "f32_tensor_cores_axial_row": dkv_compact_by_dtype["float32"],
+        "bf16_tensor_cores_axial_row": dkv_compact_by_dtype["bfloat16"],
+        "by_pattern": pattern_readings(sparse, "dkv_compact"),
     }]
     vfa = next(r for r in sparse if r["pattern"] == "axial_row" and r["d"] == 128 and r["dtype"] == "float32")
     vfa_shape = {k: vfa[k] for k in ("pattern", "dtype", "bh", "n", "d", "live_tiles", "causal_tiles")}

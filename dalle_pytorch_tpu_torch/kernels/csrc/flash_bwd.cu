@@ -28,31 +28,32 @@
 // What bounds it on this card: dq does three n x n x d products and dk/dv
 // four (halved under causality), against six (bh, n, d) tensors moved each,
 // so at the training shape (n = 1280, d = 64) both are bound by operations:
-// 989 TFLOP/s on the bf16 tensor cores, 67 TFLOP/s on the f32 FMA units.
+// 989 TFLOP/s on the bf16 tensor cores; in f32, 3xTF32 on the same tensor
+// cores (three TF32 products for one, the f32 tolerance kept), 165 TFLOP/s.
 //
-// What the design does about it: one block owns 64 rows of one (batch,
-// head), query rows for dq and key rows for dk/dv, and loops over the other
-// side's tiles, each staged once in shared memory and read by all 64 rows.
-// The dtype picks the tile bodies:
+// What the design does about it: one block of one warpgroup owns 64 rows of
+// one (batch, head), query rows for dq and key rows for dk/dv, and loops
+// over the other side's tiles, each staged once in shared memory and read by
+// all 64 rows; the products run on wgmma, p and ds stay in registers.  The
+// dtype picks the tile bodies:
 //   bf16  dq_block_tc (flash_dq_tc.cuh) and dkv_block_tc (flash_bwd_tc.cuh):
-//         one warpgroup, the three and four products on wgmma, bf16 tiles
-//         in a two-stage cp.async ring, p and ds in registers;
-//   f32   dq_block and dkv_block (flash_tiles.cuh): 256 threads on the FMA
-//         units, tiles widened to f32, four threads per row, each holding
-//         d/4 interleaved channels of the row's operands and accumulators in
-//         registers, a dot product four partial sums joined by two warp
-//         shuffles.
+//         bf16 tiles in a two-stage cp.async ring, each read both K-major
+//         and, through the transpose bit, MN-major;
+//   f32   dq_block_tf32 and dkv_block_tf32 (flash_bwd_tf32.cuh): every
+//         product in 3xTF32, the tiles split into TF32 hi and lo through
+//         registers, the ones the last products read staged a second time
+//         transposed (a TF32 operand in shared memory is K-major only), the
+//         other side walked in 16-row halves at d 128.
 // Both dq bodies compute their rows' delta before their walk.
-#include "flash_bwd_tc.cuh"
-#include "flash_dq_tc.cuh"
+#include "flash_bwd_tf32.cuh"
 
 namespace {
 
 using namespace flash;
 
-// dq and delta: the tensor-core body for bf16, the FMA body for f32
+// dq and delta: the bf16 or the f32 (3xTF32) tensor-core body
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_bwd_dq_kernel(Args a) {
   constexpr int BK = inner_tile<D>();
   const int nk = ceil_div(a.n, BK);
@@ -74,12 +75,12 @@ flash_bwd_dq_kernel(Args a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     dq_block_tc<D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, dense_list(live, 0, end), nk);
   else
-    dq_block<T, D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, dense_list(live, 0, end), nk);
+    dq_block_tf32<D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, dense_list(live, 0, end), nk);
 }
 
-// dk/dv: the tensor-core body for bf16, the FMA body for f32
+// dk/dv: the bf16 or the f32 (3xTF32) tensor-core body
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_bwd_dkv_kernel(Args a) {
   constexpr int BQ = inner_tile<D>();
   const int nq = ceil_div(a.n, BQ);
@@ -101,8 +102,8 @@ flash_bwd_dkv_kernel(Args a) {
     dkv_block_tc<D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p,
                     dense_list(live, begin, nq), nq);
   else
-    dkv_block<T, D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p,
-                    dense_list(live, begin, nq), nq);
+    dkv_block_tf32<D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p,
+                      dense_list(live, begin, nq), nq);
 }
 
 }  // namespace
@@ -125,7 +126,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   return run(a, d, dtype, false, tile_q, tile_k, live != nullptr, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::DqSizes<D>, flash_bwd_dq_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<DqBlockSizes<T, D>, flash_bwd_dq_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 
@@ -140,6 +141,6 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   return run(a, d, dtype, true, tile_q, tile_k, live != nullptr, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::DkvSizes<D>, flash_bwd_dkv_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<DkvBlockSizes<T, D>, flash_bwd_dkv_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }

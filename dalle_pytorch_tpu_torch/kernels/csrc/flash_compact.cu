@@ -12,7 +12,7 @@
 // flash_fwd_tf32.cuh for the online forward in bf16 and f32;
 // flash_vfa_tc.cuh for the VFA pair in both, the online forward's walk in
 // two other modes; flash_dq_tc.cuh and flash_bwd_tc.cuh for the bf16 dq and
-// dk/dv; flash_tiles.cuh for the f32 dq and dk/dv), but each block reads
+// dk/dv; flash_bwd_tf32.cuh for the f32 dq and dk/dv), but each block reads
 // the tiles it visits from a per-head CSR table instead of scanning every tile below the
 // causal diagonal: the forward and dq blocks (one per 64 query rows) walk
 // ptr/idx = row_ptr (H, ceil(n/64) + 1) and the ascending key tiles col (H,
@@ -34,10 +34,9 @@
 // live tiles only: 4 * bh * T * 64 * BK * d for the forward (2x for dq, 3x
 // for dk/dv; the VFA pair 2 * bh * T * 64 * BK * d for the max pass and the
 // forward's count for the fixed-max pass), against q, k, v, out and lse each
-// moved once.  In f32 it is bound by operations (the forward and the VFA
-// pair on the tensor cores as 3xTF32 at 165 TFLOP/s, dq and dk/dv on the
-// FMA units at 67), and a pattern that kills half the causal tiles halves the
-// work; in bf16 the tensor cores' products over the live tiles take less
+// moved once.  In f32 it is bound by operations (every body on the tensor
+// cores as 3xTF32 at 165 TFLOP/s), and a pattern that kills half the causal
+// tiles halves the work; in bf16 the tensor cores' products over the live tiles take less
 // time than moving the tensors once (axial_row, n 1280, d 64: 0.008 against
 // 0.013 ms), so there it is bound by bytes.
 //
@@ -47,8 +46,7 @@
 // own list and writes its rows (or keys) at the end.  The max pass stages K
 // alone and computes no exp; the fixed-max pass drops the per-chunk alpha
 // and the rescale of the accumulator.
-#include "flash_bwd_tc.cuh"
-#include "flash_dq_tc.cuh"
+#include "flash_bwd_tf32.cuh"
 #include "flash_vfa_tc.cuh"
 
 namespace {
@@ -109,10 +107,10 @@ flash_fwd_compact_vfa_kernel(Args a) {
     vfa_block_tf32<D>(q, k, v, static_cast<T*>(a.out0), a.lse_out, p, block_csr(a));
 }
 
-// dq and delta: the tensor-core body for bf16, the FMA body for f32, as in
+// dq and delta: the bf16 or the f32 (3xTF32) tensor-core body, as in
 // flash_bwd.cu
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_dq_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, nullptr, a.kmask,
                                  a.mask, a.mask_heads);
@@ -126,13 +124,13 @@ flash_dq_compact_kernel(Args a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     dq_block_tc<D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, block_csr(a), nk);
   else
-    dq_block<T, D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, block_csr(a), nk);
+    dq_block_tf32<D>(q, k, v, dout, out, static_cast<T*>(a.out0), delta, p, block_csr(a), nk);
 }
 
-// dk/dv: the tensor-core body for bf16, the FMA body for f32, as in
+// dk/dv: the bf16 or the f32 (3xTF32) tensor-core body, as in
 // flash_bwd.cu
 template <typename T, int D>
-__global__ void __launch_bounds__(block_threads<T>())
+__global__ void __launch_bounds__(tc::kThreads)
 flash_dkv_compact_kernel(Args a) {
   const Problem p = make_problem(a.n, a.h, a.scale, a.causal, D, a.lse, a.delta, a.kmask,
                                  a.mask, a.mask_heads);
@@ -144,7 +142,7 @@ flash_dkv_compact_kernel(Args a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     dkv_block_tc<D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p, block_csr(a), nq);
   else
-    dkv_block<T, D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p, block_csr(a), nq);
+    dkv_block_tf32<D>(q, k, v, dout, static_cast<T*>(a.out0), static_cast<T*>(a.out1), p, block_csr(a), nq);
 }
 
 }  // namespace
@@ -216,7 +214,7 @@ extern "C" int flash_dq_compact(const void* q, const void* k, const void* v, con
   return run(a, d, dtype, false, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::DqSizes<D>, flash_dq_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<DqBlockSizes<T, D>, flash_dq_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }
 
@@ -232,6 +230,6 @@ extern "C" int flash_dkv_compact(const void* q, const void* k, const void* v, co
   return run(a, d, dtype, true, tile_q, tile_k, true, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int D = decltype(tag)::dim;
-    launch_tc<T, tc::DkvSizes<D>, flash_dkv_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
+    launch_wg<DkvBlockSizes<T, D>, flash_dkv_compact_kernel<T, D>>(dim3(ceil_div(a.n, kTileRows), a.bh), a);
   });
 }

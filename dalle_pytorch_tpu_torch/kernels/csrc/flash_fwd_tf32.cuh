@@ -189,6 +189,11 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32_finite(__fsub_rn(x, __uint_as_float(hi)));
 }
 
+// four words to shared address `at` (16-byte aligned)
+__device__ __forceinline__ void st_shared4(uint32_t at, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
+}
+
 // The four floats of x split: the hi parts to shared address `hi`, the lo
 // parts to `hi + lo_off` (the lo tile lies beside the hi tile, same layout).
 __device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo_off, float4 x) {
@@ -197,11 +202,8 @@ __device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo_off, float4
   split(x.y, h1, l1);
   split(x.z, h2, l2);
   split(x.w, h3, l3);
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi), "r"(h0), "r"(h1), "r"(h2), "r"(h3)
-               : "memory");
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi + lo_off), "r"(l0), "r"(l1), "r"(l2),
-               "r"(l3)
-               : "memory");
+  st_shared4(hi, h0, h1, h2, h3);
+  st_shared4(hi + lo_off, l0, l1, l2, l3);
 }
 
 // floats 4c .. 4c + 3 of row `row` of one (batch, head)'s (n, D) matrix;

@@ -7,9 +7,10 @@
 //
 // Used by the forward body (flash_fwd_tc.cuh, fwd_block_tc), the dq body
 // (flash_dq_tc.cuh, dq_block_tc) and the dk/dv body (flash_bwd_tc.cuh,
-// dkv_block_tc), and (descriptors, pattern staging, fragment coordinates,
-// masking, launch) by the f32 forward body on TF32 (flash_fwd_tf32.cuh,
-// fwd_block_tf32).  Every body is one warpgroup of 128
+// dkv_block_tc), and (layouts, descriptors, pattern staging, fragment
+// coordinates, masking, launch) by the f32 bodies on TF32: the forward
+// (flash_fwd_tf32.cuh, fwd_block_tf32) and dq and dk/dv (flash_bwd_tf32.cuh,
+// dq_block_tf32, dkv_block_tf32).  Every body is one warpgroup of 128
 // threads whose 64 rows are wgmma's M; the bf16 tiles of the other side are
 // staged once in one layout that serves both as a K-major operand and, read
 // through the transpose bit, as an MN-major one.
@@ -242,12 +243,12 @@ __device__ __forceinline__ Frag frag() {
 // The bodies that own query rows (the forward, dq) mask their m64 x n(BK)
 // score fragment with the helpers below, in that orientation.
 
-// Which of this thread's scores in the key tile at k0 pass the pattern and
+// Which of this thread's scores in the BK keys at k0 pass the pattern and
 // the key padding: bit 2j + e of allow[rr] for the key of column 8j + col +
-// e.  `ms` is the tile's staged pattern (mask_row<BK>()-byte rows, row rr's
-// bytes from f.shift[rr]); padding indices are clamped into the array (a key
-// past n scores -inf anyway).
-template <int BK>
+// e.  `ms` is the keys' staged pattern (in a tile of W >= BK columns:
+// mask_row<W>()-byte rows, row rr's bytes from f.shift[rr]); padding indices
+// are clamped into the array (a key past n scores -inf anyway).
+template <int BK, int W = BK>
 __device__ __forceinline__ void key_allow(const Problem& p, const uint8_t* ms, const Frag& f, int k0,
                                           uint32_t (&allow)[2]) {
   allow[0] = allow[1] = ~0u;
@@ -263,7 +264,7 @@ __device__ __forceinline__ void key_allow(const Problem& p, const uint8_t* ms, c
   if (p.mask != nullptr) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const uint8_t* mrow = ms + f.rows[rr] * mask_row<BK>() + f.shift[rr];
+      const uint8_t* mrow = ms + f.rows[rr] * mask_row<W>() + f.shift[rr];
       uint32_t bits = 0;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
@@ -323,35 +324,16 @@ __device__ __forceinline__ void mask_shifts(const Problem& p, int q0, Frag& f) {
 
 }  // namespace tc
 
-// The block size of an entry whose body the dtype picks: one warpgroup for a
-// bf16 tensor-core body, 256 threads for an f32 FMA body (the f32 dq and
-// dk/dv; the forward and VFA entries take one warpgroup in both dtypes).
-template <typename T>
-__host__ __device__ constexpr int block_threads() {
-  return std::is_same<T, __nv_bfloat16>::value ? tc::kThreads : kThreads;
-}
-
 // Launches an entry whose body is one warpgroup with its tiles (and the
 // pattern's ring, with a pattern) in the dynamic shared memory that `Smem`
 // (kSmem, kSmemMasked) sizes, its limit raised on every launch (a cheap host
 // call, and right on any device) and a failure to raise it left as the error
-// run() returns.
+// run() returns.  Every entry, in both dtypes, launches so.
 template <typename Smem, void (*Kernel)(Args)>
 void launch_wg(dim3 grid, const Args& a) {
   const int smem = a.mask != nullptr ? Smem::kSmemMasked : Smem::kSmem;
   if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess) return;
   Kernel<<<grid, tc::kThreads, smem, a.stream>>>(a);
-}
-
-// Launches an entry with its body's block: for bf16 one warpgroup
-// (launch_wg), for f32 256 threads and static shared memory.
-template <typename T, typename Smem, void (*Kernel)(Args)>
-void launch_tc(dim3 grid, const Args& a) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    launch_wg<Smem, Kernel>(grid, a);
-  } else {
-    Kernel<<<grid, kThreads, 0, a.stream>>>(a);
-  }
 }
 
 }  // namespace flash

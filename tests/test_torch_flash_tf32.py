@@ -34,6 +34,19 @@ LOG2E = 1.4426950408889634
 PATTERNS = ("axial_row", "axial_col", "conv_like")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The emulations run many small products, which gain nothing from
+    torch's threads (a case runs faster on one); where the suite runs in
+    several processes on a few cores, those threads only compete for them
+    (a case that takes 1 s alone took 70 s so).  One thread for this
+    module's tests, the count restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def to_tf32(x):
     """`cvt.rna.tf32.f32` on an f32 tensor: to nearest, ties away from zero,
     the low 13 bits of the f32 bits cleared.  Adding half a TF32 step to the
@@ -63,44 +76,56 @@ def product(eq, a, b, passes=3):
 def tf32_forward(q, k, v, h, causal, scale, mask=None, key_mask=None, passes=3):
     """The f32 tensor-core body's forward, rounding for rounding: q, k, v
     (bh, n, d) f32, mask (n, n) bool or None, key_mask (bh // h, n) nonzero
-    = attend or None.  Returns (out f32, lse f32)."""
+    = attend or None.  Returns (out f32, lse f32).  Every query tile (the
+    kernel's blocks, rows past n zero) walks the key tiles at once, in the
+    kernel's order; a tile a block does not visit leaves its m, l and o as
+    they were."""
     bh, n, d = q.shape
     tq, tk = tfa.tile_shapes(d)[0]
+    nq, nk = math.ceil(n / tq), math.ceil(n / tk)
     live = tfa.pattern_tables(mask, n, d, causal, grid="dense").live_rows[0] if mask is not None else None
-    keep = None if key_mask is None else (key_mask[torch.arange(bh) // h] > 0)
+    rows = torch.arange(nq * tq).view(nq, tq)
+    allow = torch.ones(bh, nq * tq, n, dtype=torch.bool)
+    if causal:
+        allow &= torch.ones(nq * tq, n, dtype=torch.bool).tril()
+    if mask is not None:
+        allow[:, :n] &= mask
+    if key_mask is not None:
+        allow &= (key_mask[torch.arange(bh) // h] > 0)[:, None, :]
+    allow = allow.view(bh, nq, tq, n)
+    qp = torch.zeros(bh, nq * tq, d)
+    qp[:, :n] = q
+    qp = qp.view(bh, nq, tq, d)
     pos = torch.arange(n)
     sc = np.float32(scale * LOG2E)
-    out = torch.empty(bh, n, d)
-    lse = torch.empty(bh, n)
-    for i in range(math.ceil(n / tq)):
-        rows = pos[i * tq:(i + 1) * tq]
-        end = math.ceil(min((i + 1) * tq, n) / tk) if causal else math.ceil(n / tk)
-        m = torch.full((bh, len(rows)), NEG)
-        l = torch.zeros(bh, len(rows))
-        o = torch.zeros(bh, len(rows), d)
-        for j in range(end):
-            if live is not None and not live[i, j]:
-                continue
-            cols = pos[j * tk:(j + 1) * tk]  # keys past n do not exist: p = 0
-            s = product("brd,bcd->brc", q[:, rows], k[:, cols], passes) * sc
-            allow = torch.ones(bh, len(rows), len(cols), dtype=torch.bool)
-            if causal:
-                allow &= cols[None, None, :] <= rows[None, :, None]
-            if mask is not None:
-                allow &= mask[rows][:, cols][None]
-            if keep is not None:
-                allow &= keep[:, cols][:, None, :]
-            s = torch.where(allow, s, torch.tensor(NEG))
-            mx = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp2(m - mx)
-            p = torch.exp2(s - mx[..., None])
-            l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + product("brc,bcd->brd", p, v[:, cols], passes)
-            m = mx
-        lc = l.clamp_min(1e-30)
-        dead = m == NEG
-        out[:, rows] = torch.where(dead[..., None], v.sum(1, keepdim=True) / np.float32(n), o / lc[..., None])
-        lse[:, rows] = torch.where(dead, torch.tensor(NEG), m * np.float32(math.log(2)) + torch.log(lc))
+    m = torch.full((bh, nq, tq), NEG)
+    l = torch.zeros(bh, nq, tq)
+    o = torch.zeros(bh, nq, tq, d)
+    for j in range(nk):
+        # the query tiles that visit key tile j: up to the causal diagonal,
+        # where the pattern leaves the tile live
+        visit = torch.ones(nq, dtype=torch.bool)
+        if causal:
+            visit &= j < torch.ceil(torch.clamp((rows[:, 0] + tq), max=n) / tk)
+        if live is not None:
+            visit &= live[:, j].bool()
+        if not visit.any():
+            continue
+        cols = pos[j * tk:(j + 1) * tk]  # keys past n do not exist: p = 0
+        s = product("bird,bcd->birc", qp, k[:, cols], passes) * sc
+        s = torch.where(allow[..., cols], s, torch.tensor(NEG))
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        w = visit[None, :, None]
+        l = torch.where(w, l * alpha + p.sum(-1), l)
+        o = torch.where(w[..., None], o * alpha[..., None] + product("birc,bcd->bird", p, v[:, cols], passes), o)
+        m = torch.where(w, mx, m)
+    m, l, o = m.reshape(bh, -1)[:, :n], l.reshape(bh, -1)[:, :n], o.reshape(bh, -1, d)[:, :n]
+    lc = l.clamp_min(1e-30)
+    dead = m == NEG
+    out = torch.where(dead[..., None], v.sum(1, keepdim=True) / np.float32(n), o / lc[..., None])
+    lse = torch.where(dead, torch.tensor(NEG), m * np.float32(math.log(2)) + torch.log(lc))
     return out, lse
 
 

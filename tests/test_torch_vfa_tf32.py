@@ -23,7 +23,17 @@ import numpy as np
 import pytest
 import torch
 from test_torch_flash_tc import cuda_device  # noqa: F401 (a fixture)
-from test_torch_flash_tf32 import LOG2E, LSE_TOL, NEG, OUT_TOL, _inputs, _pattern, product, tf32_forward
+from test_torch_flash_tf32 import (  # noqa: F401 (one_torch_thread: an autouse fixture)
+    LOG2E,
+    LSE_TOL,
+    NEG,
+    OUT_TOL,
+    _inputs,
+    _pattern,
+    one_torch_thread,
+    product,
+    tf32_forward,
+)
 from test_torch_vfa import _mask, jfa  # noqa: F401 (jfa: a fixture)
 from test_torch_vfa_tc import GMAX_TOL, _card_mask, _dead_rows_case, _gmax_err, _max_err
 
@@ -36,50 +46,52 @@ def tf32_vfa(q, k, v, h, causal, scale, mask=None, key_mask=None, max_passes=3):
     mask (n, n) or per-head (h, n, n) bool or None, key_mask (bh // h, n)
     nonzero = attend or None; `max_passes` 1 runs the max pass as one TF32
     product (the fixed-max pass keeps three).  Returns (gmax (bh, n), out,
-    lse, l, and pmax: each row's largest p in the fixed-max pass), f32."""
+    lse, l, and pmax: each row's largest p in the fixed-max pass), f32.
+    Every query tile of every (batch, head) walks the key tiles at once, in
+    ascending order (the order of the CSR row lists); a tile off a block's
+    list leaves its rows as they were."""
     bh, n, d = q.shape
     tq, tk = tfa.tile_shapes(d)[0]
+    nq, nk = math.ceil(n / tq), math.ceil(n / tk)
     tables = tfa.pattern_tables(mask, n, d, causal, grid="compact")
+    on = torch.zeros(tables.heads, nq, nk, dtype=torch.bool)
+    for head in range(tables.heads):
+        ptr, col = tables.row_ptr[head].tolist(), tables.col[head]
+        for i in range(nq):
+            on[head, i, col[ptr[i]:ptr[i + 1]].long()] = True
+    on = on[torch.arange(bh) % tables.heads]  # (bh, nq, nk): the blocks' lists
+    allow = torch.ones(bh, nq * tq, n, dtype=torch.bool)
+    if causal:
+        allow &= torch.ones(nq * tq, n, dtype=torch.bool).tril()
+    if mask is not None:
+        allow[:, :n] &= (mask if mask.ndim == 3 else mask[None].expand(h, n, n))[torch.arange(bh) % h]
+    if key_mask is not None:
+        allow &= (key_mask[torch.arange(bh) // h] != 0)[:, None, :]
+    allow = allow.view(bh, nq, tq, n)
+    qp = torch.zeros(bh, nq * tq, d)
+    qp[:, :n] = q
+    qp = qp.view(bh, nq, tq, d)
     pos = torch.arange(n)
     sc = np.float32(scale)
 
-    def scores(b, rows, cols, passes):
-        """the masked S of batch-heads b, natural units, scaled after the
-        product"""
-        s = product("brd,bcd->brc", q[b][:, rows], k[b][:, cols], passes) * sc
-        allow = torch.ones(len(b), len(rows), len(cols), dtype=torch.bool)
-        if causal:
-            allow &= cols[None, None, :] <= rows[None, :, None]
-        if mask is not None:
-            heads = mask if mask.ndim == 3 else mask[None].expand(h, n, n)
-            allow &= heads[b % h][:, rows][:, :, cols]
-        if key_mask is not None:
-            allow &= (key_mask[b // h][:, cols] != 0)[:, None, :]
-        return torch.where(allow, s, torch.tensor(NEG))
+    def scores(cols, passes):
+        """the masked S of every query tile against the keys `cols`, natural
+        units, scaled after the product"""
+        s = product("bird,bcd->birc", qp, k[:, cols], passes) * sc
+        return torch.where(allow[..., cols], s, torch.tensor(NEG))
 
-    gmax = torch.full((bh, n), NEG)
-    l = torch.zeros(bh, n)
-    pmax = torch.zeros(bh, n)
-    o = torch.zeros(bh, n, d)
-    for head in range(tables.heads):
-        b = torch.arange(bh) if tables.heads == 1 else torch.arange(head, bh, h)
-        ptr, col = tables.row_ptr[head], tables.col[head]
-        for i in range(math.ceil(n / tq)):
-            rows = pos[i * tq:(i + 1) * tq]
-            tiles = [pos[j * tk:(j + 1) * tk] for j in col[ptr[i]:ptr[i + 1]].tolist()]  # keys past n: p = 0
-            m = torch.full((len(b), len(rows)), NEG)
-            for cols in tiles:  # pass 1
-                m = torch.maximum(m, scores(b, rows, cols, max_passes).amax(-1))
-            acc, lsum, top = torch.zeros(len(b), len(rows), d), torch.zeros(len(b), len(rows)), torch.zeros_like(m)
-            for cols in tiles:  # pass 2, against the fixed maximum
-                p = torch.exp2((scores(b, rows, cols, 3) - m[..., None]) * np.float32(LOG2E))
-                lsum = lsum + p.sum(-1)
-                top = torch.maximum(top, p.amax(-1))
-                acc = acc + product("brc,bcd->brd", p, v[b][:, cols])
-            gmax[b[:, None], rows[None]] = m
-            l[b[:, None], rows[None]] = lsum
-            pmax[b[:, None], rows[None]] = top
-            o[b[:, None], rows[None]] = acc
+    tiles = [(pos[j * tk:(j + 1) * tk], on[..., j][..., None]) for j in range(nk) if on[..., j].any()]
+    m = torch.full((bh, nq, tq), NEG)
+    for cols, w in tiles:  # pass 1; keys past n do not exist: p = 0
+        m = torch.where(w, torch.maximum(m, scores(cols, max_passes).amax(-1)), m)
+    acc, lsum, top = torch.zeros(bh, nq, tq, d), torch.zeros(bh, nq, tq), torch.zeros(bh, nq, tq)
+    for cols, w in tiles:  # pass 2, against the fixed maximum
+        p = torch.exp2((scores(cols, 3) - m[..., None]) * np.float32(LOG2E))
+        lsum = torch.where(w, lsum + p.sum(-1), lsum)
+        top = torch.where(w, torch.maximum(top, p.amax(-1)), top)
+        acc = torch.where(w[..., None], acc + product("birc,bcd->bird", p, v[:, cols]), acc)
+    gmax, l, pmax = (t.reshape(bh, -1)[:, :n] for t in (m, lsum, top))
+    o = acc.reshape(bh, -1, d)[:, :n]
     dead = gmax <= NEG / 2
     lc = l.clamp_min(1e-30)
     out = torch.where(dead[..., None], v.sum(1, keepdim=True) / np.float32(n), o / lc[..., None])
