@@ -21,8 +21,13 @@ DALL-E (dim 1152, depth 64, 8 heads x 128, the same cycle, tied input and
 output embeddings, the VFA forward on the compacted grid): one primed
 generation, a decode profile, card-vs-CPU parity of a small model with its
 features, and training (bf16 compute sequential and rematerialised, f32
-compute rematerialised).  Each path runs with every launch counter set to 0
-just before it and read just after.
+compute rematerialised).  Then text in, PNG out: the generate CLI
+(`cli.generate.main`, in process) on the pattern model at full width with
+the BPE tokenizer's vocabulary, from a v3 checkpoint the port writes, with
+--gentxt (and once more on a one-cycle cut of it that forces the compacted
+grid), and CLIP at its default config scoring those images with and without
+the text mask, its kernel path held against its plain path.  Each path runs
+with every launch counter set to 0 just before it and read just after.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.  The
 last two lines are the kernel table and `{"ok": true, "device": {...}}`.  It
@@ -109,31 +114,51 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def flash_bound_ms(bh, n, d, dtype, causal, padded, b):
-    """The least time for the attention forward: each input read once and
-    each output written once over the memory rate, against the two matrix
-    products over the dtype's peak; the larger of the two."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * bh * n * d * esize + bh * n * 4 + (b * n * 4 if padded else 0)
-    pairs = n * (n + 1) // 2 if causal else n * n
-    flops = 4 * bh * pairs * d
+def attention_work(kmask, b, h, n, causal):
+    """What a key mask leaves of attention's work over the b*h batch-heads:
+    the (query, key) pairs that are scored, the live keys (rows of K and V to
+    read) and the query rows that see a key (rows of Q to read); with no
+    mask every key lives."""
+    live = torch.ones(b, n) if kmask is None else (kmask > 0).float().cpu()
+    seen = live.cumsum(1) if causal else live.sum(1, keepdim=True).expand(b, n)  # keys each query sees
+    return int(seen.sum()) * h, int(live.sum()) * h, int((seen > 0).sum()) * h
+
+
+def bound(nbytes, flops, dtype):
+    """The larger of `nbytes` over the memory rate and `flops` over the
+    dtype's peak, in ms, and which of the two it is."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def backward_bound_ms(bh, n, d, dtype, causal, padded, b, products):
-    """The least time for one backward kernel: six (bh, n, d) tensors (dq:
-    q, k, v, do and out read, dq written; dk/dv: q, k, v and do read, dk and
-    dv written), lse and delta (read, or delta written by dq) and the key
-    mask each moved once over the memory rate, against its `products` n x n x
-    d matrix products (2 flops a multiply-add) over the dtype's peak; the
-    larger of the two."""
+def flash_bound_ms(b, h, n, d, dtype, causal, kmask):
+    """The least time for the attention forward under key mask `kmask` (or
+    None): Q read for the rows that see a key, K and V for the live keys,
+    the output and lse written for every row, the mask read once, over the
+    memory rate; against the two matrix products over the scored pairs over
+    the dtype's peak; the larger of the two."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 6 * bh * n * d * esize + 2 * bh * n * 4 + (b * n * 4 if padded else 0)
-    pairs = n * (n + 1) // 2 if causal else n * n
-    flops = products * 2 * bh * pairs * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    pairs, live_keys, live_rows = attention_work(kmask, b, h, n, causal)
+    nbytes = (live_rows + 2 * live_keys + b * h * n) * d * esize + b * h * n * 4
+    nbytes += 0 if kmask is None else b * n * 4
+    return bound(nbytes, 4 * pairs * d, dtype)
+
+
+def backward_bound_ms(b, h, n, d, dtype, causal, kmask, products, row_reads, float_reads, writes,
+                      float_writes):
+    """The least time for one backward kernel under key mask `kmask` (or
+    None): its `row_reads` (bh, n, d) query-side inputs and `float_reads`
+    (bh, n) f32 ones read for the rows that see a key, K and V read for the
+    live keys, its `writes` (bh, n, d) and `float_writes` (bh, n) outputs
+    written for every row, and the mask, over the memory rate (dq: q, do and
+    out, lse; dq and delta.  dk/dv: q and do, lse and delta; dk and dv);
+    against its `products` matrix products over the scored pairs (2 flops a
+    multiply-add) over the dtype's peak; the larger of the two."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    pairs, live_keys, live_rows = attention_work(kmask, b, h, n, causal)
+    nbytes = (row_reads * live_rows + 2 * live_keys + writes * b * h * n) * d * esize
+    nbytes += (float_reads * live_rows + float_writes * b * h * n) * 4 + (0 if kmask is None else b * n * 4)
+    return bound(nbytes, products * 2 * pairs * d, dtype)
 
 
 def pattern_bound_ms(bh, n, d, dtype, live_tiles, heads, tile, products, tensors, floats):
@@ -371,27 +396,52 @@ def phase_environment(build):
          tf32="off (cudnn.allow_tf32=False, matmul precision highest)")
 
 
+def random_keys_first_dead(b, n, g, dev):
+    """A key mask keeping each key with probability 0.8, the first 16 keys
+    of the first batch masked."""
+    kmask = (torch.rand(b, n, generator=g, device=dev) > 0.2).to(torch.int32)
+    kmask[0, :16] = 0
+    return kmask
+
+
+def random_keys_last_batch_dead(b, n, g, dev):
+    """A key mask keeping each key with probability 0.8, every key of the
+    last batch masked (rows that see no key)."""
+    kmask = (torch.rand(b, n, generator=g, device=dev) > 0.2).to(torch.int32)
+    kmask[-1] = 0
+    return kmask
+
+
+def caption_keys(b, n, g, dev):
+    """CLIP's text mask (text != 0) for captions of n, 200, 31 and 7
+    tokens, padded at the end."""
+    lengths = torch.tensor([n, 200, 31, 7][:b], device=dev)
+    return (torch.arange(n, device=dev)[None] < lengths[:, None]).to(torch.int32)
+
+
 def phase_kernel_vs_plain(fa):
     """flash_fwd against flash_attention_reference at the slices' shapes
     (both dtypes on the tensor cores: f32 in 3xTF32, bf16), with SDPA's time
-    and the backend it took."""
+    and the backend it took; among them the serving entry points' own: CLIP's
+    non-causal text (key-padded) and image encoders and a --gentxt prompt's
+    causal prefill under one tile."""
     dev = torch.device("cuda")
-    cases = [  # (name, b, h, n, d, causal, padded)
-        ("prefill", 4, 16, 257, 64, True, False),  # 2 prompts x CFG, bos + 256 text
-        ("forward", 2, 16, 1280, 64, True, False),  # scoring forward, batch 2
-        ("padded_noncausal", 2, 16, 300, 64, False, True),
-        ("train", 4, 16, 1280, 64, True, False),  # the training step, batch 4
-        ("flagship", 4, 8, 1280, 128, True, False),  # the flagship's full layers, batch 4
+    cases = [  # (name, b, h, n, d, causal, key mask builder or None)
+        ("prefill", 4, 16, 257, 64, True, None),  # 2 prompts x CFG, bos + 256 text
+        ("forward", 2, 16, 1280, 64, True, None),  # scoring forward, batch 2
+        ("padded_noncausal", 2, 16, 300, 64, False, random_keys_first_dead),
+        ("train", 4, 16, 1280, 64, True, None),  # the training step, batch 4
+        ("flagship", 4, 8, 1280, 128, True, None),  # the flagship's full layers, batch 4
+        ("clip_text", 4, 8, 256, 64, False, caption_keys),  # CLIP's text encoder
+        ("clip_image", 4, 8, 64, 64, False, None),  # CLIP's image encoder, 64 patches
+        ("text_prompt", 2, 16, 7, 64, True, None),  # a --gentxt prompt's prefill
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, b, h, n, d, causal, padded in cases:
+        for name, b, h, n, d, causal, key_mask in cases:
             g = torch.Generator(device=dev).manual_seed(n)
             q, k, v = (torch.randn(b * h, n, d, generator=g, device=dev).to(dtype) for _ in range(3))
-            kmask = None
-            if padded:
-                kmask = (torch.rand(b, n, generator=g, device=dev) > 0.2).to(torch.int32)
-                kmask[0, :16] = 0  # rows that see no key at all
+            kmask = None if key_mask is None else key_mask(b, n, g, dev)
             out, lse = fa.flash_fwd(q, k, v, h=h, causal=causal, key_mask=kmask)
             torch.cuda.synchronize()
             ref_out, ref_lse = fa.flash_attention_reference(q, k, v, h, causal, d ** -0.5, None, kmask)
@@ -417,9 +467,11 @@ def phase_kernel_vs_plain(fa):
 
             library_ms = time_ms(sdpa, reps)
             dtimes = device_times({"flash_fwd_kernel": kernel, None: sdpa})
-            bound_ms, bound_by = flash_bound_ms(b * h, n, d, dtype, causal, padded, b)
+            bound_ms, bound_by = flash_bound_ms(b, h, n, d, dtype, causal, kmask)
             row = dict(case=name, dtype=str(dtype).replace("torch.", ""), bh=b * h, n=n, d=d,
-                       causal=causal, key_padding=padded, max_abs_err=err, lse_err=lse_err,
+                       causal=causal, key_padding=kmask is not None, live_keys=attention_work(kmask, b, h, n,
+                                                                                              causal)[1] // h,
+                       max_abs_err=err, lse_err=lse_err,
                        tolerance=TOLERANCE[dtype], ms=kernel_ms, plain_ms=plain_ms,
                        library_ms=library_ms, device_ms=dtimes["flash_fwd_kernel"], library_device_ms=dtimes[None],
                        sdpa_backend=sdpa_backend(sdpa), bound_ms=bound_ms, bound_by=bound_by)
@@ -436,21 +488,18 @@ def phase_backward_vs_plain(fa):
     value.  The library time is SDPA forward + backward minus SDPA forward,
     same inputs; device times are the kernels' own (`device_times`)."""
     dev = torch.device("cuda")
-    cases = [  # (name, b, h, n, d, causal, padded)
-        ("train", 4, 16, 1280, 64, True, False),
-        ("flagship", 4, 8, 1280, 128, True, False),  # the flagship's full layers, batch 4
-        ("prefill", 4, 16, 257, 64, True, False),
-        ("padded_noncausal", 2, 16, 300, 64, False, True),
+    cases = [  # (name, b, h, n, d, causal, key mask builder or None)
+        ("train", 4, 16, 1280, 64, True, None),
+        ("flagship", 4, 8, 1280, 128, True, None),  # the flagship's full layers, batch 4
+        ("prefill", 4, 16, 257, 64, True, None),
+        ("padded_noncausal", 2, 16, 300, 64, False, random_keys_last_batch_dead),
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, b, h, n, d, causal, padded in cases:
+        for name, b, h, n, d, causal, key_mask in cases:
             g = torch.Generator(device=dev).manual_seed(n + 1)
             q, k, v, do = (torch.randn(b * h, n, d, generator=g, device=dev).to(dtype) for _ in range(4))
-            kmask = None
-            if padded:
-                kmask = (torch.rand(b, n, generator=g, device=dev) > 0.2).to(torch.int32)
-                kmask[-1] = 0  # every row of the last batch sees no key
+            kmask = None if key_mask is None else key_mask(b, n, g, dev)
             scale = d ** -0.5
             out, lse = fa.flash_fwd(q, k, v, h=h, causal=causal, key_mask=kmask)
             grads = fa.flash_bwd(q, k, v, out, lse, do, h=h, causal=causal, key_mask=kmask)
@@ -500,10 +549,11 @@ def phase_backward_vs_plain(fa):
             library_ms = time_ms(sdpa_fwd_bwd, reps) - time_ms(sdpa_fwd, reps)
             dtimes = device_times({"flash_bwd_dq_kernel": dq_kernel, "flash_bwd_dkv_kernel": dkv_kernel})
             library_device_ms = device_difference(sdpa_fwd_bwd, sdpa_fwd)
-            dq_bound, dq_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 3)
-            dkv_bound, dkv_by = backward_bound_ms(b * h, n, d, dtype, causal, padded, b, 4)
+            dq_bound, dq_by = backward_bound_ms(b, h, n, d, dtype, causal, kmask, 3, 3, 1, 1, 1)
+            dkv_bound, dkv_by = backward_bound_ms(b, h, n, d, dtype, causal, kmask, 4, 2, 2, 2, 0)
             row = dict(case=name, dtype=str(dtype).replace("torch.", ""), bh=b * h, n=n, d=d, causal=causal,
-                       key_padding=padded, tolerance=TOLERANCE[dtype], delta_err_over_limit=delta_err,
+                       key_padding=kmask is not None, live_keys=attention_work(kmask, b, h, n, causal)[1] // h,
+                       tolerance=TOLERANCE[dtype], delta_err_over_limit=delta_err,
                        **{f"{gname}_max_abs_err": e[0] for gname, e in err.items()},
                        **{f"{gname}_err_over_ref_max": e[1] for gname, e in err.items()},
                        dq_ms=dq_ms, dkv_ms=dkv_ms, dq_device_ms=dtimes["flash_bwd_dq_kernel"],
@@ -1091,6 +1141,174 @@ def phase_train_cli(weights, checkpoint):
          global_step=meta["global_step"])
 
 
+# the generate CLI's model: the README pattern model with the BPE tokenizer's
+# 49,408 text tokens; two prompts, each completed by --gentxt first
+CLI_MODEL = dict(SLICE, num_text_tokens=49408)
+CLI_PROMPTS = ("a red apple on a wooden table", "an astronaut riding a horse")
+
+
+def save_dalle_checkpoint(checkpoint, weights, path, dalle, vae, **hparams):
+    """The facade models' weights as the v3 checkpoint the CLIs read;
+    `hparams` override the DALL-E's config (a cut `depth` keeps the first
+    layers)."""
+    import dataclasses
+
+    from dalle_pytorch_tpu_torch.models import vae_registry
+    from dalle_pytorch_tpu_torch.version import __version__
+
+    cfg = dataclasses.replace(dalle.cfg, **hparams)
+    trees = {"weights": weights.dalle_tree(dalle.module.state_dict(), cfg),
+             "vae_weights": weights.vae_tree(vae.module.state_dict(), vae.cfg)}
+    vae_class_name, vae_params = vae_registry.config_to_meta(vae.cfg)
+    meta = {"hparams": cfg.to_dict(), "vae_params": vae_params, "vae_class_name": vae_class_name,
+            "version": __version__}
+    checkpoint.save_checkpoint(str(path), trees, meta)
+
+
+def run_cli(fa, argv):
+    """`cli.generate.main(argv)` in process, with every launch counter set to
+    0 just before it; returns (PNG paths, phase seconds, launches, what it
+    printed, wall seconds)."""
+    import contextlib
+    import io
+
+    from dalle_pytorch_tpu_torch.cli import generate as cli
+
+    timings, out = {}, io.StringIO()
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        paths = cli.main(argv, timings=timings)
+    torch.cuda.synchronize()
+    return paths, timings, read_launches(fa), out.getvalue(), time.perf_counter() - t0
+
+
+def phase_generate_cli(fa, port, weights, checkpoint):
+    """Text in, PNG out: `python -m dalle_pytorch_tpu_torch.cli.generate`'s
+    `main`, in process, on the README pattern model at full width with the
+    BPE vocabulary, its seeded weights written as a v3 checkpoint by the
+    port's writer: two prompts, --gentxt, --num_images 2 --batch_size 2.  No
+    prefill of this run kills a pattern tile (each prompt's causal text
+    prefill, n = its token count, and each image prefill, n = 257, lie in
+    the text region), so every layer launches flash_fwd, the pattern layers
+    with their masks: the counts must be the layer cycle's.  Then the same
+    weights cut to one cycle of the four layer types, with attn_grid
+    "compact" in the checkpoint's hparams: one prompt, whose image prefill
+    launches flash_fwd_compact in every layer.  Every PNG must decode to
+    256 x 256 x 3.  Returns (launches of both runs, [(prompt, pixels)] of
+    the first run's images)."""
+    from dalle_pytorch_tpu_torch.cli.png import read_png
+    from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+
+    vae = port.DiscreteVAE(seed=0, **FULL_VAE)
+    dalle = port.DALLE(vae=vae, seed=31, **CLI_MODEL)
+    cfg = dalle.cfg
+    n_params = sum(p.numel() for p in dalle.module.parameters())
+    cycle = len(cfg.attn_types)
+    want = dict.fromkeys(COUNTERS, 0)
+    for n in [len(tokenizer_mod.tokenizer.encode(p)) for p in CLI_PROMPTS] + [cfg.text_seq_len + 1] * len(CLI_PROMPTS):
+        want = {k: want[k] + v for k, v in forward_launches(dalle.module, n)[0].items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        save_dalle_checkpoint(checkpoint, weights, tmp / "dalle.pt", dalle, vae)
+        save_dalle_checkpoint(checkpoint, weights, tmp / "compact.pt", dalle, vae, depth=cycle, attn_grid="compact")
+        write_s = time.perf_counter() - t0
+        del dalle, vae
+        torch.cuda.empty_cache()
+        common = ["--num_images", "2", "--batch_size", "2", "--seed", "0"]
+        paths, timings, launches, printed, wall_s = run_cli(fa, [
+            "--dalle_path", str(tmp / "dalle.pt"), "--text", "|".join(CLI_PROMPTS), "--gentxt",
+            "--outputs_dir", str(tmp / "out"), *common])
+        check(launches == want, f"the CLI launched {launches}; the layer cycle gives {want}")
+        # a completion may hold any character, a newline too
+        completed = re.findall(r"completed text: (.*?)\ncreated 2 images at ", printed, re.S)
+        check(len(completed) == len(CLI_PROMPTS) and len(paths) == 2 * len(CLI_PROMPTS),
+              f"{len(paths)} PNGs for {len(completed)} completed prompts: {printed!r}")
+        pixels = [read_png(p) for p in paths]
+        check(all(px.shape == (256, 256, 3) and px.dtype == np.uint8 for px in pixels),
+              f"PNG shapes {[px.shape for px in pixels]}")
+        for text, path in zip([t for t in completed for _ in range(2)], paths):
+            check(path.parent == tmp / "out" / text.replace(" ", "_")[:100], f"{path} for the prompt {text!r}")
+        cut_paths, cut_timings, cut_launches, _, cut_wall_s = run_cli(fa, [
+            "--dalle_path", str(tmp / "compact.pt"), "--text", CLI_PROMPTS[0], "--outputs_dir",
+            str(tmp / "out_compact"), *common])
+        check(cut_launches["flash_fwd_compact"] == cycle and cut_launches["flash_fwd"] == 0,
+              f"the compacted checkpoint's prefill launched {cut_launches}")
+        check(len(cut_paths) == 2 and all(read_png(p).shape == (256, 256, 3) for p in cut_paths),
+              f"the compacted checkpoint wrote {cut_paths}")
+    images = len(paths)
+    emit("generate_cli", params=n_params, vocab=cfg.total_tokens, depth=cfg.depth, attn_types=cfg.attn_types,
+         prompts=list(CLI_PROMPTS), completed=completed, pngs=images, png_shape=list(pixels[0].shape),
+         checkpoint_write_s=write_s, wall_s=wall_s, images_per_s=images / wall_s,
+         seconds=timings, seconds_per_image={k: v / images for k, v in timings.items()}, launches=launches,
+         compact_checkpoint=dict(depth=cycle, attn_grid="compact", pngs=len(cut_paths), wall_s=cut_wall_s,
+                                 seconds=cut_timings, launches=cut_launches))
+    total = {k: launches[k] + cut_launches[k] for k in COUNTERS}
+    return total, list(zip([prompt for prompt in CLI_PROMPTS for _ in range(2)], pixels))
+
+
+def plain_flash_attention(fa):
+    """`flash_attention` through its plain version, on any device."""
+
+    def attention(q, k, v, mask=None, causal=True, scale=None, key_mask=None, **_):
+        b, h, n, d = q.shape
+        out, _ = fa.flash_attention_reference(*(t.reshape(b * h, n, d) for t in (q, k, v)), h, causal, scale,
+                                              mask, key_mask)
+        return out.reshape(b, h, n, d)
+
+    return attention
+
+
+def phase_clip_rerank(fa, port, tr, scored):
+    """CLIP at its default config (dim 512, 6 + 6 layers, 8 heads x 64, text
+    256, 256 px, patch 32) with the BPE vocabulary, seeded weights, scores
+    the generate_cli images against the prompts they were made for (a few
+    tokens of 256, the rest padding), without and with the text mask (text
+    != 0): the text encoder runs flash_fwd non-causally at n 256 (with the
+    mask as its key mask), the image encoder at n 64.  The scores are held against the same CLIP on the card with its
+    attention through flash_attention_reference, to 1e-4 of the largest
+    score's magnitude."""
+    from unittest import mock
+
+    from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+
+    clip = port.CLIP(seed=41, num_text_tokens=49408)
+    cfg = clip.cfg
+    text = torch.from_numpy(tokenizer_mod.tokenizer.tokenize([t for t, _ in scored], cfg.text_seq_len,
+                                                         truncate_text=True)).cuda()
+    images = torch.from_numpy(np.stack([px for _, px in scored])).cuda().float() / 255
+    mask = text != 0
+    depth = cfg.text_enc_depth + cfg.visual_enc_depth
+    runs, total = [], dict.fromkeys(COUNTERS, 0)
+    for text_mask in (None, mask):
+        reset_launches(fa)
+        t0 = time.perf_counter()
+        scores = clip(text, images, text_mask=text_mask)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_launches(fa)
+        check(launches["flash_fwd"] == depth and launches["flash_fwd_compact"] == 0,
+              f"CLIP scoring launched {launches}; its {depth} layers each launch flash_fwd")
+        total = {k: total[k] + launches[k] for k in COUNTERS}
+        with mock.patch.object(tr, "flash_attention", plain_flash_attention(fa)):
+            plain = clip(text, images, text_mask=text_mask)
+            plain_ms = time_ms(lambda: clip(text, images, text_mask=text_mask), 5)
+        check(fa.flash_fwd.launches == launches["flash_fwd"], "the plain path launched a kernel")
+        rel = ((scores - plain).abs().max() / plain.abs().max()).item()
+        check(bool(torch.isfinite(scores).all()) and rel <= 1e-4,
+              f"CLIP scores: kernel vs plain path {rel} of the largest score")
+        runs.append(dict(masked=text_mask is not None, scores=scores.tolist(), plain_scores=plain.tolist(),
+                         rel_err=rel, tolerance=1e-4, first_call_s=first_s,
+                         score_ms=time_ms(lambda: clip(text, images, text_mask=text_mask), 10),
+                         plain_attention_score_ms=plain_ms, launches=launches))
+    emit("clip_rerank", params=sum(p.numel() for p in clip.module.parameters()), batch=len(scored),
+         text_seq_len=cfg.text_seq_len, num_patches=cfg.num_patches, heads=cfg.text_heads,
+         pad_fraction=1 - mask.float().mean().item(), runs=runs,
+         ranking=[sorted(range(len(r["scores"])), key=lambda i: -r["scores"][i]) for r in runs])
+    return total
+
+
 def pattern_readings(sparse, kernel, d=64):
     """A kernel's readings at n 1280, f32, head dim d (bh 64 at d 64, 32 at
     d 128), one per pattern that runs it, from `sparse_kernel_vs_plain`
@@ -1155,6 +1373,10 @@ def main() -> int:
     paths["sparse_train"] = phase_train(fa, port, "sparse_train", SLICE, standard_runs(4))
     check(min(paths["sparse_train"][k] for k in online) > 0,
           f"a kernel was not launched in sparse_train: {paths['sparse_train']}")
+
+    paths["generate_cli"], scored = phase_generate_cli(fa, port, weights, checkpoint)
+    paths["clip_rerank"] = phase_clip_rerank(fa, port, tr, scored)
+    torch.cuda.empty_cache()
 
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
     phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16)
@@ -1237,6 +1459,11 @@ def main() -> int:
         "shape": {k: main_shape[k] for k in ("dtype", "bh", "n", "d", "causal")},
         "f32_tensor_cores": fwd_by_dtype["float32"], "bf16_tensor_cores": fwd_by_dtype["bfloat16"],
         "prefill": {k: prefill[k] for k in ("bh", "n", "ms", "plain_ms", "bound_ms", "library_ms")},
+        # the serving entry points' shapes: CLIP's text (non-causal,
+        # key-padded) and image encoders, a --gentxt prompt's prefill
+        "entry_points": {case: {r["dtype"]: {k: r[k] for k in fwd_keys + ("causal", "key_padding", "live_keys")}
+                                for r in compared if r["case"] == case}
+                         for case in ("clip_text", "clip_image", "text_prompt")},
         "masked": pattern_readings(sparse, "fwd_dense"),
     }, {
         "name": "flash_dq", "route": "cuda", "source": source_bwd, "replaces": replaces + "276",

@@ -1,9 +1,10 @@
 """Object-style facade (counterpart of `dalle_pytorch_tpu/api.py`):
-`DiscreteVAE(...)` and `DALLE(vae=vae, ...)` bundle a config with a module on
-one device.  Weights are drawn from a seed in float32, or carried over from
-a JAX package parameter tree with `params=`, in the tree's own dtype.
+`DiscreteVAE(...)`, `DALLE(vae=vae, ...)` and `CLIP(...)` bundle a config
+with a module on one device.  Weights are drawn from a seed in float32, or
+carried over from a JAX package parameter tree with `params=`, in the
+tree's own dtype.
 
-Both run on the first CUDA device unless `device="cpu"` is passed; with no
+All run on the first CUDA device unless `device="cpu"` is passed; with no
 card and no explicit CPU request they raise.  `DALLE(...)` passes every
 other keyword to `DALLEConfig`: the attention types and their pattern knobs
 (`attn_types`, `conv_kernel_size`, `conv_dilation`, `sparse_block_size`,
@@ -12,12 +13,13 @@ other keyword to `DALLEConfig`: the attention types and their pattern knobs
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
 from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
+from dalle_pytorch_tpu_torch.models import clip as _clip
 from dalle_pytorch_tpu_torch.models import dalle as _dalle
 from dalle_pytorch_tpu_torch.models import sampling as _sampling
 from dalle_pytorch_tpu_torch.models import vae as _vae
@@ -100,15 +102,55 @@ class DALLE:
                         img: Optional[torch.Tensor] = None,
                         num_init_img_tokens: Optional[int] = None,
                         cond_scale: float = 1.0,
-                        timings: Optional[dict] = None) -> torch.Tensor:
-        """Token ids (b, text_seq_len) -> images (b, H, W, C).  The gumbel
-        noise comes from `generator`: a `torch.Generator` on the model's
-        device, or a seed for one."""
+                        timings: Optional[dict] = None,
+                        clip: Optional["CLIP"] = None):
+        """Token ids (b, text_seq_len) -> images (b, H, W, C), or with a
+        `clip`, (images, scores) for reranking.  The gumbel noise comes
+        from `generator`: a `torch.Generator` on the model's device, or a
+        seed for one."""
         if isinstance(generator, int):
             generator = _generator(generator, self.device)
         return _sampling.generate_images(
             self.module, self.vae.module, text, generator,
             filter_thres=filter_thres, temperature=temperature, img=img,
             num_init_img_tokens=num_init_img_tokens, cond_scale=cond_scale,
-            timings=timings,
+            timings=timings, clip=None if clip is None else clip.module,
         )
+
+    def generate_texts(self, tokenizer=None, text: Union[str, torch.Tensor, None] = None,
+                       generator: Union[int, torch.Generator] = 0, filter_thres: float = 0.5,
+                       temperature: float = 1.0) -> Tuple[torch.Tensor, Optional[List[str]]]:
+        """Complete a prompt: a string (encoded by `tokenizer`), (b, n0) ids,
+        or None (a single 0 token).  Returns (ids (b, text_seq_len), their
+        decoded texts without the padding ids, or None without a
+        tokenizer)."""
+        if isinstance(text, str):
+            if tokenizer is None:
+                raise ValueError("a text prompt needs a tokenizer")
+            text = torch.tensor([tokenizer.encode(text)], dtype=torch.long, device=self.device)
+        if isinstance(generator, int):
+            generator = _generator(generator, self.device)
+        tokens = _sampling.generate_texts(self.module, text, generator, filter_thres=filter_thres,
+                                          temperature=temperature)
+        texts = None
+        if tokenizer is not None:
+            cfg = self.cfg
+            pad_tokens = set(range(cfg.num_text_tokens_padded - cfg.text_seq_len, cfg.num_text_tokens_padded))
+            texts = [tokenizer.decode(t.cpu().numpy(), pad_tokens=pad_tokens) for t in tokens]
+        return tokens, texts
+
+
+class CLIP:
+    def __init__(self, seed: int = 2, params: Optional[dict] = None, device: DeviceLike = None, **cfg_kwargs):
+        self.device = resolve_device(device)
+        self.cfg = _clip.CLIPConfig(**cfg_kwargs)
+        if params is not None:
+            self.module = weights.load_clip(params, self.cfg, self.device)
+        else:
+            self.module = _clip.init_clip(self.cfg, _generator(seed, self.device), self.device)
+
+    def __call__(self, text: torch.Tensor, images: torch.Tensor, text_mask: Optional[torch.Tensor] = None,
+                 return_loss: bool = False) -> torch.Tensor:
+        """(b, text_seq_len) ids and (b, H, W, C) images -> per-pair scores
+        (b,), or the symmetric contrastive loss."""
+        return _clip.forward(self.module, text, images, text_mask=text_mask, return_loss=return_loss)

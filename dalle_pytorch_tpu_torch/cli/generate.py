@@ -1,0 +1,186 @@
+"""Generate images from a trained DALL-E (counterpart of
+`dalle_pytorch_tpu/cli/generate.py`).
+
+    python -m dalle_pytorch_tpu_torch.cli.generate --dalle_path dalle.pt --text "a cat|a dog" [--device cpu]
+
+Loads a v3 checkpoint ({hparams, vae_params, weights, vae_weights,
+vae_class_name, version}), splits the prompts on '|', optionally completes
+each prompt first (`--gentxt`), samples `--num_images` images per prompt in
+`--batch_size` chunks and writes them as `{i}.png` into
+`<outputs_dir>/<prompt with spaces as underscores, 100 characters>/`.  It
+runs on the card unless `--device cpu` is given.  The gumbel noise comes
+from one `torch.Generator` seeded with `--seed`; the images are not the JAX
+package's bits (its threefry streams are not reproduced).
+
+Flags whose machinery is not ported yet (the serving engine, speculative
+decoding, the taming VQGAN, pre-v3 checkpoints) exit with a message naming
+the `ROADMAP.md` item that brings them.  The JAX CLI's out-of-memory
+forensic report waits for the memory ledger (`ROADMAP.md` Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from dalle_pytorch_tpu_torch import weights
+from dalle_pytorch_tpu_torch.cli.common import warn_vocab_mismatch
+from dalle_pytorch_tpu_torch.cli.png import write_png
+from dalle_pytorch_tpu_torch.core.device import resolve_device
+from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+from dalle_pytorch_tpu_torch.models import vae_registry
+from dalle_pytorch_tpu_torch.models.sampling import _sync, generate_images, generate_texts
+
+# flag -> what it needs that the port does not have yet, and where ROADMAP.md lists it
+_WAITING = {
+    "engine": "the continuous-batching serving engine (ROADMAP.md Queue 1 item 6)",
+    "engine_slots": "the continuous-batching serving engine (ROADMAP.md Queue 1 item 6)",
+    "engine_block_size": "the continuous-batching serving engine (ROADMAP.md Queue 1 item 6)",
+    "spec_k": "speculative decoding (ROADMAP.md Queue 1 item 6)",
+    "spec_draft_layers": "speculative decoding (ROADMAP.md Queue 1 item 6)",
+    "taming": "the taming VQGAN (ROADMAP.md Queue 1 item 5)",
+    "vqgan_config_path": "the taming VQGAN (ROADMAP.md Queue 1 item 5)",
+    "allow_legacy_pickle": "the pre-v3 checkpoint formats (ROADMAP.md Queue 1 item 5)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Generate images from a trained DALL-E")
+    parser.add_argument("--dalle_path", type=str, required=True)
+    parser.add_argument("--text", type=str, required=True, help="prompt(s), | separated")
+    parser.add_argument("--num_images", type=int, default=128)
+    parser.add_argument("--batch_size", type=int, default=4)
+    parser.add_argument("--top_k", type=float, default=0.9, help="filter threshold (0.5-1.0)")
+    parser.add_argument("--temperature", type=float, default=1.0)
+    parser.add_argument("--cond_scale", type=float, default=1.0, help="classifier-free guidance scale")
+    parser.add_argument("--outputs_dir", type=str, default="./outputs")
+    parser.add_argument("--gentxt", action="store_true", help="complete the prompt with DALL-E first")
+    parser.add_argument("--taming", action="store_true", help="the checkpoint's VAE is a taming VQGAN")
+    parser.add_argument("--vqgan_config_path", type=str, default=None,
+                        help="taming config yaml for a reference VQGanVAE checkpoint")
+    parser.add_argument("--vqgan_model_path", type=str, default=None,
+                        help="unused (weights are embedded in the checkpoint); accepted for parity")
+    parser.add_argument("--chinese", action="store_true")
+    parser.add_argument("--hug", action="store_true")
+    parser.add_argument("--bpe_path", type=str, default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--allow_legacy_pickle", action="store_true",
+                        help="permit loading pre-v3 (pickled) checkpoints")
+    parser.add_argument("--engine", action="store_true",
+                        help="sample through the continuous-batching serving engine")
+    parser.add_argument("--engine_slots", type=int, default=None, help="decode slots for --engine (4)")
+    parser.add_argument("--engine_block_size", type=int, default=None,
+                        help="KV pool block size (tokens) for --engine (64)")
+    parser.add_argument("--spec_k", type=int, default=0,
+                        help="self-speculative decoding: tokens drafted per round (0 disables)")
+    parser.add_argument("--spec_draft_layers", type=int, default=None,
+                        help="draft-prefix depth (default depth // 2)")
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    return parser
+
+
+def _refuse_waiting_flags(args) -> None:
+    for flag, machinery in _WAITING.items():
+        if getattr(args, flag) not in (None, False, 0):
+            raise SystemExit(f"--{flag}: {machinery} is not ported yet")
+
+
+def get_tokenizer(args):
+    if args.chinese:
+        return _adapter(tokenizer_mod.ChineseTokenizer, "chinese", "transformers")
+    if args.hug:
+        return _adapter(tokenizer_mod.HugTokenizer, "hug", "tokenizers", args.bpe_path)
+    if args.bpe_path is not None:
+        if Path(args.bpe_path).suffix == ".json":
+            return _adapter(tokenizer_mod.HugTokenizer, "bpe_path", "tokenizers", args.bpe_path)
+        return _adapter(tokenizer_mod.YttmTokenizer, "bpe_path", "youtokentome", args.bpe_path)
+    return tokenizer_mod.tokenizer
+
+
+def _adapter(cls, flag: str, package: str, *args):
+    try:
+        return cls(*args)
+    except ImportError as e:
+        raise SystemExit(f"--{flag}: {cls.__name__} needs the {package} package ({e})") from e
+
+
+def _add(timings: Optional[dict], key: str, seconds: float) -> None:
+    if timings is not None:
+        timings[key] = timings.get(key, 0.0) + seconds
+
+
+def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
+    """Run the CLI on `argv`; returns the written PNG paths.  A `timings`
+    dict gathers the seconds of each phase over the run: load_s, tokenize_s,
+    gentxt_s, prefill_s, decode_s, vae_s and png_s (the device is
+    synchronised after each)."""
+    args = build_parser().parse_args(argv)
+    _refuse_waiting_flags(args)
+    device = resolve_device(args.device)
+
+    t0 = time.perf_counter()
+    model, vae = weights.load_dalle_checkpoint(args.dalle_path, device)
+    dalle_cfg, vae_cfg = model.cfg, vae.cfg
+    _sync(device)
+    _add(timings, "load_s", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    tokenizer = get_tokenizer(args)
+    _add(timings, "tokenize_s", time.perf_counter() - t0)
+    warn_vocab_mismatch(dalle_cfg.num_text_tokens, tokenizer)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    outputs_dir = Path(args.outputs_dir)
+    ts = dalle_cfg.text_seq_len
+
+    paths: List[Path] = []
+    for raw_text in args.text.split("|"):
+        raw_text = raw_text.strip()
+        if args.gentxt:
+            t0 = time.perf_counter()
+            prompt_ids = tokenizer.tokenize(raw_text, ts, truncate_text=True)
+            _add(timings, "tokenize_s", time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            n0 = int((prompt_ids[0] != 0).sum())
+            prompt = torch.from_numpy(prompt_ids[:, :max(n0, 1)]).to(device)
+            completed = generate_texts(model, prompt, generator)
+            pad_tokens = set(range(dalle_cfg.num_text_tokens_padded - ts, dalle_cfg.num_text_tokens_padded))
+            raw_text = tokenizer.decode(completed[0].cpu().numpy(), pad_tokens=pad_tokens)
+            _add(timings, "gentxt_s", time.perf_counter() - t0)
+            print(f"completed text: {raw_text}")
+
+        t0 = time.perf_counter()
+        text_tokens = np.repeat(tokenizer.tokenize(raw_text, ts, truncate_text=True), args.num_images, axis=0)
+        _add(timings, "tokenize_s", time.perf_counter() - t0)
+
+        out_dir = outputs_dir / raw_text.replace(" ", "_")[:100]
+        out_dir.mkdir(parents=True, exist_ok=True)
+        produced = 0
+        for i in range(0, args.num_images, args.batch_size):
+            chunk = torch.from_numpy(text_tokens[i:i + args.batch_size]).to(device)
+            phases = {} if timings is not None else None
+            images = generate_images(model, vae, chunk, generator,
+                                     filter_thres=args.top_k, temperature=args.temperature,
+                                     cond_scale=args.cond_scale, timings=phases)
+            for key, seconds in (phases or {}).items():
+                _add(timings, key, seconds)
+            t0 = time.perf_counter()
+            # display space (the reference's save_image(normalize=True)):
+            # the DiscreteVAE decodes into its normalised space
+            images = vae_registry.to_display(vae_cfg, images).cpu().numpy()
+            for img in images:
+                arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+                fp = out_dir / f"{produced}.png"
+                write_png(fp, arr.squeeze())
+                paths.append(fp)
+                produced += 1
+            _add(timings, "png_s", time.perf_counter() - t0)
+        print(f"created {produced} images at {out_dir}")
+    return paths
+
+
+if __name__ == "__main__":
+    main()

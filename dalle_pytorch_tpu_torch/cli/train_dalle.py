@@ -31,6 +31,7 @@ from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.checkpoint import save_checkpoint
 from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
+from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig, init_dalle
 from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, TrainState, make_train_step
 from dalle_pytorch_tpu_torch.version import __version__
@@ -163,7 +164,8 @@ def save_dalle(path: str, model: DALLE, vae: vae_mod.DiscreteVAE, state: TrainSt
         "vae_weights": weights.vae_tree(vae.state_dict(), vae.cfg),
         "opt_state": optimizer_tree(state, cfg),
     }
-    meta = {"hparams": cfg.to_dict(), "vae_params": vae.cfg.to_dict(), "vae_class_name": "DiscreteVAE",
+    vae_class_name, vae_params = vae_registry.config_to_meta(vae.cfg)
+    meta = {"hparams": cfg.to_dict(), "vae_params": vae_params, "vae_class_name": vae_class_name,
             "epoch": epoch, "global_step": state.step, "version": __version__}
     save_checkpoint(path, trees, meta)
 

@@ -5,7 +5,8 @@ The prompt (bos + text, plus primer codes when priming) is consumed by one
 prefill pass that fills the KV cache; the image codes then come one by one
 from cached decode steps.  Classifier-free guidance runs as a doubled batch
 `[cond; null]` through one network evaluation per step.  The image loop is a
-Python loop (the JAX package's `lax.scan`).
+Python loop (the JAX package's `lax.scan`).  `generate_images` can rerank
+through CLIP; `generate_texts` completes a prompt in the text region.
 
 `noise_override` feeds pre-drawn gumbel noise of shape (n_gen, b,
 total_tokens) in place of the generator's: torch cannot reproduce JAX's
@@ -19,10 +20,11 @@ from typing import Optional
 
 import torch
 
+from dalle_pytorch_tpu_torch.models import clip as clip_mod
 from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
-from dalle_pytorch_tpu_torch.models.transformer import decode_step, init_cache, prefill
+from dalle_pytorch_tpu_torch.models.transformer import apply_transformer, decode_step, init_cache, prefill
 from dalle_pytorch_tpu_torch.ops.sampling import gumbel_sample, top_k_filter
 
 DEFAULT_PRIME_FRACTION = 0.4375  # OpenAI used 14 * 32 initial tokens to prime
@@ -156,12 +158,15 @@ def generate_images(
     cond_scale: float = 1.0,
     noise_override: Optional[torch.Tensor] = None,
     timings: Optional[dict] = None,
-) -> torch.Tensor:
+    clip: Optional["clip_mod.CLIP"] = None,
+):
     """Sample codes and decode them through the VAE.  img: optional (b, H,
     W, C) pixels in [0, 1] whose first codes prime the image.  Returns
     (b, H, W, C) images in the VAE's normalised pixel space, as the JAX
-    package does.  With a `timings` dict, the device is synchronised after
-    each phase and `prefill_s`, `decode_s` and `vae_s` are written into it."""
+    package does; with a `clip`, (images, scores): CLIP's score of each
+    image against its text, for reranking.  With a `timings` dict, the
+    device is synchronised after each phase and `prefill_s`, `decode_s`,
+    `vae_s` (and `clip_s`) are written into it."""
     cfg = model.cfg
     text = text[:, : cfg.text_seq_len]
     primer, prime_len = None, 0
@@ -192,4 +197,69 @@ def generate_images(
     if timings is not None:
         _sync(text.device)
         timings["vae_s"] = clock() - t0
-    return images
+        t0 = clock()
+    if clip is None:
+        return images
+    scores = clip_mod.forward(clip, text, images)
+    if timings is not None:
+        _sync(text.device)
+        timings["clip_s"] = clock() - t0
+    return images, scores
+
+
+@torch.no_grad()
+def generate_texts(
+    model: DALLE,
+    text: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    filter_thres: float = 0.5,
+    temperature: float = 1.0,
+    use_cache: bool = True,
+    noise_override: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Text completion: no bos and no pad remap.  text: (b, n0) prompt ids
+    (a single 0 token when None).  Returns (b, text_seq_len) ids.
+
+    use_cache=True prefills the prompt (causal, n0 long) and then takes one
+    cached `decode_step` per token (`text_only`: the token shift is the
+    identity in the text region); use_cache=False runs the whole
+    text_seq_len window through the transformer again for every token.  Both
+    consume the same noise: `noise_override` (text_seq_len - n0, b,
+    total_tokens), one row per generated token, in place of `generator`'s."""
+    cfg = model.cfg
+    device = model.logits_linear.weight.device
+    if text is None:
+        text = torch.zeros((1, 1), dtype=torch.long, device=device)
+    text = text.long()
+    b, n0 = text.shape
+    ts = cfg.text_seq_len
+    if n0 >= ts:
+        return text[:, :ts]
+
+    def embed(ids):
+        # ids out of the table are clamped into it (the JAX package's clip-mode take)
+        return dalle_mod.embed_text_ids(model, ids.clamp(0, cfg.num_text_tokens_padded - 1))
+
+    def sample(logits, step):
+        filtered = top_k_filter(logits, thres=filter_thres)
+        if noise_override is not None:
+            return torch.argmax(filtered / temperature + noise_override[step], dim=-1)
+        return gumbel_sample(filtered, generator, temperature=temperature)
+
+    if not use_cache:
+        buf = torch.zeros((b, ts), dtype=torch.long, device=text.device)
+        buf[:, :n0] = text
+        for cur in range(n0, ts):
+            out = apply_transformer(model.transformer, embed(buf))
+            buf[:, cur] = sample(_logits_at(model, out[:, cur - 1:cur], cur - 1), cur - n0)
+        return buf
+
+    cache = init_cache(cfg.transformer_config(), b, dtype=model.dtype, device=text.device)
+    out, cache = prefill(model.transformer, embed(text), cache)
+    tok = sample(_logits_at(model, out[:, -1:], n0 - 1), 0)
+    generated = [tok]
+    for step in range(1, ts - n0):
+        out, cache = decode_step(model.transformer, embed(tok[:, None]), cache, text_only=True)
+        tok = sample(_logits_at(model, out, cache["offset"] - 1), step)
+        generated.append(tok)
+    return torch.cat([text, torch.stack(generated, dim=1)], dim=1)

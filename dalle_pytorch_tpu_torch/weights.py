@@ -6,11 +6,13 @@ the flipped kernel of an input-dilated convolution, LayerScale as (1, 1,
 dim).  The functions here take such a tree, as `jax.device_get` or
 `checkpoint.load_checkpoint` gives it (leaves numpy arrays or CPU tensors),
 and return the port's state dicts or modules, in PyTorch's layouts; and back
-again (`dalle_tree`, `vae_tree`), for the checkpoint writer and for tests that
+again (`dalle_tree`, `vae_tree`, `clip_tree`), for the checkpoint writer and for tests that
 hold the port's gradients against the JAX package's.
 """
 from __future__ import annotations
 
+import zipfile
+from pathlib import Path
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -18,8 +20,10 @@ import torch
 
 from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.core.module import conv_transpose_weight, conv_weight, linear_weight
+from dalle_pytorch_tpu_torch.models.clip import CLIP, CLIPConfig
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig
 from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE, DiscreteVAEConfig
+from dalle_pytorch_tpu_torch.models.vae_registry import config_from_meta
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -51,14 +55,43 @@ def _conv(prefix: str, p: dict, transpose: bool = False) -> StateDict:
     return out
 
 
-def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
-    """The JAX package's DALL-E parameter tree -> the port's `DALLE` state
-    dict.  Layer i reads its attention and feed-forward weights under id
-    str(i): the port's layers are unshared."""
-    tp = params["transformer"]
+def migrate_transformer_layout(tparams: dict, heads: int, dim_head: int) -> dict:
+    """A transformer tree in the JAX package's layout from before its round
+    5 (qkv columns [q|k|v]-blocked, GEGLU as one `w1` of values then gates)
+    -> the current one (head-major qkv columns, `w1` and `w1g`), as the JAX
+    `migrate_transformer_layout` does; a current tree (every feed-forward
+    has `w1g`) comes back as it is."""
+    shared_ff = tparams.get("shared_ff", {})
+    if not shared_ff or all("w1g" in ff for ff in shared_ff.values()):
+        return tparams
+    attn_out = {}
+    for aid, attn in tparams["shared_attn"].items():
+        w = _t(attn["qkv"]["w"])
+        w = w.reshape(w.shape[0], 3, heads, dim_head).transpose(1, 2).reshape(w.shape[0], -1)
+        attn_out[aid] = {**attn, "qkv": {**attn["qkv"], "w": w}}
+    ff_out = {}
+    for fid, ff in shared_ff.items():
+        ff = dict(ff)
+        w1 = ff.pop("w1")
+        w = _t(w1["w"])
+        half = w.shape[-1] // 2
+        ff["w1"], ff["w1g"] = {"w": w[:, :half]}, {"w": w[:, half:]}
+        if "b" in w1:
+            b = _t(w1["b"])
+            ff["w1"]["b"], ff["w1g"]["b"] = b[:half], b[half:]
+        ff_out[fid] = ff
+    return {**tparams, "shared_attn": attn_out, "shared_ff": ff_out}
+
+
+def _transformer_state_dict(prefix: str, tp: dict, depth: int) -> StateDict:
+    """A transformer tree (current layout) -> the state dict of the port's
+    `Transformer` under `prefix`; layer i reads its attention and
+    feed-forward weights under id str(i)."""
+    if len(tp["layers"]) != depth:
+        raise ValueError(f"tree has {len(tp['layers'])} layers, config depth {depth}")
     sd: StateDict = {}
     for i, layer in enumerate(tp["layers"]):
-        pre = f"transformer.layers.{i}"
+        pre = f"{prefix}.layers.{i}"
         attn, ff = tp["shared_attn"][str(i)], tp["shared_ff"][str(i)]
         sd.update(_norm(f"{pre}.attn_norm", layer["attn_norm"]))
         sd.update(_norm(f"{pre}.ff_norm", layer["ff_norm"]))
@@ -68,13 +101,34 @@ def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
         sd.update(_linear(f"{pre}.attn.out", attn["out"]))
         for name in ("w1", "w1g", "w2"):
             sd.update(_linear(f"{pre}.ff.{name}", ff[name]))
-    if len(tp["layers"]) != cfg.depth:
-        raise ValueError(f"tree has {len(tp['layers'])} layers, config depth {cfg.depth}")
+    return sd
+
+
+def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
+    """The JAX package's DALL-E parameter tree (either transformer layout,
+    `migrate_transformer_layout`) -> the port's `DALLE` state dict.  Layer i
+    reads its attention and feed-forward weights under id str(i): the
+    port's layers are unshared."""
+    tp = migrate_transformer_layout(params["transformer"], cfg.heads, cfg.dim_head)
+    sd = _transformer_state_dict("transformer", tp, cfg.depth)
     sd.update(_norm("logits_norm", params["logits_norm"]))
     sd.update(_linear("logits_linear", params["logits_linear"]))
     if not cfg.share_input_output_emb:  # tied: the tree has no embedding tables
         sd["text_emb.weight"] = _t(params["text_emb"]["table"])
         sd["image_emb.weight"] = _t(params["image_emb"]["table"])
+    return sd
+
+
+def clip_state_dict(params: dict, cfg: CLIPConfig) -> StateDict:
+    """The JAX package's CLIP parameter tree -> the port's `CLIP` state dict."""
+    sd: StateDict = {}
+    for side, depth in (("text", cfg.text_enc_depth), ("visual", cfg.visual_enc_depth)):
+        sd.update(_transformer_state_dict(f"{side}_transformer", params[f"{side}_transformer"], depth))
+        sd.update(_linear(f"to_{side}_latent", params[f"to_{side}_latent"]))
+        sd[f"{side}_pos.weight"] = _t(params[f"{side}_pos"]["table"])
+    sd["text_emb.weight"] = _t(params["text_emb"]["table"])
+    sd.update(_linear("patch_emb", params["patch_emb"]))
+    sd["temperature"] = _t(params["temperature"])
     return sd
 
 
@@ -125,16 +179,11 @@ def _conv_tree(sd: StateDict, prefix: str, transpose: bool = False) -> dict:
     return out
 
 
-def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
-    """The inverse of `dalle_state_dict`: a `DALLE` state dict (or any dict
-    of tensors under its parameter names, such as gradients or optimizer
-    moments) -> the JAX package's parameter tree, (in, out) linears, layer
-    i's attention and feed-forward under id str(i).  Leaves are detached
-    CPU tensors in their own dtype (`.numpy()` gives the JAX package's
-    arrays where numpy has the dtype)."""
+def _transformer_tree(sd: StateDict, prefix: str, depth: int) -> dict:
+    """The inverse of `_transformer_state_dict`."""
     layers, shared_attn, shared_ff = [], {}, {}
-    for i in range(cfg.depth):
-        pre = f"transformer.layers.{i}"
+    for i in range(depth):
+        pre = f"{prefix}.layers.{i}"
         layers.append({
             "attn_norm": _norm_tree(sd, f"{pre}.attn_norm"),
             "ff_norm": _norm_tree(sd, f"{pre}.ff_norm"),
@@ -144,14 +193,35 @@ def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
         shared_attn[str(i)] = {"qkv": _linear_tree(sd, f"{pre}.attn.qkv"),
                                "out": _linear_tree(sd, f"{pre}.attn.out")}
         shared_ff[str(i)] = {name: _linear_tree(sd, f"{pre}.ff.{name}") for name in ("w1", "w1g", "w2")}
+    return {"layers": layers, "shared_attn": shared_attn, "shared_ff": shared_ff}
+
+
+def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
+    """The inverse of `dalle_state_dict`: a `DALLE` state dict (or any dict
+    of tensors under its parameter names, such as gradients or optimizer
+    moments) -> the JAX package's parameter tree, (in, out) linears, layer
+    i's attention and feed-forward under id str(i).  Leaves are detached
+    CPU tensors in their own dtype (`.numpy()` gives the JAX package's
+    arrays where numpy has the dtype)."""
     tree = {
-        "transformer": {"layers": layers, "shared_attn": shared_attn, "shared_ff": shared_ff},
+        "transformer": _transformer_tree(sd, "transformer", cfg.depth),
         "logits_norm": _norm_tree(sd, "logits_norm"),
         "logits_linear": _linear_tree(sd, "logits_linear"),
     }
     if not cfg.share_input_output_emb:
         tree["text_emb"] = {"table": _leaf(sd["text_emb.weight"])}
         tree["image_emb"] = {"table": _leaf(sd["image_emb.weight"])}
+    return tree
+
+
+def clip_tree(sd: StateDict, cfg: CLIPConfig) -> dict:
+    """The inverse of `clip_state_dict`."""
+    tree = {"text_emb": {"table": _leaf(sd["text_emb.weight"])}, "patch_emb": _linear_tree(sd, "patch_emb"),
+            "temperature": _leaf(sd["temperature"])}
+    for side, depth in (("text", cfg.text_enc_depth), ("visual", cfg.visual_enc_depth)):
+        tree[f"{side}_transformer"] = _transformer_tree(sd, f"{side}_transformer", depth)
+        tree[f"to_{side}_latent"] = _linear_tree(sd, f"to_{side}_latent")
+        tree[f"{side}_pos"] = {"table": _leaf(sd[f"{side}_pos.weight"])}
     return tree
 
 
@@ -189,20 +259,55 @@ def load_dalle(params: dict, cfg: DALLEConfig, device: DeviceLike = None) -> DAL
     return _load(DALLE(cfg), dalle_state_dict(params, cfg), device)
 
 
+def load_clip(params: dict, cfg: CLIPConfig, device: DeviceLike = None) -> CLIP:
+    """A `CLIP` holding the JAX tree's weights, in their own dtype."""
+    device = resolve_device(device)
+    return _load(CLIP(cfg), clip_state_dict(params, cfg), device)
+
+
 def load_vae(params: dict, cfg: DiscreteVAEConfig, device: DeviceLike = None) -> DiscreteVAE:
     device = resolve_device(device)
     return _load(DiscreteVAE(cfg), vae_state_dict(params, cfg), device)
 
 
-def load_dalle_checkpoint(path: str, device: DeviceLike = None) -> Tuple[DALLE, DiscreteVAE]:
-    """The DALL-E and its DiscreteVAE from a JAX package v3 checkpoint (the
-    `weights` and `vae_weights` trees, the `hparams` and `vae_params` meta)."""
-    from dalle_pytorch_tpu_torch.checkpoint import load_checkpoint
+def _is_sharded_checkpoint(path: Path) -> bool:
+    """True iff `path` is an orbax sharded checkpoint directory."""
+    return path.is_dir() and (path / "state").exists()
 
-    trees, meta = load_checkpoint(path)
-    vae_class = meta.get("vae_class_name", "DiscreteVAE")
-    if vae_class != "DiscreteVAE":
-        raise NotImplementedError(f"the port decodes with DiscreteVAE only, not {vae_class}")
-    vae_cfg = DiscreteVAEConfig.from_dict(meta["vae_params"])
+
+def _is_torch_checkpoint(path: Path) -> bool:
+    """True for a torch save file (a zip with a `data.pkl` member, or a raw
+    pickle), as opposed to the v3 `.npz`, which is a zip without one."""
+    try:
+        with zipfile.ZipFile(path) as z:
+            return any(name.endswith("data.pkl") for name in z.namelist())
+    except zipfile.BadZipFile:
+        with open(path, "rb") as f:
+            return f.read(1) == b"\x80"
+
+
+def load_dalle_checkpoint(path, device: DeviceLike = None) -> Tuple[DALLE, DiscreteVAE]:
+    """The DALL-E and its DiscreteVAE from a JAX package v3 checkpoint (the
+    `weights` and `vae_weights` trees, the `hparams`, `vae_class_name` and
+    `vae_params` meta), with a note when it was written by another version;
+    a tree in the pre-round-5 transformer layout is migrated as it is loaded
+    (`migrate_transformer_layout`).  An orbax sharded directory and a
+    torch-reference `dalle.pt` exit with what they need."""
+    from dalle_pytorch_tpu_torch.checkpoint import load_checkpoint
+    from dalle_pytorch_tpu_torch.version import __version__
+
+    path = Path(path)
+    if not path.exists():
+        raise SystemExit(f"trained DALL-E {path} does not exist")
+    if _is_sharded_checkpoint(path):
+        raise SystemExit(f"{path} is an orbax sharded checkpoint: reading it needs the port of "
+                         "training/checkpoint.py (ROADMAP.md Queue 1 item 8)")
+    if _is_torch_checkpoint(path):
+        raise SystemExit(f"{path} is a torch-reference checkpoint: converting it needs the port of "
+                         "models/torch_port.py (ROADMAP.md Queue 1 item 5)")
+    trees, meta = load_checkpoint(str(path))
+    if meta.get("version") != __version__:
+        print(f"note: checkpoint version {meta.get('version')} != library {__version__}")
+    vae_cfg = config_from_meta(meta.get("vae_class_name", "DiscreteVAE"), meta["vae_params"])
     cfg = DALLEConfig.from_dict(meta["hparams"])
     return load_dalle(trees["weights"], cfg, device), load_vae(trees["vae_weights"], vae_cfg, device)

@@ -1,0 +1,230 @@
+"""The port's generate CLI and its loader, on the CPU: a v3 checkpoint that
+the JAX package writes loads through the port's `weights.load_dalle_checkpoint`, and
+`cli.generate.main` writes the JAX CLI's directories and file names, PNGs
+that decode (with zlib and struct, in this file) to the pixels the JAX package's
+`to_display` gives for the same images."""
+import os
+import struct
+import sys
+import zipfile
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from dalle_pytorch_tpu.models import dalle as jdalle  # noqa: E402
+from dalle_pytorch_tpu.models import transformer as jtransformer  # noqa: E402
+from dalle_pytorch_tpu.models import vae as jvae  # noqa: E402
+from dalle_pytorch_tpu.models import vae_registry as jregistry  # noqa: E402
+from dalle_pytorch_tpu.training.checkpoint import save_checkpoint as jax_save_checkpoint  # noqa: E402
+from dalle_pytorch_tpu_torch import weights  # noqa: E402
+from dalle_pytorch_tpu_torch.cli import png  # noqa: E402
+from dalle_pytorch_tpu_torch.cli import generate as cli  # noqa: E402
+from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod  # noqa: E402
+from dalle_pytorch_tpu_torch.models import sampling as tsamp  # noqa: E402
+from dalle_pytorch_tpu_torch.models import vae_registry  # noqa: E402
+
+DALLE = dict(dim=32, depth=2, heads=2, dim_head=16, num_text_tokens=49408, text_seq_len=12, num_image_tokens=32,
+             image_fmap_size=4, shift_tokens=True, attn_types=("full", "axial_row"))
+VAE = dict(image_size=16, num_tokens=32, codebook_dim=16, num_layers=2, hidden_dim=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _write(path, params, vae_params, version="0.1.0"):
+    jax_save_checkpoint(str(path), {"weights": params, "vae_weights": vae_params},
+                        {"hparams": jdalle.DALLEConfig(**DALLE).to_dict(),
+                         "vae_params": jvae.DiscreteVAEConfig(**VAE).to_dict(),
+                         "vae_class_name": "DiscreteVAE", "version": version})
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    params = jax.device_get(jdalle.init_dalle(jax.random.PRNGKey(0), jdalle.DALLEConfig(**DALLE)))
+    vae_params = jax.device_get(jvae.init_discrete_vae(jax.random.PRNGKey(1), jvae.DiscreteVAEConfig(**VAE)))
+    path = tmp_path_factory.mktemp("ckpt") / "dalle.pt"
+    _write(path, params, vae_params)
+    return path, params, vae_params
+
+
+def _leaves_equal(got, want):
+    got_leaves, got_def = jax.tree_util.tree_flatten(jax.tree_util.tree_map(np.asarray, got))
+    want_leaves, want_def = jax.tree_util.tree_flatten(want)
+    assert got_def == want_def
+    for g, w in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def _state_dicts_equal(got, want):
+    want_sd = want.state_dict()
+    assert got.state_dict().keys() == want_sd.keys()
+    for name, value in got.state_dict().items():
+        assert torch.equal(value, want_sd[name]), name
+
+
+def test_jax_checkpoint_loads_through_the_port_loader(checkpoint, capsys):
+    path, params, vae_params = checkpoint
+    model, vae = weights.load_dalle_checkpoint(path, "cpu")
+    assert model.cfg.to_dict() == {k: v for k, v in jdalle.DALLEConfig(**DALLE).to_dict().items()
+                                   if k in model.cfg.to_dict()}
+    assert vae.cfg.to_dict() == jvae.DiscreteVAEConfig(**VAE).to_dict()
+    _state_dicts_equal(model, weights.load_dalle(params, model.cfg, "cpu"))
+    _state_dicts_equal(vae, weights.load_vae(vae_params, vae.cfg, "cpu"))
+    assert "note:" not in capsys.readouterr().out
+
+
+def test_old_transformer_layout_is_migrated(checkpoint, tmp_path, capsys):
+    """A tree in the pre-round-5 layout ([q|k|v]-blocked qkv, one GEGLU
+    matrix) loads into the same model as the current one, as the JAX
+    `migrate_param_layout` migrates it; a version other than the port's is
+    noted."""
+    _, params, vae_params = checkpoint
+    h, dh = DALLE["heads"], DALLE["dim_head"]
+    old = dict(params["transformer"])
+    old["shared_attn"] = {aid: {**a, "qkv": {"w": np.asarray(a["qkv"]["w"]).reshape(-1, h, 3, dh)
+                                             .transpose(0, 2, 1, 3).reshape(-1, 3 * h * dh)}}
+                          for aid, a in params["transformer"]["shared_attn"].items()}
+    old["shared_ff"] = {fid: {"w1": {k: np.concatenate([np.asarray(f["w1"][k]), np.asarray(f["w1g"][k])], axis=-1)
+                                     for k in ("w", "b")}, "w2": f["w2"]}
+                        for fid, f in params["transformer"]["shared_ff"].items()}
+    migrated = jtransformer.migrate_transformer_layout(old, h, dh)
+    _leaves_equal(weights.migrate_transformer_layout(old, h, dh), migrated)
+    _write(tmp_path / "old.pt", {**params, "transformer": old}, vae_params, version="0.0.9")
+    model, _ = weights.load_dalle_checkpoint(tmp_path / "old.pt", "cpu")
+    assert "note: checkpoint version 0.0.9" in capsys.readouterr().out
+    _state_dicts_equal(model, weights.load_dalle(params, model.cfg, "cpu"))
+
+
+def test_other_formats_exit_with_what_they_need(tmp_path):
+    (tmp_path / "sharded" / "state").mkdir(parents=True)
+    with pytest.raises(SystemExit, match="orbax sharded checkpoint.*Queue 1 item 8"):
+        weights.load_dalle_checkpoint(tmp_path / "sharded", "cpu")
+    with zipfile.ZipFile(tmp_path / "ref.pt", "w") as z:
+        z.writestr("archive/data.pkl", b"\x80")
+    with pytest.raises(SystemExit, match="torch-reference checkpoint.*Queue 1 item 5"):
+        weights.load_dalle_checkpoint(tmp_path / "ref.pt", "cpu")
+    with pytest.raises(SystemExit, match="does not exist"):
+        weights.load_dalle_checkpoint(tmp_path / "missing.pt", "cpu")
+
+
+def decode_png(path):
+    """PNG -> uint8 array with zlib and struct alone (8-bit, filter 0)."""
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        assert struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] == zlib.crc32(tag + body)
+        chunks.setdefault(tag, []).append(body)
+        pos += 12 + n
+    w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", chunks[b"IHDR"][0])
+    assert (depth, comp, filt, interlace) == (8, 0, 0, 0) and b"IEND" in chunks
+    c = {0: 1, 2: 3, 6: 4}[color]
+    rows = np.frombuffer(zlib.decompress(b"".join(chunks[b"IDAT"])), np.uint8).reshape(h, 1 + w * c)
+    assert not rows[:, 0].any()
+    return rows[:, 1:].reshape(h, w, c).squeeze(-1) if c == 1 else rows[:, 1:].reshape(h, w, c)
+
+
+def test_cli_writes_the_jax_directories_and_pixels(checkpoint, tmp_path, capsys):
+    path, _, _ = checkpoint
+    out = tmp_path / "out"
+    timings = {}
+    paths = cli.main(["--dalle_path", str(path), "--text", "a cat | a red dog", "--num_images", "3",
+                      "--batch_size", "2", "--outputs_dir", str(out), "--seed", "5", "--cond_scale", "2.0",
+                      "--device", "cpu"], timings=timings)
+    assert sorted(p.relative_to(out).as_posix() for p in paths) == [
+        "a_cat/0.png", "a_cat/1.png", "a_cat/2.png", "a_red_dog/0.png", "a_red_dog/1.png", "a_red_dog/2.png"]
+    assert sorted(os.listdir(out)) == ["a_cat", "a_red_dog"]
+    assert "created 3 images at" in capsys.readouterr().out
+    assert set(timings) == {"load_s", "tokenize_s", "prefill_s", "decode_s", "vae_s", "png_s"}
+
+    # the same draws, then the JAX package's pixel conversion
+    model, vae = weights.load_dalle_checkpoint(path, "cpu")
+    vae_cfg = vae.cfg
+    gen = torch.Generator().manual_seed(5)
+    jvae_cfg = jvae.DiscreteVAEConfig(**VAE)
+    tok = tokenizer_mod.tokenizer
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    for prompt in ("a cat", "a red dog"):
+        ids = torch.from_numpy(np.repeat(tok.tokenize(prompt, 12, truncate_text=True), 3, axis=0))
+        images = torch.cat([tsamp.generate_images(model, vae, ids[i:i + 2], gen, filter_thres=0.9, cond_scale=2.0)
+                            for i in (0, 2)])
+        np.testing.assert_array_equal(vae_registry.to_display(vae_cfg, images).numpy(),
+                                      np.asarray(jregistry.to_display(jvae_cfg, images.numpy())))
+        display = np.asarray(jregistry.to_display(jvae_cfg, images.numpy()))
+        for i, img in enumerate(display):
+            want = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            got = decode_png(out / prompt.replace(" ", "_") / f"{i}.png")
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(png.read_png(out / prompt.replace(" ", "_") / f"{i}.png"), want)
+            if Image is not None:
+                np.testing.assert_array_equal(np.asarray(Image.open(out / prompt.replace(" ", "_") / f"{i}.png")),
+                                              want)
+
+
+def test_cli_gentxt_names_the_directory_after_the_completion(checkpoint, tmp_path, capsys):
+    path, _, _ = checkpoint
+    out = tmp_path / "out"
+    paths = cli.main(["--dalle_path", str(path), "--text", "a photo", "--num_images", "1", "--gentxt",
+                      "--outputs_dir", str(out), "--seed", "2", "--device", "cpu"])
+    model, _ = weights.load_dalle_checkpoint(path, "cpu")
+    dalle_cfg = model.cfg
+    tok = tokenizer_mod.tokenizer
+    completed = tsamp.generate_texts(model, torch.from_numpy(tok.tokenize("a photo", 12)[:, :2]),
+                                     torch.Generator().manual_seed(2))
+    pads = set(range(dalle_cfg.num_text_tokens_padded - 12, dalle_cfg.num_text_tokens_padded))
+    text = tok.decode(completed[0].numpy(), pad_tokens=pads)
+    assert text.startswith("a photo ")
+    assert f"completed text: {text}" in capsys.readouterr().out
+    assert paths == [out / text.replace(" ", "_")[:100] / "0.png"] and paths[0].exists()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--engine"], "Queue 1 item 6"), (["--engine_slots", "8"], "Queue 1 item 6"),
+    (["--engine_block_size", "32"], "Queue 1 item 6"), (["--spec_k", "2"], "Queue 1 item 6"),
+    (["--spec_draft_layers", "1"], "Queue 1 item 6"), (["--taming"], "Queue 1 item 5"),
+    (["--vqgan_config_path", "v.yaml"], "Queue 1 item 5"), (["--allow_legacy_pickle"], "Queue 1 item 5"),
+])
+def test_refused_flags_exit_with_their_roadmap_item(checkpoint, flags, item):
+    path, _, _ = checkpoint
+    with pytest.raises(SystemExit, match=f"--{flags[0][2:]}: .*{item}"):
+        cli.main(["--dalle_path", str(path), "--text", "a", "--device", "cpu", *flags])
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu(checkpoint, monkeypatch):
+    path, _, _ = checkpoint
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--dalle_path", str(path), "--text", "a"])
+
+
+def test_tokenizer_adapters_exit_without_their_package(checkpoint, monkeypatch):
+    path, _, _ = checkpoint
+    monkeypatch.setitem(sys.modules, "tokenizers", None)
+    with pytest.raises(SystemExit, match="--hug: HugTokenizer needs the tokenizers package"):
+        cli.main(["--dalle_path", str(path), "--text", "a", "--hug", "--bpe_path", "v.json", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (5, 7, 3), (5, 7, 4)])
+def test_png_round_trips(tmp_path, shape):
+    pixels = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    png.write_png(tmp_path / "x.png", pixels)
+    np.testing.assert_array_equal(decode_png(tmp_path / "x.png"), pixels)
+    np.testing.assert_array_equal(png.read_png(tmp_path / "x.png"), pixels)
+    with pytest.raises(ValueError):
+        png.encode_png(np.zeros((2, 2, 2), np.uint8))
+    with pytest.raises(TypeError):
+        png.encode_png(np.zeros((2, 2), np.float32))
