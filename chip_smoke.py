@@ -29,6 +29,17 @@ grid), and CLIP at its default config scoring those images with and without
 the text mask, its kernel path held against its plain path.  Each path runs
 with every launch counter set to 0 just before it and read just after.
 
+Serving replays the decode step from CUDA graphs (`models/sampling.py`
+`DecodeGraphs`).  The `decode_graphs` lines hold the replayed loop against
+the same step run eagerly, at full width: the 12-layer model with CFG (and
+its logit stats), the pattern model with CFG and primed (its pattern layers
+gathering their keys), the flagship primed with CFG and the --gentxt text
+loop at the CLI's vocabulary: codes (ids) equal under one noise_override
+over the whole loop, two calls with one generator seed equal, step times
+replayed and eager, and the `*_decode_profile` windows' device time, busy
+share, kernels and host launches per step on both paths.  Freeing the
+flagship must return its graphs' memory.
+
 Every phase prints one JSON line; any failure raises and exits non-zero.  The
 last two lines are the kernel table and `{"ok": true, "device": {...}}`.  It
 exits non-zero, printing no result, without a CUDA device or outside a
@@ -70,6 +81,9 @@ VFA_KERNELS = ("flash_max_compact", "flash_fwd_compact_vfa")
 # the README quick-start model: pattern attention, depth 16 (each type 4 times)
 SLICE = dict(FULL, depth=16, attn_types=("full", "axial_row", "axial_col", "conv_like"))
 PATTERNS = ("axial_row", "axial_col", "conv_like", "sparse", "sparse_per_head")
+
+# the default prime fraction's codes (0.4375 of 1,024)
+PRIME_LEN = 448
 
 # the flagship 1.3B model (BASELINE.json configs[3], tools/flagship_sweep.py)
 FLAGSHIP = dict(dim=1152, depth=64, heads=8, dim_head=128, num_text_tokens=10000, text_seq_len=256,
@@ -791,8 +805,9 @@ def generate(fa, dalle, text, cond_scale, img=None):
     prime_len = 0 if img is None else int(DEFAULT_PRIME_FRACTION * cfg.image_seq_len)
     want, _ = forward_launches(dalle.module, cfg.text_seq_len + 1 + prime_len)
     check(launches == want, f"one prefill launched {launches}; its layer cycle gives {want}")
-    return dict(cond_scale=cond_scale, primed=img is not None, prefill_s=timings["prefill_s"],
-                decode_s=timings["decode_s"], vae_s=timings["vae_s"], total_s=total_s, images_per_s=2 / total_s,
+    return dict(cond_scale=cond_scale, primed=img is not None, capture_s=timings["capture_s"],
+                prefill_s=timings["prefill_s"], decode_s=timings["decode_s"], vae_s=timings["vae_s"], total_s=total_s,
+                images_per_s=2 / total_s,
                 prefill_len=cfg.text_seq_len + 1 + prime_len,
                 decode_tokens_per_s=2 * (cfg.image_seq_len - prime_len) / timings["decode_s"],
                 launches=launches), launches
@@ -885,38 +900,228 @@ def phase_flagship_generate(fa, tr, port):
     return dalle, text, launches
 
 
-def phase_decode_profile(dalle, text, sampling, phase="decode_profile", steps=32):
-    """Where a decode step's time goes: the last `steps` decode steps of a
-    CFG generation (primed so that only they remain), under torch.profiler.
-    The device's busy share is its summed kernel time over the window's wall
-    time; null where the profiler records no device time."""
+# host calls that launch device work, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile_window(fn, steps):
+    """One call of fn (a decode loop of `steps` steps) under torch.profiler:
+    wall time, the device's summed kernel time and busy share (null where
+    the profiler records no device time), kernels and host launch calls
+    per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(steps=steps, window_s=wall_s, step_ms=wall_s / steps * 1e3,
+                device_ms_per_step=device_s / steps * 1e3 if device_s else None,
+                device_busy_share=device_s / wall_s if device_s else None,
+                kernels_per_step=sum(e.count for e in kernels) / steps,
+                host_launches_per_step=sum(calls.values()) / steps if calls else None, host_launch_calls=calls,
+                top_kernels=[dict(name=e.key[:80], device_ms=e.self_device_time_total / 1e3, count=e.count)
+                             for e in top])
+
+
+def decode_window(sampling, dalle, text, steps, graphs, cond_scale=3.0):
+    """The last `steps` steps of an image loop (primed with random codes so
+    that only they remain), replayed (graphs=True) or eager, profiled after
+    an unprofiled call of the same loop (the replayed one's capture)."""
     cfg, model = dalle.cfg, dalle.module
     prime_len = cfg.image_seq_len - steps
     primer = torch.randint(0, cfg.num_image_tokens, (text.shape[0], prime_len),
                            generator=torch.Generator().manual_seed(5)).cuda()
-    cache, last_logits = sampling._prefill_phase(model, text, primer, prime_len, 3.0)
-    gen = torch.Generator(device=text.device).manual_seed(6)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only: least host overhead
-        t0 = time.perf_counter()
-        sampling._decode_phase(model, cache, last_logits, gen, 0.5, 1.0, 3.0, primer, prime_len, None)
+    mode = sampling.Mode(noise=False, stats=False)
+
+    def window():
+        loop, run = sampling.image_loop(model, text.shape[0], cond_scale, prime_len, 0.5, mode, graphs)
+        _, logits = sampling._prefill_phase(model, text, primer, prime_len, cond_scale, loop.cache)
+        gen = torch.Generator(device=text.device).manual_seed(6)
+        return lambda: run(model, logits, steps, gen, 1.0, None, mode)
+
+    window()()
+    return profile_window(window(), steps)
+
+
+def phase_decode_profile(dalle, text, sampling, phase="decode_profile", steps=32):
+    """Where a decode step's time goes: the last `steps` steps of a CFG
+    generation, replayed from CUDA graphs and, beside it, eager."""
+    replayed = decode_window(sampling, dalle, text, steps, True)
+    eager = decode_window(sampling, dalle, text, steps, False)
+    emit(phase, replayed=replayed, eager=eager, note="profiled windows: the tracer's host overhead slows the steps")
+    return replayed, eager
+
+
+def phase_decode_graphs(fa, tr, sampling, dalle, text, model, cond_scale, prime_len=0, stats=False,
+                        eager_stream=False, profile=None):
+    """The image loop replayed from CUDA graphs against the same static step
+    run eagerly, at full width: codes array_equal under one noise_override
+    over the whole n_gen (replayed first: the call that captures, its
+    decode_s the replays alone), with `stats` the logit stats equal too; two
+    calls with one generator seed equal, with codes that vary; with
+    `eager_stream`, whether the replayed generator stream equals the eager
+    loop's (one eager run more, so on one model only).  Each call's flash launches
+    are its prefill's layer cycle (decode launches none), and its
+    gather-branch layer-steps the pattern layers times the decode steps.
+    `profile`: its decode_profile readings (replayed, eager)."""
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+
+    cfg, m = dalle.cfg, dalle.module
+    graphs = dalle.decode_graphs
+    b, n_gen = text.shape[0], cfg.image_seq_len - prime_len
+    primer = (torch.randint(0, cfg.num_image_tokens, (b, prime_len), generator=torch.Generator().manual_seed(8)).cuda()
+              if prime_len else None)
+    noise = gumbel_noise((n_gen, b, cfg.total_tokens), torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    want, _ = forward_launches(m, cfg.text_seq_len + 1 + prime_len)
+    pattern_layers = sum(s.attn_type != "full" for s in m.transformer.specs) if cfg.sparse_decode else 0
+
+    def call(replayed, **kw):
+        timings = {}
+        reset_launches(fa)
+        tr.decode_step.gathers = 0
+        reserved = torch.cuda.memory_reserved()
+        out = sampling.sample_image_codes(m, text, cond_scale=cond_scale, primer_codes=primer, prime_len=prime_len,
+                                          graphs=replayed, timings=timings, **kw)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    launches = sum(e.count for e in kernels)
-    emit(phase, steps=steps, window_s=wall_s, step_ms=wall_s / steps * 1e3,
-         device_kernel_s=device_s or None,
-         device_busy_share=(device_s / wall_s) if device_s else None,
-         device_kernel_launches=launches, launches_per_step=launches / steps,
-         top_kernels=[dict(name=e.key[:80], device_ms=e.self_device_time_total / 1e3, count=e.count)
-                      for e in top],
-         note="profiled window: the tracer's host overhead slows the steps")
+        launches, gathers = read_launches(fa), tr.decode_step.gathers
+        check(launches == want, f"{model}: a sampling call launched {launches}; its prefill's layer cycle gives {want}")
+        check(gathers == pattern_layers * (n_gen - 1),
+              f"{model}: {gathers} gather-branch layer-steps for {pattern_layers} pattern layers x {n_gen - 1} steps")
+        timings["reserved_delta_gib"] = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+        return out, timings
+
+    first = (graphs.hits, graphs.misses)
+    kw = dict(noise_override=noise, return_logit_stats=stats)
+    replayed, t_replayed = call(True, **kw)
+    eager, t_eager = call(False, **kw)
+    codes = [out[0] if stats else out for out in (replayed, eager)]
+    check(torch.equal(*codes), f"{model}: replayed and eager codes differ under one noise")
+    check(tuple(codes[0].shape) == (b, cfg.image_seq_len), f"{model}: codes of shape {tuple(codes[0].shape)}")
+    logit_stats = None
+    if stats:
+        logit_stats = {k: [out[1][k].item() for out in (replayed, eager)] for k in replayed[1]}
+        check(all(len(set(v)) == 1 and np.isfinite(v[0]) for v in logit_stats.values()),
+              f"{model}: replayed and eager logit stats differ: {logit_stats}")
+
+    def seeded(replayed):
+        return call(replayed, generator=torch.Generator(device="cuda").manual_seed(7))
+
+    (g1, t_g1), (g2, _) = seeded(True), seeded(True)
+    check(torch.equal(g1, g2), f"{model}: two replayed calls with one seed differ")
+    check(all(len(torch.unique(row[prime_len:])) > 1 for row in g1), f"{model}: replayed codes do not vary over steps")
+    stream_equal = torch.equal(g1, seeded(False)[0]) if eager_stream else None
+    entry = next(e for k, e in graphs.entries().items() if k[:5] == ("image", b, float(cond_scale), prime_len, 0.5))
+    row = dict(model=model, loop="image", batch=b, cond_scale=cond_scale, prime_len=prime_len, n_gen=n_gen,
+               codes_equal_under_noise=True, seeded_calls_equal=True, generator_stream_equals_eager=stream_equal,
+               logit_stats=logit_stats,
+               step_ms_replayed=t_replayed["decode_s"] / n_gen * 1e3, step_ms_eager=t_eager["decode_s"] / n_gen * 1e3,
+               decode_s_replayed=t_replayed["decode_s"], decode_s_eager=t_eager["decode_s"],
+               prefill_s_replayed=t_replayed["prefill_s"], capture_s=t_replayed["capture_s"],
+               capture_s_generator=t_g1["capture_s"],
+               entry_buffers_gib=entry.loop.nbytes() / 2 ** 30, captured_graphs=len(entry.graphs),
+               reserved_delta_gib_first_call=t_replayed["reserved_delta_gib"],
+               hits=graphs.hits - first[0], misses=graphs.misses - first[1],
+               gather_layer_steps_per_call=pattern_layers * (n_gen - 1))
+    if profile is not None:
+        replayed_p, eager_p = profile
+        row.update({f"{k}_{path}": v[k] for path, v in (("replayed", replayed_p), ("eager", eager_p))
+                    for k in ("device_ms_per_step", "device_busy_share", "kernels_per_step", "host_launches_per_step")})
+    emit("decode_graphs", **row)
+    return row
+
+
+def phase_decode_graphs_text(sampling, dalle, prompt, model, steps=32):
+    """The --gentxt text loop replayed from CUDA graphs against the same
+    static step run eagerly: ids array_equal under one noise_override over
+    the whole completion, two calls with one generator seed equal, and
+    whether the replayed generator stream equals the eager loop's; then a
+    profiled window of `steps` steps (a prompt of text_seq_len - steps
+    random ids), replayed and eager."""
+    from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
+    from dalle_pytorch_tpu_torch.models.transformer import prefill
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+
+    cfg, m = dalle.cfg, dalle.module
+    graphs = dalle.decode_graphs
+    b, n0 = prompt.shape
+    n_gen = cfg.text_seq_len - n0
+    noise = gumbel_noise((n_gen, b, cfg.total_tokens), torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    first = (graphs.hits, graphs.misses)
+
+    def call(replayed, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = sampling.generate_texts(m, prompt, graphs=replayed, **kw)
+        torch.cuda.synchronize()
+        return ids, time.perf_counter() - t0
+
+    def seeded(replayed):
+        return call(replayed, generator=torch.Generator(device="cuda").manual_seed(7))[0]
+
+    (captured, capture_call_s), (eager, eager_s), (replayed, replayed_s) = (
+        call(True, noise_override=noise), call(False, noise_override=noise), call(True, noise_override=noise))
+    check(torch.equal(captured, eager) and torch.equal(replayed, eager),
+          f"{model}: replayed and eager text ids differ under one noise")
+    check(tuple(eager.shape) == (b, cfg.text_seq_len) and bool((eager < cfg.num_text_tokens_padded).all()),
+          f"{model}: text ids {tuple(eager.shape)} out of the text vocabulary")
+    g1, g2 = seeded(True), seeded(True)
+    check(torch.equal(g1, g2), f"{model}: two replayed text calls with one seed differ")
+    check(len(torch.unique(g1[0, n0:])) > 1, f"{model}: replayed text ids do not vary over steps")
+    stream_equal = torch.equal(g1, seeded(False))
+    entry = next(e for k, e in graphs.entries().items() if k[:3] == ("text", b, 0.5))
+
+    long_prompt = torch.randint(1, cfg.num_text_tokens, (b, cfg.text_seq_len - steps),
+                                generator=torch.Generator().manual_seed(10)).cuda()
+    mode = sampling.Mode(noise=False, stats=False)
+
+    def window(replayed):
+        loop, run = sampling.text_loop(m, b, 0.5, mode, replayed)
+        out, _ = prefill(m.transformer, dalle_mod.embed_text_ids(m, long_prompt), loop.cache)
+        logits = sampling._logits_at(m, out[:, -1:], image=False)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        return lambda: run(m, logits, steps, gen, 1.0, None, mode)
+
+    profiles = {}
+    for path, replayed_flag in (("replayed", True), ("eager", False)):
+        window(replayed_flag)()
+        profiles[path] = profile_window(window(replayed_flag), steps)
+    row = dict(model=model, loop="text", batch=b, prompt_len=n0, n_gen=n_gen, vocab=cfg.total_tokens,
+               ids_equal_under_noise=True, seeded_calls_equal=True, generator_stream_equals_eager=stream_equal,
+               step_ms_replayed=replayed_s / n_gen * 1e3, step_ms_eager=eager_s / n_gen * 1e3,
+               call_s_replayed=replayed_s, call_s_eager=eager_s, first_call_s=capture_call_s,
+               entry_buffers_gib=entry.loop.nbytes() / 2 ** 30, captured_graphs=len(entry.graphs),
+               hits=graphs.hits - first[0], misses=graphs.misses - first[1], profile=profiles)
+    row.update({f"{k}_{path}": v[k] for path, v in profiles.items()
+                for k in ("device_ms_per_step", "device_busy_share", "kernels_per_step", "host_launches_per_step")})
+    emit("decode_graphs", **row)
+    return row
+
+
+def phase_graph_memory(reserved_before, reserved_with_model, entry_bytes):
+    """Freeing a model frees its graph cache: once the caller has dropped
+    the last reference to the model, `empty_cache` must return the entries'
+    buffers and the graphs' pool, leaving the card's reserved memory within
+    1 GiB of what it was before the model was made."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    check(after <= reserved_before + 2 ** 30,
+          f"freeing the model left {after / 2 ** 30:.2f} GiB reserved, {reserved_before / 2 ** 30:.2f} before it")
+    emit("decode_graphs_memory", entry_buffers_gib=entry_bytes / 2 ** 30,
+         reserved_with_model_gib=reserved_with_model / 2 ** 30, reserved_before_model_gib=reserved_before / 2 ** 30,
+         reserved_after_free_gib=after / 2 ** 30)
 
 
 def phase_forward(fa, dalle, text):
@@ -1183,7 +1388,7 @@ def run_cli(fa, argv):
     return paths, timings, read_launches(fa), out.getvalue(), time.perf_counter() - t0
 
 
-def phase_generate_cli(fa, port, weights, checkpoint):
+def phase_generate_cli(fa, port, weights, checkpoint, sampling):
     """Text in, PNG out: `python -m dalle_pytorch_tpu_torch.cli.generate`'s
     `main`, in process, on the README pattern model at full width with the
     BPE vocabulary, its seeded weights written as a v3 checkpoint by the
@@ -1214,6 +1419,8 @@ def phase_generate_cli(fa, port, weights, checkpoint):
         save_dalle_checkpoint(checkpoint, weights, tmp / "dalle.pt", dalle, vae)
         save_dalle_checkpoint(checkpoint, weights, tmp / "compact.pt", dalle, vae, depth=cycle, attn_grid="compact")
         write_s = time.perf_counter() - t0
+        prompt = torch.tensor([tokenizer_mod.tokenizer.encode(CLI_PROMPTS[0])], device="cuda")
+        phase_decode_graphs_text(sampling, dalle, prompt, "cli_pattern_49408_text_tokens")
         del dalle, vae
         torch.cuda.empty_cache()
         common = ["--num_images", "2", "--batch_size", "2", "--seed", "0"]
@@ -1353,7 +1560,8 @@ def main() -> int:
     paths = {}
     dalle, text, paths["generate"] = phase_slice(fa, port)
     phase_forward(fa, dalle, text)
-    phase_decode_profile(dalle, text, sampling)
+    profile = phase_decode_profile(dalle, text, sampling)
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer", 3.0, stats=True, profile=profile)
     del dalle
     phase_parity(fa, port, sampling)
     paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
@@ -1361,7 +1569,9 @@ def main() -> int:
     phase_train_cli(weights, checkpoint)
 
     dalle, text, paths["sparse_generate"] = phase_sparse_generate(fa, tr, port)
-    phase_decode_profile(dalle, text, sampling, phase="sparse_decode_profile")
+    profile = phase_decode_profile(dalle, text, sampling, phase="sparse_decode_profile")
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 3.0, profile=profile)
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 1.0, prime_len=PRIME_LEN, eager_stream=True)
     del dalle
     torch.cuda.empty_cache()
     parity = phase_parity(fa, port, sampling, "sparse_parity", SMALL_SPARSE, SMALL_SPARSE_VAE, prime_len=128)
@@ -1374,14 +1584,18 @@ def main() -> int:
     check(min(paths["sparse_train"][k] for k in online) > 0,
           f"a kernel was not launched in sparse_train: {paths['sparse_train']}")
 
-    paths["generate_cli"], scored = phase_generate_cli(fa, port, weights, checkpoint)
+    paths["generate_cli"], scored = phase_generate_cli(fa, port, weights, checkpoint, sampling)
     paths["clip_rerank"] = phase_clip_rerank(fa, port, tr, scored)
     torch.cuda.empty_cache()
 
+    reserved = torch.cuda.memory_reserved()
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
-    phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16)
+    profile = phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16)
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=PRIME_LEN, profile=profile)
+    entry_bytes = sum(e.loop.nbytes() for e in dalle.decode_graphs.entries().values())
+    with_model = torch.cuda.memory_reserved()
     del dalle
-    torch.cuda.empty_cache()
+    phase_graph_memory(reserved, with_model, entry_bytes)
     parity = phase_parity(fa, port, sampling, "flagship_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE, prime_len=128)
     check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's primed prefill ran no VFA pair: {parity}")
     parity = phase_train_parity(fa, port, "flagship_train_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE)

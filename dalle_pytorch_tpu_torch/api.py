@@ -72,6 +72,8 @@ class DALLE:
         else:
             self.module = _dalle.init_dalle(
                 self.cfg, _generator(seed, self.device), self.device)
+        # the CUDA graphs of its decode steps (the JAX facade's ExecutableCache)
+        self.decode_graphs = _sampling.decode_graphs(self.module)
 
     @property
     def text_seq_len(self) -> int:
@@ -103,27 +105,30 @@ class DALLE:
                         num_init_img_tokens: Optional[int] = None,
                         cond_scale: float = 1.0,
                         timings: Optional[dict] = None,
-                        clip: Optional["CLIP"] = None):
+                        clip: Optional["CLIP"] = None,
+                        graphs: Optional[bool] = None):
         """Token ids (b, text_seq_len) -> images (b, H, W, C), or with a
         `clip`, (images, scores) for reranking.  The gumbel noise comes
         from `generator`: a `torch.Generator` on the model's device, or a
-        seed for one."""
+        seed for one.  On the card the decode loop replays CUDA graphs
+        from `decode_graphs` unless `graphs=False`."""
         if isinstance(generator, int):
             generator = _generator(generator, self.device)
         return _sampling.generate_images(
             self.module, self.vae.module, text, generator,
             filter_thres=filter_thres, temperature=temperature, img=img,
             num_init_img_tokens=num_init_img_tokens, cond_scale=cond_scale,
-            timings=timings, clip=None if clip is None else clip.module,
+            timings=timings, clip=None if clip is None else clip.module, graphs=graphs,
         )
 
     def generate_texts(self, tokenizer=None, text: Union[str, torch.Tensor, None] = None,
                        generator: Union[int, torch.Generator] = 0, filter_thres: float = 0.5,
-                       temperature: float = 1.0) -> Tuple[torch.Tensor, Optional[List[str]]]:
+                       temperature: float = 1.0,
+                       graphs: Optional[bool] = None) -> Tuple[torch.Tensor, Optional[List[str]]]:
         """Complete a prompt: a string (encoded by `tokenizer`), (b, n0) ids,
         or None (a single 0 token).  Returns (ids (b, text_seq_len), their
         decoded texts without the padding ids, or None without a
-        tokenizer)."""
+        tokenizer).  `graphs` as in `generate_images`."""
         if isinstance(text, str):
             if tokenizer is None:
                 raise ValueError("a text prompt needs a tokenizer")
@@ -131,7 +136,7 @@ class DALLE:
         if isinstance(generator, int):
             generator = _generator(generator, self.device)
         tokens = _sampling.generate_texts(self.module, text, generator, filter_thres=filter_thres,
-                                          temperature=temperature)
+                                          temperature=temperature, graphs=graphs)
         texts = None
         if tokenizer is not None:
             cfg = self.cfg

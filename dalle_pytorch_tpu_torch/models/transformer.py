@@ -17,9 +17,15 @@ there.  The one-token decode attention is plain tensor ops over the cache,
 as in the JAX package: a pattern layer gathers only the keys its pattern
 row permits (`sparse_decode`) or masks the full cache with that row.
 
-The decode cache is a dict `{"offset": int, "layers": [per-layer dict]}`
-whose k/v buffers and token-shift rings are updated in place (the JAX
-package returns new arrays instead).
+The decode cache is a dict `{"offset": (), "layers": [per-layer dict]}`
+whose offset (an int64 tensor on the cache's device), k/v buffers and
+token-shift rings are updated in place (the JAX package returns new arrays
+instead).  A decode step is static, as the JAX package's is: it reads the
+offset only as a tensor (rotary, pattern tables and ring slots by
+`index_select`, cache writes by `index_copy_`, attention over the whole
+cache under `j <= offset`), so every step runs the same ops on the same
+shapes, never syncs with the host, and can be captured in a CUDA graph
+(`models/sampling.DecodeGraphs`).
 """
 from __future__ import annotations
 
@@ -299,6 +305,14 @@ class Transformer(nn.Module):
             self._decode_inputs[(key, device)] = got
         return got
 
+    def prepare_decode(self, device: torch.device) -> None:
+        """Build what the cached decode step reads on `device` (the rotary
+        angles, each pattern layer's decode inputs) ahead of the steps, so
+        that no step makes a tensor from host data."""
+        self.rotary(device)
+        for spec in self.specs:
+            self.decode_inputs(_pattern_key(spec), device)
+
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return apply_transformer(self, x, key_mask)
 
@@ -356,55 +370,61 @@ def _feed_forward(ff: FeedForward, x: torch.Tensor, rate: float = 0.0,
     return ff.w2(dropout(h, rate, generator))
 
 
-def _attention_cached(attn, cfg, layer_cache, x, rotary, offset: int,
+def _at(table: torch.Tensor, offset: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """table's entry at the device scalar `offset` along `dim`, the dim
+    kept (length 1)."""
+    return table.index_select(dim, offset.view(1))
+
+
+def _attention_cached(attn, cfg, layer_cache, x, rotary, offset: torch.Tensor,
                       pattern: Optional[DecodePattern] = None):
-    """One cached token x: (b, 1, dim) at position `offset`; writes its key
-    and value into the cache and attends over positions 0..offset, or, in a
-    pattern layer, over those its pattern row permits: the gathered Kmax
-    keys (padded slots masked off) or the cache masked with the row."""
-    ang = None if rotary is None else rotary[offset:offset + 1]
+    """One cached token x: (b, 1, dim) at position `offset` (a device
+    scalar); writes its key and value into the cache and attends over the
+    whole cache under j <= offset, or, in a pattern layer, over what its
+    pattern row permits: the gathered Kmax keys (padded slots masked off)
+    or the whole cache masked with the row."""
+    ang = None if rotary is None else _at(rotary, offset)
     q, k, v = _qkv_heads(attn, cfg, x, ang)
     q = q * (cfg.dim_head ** -0.5)
     k_buf, v_buf = layer_cache["k"], layer_cache["v"]
-    k_buf[:, :, offset] = k[:, :, 0]
-    v_buf[:, :, offset] = v[:, :, 0]
-    if pattern is None:
-        out = attend(q, k_buf[:, :, :offset + 1], v_buf[:, :, :offset + 1])
-    elif pattern.idx is not None:
-        sel = pattern.idx[..., offset, :]  # (Kmax,) or per head (h, Kmax)
-        if sel.ndim == 2:
+    k_buf.index_copy_(2, offset.view(1), k.to(k_buf.dtype))
+    v_buf.index_copy_(2, offset.view(1), v.to(v_buf.dtype))
+    if pattern is not None and pattern.idx is not None:
+        sel = _at(pattern.idx, offset, -2)  # (1, Kmax) or per head (h, 1, Kmax)
+        valid = _at(pattern.valid, offset, -2)
+        if sel.ndim == 3:
             b, h, _, d = k_buf.shape
-            gather = sel[None, :, :, None].expand(b, h, sel.shape[-1], d)
+            gather = sel[None, :, 0, :, None].expand(b, h, sel.shape[-1], d)
             k_sel, v_sel = torch.gather(k_buf, 2, gather), torch.gather(v_buf, 2, gather)
-            amask = pattern.valid[:, offset][None, :, None, :]
+            amask = valid[None]
         else:
-            k_sel, v_sel = k_buf.index_select(2, sel), v_buf.index_select(2, sel)
-            amask = pattern.valid[offset][None, None, None, :]
+            k_sel, v_sel = k_buf.index_select(2, sel[0]), v_buf.index_select(2, sel[0])
+            amask = valid[None, None]
         out = attend(q, k_sel, v_sel, mask=amask)
         decode_step.gathers += 1
-    else:
-        row = pattern.rows[..., offset, :offset + 1]  # (offset+1,) or per head (h, offset+1)
-        amask = row[None, :, None, :] if row.ndim == 2 else row[None, None, None, :]
-        out = attend(q, k_buf[:, :, :offset + 1], v_buf[:, :, :offset + 1], mask=amask)
+        return attn.out(_merge_heads(out))
+    mask = torch.arange(cfg.seq_len, device=offset.device) <= offset  # (seq,)
+    if pattern is not None:
+        mask = mask & _at(pattern.rows, offset, -2)  # (1, seq) or per head (h, 1, seq)
+    amask = mask[None] if mask.ndim == 3 else mask.view(1, 1, 1, -1)
+    out = attend(q, k_buf, v_buf, mask=amask)
     return attn.out(_merge_heads(out))
 
 
-def _shift_cached_step(cfg, rb: torch.Tensor, x: torch.Tensor, offset: int) -> torch.Tensor:
+def _shift_cached_step(cfg, rb: torch.Tensor, x: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
     """One-token token shift against the ring buffer rb (b, fmap, 2, dim//4),
     which holds each past image token's first and second channel quarters
     in its raster-column slot.  Returns the shifted x; rb is updated in
-    place."""
+    place at the slot of `offset` (a device scalar)."""
     fmap = cfg.image_fmap_size
     q = cfg.dim // 4
     slot = (offset - cfg.text_len) % fmap
     cur = x[:, 0]
-    top = rb[:, slot, 0]  # the token one row above lives in this slot
-    left = rb[:, (slot - 1) % fmap, 1]
-    if slot == 0:
-        left = torch.zeros_like(left)
+    top = _at(rb, slot, 1)[:, 0, 0]  # the token one row above lives in this slot
+    left = _at(rb, (slot - 1) % fmap, 1)[:, 0, 1]
+    left = torch.where(slot == 0, torch.zeros_like(left), left)
     shifted = torch.cat([top, left, cur[:, 2 * q:]], dim=-1)[:, None]
-    rb[:, slot, 0] = cur[:, :q]
-    rb[:, slot, 1] = cur[:, q:2 * q]
+    rb.index_copy_(1, slot.view(1), torch.stack([cur[:, :q], cur[:, q:2 * q]], dim=1)[:, None].to(rb.dtype))
     return shifted
 
 
@@ -426,7 +446,7 @@ def _fill_ring(cfg, rb: torch.Tensor, pre_shift: torch.Tensor) -> None:
 
 
 def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
-                     key_mask=None, layer_cache=None, offset: int = 0,
+                     key_mask=None, layer_cache=None, offset: Optional[torch.Tensor] = None,
                      text_mode: bool = False, dropout_seed: Optional[int] = None,
                      pattern=None):
     """PreShiftToken? -> PreNorm -> attention or feed-forward (-> dropout)
@@ -473,7 +493,7 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
     parameters back."""
     cfg = model.cfg
     rotary = model.rotary(x.device)
-    offset = 0 if cache is None else cache["offset"]
+    offset = None if cache is None else cache["offset"]
     causal = cfg.causal or mode == "prefill"
     for i, (layer, spec) in enumerate(zip(model.layers, model.specs)):
         lc = None if cache is None else cache["layers"][i]
@@ -526,8 +546,8 @@ def apply_transformer(model: Transformer, x: torch.Tensor,
 
 
 def init_cache(cfg: TransformerConfig, batch: int, dtype=torch.float32, device=None) -> dict:
-    """Zeroed KV cache and token-shift rings; `offset` counts the positions
-    already consumed."""
+    """Zeroed KV cache and token-shift rings; `offset`, an int64 device
+    scalar, counts the positions already consumed."""
 
     def entry():
         e = {
@@ -540,7 +560,8 @@ def init_cache(cfg: TransformerConfig, batch: int, dtype=torch.float32, device=N
             e["shift_ff"] = torch.zeros(shape, dtype=dtype, device=device)
         return e
 
-    return {"offset": 0, "layers": [entry() for _ in range(cfg.depth)]}
+    return {"offset": torch.zeros((), dtype=torch.long, device=device),
+            "layers": [entry() for _ in range(cfg.depth)]}
 
 
 @torch.no_grad()
@@ -549,19 +570,22 @@ def prefill(model: Transformer, x: torch.Tensor, cache: dict,
     """Consume a length-n prefix from offset 0, filling the cache, and return
     the transformer output for the prefix."""
     out = _run_layers(model, x, "prefill", cache=cache, key_mask=key_mask)
-    cache["offset"] = x.shape[1]
+    cache["offset"].fill_(x.shape[1])
     return out, cache
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, x: torch.Tensor, cache: dict,
                 text_only: bool = False) -> Tuple[torch.Tensor, dict]:
-    """Process one token x: (b, 1, dim) at position cache['offset'].
-    text_only: the position is in the text region, where the token shift is
-    the identity."""
+    """Process one token x: (b, 1, dim) at position cache['offset'] and
+    advance the offset, all on the device: the same ops at every position,
+    so a CUDA graph may capture the step.  text_only: the position is in the
+    text region, where the token shift is the identity."""
     out = _run_layers(model, x, "decode", cache=cache, text_mode=text_only)
-    cache["offset"] += 1
+    cache["offset"].add_(1)
     return out, cache
 
 
-decode_step.gathers = 0  # pattern-layer decode steps that took the gather branch
+# pattern-layer decode steps that took the gather branch (a captured step
+# adds its count once per replay: `models/sampling.DecodeGraphs`)
+decode_step.gathers = 0
