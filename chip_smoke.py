@@ -13,7 +13,8 @@ random weights) through `DALLE.generate_images`, runs the scoring forward at
 n = 1280, checks a small model's sampling on the card against the same model
 on the CPU, trains the full-width model (f32 and bf16 compute, then
 rematerialised), holds a small model's train steps on the card against the
-CPU, and runs the training CLI's dummy run.  Then the same for the README's
+CPU, and runs the training CLI's dummy run (also with `--remat_policy flash_qkv
+--param_dtype bfloat16`).  Then the same for the README's
 pattern-attention model (depth 16 cycling full, axial_row, axial_col and
 conv_like): generation plain and primed, a decode profile, card-vs-CPU
 parity of a small pattern model, and training.  Then the flagship 1.3B
@@ -21,7 +22,18 @@ DALL-E (dim 1152, depth 64, 8 heads x 128, the same cycle, tied input and
 output embeddings, the VFA forward on the compacted grid): one primed
 generation, a decode profile, card-vs-CPU parity of a small model with its
 features, and training (bf16 compute sequential and rematerialised, f32
-compute rematerialised).  Then text in, PNG out: the generate CLI
+compute rematerialised, on f32 masters with Adam; then the JAX package's
+flagship recipe: `flash_qkv` remat at batch 8 and `flash_qkv_ff` and
+"full" at batch 4, bf16 parameter storage with stochastic rounding, bf16
+gradients, Adafactor), the same recipe on a small model held card against
+CPU under one set of rounding bits (`lowp_train_parity`), the policies'
+host time against "full" and against torch's selective-checkpoint hook
+(`remat_host_cost`, the flagship's 64 layers at a width where the host sets
+the pace), and the recipe's
+numerics smoke (`tools/numerics_smoke.py` at its defaults).  The pattern model also
+takes one gradient under each remat policy (`remat_policies`: equal to the
+sequential one, the forward launched once under the selective policies,
+peak memory in the policies' order).  Then text in, PNG out: the generate CLI
 (`cli.generate.main`, in process) on the pattern model at full width with
 the BPE tokenizer's vocabulary, from a v3 checkpoint the port writes, with
 --gentxt (and once more on a one-cycle cut of it that forces the compacted
@@ -59,6 +71,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -228,10 +241,13 @@ def forward_launches(model, n):
 
 
 def launches_per_step(model, n):
-    """The flash launches one training step of `model` at length n makes;
-    remat runs each forward twice."""
+    """The flash launches one training step of `model` at length n makes:
+    remat under the "full" policy runs each forward twice; the selective
+    policies keep the forward's outputs, so it runs once.  Read from the
+    transformer's own config, which a phase may switch between steps."""
     fwd, bwd = forward_launches(model, n)
-    times = 2 if model.cfg.execution == "remat" else 1
+    cfg = model.transformer.cfg
+    times = 2 if cfg.execution == "remat" and cfg.remat_policy == "full" else 1
     return {name: times * fwd[name] + bwd[name] for name in COUNTERS}
 
 
@@ -1192,18 +1208,77 @@ def phase_parity(fa, port, sampling, phase="slice_parity", small=SMALL, vae_kwar
     return prefill_launches
 
 
+class Run(NamedTuple):
+    """One training run of `phase_train`: remat execution or None, compute
+    dtype, steps, whether one more step runs under the profiler, the remat
+    policy, the batch, and whether it trains with the JAX package's
+    flagship recipe (bf16 storage and gradients, Adafactor 1e-3, no
+    clipping; `bench.py`, `tools/flagship_sweep.py`) instead of f32 masters
+    and Adam 3e-4 with clipping at 0.5."""
+
+    execution: Optional[str]
+    dtype: torch.dtype
+    steps: int
+    profile: bool
+    policy: str = "full"
+    batch: int = 4
+    recipe: bool = False
+
+
+CUBLAS_KERNEL = re.compile(r"gemm|cutlass|nvjet|xmma|cublas", re.IGNORECASE)
+
+
+def host_and_device(fn):
+    """(host ms to issue fn's work, its kernels' device ms from the
+    profiler, the kernel count) of one call of fn."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    rows = device_profile(fn)
+    return host, sum(ms for _, ms, _ in rows), sum(c for _, _, c in rows)
+
+
+def optimizer_profile(state, step_fn):
+    """The grouped optimizer's update alone (on zero gradients of the
+    parameters' dtype, the same kernels as a step's) and the stochastic
+    rounding alone (on each group's stacked f32 shape), host and device
+    time each."""
+    from dalle_pytorch_tpu_torch.parallel.train_step import stochastic_round
+
+    grads = [torch.zeros_like(p) for p in state.params.values()]
+    host, device, kernels = host_and_device(lambda: step_fn.apply_update(state, grads))
+    groups = state.opt_state.groups
+    out = dict(host_ms=host, device_ms=device, kernels=kernels, groups=len(groups))
+    if state.round_generator is not None:
+        sizes = [(len(g.names), *g.shape) for g in groups]
+        buf = torch.zeros(max(int(np.prod(size)) for size in sizes), device="cuda")
+
+        def rounding():
+            for size in sizes:
+                stochastic_round(buf[: int(np.prod(size))].view(size), generator=state.round_generator)
+
+        out["rounding_host_ms"], out["rounding_device_ms"], out["rounding_kernels"] = host_and_device(rounding)
+    return out
+
+
 def phase_train(fa, port, phase, model_kwargs, runs):
     """The training path at full width: pixels through the frozen VAE, the
-    DALL-E loss, backward through the flash kernels, clipping, the guard and
-    Adam, on one repeated batch of 4.  `runs`: (execution, compute dtype,
-    steps, profile) for each run, each on a fresh model and a fresh Adam;
-    the loss must fall over its steps.  With `profile`, one more step runs
-    under the profiler for the device-time breakdown.  Each run's launches
-    per step must match the layer cycle (`launches_per_step`)."""
+    DALL-E loss, backward through the flash kernels, the guard and the
+    optimizer, on one repeated batch (`Run`: f32 masters, Adam and clipping,
+    or the JAX recipe's bf16 storage and gradients with Adafactor), each run
+    on a fresh model and a fresh optimizer; the loss must fall over its
+    steps.  With `profile`, one more step runs under the profiler for the
+    device-time breakdown (flash kernels, cuBLAS) and, for a grouped
+    optimizer, the update and the rounding are profiled alone.  Each run's
+    launches per step must match the layer cycle and the remat policy
+    (`launches_per_step`)."""
     import dataclasses
 
     from dalle_pytorch_tpu_torch.cli.train_dalle import dalle_loss_fn
     from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
+    from dalle_pytorch_tpu_torch.optim.adafactor import Adafactor
     from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
 
     dev = torch.device("cuda")
@@ -1213,18 +1288,27 @@ def phase_train(fa, port, phase, model_kwargs, runs):
     text = torch.from_numpy(rng.integers(1, cfg.num_text_tokens, (4, cfg.text_seq_len))).to(dev)
     text[3, 200:] = 0  # a padded caption
     pixels = torch.from_numpy(rng.random((4, vae.image_size, vae.image_size, 3), dtype=np.float32)).to(dev)
-    batch = {"text": text, "image": pixels}
+    extra = max(r.batch for r in runs) - 4
+    if extra > 0:  # rows past the first 4, drawn after them
+        text = torch.cat([text, torch.from_numpy(rng.integers(1, cfg.num_text_tokens, (extra, cfg.text_seq_len))).to(dev)])
+        pixels = torch.cat([pixels, torch.from_numpy(
+            rng.random((extra, vae.image_size, vae.image_size, 3), dtype=np.float32)).to(dev)])
     adam = functools.partial(torch.optim.Adam, lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
 
-    def run(model, dtype, steps, profile):
-        init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae.module, dtype), adam,
-                                           StepSettings(compute_dtype=dtype, clip_grad_norm=0.5))
+    def run(model, r: Run):
+        batch = {"text": text[: r.batch], "image": pixels[: r.batch]}
+        if r.recipe:
+            settings = StepSettings(compute_dtype=r.dtype, grad_dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+            optimizer = Adafactor(1e-3)
+        else:
+            settings, optimizer = StepSettings(compute_dtype=r.dtype, clip_grad_norm=0.5), adam
+        init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae.module, r.dtype), optimizer, settings)
         state = init_fn(dict(model.named_parameters()))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches(fa)
         losses, norms, secs = [], [], []
-        for _ in range(steps):
+        for _ in range(r.steps):
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             losses.append(float(metrics["loss"]))
@@ -1232,37 +1316,56 @@ def phase_train(fa, port, phase, model_kwargs, runs):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         launches = read_launches(fa)
-        name = str(dtype).replace("torch.", "") + ("_remat" if model.cfg.execution == "remat" else "")
+        name = str(r.dtype).replace("torch.", "") + ("_remat" if r.execution == "remat" else "")
+        if r.policy != "full":
+            name += f"_{r.policy}"
+        if r.batch != 4:
+            name += f"_b{r.batch}"
+        if r.recipe:
+            name += "_bf16_params_adafactor"
         check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
         check(losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}")
-        per_step = {key: value / steps for key, value in launches.items()}
+        per_step = {key: value / r.steps for key, value in launches.items()}
         want = launches_per_step(model, cfg.total_seq_len)
         check(per_step == want, f"{name}: launches per step {per_step}, the layer cycle gives {want}")
-        step_s = statistics.median(secs[1:]) if steps > 2 else secs[-1]
+        step_s = statistics.median(secs[1:]) if r.steps > 2 else secs[-1]
+        peak = torch.cuda.max_memory_allocated()
         out = dict(losses=losses, grad_norms=norms, step_s=step_s, first_step_s=secs[0], steps_s=secs,
-                   tokens_per_s=4 * cfg.total_seq_len / step_s,
-                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches_per_step=per_step)
-        if profile:
+                   tokens_per_s=r.batch * cfg.total_seq_len / step_s, batch=r.batch, remat_policy=r.policy,
+                   peak_memory_gib=peak / 2 ** 30, peak_memory_gb=peak / 1e9, launches_per_step=per_step,
+                   param_dtype=str(next(model.parameters()).dtype).replace("torch.", ""),
+                   optimizer="adafactor" if r.recipe else "adam")
+        if r.profile:
             rows = device_profile(lambda: step_fn(state, batch))
             total = sum(ms for _, ms, _ in rows)
             ours = {key: sum(ms for kname, ms, _ in rows if f"{key}_kernel" in kname)
                     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_compact",
                                 "flash_max_compact", "flash_fwd_compact_vfa", "flash_dq_compact",
                                 "flash_dkv_compact")}
+            cublas = sum(ms for kname, ms, _ in rows if CUBLAS_KERNEL.search(kname))
             out["profile"] = dict(device_ms=total, flash_ms=ours, flash_share=sum(ours.values()) / total,
+                                  cublas_ms=cublas, cublas_share=cublas / total,
+                                  kernels=sum(c for _, _, c in rows),
                                   top=[dict(name=kname[:90], device_ms=ms, count=c) for kname, ms, c in rows[:8]])
+            if hasattr(step_fn, "apply_update"):
+                opt = optimizer_profile(state, step_fn)
+                opt.update(device_share=opt["device_ms"] / total, host_share=opt["host_ms"] / 1e3 / step_s)
+                if "rounding_device_ms" in opt:
+                    opt.update(rounding_device_share=opt["rounding_device_ms"] / total,
+                               rounding_host_share=opt["rounding_host_ms"] / 1e3 / step_s)
+                out["profile"]["optimizer"] = opt
         return name, out, launches
 
     results, total, n_params = {}, dict.fromkeys(COUNTERS, 0), None
-    for execution, dtype, steps, profile in runs:
-        model = init_dalle(dataclasses.replace(cfg, execution=execution),
+    for r in runs:
+        model = init_dalle(dataclasses.replace(cfg, execution=r.execution, remat_policy=r.policy),
                            torch.Generator(device=dev).manual_seed(1), dev).train().requires_grad_(True)
         n_params = sum(p.numel() for p in model.parameters())
-        name, results[name], launches = run(model, dtype, steps, profile)
+        name, results[name], launches = run(model, r)
         total = {key: total[key] + launches[key] for key in COUNTERS}
         del model
         torch.cuda.empty_cache()
-    emit(phase, params=n_params, seq_len=cfg.total_seq_len, vocab=cfg.total_tokens, batch=4,
+    emit(phase, params=n_params, seq_len=cfg.total_seq_len, vocab=cfg.total_tokens,
          depth=cfg.depth, attn_types=cfg.attn_types, **results,
          peak_memory_gib={name: r["peak_memory_gib"] for name, r in results.items()})
     return total
@@ -1271,7 +1374,8 @@ def phase_train(fa, port, phase, model_kwargs, runs):
 def standard_runs(steps):
     """f32 then bf16 compute for `steps` steps each (the first profiled),
     then 2 rematerialised f32 steps."""
-    return [(None, torch.float32, steps, True), (None, torch.bfloat16, steps, True), ("remat", torch.float32, 2, False)]
+    return [Run(None, torch.float32, steps, True), Run(None, torch.bfloat16, steps, True),
+            Run("remat", torch.float32, 2, False)]
 
 
 def phase_train_parity(fa, port, phase="train_parity", small=SMALL, vae_kwargs=SMALL_VAE):
@@ -1321,29 +1425,327 @@ def phase_train_parity(fa, port, phase="train_parity", small=SMALL, vae_kwargs=S
     return launches
 
 
+def bf16_step_distance(a: torch.Tensor, b: torch.Tensor, before: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 steps at the largest of |before|, |a| and |b| (all
+    bf16-exact), so that an update that nearly cancels the parameter is
+    measured at the scale it was computed at."""
+    m = torch.maximum(torch.maximum(before.float().abs(), a.float().abs()), b.float().abs())
+    step = (m.view(torch.int32) + (1 << 16)).view(torch.float32) - m
+    return (a.float() - b.float()).abs() / step
+
+
+def phase_lowp_train_parity(fa, port, phase="lowp_train_parity", small=SMALL_FLAGSHIP, vae_kwargs=SMALL_SPARSE_VAE):
+    """The JAX flagship recipe on a small model with the flagship's features
+    (remat `flash_qkv`, f32 compute, bf16 storage and gradients, Adafactor
+    1e-3): 3 steps on the card (kernels), each repeated on the CPU (plain
+    versions) from the card's parameters and Adafactor statistics before
+    it, the stochastic rounding's bits drawn once on the CPU and handed to
+    both.  Loss and grad norm agree to 1e-4 relative each step; after each
+    step the bf16 parameters are equal on all but 1e-4 of the elements, and
+    each of the rest is one bf16 step away (at the largest of the parameter
+    before the step and the two results) where the two sides' bf16
+    gradients are equal.  Where the gradients differ (the kernels and the
+    plain versions sum in other orders, and a bf16 gradient can land on the
+    other side of a rounding boundary) the update moves with the gradient,
+    by up to one step of the update, and the rounding adds one: two steps
+    are allowed there and only there.  The elements more than one step
+    apart are printed with both sides' gradients and updates."""
+    import copy
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
+    from dalle_pytorch_tpu_torch.optim.adafactor import Adafactor
+    from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
+
+    vae_cpu = port.DiscreteVAE(seed=0, device="cpu", **vae_kwargs)
+    cfg = dataclasses.replace(DALLEConfig.from_vae(vae_cpu.cfg, **small), execution="remat", remat_policy="flash_qkv")
+    cpu = init_dalle(cfg, torch.Generator().manual_seed(5), "cpu").train()
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(9)
+    batches = [{"text": torch.from_numpy(rng.integers(0, cfg.num_text_tokens, (2, cfg.text_seq_len))),
+                "codes": torch.from_numpy(rng.integers(0, cfg.num_image_tokens, (2, cfg.image_seq_len)))}
+               for _ in range(3)]
+    gen = torch.Generator().manual_seed(10)
+    bits = [{name: torch.randint(0, 65536, p.shape, generator=gen, dtype=torch.int32)
+             for name, p in cpu.named_parameters()} for _ in batches]
+    settings = StepSettings(grad_dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+
+    class Recorded(Adafactor):
+        """Adafactor that keeps the last step's f32 gradients and updates by
+        leaf name, on the CPU."""
+
+        def __init__(self, lr):
+            super().__init__(lr)
+            self.seen = {}
+
+        def update(self, grads, group, params, count):
+            u, group = super().update(grads, group, params, count)
+            self.seen.update({n: (g.cpu(), x.cpu()) for n, g, x in zip(group.names, grads, u)})
+            return u, group
+
+    def trainer(model):
+        def loss_fn(params, batch, generator):
+            return functional_call(model, params, (batch["text"], batch["codes"]), {"return_loss": True})
+
+        opt = Recorded(1e-3)
+        init_fn, step_fn = make_train_step(loss_fn, opt, settings)
+        return init_fn(dict(model.named_parameters())), step_fn, opt
+
+    (gpu_state, gpu_step, gpu_opt), (cpu_state, cpu_step, cpu_opt) = trainer(gpu), trainer(cpu)
+    reset_launches(fa)
+    rows, differ, grads_differ, over_one, over_one_same_grad, worst, apart = [], [], [], [], [], 0.0, []
+    total = sum(p.numel() for p in cpu.parameters())
+    for step, (batch, round_bits) in enumerate(zip(batches, bits)):
+        with torch.no_grad():  # the CPU takes this step from the card's state
+            for c, g in zip(cpu.parameters(), gpu.parameters()):
+                c.copy_(g.cpu())
+            for cg, gg in zip(cpu_state.opt_state.groups, gpu_state.opt_state.groups):
+                cg.stats = {key: v.cpu() for key, v in gg.stats.items()}
+        before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+        gpu_state, got = gpu_step(gpu_state, {k: x.cuda() for k, x in batch.items()}, round_bits=round_bits)
+        cpu_state, ref = cpu_step(cpu_state, batch, round_bits=round_bits)
+        rows.append({"card": [float(got["loss"]), float(got["grad_norm"])],
+                     "cpu": [float(ref["loss"]), float(ref["grad_norm"])]})
+        n_differ = n_grads = n_over = n_over_same = 0
+        for (name, g), c in zip(gpu.named_parameters(), cpu.parameters()):
+            g, c, b = g.detach().cpu(), c.detach(), before[name]
+            check(g.dtype == c.dtype == torch.bfloat16, f"{g.dtype} / {c.dtype} storage")
+            (g_card, u_card), (g_cpu, u_cpu) = gpu_opt.seen[name], cpu_opt.seen[name]
+            grad_differs = g_card != g_cpu
+            n_differ += int((g != c).sum())
+            n_grads += int(grad_differs.sum())
+            steps = bf16_step_distance(g, c, b)
+            n_over += int((steps > 1).sum())
+            n_over_same += int(((steps > 1) & ~grad_differs).sum())
+            worst = max(worst, float(steps.max()))
+            for i in (steps > 1).nonzero().tolist()[:4]:
+                i = tuple(i)
+                apart.append(dict(step=step + 1, leaf=name, index=list(i), bf16_steps=float(steps[i]),
+                                  before=float(b[i]), card=float(g[i]), cpu=float(c[i]),
+                                  grad_card=float(g_card[i]), grad_cpu=float(g_cpu[i]),
+                                  grad_bf16_steps=float(bf16_step_distance(g_card[i].bfloat16(),
+                                                                           g_cpu[i].bfloat16(), g_cpu[i])),
+                                  update_card=float(u_card[i]), update_cpu=float(u_cpu[i]),
+                                  bits=int(round_bits[name][i])))
+        differ.append(n_differ)
+        grads_differ.append(n_grads)
+        over_one.append(n_over)
+        over_one_same_grad.append(n_over_same)
+    launches = read_launches(fa)
+    agree = sum(all(abs(g - r) <= 1e-4 * abs(r) for g, r in zip(row["card"], row["cpu"])) for row in rows)
+    want = launches_per_step(gpu, cfg.total_seq_len)
+    emit(phase, steps=len(batches), steps_agree=agree, tolerance=1e-4, steps_read=rows,
+         params_differ=differ, grads_differ=grads_differ, params_differ_over_one_step=over_one,
+         over_one_step_with_equal_grads=over_one_same_grad, params=total, worst_bf16_steps=worst,
+         over_one_step=apart[:12], n=cfg.total_seq_len, launches=launches, launches_per_step_expected=want)
+    check(agree == len(batches), f"only {agree} of {len(batches)} low-precision steps agree between card and CPU")
+    check(max(differ) <= 1e-4 * total and worst <= 2.0 and max(over_one_same_grad) == 0,
+          f"bf16 parameters: {differ} of {total} differ, {over_one_same_grad} by more than one bf16 step "
+          f"where the two gradients are equal, the worst by {worst} bf16 steps")
+    check(launches == {k: len(batches) * v for k, v in want.items()},
+          f"launches {launches}, the cycle under flash_qkv gives {want} a step")
+    check(min(launches[k] for k in VFA_KERNELS + ("flash_dq_compact", "flash_dkv_compact")) > 0,
+          f"the recipe's steps left the VFA pair or a compacted backward kernel unlaunched: {launches}")
+    return launches
+
+
+def phase_remat_policies(fa, port, model_kwargs=SLICE):
+    """The README pattern model at full width, batch 4, bf16 compute on a
+    working copy of f32 masters: one loss and gradient under each remat
+    policy and sequentially, on the same weights and batch.  Loss and grad
+    norm equal the sequential step's to 1e-5 relative; the launches follow
+    the policy (the forward twice under "full", once under the others);
+    peak memory in the order full <= flash <= flash_qkv <= flash_qkv_ff <=
+    sequential."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
+
+    dev = torch.device("cuda")
+    vae = port.DiscreteVAE(seed=0, **FULL_VAE)
+    cfg = DALLEConfig.from_vae(vae.cfg, **model_kwargs)
+    model = init_dalle(cfg, torch.Generator(device=dev).manual_seed(1), dev).train().requires_grad_(True)
+    rng = np.random.default_rng(11)
+    text = torch.from_numpy(rng.integers(1, cfg.num_text_tokens, (4, cfg.text_seq_len))).to(dev)
+    codes = torch.from_numpy(rng.integers(0, cfg.num_image_tokens, (4, cfg.image_seq_len))).to(dev)
+    masters = dict(model.named_parameters())
+    base = model.transformer.cfg
+    results = {}
+    for execution, policy in (("sequential", "full"), ("remat", "full"), ("remat", "flash"),
+                              ("remat", "flash_qkv"), ("remat", "flash_qkv_ff")):
+        model.transformer.cfg = dataclasses.replace(base, execution=execution, remat_policy=policy)
+        name = "sequential" if execution == "sequential" else policy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(fa)
+        t0 = time.perf_counter()
+        work = {n: p.to(torch.bfloat16) for n, p in masters.items()}
+        loss = functional_call(model, work, (text, codes), {"return_loss": True})
+        grads = torch.autograd.grad(loss, list(masters.values()))
+        gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        loss, gnorm = float(loss.detach()), float(gnorm)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches(fa)
+        want = launches_per_step(model, cfg.total_seq_len)
+        check(launches == want, f"{name}: launches {launches}, the policy gives {want}")
+        results[name] = dict(loss=loss, grad_norm=gnorm, step_s=seconds,
+                             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             flash_fwd=launches["flash_fwd"], vfa_pair=launches["flash_max_compact"])
+        del work, grads
+    model.transformer.cfg = base
+    seq = results["sequential"]
+    for name, r in results.items():
+        for key in ("loss", "grad_norm"):
+            check(abs(r[key] - seq[key]) <= 1e-5 * abs(seq[key]), f"{name}: {key} {r[key]} against {seq[key]}")
+    order = ["full", "flash", "flash_qkv", "flash_qkv_ff", "sequential"]
+    peaks = [results[name]["peak_memory_gib"] for name in order]
+    emit("remat_policies", batch=4, n=cfg.total_seq_len, depth=cfg.depth, **results,
+         bit_equal={name: r["loss"] == seq["loss"] and r["grad_norm"] == seq["grad_norm"] for name, r in results.items()},
+         peak_order=order)
+    check(peaks == sorted(peaks), f"peak memory {dict(zip(order, peaks))} is not in the policies' order")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1), batch=8, steps=3):
+    """The remat policies' host time.  The flagship's 64 layers (its cycle,
+    the VFA pair, head dim 128) at dim 128 and one head, so that a step's
+    device time is small and its time is the host's: one bf16 gradient
+    (batch 8, bf16 leaves, as the recipe takes them) under "full", under the
+    three policies (which keep their values by hand, `remat_run`), and under
+    "full" run inside torch's selective-checkpoint dispatch mode with a
+    policy that keeps nothing (`sac_nothing`: the same recompute plus the
+    hook such a policy puts on every op).  Per variant: the median step
+    time, the device time of one profiled step, and, under the hook, the
+    ops its policy saw and the time spent in it a step.  The host's op
+    count does not depend on the width, so the hook's cost a step carries
+    over to the flagship at full width: hook_ms_per_step = sac_nothing -
+    full, hook_us_per_op = that over the ops it saw."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    from torch.func import functional_call
+    from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+
+    from dalle_pytorch_tpu_torch.models import transformer as tr
+    from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
+
+    dev = torch.device("cuda")
+    vae = port.DiscreteVAE(seed=0, **FULL_VAE)
+    cfg = DALLEConfig.from_vae(vae.cfg, **model_kwargs)
+    model = init_dalle(dataclasses.replace(cfg, execution="remat"), torch.Generator(device=dev).manual_seed(1),
+                       dev).train().to(torch.bfloat16)
+    rng = np.random.default_rng(12)
+    text = torch.from_numpy(rng.integers(1, cfg.num_text_tokens, (batch, cfg.text_seq_len))).to(dev)
+    codes = torch.from_numpy(rng.integers(0, cfg.num_image_tokens, (batch, cfg.image_seq_len))).to(dev)
+    params = dict(model.named_parameters())
+    seen = {"ops": 0, "s": 0.0}
+
+    def timed(policy):
+        def wrapped(ctx, op, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = policy(ctx, op, *args, **kwargs)
+            seen["s"] += time.perf_counter() - t0
+            seen["ops"] += 1
+            return out
+
+        return wrapped
+
+    def nothing(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    def grad_step():
+        work = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+        loss = functional_call(model, work, (text, codes), {"return_loss": True})
+        loss.backward()
+        return float(loss.detach())
+
+    base = model.transformer.cfg
+    sac = functools.partial(checkpoint, context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                                      timed(nothing)))
+    results = {}
+    for name in ("full", "sac_nothing", "flash", "flash_qkv", "flash_qkv_ff"):
+        model.transformer.cfg = dataclasses.replace(base, remat_policy="full" if name == "sac_nothing" else name)
+        with mock.patch.object(tr, "checkpoint", sac) if name == "sac_nothing" else contextlib.nullcontext():
+            loss = grad_step()  # warm-up: tables, allocator
+            check(np.isfinite(loss), f"remat_host_cost {name}: loss {loss}")
+            seen.update(ops=0, s=0.0)
+            secs = []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grad_step()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            ops, policy_s = seen["ops"] / steps, seen["s"] / steps
+            device_ms = sum(ms for _, ms, _ in device_profile(grad_step))
+        step_ms = statistics.median(secs) * 1e3
+        results[name] = dict(step_ms=step_ms, steps_ms=[x * 1e3 for x in secs], device_ms=device_ms,
+                             device_share=device_ms / step_ms, policy_ops=ops, policy_ms=policy_s * 1e3)
+    model.transformer.cfg = base
+    hook_ms = results["sac_nothing"]["step_ms"] - results["full"]["step_ms"]
+    emit("remat_host_cost", dim=cfg.dim, heads=cfg.heads, dim_head=cfg.dim_head, depth=cfg.depth, batch=batch,
+         n=cfg.total_seq_len, **results, hook_ms_per_step=hook_ms,
+         hook_us_per_op=hook_ms * 1e3 / results["sac_nothing"]["policy_ops"])
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def phase_numerics_smoke():
+    """`python -m dalle_pytorch_tpu_torch.tools.numerics_smoke` at its
+    defaults (flagship width, depth 8, batch 8, 200 steps of the JAX recipe)
+    in a subprocess: its loss must fall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dalle_pytorch_tpu_torch.tools.numerics_smoke"],
+                          capture_output=True, text=True, cwd=ROOT, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    check(bool(lines), f"numerics_smoke printed no result (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    out = json.loads(lines[-1])
+    emit("numerics_smoke", rc=proc.returncode, seconds=seconds, **out)
+    check(proc.returncode == 0 and out.get("decreased") is True,
+          f"numerics_smoke: rc {proc.returncode}, decreased {out.get('decreased')}")
+
+
 def phase_train_cli(weights, checkpoint):
     """`python -m dalle_pytorch_tpu_torch.cli.train_dalle --dummy_run 4` in
-    a subprocess; its checkpoint loads back through the port's reader."""
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "dalle"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle", "--dummy_run", "4",
-             "--dalle_output_file_name", str(out)],
-            capture_output=True, text=True, cwd=ROOT, timeout=300,
-        )
-        seconds = time.perf_counter() - t0
-        check(proc.returncode == 0, f"train_dalle exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-        steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
-        losses = [s["loss"] for s in steps]
-        check(len(steps) == 4 and all(np.isfinite(losses)), f"train_dalle steps {steps}")
-        trees, meta = checkpoint.load_checkpoint(f"{out}.pt")
-        model, vae = weights.load_dalle_checkpoint(f"{out}.pt")
-        text = torch.randint(0, model.cfg.num_text_tokens, (1, model.cfg.text_seq_len), device="cuda")
-        with torch.no_grad():
-            check(bool(torch.isfinite(model(text)).all()), "the trained checkpoint gives non-finite logits")
-    emit("train_cli", rc=proc.returncode, losses=losses, seconds=seconds, trees=sorted(trees),
-         global_step=meta["global_step"])
+    a subprocess, then again with `--execution remat --remat_policy
+    flash_qkv --param_dtype bfloat16`; each checkpoint loads back through
+    the port's reader, the second with bf16 leaves."""
+    runs = {}
+    for name, flags in (("default", []), ("remat_flash_qkv_bf16", [
+            "--execution", "remat", "--remat_policy", "flash_qkv", "--param_dtype", "bfloat16"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "dalle"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle", "--dummy_run", "4",
+                 "--dalle_output_file_name", str(out), *flags],
+                capture_output=True, text=True, cwd=ROOT, timeout=300,
+            )
+            seconds = time.perf_counter() - t0
+            check(proc.returncode == 0, f"train_dalle {flags} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
+            losses = [s["loss"] for s in steps]
+            check(len(steps) == 4 and all(np.isfinite(losses)), f"train_dalle {flags} steps {steps}")
+            trees, meta = checkpoint.load_checkpoint(f"{out}.pt")
+            model, vae = weights.load_dalle_checkpoint(f"{out}.pt")
+            dtypes = sorted({str(p.dtype).replace("torch.", "") for p in model.parameters()})
+            want = ["bfloat16"] if flags else ["float32"]
+            check(dtypes == want, f"train_dalle {flags}: checkpoint loads with {dtypes} leaves, not {want}")
+            text = torch.randint(0, model.cfg.num_text_tokens, (1, model.cfg.text_seq_len), device="cuda")
+            with torch.no_grad():
+                check(bool(torch.isfinite(model(text)).all()), "the trained checkpoint gives non-finite logits")
+        runs[name] = dict(rc=proc.returncode, flags=flags, losses=losses, seconds=seconds, trees=sorted(trees),
+                          global_step=meta["global_step"], leaf_dtypes=dtypes,
+                          remat_policy=meta["hparams"].get("remat_policy"))
+    emit("train_cli", **runs)
 
 
 # the generate CLI's model: the README pattern model with the BPE tokenizer's
@@ -1583,6 +1985,7 @@ def main() -> int:
     paths["sparse_train"] = phase_train(fa, port, "sparse_train", SLICE, standard_runs(4))
     check(min(paths["sparse_train"][k] for k in online) > 0,
           f"a kernel was not launched in sparse_train: {paths['sparse_train']}")
+    phase_remat_policies(fa, port)
 
     paths["generate_cli"], scored = phase_generate_cli(fa, port, weights, checkpoint, sampling)
     paths["clip_rerank"] = phase_clip_rerank(fa, port, tr, scored)
@@ -1600,13 +2003,23 @@ def main() -> int:
     check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's primed prefill ran no VFA pair: {parity}")
     parity = phase_train_parity(fa, port, "flagship_train_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE)
     check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's train steps ran no VFA pair: {parity}")
+    phase_lowp_train_parity(fa, port)
+    # the port's f32-master runs, then the JAX package's flagship training
+    # recipe (`bench.py`: flash_qkv at batch 8, its alternative flash_qkv_ff
+    # at batch 4, and "full" at batch 4 beside it: one optimizer, two policies)
     paths["flagship_train"] = phase_train(fa, port, "flagship_train", FLAGSHIP, [
-        (None, torch.bfloat16, 4, True), ("remat", torch.bfloat16, 3, False), ("remat", torch.float32, 3, True)])
+        Run(None, torch.bfloat16, 4, True), Run("remat", torch.bfloat16, 3, False),
+        Run("remat", torch.float32, 3, True),
+        Run("remat", torch.bfloat16, 4, True, "flash_qkv", 8, True),
+        Run("remat", torch.bfloat16, 4, True, "flash_qkv_ff", 4, True),
+        Run("remat", torch.bfloat16, 4, False, "full", 4, True)])
+    phase_remat_host_cost(fa, port)
+    phase_numerics_smoke()
 
     # each kernel at the training shape of the path it runs on; `launches`
-    # is its count on this slice's main path, the flagship's training (the
-    # online compacted forward, which VFA replaces there: the pattern
-    # model's training)
+    # is its count on this slice's main path, the flagship's training, the
+    # JAX recipe's runs included (the online compacted forward, which VFA
+    # replaces there: the pattern model's training)
     main_shape = next(r for r in compared if r["case"] == "train" and r["dtype"] == "float32")
     fwd_keys = ("bh", "n", "d", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_device_ms", "sdpa_backend", "max_abs_err", "lse_err")

@@ -6,6 +6,10 @@ The path: pixels -> frozen DiscreteVAE codes -> the DALL-E weighted
 cross-entropy -> backward through the flash kernels -> global-norm clipping,
 the bad-step guard, Adam -> a v3 checkpoint that the JAX package's
 `load_checkpoint` reads.  It runs on the card unless `--device cpu` is given.
+`--execution remat --remat_policy flash_qkv` keeps the flash forward's
+outputs and the qkv projection across each layer; `--param_dtype bfloat16`
+stores the parameters in bf16 with no f32 master, Adam's math on f32 views
+and stochastic-rounded updates, as the JAX CLI does.
 
 This slice trains on synthetic data only (`--dummy_run N`: N batches of
 random captions and pixels from `--seed`, a tiny random VAE, a deliberately
@@ -33,6 +37,7 @@ from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig, init_dalle
+from dalle_pytorch_tpu_torch.optim.grouped import Adam, GroupedState
 from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, TrainState, make_train_step
 from dalle_pytorch_tpu_torch.version import __version__
 
@@ -75,6 +80,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--attn_dropout", type=float, default=0.0)
     parser.add_argument("--ff_dropout", type=float, default=0.0)
     parser.add_argument("--execution", type=str, default=None, choices=["sequential", "remat", "reversible"])
+    parser.add_argument("--remat_policy", type=str, default="full",
+                        choices=["full", "flash", "flash_qkv", "flash_qkv_ff"],
+                        help="selective remat save policy for --execution remat")
+    parser.add_argument("--param_dtype", type=str, default="float32", choices=["float32", "bfloat16"],
+                        help="param STORAGE dtype. bfloat16 = no f32 master copy (halves resident param "
+                             "memory; T5-style), optimizer math in f32, stochastic-rounded weight updates")
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--ga_steps", type=int, default=1, help="gradient accumulation steps")
     parser.add_argument("--learning_rate", type=float, default=3e-4)
@@ -139,14 +150,20 @@ def optimizer_tree(state: TrainState, cfg: DALLEConfig) -> Optional[dict]:
     ({count, mu, nu}, as optax's adam state holds them), or None before the
     first update."""
     opt = state.opt_state
-    names = {id(p): name for name, p in state.params.items()}
     mu, nu, count = {}, {}, None
-    for p, s in opt.state.items():
-        if "exp_avg" not in s:
-            continue
-        mu[names[id(p)]], nu[names[id(p)]] = s["exp_avg"], s["exp_avg_sq"]
-        count = s["step"]
-    if len(mu) != len(state.params):
+    if isinstance(opt, GroupedState):
+        for group in opt.groups:
+            mu.update(zip(group.names, group.stats["mu"].unbind(0)))
+            nu.update(zip(group.names, group.stats["nu"].unbind(0)))
+        count = opt.count
+    else:
+        names = {id(p): name for name, p in state.params.items()}
+        for p, s in opt.state.items():
+            if "exp_avg" not in s:
+                continue
+            mu[names[id(p)]], nu[names[id(p)]] = s["exp_avg"], s["exp_avg_sq"]
+            count = s["step"]
+    if not count or len(mu) != len(state.params):
         return None
     tree = {"count": torch.as_tensor(count).to(torch.int32), "mu": weights.dalle_tree(mu, cfg),
             "nu": weights.dalle_tree(nu, cfg)}
@@ -186,6 +203,7 @@ def main(argv=None) -> int:
         vae_cfg, dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
         text_seq_len=args.text_seq_len, num_text_tokens=args.num_text_tokens,
         attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout, execution=args.execution,
+        remat_policy=args.remat_policy,
         shift_tokens=args.shift_tokens, attn_types=tuple(args.attn_types.split(",")),
         sparse_per_head=args.sparse_per_head, share_input_output_emb=args.share_input_output_emb,
     )
@@ -193,18 +211,21 @@ def main(argv=None) -> int:
     model.train().requires_grad_(True)
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     loss_scale = args.loss_scale if args.loss_scale in (None, "dynamic") else float(args.loss_scale)
+    lowp = args.param_dtype == "bfloat16"
     settings = StepSettings(grad_accum=args.ga_steps, compute_dtype=compute_dtype,
-                            clip_grad_norm=args.clip_grad_norm, loss_scale=loss_scale)
-    init_fn, step_fn = make_train_step(
-        dalle_loss_fn(model, vae, compute_dtype),
-        functools.partial(torch.optim.Adam, lr=args.learning_rate, betas=(0.9, 0.999), eps=1e-8),
-        settings,
-    )
-    state = init_fn(dict(model.named_parameters()))
+                            clip_grad_norm=args.clip_grad_norm, loss_scale=loss_scale,
+                            param_dtype=torch.bfloat16 if lowp else torch.float32)
+    # bf16 storage: Adam (optax.adam's math) on f32 views of the bf16
+    # parameters; f32 masters: torch.optim.Adam
+    optimizer = Adam(args.learning_rate) if lowp else functools.partial(
+        torch.optim.Adam, lr=args.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae, compute_dtype), optimizer, settings)
+    state = init_fn(dict(model.named_parameters()), round_seed=args.seed)
     generator = torch.Generator().manual_seed(args.seed)  # dropout seeds, drawn on the host
     n_params = sum(p.numel() for p in state.params.values())
     print(json.dumps({"config": cfg.to_dict(), "params": n_params, "device": str(device),
-                      "compute_dtype": str(compute_dtype).replace("torch.", ""), "batch_size": batch_size}),
+                      "compute_dtype": str(compute_dtype).replace("torch.", ""), "param_dtype": args.param_dtype,
+                      "batch_size": batch_size}),
           flush=True)
 
     for batch in dummy_batches(args.seed, args.dummy_run, batch_size, cfg, vae_cfg):

@@ -692,13 +692,20 @@ class FlashAttention(torch.autograd.Function):
     """(bh, n, d) flash attention with its gradient: the forward saves
     (q, k, v, out, lse) as `_flash_vjp_fwd` does, and carries the pattern,
     the grid and the tables it ran with to the backward, `flash_bwd`.  A
-    VFA forward's lse feeds the same backward, as in `_flash_vjp_bwd`."""
+    VFA forward's lse feeds the same backward, as in `_flash_vjp_bwd`.
+    `keep`, when given, runs the forward: a rematerialised layer's keeper
+    (`models/transformer.py`), which keeps (out, lse) the first time, the
+    counterpart of the JAX package's `checkpoint_name(out, "flash_out")` and
+    `"flash_lse"`, and hands them back when the layer is recomputed, so the
+    backward gets the kept out and lse with the recomputed q, k and v and
+    nothing is launched again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa):
+    def forward(ctx, q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa, keep):
         if _is_cuda(q):
             tables = _tables_for(q, mask, causal, grid, tables)
-        out, lse = flash_fwd(q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa)
+        run = functools.partial(flash_fwd, q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa)
+        out, lse = run() if keep is None else keep(run)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (h, causal, scale, mask, key_mask, grid, tables)
         return out
@@ -707,7 +714,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, lse, do.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -721,6 +728,7 @@ def flash_attention(
     grid: str = "auto",
     tables: Optional[PatternTables] = None,
     vfa: bool = False,
+    keep=None,
 ) -> torch.Tensor:
     """(b, h, n, d) attention, the counterpart of the JAX package's
     `flash_attention`.  q is unscaled (scale defaults to d^-1/2); mask:
@@ -728,13 +736,14 @@ def flash_attention(
     key_mask: optional (b, n), nonzero = attend; grid: "auto" | "dense" |
     "compact"; tables: the pattern's `pattern_tables` (built from the mask
     on each CUDA call when None); vfa: on the compacted grid, the two-pass
-    VFA forward (ignored on the dense grid).  Differentiable through
+    VFA forward (ignored on the dense grid); keep: a rematerialised layer's
+    keeper for (out, lse) (`FlashAttention`).  Differentiable through
     `FlashAttention` when grad is enabled and an input requires it; a plain
     `flash_fwd` call otherwise."""
     b, h, n, d = q.shape
     qf, kf, vf = (t.reshape(b * h, n, d).contiguous() for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttention.apply(qf, kf, vf, h, causal, scale, mask, key_mask, grid, tables, vfa)
+        out = FlashAttention.apply(qf, kf, vf, h, causal, scale, mask, key_mask, grid, tables, vfa, keep)
     else:
         out, _ = flash_fwd(qf, kf, vf, h=h, causal=causal, scale=scale, mask=mask, key_mask=key_mask,
                            grid=grid, tables=tables, vfa=vfa)

@@ -3,6 +3,15 @@ for sequential or rematerialised execution of unshared layers with full or
 pattern attention (`axial_row`, `axial_col`, `conv_like`, `sparse`, shared
 or per head).
 
+Rematerialisation (`execution="remat"`) wraps each layer in a
+non-reentrant `torch.utils.checkpoint` and takes the JAX package's save
+policies (`remat_policy`): "full" keeps only the layer's input and
+recomputes the rest in the backward, the flash forward included; "flash",
+"flash_qkv" and "flash_qkv_ff" keep what their names say: the layer's first
+run keeps the flash forward's (out, lse) and the named projections'
+outputs (`_Kept`), and the recompute takes them back in place of running
+them again, so the backward runs each forward kernel no second time.
+
 Each layer is PreShiftToken? -> PreNorm -> attention or GEGLU feed-forward
 (-> dropout) -> LayerScale, run in three modes: a full sequence
 (`apply_transformer`, differentiable, the training mode), a prompt that also
@@ -30,6 +39,8 @@ shapes, never syncs with the host, and can be captured in a CUDA graph
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -69,8 +80,12 @@ class TransformerConfig:
     shared_attn_ids: Optional[Tuple[int, ...]] = None
     shared_ff_ids: Optional[Tuple[int, ...]] = None
     execution: str = "sequential"
-    # what execution="remat" saves across a layer: the port runs "full"
-    # (recompute everything); the JAX package's selective policies wait
+    # what execution="remat" keeps across a layer besides its input:
+    #   "full"         nothing: the backward recomputes the whole layer, and
+    #                  with it the flash forward (or the VFA pair)
+    #   "flash"        the flash forward's out and lse
+    #   "flash_qkv"    also the qkv projection (before the rotary)
+    #   "flash_qkv_ff" also the GEGLU's two up-projections
     remat_policy: str = "full"
     # the patterns: conv_like's kernel and dilation; sparse's block size,
     # random blocks per query block (None: seq_len // block // 4) and
@@ -145,6 +160,114 @@ def _layerscale_eps(layer_one_indexed: int) -> float:
     if layer_one_indexed <= 24:
         return 1e-5
     return 1e-6
+
+
+# ---------------------------------------------------------------------------
+# selective rematerialisation
+# ---------------------------------------------------------------------------
+
+
+# what each selective policy keeps, by the JAX package's checkpoint names
+REMAT_SAVE_NAMES = {
+    "flash": ("flash_out", "flash_lse"),
+    "flash_qkv": ("flash_out", "flash_lse", "attn_qkv"),
+    "flash_qkv_ff": ("flash_out", "flash_lse", "attn_qkv", "ff_pre"),
+}
+
+
+def remat_names(policy: str) -> Tuple[str, ...]:
+    """What a remat policy keeps across a layer besides its input: nothing
+    for "full", the JAX package's checkpoint names otherwise.  An unknown
+    policy raises."""
+    if policy == "full":
+        return ()
+    if policy not in REMAT_SAVE_NAMES:
+        raise ValueError(f"remat_policy {policy!r} is not valid; choose from 'full', "
+                         f"{', '.join(map(repr, REMAT_SAVE_NAMES))}")
+    return REMAT_SAVE_NAMES[policy]
+
+
+class _Kept:
+    """What one rematerialised layer keeps between its forward and its
+    backward.  The layer's checkpoint runs it twice, the forward and then
+    the recompute in the backward, on one code path: the first run computes
+    each value the policy names and keeps it (detached), in order; the
+    second takes them back in that order instead of computing them."""
+
+    def __init__(self, names: Tuple[str, ...]):
+        self.names, self.values, self.replay = names, [], None
+
+    def take(self, name: str, compute):
+        if self.replay is not None:
+            return next(self.replay)
+        value = compute()
+        self.values.append(tuple(t.detach() for t in value) if isinstance(value, tuple) else value.detach())
+        return value
+
+
+class _Running(threading.local):
+    kept: Optional[_Kept] = None  # that of the layer running on this thread
+
+
+_running = _Running()
+
+
+def _keeper(name: str):
+    """The running layer's `_Kept.take` for `name` when its policy keeps
+    `name`, else None."""
+    kept = _running.kept
+    return None if kept is None or name not in kept.names else functools.partial(kept.take, name)
+
+
+class _KeptLinear(torch.autograd.Function):
+    """`F.linear` whose output the layer keeps (`keep`, a `_keeper`): the
+    recompute takes it back instead of running the product again, and saves
+    the same (input, weight).  The backward is the linear's own, as
+    autograd's addmm computes it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, keep):
+        ctx.save_for_backward(x, weight)
+        ctx.bias = bias is not None
+        return keep(lambda: F.linear(x, weight, bias))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = g2.mm(weight).view(x.shape)
+        dw = g2.t().mm(x.reshape(-1, x.shape[-1]))
+        return dx, dw, g2.sum(0) if ctx.bias else None, None
+
+
+def _linear(linear: nn.Linear, x: torch.Tensor, name: str) -> torch.Tensor:
+    """linear(x), kept under the JAX package's checkpoint name `name` when
+    the running layer's policy keeps it."""
+    keep = _keeper(name)
+    return linear(x) if keep is None else _KeptLinear.apply(x, linear.weight, linear.bias, keep)
+
+
+def remat_run(layer: Layer, names: Tuple[str, ...]):
+    """The function a layer's checkpoint runs, in the forward and again in
+    the backward, on the parameters the forward used (a caller's
+    `functional_call`, such as the train step's bf16 working copy, has put
+    the module's own back by the time the backward runs).  With `names`
+    the first run keeps them (`_Kept`, also at `.kept`) and the second
+    takes them back."""
+    params = dict(layer.named_parameters())
+    kept = _Kept(names) if names else None
+
+    def run(*args):
+        outer, _running.kept = _running.kept, kept
+        try:
+            return functional_call(layer, params, args)
+        finally:
+            _running.kept = outer
+            if kept is not None:
+                kept.replay = iter(kept.values)
+
+    run.kept = kept
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -338,9 +461,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def _qkv_heads(attn: Attention, cfg: TransformerConfig, x: torch.Tensor, ang):
     """Project to qkv and split into (q, k, v), each (b, h, n_x, dh); the
-    rotary rotation (`ang`: (n_x, rot) or None) runs on all three."""
+    rotary rotation (`ang`: (n_x, rot) or None) runs on all three.  The
+    projection is kept as "attn_qkv" (before the reshape and the rotary)."""
     b, n_x, _ = x.shape
-    qkv = attn.qkv(x).reshape(b, n_x, cfg.heads, 3, cfg.dim_head).permute(0, 2, 3, 1, 4)
+    qkv = _linear(attn.qkv, x, "attn_qkv").reshape(b, n_x, cfg.heads, 3, cfg.dim_head).permute(0, 2, 3, 1, 4)
     if ang is not None:
         qkv = apply_rotary(ang, qkv)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -359,14 +483,15 @@ def _attention_full(attn, cfg, x, rotary, key_mask, causal, layer_cache=None, pa
     out = flash_attention(
         q, k, v, mask=mask, causal=causal, scale=cfg.dim_head ** -0.5,
         key_mask=None if key_mask is None else key_mask[:, :n],
-        grid=cfg.attn_grid, tables=tables, vfa=cfg.attn_vfa,
+        grid=cfg.attn_grid, tables=tables, vfa=cfg.attn_vfa, keep=_keeper("flash_out"),
     )
     return attn.out(_merge_heads(out))
 
 
 def _feed_forward(ff: FeedForward, x: torch.Tensor, rate: float = 0.0,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    h = ff.w1(x) * F.gelu(ff.w1g(x))  # exact-erf gelu
+    a, gates = _linear(ff.w1, x, "ff_pre"), _linear(ff.w1g, x, "ff_pre")
+    h = a * F.gelu(gates)  # exact-erf gelu
     return ff.w2(dropout(h, rate, generator))
 
 
@@ -484,14 +609,13 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
 def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mode=False,
                 seeds=None, remat=False):
     """seeds: per layer, the (attention, feed-forward) dropout seeds, or
-    None.  remat: wrap each layer in a non-reentrant checkpoint, the JAX
-    package's "full" remat policy: the backward recomputes the layer, its
-    forward kernels (the VFA pair with `attn_vfa`) included.  The recompute
-    runs on the parameter tensors the forward used (`functional_call` on the
-    layer): by the time the backward runs, a caller's `functional_call`,
-    such as the train step's bf16 working copy, has put the module's own
-    parameters back."""
+    None.  remat: wrap each layer in a non-reentrant checkpoint under the
+    config's `remat_policy` (`remat_run`): under "full" the backward
+    recomputes the layer, its forward kernels (the VFA pair with
+    `attn_vfa`) included; the selective policies keep the flash forward's
+    outputs, so it runs once."""
     cfg = model.cfg
+    names = remat_names(cfg.remat_policy) if remat else ()
     rotary = model.rotary(x.device)
     offset = None if cache is None else cache["offset"]
     causal = cfg.causal or mode == "prefill"
@@ -505,7 +629,7 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
         args = (cfg, x, mode, rotary, key_mask, lc, offset, text_mode,
                 (None, None) if seeds is None else seeds[i], pattern)
         if remat:
-            x = checkpoint(functional_call, layer, dict(layer.named_parameters()), args, use_reentrant=False)
+            x = checkpoint(remat_run(layer, names), *args, use_reentrant=False)
         else:
             x = layer(*args)
     return x
@@ -531,16 +655,11 @@ def apply_transformer(model: Transformer, x: torch.Tensor,
     """x: (batch, n, dim), n <= seq_len.  Full-sequence (training) mode,
     differentiable.  `generator` draws the dropout masks (none when it is
     None); a CPU generator draws the per-layer seeds without a device sync.
-    execution="remat" recomputes each layer in the backward; it only
-    matters while a gradient is taken."""
+    execution="remat" recomputes each layer in the backward under
+    `remat_policy` (an unknown policy raises ValueError); it only matters
+    while a gradient is taken."""
     cfg = model.cfg
     remat = cfg.execution == "remat" and torch.is_grad_enabled()
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: the port trains with the 'full' "
-            "policy only; the selective policies (flash, flash_qkv, flash_qkv_ff) "
-            "come with a later PR"
-        )
     return _run_layers(model, x, "full", key_mask=key_mask,
                        seeds=_dropout_seeds(cfg, generator), remat=remat)
 

@@ -4,14 +4,26 @@ of `dalle_pytorch_tpu/parallel/train_step.py` `make_train_step`).
 One call runs forward and backward (with gradient accumulation over
 micro-batches, summed in f32), the global gradient norm, clipping, the
 bad-step guard, optional loss scaling and the optimizer update, eagerly.
-Master parameters and the optimizer's moments stay f32.  With
-`compute_dtype=torch.bfloat16` the loss runs on a bf16 working copy cast
-from the masters inside the autograd graph, so the gradients land on the f32
-masters, as `cast_floating` does in the JAX package.
 
-Meshes, ZeRO, low-precision parameter storage (stochastic rounding) and the
-diagnostic `with_health` step raise `NotImplementedError`: they come with
-later PRs (`ROADMAP.md`).
+Two kinds of optimizer:
+- a `torch.optim` factory (for example `functools.partial(torch.optim.Adam,
+  lr=3e-4)`) over f32 masters.  With `compute_dtype=torch.bfloat16` the loss
+  runs on a bf16 working copy cast from the masters inside the autograd
+  graph, so the gradients land on the f32 masters, as `cast_floating` does
+  in the JAX package.
+- a grouped optimizer (`optim/grouped.py`: `optim.grouped.Adam`,
+  `optim.adafactor.Adafactor`), which hands its update over as an f32
+  tensor, as optax does.  The gradients are taken with respect to a
+  compute-dtype copy of the parameters (an alias where the storage already
+  has the compute dtype) and kept in `grad_dtype`.  This is the path of
+  low-precision storage: with `param_dtype=torch.bfloat16` the parameters
+  are stored in bf16 with no f32 master anywhere; the update runs on f32
+  views of one group of leaves at a time and its sum with the parameter is
+  rounded back stochastically (`stochastic_round`), so that updates below
+  bf16's ulp survive in expectation.
+
+Meshes, ZeRO and the diagnostic `with_health` step raise
+`NotImplementedError`: they come with later PRs (`ROADMAP.md`).
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
+from dalle_pytorch_tpu_torch.optim.grouped import GroupedOptimizer, GroupedState
 from dalle_pytorch_tpu_torch.training.resilience import nonfinite_guard
 
 Params = Dict[str, torch.Tensor]
@@ -33,10 +46,12 @@ LS_MAX = 2.0 ** 24  # the growth ceiling, as DeepSpeed/AMP cap it
 @dataclasses.dataclass
 class TrainState:
     step: int
-    params: Params  # f32 masters; the optimizer updates them in place
-    opt_state: torch.optim.Optimizer
+    params: Params  # the model's parameters; the update writes them in place
+    opt_state: Union[torch.optim.Optimizer, GroupedState]
     # {"loss_scale": float, "good_steps": int} when loss scaling is on
     loss_scale: Optional[Dict[str, Any]] = None
+    # draws the stochastic rounding's bits (low-precision storage only)
+    round_generator: Optional[torch.Generator] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +60,15 @@ class StepSettings:
     compute_dtype: torch.dtype = torch.float32
     clip_grad_norm: Optional[float] = None
     zero_stage: int = 0
-    # None or float32: f32 masters.  Low-precision storage waits (ROADMAP)
+    # the dtype gradients are kept in between the backward and the update
+    # (accumulation over micro-batches always runs in f32); bf16 takes a
+    # grouped optimizer
+    grad_dtype: torch.dtype = torch.float32
+    # parameter storage: None or float32 keeps f32; bfloat16 stores bf16
+    # with no f32 master (a grouped optimizer, stochastic rounding)
     param_dtype: Optional[torch.dtype] = None
+    # None: stochastic rounding on exactly when the storage is low precision
+    stochastic_round: Optional[bool] = None
     # None = off; a float = static scale; "dynamic" = start 2^15, halve and
     # skip on a nonfinite gradient, double after 2000 clean steps
     loss_scale: Optional[Union[float, str]] = None
@@ -61,6 +83,23 @@ def _later(what: str) -> NotImplementedError:
     )
 
 
+def stochastic_round(x32: torch.Tensor, bits: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Round f32 to bf16 stochastically, as the JAX package's
+    `_stochastic_round`: add 16 uniform random bits below bf16's mantissa to
+    the f32 bit pattern, clear the low 16 bits and take the bf16 it now
+    holds exactly.  P(round up) is the fractional distance to the next bf16,
+    so the expected result is x.  `bits` (integers in [0, 65536), x32's
+    shape) stands in for the draw, the counterpart of a fixed key; else 16
+    bits an element come from `generator`.  Finite inputs only."""
+    if bits is None:
+        bits = torch.randint(0, 65536, x32.shape, generator=generator, dtype=torch.int32, device=x32.device)
+    # int32 addition wraps as the JAX package's uint32 addition does, and
+    # -65536 is 0xFFFF0000
+    rounded = (x32.float().contiguous().view(torch.int32) + bits.to(torch.int32)) & -65536
+    return rounded.view(torch.float32).to(torch.bfloat16)
+
+
 def _micro_batches(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:
     if accum == 1:
         return [batch]
@@ -73,77 +112,99 @@ def _micro_batches(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str,
 
 
 def _global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    """The f32 norm over every gradient, without an f32 copy of one."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads), 2, dtype=torch.float32)))
 
 
 def make_train_step(
     loss_fn: LossFn,
-    optimizer: Callable[[List[torch.Tensor]], torch.optim.Optimizer],
+    optimizer: Union[Callable[[List[torch.Tensor]], torch.optim.Optimizer], GroupedOptimizer],
     settings: StepSettings = StepSettings(),
     mesh: Any = None,
-) -> Tuple[Callable[[Params], TrainState], Callable[..., Tuple[TrainState, Dict[str, Any]]]]:
+) -> Tuple[Callable[..., TrainState], Callable[..., Tuple[TrainState, Dict[str, Any]]]]:
     """Build (init_fn, step_fn).
 
     loss_fn(params, batch, generator) -> scalar loss, where params maps the
     parameter names to tensors in the compute dtype (call the model through
     `torch.func.functional_call`) and the generator draws dropout.
-    optimizer(list of master tensors) -> a `torch.optim.Optimizer`, e.g.
-    `functools.partial(torch.optim.Adam, lr=3e-4)`.
+    optimizer: a `torch.optim` factory, called with the list of f32 masters,
+    or a `GroupedOptimizer` (needed for bf16 storage or gradients).
 
-    init_fn(params) -> TrainState.  params: name -> f32 tensor; pass the
-    model's own parameters (`dict(model.named_parameters())`) so that each
-    update shows in the model.
-    step_fn(state, batch, generator=None) -> (state, metrics).  batch: a
-    dict of tensors with leading size grad_accum * micro-batch.  metrics:
-    `loss` and `grad_norm` (0-d tensors, not synced), `skipped` (0 or 1)
-    when the step is guarded, and `loss_scale` when scaling is on."""
+    init_fn(params, round_seed=0) -> TrainState.  params: name -> tensor;
+    pass the model's own parameters (`dict(model.named_parameters())`) so
+    that each update shows in the model.  With a low-precision
+    `param_dtype` it casts them in place (the f32 storage is freed) and
+    seeds the rounding generator with `round_seed`.
+    step_fn(state, batch, generator=None, round_bits=None) -> (state,
+    metrics).  batch: a dict of tensors with leading size grad_accum *
+    micro-batch.  round_bits: name -> integers in [0, 65536) of the leaf's
+    shape, the stochastic rounding's bits in place of the generator's.
+    metrics: `loss` and `grad_norm` (0-d tensors, not synced), `skipped` (0
+    or 1) when the step is guarded, and `loss_scale` when scaling is on."""
     if mesh is not None:
         raise _later("a mesh (data, tensor or pipeline parallel training)")
     if settings.zero_stage > 0:
         raise _later(f"zero_stage={settings.zero_stage}")
-    if settings.param_dtype not in (None, torch.float32):
-        raise _later(f"param_dtype={settings.param_dtype} (stochastic-rounded storage)")
     if settings.grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
+    param_dtype = settings.param_dtype
+    lowp = param_dtype is not None and param_dtype.itemsize < 4
+    sr = settings.stochastic_round if settings.stochastic_round is not None else lowp
+    if param_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"param_dtype {param_dtype} not supported: float32, or bfloat16 for low-precision "
+                         "storage (stochastic rounding)")
+    if settings.stochastic_round and not lowp:
+        raise ValueError(f"stochastic_round=True requires a low-precision param_dtype (got param_dtype={param_dtype})")
+    if settings.grad_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"grad_dtype {settings.grad_dtype} not supported: float32 or bfloat16")
+    grouped = isinstance(optimizer, GroupedOptimizer)
+    if not grouped and (lowp or settings.grad_dtype != torch.float32):
+        raise ValueError("bf16 parameters or gradients take a grouped optimizer (optim.grouped.Adam, "
+                         "optim.adafactor.Adafactor): torch.optim writes each parameter with its own rounding")
 
     ls_enabled = settings.loss_scale is not None
     ls_dynamic = settings.loss_scale == "dynamic"
     guarded = ls_enabled or settings.skip_nonfinite is not False
-    compute_dtype = settings.compute_dtype
+    compute_dtype, grad_dtype = settings.compute_dtype, settings.grad_dtype
 
-    def init_fn(params: Params) -> TrainState:
+    def init_fn(params: Params, round_seed: int = 0) -> TrainState:
         for name, p in params.items():
-            if p.dtype != torch.float32 or not p.is_leaf:
-                raise ValueError(f"master parameter {name} must be an f32 leaf tensor, got {p.dtype}")
-            p.requires_grad_(True)
+            if not p.is_leaf or not p.is_floating_point():
+                raise ValueError(f"parameter {name} must be a floating leaf tensor")
+            if not grouped and p.dtype != torch.float32:
+                raise ValueError(f"master parameter {name} must be f32, got {p.dtype}")
         ls = None
         if ls_enabled:
             ls = {"loss_scale": LS_INIT_DYNAMIC if ls_dynamic else float(settings.loss_scale),
                   "good_steps": 0}
-        return TrainState(0, params, optimizer(list(params.values())), ls)
+        if not grouped:
+            for p in params.values():
+                p.requires_grad_(True)
+            return TrainState(0, params, optimizer(list(params.values())), ls)
+        with torch.no_grad():
+            for p in params.values():
+                if param_dtype is not None and p.dtype != param_dtype:
+                    p.data = p.data.to(param_dtype)
+        gen = None
+        if lowp and sr:
+            device = next(iter(params.values())).device
+            gen = torch.Generator(device=device).manual_seed(round_seed)
+        return TrainState(0, params, optimizer.init(params), ls, gen)
 
-    def working_copy(params: Params) -> Params:
-        if compute_dtype == torch.float32:
-            return params
-        return {name: p.to(compute_dtype) for name, p in params.items()}
-
-    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None, with_health: bool = False):
-        if with_health:
-            raise _later("the with_health diagnostic step")
-        scale = state.loss_scale["loss_scale"] if ls_enabled else None
+    def master_grads(state: TrainState, micro, scale, generator) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """torch.optim: the loss on a working copy cast inside the graph,
+        the gradients accumulated on the f32 masters' `.grad`."""
         masters = list(state.params.values())
         for p in masters:
             p.grad = None
-
-        micro = _micro_batches(batch, settings.grad_accum)
         loss_sum = None
         for mb in micro:
-            loss = loss_fn(working_copy(state.params), mb, generator)
+            work = state.params if compute_dtype == torch.float32 else {
+                name: p.to(compute_dtype) for name, p in state.params.items()}
+            loss = loss_fn(work, mb, generator)
             (loss if scale is None else loss * scale).backward()
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-
         grads = []
         for p in masters:
             if p.grad is None:  # a parameter the loss does not reach: a zero gradient
@@ -153,26 +214,84 @@ def make_train_step(
         if mean != 1.0:
             for g in grads:
                 g.mul_(mean)
-        loss = loss_sum / len(micro)
+        return grads, loss_sum / len(micro)
+
+    def leaf_grads(state: TrainState, micro, scale, generator) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """Grouped: the gradients with respect to a compute-dtype copy of
+        the parameters (detached leaves), cast to `grad_dtype`; more than
+        one micro-batch accumulates in f32."""
+        work = {name: p.detach().to(compute_dtype).requires_grad_(True) for name, p in state.params.items()}
+        leaves = list(work.values())
+        acc, loss_sum = None, None
+        for mb in micro:
+            loss = loss_fn(work, mb, generator)
+            (loss if scale is None else loss * scale).backward()
+            loss = loss.detach().float()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            grads = [torch.zeros_like(w) if w.grad is None else w.grad for w in leaves]
+            for w in leaves:
+                w.grad = None
+            if len(micro) > 1:
+                acc = [g.float() for g in grads] if acc is None else [a.add_(g) for a, g in zip(acc, grads)]
+        inv = None if scale is None else 1.0 / scale
+        if len(micro) == 1:
+            if inv is not None:
+                grads = [(g.float() * inv).to(g.dtype) for g in grads]
+            return [g.to(grad_dtype) for g in grads], loss_sum
+        mean = (1.0 if inv is None else inv) / len(micro)
+        return [(a * mean).to(grad_dtype) for a in acc], loss_sum / len(micro)
+
+    def grouped_update(state: TrainState, grads: List[torch.Tensor], round_bits=None) -> None:
+        """One group at a time (`GroupedOptimizer.step_groups`): the
+        optimizer's f32 update added to the f32 parameters, the sum rounded
+        back to the storage dtype and written into the parameters."""
+        def write(names, p32, u32):
+            params = [state.params[n] for n in names]
+            new = p32.add_(u32)
+            if lowp and sr:
+                bits = None if round_bits is None else torch.stack(
+                    [round_bits[n].to(device=new.device, dtype=torch.int32) for n in names])
+                new = stochastic_round(new, bits, state.round_generator)
+            elif new.dtype != params[0].dtype:
+                new = new.to(params[0].dtype)
+            torch._foreach_copy_(params, list(new.unbind(0)))
+
+        with torch.no_grad():
+            optimizer.step_groups(state.opt_state, dict(zip(state.params, grads)), state.params, write)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None, with_health: bool = False,
+                round_bits: Optional[Dict[str, torch.Tensor]] = None):
+        if with_health:
+            raise _later("the with_health diagnostic step")
+        scale = state.loss_scale["loss_scale"] if ls_enabled else None
+        micro = _micro_batches(batch, settings.grad_accum)
+        grads, loss = (leaf_grads if grouped else master_grads)(state, micro, scale, generator)
 
         gnorm = _global_norm(grads)
         if settings.clip_grad_norm is not None:
             # NaN propagates through the factor, so a poisoned norm stays poisoned
             factor = torch.clamp(settings.clip_grad_norm / (gnorm + 1e-6), max=1.0)
             for g in grads:
-                g.mul_(factor)
+                g.mul_(factor.to(g.dtype))
             gnorm = gnorm * factor  # the metric reports the applied norm
 
+        if grouped:
+            def update():
+                grouped_update(state, grads, round_bits)
+        else:
+            update = state.opt_state.step
         metrics: Dict[str, Any] = {"loss": loss, "grad_norm": gnorm}
         if guarded:
             finite = bool(torch.isfinite(gnorm))
-            nonfinite_guard(state.opt_state.step, finite)
+            nonfinite_guard(update, finite)
             metrics["skipped"] = int(not finite)
         else:
             finite = True
-            state.opt_state.step()
-        for p in masters:
-            p.grad = None
+            update()
+        if not grouped:
+            for p in state.params.values():
+                p.grad = None
 
         new_ls = state.loss_scale
         if ls_dynamic:
@@ -185,6 +304,10 @@ def make_train_step(
             new_ls = {"loss_scale": cur, "good_steps": good}
         if ls_enabled:
             metrics["loss_scale"] = new_ls["loss_scale"]
-        return TrainState(state.step + 1, state.params, state.opt_state, new_ls), metrics
+        return dataclasses.replace(state, step=state.step + 1, loss_scale=new_ls), metrics
 
+    if grouped:
+        # the update alone, (state, gradients in parameter order, round_bits)
+        # -> None, for a profile that separates it from the step
+        step_fn.apply_update = grouped_update
     return init_fn, step_fn

@@ -6,6 +6,7 @@ loss (the JAX side through the Pallas flash backward in interpret mode), the
 train step with Adam, clipping, accumulation, loss scaling and the bad-step
 guard, the checkpoint writer and the training CLI.  Dropout is compared only
 within the port: torch cannot draw JAX's threefry bits."""
+import dataclasses
 import functools
 import json
 import os
@@ -242,10 +243,9 @@ def test_adam_matches_optax_step_by_step():
             np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("setting", ["zero_stage", "param_dtype", "mesh", "with_health"])
+@pytest.mark.parametrize("setting", ["zero_stage", "mesh", "with_health"])
 def test_train_step_refuses_what_waits(setting):
     kwargs = {"zero_stage": {"settings": tts.StepSettings(zero_stage=1)},
-              "param_dtype": {"settings": tts.StepSettings(param_dtype=torch.bfloat16)},
               "mesh": {"mesh": object()}}.get(setting, {})
     opt = functools.partial(torch.optim.Adam, lr=1e-3)
     with pytest.raises(NotImplementedError, match="later PR"):
@@ -352,13 +352,18 @@ def test_remat_recomputes_on_the_bf16_working_copy():
 
 
 def test_selective_remat_policy_waits():
-    cfg = tdalle.DALLEConfig(**STEP_CFG, execution="remat", remat_policy="flash")
-    model = tdalle.init_dalle(cfg, torch.Generator().manual_seed(0), device="cpu").requires_grad_(True)
+    """An unknown remat policy raises ValueError naming the four when a
+    gradient is taken; inference does not rematerialise, so it runs under
+    any policy, the known ones included."""
     text, codes = torch.ones(1, 7, dtype=torch.long), torch.zeros(1, 9, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="full"):
+    cfg = tdalle.DALLEConfig(**STEP_CFG, execution="remat", remat_policy="selective")
+    model = tdalle.init_dalle(cfg, torch.Generator().manual_seed(0), device="cpu").requires_grad_(True)
+    with pytest.raises(ValueError, match="'full', 'flash', 'flash_qkv', 'flash_qkv_ff'"):
         tdalle.forward(model, text, codes, return_loss=True)
-    with torch.no_grad():  # inference does not rematerialise
-        assert torch.isfinite(tdalle.forward(model, text, codes, return_loss=True))
+    for policy in ("selective", "full", "flash", "flash_qkv", "flash_qkv_ff"):
+        model.transformer.cfg = dataclasses.replace(model.transformer.cfg, remat_policy=policy)
+        with torch.no_grad():  # inference does not rematerialise
+            assert torch.isfinite(tdalle.forward(model, text, codes, return_loss=True))
 
 
 def test_null_cond_blanks_every_caption_at_prob_one():

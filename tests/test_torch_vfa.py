@@ -182,7 +182,7 @@ def test_vfa_dispatch_on_a_compacting_pattern(fake_cuda, d):
     q, k, v, do = (torch.empty((32, n, d), device="meta") for _ in range(4))
     mask = torch.from_numpy(_mask("axial_row", n, 32))
     before = _counters()
-    out = tfa.FlashAttention.apply(q.requires_grad_(True), k, v, h, True, None, mask, None, "auto", None, True)
+    out = tfa.FlashAttention.apply(q.requires_grad_(True), k, v, h, True, None, mask, None, "auto", None, True, None)
     assert [c[0] for c in calls] == ["flash_max_compact", "flash_fwd_compact_vfa"]
     assert np.subtract(_counters(), before).tolist() == [0, 0, 1, 1]
     (_, max_ptrs, max_tile), (_, vfa_ptrs, vfa_tile) = calls
