@@ -52,6 +52,21 @@ replayed and eager, and the `*_decode_profile` windows' device time, busy
 share, kernels and host launches per step on both paths.  Freeing the
 flagship must return its graphs' memory.
 
+The continuous-batching serving engine (`serving/engine.py`, its paged
+decode step captured in one CUDA graph per engine): `engine_parity` on the
+12-layer and pattern models at full width, f32, six requests on four lanes
+(two guided, one at temperature 0.7) with staggered submits, holds each
+request's codes equal to its batch-1 `sample_image_codes` under its
+injected noise and under its generator seed, replayed and eager, and one
+seeded request alone in lane 0 equal to its run beside the others;
+`engine_flagship` serves the flagship on eight lanes (two requests held to
+their batch-1 codes under noise, the paged step's times replayed and
+eager, a profiled window, a Poisson load of 16 requests over 2 streams
+through `tools/loadgen.py` offered at twice the engine's capacity, and batch-1
+`generate_images` beside it); `serve_cli` runs `cli.serve --synthetic
+--loadgen 8` and `cli.generate --engine` against `cli.generate` under one
+seed.  Each admission's prefill must launch its layer cycle's kernels.
+
 Every phase prints one JSON line; any failure raises and exits non-zero.  The
 last two lines are the kernel table and `{"ok": true, "device": {...}}`.  It
 exits non-zero, printing no result, without a CUDA device or outside a
@@ -97,6 +112,9 @@ PATTERNS = ("axial_row", "axial_col", "conv_like", "sparse", "sparse_per_head")
 
 # the default prime fraction's codes (0.4375 of 1,024)
 PRIME_LEN = 448
+# the primed replayed-against-eager decode checks (pattern model, flagship)
+# run the last 128 steps: their eager loops take 32 and 110 ms a step
+GRAPHS_PRIME_LEN = 896
 
 # the flagship 1.3B model (BASELINE.json configs[3], tools/flagship_sweep.py)
 FLAGSHIP = dict(dim=1152, depth=64, heads=8, dim_head=128, num_text_tokens=10000, text_seq_len=256,
@@ -118,8 +136,12 @@ COUNTERS = {
 }
 
 
+_START = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the run started."""
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": round(time.monotonic() - _START, 1)}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1857,6 +1879,280 @@ def phase_generate_cli(fa, port, weights, checkpoint, sampling):
     return total, list(zip([prompt for prompt in CLI_PROMPTS for _ in range(2)], pixels))
 
 
+# the serving engine's requests: two guided (two lanes each), one at
+# temperature 0.7, the rest plain; six on four lanes, so later admissions
+# wait for evictions and take freed blocks
+ENGINE_COND = (1.0, 3.0, 1.0, 3.0, 1.0, 1.0)
+ENGINE_TEMP = (1.0, 1.0, 0.7, 1.0, 1.0, 1.0)
+ENGINE_THRES = 0.5
+ENGINE_BLOCK = 64
+
+
+def engine_texts(cfg, n, seed):
+    text = torch.randint(1, cfg.num_text_tokens, (n, cfg.text_seq_len), generator=torch.Generator().manual_seed(seed))
+    text[n - 2, 150:] = 0  # a padded prompt
+    return text.cuda()
+
+
+def engine_run(fa, engine, texts, want, stagger=64, **per_request):
+    """The requests of `texts` through `engine`, submitted two at a time
+    with `stagger` polls between, with every launch counter set to 0 just
+    before: each admission's prefill launches its layer cycle (`want`), the
+    decode steps none.  Returns (requests, wall seconds, decode steps,
+    launches)."""
+    reset_launches(fa)
+    steps = engine.decode_steps
+    t0 = time.perf_counter()
+    reqs = []
+    for i in range(texts.shape[0]):
+        reqs.append(engine.submit(texts[i].cpu().numpy(), temperature=ENGINE_TEMP[i], cond_scale=ENGINE_COND[i],
+                                  **{k: v[i] for k, v in per_request.items()}))
+        if i % 2:
+            for _ in range(stagger):
+                engine.poll()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(fa)
+    check(launches == {k: v * len(reqs) for k, v in want.items()},
+          f"{len(reqs)} admissions launched {launches}; one prefill's layer cycle gives {want}")
+    check(all(r.outcome == "completed" for r in reqs), f"outcomes {[r.outcome for r in reqs]}")
+    return reqs, wall_s, engine.decode_steps - steps, launches
+
+
+def batch1_codes(sampling, model, text_row, i, **kw):
+    """A batch-1 `sample_image_codes` call (replayed from the model's graphs)
+    with request i's settings."""
+    return sampling.sample_image_codes(model, text_row[None], filter_thres=ENGINE_THRES, temperature=ENGINE_TEMP[i],
+                                       cond_scale=ENGINE_COND[i], **kw)[0].cpu().numpy()
+
+
+def phase_engine_parity(fa, sampling, dalle, name, seed):
+    """The continuous-batching engine at full width (`serving/engine.py`,
+    f32): six requests on four lanes with staggered submits.  (a) Under each
+    request's injected noise, its codes equal its batch-1 `sample_image_codes`
+    under that noise; (b) seeded, they equal its batch-1 call with a
+    generator of that seed, with the step replayed from the engine's CUDA
+    graph (the lanes' registered generators reseeded between replays) and
+    run eagerly (`graphs=False`); one seeded request, run again alone in a
+    fresh engine's lane 0, gives the codes it gave beside the others in
+    another lane.  Each admission's prefill launches the layer cycle."""
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
+
+    m, cfg = dalle.module, dalle.cfg
+    texts = engine_texts(cfg, len(ENGINE_COND), seed)
+    noise = gumbel_noise((len(ENGINE_COND), cfg.image_seq_len, cfg.total_tokens),
+                         torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    seeds = [seed * 1000 + i for i in range(len(ENGINE_COND))]
+    want, _ = forward_launches(m, cfg.text_seq_len + 1)
+    ecfg = EngineConfig(num_slots=4, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES, noise_override=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = GenerationEngine(m, engine_cfg=ecfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(engine.graph is not None, f"{name}: the engine captured no graph on the card")
+
+    noised, noised_s, noised_steps, noised_launches = engine_run(fa, engine, texts, want, noise=list(noise))
+    seeded, seeded_s, seeded_steps, seeded_launches = engine_run(fa, engine, texts, want, seed=seeds)
+    t0 = time.perf_counter()
+    refs_noise = [batch1_codes(sampling, m, texts[i], i, noise_override=noise[i][:, None]) for i in range(len(seeds))]
+    refs_seed = [batch1_codes(sampling, m, texts[i], i, generator=torch.Generator(device="cuda").manual_seed(s))
+                 for i, s in enumerate(seeds)]
+    refs_s = time.perf_counter() - t0
+    for i in range(len(seeds)):
+        check(np.array_equal(noised[i].codes, refs_noise[i]), f"{name}: request {i}'s codes differ from its "
+              f"batch-1 call under its noise (lanes {noised[i].lanes})")
+        check(np.array_equal(seeded[i].codes, refs_seed[i]), f"{name}: request {i}'s replayed codes differ from its "
+              f"batch-1 call under its seed (lanes {seeded[i].lanes})")
+    check(len({tuple(r.codes) for r in seeded}) == len(seeds), f"{name}: seeded requests share codes")
+
+    moved = next(i for i, r in enumerate(seeded) if not r.guided and r.lanes[0] != 0)
+    alone_engine = GenerationEngine(m, engine_cfg=EngineConfig(num_slots=4, block_size=ENGINE_BLOCK,
+                                                               filter_thres=ENGINE_THRES))
+    reset_launches(fa)
+    alone = alone_engine.submit(texts[moved].cpu().numpy(), seed=seeds[moved], temperature=ENGINE_TEMP[moved],
+                                cond_scale=ENGINE_COND[moved])
+    alone_engine.run_until_idle()
+    alone_launches = read_launches(fa)
+    check(alone_launches == want, f"{name}: the alone request's admission launched {alone_launches}; want {want}")
+    check(alone.lanes == [0] and np.array_equal(alone.codes, seeded[moved].codes),
+          f"{name}: request {moved} alone in lane 0 differs from its run in lanes {seeded[moved].lanes}")
+    del alone_engine
+
+    eager_engine = GenerationEngine(m, engine_cfg=ecfg, graphs=False)
+    eager, eager_s, eager_steps, eager_launches = engine_run(fa, eager_engine, texts, want, seed=seeds)
+    for i in range(len(seeds)):
+        check(np.array_equal(eager[i].codes, refs_seed[i]), f"{name}: request {i}'s eager codes differ from its "
+              f"batch-1 call under its seed")
+
+    def step_ms(reqs, wall_s, steps):
+        return (wall_s - sum(r.phases["prefill"] for r in reqs)) / steps * 1e3
+
+    emit("engine_parity", model=name, requests=len(seeds), lanes=4, cond_scale=list(ENGINE_COND),
+         temperature=list(ENGINE_TEMP), filter_thres=ENGINE_THRES, block_size=ENGINE_BLOCK,
+         pool_blocks=engine.pool.num_blocks, pool_gib=engine.pool.bytes() / 2 ** 30,
+         noise_buffer_gib=engine.lanes.noise.numel() * 4 / 2 ** 30, build_and_capture_s=build_s,
+         noise_codes_equal_batch1=True, seed_codes_equal_batch1_replayed=True, seed_codes_equal_batch1_eager=True,
+         alone_equals_beside=dict(request=moved, lanes_beside=seeded[moved].lanes, lanes_alone=alone.lanes),
+         lanes_taken=[r.lanes for r in seeded], high_water_blocks=engine.pool.high_water,
+         decode_steps=dict(noise=noised_steps, seed=seeded_steps, eager=eager_steps),
+         wall_s=dict(noise=noised_s, seed=seeded_s, eager=eager_s, batch1_references=refs_s),
+         step_ms_replayed=step_ms(seeded, seeded_s, seeded_steps), step_ms_eager=step_ms(eager, eager_s, eager_steps),
+         ttft_s=[r.ttft_s for r in seeded], latency_s=[r.latency_s for r in seeded],
+         launches=dict(noise=noised_launches, seed=seeded_launches, eager=eager_launches, alone=alone_launches))
+    runs = (noised_launches, seeded_launches, eager_launches, alone_launches)
+    return {k: sum(run[k] for run in runs) for k in COUNTERS}
+
+
+def engine_window(engine, steps):
+    """`steps` polls of a full engine (every lane decoding), timed on the host
+    clock with a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.poll()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=16):
+    """The flagship served by the engine at full width, f32, eight lanes:
+    two requests, one guided, hold property (a) against batch-1
+    `sample_image_codes` under their noise (the VAE decodes their images at
+    eviction); then the paged step's time, replayed and eager, with all
+    eight lanes decoding, and a profiled window of replays (device ms, busy
+    share); then a Poisson load of `n_requests` over `streams` streams
+    (`tools/loadgen.py`) offered at twice the engine's capacity (lanes /
+    (image_seq_len x the replayed step)); and the batch-1
+    `generate_images` images/s of the same model beside it."""
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
+
+    m, vae, cfg = dalle.module, dalle.vae.module, dalle.cfg
+    lanes = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = GenerationEngine(m, vae, EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES,
+                                                   noise_override=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    texts = engine_texts(cfg, 8, 41)
+    noise = gumbel_noise((2, cfg.image_seq_len, cfg.total_tokens), torch.Generator(device="cuda").manual_seed(42),
+                         device="cuda")
+    want, _ = forward_launches(m, cfg.text_seq_len + 1)
+    reset_launches(fa)
+    parity = [engine.submit(texts[i].cpu().numpy(), cond_scale=ENGINE_COND[i], noise=noise[i]) for i in range(2)]
+    engine.run_until_idle()
+    launches = read_launches(fa)
+    check(launches == {k: 2 * v for k, v in want.items()}, f"two admissions launched {launches}; {want} each")
+    for i, req in enumerate(parity):
+        ref = batch1_codes(sampling, m, texts[i], i, noise_override=noise[i][:, None])
+        check(np.array_equal(req.codes, ref), f"flagship: request {i}'s codes differ from its batch-1 call")
+        check(tuple(req.images.shape) == (1, 256, 256, 3) and bool(torch.isfinite(req.images).all()),
+              f"flagship: request {i}'s image {tuple(req.images.shape)}")
+
+    def fill(eng):
+        """Every lane admitted (one poll), with the admissions' launches."""
+        reset_launches(fa)
+        for i in range(lanes):
+            eng.submit(texts[i].cpu().numpy(), seed=i)
+        eng.poll()
+        got = read_launches(fa)
+        check(got == {k: lanes * v for k, v in want.items()}, f"{lanes} admissions launched {got}; {want} each")
+        return got
+
+    fill_launches = fill(engine)
+    replayed_ms = engine_window(engine, 32)
+    window = profile_window(lambda: [engine.poll() for _ in range(16)], 16)
+    engine.drain()
+    # the eager step over the same window, through a `graphs=False` engine's poll()
+    eager_engine = GenerationEngine(m, None, EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK,
+                                                          filter_thres=ENGINE_THRES), graphs=False)
+    eager_fill_launches = fill(eager_engine)
+    eager_ms = engine_window(eager_engine, 32)
+    eager_engine.drain()
+    del eager_engine
+
+    # offered at twice the engine's capacity: the lanes stay full and the
+    # queue, not the arrivals, sets TTFT
+    capacity = lanes / (cfg.image_seq_len * replayed_ms / 1e3)
+    rate = 2 * capacity / streams
+    reset_launches(fa)
+    report = loadgen.PoissonLoadGen(n_requests, rate, streams=streams, seed=0).run(
+        engine, loadgen.synthetic_request_maker(cfg, seed=0))
+    load_launches = read_launches(fa)
+    check(report["requests_completed"] == n_requests and report["requests_refused"] == 0,
+          f"flagship loadgen: {report}")
+
+    t0 = time.perf_counter()
+    timings = {}
+    images = dalle.generate_images(texts[:1], 3, cond_scale=1.0, timings=timings)
+    torch.cuda.synchronize()
+    batch1_s = time.perf_counter() - t0
+    check(tuple(images.shape) == (1, 256, 256, 3), f"flagship batch-1 images {tuple(images.shape)}")
+    emit("engine_flagship", lanes=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES,
+         pool_blocks=engine.pool.num_blocks, blocks_per_seq=engine.pool.blocks_per_seq,
+         pool_gib=engine.pool.bytes() / 2 ** 30, pool_block_mib=engine.pool.bytes() / (engine.pool.num_blocks + 1) / 2 ** 20,
+         noise_buffer_gib=engine.lanes.noise.numel() * 4 / 2 ** 30, build_and_capture_s=build_s,
+         noise_codes_equal_batch1=True, parity_ttft_s=[r.ttft_s for r in parity],
+         parity_latency_s=[r.latency_s for r in parity], step_ms_replayed=replayed_ms, step_ms_eager=eager_ms,
+         profile=window, capacity_images_per_s=capacity, loadgen_rate_per_stream=rate, loadgen_streams=streams,
+         loadgen=report, loadgen_launches=load_launches, window_fill_launches=dict(
+             replayed=fill_launches, eager=eager_fill_launches), batch1_generate_images_s=batch1_s,
+         batch1_images_per_s=1 / batch1_s, batch1_timings=timings,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    runs = (launches, fill_launches, eager_fill_launches, load_launches)
+    return {k: sum(run[k] for run in runs) for k in COUNTERS}
+
+
+def phase_serve_cli(fa, port, weights, checkpoint):
+    """`python -m dalle_pytorch_tpu_torch.cli.serve --synthetic --loadgen 8`
+    in process at a small width (the report holds the loadgen's keys), then
+    `cli.generate --engine` for one prompt against a v3 checkpoint of a small
+    model: its PNG equals the one `cli.generate` without `--engine` writes
+    under the same seed."""
+    import contextlib
+    import io
+
+    from dalle_pytorch_tpu_torch.cli import serve
+    from dalle_pytorch_tpu_torch.cli.png import read_png
+
+    out = io.StringIO()
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
+        report = serve.main(["--synthetic", "--loadgen", "8", "--rate", "4", "--streams", "2", "--dim", "256",
+                             "--depth", "2", "--heads", "4", "--dim_head", "64", "--text_seq_len", "63",
+                             "--image_fmap_size", "8", "--slots", "4", "--cond_scale", "2.0",
+                             "--report_json", str(Path(tmp) / "report.json")])
+        check(json.loads((Path(tmp) / "report.json").read_text()) == report, "serve: the report file differs")
+    serve_s = time.perf_counter() - t0
+    serve_launches = read_launches(fa)
+    keys = {"requests_completed", "requests_refused", "ttft_p50_s", "ttft_p99_s", "latency_p50_s", "latency_p99_s",
+            "images_per_sec_per_chip"}
+    check(keys <= set(report) and report["requests_completed"] == 8, f"serve report {report}")
+    check(serve_launches["flash_fwd"] == 8 * 2, f"serve: 8 admissions of a depth-2 model launched {serve_launches}")
+
+    vae = port.DiscreteVAE(seed=0, **SMALL_VAE)
+    dalle = port.DALLE(vae=vae, seed=51, **SMALL)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_dalle_checkpoint(checkpoint, weights, tmp / "dalle.pt", dalle, vae)
+        common = ["--dalle_path", str(tmp / "dalle.pt"), "--text", "a small red cube", "--num_images", "1",
+                  "--batch_size", "1", "--seed", "5", "--cond_scale", "3.0"]
+        (plain,), _, _, _, plain_s = run_cli(fa, common + ["--outputs_dir", str(tmp / "plain")])
+        (engined,), _, engine_launches, _, engine_s = run_cli(fa, common + ["--outputs_dir", str(tmp / "engine"),
+                                                                            "--engine", "--engine_slots", "2"])
+        check(np.array_equal(read_png(plain), read_png(engined)),
+              "generate --engine wrote another image than generate under the same seed")
+    emit("serve_cli", serve_wall_s=serve_s, report=report, launches=serve_launches,
+         generate_engine=dict(png_equal_to_plain=True, plain_s=plain_s, engine_s=engine_s,
+                              launches=engine_launches))
+    return {k: serve_launches[k] + engine_launches[k] for k in COUNTERS}
+
+
 def plain_flash_attention(fa):
     """`flash_attention` through its plain version, on any device."""
 
@@ -1954,6 +2250,7 @@ def main() -> int:
     from dalle_pytorch_tpu_torch.models import sampling
     from dalle_pytorch_tpu_torch.models import transformer as tr
     from dalle_pytorch_tpu_torch.ops import masks
+    from dalle_pytorch_tpu_torch.tools import loadgen
 
     phase_environment(build)
     compared = phase_kernel_vs_plain(fa)
@@ -1964,6 +2261,7 @@ def main() -> int:
     phase_forward(fa, dalle, text)
     profile = phase_decode_profile(dalle, text, sampling)
     phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer", 3.0, stats=True, profile=profile)
+    paths["engine_parity"] = phase_engine_parity(fa, sampling, dalle, "12-layer", 61)
     del dalle
     phase_parity(fa, port, sampling)
     paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
@@ -1973,7 +2271,8 @@ def main() -> int:
     dalle, text, paths["sparse_generate"] = phase_sparse_generate(fa, tr, port)
     profile = phase_decode_profile(dalle, text, sampling, phase="sparse_decode_profile")
     phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 3.0, profile=profile)
-    phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 1.0, prime_len=PRIME_LEN, eager_stream=True)
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 1.0, prime_len=GRAPHS_PRIME_LEN, eager_stream=True)
+    paths["sparse_engine_parity"] = phase_engine_parity(fa, sampling, dalle, "pattern", 62)
     del dalle
     torch.cuda.empty_cache()
     parity = phase_parity(fa, port, sampling, "sparse_parity", SMALL_SPARSE, SMALL_SPARSE_VAE, prime_len=128)
@@ -1989,12 +2288,14 @@ def main() -> int:
 
     paths["generate_cli"], scored = phase_generate_cli(fa, port, weights, checkpoint, sampling)
     paths["clip_rerank"] = phase_clip_rerank(fa, port, tr, scored)
+    paths["serve_cli"] = phase_serve_cli(fa, port, weights, checkpoint)
     torch.cuda.empty_cache()
 
     reserved = torch.cuda.memory_reserved()
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
     profile = phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16)
-    phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=PRIME_LEN, profile=profile)
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=GRAPHS_PRIME_LEN, profile=profile)
+    paths["engine_flagship"] = phase_engine_flagship(fa, sampling, loadgen, dalle)
     entry_bytes = sum(e.loop.nbytes() for e in dalle.decode_graphs.entries().values())
     with_model = torch.cuda.memory_reserved()
     del dalle

@@ -12,9 +12,13 @@ runs on the card unless `--device cpu` is given.  The gumbel noise comes
 from one `torch.Generator` seeded with `--seed`; the images are not the JAX
 package's bits (its threefry streams are not reproduced).
 
-Flags whose machinery is not ported yet (the serving engine, speculative
-decoding, the taming VQGAN, pre-v3 checkpoints) exit with a message naming
-the `ROADMAP.md` item that brings them.  The JAX CLI's out-of-memory
+`--engine` samples through the continuous-batching serving engine
+(`serving/engine.py`, `--engine_slots` lanes, `--engine_block_size`-token
+KV blocks): one request an image, image j of the run (over all prompts)
+seeded with `--seed` + j, so that a run of one image gives the codes of the
+same run without `--engine`.  Flags whose machinery is not ported yet
+(speculative decoding, the taming VQGAN, pre-v3 checkpoints) exit with a
+message naming the `ROADMAP.md` item that brings them.  The JAX CLI's out-of-memory
 forensic report waits for the memory ledger (`ROADMAP.md` Queue 1 item 8).
 """
 from __future__ import annotations
@@ -34,14 +38,12 @@ from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.sampling import _sync, generate_images, generate_texts
+from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 
 # flag -> what it needs that the port does not have yet, and where ROADMAP.md lists it
 _WAITING = {
-    "engine": "the continuous-batching serving engine (ROADMAP.md Queue 1 item 6)",
-    "engine_slots": "the continuous-batching serving engine (ROADMAP.md Queue 1 item 6)",
-    "engine_block_size": "the continuous-batching serving engine (ROADMAP.md Queue 1 item 6)",
-    "spec_k": "speculative decoding (ROADMAP.md Queue 1 item 6)",
-    "spec_draft_layers": "speculative decoding (ROADMAP.md Queue 1 item 6)",
+    "spec_k": "speculative decoding (ROADMAP.md Queue 1 item 6, models/speculative.py)",
+    "spec_draft_layers": "speculative decoding (ROADMAP.md Queue 1 item 6, models/speculative.py)",
     "taming": "the taming VQGAN (ROADMAP.md Queue 1 item 5)",
     "vqgan_config_path": "the taming VQGAN (ROADMAP.md Queue 1 item 5)",
     "allow_legacy_pickle": "the pre-v3 checkpoint formats (ROADMAP.md Queue 1 item 5)",
@@ -72,9 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="permit loading pre-v3 (pickled) checkpoints")
     parser.add_argument("--engine", action="store_true",
                         help="sample through the continuous-batching serving engine")
-    parser.add_argument("--engine_slots", type=int, default=None, help="decode slots for --engine (4)")
-    parser.add_argument("--engine_block_size", type=int, default=None,
-                        help="KV pool block size (tokens) for --engine (64)")
+    parser.add_argument("--engine_slots", type=int, default=4, help="decode lanes for --engine")
+    parser.add_argument("--engine_block_size", type=int, default=64, help="KV pool block size (tokens) for --engine")
     parser.add_argument("--spec_k", type=int, default=0,
                         help="self-speculative decoding: tokens drafted per round (0 disables)")
     parser.add_argument("--spec_draft_layers", type=int, default=None,
@@ -133,6 +134,11 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
     _add(timings, "tokenize_s", time.perf_counter() - t0)
     warn_vocab_mismatch(dalle_cfg.num_text_tokens, tokenizer)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    engine = None
+    if args.engine:
+        engine = GenerationEngine(model, vae, EngineConfig(num_slots=args.engine_slots,
+                                                           block_size=args.engine_block_size,
+                                                           filter_thres=args.top_k))
     outputs_dir = Path(args.outputs_dir)
     ts = dalle_cfg.text_seq_len
 
@@ -162,9 +168,17 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
         for i in range(0, args.num_images, args.batch_size):
             chunk = torch.from_numpy(text_tokens[i:i + args.batch_size]).to(device)
             phases = {} if timings is not None else None
-            images = generate_images(model, vae, chunk, generator,
-                                     filter_thres=args.top_k, temperature=args.temperature,
-                                     cond_scale=args.cond_scale, timings=phases)
+            if engine is not None:
+                t0 = time.perf_counter()
+                first = len(paths)
+                reqs = engine.generate(chunk.cpu().numpy(), seeds=[args.seed + first + j for j in range(len(chunk))],
+                                       temperature=args.temperature, cond_scale=args.cond_scale)
+                images = torch.cat([r.images for r in reqs])
+                _add(timings, "engine_s", time.perf_counter() - t0)
+            else:
+                images = generate_images(model, vae, chunk, generator,
+                                         filter_thres=args.top_k, temperature=args.temperature,
+                                         cond_scale=args.cond_scale, timings=phases)
             for key, seconds in (phases or {}).items():
                 _add(timings, key, seconds)
             t0 = time.perf_counter()

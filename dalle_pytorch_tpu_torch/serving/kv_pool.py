@@ -1,0 +1,136 @@
+"""The paged KV block pool's host half (counterpart of
+`dalle_pytorch_tpu/serving/kv_pool.py`): which physical blocks are free,
+which belong to which lane of which request, and the occupancy numbers
+that admission control prices against.  The device half (the pool tensors,
+the gather and the column writes through block tables) is
+`models/paged.py`.
+
+Allocation is whole-sequence at admission: a request's length is fixed
+(text + image_seq_len), so a reservation and an allocation are one thing,
+and refusing up front turns an exhausted pool into backpressure instead of
+an out-of-memory error.  Block 0 is the trash block inactive slots write
+into; it is never handed out.  The block ids, and the order in which they
+are handed out and returned, are the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from dalle_pytorch_tpu_torch.models.paged import init_paged_pool, paged_blocks_per_seq
+from dalle_pytorch_tpu_torch.models.transformer import TransformerConfig
+
+
+class PoolExhausted(RuntimeError):
+    """No free blocks for a whole-sequence allocation."""
+
+
+@dataclasses.dataclass
+class BlockPool:
+    """Host free list over the shared device pool.  `num_blocks` counts
+    usable blocks (the trash block comes on top), `block_size` tokens a
+    block."""
+
+    cfg: TransformerConfig
+    num_blocks: int
+    block_size: int
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.block_size <= 0 or self.num_blocks <= 0:
+            raise ValueError(f"block_size and num_blocks must be positive, got {self.block_size}, "
+                             f"{self.num_blocks}")
+        self.blocks_per_seq = paged_blocks_per_seq(self.cfg, self.block_size)
+        # physical ids 1..num_blocks; 0 is the trash block
+        self._free: List[int] = list(range(1, self.num_blocks + 1))
+        self._owned: Dict[int, List[int]] = {}
+        self._high_water = 0
+
+    def device_pool(self, device=None) -> dict:
+        """Zeroed device tensors for this geometry, the trash block
+        included."""
+        return init_paged_pool(self.cfg, self.num_blocks + 1, self.block_size, self.dtype, device)
+
+    def bytes(self, itemsize: Optional[int] = None) -> float:
+        """At-rest bytes of the device pool (k and v, every layer, the trash
+        block included)."""
+        if itemsize is None:
+            itemsize = torch.empty((), dtype=self.dtype).element_size()
+        cfg = self.cfg
+        return 2.0 * cfg.depth * (self.num_blocks + 1) * cfg.heads * self.block_size * cfg.dim_head * itemsize
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    @property
+    def occupancy_frac(self) -> float:
+        return self.used_blocks / self.num_blocks
+
+    @property
+    def high_water(self) -> int:
+        """Most blocks ever in use at once."""
+        return self._high_water
+
+    @property
+    def fragmentation_frac(self) -> float:
+        """1 - (largest contiguous free run / free blocks)."""
+        if not self._free:
+            return 0.0
+        ids = sorted(self._free)
+        best = run = 1
+        for a, b in zip(ids, ids[1:]):
+            run = run + 1 if b == a + 1 else 1
+            best = max(best, run)
+        return 1.0 - best / len(self._free)
+
+    def can_admit(self) -> bool:
+        return len(self._free) >= self.blocks_per_seq
+
+    def fits_ever(self) -> bool:
+        """Whether one sequence fits the pool at all, even when idle."""
+        return self.num_blocks >= self.blocks_per_seq
+
+    def alloc_table(self, owner: int) -> np.ndarray:
+        """A full sequence's blocks for `owner`: the (blocks_per_seq,) int64
+        block table.  Raises PoolExhausted when they are not free."""
+        if len(self._free) < self.blocks_per_seq:
+            raise PoolExhausted(f"need {self.blocks_per_seq} blocks, {len(self._free)} free")
+        blocks = [self._free.pop() for _ in range(self.blocks_per_seq)]
+        self._owned[owner] = blocks
+        self._high_water = max(self._high_water, self.used_blocks)
+        return np.asarray(blocks, np.int64)
+
+    def free_table(self, owner: int) -> None:
+        """Return `owner`'s blocks to the free list (eviction)."""
+        blocks = self._owned.pop(owner, None)
+        if blocks:
+            self._free.extend(blocks)
+
+    def owners(self) -> List[int]:
+        return list(self._owned)
+
+    def summary(self) -> dict:
+        """The free-list state the serve report carries."""
+        return {"num_blocks": self.num_blocks, "block_size": self.block_size,
+                "blocks_per_seq": self.blocks_per_seq, "occupancy_frac": round(self.occupancy_frac, 4),
+                "free_blocks": self.free_blocks, "high_water": self.high_water,
+                "fragmentation_frac": round(self.fragmentation_frac, 4), "bytes": self.bytes()}
+
+
+def blocks_within_bytes(cfg: TransformerConfig, budget_bytes: float, block_size: int, itemsize: int = 2,
+                        kv_quant: Optional[str] = None) -> int:
+    """How many usable blocks fit an at-rest byte budget, the trash block's
+    cost included."""
+    if kv_quant not in (None, "none"):
+        raise NotImplementedError(f"the quantized KV pool ({kv_quant!r}) is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 6)")
+    per_block = 2.0 * cfg.depth * cfg.heads * block_size * cfg.dim_head * itemsize
+    return max(int(budget_bytes // per_block) - 1, 0)

@@ -1,0 +1,109 @@
+"""The engine's per-lane sampler (counterpart of the part of
+`dalle_pytorch_tpu/models/speculative.py` `lane_sample_pipeline` that the
+sequential engine runs): transformer output -> one image code per lane.
+
+Every lane is one sequence of one request; a guided request holds two, its
+[cond] lane and its [null] lane.  Per lane: the masked image logits at the
+lane's producing position, classifier-free guidance across the lane pair
+(`partner`, `guided`, `cscale`), top-k at `filter_thres`, the lane's
+temperature, the lane's gumbel noise, the shift into the codebook, and the
+feed-source mirror (`feed_src`), so that both lanes of a pair feed the
+[cond] lane's code.  Each lane's noise comes from the lane's own generator,
+one (1, total_tokens) draw a token, as a batch-1 `sample_image_codes` draws
+it; or, for a lane whose request brought its noise (`use_noise`), from its
+row of `noise` at the index of the code being made.
+
+`LaneState` holds these per-lane tensors on the device; they are written
+in place at admission, so a captured step reads their new values.  Poison injection, the nonfinite screen and the degrade cap of the
+JAX pipeline are not ported (ROADMAP.md Queue 1 item 6).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from dalle_pytorch_tpu_torch.models.dalle import DALLE
+from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise, top_k_filter
+
+
+class LaneState:
+    """Per-lane sampling state of `num_lanes` lanes on `device`.  `noise`
+    (num_lanes, n_rows, total_tokens) exists only with `noise_rows`."""
+
+    def __init__(self, num_lanes: int, total_tokens: int, device: torch.device, noise_rows: int = 0):
+        self.temp = torch.ones(num_lanes, device=device)
+        self.cscale = torch.ones(num_lanes, device=device)
+        self.guided = torch.zeros(num_lanes, dtype=torch.bool, device=device)
+        self.partner = torch.arange(num_lanes, device=device)
+        self.feed_src = torch.arange(num_lanes, device=device)
+        self.use_noise = torch.zeros(num_lanes, dtype=torch.bool, device=device)
+        self.noise = (torch.zeros((num_lanes, noise_rows, total_tokens), device=device) if noise_rows else None)
+        self.generators: List[torch.Generator] = [torch.Generator(device=device) for _ in range(num_lanes)]
+        self.total_tokens = total_tokens
+
+    def arm(self, lanes: List[int], temperature: float, cond_scale: float, seed: int,
+            noise: Optional[torch.Tensor]) -> None:
+        """Set a request's lanes: its sampling settings, the pair's partner
+        and feed source, and its randomness (each lane's generator seeded
+        with `seed`, as a fresh `torch.Generator(device).manual_seed(seed)`
+        is; the noise rows copied in)."""
+        device = self.temp.device
+        idx = torch.tensor(lanes, device=device)
+        self.temp[idx] = temperature
+        self.cscale[idx] = cond_scale
+        cond, null = lanes[0], lanes[-1]  # one lane: its own partner
+        self.guided[idx] = False
+        self.guided[cond] = len(lanes) == 2
+        self.partner[idx] = null
+        self.feed_src[idx] = cond
+        state = torch.Generator(device=device).manual_seed(seed).get_state()
+        for lane in lanes:
+            self.generators[lane].set_state(state)
+        self.use_noise[idx] = noise is not None
+        if noise is not None:
+            self.noise[cond].copy_(noise)
+
+    def draw(self, lanes: Optional[List[int]], rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Gumbel noise (L, total_tokens) for `lanes` (all of them when
+        None): one (1, total_tokens) draw from each lane's generator, or the
+        lane's noise row `rows[i]` where its request brought noise."""
+        device = self.temp.device
+        order = range(len(self.generators)) if lanes is None else lanes
+        noise = torch.cat([gumbel_noise((1, self.total_tokens), self.generators[lane], dtype, device)
+                           for lane in order])
+        if self.noise is None:
+            return noise
+        use, table = self.use_noise, self.noise
+        if lanes is not None:
+            idx = torch.tensor(lanes, device=device)
+            use, table = use[idx], table[idx]
+        staged = table[torch.arange(table.shape[0], device=device), rows.clamp(0, table.shape[1] - 1)]
+        return torch.where(use[:, None], staged, noise)
+
+    def settings(self, lanes: Optional[List[int]] = None):
+        """(temp, cscale, guided, partner, feed_src) of all lanes, or of one
+        request's `lanes` ([cond] or [cond, null]) with the pair's partner
+        and feed source as indices within them."""
+        if lanes is None:
+            return self.temp, self.cscale, self.guided, self.partner, self.feed_src
+        idx = torch.tensor(lanes, device=self.temp.device)
+        partner = torch.full_like(idx, len(lanes) - 1)
+        return self.temp[idx], self.cscale[idx], self.guided[idx], partner, torch.zeros_like(idx)
+
+
+def sample_lanes(model: DALLE, logits: torch.Tensor, settings, filter_thres: float,
+                 noise: torch.Tensor) -> torch.Tensor:
+    """Codes (L,) from the masked image logits (L, total_tokens) of L lanes
+    with their `LaneState.settings`: guidance across partners, top-k,
+    temperature, noise, the shift into the codebook and the feed-source
+    mirror."""
+    cfg = model.cfg
+    temp, cscale, guided, partner, feed_src = settings
+    null = logits.index_select(0, partner)
+    lg = torch.where(guided[:, None], null + (logits - null) * cscale[:, None], logits)
+    filtered = top_k_filter(lg, thres=filter_thres)
+    scaled = filtered / temp[:, None]
+    tok = torch.argmax(scaled + noise, dim=-1)
+    code = (tok - cfg.num_text_tokens_padded).clamp(0, cfg.num_image_tokens - 1)
+    return code.index_select(0, feed_src)

@@ -1,0 +1,183 @@
+"""Request queue and admission control for the serving engine (counterpart
+of `dalle_pytorch_tpu/serving/scheduler.py`).  Host logic only.
+
+A bounded FIFO, and an `AdmissionController` that decides each engine
+iteration whether the head of the queue may enter a decode slot.  Three
+gates, in order:
+
+  1. **slots**: a free lane (two for a guided request: its [cond] and
+     [null] sequences have separate KV);
+  2. **pool**: free blocks for the whole sequence of every lane;
+  3. **headroom**: the device's memory in use, as a fraction of its
+     capacity (`torch.cuda.mem_get_info`), below `headroom_frac`; above
+     it, admissions wait while something is in flight.
+
+`screen_submit` refuses outright a request that can never be admitted (the
+pool is smaller than its lanes' sequences), and the queue refuses past its
+depth: `AdmissionRefused` with `kind` "never_fits" or "queue_overflow".
+Refusals, deferrals and backpressure episodes are counted in the
+controller's `counts`.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+
+class AdmissionRefused(RuntimeError):
+    """The service refused a request outright.  `kind` is the refusal's
+    class: "queue_overflow" or "never_fits"."""
+
+    def __init__(self, reason: str, kind: str = "other"):
+        super().__init__(reason)
+        self.reason = reason
+        self.kind = kind
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.  `text`: (text_seq_len,) raw token ids.  Its
+    randomness is its own: `seed` seeds the request's generator, which draws
+    the gumbel noise exactly as a batch-1 `sample_image_codes` call with a
+    generator of that seed draws it; `noise`, (image_seq_len, total_tokens)
+    float32, replaces the draws as `noise_override` does there.
+
+    `deadline_s` (seconds from arrival) and `retries_left` are carried for
+    the fleet's router and journal, which are not ported; the engine does
+    not act on them.  The engine stamps `phases` (queue_wait, admission,
+    prefill, decode, vae_decode, evict seconds) and sets `outcome` once:
+    "completed", "shed" (refused at submit) or "deferred" (queued or in
+    flight when the engine closed or drained)."""
+
+    id: int
+    text: np.ndarray
+    seed: int
+    temperature: float = 1.0
+    cond_scale: float = 1.0
+    noise: Optional[torch.Tensor] = None
+    arrival_t: float = dataclasses.field(default_factory=time.monotonic)
+    deadline_s: Optional[float] = None
+    retries_left: int = 3
+    # engine-owned
+    lanes: Optional[List[int]] = None
+    codes_done: int = 0
+    admitted_t: Optional[float] = None
+    ttft_s: Optional[float] = None
+    latency_s: Optional[float] = None
+    phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+    deferrals: int = 0
+    outcome: Optional[str] = None
+    # results
+    codes: Optional[np.ndarray] = None
+    images: Optional[torch.Tensor] = None
+
+    @property
+    def guided(self) -> bool:
+        return self.cond_scale != 1.0
+
+    @property
+    def lanes_needed(self) -> int:
+        return 2 if self.guided else 1
+
+
+class RequestQueue:
+    """Bounded FIFO; `push` raises AdmissionRefused ("queue_overflow") at
+    the cap."""
+
+    def __init__(self, max_depth: int = 64):
+        self.max_depth = max_depth
+        self._q: Deque[Request] = collections.deque()
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def push(self, req: Request) -> None:
+        if len(self._q) >= self.max_depth:
+            raise AdmissionRefused(f"queue full ({self.max_depth} requests waiting)", kind="queue_overflow")
+        self._q.append(req)
+
+    def peek(self) -> Optional[Request]:
+        return self._q[0] if self._q else None
+
+    def pop(self) -> Request:
+        return self._q.popleft()
+
+
+def _default_usage_fn(device: Optional[torch.device] = None) -> Callable[[], Optional[float]]:
+    """The device's memory in use over its capacity
+    (`torch.cuda.mem_get_info`); None on the CPU."""
+
+    def usage() -> Optional[float]:
+        if device is None or device.type != "cuda":
+            return None
+        free, total = torch.cuda.mem_get_info(device)
+        return (total - free) / total if total else None
+
+    return usage
+
+
+class AdmissionController:
+    """Decides whether the head of the queue may be admitted now.
+    `usage_fn` returns the memory usage fraction, or None where the device
+    has no such figure (the CPU); tests inject their own."""
+
+    def __init__(self, pool, *, headroom_frac: float = 0.92,
+                 usage_fn: Optional[Callable[[], Optional[float]]] = None,
+                 device: Optional[torch.device] = None):
+        self.pool = pool
+        self.headroom_frac = headroom_frac
+        self.usage_fn = usage_fn if usage_fn is not None else _default_usage_fn(device)
+        self.counts: collections.Counter = collections.Counter()
+        self._alarmed = False
+
+    def screen_submit(self, req: Request) -> None:
+        """Refuse a request that could never be admitted: queueing it would
+        hang its client."""
+        if not self.pool.fits_ever() or req.lanes_needed * self.pool.blocks_per_seq > self.pool.num_blocks:
+            raise AdmissionRefused(
+                f"request needs {req.lanes_needed} x {self.pool.blocks_per_seq} blocks but the pool only has "
+                f"{self.pool.num_blocks}; grow --num_blocks or shrink --block_size", kind="never_fits")
+
+    def may_admit_ex(self, req: Request, free_lanes: int, in_flight: int = 0) -> tuple:
+        """(reason, kind), kind one of "slots", "pool", "headroom"; (None,
+        None) when the request may enter now.  The headroom gate applies
+        only while something is in flight: an idle engine's footprint is at
+        its floor, and waiting would not lower it."""
+        if free_lanes < req.lanes_needed:
+            return f"no free slot ({free_lanes} free, {req.lanes_needed} needed)", "slots"
+        need = req.lanes_needed * self.pool.blocks_per_seq
+        if self.pool.free_blocks < need:
+            return f"pool exhausted ({self.pool.free_blocks} blocks free, {need} needed)", "pool"
+        usage = self.usage_fn()
+        if usage is not None and usage >= self.headroom_frac:
+            if in_flight > 0:
+                return f"HBM headroom ({usage:.2f} >= {self.headroom_frac:.2f} usage fraction)", "headroom"
+            self.counts["headroom_overrides"] += 1
+        return None, None
+
+    def _alarm_once(self) -> None:
+        """Count one backpressure episode: the first deferral or refusal
+        after free flow."""
+        if not self._alarmed:
+            self._alarmed = True
+            self.counts["backpressure_alarms"] += 1
+
+    def note_deferral(self, reason: str) -> None:
+        """A queued request waited this iteration."""
+        self.counts["admission_deferrals"] += 1
+        self._alarm_once()
+
+    def note_refusal(self, reason: str, kind: str = "other") -> None:
+        """A request was shed outright."""
+        self.counts["refused"] += 1
+        self.counts[f"refused_{kind}"] += 1
+        self._alarm_once()
+
+    def note_flow(self) -> None:
+        """An admission went through: the backpressure episode is over."""
+        self._alarmed = False

@@ -193,9 +193,9 @@ def test_cli_gentxt_names_the_directory_after_the_completion(checkpoint, tmp_pat
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--engine"], "Queue 1 item 6"), (["--engine_slots", "8"], "Queue 1 item 6"),
-    (["--engine_block_size", "32"], "Queue 1 item 6"), (["--spec_k", "2"], "Queue 1 item 6"),
-    (["--spec_draft_layers", "1"], "Queue 1 item 6"), (["--taming"], "Queue 1 item 5"),
+    (["--spec_k", "2"], "Queue 1 item 6"), (["--spec_k", "2", "--engine"], "Queue 1 item 6"),
+    (["--spec_draft_layers", "1"], "Queue 1 item 6"), (["--spec_draft_layers", "1", "--engine"], "Queue 1 item 6"),
+    (["--spec_k", "4", "--engine", "--engine_slots", "8"], "Queue 1 item 6"), (["--taming"], "Queue 1 item 5"),
     (["--vqgan_config_path", "v.yaml"], "Queue 1 item 5"), (["--allow_legacy_pickle"], "Queue 1 item 5"),
 ])
 def test_refused_flags_exit_with_their_roadmap_item(checkpoint, flags, item):

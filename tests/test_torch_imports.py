@@ -64,3 +64,40 @@ def test_default_device_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+SERVING_MODULES = ("models.paged", "serving.kv_pool", "serving.scheduler", "serving.lanes", "serving.engine",
+                   "tools.loadgen", "cli.serve")
+
+
+def test_serving_runs_with_jax_unimportable():
+    """The serving modules import, and the engine and the service serve,
+    with JAX and the JAX package made unimportable; `cli.serve` refuses to
+    run without a card unless asked for the CPU."""
+    code = f"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["dalle_pytorch_tpu"] = None
+import torch
+for name in {SERVING_MODULES!r}:
+    importlib.import_module("dalle_pytorch_tpu_torch." + name)
+from dalle_pytorch_tpu_torch.cli import serve
+report = serve.main(["--synthetic", "--loadgen", "2", "--rate", "100", "--dim", "64", "--image_fmap_size", "2",
+                     "--block_size", "4", "--device", "cpu"])
+assert report["requests_completed"] == 2
+torch.cuda.is_available = lambda: False
+try:
+    serve.main(["--synthetic", "--loadgen", "1"])
+except RuntimeError as e:
+    assert "no CUDA device" in str(e)
+else:
+    raise AssertionError("served without a card")
+assert not any(m == "jax" or m.startswith(("jax.", "dalle_pytorch_tpu.")) for m in sys.modules
+               if sys.modules[m] is not None)
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

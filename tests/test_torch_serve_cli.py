@@ -1,0 +1,128 @@
+"""The port's service CLI (`cli/serve.py`) and the generate CLI's `--engine`
+on the CPU: `serve --synthetic --loadgen 4` end to end with the loadgen's
+report, `serve --prompts` from a v3 checkpoint writing one PNG a prompt
+(the images of each request's batch-1 codes), `generate --engine` writing
+the PNG that `generate` writes under the same seed, and every refused flag
+exiting with its ROADMAP.md item."""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from dalle_pytorch_tpu_torch import checkpoint, weights
+from dalle_pytorch_tpu_torch.cli import generate as generate_cli
+from dalle_pytorch_tpu_torch.cli import png
+from dalle_pytorch_tpu_torch.cli import serve
+from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+from dalle_pytorch_tpu_torch.models import dalle as tdalle
+from dalle_pytorch_tpu_torch.models import sampling as tsamp
+from dalle_pytorch_tpu_torch.models import vae as tvae
+from dalle_pytorch_tpu_torch.models import vae_registry
+from dalle_pytorch_tpu_torch.version import __version__
+
+# the BPE tokenizer's vocabulary; seq 28 = text 12 + a 4 x 4 map
+DALLE = dict(dim=64, depth=2, heads=2, dim_head=32, num_text_tokens=49408, text_seq_len=12, num_image_tokens=32,
+             image_fmap_size=4, shift_tokens=True, attn_types=("full", "axial_row"))
+VAE = dict(image_size=16, num_tokens=32, codebook_dim=16, num_layers=2, hidden_dim=8)
+LOADGEN_KEYS = {"requests_completed", "requests_refused", "journeys_completed", "streams", "elapsed_s",
+                "ttft_p50_s", "ttft_p99_s", "queue_wait_p50_s", "queue_wait_p99_s", "latency_p50_s",
+                "latency_p99_s", "hop_ttft_p50_s", "hop_ttft_p99_s", "hop_latency_p50_s", "hop_latency_p99_s",
+                "images_per_sec_per_chip"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    """A v3 checkpoint of seeded weights, written by the port."""
+    cfg, vae_cfg = tdalle.DALLEConfig(**DALLE), tvae.DiscreteVAEConfig(**VAE)
+    dalle = tdalle.init_dalle(cfg, torch.Generator().manual_seed(0), "cpu")
+    vae = tvae.init_discrete_vae(vae_cfg, torch.Generator().manual_seed(1), "cpu")
+    class_name, vae_meta = vae_registry.config_to_meta(vae_cfg)
+    path = tmp_path_factory.mktemp("ckpt") / "dalle.pt"
+    checkpoint.save_checkpoint(str(path), {"weights": weights.dalle_tree(dalle.state_dict(), cfg),
+                                           "vae_weights": weights.vae_tree(vae.state_dict(), vae_cfg)},
+                               {"hparams": cfg.to_dict(), "vae_params": vae_meta, "vae_class_name": class_name,
+                                "version": __version__})
+    return path
+
+
+def test_serve_synthetic_loadgen_reports(tmp_path, capsys):
+    report_path = tmp_path / "report.json"
+    report = serve.main(["--synthetic", "--loadgen", "4", "--rate", "50", "--streams", "2", "--slots", "3",
+                         "--block_size", "8", "--dim", "64", "--image_fmap_size", "4", "--cond_scale", "2.0",
+                         "--report_json", str(report_path), "--device", "cpu"])
+    assert LOADGEN_KEYS <= set(report)
+    assert report["requests_completed"] == 4 and report["requests_refused"] == 0 and report["streams"] == 2
+    assert report["ttft_p99_s"] <= report["latency_p99_s"] and report["images_per_sec_per_chip"] > 0
+    assert report["pool"]["free_blocks"] == report["pool_blocks"] and report["refused_total"] == 0
+    assert json.loads(report_path.read_text()) == report
+    assert "[serving] report:" in capsys.readouterr().out
+
+
+def test_serve_prompts_writes_the_batch1_images(ckpt, tmp_path):
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("a cat\n\na red dog\na cat\n")
+    out = tmp_path / "out"
+    report = serve.main(["--dalle_path", str(ckpt), "--prompts", str(prompts), "--slots", "3", "--block_size", "8",
+                         "--seed", "4", "--top_k", "0.5", "--cond_scale", "2.0", "--outputs_dir", str(out),
+                         "--device", "cpu"])
+    assert report["requests_completed"] == 3
+    model, vae = weights.load_dalle_checkpoint(ckpt, "cpu")
+    for i, (prompt, n) in enumerate((("a cat", 0), ("a red dog", 0), ("a cat", 1))):
+        ids = torch.from_numpy(tokenizer_mod.tokenizer.tokenize(prompt, 12, truncate_text=True))
+        images = tsamp.generate_images(model, vae, ids, torch.Generator().manual_seed(4 + i), filter_thres=0.5,
+                                       cond_scale=2.0)
+        want = (np.clip(vae_registry.to_display(vae.cfg, images).numpy()[0], 0, 1) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(png.read_png(out / prompt.replace(" ", "_") / f"{n}.png"), want)
+
+
+def test_generate_engine_writes_the_plain_cli_image(ckpt, tmp_path):
+    argv = ["--dalle_path", str(ckpt), "--text", "a cat", "--num_images", "1", "--batch_size", "1", "--seed", "9",
+            "--cond_scale", "3.0", "--temperature", "0.8", "--device", "cpu"]
+    (plain,) = generate_cli.main(argv + ["--outputs_dir", str(tmp_path / "plain")])
+    (engine,) = generate_cli.main(argv + ["--outputs_dir", str(tmp_path / "engine"), "--engine",
+                                          "--engine_slots", "2", "--engine_block_size", "8"])
+    assert engine.relative_to(tmp_path / "engine") == plain.relative_to(tmp_path / "plain")
+    np.testing.assert_array_equal(png.read_png(engine), png.read_png(plain))
+
+
+def test_generate_engine_seeds_each_image(ckpt, tmp_path):
+    """Image j of an --engine run is seeded with --seed + j."""
+    paths = generate_cli.main(["--dalle_path", str(ckpt), "--text", "a cat|a dog", "--num_images", "2",
+                               "--batch_size", "2", "--seed", "3", "--engine", "--engine_slots", "3",
+                               "--engine_block_size", "8", "--outputs_dir", str(tmp_path), "--device", "cpu"])
+    model, vae = weights.load_dalle_checkpoint(ckpt, "cpu")
+    for j, path in enumerate(paths):
+        prompt = "a cat" if j < 2 else "a dog"
+        ids = torch.from_numpy(tokenizer_mod.tokenizer.tokenize(prompt, 12, truncate_text=True))
+        images = tsamp.generate_images(model, vae, ids, torch.Generator().manual_seed(3 + j), filter_thres=0.9)
+        want = (np.clip(vae_registry.to_display(vae.cfg, images).numpy()[0], 0, 1) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(png.read_png(path), want)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--replicas", "2"], "item 6"), (["--disaggregate"], "item 6"), (["--journal", "j"], "item 6"),
+    (["--degrade"], "item 6"), (["--quantize_weights", "int8"], "item 6"), (["--quantize_kv", "int8"], "item 6"),
+    (["--spec_k", "2"], "item 6"), (["--spec_draft_layers", "1"], "item 6"), (["--telemetry", "t"], "item 8"),
+    (["--slo_ttft_p99", "1"], "item 6"), (["--status_json", "s"], "item 6"), (["--inject_fault", "flood@3"], "item 6"),
+    (["--no_pool_recorder"], "item 6"), (["--vqgan_config_path", "v.yaml"], "item 5"),
+    (["--allow_legacy_pickle"], "item 5"), (["--deadline_s", "5"], "item 6"), (["--retries", "3"], "item 6"),
+])
+def test_serve_refuses_what_is_not_ported(flags, item):
+    with pytest.raises(SystemExit, match=f"--{flags[0][2:]}: .*ROADMAP.md Queue 1 {item}"):
+        serve.main(["--synthetic", "--loadgen", "1", "--device", "cpu", *flags])
+
+
+def test_serve_needs_a_model_and_traffic():
+    with pytest.raises(SystemExit, match="--loadgen N or --prompts FILE"):
+        serve.main(["--synthetic", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--dalle_path or --synthetic"):
+        serve.main(["--loadgen", "1", "--device", "cpu"])
