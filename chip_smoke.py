@@ -13,8 +13,15 @@ random weights) through `DALLE.generate_images`, runs the scoring forward at
 n = 1280, checks a small model's sampling on the card against the same model
 on the CPU, trains the full-width model (f32 and bf16 compute, then
 rematerialised), holds a small model's train steps on the card against the
-CPU, and runs the training CLI's dummy run (also with `--remat_policy flash_qkv
---param_dtype bfloat16`).  Then the same for the README's
+CPU, and runs the training CLI's dummy run with `--remat_policy flash_qkv
+--param_dtype bfloat16`.  Then what the JAX CLI trains, on real data
+(`train_real_data`): the 12-layer model at full width with learned
+positions and the BPE tokenizer's vocabulary, trained by `cli.train_dalle`
+from a folder of PNGs the script writes (through the port's PNG reader and
+loader) and from a tar shard of them, resumed from a step checkpoint to
+the uninterrupted run's losses, then served from its checkpoint through
+`cli.generate`, replayed decode graphs and the engine.  Then the same for
+the README's
 pattern-attention model (depth 16 cycling full, axial_row, axial_col and
 conv_like): generation plain and primed, a decode profile, card-vs-CPU
 parity of a small pattern model, and training.  Then the flagship 1.3B
@@ -27,9 +34,8 @@ flagship recipe: `flash_qkv` remat at batch 8 and `flash_qkv_ff` and
 "full" at batch 4, bf16 parameter storage with stochastic rounding, bf16
 gradients, Adafactor), the same recipe on a small model held card against
 CPU under one set of rounding bits (`lowp_train_parity`), the policies'
-host time against "full" and against torch's selective-checkpoint hook
-(`remat_host_cost`, the flagship's 64 layers at a width where the host sets
-the pace), and the recipe's
+host time against "full" (`remat_host_cost`, the flagship's 64 layers at a
+width where the host sets the pace), and the recipe's
 numerics smoke (`tools/numerics_smoke.py` at its defaults).  The pattern model also
 takes one gradient under each remat policy (`remat_policies`: equal to the
 sequential one, the forward launched once under the selective policies,
@@ -43,13 +49,15 @@ with every launch counter set to 0 just before it and read just after.
 
 Serving replays the decode step from CUDA graphs (`models/sampling.py`
 `DecodeGraphs`).  The `decode_graphs` lines hold the replayed loop against
-the same step run eagerly, at full width: the 12-layer model with CFG (and
-its logit stats), the pattern model with CFG and primed (its pattern layers
-gathering their keys), the flagship primed with CFG and the --gentxt text
-loop at the CLI's vocabulary: codes (ids) equal under one noise_override
-over the whole loop, two calls with one generator seed equal, step times
-replayed and eager, and the `*_decode_profile` windows' device time, busy
-share, kernels and host launches per step on both paths.  Freeing the
+the same step run eagerly, at full width, over the last 128 steps of a
+primed loop (the step is static, so any window times it): the 12-layer
+model with CFG (and its logit stats), the pattern model with CFG and
+without (its pattern layers gathering their keys), the flagship with CFG,
+the 12-layer model with learned positions, and the --gentxt text loop at
+the CLI's vocabulary, whole: codes (ids) equal under one noise_override,
+two calls with one generator seed equal, step times replayed and eager,
+and the `*_decode_profile` windows' device time, busy share, kernels and
+host launches per step (eager too for the 12-layer model).  Freeing the
 flagship must return its graphs' memory.
 
 The continuous-batching serving engine (`serving/engine.py`, its paged
@@ -57,11 +65,12 @@ decode step captured in one CUDA graph per engine): `engine_parity` on the
 12-layer and pattern models at full width, f32, six requests on four lanes
 (two guided, one at temperature 0.7) with staggered submits, holds each
 request's codes equal to its batch-1 `sample_image_codes` under its
-injected noise and under its generator seed, replayed and eager, and one
-seeded request alone in lane 0 equal to its run beside the others;
+generator seed, replayed, and on the 12-layer model also under its
+injected noise and eagerly (two of them), and one seeded request alone in
+lane 0 equal to its run beside the others;
 `engine_flagship` serves the flagship on eight lanes (two requests held to
 their batch-1 codes under noise, the paged step's times replayed and
-eager, a profiled window, a Poisson load of 16 requests over 2 streams
+eager, a profiled window, a Poisson load of 8 requests over 2 streams
 through `tools/loadgen.py` offered at twice the engine's capacity, and batch-1
 `generate_images` beside it); `serve_cli` runs `cli.serve --synthetic
 --loadgen 8` and `cli.generate --engine` against `cli.generate` under one
@@ -991,11 +1000,12 @@ def decode_window(sampling, dalle, text, steps, graphs, cond_scale=3.0):
     return profile_window(window(), steps)
 
 
-def phase_decode_profile(dalle, text, sampling, phase="decode_profile", steps=32):
+def phase_decode_profile(dalle, text, sampling, phase="decode_profile", steps=32, eager=True):
     """Where a decode step's time goes: the last `steps` steps of a CFG
-    generation, replayed from CUDA graphs and, beside it, eager."""
+    generation, replayed from CUDA graphs and, with `eager`, beside it
+    eager."""
     replayed = decode_window(sampling, dalle, text, steps, True)
-    eager = decode_window(sampling, dalle, text, steps, False)
+    eager = decode_window(sampling, dalle, text, steps, False) if eager else None
     emit(phase, replayed=replayed, eager=eager, note="profiled windows: the tracer's host overhead slows the steps")
     return replayed, eager
 
@@ -1072,7 +1082,7 @@ def phase_decode_graphs(fa, tr, sampling, dalle, text, model, cond_scale, prime_
                gather_layer_steps_per_call=pattern_layers * (n_gen - 1))
     if profile is not None:
         replayed_p, eager_p = profile
-        row.update({f"{k}_{path}": v[k] for path, v in (("replayed", replayed_p), ("eager", eager_p))
+        row.update({f"{k}_{path}": v[k] for path, v in (("replayed", replayed_p), ("eager", eager_p)) if v is not None
                     for k in ("device_ms_per_step", "device_busy_share", "kernels_per_step", "host_launches_per_step")})
     emit("decode_graphs", **row)
     return row
@@ -1638,24 +1648,14 @@ def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1
     """The remat policies' host time.  The flagship's 64 layers (its cycle,
     the VFA pair, head dim 128) at dim 128 and one head, so that a step's
     device time is small and its time is the host's: one bf16 gradient
-    (batch 8, bf16 leaves, as the recipe takes them) under "full", under the
-    three policies (which keep their values by hand, `remat_run`), and under
-    "full" run inside torch's selective-checkpoint dispatch mode with a
-    policy that keeps nothing (`sac_nothing`: the same recompute plus the
-    hook such a policy puts on every op).  Per variant: the median step
-    time, the device time of one profiled step, and, under the hook, the
-    ops its policy saw and the time spent in it a step.  The host's op
-    count does not depend on the width, so the hook's cost a step carries
-    over to the flagship at full width: hook_ms_per_step = sac_nothing -
-    full, hook_us_per_op = that over the ops it saw."""
-    import contextlib
+    (batch 8, bf16 leaves, as the recipe takes them) under "full" and under
+    the three policies (which keep their values by hand, `remat_run`).  Per
+    variant: the median step time and the device time of one profiled
+    step."""
     import dataclasses
-    from unittest import mock
 
     from torch.func import functional_call
-    from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-    from dalle_pytorch_tpu_torch.models import transformer as tr
     from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
 
     dev = torch.device("cuda")
@@ -1667,20 +1667,6 @@ def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1
     text = torch.from_numpy(rng.integers(1, cfg.num_text_tokens, (batch, cfg.text_seq_len))).to(dev)
     codes = torch.from_numpy(rng.integers(0, cfg.num_image_tokens, (batch, cfg.image_seq_len))).to(dev)
     params = dict(model.named_parameters())
-    seen = {"ops": 0, "s": 0.0}
-
-    def timed(policy):
-        def wrapped(ctx, op, *args, **kwargs):
-            t0 = time.perf_counter()
-            out = policy(ctx, op, *args, **kwargs)
-            seen["s"] += time.perf_counter() - t0
-            seen["ops"] += 1
-            return out
-
-        return wrapped
-
-    def nothing(ctx, op, *args, **kwargs):
-        return CheckpointPolicy.PREFER_RECOMPUTE
 
     def grad_step():
         work = {n: p.detach().requires_grad_(True) for n, p in params.items()}
@@ -1689,42 +1675,36 @@ def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1
         return float(loss.detach())
 
     base = model.transformer.cfg
-    sac = functools.partial(checkpoint, context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                                                      timed(nothing)))
     results = {}
-    for name in ("full", "sac_nothing", "flash", "flash_qkv", "flash_qkv_ff"):
-        model.transformer.cfg = dataclasses.replace(base, remat_policy="full" if name == "sac_nothing" else name)
-        with mock.patch.object(tr, "checkpoint", sac) if name == "sac_nothing" else contextlib.nullcontext():
-            loss = grad_step()  # warm-up: tables, allocator
-            check(np.isfinite(loss), f"remat_host_cost {name}: loss {loss}")
-            seen.update(ops=0, s=0.0)
-            secs = []
-            for _ in range(steps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                grad_step()
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
-            ops, policy_s = seen["ops"] / steps, seen["s"] / steps
-            device_ms = sum(ms for _, ms, _ in device_profile(grad_step))
+    for name in ("full", "flash", "flash_qkv", "flash_qkv_ff"):
+        model.transformer.cfg = dataclasses.replace(base, remat_policy=name)
+        loss = grad_step()  # warm-up: tables, allocator
+        check(np.isfinite(loss), f"remat_host_cost {name}: loss {loss}")
+        secs = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grad_step()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        device_ms = sum(ms for _, ms, _ in device_profile(grad_step))
         step_ms = statistics.median(secs) * 1e3
         results[name] = dict(step_ms=step_ms, steps_ms=[x * 1e3 for x in secs], device_ms=device_ms,
-                             device_share=device_ms / step_ms, policy_ops=ops, policy_ms=policy_s * 1e3)
+                             device_share=device_ms / step_ms)
     model.transformer.cfg = base
-    hook_ms = results["sac_nothing"]["step_ms"] - results["full"]["step_ms"]
     emit("remat_host_cost", dim=cfg.dim, heads=cfg.heads, dim_head=cfg.dim_head, depth=cfg.depth, batch=batch,
-         n=cfg.total_seq_len, **results, hook_ms_per_step=hook_ms,
-         hook_us_per_op=hook_ms * 1e3 / results["sac_nothing"]["policy_ops"])
+         n=cfg.total_seq_len, **results)
     del model, params
     torch.cuda.empty_cache()
 
 
 def phase_numerics_smoke():
-    """`python -m dalle_pytorch_tpu_torch.tools.numerics_smoke` at its
-    defaults (flagship width, depth 8, batch 8, 200 steps of the JAX recipe)
-    in a subprocess: its loss must fall."""
+    """`python -m dalle_pytorch_tpu_torch.tools.numerics_smoke --steps 100`
+    (flagship width, depth 8, batch 8, the JAX recipe; the tool's default
+    is 200 steps, and the loss falls past its 5 % bar well inside 100) in a
+    subprocess: its loss must fall."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "dalle_pytorch_tpu_torch.tools.numerics_smoke"],
+    proc = subprocess.run([sys.executable, "-m", "dalle_pytorch_tpu_torch.tools.numerics_smoke", "--steps", "100"],
                           capture_output=True, text=True, cwd=ROOT, timeout=600)
     seconds = time.perf_counter() - t0
     lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
@@ -1736,38 +1716,251 @@ def phase_numerics_smoke():
 
 
 def phase_train_cli(weights, checkpoint):
-    """`python -m dalle_pytorch_tpu_torch.cli.train_dalle --dummy_run 4` in
-    a subprocess, then again with `--execution remat --remat_policy
-    flash_qkv --param_dtype bfloat16`; each checkpoint loads back through
-    the port's reader, the second with bf16 leaves."""
-    runs = {}
-    for name, flags in (("default", []), ("remat_flash_qkv_bf16", [
-            "--execution", "remat", "--remat_policy", "flash_qkv", "--param_dtype", "bfloat16"])):
-        with tempfile.TemporaryDirectory() as tmp:
-            out = Path(tmp) / "dalle"
+    """`python -m dalle_pytorch_tpu_torch.cli.train_dalle --dummy_run 4
+    --execution remat --remat_policy flash_qkv --param_dtype bfloat16` in a
+    subprocess (the dummy model at head dim 32, which the kernels take): its
+    checkpoint loads back through the port's reader with bf16 leaves and
+    gives finite logits.  The dummy run's default f32 path is the real-data
+    phase's (`train_real_data`)."""
+    flags = ["--execution", "remat", "--remat_policy", "flash_qkv", "--param_dtype", "bfloat16", "--dim_head", "32"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dalle"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle", "--dummy_run", "4",
+             "--dalle_output_file_name", str(out), *flags],
+            capture_output=True, text=True, cwd=ROOT, timeout=300,
+        )
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"train_dalle {flags} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
+        losses = [s["loss"] for s in steps]
+        check(len(steps) == 4 and all(np.isfinite(losses)), f"train_dalle {flags} steps {steps}")
+        trees, meta = checkpoint.load_checkpoint(f"{out}.pt")
+        model, vae = weights.load_dalle_checkpoint(f"{out}.pt")
+        dtypes = sorted({str(p.dtype).replace("torch.", "") for p in model.parameters()})
+        check(dtypes == ["bfloat16"], f"train_dalle {flags}: checkpoint loads with {dtypes} leaves, not bfloat16")
+        text = torch.randint(0, model.cfg.num_text_tokens, (1, model.cfg.text_seq_len), device="cuda")
+        with torch.no_grad():
+            check(bool(torch.isfinite(model(text)).all()), "the trained checkpoint gives non-finite logits")
+    emit("train_cli", remat_flash_qkv_bf16=dict(rc=proc.returncode, flags=flags, losses=losses, seconds=seconds,
+                                               batches=[s["batch"] for s in steps], trees=sorted(trees),
+                                               global_step=meta["global_step"], leaf_dtypes=dtypes,
+                                               remat_policy=meta["hparams"].get("remat_policy"),
+                                               rotary_emb=meta["hparams"].get("rotary_emb")))
+
+
+# the real-data phase: the 12-layer full-attention model at full width with
+# learned positions (the JAX train CLI's default, no --rotary_emb), the BPE
+# tokenizer's 49,408 text tokens (the CLI takes them from the tokenizer),
+# the OpenAI dVAE's geometry; 16 PNGs of 320 x 288 with one to three
+# caption lines, as a folder and as a tar shard
+REAL_DATA_FLAGS = ("--dim", "1024", "--depth", "12", "--heads", "16", "--dim_head", "64", "--text_seq_len", "256",
+                   "--shift_tokens", "--truncate_captions", "--batch_size", "4", "--lr_decay", "--num_workers", "4")
+REAL_DATA_IMAGES, REAL_DATA_HW = 16, (288, 320)
+REAL_DATA_WORDS = ("a", "red", "blue", "green", "small", "large", "cat", "dog", "house", "on", "under", "the",
+                   "table", "tree", "sky", "painting", "of", "river", "at", "night")
+
+
+def write_real_data(root: Path, seed: int) -> None:
+    """`pairs/imgNN.png` + `imgNN.txt` from `seed` (smooth gradients and
+    noise, through the port's PNG writer) and `pairs.tar` of the same."""
+    import tarfile
+
+    from dalle_pytorch_tpu_torch.cli.png import write_png
+
+    rng = np.random.default_rng(seed)
+    pairs = root / "pairs"
+    pairs.mkdir()
+    h, w = REAL_DATA_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(REAL_DATA_IMAGES):
+        planes = [(xx * rng.integers(1, 4) + yy * rng.integers(1, 4) + rng.integers(0, 48, (h, w))) % 256
+                  for _ in range(3)]
+        write_png(pairs / f"img{i:02d}.png", np.stack(planes, -1).astype(np.uint8))
+        lines = [" ".join(rng.choice(REAL_DATA_WORDS, int(rng.integers(3, 9)))) for _ in range(rng.integers(1, 4))]
+        (pairs / f"img{i:02d}.txt").write_text("\n".join(lines))
+    with tarfile.open(root / "pairs.tar", "w") as tf:
+        for f in sorted(pairs.iterdir()):
+            tf.add(f, arcname=f.name)
+
+
+def run_train_cli(fa, argv):
+    """`cli.train_dalle.main(argv)` in process, with every launch counter set
+    to 0 just before it; returns (the step records, the header line with
+    the config and the parameter count, launches, wall seconds)."""
+    import contextlib
+    import io
+
+    from dalle_pytorch_tpu_torch.cli import train_dalle
+
+    out = io.StringIO()
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_dalle.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(rc == 0, f"train_dalle {argv} returned {rc}")
+    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    header = next(r for r in lines if "config" in r)
+    return [r for r in lines if "loss" in r], header, read_launches(fa), wall_s
+
+
+def plateau_and_step(path) -> dict:
+    """A checkpoint's global_step and its reduce-on-plateau leaves, read
+    from the npz without loading the weights."""
+    with np.load(str(path), allow_pickle=False) as data:
+        meta = json.loads(bytes(data["__meta"]).decode())
+        paths = json.loads(bytes(data["__paths_opt_state"]).decode())
+        leaves = {p[-1][1]: data[f"opt_state:{i}"].item() for i, p in enumerate(paths)
+                  if p[0] == ["i", 1] and p[-1][0] == "a"}
+    return {"global_step": meta["global_step"], **leaves}
+
+
+def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
+    """Train what the JAX CLI trains, on real data, then serve it, at the
+    full width of the 12-layer model with learned positions:
+    (1) `train_dalle --image_text_folder --vae_path --epochs 2
+    --save_every_n_steps 4 --keep_n_checkpoints 1 --lr_decay` (8 steps of
+    batch 4); (2) `--resume` from its step-4 file: the steps after it give
+    the uninterrupted run's losses within 1e-6 relative, and the two final
+    checkpoints hold the same global_step and plateau state; (3) `--wds` over
+    the shard, one epoch, finite losses; (4) `cli.generate` from the final
+    checkpoint, two prompts with CFG, replayed, PNGs of 256 x 256 x 3, and
+    the replayed loop's codes equal to the eager loop's under one noise
+    (`decode_graphs`, the last 128 steps, and the replayed step's ms over a
+    whole image beside the rotary model's); (5) the engine: two requests
+    (one guided) give their batch-1 codes under their noise, and `generate
+    --engine` writes the PNGs `generate` writes under one seed; (6) a small
+    model with learned positions on the card against the CPU
+    (`rotary_off_parity`).  Also the host's PNG decode rate and the loader's
+    batches/s.  Returns the launches of (1)-(3)."""
+    import types
+
+    from dalle_pytorch_tpu_torch.cli import train_dalle
+    from dalle_pytorch_tpu_torch.cli.png import read_png
+    from dalle_pytorch_tpu_torch.data import loader
+    from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+    from dalle_pytorch_tpu_torch.models import vae as vae_mod
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
+
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_real_data(tmp, seed=71)
+        vae = vae_mod.init_discrete_vae(vae_mod.DiscreteVAEConfig(**FULL_VAE),
+                                        torch.Generator(device="cuda").manual_seed(0), "cuda")
+        train_dalle.write_vae_checkpoint(str(tmp / "vae.npz"), vae)
+        del vae
+
+        files = sorted((tmp / "pairs").glob("*.png"))
+        t0 = time.perf_counter()
+        for f in files:
+            loader.decode_image(f.read_bytes(), str(f), "RGB")
+        decode_s = time.perf_counter() - t0
+        dataset = loader.TextImageDataset(str(tmp / "pairs"), text_len=256, image_size=FULL_VAE["image_size"],
+                                          truncate_captions=True, tokenizer=tokenizer_mod.tokenizer, shuffle=True)
+        loader_rate = {}
+        for workers in (0, 4):
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle", "--dummy_run", "4",
-                 "--dalle_output_file_name", str(out), *flags],
-                capture_output=True, text=True, cwd=ROOT, timeout=300,
-            )
-            seconds = time.perf_counter() - t0
-            check(proc.returncode == 0, f"train_dalle {flags} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-            steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
-            losses = [s["loss"] for s in steps]
-            check(len(steps) == 4 and all(np.isfinite(losses)), f"train_dalle {flags} steps {steps}")
-            trees, meta = checkpoint.load_checkpoint(f"{out}.pt")
-            model, vae = weights.load_dalle_checkpoint(f"{out}.pt")
-            dtypes = sorted({str(p.dtype).replace("torch.", "") for p in model.parameters()})
-            want = ["bfloat16"] if flags else ["float32"]
-            check(dtypes == want, f"train_dalle {flags}: checkpoint loads with {dtypes} leaves, not {want}")
-            text = torch.randint(0, model.cfg.num_text_tokens, (1, model.cfg.text_seq_len), device="cuda")
-            with torch.no_grad():
-                check(bool(torch.isfinite(model(text)).all()), "the trained checkpoint gives non-finite logits")
-        runs[name] = dict(rc=proc.returncode, flags=flags, losses=losses, seconds=seconds, trees=sorted(trees),
-                          global_step=meta["global_step"], leaf_dtypes=dtypes,
-                          remat_policy=meta["hparams"].get("remat_policy"))
-    emit("train_cli", **runs)
+            n = len(list(loader.iterate_batches(dataset, 4, seed=1, num_workers=workers)))
+            loader_rate[workers] = n / (time.perf_counter() - t0)
+        readings["host"] = dict(png_decode_images_per_s=len(files) / decode_s, png_hw=list(REAL_DATA_HW),
+                                loader_batches_per_s={f"workers_{k}": v for k, v in loader_rate.items()},
+                                loader_images_per_s={f"workers_{k}": 4 * v for k, v in loader_rate.items()})
+
+        folder = ["--image_text_folder", str(tmp / "pairs"), "--epochs", "2", *REAL_DATA_FLAGS]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        full, header, full_launches, full_s = run_train_cli(fa, [
+            *folder, "--vae_path", str(tmp / "vae.npz"), "--save_every_n_steps", "4", "--keep_n_checkpoints", "1",
+            "--dalle_output_file_name", str(tmp / "full")])
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [r["loss"] for r in full]
+        check(len(full) == 8 and all(np.isfinite(losses)), f"the real-data run's steps: {full}")
+        steps_on_disk = sorted(p.name for p in tmp.glob("full_step*"))
+        check(steps_on_disk == ["full_step4.npz"], f"step files kept: {steps_on_disk}")
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            check(full_launches[name] == 12 * len(full), f"{name}: {full_launches[name]} launches in "
+                  f"{len(full)} steps of 12 layers")
+        rest, _, rest_launches, rest_s = run_train_cli(fa, [
+            *folder, "--resume", str(tmp / "full_step4.npz"), "--dalle_output_file_name", str(tmp / "rest")])
+        check([r["step"] for r in rest] == [r["step"] for r in full[5:]],
+              f"the resumed run took steps {[r['step'] for r in rest]}")
+        rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(rest, full[5:]))
+        ends = [plateau_and_step(tmp / f"{name}.pt") for name in ("full", "rest")]
+        check(rel <= 1e-6, f"the resumed losses differ from the uninterrupted run's by {rel} relative")
+        # the counts and the scale exactly; the averaged losses as the losses
+        check(all(ends[0][k] == ends[1][k] for k in ("global_step", "scale", "plateau_count", "cooldown_count",
+                                                     "count"))
+              and all(abs(ends[0][k] - ends[1][k]) <= 1e-6 * abs(ends[0][k]) for k in ("best_value", "avg_value")),
+              f"the final checkpoints differ: {ends}")
+        (tmp / "rest.pt").unlink()
+        wds, _, wds_launches, wds_s = run_train_cli(fa, [
+            "--image_text_folder", str(tmp / "pairs.tar"), "--wds", "--epochs", "1", *REAL_DATA_FLAGS,
+            "--vae_path", str(tmp / "vae.npz"), "--dalle_output_file_name", str(tmp / "wds")])
+        check(len(wds) == 4 and all(np.isfinite(r["loss"]) for r in wds), f"the shard run's steps: {wds}")
+        (tmp / "wds.pt").unlink()
+        steady = [r["step_s"] for r in full[1:]]
+        n_tokens = 4 * (256 + 1024)
+        readings["train"] = dict(
+            params=header["params"], steps=len(full), batch=4, step_s=statistics.median(steady), step_s_all=[r["step_s"] for r in full],
+            data_s=[r["data_s"] for r in full], tokens_per_s=n_tokens / statistics.median(steady),
+            peak_memory_gib=peak_gib, losses=losses, lr_scale=[r["lr_scale"] for r in full], wall_s=full_s,
+            launches=full_launches)
+        readings["resume"] = dict(from_file="full_step4.npz", losses=[r["loss"] for r in rest],
+                                  uninterrupted=[r["loss"] for r in full[5:]], max_rel_diff=rel, tolerance=1e-6,
+                                  final_state=ends[1], wall_s=rest_s, launches=rest_launches)
+        readings["wds"] = dict(losses=[r["loss"] for r in wds], wall_s=wds_s, launches=wds_launches)
+
+        prompts = ("a red cat on the table", "a painting of a river at night")
+        common = ["--dalle_path", str(tmp / "full.pt"), "--text", "|".join(prompts), "--num_images", "1",
+                  "--batch_size", "1", "--seed", "3", "--cond_scale", "3.0"]
+        plain_paths, plain_t, _, _, plain_s = run_cli(fa, [*common, "--outputs_dir", str(tmp / "plain")])
+        # the engine seeds each prompt's image j with --seed + j, the plain
+        # loop one generator over both prompts: the first prompt's image is
+        # the one both draw alike
+        engine_paths, _, _, _, engine_s = run_cli(fa, [*common[:3], prompts[0], *common[4:], "--outputs_dir",
+                                                       str(tmp / "engine"), "--engine", "--engine_slots", "4"])
+        pngs = [read_png(p) for p in plain_paths]
+        check(len(pngs) == 2 and all(px.shape == (256, 256, 3) for px in pngs), f"generate wrote {plain_paths}")
+        check(len(engine_paths) == 1 and np.array_equal(read_png(engine_paths[0]), pngs[0]),
+              "generate --engine wrote another image than generate under one seed")
+
+        model, _ = weights.load_dalle_checkpoint(tmp / "full.pt")
+    cfg = model.cfg
+    check(not cfg.rotary_emb and cfg.num_text_tokens == 49408, f"the trained checkpoint's config {cfg}")
+    text = torch.tensor(tokenizer_mod.tokenizer.tokenize(list(prompts), 256, truncate_text=True), device="cuda")
+    dalle = types.SimpleNamespace(cfg=cfg, module=model, decode_graphs=sampling.decode_graphs(model))
+    graphs_row = phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer learned positions", 3.0,
+                                     prime_len=GRAPHS_PRIME_LEN)
+
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+
+    noise = gumbel_noise((2, cfg.image_seq_len, cfg.total_tokens), torch.Generator(device="cuda").manual_seed(72),
+                         device="cuda")
+    want, _ = forward_launches(model, cfg.text_seq_len + 1)
+    engine = GenerationEngine(model, engine_cfg=EngineConfig(num_slots=4, block_size=ENGINE_BLOCK,
+                                                             filter_thres=ENGINE_THRES, noise_override=True))
+    reqs, engine_wall_s, engine_steps, _ = engine_run(fa, engine, text, want, stagger=16, noise=list(noise))
+    for i, req in enumerate(reqs):
+        check(np.array_equal(req.codes, batch1_codes(sampling, model, text[i], i, noise_override=noise[i][:, None])),
+              f"the learned-position engine's request {i} differs from its batch-1 codes under its noise")
+    del engine, model, dalle
+    torch.cuda.empty_cache()
+    engine_step_ms = (engine_wall_s - sum(r.phases["prefill"] for r in reqs)) / engine_steps * 1e3
+    readings["serve"] = dict(generate_s=plain_s, generate_seconds=plain_t, generate_engine_s=engine_s,
+                             engine_step_ms_replayed=engine_step_ms,
+                             engine_png_equal_to_generate=True, engine_codes_equal_batch1_under_noise=True,
+                             engine_decode_steps=engine_steps, engine_wall_s=engine_wall_s,
+                             decode_graphs_codes_equal=graphs_row["codes_equal_under_noise"],
+                             replayed_step_ms=graphs_row["step_ms_replayed"], rotary_replayed_step_ms=rotary_step_ms)
+    parity_launches = phase_parity(fa, port, sampling, "rotary_off_parity", dict(SMALL, rotary_emb=False), SMALL_VAE)
+    emit("train_real_data", model=dict(dim=1024, depth=12, heads=16, dim_head=64, text_seq_len=256,
+                                       num_text_tokens=cfg.num_text_tokens, rotary_emb=False, shift_tokens=True,
+                                       vae=FULL_VAE), **readings, parity_prefill_launches=parity_launches)
+    return {k: full_launches[k] + rest_launches[k] + wds_launches[k] for k in COUNTERS}
 
 
 # the generate CLI's model: the README pattern model with the BPE tokenizer's
@@ -1927,16 +2120,19 @@ def batch1_codes(sampling, model, text_row, i, **kw):
                                        cond_scale=ENGINE_COND[i], **kw)[0].cpu().numpy()
 
 
-def phase_engine_parity(fa, sampling, dalle, name, seed):
+def phase_engine_parity(fa, sampling, dalle, name, seed, noised=True, eagerly=True):
     """The continuous-batching engine at full width (`serving/engine.py`,
     f32): six requests on four lanes with staggered submits.  (a) Under each
     request's injected noise, its codes equal its batch-1 `sample_image_codes`
     under that noise; (b) seeded, they equal its batch-1 call with a
     generator of that seed, with the step replayed from the engine's CUDA
-    graph (the lanes' registered generators reseeded between replays) and
-    run eagerly (`graphs=False`); one seeded request, run again alone in a
-    fresh engine's lane 0, gives the codes it gave beside the others in
-    another lane.  Each admission's prefill launches the layer cycle."""
+    graph (the lanes' registered generators reseeded between replays); run
+    eagerly (`graphs=False`), the first two requests (one guided) give their
+    batch-1 codes too; one seeded request, run again alone in a fresh
+    engine's lane 0, gives the codes it gave beside the others in another
+    lane.  Each admission's prefill launches the layer cycle.  `noised` and
+    `eagerly` False leave out (a) and the eager engine (the pattern model,
+    whose paged step the seeded runs hold to batch-1 all the same)."""
     from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
     from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 
@@ -1954,16 +2150,19 @@ def phase_engine_parity(fa, sampling, dalle, name, seed):
     build_s = time.perf_counter() - t0
     check(engine.graph is not None, f"{name}: the engine captured no graph on the card")
 
-    noised, noised_s, noised_steps, noised_launches = engine_run(fa, engine, texts, want, noise=list(noise))
+    nothing = dict.fromkeys(COUNTERS, 0)
+    noised, noised_s, noised_steps, noised_launches = (engine_run(fa, engine, texts, want, noise=list(noise))
+                                                       if noised else ([], None, 0, nothing))
     seeded, seeded_s, seeded_steps, seeded_launches = engine_run(fa, engine, texts, want, seed=seeds)
     t0 = time.perf_counter()
-    refs_noise = [batch1_codes(sampling, m, texts[i], i, noise_override=noise[i][:, None]) for i in range(len(seeds))]
+    refs_noise = [batch1_codes(sampling, m, texts[i], i, noise_override=noise[i][:, None]) for i in range(len(noised))]
     refs_seed = [batch1_codes(sampling, m, texts[i], i, generator=torch.Generator(device="cuda").manual_seed(s))
                  for i, s in enumerate(seeds)]
     refs_s = time.perf_counter() - t0
-    for i in range(len(seeds)):
+    for i in range(len(noised)):
         check(np.array_equal(noised[i].codes, refs_noise[i]), f"{name}: request {i}'s codes differ from its "
               f"batch-1 call under its noise (lanes {noised[i].lanes})")
+    for i in range(len(seeds)):
         check(np.array_equal(seeded[i].codes, refs_seed[i]), f"{name}: request {i}'s replayed codes differ from its "
               f"batch-1 call under its seed (lanes {seeded[i].lanes})")
     check(len({tuple(r.codes) for r in seeded}) == len(seeds), f"{name}: seeded requests share codes")
@@ -1981,9 +2180,12 @@ def phase_engine_parity(fa, sampling, dalle, name, seed):
           f"{name}: request {moved} alone in lane 0 differs from its run in lanes {seeded[moved].lanes}")
     del alone_engine
 
-    eager_engine = GenerationEngine(m, engine_cfg=ecfg, graphs=False)
-    eager, eager_s, eager_steps, eager_launches = engine_run(fa, eager_engine, texts, want, seed=seeds)
-    for i in range(len(seeds)):
+    # eagerly, two requests: an eager step takes ten times a replayed one
+    eager, eager_s, eager_steps, eager_launches = [], None, 0, nothing
+    if eagerly:
+        eager_engine = GenerationEngine(m, engine_cfg=ecfg, graphs=False)
+        eager, eager_s, eager_steps, eager_launches = engine_run(fa, eager_engine, texts[:2], want, seed=seeds[:2])
+    for i in range(len(eager)):
         check(np.array_equal(eager[i].codes, refs_seed[i]), f"{name}: request {i}'s eager codes differ from its "
               f"batch-1 call under its seed")
 
@@ -1994,12 +2196,14 @@ def phase_engine_parity(fa, sampling, dalle, name, seed):
          temperature=list(ENGINE_TEMP), filter_thres=ENGINE_THRES, block_size=ENGINE_BLOCK,
          pool_blocks=engine.pool.num_blocks, pool_gib=engine.pool.bytes() / 2 ** 30,
          noise_buffer_gib=engine.lanes.noise.numel() * 4 / 2 ** 30, build_and_capture_s=build_s,
-         noise_codes_equal_batch1=True, seed_codes_equal_batch1_replayed=True, seed_codes_equal_batch1_eager=True,
+         noise_codes_equal_batch1=dict(requests=len(noised)), seed_codes_equal_batch1_replayed=True,
+         seed_codes_equal_batch1_eager=dict(requests=len(eager)),
          alone_equals_beside=dict(request=moved, lanes_beside=seeded[moved].lanes, lanes_alone=alone.lanes),
          lanes_taken=[r.lanes for r in seeded], high_water_blocks=engine.pool.high_water,
          decode_steps=dict(noise=noised_steps, seed=seeded_steps, eager=eager_steps),
          wall_s=dict(noise=noised_s, seed=seeded_s, eager=eager_s, batch1_references=refs_s),
-         step_ms_replayed=step_ms(seeded, seeded_s, seeded_steps), step_ms_eager=step_ms(eager, eager_s, eager_steps),
+         step_ms_replayed=step_ms(seeded, seeded_s, seeded_steps),
+         step_ms_eager=step_ms(eager, eager_s, eager_steps) if eager else None,
          ttft_s=[r.ttft_s for r in seeded], latency_s=[r.latency_s for r in seeded],
          launches=dict(noise=noised_launches, seed=seeded_launches, eager=eager_launches, alone=alone_launches))
     runs = (noised_launches, seeded_launches, eager_launches, alone_launches)
@@ -2017,7 +2221,7 @@ def engine_window(engine, steps):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=16):
+def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8):
     """The flagship served by the engine at full width, f32, eight lanes:
     two requests, one guided, hold property (a) against batch-1
     `sample_image_codes` under their noise (the VAE decodes their images at
@@ -2260,19 +2464,24 @@ def main() -> int:
     dalle, text, paths["generate"] = phase_slice(fa, port)
     phase_forward(fa, dalle, text)
     profile = phase_decode_profile(dalle, text, sampling)
-    phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer", 3.0, stats=True, profile=profile)
+    rotary_graphs = phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer", 3.0, prime_len=GRAPHS_PRIME_LEN,
+                                        stats=True, profile=profile)
     paths["engine_parity"] = phase_engine_parity(fa, sampling, dalle, "12-layer", 61)
     del dalle
     phase_parity(fa, port, sampling)
     paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
     phase_train_parity(fa, port)
     phase_train_cli(weights, checkpoint)
+    paths["train_real_data"] = phase_train_real_data(fa, port, tr, sampling, weights,
+                                                     rotary_graphs["step_ms_replayed"])
+    torch.cuda.empty_cache()
 
     dalle, text, paths["sparse_generate"] = phase_sparse_generate(fa, tr, port)
-    profile = phase_decode_profile(dalle, text, sampling, phase="sparse_decode_profile")
-    phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 3.0, profile=profile)
+    profile = phase_decode_profile(dalle, text, sampling, phase="sparse_decode_profile", eager=False)
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 3.0, prime_len=GRAPHS_PRIME_LEN, profile=profile)
     phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 1.0, prime_len=GRAPHS_PRIME_LEN, eager_stream=True)
-    paths["sparse_engine_parity"] = phase_engine_parity(fa, sampling, dalle, "pattern", 62)
+    paths["sparse_engine_parity"] = phase_engine_parity(fa, sampling, dalle, "pattern", 62, noised=False,
+                                                        eagerly=False)
     del dalle
     torch.cuda.empty_cache()
     parity = phase_parity(fa, port, sampling, "sparse_parity", SMALL_SPARSE, SMALL_SPARSE_VAE, prime_len=128)
@@ -2293,7 +2502,8 @@ def main() -> int:
 
     reserved = torch.cuda.memory_reserved()
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
-    profile = phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16)
+    # replayed only: the eager flagship window is the decode_graphs line's step_ms_eager
+    profile = phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16, eager=False)
     phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=GRAPHS_PRIME_LEN, profile=profile)
     paths["engine_flagship"] = phase_engine_flagship(fa, sampling, loadgen, dalle)
     entry_bytes = sum(e.loop.nbytes() for e in dalle.decode_graphs.entries().values())
@@ -2366,16 +2576,19 @@ def main() -> int:
     source_compact = "dalle_pytorch_tpu_torch/kernels/csrc/flash_compact.cu"
     replaces = "dalle_pytorch_tpu/kernels/flash_attention.py:"
 
-    def launched(name, path="flagship_train"):
-        return {"launches": paths[path][name], "launches_path": path,
+    def launched(name, path="flagship_train", also=()):
+        return {"launches": paths[path][name] + sum(paths[p][name] for p in also),
+                "launches_path": "+".join((path,) + also),
                 "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
+
+    real = ("train_real_data",)  # the real-data phase's training adds to rows 1-3
 
     def worst(key, dtype):
         return max(r[key] for r in sparse if r["dtype"] == dtype)
 
     kernels = [{
         "name": "flash_fwd", "route": "cuda", "source": "dalle_pytorch_tpu_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": replaces + "126", **launched("flash_fwd"),
+        "replaces": replaces + "126", **launched("flash_fwd", also=real),
         "masked_launches_by_path": {path: counts["flash_fwd_masked"] for path, counts in paths.items()},
         "max_abs_err": main_shape["max_abs_err"],
         "max_abs_err_all_cases": {r["dtype"]: max(x["max_abs_err"] for x in compared if x["dtype"] == r["dtype"])
@@ -2395,7 +2608,7 @@ def main() -> int:
         "masked": pattern_readings(sparse, "fwd_dense"),
     }, {
         "name": "flash_dq", "route": "cuda", "source": source_bwd, "replaces": replaces + "276",
-        **launched("flash_dq"), "max_abs_err": bwd["dq_max_abs_err"], "ms": bwd["dq_ms"],
+        **launched("flash_dq", also=real), "max_abs_err": bwd["dq_max_abs_err"], "ms": bwd["dq_ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
         "library_ms": bwd["library_bwd_ms"],
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,
@@ -2404,7 +2617,7 @@ def main() -> int:
         "masked": pattern_readings(sparse, "dq_dense"),
     }, {
         "name": "flash_dkv", "route": "cuda", "source": source_bwd, "replaces": replaces + "312",
-        **launched("flash_dkv"), "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
+        **launched("flash_dkv", also=real), "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
         "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dkv_bound_ms"],
         "bound_by": bwd["dkv_bound_by"], "library_ms": bwd["library_bwd_ms"],
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,

@@ -5,7 +5,8 @@ It serves text in, PNG images out (`cli/generate.py`): the CLIP BPE
 tokenizer (`data/tokenizer.py`), the DALL-E transformer (prefill + cached
 decode, classifier-free guidance, image priming, text completion), the
 DiscreteVAE decoder and CLIP reranking, plus the scoring forward; and it
-trains the DALL-E transformer (`parallel/train_step.py`, `cli/train_dalle.py`).  Full-sequence
+trains the DALL-E transformer (`parallel/train_step.py`, `cli/train_dalle.py`)
+on a folder of images and captions or tar shards (`data/loader.py`).  Full-sequence
 attention runs on hand-written CUDA flash-attention kernels, forward
 (`kernels/csrc/flash_fwd.cu`) and backward (`kernels/csrc/flash_bwd.cu`).
 The port never imports JAX; weights come from a seed or from the JAX

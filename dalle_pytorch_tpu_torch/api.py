@@ -8,8 +8,9 @@ All run on the first CUDA device unless `device="cpu"` is passed; with no
 card and no explicit CPU request they raise.  `DALLE(...)` passes every
 other keyword to `DALLEConfig`: the attention types and their pattern knobs
 (`attn_types`, `conv_kernel_size`, `conv_dilation`, `sparse_block_size`,
-`sparse_per_head`), `attn_grid`, `attn_vfa`, `sparse_decode` and
-`share_input_output_emb` among them.
+`sparse_per_head`), `attn_grid`, `attn_vfa`, `sparse_decode`,
+`share_input_output_emb` and `rotary_emb` (False: learned text and axial
+image positions, the JAX train CLI's default model) among them.
 """
 from __future__ import annotations
 

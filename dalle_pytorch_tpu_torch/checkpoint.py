@@ -9,18 +9,21 @@ same-width unsigned bit-views; they are decoded here through torch, with no
 `ml_dtypes`.  Leaves come back as CPU torch tensors.
 
 Nothing is unpickled: v1 and v2 files, whose tree structure is a pickle, are
-refused, as is a tree stored without a structure descriptor (an optimizer
-state, which only a template can rebuild).
+refused.  A tree stored without a structure descriptor (an optax
+optimizer state, whose nodes are library types) comes back as a
+`TreeBundle` of its leaves and their key paths, which the reader checks
+against the paths of the state it restores (`training/resume.py`).
 
 `save_checkpoint` writes the same format from trees of dicts (string keys),
-lists, tuples and None around tensor, numpy or scalar leaves, so that the
-JAX package's `load_checkpoint` reads what the port trains.
+lists, tuples and None around tensor, numpy or scalar leaves, and from
+`TreeBundle`s, so that the JAX package's `load_checkpoint` reads what the
+port trains and its `unflatten_like` restores the port's optimizer state.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -35,13 +38,24 @@ _BIT_VIEWS = {
 }
 
 
+class TreeBundle(NamedTuple):
+    """The leaves of a tree whose node types live in a library (an optax
+    state) and their key paths, in the JAX package's encoding: per leaf a
+    list of ["k", key] (dict key), ["i", index] (sequence index) and ["a",
+    name] (named-tuple field) segments, in its flatten order."""
+
+    paths: List[List]
+    leaves: List[Any]
+
+
 def _leaf(arr: np.ndarray, want) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)  # ascontiguousarray gives a 0-d leaf one dim
     if want is not None and arr.dtype.name != want:
         if want not in _BIT_VIEWS:
             raise ValueError(f"leaf stored as {arr.dtype.name} for dtype {want}, which this reader cannot decode")
         view, tdtype = _BIT_VIEWS[want]
-        return torch.from_numpy(np.ascontiguousarray(arr).view(view)).view(tdtype)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(arr.view(view)).view(tdtype)
+    return torch.from_numpy(arr)
 
 
 def _load_leaves(data, name: str, n: int) -> List[torch.Tensor]:
@@ -67,7 +81,8 @@ def _rebuild_pure(desc, leaves):
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """(trees, meta) of a v3 checkpoint: every tree with a structure
-    descriptor, as nested dicts/lists of CPU tensors."""
+    descriptor as nested dicts/lists of CPU tensors, every other one as a
+    `TreeBundle`."""
     with np.load(path, allow_pickle=False) as data:
         fmt = int(data["__format"]) if "__format" in data.files else 1
         if fmt != FORMAT_VERSION:
@@ -83,11 +98,12 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
                 continue
             name = key[len("__paths_"):]
             skey = f"__struct_{name}"
-            if skey not in data.files:
-                continue  # a library-typed tree (optimizer state): not for inference
-            n = len(json.loads(bytes(data[key]).decode()))
-            struct = json.loads(bytes(data[skey]).decode())
-            trees[name] = _rebuild_pure(struct, _load_leaves(data, name, n))
+            paths = json.loads(bytes(data[key]).decode())
+            leaves = _load_leaves(data, name, len(paths))
+            if skey in data.files:
+                trees[name] = _rebuild_pure(json.loads(bytes(data[skey]).decode()), leaves)
+            else:
+                trees[name] = TreeBundle(paths, leaves)
     return trees, meta
 
 
@@ -141,22 +157,27 @@ def _json_bytes(obj) -> np.ndarray:
 
 
 def save_checkpoint(path: str, trees: Dict[str, Any], meta: Dict[str, Any]) -> None:
-    """Write named pure trees and JSON meta as one v3 `.npz`, atomically:
+    """Write named pure trees (or `TreeBundle`s) and JSON meta as one v3
+    `.npz`, atomically:
     to `<path>.tmp`, flushed and fsynced, then renamed over `path` (and the
     directory fsynced), so a crash leaves the old file or the new one."""
     payload = {"__meta": _json_bytes(meta), "__format": np.array(FORMAT_VERSION, dtype=np.int64)}
     for name, tree in trees.items():
         if tree is None:
             continue
-        paths, leaves = [], []
-        struct = _flatten(tree, [], paths, leaves)
+        if isinstance(tree, TreeBundle):
+            paths, leaves, struct = tree.paths, tree.leaves, None
+        else:
+            paths, leaves = [], []
+            struct = _flatten(tree, [], paths, leaves)
         dtypes = []
         for i, leaf in enumerate(leaves):
             arr, dtype = _to_numpy(leaf)
             payload[f"{name}:{i}"] = arr
             dtypes.append(dtype)
         payload[f"__paths_{name}"] = _json_bytes(paths)
-        payload[f"__struct_{name}"] = _json_bytes(struct)
+        if struct is not None:
+            payload[f"__struct_{name}"] = _json_bytes(struct)
         payload[f"__dtypes_{name}"] = _json_bytes(dtypes)
     path = str(path)
     parent = os.path.dirname(os.path.abspath(path))

@@ -1,30 +1,45 @@
 """Train the DALL-E transformer (counterpart of `dalle_pytorch_tpu/cli/train_dalle.py`).
 
+    python -m dalle_pytorch_tpu_torch.cli.train_dalle --image_text_folder DIR --vae_path VAE.npz
+    python -m dalle_pytorch_tpu_torch.cli.train_dalle --image_text_folder 'shards/*.tar' --wds --vae_path VAE.npz
+    python -m dalle_pytorch_tpu_torch.cli.train_dalle --resume auto|PATH [--image_text_folder DIR]
     python -m dalle_pytorch_tpu_torch.cli.train_dalle --dummy_run [N] [--device cpu]
 
-The path: pixels -> frozen DiscreteVAE codes -> the DALL-E weighted
-cross-entropy -> backward through the flash kernels -> global-norm clipping,
-the bad-step guard, Adam -> a v3 checkpoint that the JAX package's
-`load_checkpoint` reads.  It runs on the card unless `--device cpu` is given.
-`--execution remat --remat_policy flash_qkv` keeps the flash forward's
-outputs and the qkv projection across each layer; `--param_dtype bfloat16`
-stores the parameters in bf16 with no f32 master, Adam's math on f32 views
-and stochastic-rounded updates, as the JAX CLI does.
+The path: a folder of images and captions or local tar shards
+(`data/loader.py`, PNG through the port's own decoder) -> frozen DiscreteVAE
+codes -> the DALL-E weighted cross-entropy -> backward through the flash
+kernels -> global-norm clipping, the bad-step guard, Adam (optax's, on
+groups of leaves; `--lr_decay` chains reduce-on-plateau after it) -> v3
+checkpoints that the JAX package's `load_checkpoint` reads: `<name>.pt` at
+the start and at each epoch's end, `<name>_step<N>.npz` every
+`--save_every_n_steps` (the newest `--keep_n_checkpoints` kept).  Each
+checkpoint holds the weights, the VAE, the optimizer state in the JAX
+layout and the data cursor, so that `--resume` continues a run batch for
+batch, and resumes the JAX CLI's checkpoints too.  It runs on the card
+unless `--device cpu` is given.
 
-This slice trains on synthetic data only (`--dummy_run N`: N batches of
-random captions and pixels from `--seed`, a tiny random VAE, a deliberately
-ragged last batch).  Explicit model flags win over the dummy run's tiny
-defaults.  Positions are always rotary.  Flags whose machinery is not ported
-yet (real data, resume, learning-rate decay, meshes) exit with a message.
+The model flags and their defaults are the JAX CLI's: without
+`--rotary_emb` the model learns its positions, as the JAX CLI's default
+model does.  `--dummy_run N` trains N synthetic batches (random captions
+and pixels from `--seed`, a tiny random VAE, a deliberately ragged last
+batch) on the JAX CLI's dummy model; explicit model flags win over its
+tiny defaults.  `--execution remat --remat_policy flash_qkv` keeps the
+flash forward's outputs and the qkv projection across each layer;
+`--param_dtype bfloat16` stores the parameters in bf16 with no f32 master,
+Adam's math on f32 views and stochastic-rounded updates.  Flags whose
+machinery is not ported exit with a message naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
 import argparse
 import copy
-import functools
+import dataclasses
+import itertools
 import json
 import sys
 import time
+from glob import glob
+from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -32,36 +47,57 @@ import torch
 from torch.func import functional_call
 
 from dalle_pytorch_tpu_torch import weights
-from dalle_pytorch_tpu_torch.checkpoint import save_checkpoint
+from dalle_pytorch_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from dalle_pytorch_tpu_torch.cli.common import warn_vocab_mismatch
 from dalle_pytorch_tpu_torch.core.device import resolve_device
+from dalle_pytorch_tpu_torch.data import loader
+from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig, init_dalle
-from dalle_pytorch_tpu_torch.optim.grouped import Adam, GroupedState
+from dalle_pytorch_tpu_torch.optim.grouped import Adam
+from dalle_pytorch_tpu_torch.optim.plateau import ReduceOnPlateau
 from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, TrainState, make_train_step
+from dalle_pytorch_tpu_torch.training import resume as resume_mod
 from dalle_pytorch_tpu_torch.version import __version__
 
-# flag -> what it needs that the port does not have yet
+# flag -> (what it needs that the port does not have yet, its ROADMAP.md Queue 1 item)
 _WAITING = {
-    "image_text_folder": "the image-text data layer",
-    "wds": "the tar-shard data layer",
-    "vae_path": "loading a trained VAE (training on real data)",
-    "dalle_path": "resume",
-    "resume": "resume with optimizer state",
-    "lr_decay": "learning-rate decay (reduce on plateau)",
-    "zero_stage": "ZeRO sharding",
-    "mesh_dp": "meshes", "mesh_fsdp": "meshes", "mesh_tp": "meshes",
-    "mesh_sp": "meshes", "mesh_pp": "meshes",
+    "stable_softmax": ("the stable softmax (`stable`)", 3),
+    "reversible": ("reversible execution", 3),
+    "shared_attn_ids": ("shared layers", 3),
+    "shared_ff_ids": ("shared layers", 3),
+    "chinese": ("the Chinese BERT tokenizer (`transformers`)", 4),
+    "hug": ("the Hugging Face tokenizer (`tokenizers`)", 4),
+    "taming": ("the taming VQGAN", 5),
+    "vqgan_model_path": ("the taming VQGAN", 5),
+    "vqgan_config_path": ("the taming VQGAN", 5),
+    "zero_stage": ("ZeRO sharding", 7),
+    "mesh_dp": ("meshes", 7), "mesh_fsdp": ("meshes", 7), "mesh_tp": ("meshes", 7),
+    "mesh_sp": ("meshes", 7), "mesh_pp": ("meshes", 7),
+    "sample_every_n_steps": ("sample logging (`training/logging.py`)", 8),
 }
 
-# the dummy run's tiny model, as the JAX CLI's `_apply_dummy_run_defaults`
-_DUMMY_MODEL = dict(dim=64, depth=2, heads=2, dim_head=32, text_seq_len=16, num_text_tokens=256)
+# the JAX CLI's model defaults, and its `_apply_dummy_run_defaults` tiny model
+_MODEL_DEFAULTS = dict(dim=512, depth=2, heads=8, dim_head=64, text_seq_len=256)
+_DUMMY_MODEL = dict(dim=64, depth=2, heads=2, dim_head=16, text_seq_len=16, num_text_tokens=256)
 _DUMMY_VAE = dict(image_size=32, num_tokens=128, codebook_dim=32, num_layers=2,
                   num_resnet_blocks=0, hidden_dim=16)
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument("--vae_path", type=str, default=None, help="a trained DiscreteVAE's v3 checkpoint")
+    group.add_argument("--dalle_path", type=str, default=None, help="a DALL-E checkpoint to resume")
+    parser.add_argument("--image_text_folder", type=str, default=None,
+                        help="folder of images and same-stem .txt captions, or a glob of local .tar shards with "
+                             "--wds (required unless --dummy_run or a resume)")
+    parser.add_argument("--wds", action="store_true", help="read --image_text_folder as tar shards")
+    parser.add_argument("--truncate_captions", action="store_true")
+    parser.add_argument("--random_resize_crop_lower_ratio", type=float, default=0.75)
+    parser.add_argument("--bpe_path", type=str, default=None)
+    parser.add_argument("--num_workers", type=int, default=4, help="decode/crop threads (0 = in the loop)")
     parser.add_argument("--dummy_run", "--dummy-run", type=int, nargs="?", const=6, default=None,
                         metavar="N", help="train N steps (default 6) of synthetic batches")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
@@ -70,6 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     for name in ("dim", "depth", "heads", "dim_head", "text_seq_len", "num_text_tokens"):
         parser.add_argument(f"--{name}", type=int, default=None)
     parser.add_argument("--shift_tokens", action="store_true", help="use token shift")
+    parser.add_argument("--rotary_emb", action="store_true",
+                        help="rotary positions (default: learned text and axial image positions)")
     parser.add_argument("--attn_types", type=str, default="full",
                         help="comma-separated attention types, cycled over depth: "
                              "full, axial_row, axial_col, conv_like, sparse")
@@ -79,6 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="tie the text and image embeddings to the logits weight")
     parser.add_argument("--attn_dropout", type=float, default=0.0)
     parser.add_argument("--ff_dropout", type=float, default=0.0)
+    parser.add_argument("--loss_img_weight", type=int, default=7)
     parser.add_argument("--execution", type=str, default=None, choices=["sequential", "remat", "reversible"])
     parser.add_argument("--remat_policy", type=str, default="full",
                         choices=["full", "flash", "flash_qkv", "flash_qkv_ff"],
@@ -86,46 +125,154 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--param_dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                         help="param STORAGE dtype. bfloat16 = no f32 master copy (halves resident param "
                              "memory; T5-style), optimizer math in f32, stochastic-rounded weight updates")
-    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--epochs", type=int, default=20)
+    parser.add_argument("--save_every_n_steps", type=int, default=None,
+                        help="step-checkpoint cadence (default 1000, 0 under --dummy_run; 0 disables)")
+    parser.add_argument("--keep_n_checkpoints", type=int, default=None, help="keep the newest N step files")
+    parser.add_argument("--resume", type=str, default=None, metavar="auto|PATH",
+                        help="'auto': the newest checkpoint next to the output file that loads (a fresh start "
+                             "when there is none); a path resumes from that checkpoint")
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="batch size (default 4; --dummy_run: 2 x the devices the run uses)")
     parser.add_argument("--ga_steps", type=int, default=1, help="gradient accumulation steps")
     parser.add_argument("--learning_rate", type=float, default=3e-4)
     parser.add_argument("--clip_grad_norm", type=float, default=0.5)
-    parser.add_argument("--bf16", action="store_true", help="bf16 compute over f32 masters")
+    parser.add_argument("--lr_decay", action="store_true",
+                        help="reduce on plateau (factor 0.5, patience 10, cooldown 10, min lr 1e-6)")
+    parser.add_argument("--bf16", action="store_true", help="bf16 compute")
     parser.add_argument("--loss_scale", type=str, default=None, help="a static scale or 'dynamic'")
-    for name in ("image_text_folder", "vae_path", "dalle_path", "resume"):
+    # not ported: each exits naming its ROADMAP.md item
+    for name in ("stable_softmax", "reversible", "chinese", "hug", "taming"):
+        parser.add_argument(f"--{name}", action="store_true")
+    for name in ("shared_attn_ids", "shared_ff_ids", "vqgan_model_path", "vqgan_config_path"):
         parser.add_argument(f"--{name}", type=str, default=None)
-    parser.add_argument("--wds", action="store_true")
-    parser.add_argument("--lr_decay", action="store_true")
-    for name in ("zero_stage", "mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp", "mesh_pp"):
+    for name in ("sample_every_n_steps", "zero_stage", "mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp", "mesh_pp"):
         parser.add_argument(f"--{name}", type=int, default=None)
     return parser
 
 
+def _refuse(what: str, item: int) -> SystemExit:
+    return SystemExit(f"{what} is not ported yet; it comes with a later PR of the port (ROADMAP.md Queue 1 item "
+                      f"{item})")
+
+
 def _refuse_waiting_flags(args) -> None:
-    for flag, machinery in _WAITING.items():
-        value = getattr(args, flag)
-        if value not in (None, False):
-            raise SystemExit(f"--{flag}: {machinery} is not ported yet; it comes with a "
-                             "later PR of the port (ROADMAP.md Queue 1)")
+    for flag, (machinery, item) in _WAITING.items():
+        if getattr(args, flag) not in (None, False, 0):
+            raise _refuse(f"--{flag}: {machinery}", item)
     if args.execution == "reversible":
-        raise SystemExit("--execution reversible is not ported yet; it comes with a later "
-                         "PR of the port (ROADMAP.md Queue 1)")
-    if args.dummy_run is None:
-        raise SystemExit("the port trains on synthetic data only so far: pass --dummy_run [N] "
-                         "(the data layer comes with a later PR, ROADMAP.md Queue 1)")
+        raise _refuse("--execution reversible", 3)
+
+
+def _apply_dummy_run_defaults(args) -> None:
+    """The JAX CLI's `_apply_dummy_run_defaults`: its tiny model (explicit
+    model flags win here), a batch of 2 x the devices the run uses (one),
+    one epoch, at most 2 workers, quiet cadences unless given."""
+    for name, value in _DUMMY_MODEL.items():
+        if getattr(args, name) is None:
+            setattr(args, name, value)
+    if args.batch_size is None:
+        args.batch_size = 2
+    args.epochs = 1
+    args.num_workers = min(args.num_workers, 2)
+    if args.save_every_n_steps is None:
+        args.save_every_n_steps = 0
+
+
+def resolve_args(argv=None) -> argparse.Namespace:
+    """Parse and check the flags, then fill the defaults the JAX CLI's
+    `main` fills: the dummy run's, else the model defaults, a save cadence
+    of 1000 and a batch of 4."""
+    args = build_parser().parse_args(argv)
+    _refuse_waiting_flags(args)
+    if args.resume is not None and args.dalle_path is not None:
+        raise SystemExit("--resume and --dalle_path are mutually exclusive")
+    if args.dummy_run is not None:
+        _apply_dummy_run_defaults(args)
+    elif args.image_text_folder is None:
+        raise SystemExit("--image_text_folder is required (unless --dummy_run)")
+    for name, value in _MODEL_DEFAULTS.items():
+        if getattr(args, name) is None:
+            setattr(args, name, value)
+    if args.save_every_n_steps is None:
+        args.save_every_n_steps = 1000
+    if args.batch_size is None:
+        args.batch_size = 4
+    if args.wds and args.dummy_run is None:
+        loader.refuse_remote_shards(loader.expand_shard_spec(args.image_text_folder))
+    return args
+
+
+def get_tokenizer(args):
+    """The JAX CLI's choice: a `--bpe_path` json is a Hugging Face BPE, any
+    other file a youtokentome model; the default is CLIP's BPE."""
+    if args.bpe_path is None:
+        return tokenizer_mod.tokenizer
+    try:
+        if Path(args.bpe_path).suffix == ".json":
+            return tokenizer_mod.HugTokenizer(args.bpe_path)
+        return tokenizer_mod.YttmTokenizer(args.bpe_path)
+    except ImportError as e:
+        raise SystemExit(f"--bpe_path {args.bpe_path}: its tokenizer needs the {e.name} package, which this machine "
+                         "lacks (ROADMAP.md Queue 1 item 4)") from e
+
+
+def model_config(args, vae_cfg: vae_mod.DiscreteVAEConfig, tokenizer) -> DALLEConfig:
+    """The DALL-E config of the flags, as the JAX CLI builds it
+    (`num_text_tokens` from the tokenizer's vocab unless given)."""
+    return DALLEConfig.from_vae(
+        vae_cfg, dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
+        text_seq_len=args.text_seq_len, num_text_tokens=args.num_text_tokens or tokenizer.vocab_size,
+        attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout, execution=args.execution,
+        remat_policy=args.remat_policy, loss_img_weight=args.loss_img_weight,
+        attn_types=tuple(args.attn_types.split(",")), sparse_per_head=args.sparse_per_head,
+        shift_tokens=args.shift_tokens, rotary_emb=args.rotary_emb,
+        share_input_output_emb=args.share_input_output_emb,
+    )
 
 
 def dummy_batches(seed: int, n: int, batch_size: int, cfg: DALLEConfig,
-                  vae_cfg: vae_mod.DiscreteVAEConfig) -> Iterator[Dict[str, np.ndarray]]:
+                  vae_cfg: vae_mod.DiscreteVAEConfig, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """n synthetic batches of random captions and pixels, the JAX dummy
-    run's draws (epoch 0); the last one is half size when n >= 2."""
-    rs = np.random.RandomState(seed)
+    run's draws (`RandomState(seed + epoch)`); the last one is half size
+    when n >= 2."""
+    rs = np.random.RandomState(seed + epoch)
     for i in range(n):
         bs = batch_size // 2 if i == n - 1 and n >= 2 and batch_size >= 2 else batch_size
         yield {
             "text": rs.randint(0, cfg.num_text_tokens, (bs, cfg.text_seq_len)).astype(np.int32),
             "image": rs.rand(bs, vae_cfg.image_size, vae_cfg.image_size, 3).astype(np.float32),
         }
+
+
+def data_iterator(args, cfg: DALLEConfig, vae_cfg: vae_mod.DiscreteVAEConfig, tokenizer):
+    """data_iter(epoch, skip) -> the epoch's batches from batch `skip` on,
+    as the JAX CLI builds it: synthetic, tar shards (the skipped batches
+    read and dropped: a stream has no random access) or the folder (the
+    skipped ones never decoded)."""
+    if args.dummy_run is not None:
+        return lambda epoch, skip=0: itertools.islice(
+            dummy_batches(args.seed, args.dummy_run, args.batch_size, cfg, vae_cfg, epoch), skip, None)
+    if args.wds:
+        shards = sorted(glob(args.image_text_folder))
+        if not shards:
+            raise SystemExit(f"no tar shards match {args.image_text_folder}")
+
+        def shard_batches(epoch, skip=0):
+            stream = loader.iterate_tar_shards(shards, vae_cfg.image_size, cfg.text_seq_len, tokenizer,
+                                               truncate_captions=args.truncate_captions, seed=args.seed + epoch,
+                                               num_workers=args.num_workers)
+            return itertools.islice(loader.batch_tar_stream(stream, args.batch_size), skip, None)
+
+        return shard_batches
+    dataset = loader.TextImageDataset(args.image_text_folder, text_len=cfg.text_seq_len,
+                                      image_size=vae_cfg.image_size, truncate_captions=args.truncate_captions,
+                                      resize_ratio=args.random_resize_crop_lower_ratio, tokenizer=tokenizer,
+                                      shuffle=True)
+    if not len(dataset):
+        raise SystemExit(f"{args.image_text_folder} holds no image with a same-stem caption file")
+    return lambda epoch, skip=0: loader.iterate_batches(dataset, args.batch_size, seed=args.seed + epoch,
+                                                        num_workers=args.num_workers, skip_batches=skip)
 
 
 def dalle_loss_fn(model: DALLE, vae: vae_mod.DiscreteVAE, compute_dtype: torch.dtype):
@@ -145,104 +292,174 @@ def dalle_loss_fn(model: DALLE, vae: vae_mod.DiscreteVAE, compute_dtype: torch.d
     return loss_fn
 
 
-def optimizer_tree(state: TrainState, cfg: DALLEConfig) -> Optional[dict]:
-    """Adam's moments as pure trees in the JAX package's parameter layout
-    ({count, mu, nu}, as optax's adam state holds them), or None before the
-    first update."""
-    opt = state.opt_state
-    mu, nu, count = {}, {}, None
-    if isinstance(opt, GroupedState):
-        for group in opt.groups:
-            mu.update(zip(group.names, group.stats["mu"].unbind(0)))
-            nu.update(zip(group.names, group.stats["nu"].unbind(0)))
-        count = opt.count
-    else:
-        names = {id(p): name for name, p in state.params.items()}
-        for p, s in opt.state.items():
-            if "exp_avg" not in s:
-                continue
-            mu[names[id(p)]], nu[names[id(p)]] = s["exp_avg"], s["exp_avg_sq"]
-            count = s["step"]
-    if not count or len(mu) != len(state.params):
-        return None
-    tree = {"count": torch.as_tensor(count).to(torch.int32), "mu": weights.dalle_tree(mu, cfg),
-            "nu": weights.dalle_tree(nu, cfg)}
-    if state.loss_scale is not None:
-        tree["loss_scale"] = {key: torch.tensor(v) for key, v in state.loss_scale.items()}
-    return tree
+def write_vae_checkpoint(path: str, vae: vae_mod.DiscreteVAE) -> None:
+    """The VAE checkpoint the JAX package's `train_vae` writes, which
+    `--vae_path` reads: its weights tree and its config as `hparams`."""
+    save_checkpoint(path, {"weights": weights.vae_tree(vae.state_dict(), vae.cfg)},
+                    {"hparams": vae.cfg.to_dict(), "version": __version__})
 
 
-def save_dalle(path: str, model: DALLE, vae: vae_mod.DiscreteVAE, state: TrainState, epoch: int) -> None:
+def load_vae_checkpoint(path: str, device) -> vae_mod.DiscreteVAE:
+    """`--vae_path`: a v3 DiscreteVAE checkpoint (JAX `reconstitute_vae`).
+    A torch-reference `vae.pt` exits naming ROADMAP.md Queue 1 item 5."""
+    if not Path(path).exists():
+        raise SystemExit(f"--vae_path {path} does not exist")
+    if weights._is_torch_checkpoint(Path(path)):
+        raise _refuse(f"--vae_path {path} is a torch-reference checkpoint: converting it", 5)
+    trees, meta = load_checkpoint(path)
+    cfg = vae_mod.DiscreteVAEConfig.from_dict(meta["hparams"])
+    return weights.load_vae(trees["weights"], cfg, device)
+
+
+def save_dalle(path: str, model: DALLE, vae: vae_mod.DiscreteVAE, state: TrainState, epoch: int,
+               global_step: int, data_state: Optional[dict] = None) -> None:
     """The checkpoint the JAX CLI writes (`build_model_payload`), in v3:
-    weights, vae_weights and opt_state trees; hparams, vae_params, epoch."""
+    weights, vae_weights and opt_state (the JAX layout, from the first
+    update on); hparams, vae_params, epoch, global_step, data_state."""
     cfg = model.cfg
     trees = {
         "weights": weights.dalle_tree(model.state_dict(), cfg),
         "vae_weights": weights.vae_tree(vae.state_dict(), vae.cfg),
-        "opt_state": optimizer_tree(state, cfg),
+        "opt_state": resume_mod.optimizer_bundle(state, cfg),
     }
     vae_class_name, vae_params = vae_registry.config_to_meta(vae.cfg)
     meta = {"hparams": cfg.to_dict(), "vae_params": vae_params, "vae_class_name": vae_class_name,
-            "epoch": epoch, "global_step": state.step, "version": __version__}
+            "epoch": epoch, "global_step": int(global_step), "version": __version__, "data_state": data_state}
     save_checkpoint(path, trees, meta)
 
 
+def _resume_source(args, out_file: str) -> Optional[str]:
+    """The checkpoint a run continues: `--dalle_path`, `--resume PATH`, or
+    under `--resume auto` the newest one next to the output file that loads
+    (None: a fresh start)."""
+    if args.resume == "auto":
+        found = resume_mod.find_latest_valid_checkpoint(out_file)
+        print(f"[resume] --resume auto: {'resuming from ' + found if found else 'no checkpoint next to ' + out_file}"
+              f"{'' if found else '; starting fresh'}", flush=True)
+        return found
+    path = args.resume or args.dalle_path
+    if path is not None and not Path(path).exists():
+        raise SystemExit(f"checkpoint {path} does not exist")
+    if path is not None and (Path(path).is_dir() or weights._is_torch_checkpoint(Path(path))):
+        raise _refuse(f"{path}: resuming a sharded or torch-reference checkpoint", 8 if Path(path).is_dir() else 5)
+    return path
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    _refuse_waiting_flags(args)
-    for name, value in _DUMMY_MODEL.items():
-        if getattr(args, name) is None:
-            setattr(args, name, value)
-    batch_size = args.batch_size or 4
+    args = resolve_args(argv)
     device = resolve_device(args.device)
     torch.manual_seed(args.seed)
+    out_file = f"{args.dalle_output_file_name}.pt"
+    tokenizer = get_tokenizer(args)
 
-    vae_cfg = vae_mod.DiscreteVAEConfig(**_DUMMY_VAE)
-    vae = vae_mod.init_discrete_vae(vae_cfg, torch.Generator(device=device).manual_seed(args.seed), device)
-    cfg = DALLEConfig.from_vae(
-        vae_cfg, dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
-        text_seq_len=args.text_seq_len, num_text_tokens=args.num_text_tokens,
-        attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout, execution=args.execution,
-        remat_policy=args.remat_policy,
-        shift_tokens=args.shift_tokens, attn_types=tuple(args.attn_types.split(",")),
-        sparse_per_head=args.sparse_per_head, share_input_output_emb=args.share_input_output_emb,
-    )
-    model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
+    source = _resume_source(args, out_file)
+    resumed = load_checkpoint(source) if source is not None else None
+    if resumed is not None:  # the checkpoint carries the VAE it trained with
+        trees, meta = resumed
+        vae_cfg = vae_registry.config_from_meta(meta.get("vae_class_name", "DiscreteVAE"), meta["vae_params"])
+        vae = weights.load_vae(trees["vae_weights"], vae_cfg, device)
+    elif args.dummy_run is not None:
+        vae_cfg = vae_mod.DiscreteVAEConfig(**_DUMMY_VAE)
+        vae = vae_mod.init_discrete_vae(vae_cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    elif args.vae_path is not None:
+        vae = load_vae_checkpoint(args.vae_path, device)
+        vae_cfg = vae.cfg
+    else:
+        raise _refuse("training without --vae_path (the JAX CLI downloads OpenAI's pretrained dVAE here, and "
+                      "neither machine has a network): the pretrained VAEs", 5)
+
+    if resumed is not None:
+        trees, meta = resumed
+        cfg = DALLEConfig.from_dict(meta["hparams"])
+        model = weights.load_dalle(trees["weights"], cfg, device)
+    else:
+        cfg = model_config(args, vae_cfg, tokenizer)
+        model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
+    warn_vocab_mismatch(cfg.num_text_tokens, tokenizer)
     model.train().requires_grad_(True)
+    data_iter = data_iterator(args, cfg, vae_cfg, tokenizer)
+
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     loss_scale = args.loss_scale if args.loss_scale in (None, "dynamic") else float(args.loss_scale)
     lowp = args.param_dtype == "bfloat16"
     settings = StepSettings(grad_accum=args.ga_steps, compute_dtype=compute_dtype,
                             clip_grad_norm=args.clip_grad_norm, loss_scale=loss_scale,
                             param_dtype=torch.bfloat16 if lowp else torch.float32)
-    # bf16 storage: Adam (optax.adam's math) on f32 views of the bf16
-    # parameters; f32 masters: torch.optim.Adam
-    optimizer = Adam(args.learning_rate) if lowp else functools.partial(
-        torch.optim.Adam, lr=args.learning_rate, betas=(0.9, 0.999), eps=1e-8)
-    init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae, compute_dtype), optimizer, settings)
+    # optax.adam's math on groups of leaves, whatever the storage; under
+    # --lr_decay the JAX CLI's reduce_on_plateau chained after it
+    plateau = ReduceOnPlateau(factor=0.5, patience=10, cooldown=10,
+                              min_scale=1e-6 / args.learning_rate) if args.lr_decay else None
+    init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae, compute_dtype), Adam(args.learning_rate), settings,
+                                       plateau=plateau)
     state = init_fn(dict(model.named_parameters()), round_seed=args.seed)
     generator = torch.Generator().manual_seed(args.seed)  # dropout seeds, drawn on the host
+
+    meta = resumed[1] if resumed is not None else {}
+    data_state = meta.get("data_state") or {}
+    resume_epoch = data_state.get("epoch", meta.get("epoch", 0))
+    pending_skip = data_state.get("epoch_batches", 0) or 0
+    global_step = meta.get("global_step", 0) or 0
+    if resumed is not None and "opt_state" in resumed[0]:
+        try:
+            resume_mod.restore_optimizer(state, resumed[0]["opt_state"], cfg)
+        except ValueError as e:
+            print(f"note: optimizer state not restored ({e}); starting a fresh optimizer", flush=True)
+    gens = {"dropout": generator, "round": state.round_generator}
+    for name, saved in (data_state.get("torch_generators") or {}).items():
+        if gens.get(name) is not None:
+            resume_mod.set_generator_state(gens[name], saved)
+    state = dataclasses.replace(state, step=global_step)
+
     n_params = sum(p.numel() for p in state.params.values())
     print(json.dumps({"config": cfg.to_dict(), "params": n_params, "device": str(device),
                       "compute_dtype": str(compute_dtype).replace("torch.", ""), "param_dtype": args.param_dtype,
-                      "batch_size": batch_size}),
+                      "batch_size": args.batch_size, "resumed_from": source, "epoch": resume_epoch,
+                      "skip_batches": pending_skip}),
           flush=True)
 
-    for batch in dummy_batches(args.seed, args.dummy_run, batch_size, cfg, vae_cfg):
-        t0 = time.perf_counter()
-        batch = {"text": torch.from_numpy(batch["text"]).long().to(device),
-                 "image": torch.from_numpy(batch["image"]).to(device)}
-        state, metrics = step_fn(state, batch, generator)
-        record = {"step": state.step, "epoch": 0, "loss": float(metrics["loss"]),
-                  "grad_norm": float(metrics["grad_norm"]), "skipped": metrics["skipped"],
-                  "batch": int(batch["text"].shape[0]), "step_s": time.perf_counter() - t0}
-        if "loss_scale" in metrics:
-            record["loss_scale"] = metrics["loss_scale"]
-        print(json.dumps(record), flush=True)
+    def save(path, epoch, ds_epoch, ds_batches, step=None, keep_n=None):
+        ds = resume_mod.data_state_dict(ds_epoch, ds_batches, args.seed, gens)
+        save_dalle(path, model, vae, state, epoch, global_step if step is None else step, ds)
+        if keep_n is not None:
+            resume_mod.rotate_checkpoints(str(Path(path).parent), resume_mod.rotation_glob(path), keep_n)
 
-    out_file = f"{args.dalle_output_file_name}.pt"
-    save_dalle(out_file, model, vae, state, epoch=0)
-    print(json.dumps({"checkpoint": out_file, "global_step": state.step}), flush=True)
+    save(out_file, resume_epoch, resume_epoch, pending_skip)
+    for epoch in range(resume_epoch, args.epochs):
+        skip_now, pending_skip = pending_skip, 0
+        epoch_batches = skip_now
+        batches = iter(data_iter(epoch, skip_now))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            t_data = time.perf_counter()
+            epoch_batches += 1
+            batch = {"text": torch.from_numpy(batch["text"]).long().to(device),
+                     "image": torch.from_numpy(batch["image"]).to(device)}
+            state, metrics = step_fn(state, batch, generator)
+            record = {"step": state.step, "epoch": epoch, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]), "skipped": metrics["skipped"],
+                      "batch": int(batch["text"].shape[0]), "step_s": time.perf_counter() - t_data,
+                      "data_s": t_data - t0}
+            if "loss_scale" in metrics:
+                record["loss_scale"] = metrics["loss_scale"]
+            if state.plateau is not None:
+                record["lr_scale"] = float(state.plateau.scale)
+            print(json.dumps(record), flush=True)
+            if args.save_every_n_steps and global_step and global_step % args.save_every_n_steps == 0:
+                step_file = f"{args.dalle_output_file_name}_step{global_step}.npz"
+                save(step_file, epoch, epoch, epoch_batches, step=global_step + 1, keep_n=args.keep_n_checkpoints)
+            global_step += 1
+        if epoch_batches == 0:
+            raise RuntimeError(f"epoch {epoch} produced no batch from {args.image_text_folder!r}: every shard "
+                               "failed to read, or the data is smaller than one batch")
+        save(out_file, epoch + 1, epoch + 1, 0)
+    if resume_epoch >= args.epochs:
+        # the JAX CLI saves once more after its loop; after a last epoch that
+        # save would write the file its epoch-end save just wrote
+        save(out_file, args.epochs, args.epochs, 0)
+    print(json.dumps({"checkpoint": out_file, "global_step": global_step}), flush=True)
     return 0
 
 

@@ -2,14 +2,16 @@
 `dalle_pytorch_tpu/models/dalle.py`).
 
 A joint text + image vocabulary with a unique padding id per text position,
-<bos> prepended, rotary positions, logits masked so that text positions
-predict text and image positions predict image, and the (text + 7·img)/8
-weighted cross-entropy.  With `share_input_output_emb` the text and image
-embedding tables are the rows of the logits weight (the tied flagship
-layout): no embedding modules, and the weight's gradient sums its three
-uses.  The model works on image *codes*; the VAE that turns pixels into
-codes is composed by the caller.  The forward is differentiable:
-the training step takes its gradient (`parallel/train_step.py`).
+<bos> prepended, rotary positions or learned ones (`rotary_emb=False`: a
+text position table and the image's axial table, summed rows and columns),
+logits masked so that text positions predict text and image positions
+predict image, and the (text + 7·img)/8 weighted cross-entropy.  With
+`share_input_output_emb` the text and image embedding tables are the rows
+of the logits weight (the tied flagship layout): no embedding modules, and
+the weight's gradient sums its three uses.  The model works on image
+*codes*; the VAE that turns pixels into codes is composed by the caller.
+The forward is differentiable: the training step takes its gradient
+(`parallel/train_step.py`).
 """
 from __future__ import annotations
 
@@ -74,16 +76,8 @@ class DALLEConfig:
     sparse_decode: bool = True
 
     def __post_init__(self):
-        unsupported = [
-            name for name, bad in (
-                ("reversible", self.reversible),
-                ("rotary_emb=False", not self.rotary_emb),
-            ) if bad
-        ]
-        if unsupported:
-            raise NotImplementedError(
-                f"the PyTorch port does not run {', '.join(unsupported)} yet"
-            )
+        if self.reversible:
+            raise NotImplementedError("the PyTorch port does not run reversible yet")
         self.transformer_config()  # raises on the transformer settings it lacks
 
     @property
@@ -160,6 +154,10 @@ class DALLE(nn.Module):
         if not cfg.share_input_output_emb:
             self.text_emb = nn.Embedding(cfg.num_text_tokens_padded, cfg.dim)
             self.image_emb = nn.Embedding(cfg.num_image_tokens, cfg.dim)
+        if not cfg.rotary_emb:  # learned positions; separate parameters under the tie too
+            self.text_pos = nn.Embedding(cfg.text_seq_len + 1, cfg.dim)
+            self.image_pos_h = nn.Embedding(cfg.image_fmap_size, cfg.dim)
+            self.image_pos_w = nn.Embedding(cfg.image_fmap_size, cfg.dim)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -179,7 +177,8 @@ def init_dalle(
 ) -> DALLE:
     """A DALL-E with seeded random float32 weights, drawn as the JAX package
     draws them: uniform ±1/sqrt(fan_in) for linear layers, N(0, 1) embeddings
-    (none when they are tied to the logits weight), LayerScale by depth.
+    (none when they are tied to the logits weight) and position tables,
+    LayerScale by depth.
     `generator` must live on `device`.  The model comes frozen, in eval
     mode, for serving; a trainer unfreezes its own."""
     device = resolve_device(device)
@@ -187,9 +186,11 @@ def init_dalle(
         model = DALLE(cfg)
     init_transformer_(model.transformer, generator)
     fan_in_uniform_(model.logits_linear, generator)
-    if not cfg.share_input_output_emb:
-        for emb in (model.text_emb, model.image_emb):
-            emb.weight.normal_(generator=generator)
+    tables = [] if cfg.share_input_output_emb else [model.text_emb, model.image_emb]
+    if not cfg.rotary_emb:
+        tables += [model.text_pos, model.image_pos_h, model.image_pos_w]
+    for emb in tables:
+        emb.weight.normal_(generator=generator)
     return model.eval().requires_grad_(False)
 
 
@@ -209,25 +210,61 @@ def remap_and_bos(cfg: DALLEConfig, text: torch.Tensor) -> torch.Tensor:
     return F.pad(text, (1, 0), value=0)
 
 
-def embed_text_ids(model: DALLE, text_ids: torch.Tensor) -> torch.Tensor:
+def embed_text_ids(model: DALLE, text_ids: torch.Tensor, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """text_ids: (b, n) post-remap ids incl. bos.  Under the tie the table is
     the logits weight's first num_text_tokens_padded rows, a view, so the
-    gradient reaches the weight."""
+    gradient reaches the weight.  Without rotary the rows of `text_pos` at
+    `positions` are added: 0..n-1 by default, else a long tensor that
+    broadcasts against (b, n) (a decode step's device offset), clamped into
+    the table as the JAX package's clip-mode take does."""
     cfg = model.cfg
     tied = cfg.share_input_output_emb
     table = model.logits_linear.weight[: cfg.num_text_tokens_padded] if tied else model.text_emb.weight
-    return F.embedding(text_ids, table)
+    emb = F.embedding(text_ids, table)
+    if cfg.rotary_emb:
+        return emb
+    if positions is None:
+        positions = torch.arange(text_ids.shape[1], device=text_ids.device)
+    return emb + F.embedding(positions.clamp(0, cfg.text_seq_len), model.text_pos.weight)
 
 
-def embed_image_codes(model: DALLE, codes: torch.Tensor) -> torch.Tensor:
+def _image_pos_rows(model: DALLE, idx: torch.Tensor) -> torch.Tensor:
+    """The axial table's rows at raster positions `idx` (any shape): row
+    idx // fmap of `image_pos_h` plus column idx % fmap of `image_pos_w`,
+    the same sums `image_pos_table` holds."""
+    fmap = model.cfg.image_fmap_size
+    return F.embedding(idx // fmap, model.image_pos_h.weight) + F.embedding(idx % fmap, model.image_pos_w.weight)
+
+
+def image_pos_table(model: DALLE) -> Optional[torch.Tensor]:
+    """(image_seq_len, dim) axial position embeddings (the JAX package's
+    `image_pos_table`: h repeated, plus w tiled), or None under rotary."""
+    cfg = model.cfg
+    if cfg.rotary_emb:
+        return None
+    return _image_pos_rows(model, torch.arange(cfg.image_seq_len, device=model.image_pos_h.weight.device))
+
+
+def embed_image_codes(model: DALLE, codes: torch.Tensor, start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """codes: (b, m) image code ids, clipped into the codebook as the JAX
     package's `mode="clip"` take does; under the tie the table is the
-    logits weight's image rows.  Positions come from rotary, so no position
-    table is added."""
+    logits weight's image rows.  Without rotary the codes sit at raster
+    positions start..start+m-1 and their axial rows are added: `start` is
+    None (0), a long device scalar (a decode loop's position) or (b,) (one
+    per lane), clamped so the m positions fit, as the JAX package's
+    `dynamic_slice` clamps its start.  A tensor, never a Python int, so a
+    captured step reads the position from the device."""
     cfg = model.cfg
     tied = cfg.share_input_output_emb
     table = model.logits_linear.weight[cfg.num_text_tokens_padded:] if tied else model.image_emb.weight
-    return F.embedding(codes.clamp(0, cfg.num_image_tokens - 1), table)
+    emb = F.embedding(codes.clamp(0, cfg.num_image_tokens - 1), table)
+    if cfg.rotary_emb:
+        return emb
+    m = codes.shape[1]
+    idx = torch.arange(m, device=codes.device)
+    if start is not None:
+        idx = start.clamp(0, cfg.image_seq_len - m).reshape(-1, 1) + idx
+    return emb + _image_pos_rows(model, idx)
 
 
 def logits_mask_slice(cfg: DALLEConfig, n: int, device=None) -> torch.Tensor:

@@ -189,12 +189,17 @@ class DecodeLoop:
         at the cache's offset, mask the logits and sample.  The same ops at
         every step: the eager loop calls it, a CUDA graph captures it."""
         cfg = model.cfg
+        # the fed token's position is the cache's offset, on the device
+        # (learned positions only; rotary reads it inside the layers)
+        offset = None if cfg.rotary_emb else self.cache["offset"]
         if self.image:
             feed = torch.cat([self.prev, self.prev]) if self.guided else self.prev
-            x = dalle_mod.embed_image_codes(model, feed[:, None])
+            start = None if offset is None else offset - (cfg.text_seq_len + 1)
+            x = dalle_mod.embed_image_codes(model, feed[:, None], start)
         else:
             # ids out of the table are clamped into it (the JAX package's clip-mode take)
-            x = dalle_mod.embed_text_ids(model, self.prev[:, None].clamp(0, cfg.num_text_tokens_padded - 1))
+            ids = self.prev[:, None].clamp(0, cfg.num_text_tokens_padded - 1)
+            x = dalle_mod.embed_text_ids(model, ids, None if offset is None else offset.view(1))
         out, _ = decode_step(model.transformer, x, self.cache, text_only=not self.image)
         self.sample(model, _logits_at(model, out, self.image), generator, mode)
 

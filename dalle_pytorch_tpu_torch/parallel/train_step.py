@@ -22,6 +22,11 @@ Two kinds of optimizer:
   rounded back stochastically (`stochastic_round`), so that updates below
   bf16's ulp survive in expectation.
 
+`plateau` (`optim/plateau.ReduceOnPlateau`, with a grouped optimizer)
+reads each step's loss and scales the update, as the JAX package chains
+`optax.contrib.reduce_on_plateau` after its optimizer; a skipped step
+leaves it as it was.
+
 Meshes, ZeRO and the diagnostic `with_health` step raise
 `NotImplementedError`: they come with later PRs (`ROADMAP.md`).
 """
@@ -33,6 +38,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 
 from dalle_pytorch_tpu_torch.optim.grouped import GroupedOptimizer, GroupedState
+from dalle_pytorch_tpu_torch.optim.plateau import PlateauState, ReduceOnPlateau
 from dalle_pytorch_tpu_torch.training.resilience import nonfinite_guard
 
 Params = Dict[str, torch.Tensor]
@@ -52,6 +58,8 @@ class TrainState:
     loss_scale: Optional[Dict[str, Any]] = None
     # draws the stochastic rounding's bits (low-precision storage only)
     round_generator: Optional[torch.Generator] = None
+    # the reduce-on-plateau state, when the step has one
+    plateau: Optional[PlateauState] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +129,7 @@ def make_train_step(
     optimizer: Union[Callable[[List[torch.Tensor]], torch.optim.Optimizer], GroupedOptimizer],
     settings: StepSettings = StepSettings(),
     mesh: Any = None,
+    plateau: Optional[ReduceOnPlateau] = None,
 ) -> Tuple[Callable[..., TrainState], Callable[..., Tuple[TrainState, Dict[str, Any]]]]:
     """Build (init_fn, step_fn).
 
@@ -158,6 +167,9 @@ def make_train_step(
     if settings.grad_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"grad_dtype {settings.grad_dtype} not supported: float32 or bfloat16")
     grouped = isinstance(optimizer, GroupedOptimizer)
+    if plateau is not None and not grouped:
+        raise ValueError("reduce-on-plateau scales the optimizer's update, as optax's chain does: it takes a "
+                         "grouped optimizer (optim.grouped.Adam), whose update comes back as a tensor")
     if not grouped and (lowp or settings.grad_dtype != torch.float32):
         raise ValueError("bf16 parameters or gradients take a grouped optimizer (optim.grouped.Adam, "
                          "optim.adafactor.Adafactor): torch.optim writes each parameter with its own rounding")
@@ -186,10 +198,11 @@ def make_train_step(
                 if param_dtype is not None and p.dtype != param_dtype:
                     p.data = p.data.to(param_dtype)
         gen = None
+        device = next(iter(params.values())).device
         if lowp and sr:
-            device = next(iter(params.values())).device
             gen = torch.Generator(device=device).manual_seed(round_seed)
-        return TrainState(0, params, optimizer.init(params), ls, gen)
+        return TrainState(0, params, optimizer.init(params), ls, gen,
+                          None if plateau is None else plateau.init(device))
 
     def master_grads(state: TrainState, micro, scale, generator) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """torch.optim: the loss on a working copy cast inside the graph,
@@ -241,12 +254,19 @@ def make_train_step(
         mean = (1.0 if inv is None else inv) / len(micro)
         return [(a * mean).to(grad_dtype) for a in acc], loss_sum / len(micro)
 
-    def grouped_update(state: TrainState, grads: List[torch.Tensor], round_bits=None) -> None:
+    def grouped_update(state: TrainState, grads: List[torch.Tensor], round_bits=None,
+                       loss: Optional[torch.Tensor] = None) -> None:
         """One group at a time (`GroupedOptimizer.step_groups`): the
-        optimizer's f32 update added to the f32 parameters, the sum rounded
-        back to the storage dtype and written into the parameters."""
+        optimizer's f32 update (times the plateau's scale, which reads
+        `loss` first) added to the f32 parameters, the sum rounded back to
+        the storage dtype and written into the parameters."""
+        if plateau is not None:
+            plateau.update(state.plateau, loss)
+
         def write(names, p32, u32):
             params = [state.params[n] for n in names]
+            if plateau is not None:
+                u32 = u32 * state.plateau.scale
             new = p32.add_(u32)
             if lowp and sr:
                 bits = None if round_bits is None else torch.stack(
@@ -278,7 +298,7 @@ def make_train_step(
 
         if grouped:
             def update():
-                grouped_update(state, grads, round_bits)
+                grouped_update(state, grads, round_bits, loss)
         else:
             update = state.opt_state.step
         metrics: Dict[str, Any] = {"loss": loss, "grad_norm": gnorm}

@@ -143,7 +143,8 @@ class GenerationEngine:
         active lanes.  The same ops at every step, on buffers that are never
         replaced: a CUDA graph captures it."""
         model = self.model
-        x = dalle_mod.embed_image_codes(model, self.prev_code[:, None])
+        # each lane's code sits at its own raster position, `img_prev`
+        x = dalle_mod.embed_image_codes(model, self.prev_code[:, None], self.img_prev)
         out = paged_decode_step(model.transformer, x, self.kv, self.block_tables, self.offsets, self.rings,
                                 self.ecfg.block_size)
         logits = sampling_mod._logits_at(model, out, image=True)

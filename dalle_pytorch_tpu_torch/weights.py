@@ -27,6 +27,9 @@ from dalle_pytorch_tpu_torch.models.vae_registry import config_from_meta
 
 StateDict = Dict[str, torch.Tensor]
 
+# the learned position tables of a DALL-E without rotary
+_POSITION_TABLES = ("text_pos", "image_pos_h", "image_pos_w")
+
 
 def _t(x: Any) -> torch.Tensor:
     if isinstance(x, dict):
@@ -116,6 +119,9 @@ def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
     if not cfg.share_input_output_emb:  # tied: the tree has no embedding tables
         sd["text_emb.weight"] = _t(params["text_emb"]["table"])
         sd["image_emb.weight"] = _t(params["image_emb"]["table"])
+    if not cfg.rotary_emb:  # learned positions: separate tables, tied or not
+        for name in _POSITION_TABLES:
+            sd[f"{name}.weight"] = _t(params[name]["table"])
     return sd
 
 
@@ -155,7 +161,8 @@ def vae_state_dict(params: dict, cfg: DiscreteVAEConfig) -> StateDict:
 
 
 def _leaf(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().to("cpu").contiguous()
+    # contiguous first: a transposed linear is laid out on its own device, not on the host
+    return t.detach().contiguous().to("cpu")
 
 
 def _linear_tree(sd: StateDict, prefix: str) -> dict:
@@ -211,6 +218,9 @@ def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
     if not cfg.share_input_output_emb:
         tree["text_emb"] = {"table": _leaf(sd["text_emb.weight"])}
         tree["image_emb"] = {"table": _leaf(sd["image_emb.weight"])}
+    if not cfg.rotary_emb:
+        for name in _POSITION_TABLES:
+            tree[name] = {"table": _leaf(sd[f"{name}.weight"])}
     return tree
 
 

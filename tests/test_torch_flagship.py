@@ -232,8 +232,10 @@ def test_cli_trains_a_tied_model_that_jax_reads(tmp_path):
     """`--dummy_run 2 --device cpu --share_input_output_emb` trains, and its
     checkpoint has no embedding tables: the JAX package's load_checkpoint
     reads it and its forward gives the port's logits to 1e-5; Adam's
-    moments have the tied tree's structure."""
-    from dalle_pytorch_tpu.training.checkpoint import load_checkpoint
+    moments, restored through optax's template, have the tied tree's
+    structure."""
+    import optax
+    from dalle_pytorch_tpu.training.checkpoint import load_checkpoint, unflatten_like
 
     out = str(tmp_path / "tied")
     assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--shift_tokens", "--share_input_output_emb",
@@ -249,7 +251,8 @@ def test_cli_trains_a_tied_model_that_jax_reads(tmp_path):
         port = tdalle.forward(model, torch.from_numpy(text), torch.from_numpy(codes)).numpy()
     ref = np.asarray(jdalle.forward(trees["weights"], jcfg, jnp.asarray(text), jnp.asarray(codes)))
     np.testing.assert_allclose(port, ref, atol=1e-5, rtol=0)
-    assert jax.tree_util.tree_structure(trees["opt_state"]["mu"]) == jax.tree_util.tree_structure(trees["weights"])
+    opt = unflatten_like(optax.adam(3e-4).init(trees["weights"]), trees["opt_state"])[0]
+    assert jax.tree_util.tree_structure(opt.mu) == jax.tree_util.tree_structure(trees["weights"])
 
 
 def test_facade_takes_the_flagship_keywords():

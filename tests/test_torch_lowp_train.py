@@ -307,8 +307,10 @@ def test_cli_remat_policy_and_bf16_storage(tmp_path, policy):
     """`--execution remat --remat_policy P --param_dtype bfloat16` trains
     (finite losses) and writes a checkpoint whose weights are bf16 leaves,
     which the JAX package's reader loads, and whose hparams carry the
-    policy; Adam's moments are f32 trees of the weights' structure."""
-    from dalle_pytorch_tpu.training.checkpoint import load_checkpoint
+    policy; Adam's moments, restored through optax's template, are f32
+    trees of the weights' structure."""
+    import optax
+    from dalle_pytorch_tpu.training.checkpoint import load_checkpoint, unflatten_like
 
     out = str(tmp_path / "run")
     assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--execution", "remat", "--remat_policy", policy,
@@ -316,10 +318,12 @@ def test_cli_remat_policy_and_bf16_storage(tmp_path, policy):
     trees, meta = load_checkpoint(out + ".pt")
     assert meta["hparams"]["remat_policy"] == policy and meta["hparams"]["execution"] == "remat"
     assert {np.asarray(x).dtype for x in jax.tree_util.tree_leaves(trees["weights"])} == {np.dtype(jnp.bfloat16)}
-    opt = trees["opt_state"]
-    assert int(opt["count"]) == 2
-    assert {np.asarray(x).dtype for x in jax.tree_util.tree_leaves(opt["mu"])} == {np.dtype(np.float32)}
-    assert jax.tree_util.tree_structure(opt["mu"]) == jax.tree_util.tree_structure(trees["weights"])
+    # optax's template of the f32 view, as the JAX CLI builds it for bf16 storage
+    f32 = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), trees["weights"])
+    opt = unflatten_like(optax.adam(3e-4).init(f32), trees["opt_state"])[0]
+    assert int(opt.count) == 2
+    assert {np.asarray(x).dtype for x in jax.tree_util.tree_leaves(opt.mu)} == {np.dtype(np.float32)}
+    assert jax.tree_util.tree_structure(opt.mu) == jax.tree_util.tree_structure(trees["weights"])
     model, _ = weights.load_dalle_checkpoint(out + ".pt", device="cpu")
     assert model.dtype == torch.bfloat16
     jcfg = jdalle.DALLEConfig.from_dict(meta["hparams"])

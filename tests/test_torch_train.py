@@ -388,7 +388,7 @@ def test_cli_checkpoint_loads_in_jax(tmp_path):
     its VAE gives the port's codes, and Adam's moments come as trees of the
     parameters' structure."""
     from dalle_pytorch_tpu.models import vae as jvae
-    from dalle_pytorch_tpu.training.checkpoint import load_checkpoint
+    from dalle_pytorch_tpu.training.checkpoint import load_checkpoint, unflatten_like
     from dalle_pytorch_tpu_torch.models import vae as tvae
 
     out = str(tmp_path / "run")
@@ -410,10 +410,11 @@ def test_cli_checkpoint_loads_in_jax(tmp_path):
     np.testing.assert_array_equal(
         tvae.get_codebook_indices(vae, torch.from_numpy(pixels)).numpy(),
         np.asarray(jvae.get_codebook_indices(trees["vae_weights"], vcfg, jnp.asarray(pixels))))
-    opt = trees["opt_state"]
-    assert int(opt["count"]) == 2
-    assert (jax.tree_util.tree_structure(opt["mu"]) == jax.tree_util.tree_structure(trees["weights"])
-            == jax.tree_util.tree_structure(opt["nu"]))
+    # the optimizer state in optax's layout: the JAX CLI's template restores it
+    opt = unflatten_like(optax.adam(3e-4).init(trees["weights"]), trees["opt_state"])[0]
+    assert int(opt.count) == 2
+    assert (jax.tree_util.tree_structure(opt.mu) == jax.tree_util.tree_structure(trees["weights"])
+            == jax.tree_util.tree_structure(opt.nu))
 
 
 def test_cli_dummy_run_exits_zero(tmp_path):
@@ -429,14 +430,28 @@ def test_cli_dummy_run_exits_zero(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
-    assert [s["step"] for s in steps] == [1, 2, 3] and [s["batch"] for s in steps] == [4, 4, 2]
+    # the JAX CLI's dummy batch: 2 x the devices the run uses (one), the last one ragged
+    assert [s["step"] for s in steps] == [1, 2, 3] and [s["batch"] for s in steps] == [2, 2, 1]
     assert all(np.isfinite(s["loss"]) for s in steps)
     assert (tmp_path / "dalle.pt").exists()
+
+
+# each flag that used to wait, beside what still refuses on its path: the
+# folder without a VAE (the JAX CLI downloads one), --resume beside
+# --dalle_path, --lr_decay with the stable softmax, a remote shard spec,
+# no data at all
+_REFUSED = {
+    "--image_text_folder": (["--image_text_folder", "data"], "without --vae_path.*item 5"),
+    "--resume": (["--resume", "auto", "--dalle_path", "x.pt", "--dummy_run", "1"], "mutually exclusive"),
+    "--lr_decay": (["--lr_decay", "--stable_softmax", "--dummy_run", "1"], "stable softmax.*item 3"),
+    "--mesh_dp": (["--mesh_dp", "2", "--dummy_run", "1"], "meshes.*item 7"),
+    "--wds": (["--wds", "--image_text_folder", "gs://bucket/s-{0..3}.tar"], "remote tar shards.*item 10"),
+}
 
 
 @pytest.mark.parametrize("argv", [["--image_text_folder", "data"], ["--resume", "auto"], ["--lr_decay"],
                                   ["--mesh_dp", "2"], ["--wds"], []])
 def test_cli_refuses_flags_that_wait(argv):
-    extra = [] if "--image_text_folder" in argv or not argv else ["--dummy_run", "1"]
-    with pytest.raises(SystemExit, match="later PR"):
-        tcli.main(argv + extra + ["--device", "cpu"])
+    argv, match = _REFUSED[argv[0]] if argv else ([], "--image_text_folder is required")
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(argv + ["--device", "cpu"])
