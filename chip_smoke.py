@@ -47,6 +47,18 @@ grid), and CLIP at its default config scoring those images with and without
 the text mask, its kernel path held against its plain path.  Each path runs
 with every launch counter set to 0 just before it and read just after.
 
+The tokenizer's and the reranker's training: `vae_train_parity` holds the
+DiscreteVAE's training loss and gradients on the card against the CPU for
+every option (plain, straight-through, ReinMax, smooth-L1, KL, resnet, four
+channels) under one uniform draw; `train_vae_cli` runs `cli.train_vae` in
+process at BASELINE.json configs[1]'s width (256 px, 8,192 tokens) on PNGs
+it writes, and reads its checkpoint back on the card and the CPU;
+`clip_train_parity` holds a small CLIP's key-masked loss, gradients and two
+clipped Adam steps on the card against the CPU; `train_clip_cli` runs
+`cli.train_clip` at its defaults, f32 and bf16, whose steps run the flash
+forward, dq and dk/dv non-causal, the text encoder's under the caption key
+mask, and holds its f32 losses against the plain attention path's.
+
 Serving replays the decode step from CUDA graphs (`models/sampling.py`
 `DecodeGraphs`).  The `decode_graphs` lines hold the replayed loop against
 the same step run eagerly, at full width, over the last 128 steps of a
@@ -86,6 +98,7 @@ and matmul precision "highest", so float32 means float32 on both sides.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import re
@@ -475,8 +488,8 @@ def random_keys_last_batch_dead(b, n, g, dev):
 
 def caption_keys(b, n, g, dev):
     """CLIP's text mask (text != 0) for captions of n, 200, 31 and 7
-    tokens, padded at the end."""
-    lengths = torch.tensor([n, 200, 31, 7][:b], device=dev)
+    tokens (in turn over the batch), padded at the end."""
+    lengths = torch.tensor(([n, 200, 31, 7] * b)[:b], device=dev)
     return (torch.arange(n, device=dev)[None] < lengths[:, None]).to(torch.int32)
 
 
@@ -543,9 +556,11 @@ def phase_kernel_vs_plain(fa):
 
 def phase_backward_vs_plain(fa):
     """flash_bwd's two kernels against flash_attention_backward_reference at
-    the training shape, the flagship's (d 128), the ragged prefill length and
-    a padded non-causal case whose second batch masks every key (rows that
-    see no key).  The error is max abs error over the reference's max abs
+    the training shape, the flagship's (d 128), the ragged prefill length, a
+    padded non-causal case whose second batch masks every key (rows that
+    see no key), and CLIP's training shapes at the CLIP CLI's batch of 16:
+    the text encoder non-causal under the caption key mask, the image
+    encoder's 64 patches non-causal.  The error is max abs error over the reference's max abs
     value.  The library time is SDPA forward + backward minus SDPA forward,
     same inputs; device times are the kernels' own (`device_times`)."""
     dev = torch.device("cuda")
@@ -554,6 +569,8 @@ def phase_backward_vs_plain(fa):
         ("flagship", 4, 8, 1280, 128, True, None),  # the flagship's full layers, batch 4
         ("prefill", 4, 16, 257, 64, True, None),
         ("padded_noncausal", 2, 16, 300, 64, False, random_keys_last_batch_dead),
+        ("clip_text", 16, 8, 256, 64, False, caption_keys),  # CLIP training's text encoder
+        ("clip_image", 16, 8, 64, 64, False, None),  # and its image encoder
     ]
     results = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1785,26 +1802,45 @@ def write_real_data(root: Path, seed: int) -> None:
             tf.add(f, arcname=f.name)
 
 
-def run_train_cli(fa, argv):
-    """`cli.train_dalle.main(argv)` in process, with every launch counter set
-    to 0 just before it; returns (the step records, the header line with
-    the config and the parameter count, launches, wall seconds)."""
-    import contextlib
-    import io
+# the CLIP phase's pairs: one image per colour and pattern, its caption
+# naming both, so that training tells the 16 pairs apart where no training
+# leaves the loss at log 16
+CLIP_COLOURS = {"red": (210, 40, 40), "green": (40, 190, 60), "blue": (40, 70, 220), "yellow": (230, 210, 40)}
+CLIP_PATTERNS = ("plain", "stripes", "columns", "checks")
+CLIP_LOSS_DROP = 0.1  # nats, over the run's 8 steps
 
+
+def write_caption_pairs(root: Path, seed: int, hw=REAL_DATA_HW, band: int = 32) -> None:
+    """`pairs/imgNN.png` + `imgNN.txt`, 16 of them: colour c in pattern p
+    (bands and squares of `band` px, on black) with seeded noise, captioned
+    "a c p picture" and "p in c" (the loader picks a line)."""
+    from dalle_pytorch_tpu_torch.cli.png import write_png
+
+    rng = np.random.default_rng(seed)
+    pairs = root / "pairs"
+    pairs.mkdir(parents=True)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] // band
+    lit = {"plain": np.ones((h, w), bool), "stripes": yy % 2 == 0, "columns": xx % 2 == 0,
+           "checks": (yy + xx) % 2 == 0}
+    i = 0
+    for colour, rgb in CLIP_COLOURS.items():
+        for pattern in CLIP_PATTERNS:
+            pixels = lit[pattern][..., None] * np.array(rgb) + rng.integers(0, 32, (h, w, 3))
+            write_png(pairs / f"img{i:02d}.png", np.clip(pixels, 0, 255).astype(np.uint8))
+            (pairs / f"img{i:02d}.txt").write_text(f"a {colour} {pattern} picture\n{pattern} in {colour}")
+            i += 1
+
+
+def run_train_cli(fa, argv):
+    """`cli.train_dalle.main(argv)` in process (`run_main`); returns (the
+    step records, the header line with the config and the parameter count,
+    launches, wall seconds)."""
     from dalle_pytorch_tpu_torch.cli import train_dalle
 
-    out = io.StringIO()
-    reset_launches(fa)
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = train_dalle.main(argv)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    check(rc == 0, f"train_dalle {argv} returned {rc}")
-    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    lines, launches, _, wall_s = run_main(fa, train_dalle.main, argv)
     header = next(r for r in lines if "config" in r)
-    return [r for r in lines if "loss" in r], header, read_launches(fa), wall_s
+    return [r for r in lines if "loss" in r], header, launches, wall_s
 
 
 def plateau_and_step(path) -> dict:
@@ -1961,6 +1997,267 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
                                        num_text_tokens=cfg.num_text_tokens, rotary_emb=False, shift_tokens=True,
                                        vae=FULL_VAE), **readings, parity_prefill_launches=parity_launches)
     return {k: full_launches[k] + rest_launches[k] + wds_launches[k] for k in COUNTERS}
+
+
+# the tokenizer's and the reranker's training (VAE and CLIP).  The options
+# vae_train_parity holds card against CPU, as the CPU tests hold the port
+# against JAX (tests/test_torch_vae_train.py), on a small VAE
+VAE_OPTIONS = {
+    "plain": {}, "straight_through": dict(straight_through=True),
+    "reinmax": dict(straight_through=True, reinmax=True), "smooth_l1": dict(smooth_l1_loss=True),
+    "kl": dict(kl_div_loss_weight=1.0), "resnet": dict(num_resnet_blocks=2), "channels4": dict(channels=4),
+}
+SMALL_TRAIN_VAE = dict(image_size=64, num_tokens=512, codebook_dim=64, num_layers=3, hidden_dim=32)
+# BASELINE.json configs[1] ("DiscreteVAE num_tokens=8192 training at 256x256 (train_vae.py)") with the JAX
+# CLI's other defaults: 3 layers, 2 resnet blocks, emb 512, hidden 256, batch 8
+VAE_CLI_FLAGS = ("--image_size", "256", "--num_tokens", "8192", "--num_layers", "3", "--num_resnet_blocks", "2",
+                 "--emb_dim", "512", "--hidden_dim", "256", "--batch_size", "8", "--num_workers", "4")
+SMALL_TRAIN_CLIP = dict(dim_text=128, dim_image=128, dim_latent=64, num_text_tokens=1000, text_enc_depth=2,
+                        text_seq_len=128, text_heads=2, visual_enc_depth=2, visual_heads=2, visual_image_size=64,
+                        visual_patch_size=16)
+KEY_MASKED = {"flash_fwd": ("flash_fwd", "key_masked_launches"),
+              "flash_dq": ("flash_bwd", "key_masked_dq_launches"),
+              "flash_dkv": ("flash_bwd", "key_masked_dkv_launches")}
+
+
+def reset_key_masked(fa) -> None:
+    for wrapper, counter in KEY_MASKED.values():
+        setattr(getattr(fa, wrapper), counter, 0)
+
+
+def read_key_masked(fa) -> dict:
+    return {name: getattr(getattr(fa, wrapper), counter) for name, (wrapper, counter) in KEY_MASKED.items()}
+
+
+def run_main(fa, main, argv):
+    """A CLI's `main(argv)` in process, with every launch counter (and the
+    key-masked ones) set to 0 just before it; returns (its JSON lines, its
+    launches, its key-masked launches, wall seconds)."""
+    import io
+
+    out = io.StringIO()
+    reset_launches(fa)
+    reset_key_masked(fa)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(rc == 0, f"{main.__module__} {argv} returned {rc}")
+    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    return lines, read_launches(fa), read_key_masked(fa), wall_s
+
+
+def grad_errors(card: dict, cpu: dict) -> float:
+    """The largest gradient difference over the leaves, each over its CPU
+    leaf's largest magnitude."""
+    return max(((card[n].cpu() - g).abs().max() / g.abs().max().clamp_min(1e-30)).item() for n, g in cpu.items())
+
+
+def phase_vae_train_parity():
+    """The VAE's training forward, loss and gradients on the card against the
+    same VAE on the CPU (the port's plain path there), on the same weights,
+    images, temperature (a device scalar) and uniform draw, for every
+    option the CLI sets: plain, straight-through, ReinMax, smooth-L1, KL
+    weight 1, two resnet blocks, four channels.  Loss within 1e-4 relative,
+    each gradient leaf within 1e-4 of its largest value, the
+    reconstruction within 1e-4; TF32 off."""
+    import copy
+
+    from dalle_pytorch_tpu_torch.models import vae as vae_mod
+
+    rows = {}
+    for name, option in VAE_OPTIONS.items():
+        cfg = vae_mod.DiscreteVAEConfig(**SMALL_TRAIN_VAE, **option)
+        card = vae_mod.init_discrete_vae(cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+        cpu = copy.deepcopy(card).cpu()
+        g = torch.Generator().manual_seed(6)
+        images = torch.rand(4, cfg.image_size, cfg.image_size, cfg.channels, generator=g)
+        uniform = vae_mod.gumbel_uniform((4, cfg.fmap_size, cfg.fmap_size, cfg.num_tokens), g)
+        results = []
+        for model, dev in ((card, "cuda"), (cpu, "cpu")):
+            model.train().requires_grad_(True)
+            loss, out = vae_mod.forward(model, images.to(dev), uniform=uniform.to(dev), return_loss=True,
+                                        return_recons=True, temp=torch.tensor(0.8, device=dev))
+            loss.backward()
+            results.append((loss.item(), out.detach().cpu(), {n: p.grad for n, p in model.named_parameters()}))
+        (loss_card, out_card, grads_card), (loss_cpu, out_cpu, grads_cpu) = results
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        out_err = (out_card - out_cpu).abs().max().item()
+        grad_err = grad_errors(grads_card, grads_cpu)
+        check(np.isfinite(loss_card) and rel <= 1e-4 and out_err <= 1e-4 and grad_err <= 1e-4,
+              f"vae_train_parity {name}: loss {loss_card} vs {loss_cpu} ({rel} relative), reconstruction {out_err}, "
+              f"gradients {grad_err} of their largest")
+        rows[name] = dict(loss=loss_card, loss_cpu=loss_cpu, loss_rel_err=rel, recons_max_abs_err=out_err,
+                          grad_err_over_leaf_max=grad_err, leaves=len(grads_cpu))
+    emit("vae_train_parity", vae=SMALL_TRAIN_VAE, batch=4, tolerance=1e-4,
+         tf32=dict(cudnn=torch.backends.cudnn.allow_tf32, matmul=torch.backends.cuda.matmul.allow_tf32), options=rows)
+
+
+def phase_train_vae_cli(fa):
+    """`cli.train_vae.main` in process at BASELINE.json configs[1]'s width
+    (256 px, 8,192 tokens, 3 layers, 2 resnet blocks, emb 512, hidden 256,
+    batch 8) on 16 PNGs that `write_real_data` writes, for 3 epochs of 2
+    steps: finite losses, the step-0 grids and codebook histogram, step_s
+    (median after the first step, each synchronised by its loss read),
+    images/s, peak memory and codebook_used; then its checkpoint through
+    `load_vae_checkpoint` on the card and on the CPU, whose codes of the
+    first 4 crops agree (at least 0.99 of them, as the parity phases hold
+    codes; the count that differs is reported).  TF32 as set above (off).
+    The VAE launches no flash kernel."""
+    from dalle_pytorch_tpu_torch.cli import train_dalle, train_vae
+    from dalle_pytorch_tpu_torch.data import loader
+    from dalle_pytorch_tpu_torch.models import vae as vae_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_real_data(tmp, seed=73)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lines, launches, _, wall_s = run_main(fa, train_vae.main, [
+            "--image_folder", str(tmp / "pairs"), *VAE_CLI_FLAGS, "--epochs", "3",
+            "--vae_output_file_name", str(tmp / "vae")])
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = [r for r in lines if "loss" in r]
+        check(len(steps) == 6 and all(np.isfinite(r["loss"]) for r in steps), f"train_vae's steps: {steps}")
+        check(sum(launches.values()) == 0, f"the VAE launched flash kernels: {launches}")
+        records = [json.loads(line) for line in open(tmp / "vae.metrics.jsonl")]
+        logged = next(r for r in records if "codebook_used" in r)
+        grids = sorted(p.name for p in (tmp / "vae.images").iterdir())
+        check(grids == ["step0_hard_reconstructions.png", "step0_original_images.png", "step0_reconstructions.png"]
+              and any("codebook_indices_hist" in r for r in records), f"train_vae logged {grids}")
+        crops = torch.from_numpy(np.stack([loader.ImageDataset(str(tmp / "pairs"), 256)[i] for i in range(4)]))
+        codes = [vae_mod.get_codebook_indices(train_dalle.load_vae_checkpoint(str(tmp / "vae.pt"), dev),
+                                              crops.to(dev)).cpu() for dev in ("cuda", "cpu")]
+        agree = (codes[0] == codes[1]).float().mean().item()
+        check(agree >= 0.99, f"the trained VAE's codes on the card agree with the CPU's at {agree}")
+    step_s = statistics.median(r["step_s"] for r in steps[1:])
+    emit("train_vae_cli", flags=list(VAE_CLI_FLAGS), params=lines[0]["params"], steps=len(steps), epochs=3,
+         step_s=step_s, step_s_all=[r["step_s"] for r in steps], images_per_s=8 / step_s,
+         data_s=[r["data_s"] for r in steps], peak_memory_gib=peak_gib, losses=[r["loss"] for r in steps],
+         codebook_used=logged["codebook_used"], num_tokens=8192, codes_agree_card_cpu=agree,
+         codes_differ=int((codes[0] != codes[1]).sum()), codes_compared=codes[0].numel(), wall_s=wall_s,
+         tf32=dict(cudnn=torch.backends.cudnn.allow_tf32, matmul=torch.backends.cuda.matmul.allow_tf32))
+
+
+def phase_clip_train_parity(fa):
+    """A small CLIP (dim 128, 2 + 2 layers of 2 heads x 64, text 128, 16
+    patches) trained on the card against the same CLIP on the CPU: the
+    contrastive loss and every gradient under the caption key mask (captions
+    of 128, 40, 9 and 3 tokens), through the flash forward and backward
+    non-causal and key-masked on the card (4 launches of each, 2 of them
+    key-masked), within 1e-4 relative and 1e-4 of each leaf's largest value;
+    then two steps of `make_train_step` with the CLI's loss, Adam 1e-3 and
+    clipping at 0.5, each step's loss and grad norm within 1e-4 relative."""
+    import copy
+
+    from dalle_pytorch_tpu_torch.cli import train_clip
+    from dalle_pytorch_tpu_torch.models import clip as clip_mod
+    from dalle_pytorch_tpu_torch.optim.grouped import Adam
+    from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
+
+    cfg = clip_mod.CLIPConfig(**SMALL_TRAIN_CLIP)
+    card = clip_mod.init_clip(cfg, torch.Generator(device="cuda").manual_seed(7), "cuda")
+    models = {"cuda": card, "cpu": copy.deepcopy(card).cpu()}
+    g = torch.Generator().manual_seed(8)
+    text = torch.randint(1, cfg.num_text_tokens, (4, cfg.text_seq_len), generator=g)
+    for i, n in enumerate((128, 40, 9, 3)):
+        text[i, n:] = 0
+    images = torch.rand(4, cfg.visual_image_size, cfg.visual_image_size, 3, generator=g)
+    steps_from = {dev: copy.deepcopy(m).train().requires_grad_(True) for dev, m in models.items()}
+    results = {}
+    for dev, model in models.items():
+        model.train().requires_grad_(True)
+        reset_launches(fa)
+        reset_key_masked(fa)
+        loss = clip_mod.forward(model, text.to(dev), images.to(dev), text_mask=(text != 0).to(dev), return_loss=True)
+        loss.backward()
+        results[dev] = (loss.item(), {n: p.grad for n, p in model.named_parameters()}, read_launches(fa),
+                        read_key_masked(fa))
+    launches, key_masked = results["cuda"][2], results["cuda"][3]
+    depth = cfg.text_enc_depth + cfg.visual_enc_depth
+    check(all(launches[k] == depth for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+          and all(v == cfg.text_enc_depth for v in key_masked.values()),
+          f"CLIP's gradient launched {launches}, key-masked {key_masked}")
+    rel = abs(results["cuda"][0] - results["cpu"][0]) / abs(results["cpu"][0])
+    grad_err = grad_errors(results["cuda"][1], results["cpu"][1])
+    check(rel <= 1e-4 and grad_err <= 1e-4, f"clip_train_parity: loss {rel} relative, gradients {grad_err}")
+
+    metrics = {}
+    for dev, model in steps_from.items():
+        init_fn, step_fn = make_train_step(train_clip.clip_loss_fn(model), Adam(1e-3), StepSettings(clip_grad_norm=0.5))
+        state = init_fn(dict(model.named_parameters()))
+        metrics[dev] = []
+        for i in range(2):
+            batch = {"text": text.roll(i, 0).to(dev), "image": images.roll(i, 0).to(dev)}
+            state, m = step_fn(state, batch)
+            metrics[dev].append((float(m["loss"]), float(m["grad_norm"])))
+    step_rel = max(abs(a - b) / abs(b) for c, p in zip(metrics["cuda"], metrics["cpu"]) for a, b in zip(c, p))
+    check(step_rel <= 1e-4, f"clip_train_parity: train steps {metrics}")
+    emit("clip_train_parity", clip=SMALL_TRAIN_CLIP, batch=4, caption_tokens=[128, 40, 9, 3], tolerance=1e-4,
+         loss=results["cuda"][0], loss_cpu=results["cpu"][0], loss_rel_err=rel, grad_err_over_leaf_max=grad_err,
+         launches=launches, key_masked_launches=key_masked, steps=metrics, step_rel_err=step_rel)
+
+
+def phase_train_clip_cli(fa):
+    """`cli.train_clip.main` in process at the CLI's defaults (dim 512, 6 + 6
+    layers of 8 heads x 64, text 256 of the BPE tokenizer's 49,408 tokens,
+    256 px in 64 patches of 32, batch 16, Adam 1e-3, clipping at 0.5), f32
+    and `--bf16`, on the 16 pairs of `write_caption_pairs` (captions of 3 to
+    5 tokens: the text encoder's keys are mostly padding), 8 epochs of one
+    step: finite losses, the last at least `CLIP_LOSS_DROP` below the first
+    (each epoch is the same 16 pairs, so a run that does not update its
+    weights repeats its first loss to rounding); each step launches
+    flash_fwd, flash_dq and flash_dkv 12 times, 6 of each under the key
+    mask; step_s (median after the first step), tokens/s (text and
+    patches) and peak memory.  Then the f32 run once more with the
+    encoders' attention through its plain version (no kernel launched): the
+    same batches and weights give the same losses, within 1e-4 relative."""
+    from unittest import mock
+
+    from dalle_pytorch_tpu_torch.cli import train_clip
+    from dalle_pytorch_tpu_torch.models import transformer as tr
+
+    runs, total, epochs = {}, dict.fromkeys(COUNTERS, 0), 8
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_caption_pairs(tmp, seed=74)
+        for name, extra in (("f32", ()), ("bf16", ("--bf16",)), ("f32_plain_attention", ())):
+            plain = mock.patch.object(tr, "flash_attention", plain_flash_attention(fa))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with plain if name.endswith("plain_attention") else contextlib.nullcontext():
+                lines, launches, key_masked, wall_s = run_main(fa, train_clip.main, [
+                    "--image_text_folder", str(tmp / "pairs"), "--truncate_captions",
+                    "--epochs", str(epochs), *extra, "--clip_output_file_name", str(tmp / f"clip_{name}")])
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = [r for r in lines if "loss" in r]
+            step_s = statistics.median(r["step_s"] for r in steps[1:])
+            runs[name] = dict(step_s=step_s, step_s_all=[r["step_s"] for r in steps],
+                              tokens_per_s=16 * (256 + 64) / step_s, data_s=[r["data_s"] for r in steps],
+                              peak_memory_gib=peak_gib, losses=[r["loss"] for r in steps],
+                              grad_norms=[r["grad_norm"] for r in steps],
+                              launches_per_step={k: v / len(steps) for k, v in launches.items() if v},
+                              key_masked_launches_per_step={k: v / len(steps) for k, v in key_masked.items()},
+                              params=lines[0]["params"], wall_s=wall_s)
+            if name != "f32_plain_attention":
+                total = {k: total[k] + launches[k] for k in COUNTERS}
+    kernel, plain = runs["f32"]["losses"], runs["f32_plain_attention"]["losses"]
+    plain_rel = max(abs(a - b) / abs(b) for a, b in zip(kernel, plain))
+    emit("train_clip_cli", batch=16, text_seq_len=256, num_patches=64, heads=8, dim_head=64, runs=runs,
+         f32_losses_vs_plain_attention_rel=plain_rel, loss_drop_required=CLIP_LOSS_DROP)
+    check(not runs["f32_plain_attention"]["launches_per_step"] and len(plain) == epochs and plain_rel <= 1e-4,
+          f"train_clip: the kernels' losses {kernel} against the plain attention's {plain}")
+    for name in ("f32", "bf16"):
+        run = runs[name]
+        losses = run["losses"]
+        check(len(losses) == epochs and all(np.isfinite(losses)) and losses[-1] <= losses[0] - CLIP_LOSS_DROP,
+              f"train_clip {name}: losses {losses} (the last must be {CLIP_LOSS_DROP} below the first)")
+        check(all(run["launches_per_step"].get(k) == 12 for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+              and all(v == 6 for v in run["key_masked_launches_per_step"].values()),
+              f"train_clip {name}: launches a step {run['launches_per_step']}, key-masked "
+              f"{run['key_masked_launches_per_step']}")
+    return total
 
 
 # the generate CLI's model: the README pattern model with the BPE tokenizer's
@@ -2132,7 +2429,9 @@ def phase_engine_parity(fa, sampling, dalle, name, seed, noised=True, eagerly=Tr
     engine's lane 0, gives the codes it gave beside the others in another
     lane.  Each admission's prefill launches the layer cycle.  `noised` and
     `eagerly` False leave out (a) and the eager engine (the pattern model,
-    whose paged step the seeded runs hold to batch-1 all the same)."""
+    whose paged step the seeded runs hold to batch-1 all the same; the
+    12-layer model leaves out (a), which `train_real_data` holds on its
+    learned-position engine)."""
     from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
     from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 
@@ -2466,7 +2765,9 @@ def main() -> int:
     profile = phase_decode_profile(dalle, text, sampling)
     rotary_graphs = phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer", 3.0, prime_len=GRAPHS_PRIME_LEN,
                                         stats=True, profile=profile)
-    paths["engine_parity"] = phase_engine_parity(fa, sampling, dalle, "12-layer", 61)
+    # seeded, replayed and eager; two requests under injected noise run on the
+    # learned-position 12-layer engine in train_real_data
+    paths["engine_parity"] = phase_engine_parity(fa, sampling, dalle, "12-layer", 61, noised=False)
     del dalle
     phase_parity(fa, port, sampling)
     paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
@@ -2474,6 +2775,11 @@ def main() -> int:
     phase_train_cli(weights, checkpoint)
     paths["train_real_data"] = phase_train_real_data(fa, port, tr, sampling, weights,
                                                      rotary_graphs["step_ms_replayed"])
+    torch.cuda.empty_cache()
+    phase_vae_train_parity()
+    phase_train_vae_cli(fa)
+    phase_clip_train_parity(fa)
+    paths["train_clip_cli"] = phase_train_clip_cli(fa)
     torch.cuda.empty_cache()
 
     dalle, text, paths["sparse_generate"] = phase_sparse_generate(fa, tr, port)
@@ -2515,12 +2821,13 @@ def main() -> int:
     parity = phase_train_parity(fa, port, "flagship_train_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE)
     check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's train steps ran no VFA pair: {parity}")
     phase_lowp_train_parity(fa, port)
-    # the port's f32-master runs, then the JAX package's flagship training
-    # recipe (`bench.py`: flash_qkv at batch 8, its alternative flash_qkv_ff
-    # at batch 4, and "full" at batch 4 beside it: one optimizer, two policies)
+    # the port's f32-master runs (bf16 sequential; f32 under "full" remat,
+    # the flagship's only full-width f32 training), then the JAX package's
+    # flagship training recipe (`bench.py`: flash_qkv at batch 8, its
+    # alternative flash_qkv_ff at batch 4, and "full" at batch 4 beside it:
+    # one optimizer, two policies)
     paths["flagship_train"] = phase_train(fa, port, "flagship_train", FLAGSHIP, [
-        Run(None, torch.bfloat16, 4, True), Run("remat", torch.bfloat16, 3, False),
-        Run("remat", torch.float32, 3, True),
+        Run(None, torch.bfloat16, 4, True), Run("remat", torch.float32, 2, False),
         Run("remat", torch.bfloat16, 4, True, "flash_qkv", 8, True),
         Run("remat", torch.bfloat16, 4, True, "flash_qkv_ff", 4, True),
         Run("remat", torch.bfloat16, 4, False, "full", 4, True)])
@@ -2581,7 +2888,14 @@ def main() -> int:
                 "launches_path": "+".join((path,) + also),
                 "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
 
-    real = ("train_real_data",)  # the real-data phase's training adds to rows 1-3
+    real = ("train_real_data", "train_clip_cli")  # the real-data and CLIP training add to rows 1-3
+    clip_bwd_keys = ("bh", "n", "d", "live_keys", "dq_ms", "dq_device_ms", "dkv_ms", "dkv_device_ms", "plain_ms",
+                     "dq_bound_ms", "dq_bound_by", "dkv_bound_ms", "dkv_bound_by", "library_bwd_ms",
+                     "library_bwd_device_ms", "sdpa_backend", "dq_err_over_ref_max", "dk_err_over_ref_max",
+                     "dv_err_over_ref_max")
+    # CLIP training's shapes (non-causal; the text under the caption key mask)
+    clip_training = {case: {r["dtype"]: {k: r[k] for k in clip_bwd_keys} for r in compared_bwd if r["case"] == case}
+                     for case in ("clip_text", "clip_image")}
 
     def worst(key, dtype):
         return max(r[key] for r in sparse if r["dtype"] == dtype)
@@ -2614,7 +2928,7 @@ def main() -> int:
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,
         "delta_err_over_limit_all_cases": max(r["delta_err_over_limit"] for r in compared_bwd + sparse),
         "f32_tensor_cores": dq_by_dtype["float32"], "bf16_tensor_cores": dq_by_dtype["bfloat16"],
-        "masked": pattern_readings(sparse, "dq_dense"),
+        "clip_training": clip_training, "masked": pattern_readings(sparse, "dq_dense"),
     }, {
         "name": "flash_dkv", "route": "cuda", "source": source_bwd, "replaces": replaces + "312",
         **launched("flash_dkv", also=real), "max_abs_err": max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]),
@@ -2622,7 +2936,7 @@ def main() -> int:
         "bound_by": bwd["dkv_bound_by"], "library_ms": bwd["library_bwd_ms"],
         "note": "plain_ms and library_ms are whole backwards (dq, dk and dv together)", "shape": shape,
         "f32_tensor_cores": dkv_by_dtype["float32"], "bf16_tensor_cores": dkv_by_dtype["bfloat16"],
-        "masked": pattern_readings(sparse, "dkv_dense"),
+        "clip_training": clip_training, "masked": pattern_readings(sparse, "dkv_dense"),
     }, {
         "name": "flash_fwd_compact", "route": "cuda", "source": source_compact, "replaces": replaces + "524",
         **launched("flash_fwd_compact", "sparse_train"), "max_abs_err": row["max_abs_err"],

@@ -53,6 +53,25 @@ class DiscreteVAE:
     def num_layers(self) -> int:
         return self.cfg.num_layers
 
+    @property
+    def channels(self) -> int:
+        return self.cfg.channels
+
+    def __call__(self, images: torch.Tensor, generator: Union[int, torch.Generator, None] = None,
+                 return_loss: bool = False, return_recons: bool = False, temp=None):
+        """The training forward (`models/vae.forward`): (B, H, W, C) pixels
+        in [0, 1] -> the reconstruction, the loss, or (loss, reconstruction).
+        The gumbel noise comes from `generator`, a `torch.Generator` on the
+        module's device or a seed for one (0 when None, as the JAX facade
+        takes key 0).  Gradients reach the module's parameters once they
+        require them (`vae.module.requires_grad_(True)`)."""
+        if not isinstance(generator, torch.Generator):
+            generator = _generator(generator or 0, self.device)
+        return _vae.forward(self.module, images, generator, return_loss=return_loss, return_recons=return_recons,
+                            temp=temp)
+
+    forward = __call__
+
     def get_codebook_indices(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) pixels in [0, 1] -> (B, image_seq_len) codes."""
         return _vae.get_codebook_indices(self.module, images)

@@ -48,7 +48,7 @@ from torch.func import functional_call
 
 from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
-from dalle_pytorch_tpu_torch.cli.common import warn_vocab_mismatch
+from dalle_pytorch_tpu_torch.cli.common import refuse, warn_vocab_mismatch
 from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.data import loader
 from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
@@ -151,17 +151,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse(what: str, item: int) -> SystemExit:
-    return SystemExit(f"{what} is not ported yet; it comes with a later PR of the port (ROADMAP.md Queue 1 item "
-                      f"{item})")
-
-
 def _refuse_waiting_flags(args) -> None:
     for flag, (machinery, item) in _WAITING.items():
         if getattr(args, flag) not in (None, False, 0):
-            raise _refuse(f"--{flag}: {machinery}", item)
+            raise refuse(f"--{flag}: {machinery}", item)
     if args.execution == "reversible":
-        raise _refuse("--execution reversible", 3)
+        raise refuse("--execution reversible", 3)
 
 
 def _apply_dummy_run_defaults(args) -> None:
@@ -305,7 +300,7 @@ def load_vae_checkpoint(path: str, device) -> vae_mod.DiscreteVAE:
     if not Path(path).exists():
         raise SystemExit(f"--vae_path {path} does not exist")
     if weights._is_torch_checkpoint(Path(path)):
-        raise _refuse(f"--vae_path {path} is a torch-reference checkpoint: converting it", 5)
+        raise refuse(f"--vae_path {path} is a torch-reference checkpoint: converting it", 5)
     trees, meta = load_checkpoint(path)
     cfg = vae_mod.DiscreteVAEConfig.from_dict(meta["hparams"])
     return weights.load_vae(trees["weights"], cfg, device)
@@ -341,7 +336,7 @@ def _resume_source(args, out_file: str) -> Optional[str]:
     if path is not None and not Path(path).exists():
         raise SystemExit(f"checkpoint {path} does not exist")
     if path is not None and (Path(path).is_dir() or weights._is_torch_checkpoint(Path(path))):
-        raise _refuse(f"{path}: resuming a sharded or torch-reference checkpoint", 8 if Path(path).is_dir() else 5)
+        raise refuse(f"{path}: resuming a sharded or torch-reference checkpoint", 8 if Path(path).is_dir() else 5)
     return path
 
 
@@ -365,7 +360,7 @@ def main(argv=None) -> int:
         vae = load_vae_checkpoint(args.vae_path, device)
         vae_cfg = vae.cfg
     else:
-        raise _refuse("training without --vae_path (the JAX CLI downloads OpenAI's pretrained dVAE here, and "
+        raise refuse("training without --vae_path (the JAX CLI downloads OpenAI's pretrained dVAE here, and "
                       "neither machine has a network): the pretrained VAEs", 5)
 
     if resumed is not None:

@@ -6,7 +6,9 @@ A folder of images with same-stem `.txt` caption files (`TextImageDataset`,
 (`iterate_tar_shards`, `batch_tar_stream`), each sample a random caption
 line tokenized and a random resized square crop.  Batches are
 {'text': (B, text_len) int64, 'image': (B, H, W, C) float32 in [0, 1]}
-numpy arrays, equal to the JAX loader's on the same files and seed: the
+numpy arrays; a folder of images alone (`ImageDataset`,
+`iterate_image_batches`, the VAE's data) gives (B, H, W, C) arrays.  All
+are equal to the JAX loader's on the same files and seed: the
 same per-item `random.Random` draws, the same shuffle, and a crop whose
 bilinear resize is PIL's `Image.resize(..., BILINEAR, box=...)` bit for bit
 (`resize_bilinear`: PIL's fixed-point two-pass resampler, in numpy).
@@ -58,6 +60,16 @@ def _pil_image():
 def _refuse_without_pil(name: str) -> SystemExit:
     return SystemExit(f"{name}: decoding JPEG or BMP needs PIL, which this machine does not have; only PNG is "
                       f"read without it ({_WAITING})")
+
+
+def _refuse_unless_readable(files: Iterable[Path]) -> None:
+    """Without PIL, exit naming the first of `files` that is not a PNG."""
+    if _pil_image() is not None:
+        return
+    for path in files:
+        with open(path, "rb") as f:
+            if not f.read(len(png._SIGNATURE)).startswith(png._SIGNATURE):
+                raise _refuse_without_pil(str(path))
 
 
 def decode_image(data: bytes, name: str, mode: str) -> np.ndarray:
@@ -241,12 +253,7 @@ class TextImageDataset:
         self.tokenizer = tokenizer
         self.shuffle = shuffle
         self._rng = random.Random(seed)
-        if _pil_image() is None:
-            # refuse up front, naming the first image PNG's reader cannot take
-            for key in keys:
-                with open(self.image_files[key], "rb") as f:
-                    if not f.read(len(png._SIGNATURE)).startswith(png._SIGNATURE):
-                        raise _refuse_without_pil(str(self.image_files[key]))
+        _refuse_unless_readable(self.image_files[key] for key in keys)  # up front, not mid-epoch
 
     def __len__(self) -> int:
         return len(self.keys)
@@ -346,6 +353,60 @@ def iterate_batches(dataset: TextImageDataset, batch_size: int, shuffle: bool = 
         if batch and not drop_last:
             yield _stack(batch)
         epoch += 1
+
+
+# ---------------------------------------------------------------------------
+# images alone
+# ---------------------------------------------------------------------------
+
+
+class ImageDataset:
+    """A folder of images (searched recursively, in sorted path order), for
+    the VAE: each item a random resized square crop, (size, size, C)
+    float32 in [0, 1], RGBA when `transparent`."""
+
+    def __init__(self, folder: str, image_size: int, seed: int = 0, transparent: bool = False):
+        path = Path(folder)
+        self.files = sorted(f for suffix in IMAGE_SUFFIXES for f in path.glob(f"**/*{suffix}"))
+        self.image_size = image_size
+        self.mode = "RGBA" if transparent else "RGB"
+        self._rng = random.Random(seed)
+        _refuse_unless_readable(self.files)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def get(self, ind: int, rng: random.Random) -> np.ndarray:
+        path = self.files[ind]
+        pixels = decode_image(path.read_bytes(), str(path), self.mode)
+        return image_to_array(random_resized_crop(pixels, self.image_size, rng))
+
+    def __getitem__(self, ind: int) -> np.ndarray:
+        return self.get(ind, self._rng)
+
+
+def iterate_image_batches(dataset: ImageDataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                          process_index: int = 0, process_count: int = 1,
+                          num_workers: int = 0) -> Iterator[np.ndarray]:
+    """One epoch of (B, H, W, C) batches: the order shuffled by
+    `RandomState(seed)`, sliced to this process's share, the ragged tail
+    dropped; item j cropped with `_item_rng(seed, 0, j)`.  `num_workers` >
+    0 decodes on a thread pool, item for item the serial output."""
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
+    order = order[process_index::process_count]
+    order = order[: len(order) - len(order) % batch_size]
+
+    def load(j):
+        return dataset.get(int(j), _item_rng(seed, 0, int(j)))
+
+    batch: List[np.ndarray] = []
+    for item in _parallel_map_ordered(load, order, num_workers, lookahead=2 * batch_size):
+        batch.append(item)
+        if len(batch) == batch_size:
+            yield np.stack(batch)
+            batch = []
 
 
 # ---------------------------------------------------------------------------

@@ -485,7 +485,8 @@ def flash_fwd(
 
     On CUDA tensors this launches the dense-grid kernel, counted in
     `flash_fwd.launches` (and in `flash_fwd.masked_launches` when it takes a
-    pattern), or, where `grid` and the tables choose the compacted grid,
+    pattern, in `flash_fwd.key_masked_launches` when it takes a key mask),
+    or, where `grid` and the tables choose the compacted grid,
     `flash_fwd_compact` (with `vfa`, its VFA pair); or it raises.  On CPU
     tensors it runs the plain version, the VFA pair's where the grid rule
     compacts a `vfa` call.  The dense grid ignores `vfa`.  It builds no
@@ -516,11 +517,13 @@ def flash_fwd(
               mask_heads, t.heads, 0, t.row_tile)
         flash_fwd.masked_launches += int(m is not None)
     flash_fwd.launches += 1
+    flash_fwd.key_masked_launches += int(key_mask is not None)
     return out, lse
 
 
 flash_fwd.launches = 0
 flash_fwd.masked_launches = 0
+flash_fwd.key_masked_launches = 0
 
 
 def flash_fwd_compact(
@@ -599,9 +602,11 @@ def flash_bwd(
     On CUDA tensors the dense-grid dq kernel launches, which also writes
     delta = rowsum(do * out) (XLA in the JAX package), then the dk/dv kernel,
     which reads it, on the same stream, each counted in
-    `flash_bwd.dq_launches` / `flash_bwd.dkv_launches`; or, where `grid` and
-    the tables choose the compacted grid, `flash_bwd_compact`; or it raises.
-    On CPU tensors it runs the plain version."""
+    `flash_bwd.dq_launches` / `flash_bwd.dkv_launches` (and, under a key
+    mask, in `key_masked_dq_launches` / `key_masked_dkv_launches`); or,
+    where `grid` and the tables choose the compacted grid,
+    `flash_bwd_compact`; or it raises.  On CPU tensors it runs the plain
+    version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if key_mask is not None:
@@ -619,24 +624,31 @@ def flash_bwd(
     m, mask_heads = _device_mask(q, mask, h)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    keyed = int(key_mask is not None)
     if tables is None:
         _call("flash_bwd_dq", q, (q, k, v, do, out, lse, key_mask, None, None, dq, delta), h, causal, scale)
         flash_bwd.dq_launches += 1
+        flash_bwd.key_masked_dq_launches += keyed
         _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, None, None, dk, dv), h, causal, scale)
         flash_bwd.dkv_launches += 1
+        flash_bwd.key_masked_dkv_launches += keyed
         return dq, dk, dv
     t = _device_tables(q, tables)
     _call("flash_bwd_dq", q, (q, k, v, do, out, lse, key_mask, m, t.live_rows, dq, delta), h, causal, scale,
           mask_heads, t.heads, 0, t.row_tile)
     flash_bwd.dq_launches += 1
+    flash_bwd.key_masked_dq_launches += keyed
     _call("flash_bwd_dkv", q, (q, k, v, do, lse, delta, key_mask, m, t.live_cols, dk, dv), h, causal,
           scale, mask_heads, t.heads, 0, t.col_tile)
     flash_bwd.dkv_launches += 1
+    flash_bwd.key_masked_dkv_launches += keyed
     return dq, dk, dv
 
 
 flash_bwd.dq_launches = 0
 flash_bwd.dkv_launches = 0
+flash_bwd.key_masked_dq_launches = 0
+flash_bwd.key_masked_dkv_launches = 0
 
 
 def flash_bwd_compact(

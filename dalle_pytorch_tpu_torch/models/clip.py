@@ -142,12 +142,15 @@ def encode_image(model: CLIP, images: torch.Tensor) -> torch.Tensor:
 
 def forward(model: CLIP, text: torch.Tensor, images: torch.Tensor, text_mask: Optional[torch.Tensor] = None,
             return_loss: bool = False) -> torch.Tensor:
-    """Per-pair similarity scores (b,), or the symmetric contrastive loss."""
+    """Per-pair similarity scores (b,), or the symmetric contrastive loss.
+    The loss's similarities and softmax run in f32 whatever the compute
+    dtype: under bf16 compute the JAX package's loss is f32 too, its f32
+    images promoting the image side."""
     tl = encode_text(model, text, text_mask)
     il = encode_image(model, images)
     temp = model.temperature.exp()
     if not return_loss:
         return (tl * il).sum(dim=-1) * temp
-    sim = tl @ il.t() * temp
+    sim = tl.float() @ il.float().t() * temp.float()
     labels = torch.arange(sim.shape[0], device=sim.device)
     return (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(), labels)) / 2

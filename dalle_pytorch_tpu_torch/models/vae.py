@@ -1,17 +1,27 @@
-"""The discrete VAE image tokenizer, inference side (counterpart of
+"""The trainable discrete VAE image tokenizer (counterpart of
 `dalle_pytorch_tpu/models/vae.py`).
 
 A conv encoder gives per-cell codebook logits; the decoder maps codebook
-embeddings back to pixels through transposed convolutions.  Public functions
-take and return NHWC images, as the JAX package does; the modules run NCHW
-inside.  Training (gumbel-softmax sampling and the loss) comes with the
-training slice.
+embeddings back to pixels through transposed convolutions.  `forward` is the
+training forward: a gumbel-softmax sample of the logits (optionally hard,
+straight-through, with the ReinMax second-order estimator), its product with
+the codebook in f32, the decoder, and the MSE or smooth-L1 reconstruction
+loss plus the weighted KL to the uniform prior.  Public functions take and
+return NHWC images, as the JAX package does; the modules run NCHW inside,
+permuted once at each end.  Only the inference entry points
+(`get_codebook_indices`, `decode_indices`) run without a gradient.
+
+The gumbel noise comes from a uniform draw in [1e-20, 1): from a
+`torch.Generator`, or injected as `uniform` (tests pass the exact draw of
+the JAX package's `jax.random.uniform(key, logits.shape, float32, 1e-20,
+1.0)`, since torch cannot reproduce threefry).  `temp` may be a 0-d device
+tensor, so that annealing changes no Python value inside a step.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -101,6 +111,9 @@ class DiscreteVAE(nn.Module):
         self.dec_out = nn.Conv2d(hdim, cfg.channels, 1)
         self.dec_in = nn.Conv2d(cfg.codebook_dim, hdim, 1) if has_res else None
 
+    def forward(self, images, generator=None, uniform=None, return_loss=False, return_recons=False, temp=None):
+        return forward(self, images, generator, uniform, return_loss, return_recons, temp)
+
 
 @torch.no_grad()
 def init_discrete_vae(
@@ -142,7 +155,6 @@ def denormalize_images(cfg: DiscreteVAEConfig, images: torch.Tensor) -> torch.Te
     return images.clamp(0.0, 1.0)
 
 
-@torch.no_grad()
 def encode_logits(vae: DiscreteVAE, images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) pixels -> (B, h, w, num_tokens) codebook logits."""
     x = normalize_images(vae.cfg, images).permute(0, 3, 1, 2)
@@ -153,7 +165,6 @@ def encode_logits(vae: DiscreteVAE, images: torch.Tensor) -> torch.Tensor:
     return vae.enc_out(x).permute(0, 2, 3, 1)
 
 
-@torch.no_grad()
 def decode_embeddings(vae: DiscreteVAE, z: torch.Tensor) -> torch.Tensor:
     """(B, h, w, codebook_dim) -> (B, H, W, C) in normalised pixel space."""
     x = z.permute(0, 3, 1, 2)
@@ -166,6 +177,7 @@ def decode_embeddings(vae: DiscreteVAE, z: torch.Tensor) -> torch.Tensor:
     return vae.dec_out(x).permute(0, 2, 3, 1)
 
 
+@torch.no_grad()
 def get_codebook_indices(vae: DiscreteVAE, images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) pixels -> (B, image_seq_len) code indices."""
     logits = encode_logits(vae, images)
@@ -179,3 +191,108 @@ def decode_indices(vae: DiscreteVAE, img_seq: torch.Tensor) -> torch.Tensor:
     hw = math.isqrt(n)
     z = vae.codebook(img_seq).reshape(b, hw, hw, vae.cfg.codebook_dim)
     return decode_embeddings(vae, z)
+
+
+def codebook_health_from_logits(logits: torch.Tensor, num_tokens: int) -> Dict[str, torch.Tensor]:
+    """Codebook statistics of encoder logits (..., num_tokens), as device
+    tensors (no host sync): `code_hist`, the hard (argmax) assignment count
+    of each entry; `codebook_usage`, the fraction of entries chosen at
+    least once; `codebook_perplexity`, exp of the entropy of the mean soft
+    assignment (the effective number of codes in use: it falls towards 1
+    as the codebook collapses); `codebook_entropy`, the mean entropy of one
+    cell's assignment."""
+    flat = logits.reshape(-1, num_tokens).float()
+    hist = torch.bincount(flat.argmax(dim=-1), minlength=num_tokens)
+    p = flat.softmax(dim=-1)
+    p_mean = p.mean(dim=0)
+    return {
+        "code_hist": hist,
+        "codebook_usage": (hist > 0).float().mean(),
+        "codebook_perplexity": torch.exp(-(p_mean * torch.log(p_mean + 1e-20)).sum()),
+        "codebook_entropy": (-(p * torch.log(p + 1e-20)).sum(dim=-1)).mean(),
+    }
+
+
+def gumbel_uniform(shape, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """A uniform f32 draw in [1e-20, 1), the range of the JAX package's
+    `jax.random.uniform(key, shape, float32, 1e-20, 1.0)`: torch's [0, 1)
+    draw with its zeros lifted to 1e-20, so that the noise's double log
+    stays finite."""
+    return torch.rand(shape, generator=generator, device=device).clamp_min_(1e-20)
+
+
+def gumbel_softmax(logits: torch.Tensor, tau, hard: bool, uniform: torch.Tensor) -> torch.Tensor:
+    """softmax((logits + g) / tau) with gumbel noise g = -log(-log(u +
+    1e-20)); `hard`: the one-hot of its argmax, with the soft sample's
+    gradient (straight-through)."""
+    g = -torch.log(-torch.log(uniform.to(logits.dtype) + 1e-20))
+    soft = ((logits + g) / tau).softmax(dim=-1)
+    if not hard:
+        return soft
+    one_hot = F.one_hot(soft.argmax(dim=-1), logits.shape[-1]).to(soft.dtype)
+    return one_hot + soft - soft.detach()
+
+
+def _reinmax(one_hot: torch.Tensor, logits: torch.Tensor, tau) -> torch.Tensor:
+    """The ReinMax second-order estimator (algorithm 2 of
+    arXiv:2304.08612): the hard sample's value with pi2's gradient."""
+    one_hot = one_hot.detach()
+    pi0 = logits.softmax(dim=-1)
+    pi1 = (one_hot + (logits / tau).softmax(dim=-1)) / 2
+    pi1 = ((torch.log(pi1.clamp_min(1e-20)) - logits).detach() + logits).softmax(dim=-1)
+    pi2 = 2 * pi1 - 0.5 * pi0
+    return pi2 - pi2.detach() + one_hot
+
+
+def forward(
+    vae: DiscreteVAE,
+    images: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    uniform: Optional[torch.Tensor] = None,
+    return_loss: bool = False,
+    return_recons: bool = False,
+    temp: Union[float, torch.Tensor, None] = None,
+):
+    """The training forward.  images: (B, H, W, C) in [0, 1].  The gumbel
+    noise's uniform draw is `uniform` (the logits' shape, (B, h, w,
+    num_tokens)) or, without it, drawn from `generator` on the images'
+    device.  `temp` (a float or a 0-d tensor) defaults to the config's
+    temperature.  Returns the reconstruction (B, H, W, C) in normalised
+    pixel space; with `return_loss` the loss, the reconstruction loss plus
+    `kl_div_loss_weight` times the KL to the uniform prior summed over
+    batch, cells and classes; with `return_recons` too, (loss,
+    reconstruction)."""
+    cfg = vae.cfg
+    if images.shape[1] != cfg.image_size or images.shape[2] != cfg.image_size:
+        raise ValueError(f"input must have the correct image size {cfg.image_size}, got {tuple(images.shape)}")
+    logits = encode_logits(vae, images)
+    tau = cfg.temperature if temp is None else temp
+    if uniform is None:
+        if generator is None:
+            raise ValueError("gumbel sampling needs a generator or an injected uniform draw")
+        uniform = gumbel_uniform(logits.shape, generator, logits.device)
+    one_hot = gumbel_softmax(logits, tau, cfg.straight_through, uniform)
+    if cfg.straight_through and cfg.reinmax:
+        one_hot = _reinmax(one_hot, logits, tau)
+
+    sampled = torch.einsum("bhwn,nd->bhwd", one_hot.float(), vae.codebook.weight.float()).to(one_hot.dtype)
+    out = decode_embeddings(vae, sampled)
+    if not return_loss:
+        return out
+
+    target = normalize_images(cfg, images)
+    if cfg.smooth_l1_loss:
+        recon = F.smooth_l1_loss(out, target)
+    else:
+        recon = F.mse_loss(out, target)
+    loss = recon
+    if cfg.kl_div_loss_weight:  # at weight 0 the term adds 0 to the loss and to every gradient
+        # KL(q || uniform), summed over batch, cells and classes: the
+        # reference's kl_div(..., 'batchmean') sees a batch of one, so its
+        # reduction is the full sum (JAX `models/vae.py` forward)
+        log_qy = logits.reshape(logits.shape[0], -1, cfg.num_tokens).log_softmax(dim=-1)
+        kl = (log_qy.exp() * (log_qy + math.log(cfg.num_tokens))).sum()
+        loss = recon + kl * cfg.kl_div_loss_weight
+    if not return_recons:
+        return loss
+    return loss, out

@@ -90,7 +90,10 @@ class Adam(GroupedOptimizer):
     """`optax.adam(learning_rate)` at its defaults (b1 0.9, b2 0.999, eps
     1e-8, eps_root 0, no Nesterov): the moments' update, the bias
     corrections at the new count, m / (sqrt(v) + eps), times
-    -learning_rate."""
+    -learning_rate.  `learning_rate` may be a 0-d f32 tensor on the
+    parameters' device, which the caller changes in place between steps
+    (the VAE CLI's per-epoch decay: `optax.chain(scale_by_adam(),
+    scale(-1))` times a traced lr, the same product)."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
