@@ -47,6 +47,20 @@ grid), and CLIP at its default config scoring those images with and without
 the text mask, its kernel path held against its plain path.  Each path runs
 with every launch counter set to 0 just before it and read just after.
 
+The transformer settings: the flagship's weights under `reversible=True`
+(the same tensors, `twin_module`) serve (`reversible_flagship_serve`: a
+primed CFG generation, the replayed twin-stream decode against the eager
+one and beside the sequential flagship's step, the engine's codes against
+batch-1 loops) and train (`reversible_flagship_train`: reversible against
+remat "full" steps, bf16 on f32 masters, at depths 64 and 16, with step
+times, peaks and activation peaks; gradients against plain autograd
+through the twin stream at depth 8; the rebuilt input of layer 0 at depth
+64); the 12-layer model with `stable`, `sandwich_norm` and shared ids
+trains, decodes replayed against eager, and goes through the train CLI
+and `cli.generate` (`stable_shared`); a small model with every setting
+runs on the card against the CPU (`settings_parity`,
+`settings_train_parity`).
+
 The tokenizer's and the reranker's training: `vae_train_parity` holds the
 DiscreteVAE's training loss and gradients on the card against the CPU for
 every option (plain, straight-through, ReinMax, smooth-L1, KL, resnet, four
@@ -286,12 +300,15 @@ def forward_launches(model, n):
 
 def launches_per_step(model, n):
     """The flash launches one training step of `model` at length n makes:
-    remat under the "full" policy runs each forward twice; the selective
-    policies keep the forward's outputs, so it runs once.  Read from the
-    transformer's own config, which a phase may switch between steps."""
+    remat under the "full" policy runs each forward twice, and so does
+    reversible execution (its backward recomputes every branch on the
+    rebuilt inputs); the selective policies keep the forward's outputs, so
+    it runs once.  Read from the transformer's own config, which a phase
+    may switch between steps."""
     fwd, bwd = forward_launches(model, n)
     cfg = model.transformer.cfg
-    times = 2 if cfg.execution == "remat" and cfg.remat_policy == "full" else 1
+    full = cfg.execution == "remat" and cfg.remat_policy == "full"
+    times = 2 if full or cfg.execution == "reversible" else 1
     return {name: times * fwd[name] + bwd[name] for name in COUNTERS}
 
 
@@ -2417,6 +2434,37 @@ def batch1_codes(sampling, model, text_row, i, **kw):
                                        cond_scale=ENGINE_COND[i], **kw)[0].cpu().numpy()
 
 
+def engine_prefix_parity(fa, sampling, engine, texts, conds, noise, polls=32):
+    """Requests of `texts` at `conds` under their `noise` through `engine`,
+    admitted together in one poll (their prefills launching the layer
+    cycle each), `polls` more polls timed with their lanes decoding, then
+    drained: each request's codes so far must equal a batch-1 image loop
+    of as many codes under its noise (replayed from the model's graphs).
+    Returns (admission launches, the replayed step's ms, codes compared
+    per request)."""
+    m, cfg = engine.model, engine.model.cfg
+    want, _ = forward_launches(m, cfg.text_seq_len + 1)
+    reset_launches(fa)
+    reqs = [engine.submit(texts[i].cpu().numpy(), cond_scale=conds[i], noise=noise[i]) for i in range(len(conds))]
+    engine.poll()
+    admitted = read_launches(fa)
+    check(admitted == {k: len(conds) * v for k, v in want.items()}, f"{len(conds)} admissions launched {admitted}")
+    check(all(r.codes_done == 2 for r in reqs), f"not every request was admitted: {[r.codes_done for r in reqs]}")
+    step_ms = engine_window(engine, polls)
+    exported = {e["origin_id"]: e["codes"] for e in engine.drain()}
+    mode = sampling.Mode(noise=True, stats=False)
+    made = []
+    for i, req in enumerate(reqs):
+        codes = exported[req.id]
+        loop, run = sampling.image_loop(m, 1, conds[i], 0, ENGINE_THRES, mode)
+        _, logits = sampling._prefill_phase(m, texts[i:i + 1], None, 0, conds[i], loop.cache)
+        ref, _ = run(m, logits, len(codes), None, 1.0, noise[i][:, None], mode)
+        check(np.array_equal(codes, ref[0].cpu().numpy()),
+              f"request {i}'s {len(codes)} codes (lanes {req.lanes}) differ from its batch-1 loop's")
+        made.append(len(codes))
+    return admitted, step_ms, made
+
+
 def phase_engine_parity(fa, sampling, dalle, name, seed, noised=True, eagerly=True):
     """The continuous-batching engine at full width (`serving/engine.py`,
     f32): six requests on four lanes with staggered submits.  (a) Under each
@@ -2522,9 +2570,10 @@ def engine_window(engine, steps):
 
 def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8):
     """The flagship served by the engine at full width, f32, eight lanes:
-    two requests, one guided, hold property (a) against batch-1
-    `sample_image_codes` under their noise (the VAE decodes their images at
-    eviction); then the paged step's time, replayed and eager, with all
+    two requests, one guided, hold property (a) over their first codes
+    (`engine_prefix_parity`: drained after 32 polls, against batch-1
+    loops of as many codes under their noise); then the paged step's time,
+    replayed and eager, with all
     eight lanes decoding, and a profiled window of replays (device ms, busy
     share); then a Poisson load of `n_requests` over `streams` streams
     (`tools/loadgen.py`) offered at twice the engine's capacity (lanes /
@@ -2545,16 +2594,7 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8)
     noise = gumbel_noise((2, cfg.image_seq_len, cfg.total_tokens), torch.Generator(device="cuda").manual_seed(42),
                          device="cuda")
     want, _ = forward_launches(m, cfg.text_seq_len + 1)
-    reset_launches(fa)
-    parity = [engine.submit(texts[i].cpu().numpy(), cond_scale=ENGINE_COND[i], noise=noise[i]) for i in range(2)]
-    engine.run_until_idle()
-    launches = read_launches(fa)
-    check(launches == {k: 2 * v for k, v in want.items()}, f"two admissions launched {launches}; {want} each")
-    for i, req in enumerate(parity):
-        ref = batch1_codes(sampling, m, texts[i], i, noise_override=noise[i][:, None])
-        check(np.array_equal(req.codes, ref), f"flagship: request {i}'s codes differ from its batch-1 call")
-        check(tuple(req.images.shape) == (1, 256, 256, 3) and bool(torch.isfinite(req.images).all()),
-              f"flagship: request {i}'s image {tuple(req.images.shape)}")
+    launches, _, parity_codes = engine_prefix_parity(fa, sampling, engine, texts, ENGINE_COND[:2], noise)
 
     def fill(eng):
         """Every lane admitted (one poll), with the admissions' launches."""
@@ -2599,8 +2639,8 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8)
          pool_blocks=engine.pool.num_blocks, blocks_per_seq=engine.pool.blocks_per_seq,
          pool_gib=engine.pool.bytes() / 2 ** 30, pool_block_mib=engine.pool.bytes() / (engine.pool.num_blocks + 1) / 2 ** 20,
          noise_buffer_gib=engine.lanes.noise.numel() * 4 / 2 ** 30, build_and_capture_s=build_s,
-         noise_codes_equal_batch1=True, parity_ttft_s=[r.ttft_s for r in parity],
-         parity_latency_s=[r.latency_s for r in parity], step_ms_replayed=replayed_ms, step_ms_eager=eager_ms,
+         noise_codes_equal_batch1=dict(codes_compared=parity_codes), step_ms_replayed=replayed_ms,
+         step_ms_eager=eager_ms,
          profile=window, capacity_images_per_s=capacity, loadgen_rate_per_stream=rate, loadgen_streams=streams,
          loadgen=report, loadgen_launches=load_launches, window_fill_launches=dict(
              replayed=fill_launches, eager=eager_fill_launches), batch1_generate_images_s=batch1_s,
@@ -2654,6 +2694,321 @@ def phase_serve_cli(fa, port, weights, checkpoint):
          generate_engine=dict(png_equal_to_plain=True, plain_s=plain_s, engine_s=engine_s,
                               launches=engine_launches))
     return {k: serve_launches[k] + engine_launches[k] for k in COUNTERS}
+
+
+# ---------------------------------------------------------------------------
+# the transformer settings: reversible execution, shared layers, the stable
+# model and the sandwich norm
+# ---------------------------------------------------------------------------
+
+# the 12-layer model (configs[2]) with the stable model, the sandwich norm
+# and four attention and feed-forward ids cycled over its 12 layers
+STABLE_SHARED = dict(FULL, stable=True, sandwich_norm=True, shared_attn_ids=(0, 1, 2, 3),
+                     shared_ff_ids=(0, 1, 2, 3))
+# the train CLI's flags for it (the CLI has no sandwich-norm flag, as the
+# JAX CLI has none): configs[2]'s widths with rotary, 16 PNGs in 2 steps
+STABLE_SHARED_CLI = ("--dim", "1024", "--depth", "12", "--heads", "16", "--dim_head", "64", "--text_seq_len", "256",
+                     "--shift_tokens", "--rotary_emb", "--truncate_captions", "--batch_size", "8", "--epochs", "1",
+                     "--num_workers", "4", "--stable_softmax", "--shared_attn_ids", "0,1,2,3", "--shared_ff_ids",
+                     "0,1,2,3")
+# a small model with every setting: SMALL_FLAGSHIP's features over two
+# cycles of its four layer types, the attention ids (0, 1, 2, 3) repeating
+# with the types (ids (0, 1, 0, 1) would give the full layer's id to
+# axial_col, which derive_layer_specs refuses), feed-forward ids (0, 1, 0, 1)
+SMALL_SETTINGS = dict(SMALL_FLAGSHIP, depth=8, reversible=True, stable=True, sandwich_norm=True,
+                      shared_attn_ids=(0, 1, 2, 3), shared_ff_ids=(0, 1, 0, 1))
+
+
+def twin_module(module, cfg, clone=False):
+    """A `DALLE` of config `cfg` holding `module`'s weights (the layers past
+    cfg.depth left out) without a second initialisation: made on the meta
+    device and handed the tensors by `load_state_dict(assign=True)`,
+    `module`'s own or, with `clone`, copies that a trainer may update.
+    Reversible execution keeps the parameter tree as it is."""
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE
+
+    with torch.device("meta"):
+        twin = DALLE(cfg)
+    keep = set(twin.state_dict())
+    twin.load_state_dict({k: v.clone() if clone else v for k, v in module.state_dict().items() if k in keep},
+                         assign=True)
+    return twin
+
+
+def twin_facade(dalle, sampling, **changes):
+    """The facade `dalle` over the same weights under its config with
+    `changes`, with decode graphs of its own."""
+    import copy
+    import dataclasses
+
+    twin = copy.copy(dalle)
+    twin.cfg = dataclasses.replace(dalle.cfg, **changes)
+    twin.module = twin_module(dalle.module, twin.cfg).eval().requires_grad_(False)
+    twin.decode_graphs = sampling.decode_graphs(twin.module)
+    return twin
+
+
+@contextlib.contextmanager
+def naive_twin_stream():
+    """The DALL-E forward's transformer as plain autograd through the twin
+    stream (`apply_transformer(rebuild=False)`), the reference `Reversible`
+    is held to."""
+    from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
+    from dalle_pytorch_tpu_torch.models import transformer as tr
+
+    real = dalle_mod.apply_transformer
+    dalle_mod.apply_transformer = functools.partial(tr.apply_transformer, rebuild=False)
+    try:
+        yield
+    finally:
+        dalle_mod.apply_transformer = real
+
+
+def phase_reversible_serve(fa, tr, sampling, dalle, text, sequential):
+    """The flagship's weights under reversible=True serve: one primed CFG
+    `generate_images` (prime 448, CFG 3.0), its prefill launching the layer
+    cycle; the replayed decode loop against the eager twin-stream loop under
+    one noise (`decode_graphs`, the last 128 steps), its step beside the
+    sequential flagship's of this run (`sequential`, that decode_graphs
+    row); and the engine on 4 lanes: three requests (one guided) under
+    their noise admitted, 32 polls timed with every lane decoding, then
+    drained: each request's codes so far equal a batch-1 image loop of as
+    many codes under its noise (`engine_prefix_parity`).  Returns the
+    launches."""
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
+
+    rev = twin_facade(dalle, sampling, reversible=True)
+    m, cfg = rev.module, rev.cfg
+    check(m.transformer.cfg.execution == "reversible", f"the twin runs {m.transformer.cfg.execution}")
+    pixels = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(23)).cuda()
+    run, launches = generate(fa, rev, text, 3.0, pixels)
+    check(launches["flash_max_compact"] > 0, f"the reversible prefill did not run the VFA pair: {launches}")
+    graphs_row = phase_decode_graphs(fa, tr, sampling, rev, text, "reversible flagship", 3.0,
+                                     prime_len=GRAPHS_PRIME_LEN)
+
+    conds, lanes, polls = (3.0, 1.0, 1.0), 4, 32
+    texts = engine_texts(cfg, len(conds), 81)
+    noise = gumbel_noise((len(conds), cfg.image_seq_len, cfg.total_tokens),
+                         torch.Generator(device="cuda").manual_seed(82), device="cuda")
+    engine = GenerationEngine(m, engine_cfg=EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK,
+                                                         filter_thres=ENGINE_THRES, noise_override=True))
+    check(engine.graph is not None, "the reversible engine captured no graph")
+    admitted, step_ms, made = engine_prefix_parity(fa, sampling, engine, texts, conds, noise, polls)
+    del engine
+    emit("reversible_flagship_serve", generate=run,
+         decode_step_ms=dict(reversible_replayed=graphs_row["step_ms_replayed"],
+                             reversible_eager=graphs_row["step_ms_eager"],
+                             sequential_replayed=sequential["step_ms_replayed"],
+                             sequential_eager=sequential["step_ms_eager"],
+                             replayed_ratio=graphs_row["step_ms_replayed"] / sequential["step_ms_replayed"],
+                             prediction="reversible within 5 % of the sequential step"),
+         replayed_codes_equal_eager=graphs_row["codes_equal_under_noise"],
+         engine=dict(lanes=lanes, requests=len(conds), cond_scale=list(conds), step_ms_replayed=step_ms,
+                     polls_timed=polls, codes_compared=made, codes_equal_batch1_under_noise=True,
+                     admission_launches=admitted))
+    return {k: launches[k] + admitted[k] for k in COUNTERS}
+
+
+def phase_reversible_train(fa, dalle):
+    """The flagship's weights under reversible=True train, bf16 compute on
+    f32 masters with Adam 3e-4 and clipping, batch 4 x 1280, each run on a
+    copy of the weights and a fresh optimizer: 3 reversible steps, then 2
+    remat "full" steps; the same at depth 16 (the first 16 layers), 2 steps
+    each.  Per run: step_s, tokens/s, the peak (`max_memory_allocated`) and
+    the activation peak (the last step's peak less the bytes allocated
+    before it) and the flash launches per step, which must be the layer
+    cycle's with the forward twice.  Then the stack's own activation memory
+    (a bf16 gradient with respect to the transformer's input alone, weights
+    frozen) at both depths; at depth 8, batch 2, `Reversible`'s gradients
+    against plain autograd through the twin stream: f32 loss within 1e-5
+    relative and every leaf within 1e-4 of its largest element, bf16
+    gradient norm within 2e-2 relative; at depth 64 the input of layer 0 as
+    the backward rebuilds it against the true one, over max |x|, f32 and
+    bf16.  Returns the reversible run's launches per step."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from dalle_pytorch_tpu_torch.cli.train_dalle import dalle_loss_fn
+    from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
+    from dalle_pytorch_tpu_torch.models.reversible import Reversible
+    from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
+
+    base = dataclasses.replace(dalle.cfg, reversible=True)
+    n = base.total_seq_len
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    text = torch.from_numpy(rng.integers(1, base.num_text_tokens, (4, base.text_seq_len))).to(dev)
+    text[3, 200:] = 0  # a padded caption
+    pixels = torch.from_numpy(rng.random((4, 256, 256, 3), dtype=np.float32)).to(dev)
+    batch = {"text": text, "image": pixels}
+    adam = functools.partial(torch.optim.Adam, lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+
+    def config(execution, depth):
+        return dataclasses.replace(base, depth=depth, execution=execution, remat_policy="full")
+
+    def train(execution, depth, steps):
+        model = twin_module(dalle.module, config(execution, depth), clone=True).train().requires_grad_(True)
+        init_fn, step_fn = make_train_step(dalle_loss_fn(model, dalle.vae.module, torch.bfloat16), adam,
+                                           StepSettings(compute_dtype=torch.bfloat16, clip_grad_norm=0.5))
+        state = init_fn(dict(model.named_parameters()))
+        losses, secs, before, peaks = [], [], [], []
+        reset_launches(fa)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            before.append(torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+        per_step = {k: v / steps for k, v in read_launches(fa).items()}
+        name = f"{execution}_depth{depth}"
+        want = launches_per_step(model, n)
+        check(per_step == want, f"{name}: launches per step {per_step}, the layer cycle gives {want}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{name}: losses {losses}")
+        del state, init_fn, step_fn, model
+        torch.cuda.empty_cache()
+        step_s = statistics.median(secs[1:])
+        return name, dict(steps=steps, losses=losses, steps_s=secs, step_s=step_s, tokens_per_s=4 * n / step_s,
+                          peak_memory_gib=max(peaks) / 2 ** 30, activation_peak_gib=(peaks[-1] - before[-1]) / 2 ** 30,
+                          allocated_before_last_step_gib=before[-1] / 2 ** 30, launches_per_step=per_step)
+
+    runs = dict(train(e, d, s) for e, d, s in (("reversible", 64, 3), ("remat", 64, 2), ("reversible", 16, 2),
+                                               ("remat", 16, 2)))
+
+    def stack_activations(execution, depth):
+        model = twin_module(dalle.module, config(execution, depth)).requires_grad_(False)
+        work = {k: p.to(torch.bfloat16) for k, p in model.transformer.named_parameters()}
+        x = torch.randn(4, n, base.dim, generator=torch.Generator(device=dev).manual_seed(3), device=dev,
+                        dtype=torch.bfloat16).requires_grad_(True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        functional_call(model.transformer, work, (x,)).float().square().mean().backward()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+    stack = {f"{e}_depth{d}": stack_activations(e, d) for e in ("reversible", "remat") for d in (64, 16)}
+
+    model8 = twin_module(dalle.module, config("reversible", 8))
+    codes = torch.from_numpy(rng.integers(0, base.num_image_tokens, (2, base.image_seq_len))).to(dev)
+
+    def gradient(dtype, rebuild):
+        params = {k: p.detach().to(dtype).requires_grad_(True) for k, p in model8.named_parameters()}
+        with contextlib.nullcontext() if rebuild else naive_twin_stream():
+            loss = functional_call(model8, params, (text[:2], codes), {"return_loss": True})
+        return loss.float().item(), torch.autograd.grad(loss, list(params.values()))
+
+    versus = {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        (loss_r, g_r), (loss_n, g_n) = gradient(dtype, True), gradient(dtype, False)
+        norm_r, norm_n = (torch.linalg.vector_norm(torch.stack([g.float().norm() for g in gs])).item()
+                          for gs in (g_r, g_n))
+        leaf_err = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+                       for a, b in zip(g_r, g_n))
+        versus[name] = dict(loss=loss_r, loss_naive=loss_n, loss_rel_err=abs(loss_r - loss_n) / abs(loss_n),
+                            grad_norm=norm_r, grad_norm_naive=norm_n, grad_norm_rel_err=abs(norm_r - norm_n) / norm_n,
+                            leaf_err_over_leaf_max=leaf_err)
+    del model8
+    f32, b16 = versus["float32"], versus["bfloat16"]
+    check(f32["loss_rel_err"] <= 1e-5 and f32["leaf_err_over_leaf_max"] <= 1e-4,
+          f"f32 reversible gradients against the naive twin stream: {f32}")
+    check(b16["grad_norm_rel_err"] <= 2e-2, f"bf16 reversible gradient norm against the naive twin stream: {b16}")
+
+    model64 = twin_module(dalle.module, base).requires_grad_(False)
+    tokens = torch.cat([dalle_mod.embed_text_ids(model64, dalle_mod.remap_and_bos(base, text[:2])),
+                        dalle_mod.embed_image_codes(model64, codes)], dim=1)[:, :n]
+    rebuilt = {}
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        work = {k: p.to(dtype) for k, p in model64.transformer.named_parameters()}
+        x = tokens.detach().to(dtype).requires_grad_(True)
+        seen = []
+        Reversible.on_rebuilt = lambda a, b: seen.append((a.detach().float(), b.detach().float()))
+        try:
+            out = functional_call(model64.transformer, work, (x,))
+            out.float().square().mean().backward()
+        finally:
+            Reversible.on_rebuilt = None
+        x32 = x.detach().float()
+        # the error is the streams' rounding at their own scale, which the
+        # output's shows beside the input's
+        rebuilt[name] = dict(err_over_max_x=max((s - x32).abs().max().item() for s in seen[0]) / x32.abs().max().item(),
+                             max_abs_x=x32.abs().max().item(), max_abs_out=out.detach().float().abs().max().item())
+    del model64, work, x, seen, out
+    torch.cuda.empty_cache()
+
+    rev, remat = runs["reversible_depth64"], runs["remat_depth64"]
+    emit("reversible_flagship_train", batch=4, n=n, compute="bfloat16 on f32 masters, Adam 3e-4, clip 0.5", **runs,
+         step_s_ratio_reversible_over_remat=rev["step_s"] / remat["step_s"],
+         activation_peak_gib_remat_less_reversible={d: runs[f"remat_depth{d}"]["activation_peak_gib"]
+                                                    - runs[f"reversible_depth{d}"]["activation_peak_gib"]
+                                                    for d in (64, 16)},
+         stack_activation_gib=stack, versus_naive_twin_stream_depth8_batch2=versus,
+         rebuilt_input_err_over_max_x_depth64=rebuilt,
+         predictions=dict(step_s="within 15 % of remat full", activation_peak="0.5-1 GiB below remat at depth 64",
+                          depth="reversible within 10 % across depths 16 and 64, remat about in proportion"))
+    return rev["launches_per_step"]
+
+
+def phase_stable_shared(fa, port, tr, sampling):
+    """The 12-layer model with `stable`, `sandwich_norm` and the shared ids
+    0-3 (`STABLE_SHARED`): 3 f32 train steps (`phase_train`); a replayed
+    CFG decode whose codes equal the eager loop's (`decode_graphs`, the last
+    128 steps); then the train CLI with --stable_softmax --shared_attn_ids
+    0,1,2,3 --shared_ff_ids 0,1,2,3 at configs[2]'s widths on the real-data
+    phase's 16 PNGs (the same seed) with its VAE: 2 steps of batch 8 and
+    the checkpoint, whose hparams carry the settings; and `cli.generate`
+    from that checkpoint: one image, a valid PNG.  Returns the launches of
+    the train steps and the CLI."""
+    from dalle_pytorch_tpu_torch.cli import train_dalle
+    from dalle_pytorch_tpu_torch.cli.png import read_png
+    from dalle_pytorch_tpu_torch.models import vae as vae_mod
+
+    launches = phase_train(fa, port, "stable_shared_train", STABLE_SHARED, [Run(None, torch.float32, 3, False)])
+    dalle = port.DALLE(vae=port.DiscreteVAE(seed=0, **FULL_VAE), seed=1, **STABLE_SHARED)
+    layers = dalle.module.transformer.layers
+    check(len({id(layer.attn) for layer in layers}) == 4 and layers[0].attn is layers[4].attn,
+          "the stable_shared model does not share its attention by id")
+    text = torch.randint(1, dalle.cfg.num_text_tokens, (2, dalle.cfg.text_seq_len),
+                         generator=torch.Generator().manual_seed(91)).cuda()
+    graphs_row = phase_decode_graphs(fa, tr, sampling, dalle, text, "stable_shared", 3.0, prime_len=GRAPHS_PRIME_LEN)
+    n_params = sum(p.numel() for p in dalle.module.parameters())
+    del dalle, layers
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_real_data(tmp, seed=71)
+        vae = vae_mod.init_discrete_vae(vae_mod.DiscreteVAEConfig(**FULL_VAE),
+                                        torch.Generator(device="cuda").manual_seed(0), "cuda")
+        train_dalle.write_vae_checkpoint(str(tmp / "vae.npz"), vae)
+        del vae
+        steps, header, cli_launches, cli_s = run_train_cli(fa, [
+            "--image_text_folder", str(tmp / "pairs"), "--vae_path", str(tmp / "vae.npz"),
+            "--dalle_output_file_name", str(tmp / "ss"), *STABLE_SHARED_CLI])
+        config = header["config"]
+        check(len(steps) == 2 and all(np.isfinite(r["loss"]) for r in steps), f"the CLI's steps: {steps}")
+        ids = [0, 1, 2, 3]
+        check(config["stable"] and config["shared_attn_ids"] == ids and config["shared_ff_ids"] == ids,
+              f"the CLI's config {config}")
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            check(cli_launches[name] == 12 * len(steps), f"{name}: {cli_launches[name]} launches in {len(steps)} steps")
+        pngs, gen_t, gen_launches, _, gen_s = run_cli(fa, [
+            "--dalle_path", str(tmp / "ss.pt"), "--text", "a red cat on the table", "--num_images", "1",
+            "--batch_size", "1", "--seed", "3", "--cond_scale", "3.0", "--outputs_dir", str(tmp / "out")])
+        shapes = [read_png(p).shape for p in pngs]
+        check(shapes == [(256, 256, 3)], f"generate wrote {shapes}")
+    emit("stable_shared", params=n_params, decode_graphs_codes_equal=graphs_row["codes_equal_under_noise"],
+         decode_step_ms_replayed=graphs_row["step_ms_replayed"], decode_step_ms_eager=graphs_row["step_ms_eager"],
+         cli=dict(params=header["params"], steps=len(steps), batch=8, losses=[r["loss"] for r in steps],
+                  step_s=[r["step_s"] for r in steps], wall_s=cli_s, launches=cli_launches,
+                  settings={k: config[k] for k in ("stable", "sandwich_norm", "shared_attn_ids", "shared_ff_ids",
+                                                   "reversible", "execution")}),
+         generate=dict(wall_s=gen_s, seconds=gen_t, launches=gen_launches, png_shapes=shapes))
+    return {k: launches[k] + cli_launches[k] for k in COUNTERS}
 
 
 def plain_flash_attention(fa):
@@ -2810,8 +3165,12 @@ def main() -> int:
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
     # replayed only: the eager flagship window is the decode_graphs line's step_ms_eager
     profile = phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16, eager=False)
-    phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=GRAPHS_PRIME_LEN, profile=profile)
+    flagship_graphs = phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=GRAPHS_PRIME_LEN,
+                                          profile=profile)
     paths["engine_flagship"] = phase_engine_flagship(fa, sampling, loadgen, dalle)
+    # the flagship's weights under reversible execution: serving, then training
+    paths["reversible_serve"] = phase_reversible_serve(fa, tr, sampling, dalle, text, flagship_graphs)
+    reversible_step = phase_reversible_train(fa, dalle)
     entry_bytes = sum(e.loop.nbytes() for e in dalle.decode_graphs.entries().values())
     with_model = torch.cuda.memory_reserved()
     del dalle
@@ -2833,6 +3192,15 @@ def main() -> int:
         Run("remat", torch.bfloat16, 4, False, "full", 4, True)])
     phase_remat_host_cost(fa, port)
     phase_numerics_smoke()
+    torch.cuda.empty_cache()
+
+    # shared layers, the stable model and the sandwich norm at configs[2]'s
+    # widths; every setting at once on a small model, card against CPU
+    paths["stable_shared"] = phase_stable_shared(fa, port, tr, sampling)
+    parity = phase_parity(fa, port, sampling, "settings_parity", SMALL_SETTINGS, SMALL_SPARSE_VAE, prime_len=128)
+    check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small settings model's prefill ran no VFA pair: {parity}")
+    parity = phase_train_parity(fa, port, "settings_train_parity", SMALL_SETTINGS, SMALL_SPARSE_VAE)
+    check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small settings model's steps ran no VFA pair: {parity}")
 
     # each kernel at the training shape of the path it runs on; `launches`
     # is its count on this slice's main path, the flagship's training, the
@@ -3015,6 +3383,8 @@ def main() -> int:
            for name, dtype in (("f32", "float32"), ("bf16", "bfloat16"))},
         "by_pattern": pattern_readings(sparse, "vfa_fwd", 128),
     }]
+    for k in kernels:  # a reversible training step of the flagship (`reversible_flagship_train`)
+        k["reversible_step_launches"] = reversible_step[k["name"]]
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not unlaunched, f"kernels never launched on their path: {unlaunched}")
     print(json.dumps({"kernels": kernels}), flush=True)

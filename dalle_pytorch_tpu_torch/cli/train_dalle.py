@@ -25,6 +25,9 @@ and pixels from `--seed`, a tiny random VAE, a deliberately ragged last
 batch) on the JAX CLI's dummy model; explicit model flags win over its
 tiny defaults.  `--execution remat --remat_policy flash_qkv` keeps the
 flash forward's outputs and the qkv projection across each layer;
+`--reversible` (or `--execution reversible`) rebuilds each layer's input in
+the backward instead; `--stable_softmax` trains the stable model, and
+`--shared_attn_ids` / `--shared_ff_ids` share layers' weights by id;
 `--param_dtype bfloat16` stores the parameters in bf16 with no f32 master,
 Adam's math on f32 views and stochastic-rounded updates.  Flags whose
 machinery is not ported exit with a message naming their ROADMAP.md item.
@@ -63,10 +66,6 @@ from dalle_pytorch_tpu_torch.version import __version__
 
 # flag -> (what it needs that the port does not have yet, its ROADMAP.md Queue 1 item)
 _WAITING = {
-    "stable_softmax": ("the stable softmax (`stable`)", 3),
-    "reversible": ("reversible execution", 3),
-    "shared_attn_ids": ("shared layers", 3),
-    "shared_ff_ids": ("shared layers", 3),
     "chinese": ("the Chinese BERT tokenizer (`transformers`)", 4),
     "hug": ("the Hugging Face tokenizer (`tokenizers`)", 4),
     "taming": ("the taming VQGAN", 5),
@@ -118,6 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--attn_dropout", type=float, default=0.0)
     parser.add_argument("--ff_dropout", type=float, default=0.0)
     parser.add_argument("--loss_img_weight", type=int, default=7)
+    parser.add_argument("--reversible", action="store_true",
+                        help="reversible execution (the default --execution when it is not given)")
     parser.add_argument("--execution", type=str, default=None, choices=["sequential", "remat", "reversible"])
     parser.add_argument("--remat_policy", type=str, default="full",
                         choices=["full", "flash", "flash_qkv", "flash_qkv_ff"],
@@ -141,10 +142,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="reduce on plateau (factor 0.5, patience 10, cooldown 10, min lr 1e-6)")
     parser.add_argument("--bf16", action="store_true", help="bf16 compute")
     parser.add_argument("--loss_scale", type=str, default=None, help="a static scale or 'dynamic'")
+    parser.add_argument("--stable_softmax", action="store_true",
+                        help="the stable model: the embedding blend, the stable softmax and divide_max")
+    parser.add_argument("--shared_attn_ids", type=str, default=None,
+                        help="comma-separated attention ids, cycled over depth (layers of one id share weights)")
+    parser.add_argument("--shared_ff_ids", type=str, default=None,
+                        help="comma-separated feed-forward ids, cycled over depth")
     # not ported: each exits naming its ROADMAP.md item
-    for name in ("stable_softmax", "reversible", "chinese", "hug", "taming"):
+    for name in ("chinese", "hug", "taming"):
         parser.add_argument(f"--{name}", action="store_true")
-    for name in ("shared_attn_ids", "shared_ff_ids", "vqgan_model_path", "vqgan_config_path"):
+    for name in ("vqgan_model_path", "vqgan_config_path"):
         parser.add_argument(f"--{name}", type=str, default=None)
     for name in ("sample_every_n_steps", "zero_stage", "mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp", "mesh_pp"):
         parser.add_argument(f"--{name}", type=int, default=None)
@@ -155,8 +162,6 @@ def _refuse_waiting_flags(args) -> None:
     for flag, (machinery, item) in _WAITING.items():
         if getattr(args, flag) not in (None, False, 0):
             raise refuse(f"--{flag}: {machinery}", item)
-    if args.execution == "reversible":
-        raise refuse("--execution reversible", 3)
 
 
 def _apply_dummy_run_defaults(args) -> None:
@@ -218,12 +223,20 @@ def model_config(args, vae_cfg: vae_mod.DiscreteVAEConfig, tokenizer) -> DALLECo
     return DALLEConfig.from_vae(
         vae_cfg, dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
         text_seq_len=args.text_seq_len, num_text_tokens=args.num_text_tokens or tokenizer.vocab_size,
-        attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout, execution=args.execution,
-        remat_policy=args.remat_policy, loss_img_weight=args.loss_img_weight,
+        reversible=args.reversible, attn_dropout=args.attn_dropout, ff_dropout=args.ff_dropout,
+        execution=args.execution, remat_policy=args.remat_policy, loss_img_weight=args.loss_img_weight,
         attn_types=tuple(args.attn_types.split(",")), sparse_per_head=args.sparse_per_head,
-        shift_tokens=args.shift_tokens, rotary_emb=args.rotary_emb,
+        stable=args.stable_softmax, shift_tokens=args.shift_tokens, rotary_emb=args.rotary_emb,
+        shared_attn_ids=_parse_ids(args.shared_attn_ids), shared_ff_ids=_parse_ids(args.shared_ff_ids),
         share_input_output_emb=args.share_input_output_emb,
     )
+
+
+def _parse_ids(text: Optional[str]):
+    """The JAX CLI's `_parse_ids`: "0,1,0" -> (0, 1, 0), None -> None."""
+    if text is None:
+        return None
+    return tuple(int(x) for x in text.split(","))
 
 
 def dummy_batches(seed: int, n: int, batch_size: int, cfg: DALLEConfig,

@@ -5,7 +5,9 @@ A joint text + image vocabulary with a unique padding id per text position,
 <bos> prepended, rotary positions or learned ones (`rotary_emb=False`: a
 text position table and the image's axial table, summed rows and columns),
 logits masked so that text positions predict text and image positions
-predict image, and the (text + 7·img)/8 weighted cross-entropy.  With
+predict image, and the (text + 7·img)/8 weighted cross-entropy.  Under
+`stable` the embeddings enter the transformer as `0.1·t + 0.9·t.detach()`
+and its output is divided by its max over the channels (`divide_max`).  With
 `share_input_output_emb` the text and image embedding tables are the rows
 of the logits weight (the tied flagship layout): no embedding modules, and
 the weight's gradient sums its three uses.  The model works on image
@@ -30,6 +32,7 @@ from dalle_pytorch_tpu_torch.models.transformer import (
     apply_transformer,
     init_transformer_,
 )
+from dalle_pytorch_tpu_torch.ops.stable import divide_max
 
 # execution knobs of the JAX package's config that do not change what the
 # model computes (layer scan, XLA-or-Pallas choice, sharding axes): a
@@ -76,9 +79,15 @@ class DALLEConfig:
     sparse_decode: bool = True
 
     def __post_init__(self):
-        if self.reversible:
-            raise NotImplementedError("the PyTorch port does not run reversible yet")
-        self.transformer_config()  # raises on the transformer settings it lacks
+        self.transformer_config()  # raises on an invalid transformer setting
+
+    @property
+    def resolved_execution(self) -> str:
+        """`execution`, or when it is None "reversible" under `reversible`
+        and "sequential" otherwise, as the JAX package resolves it."""
+        if self.execution is not None:
+            return self.execution
+        return "reversible" if self.reversible else "sequential"
 
     @property
     def num_text_tokens_padded(self) -> int:
@@ -114,7 +123,7 @@ class DALLEConfig:
             rotary_emb=self.rotary_emb,
             shared_attn_ids=self.shared_attn_ids,
             shared_ff_ids=self.shared_ff_ids,
-            execution=self.execution or "sequential",
+            execution=self.resolved_execution,
             remat_policy=self.remat_policy,
             conv_kernel_size=self.conv_kernel_size,
             conv_dilation=self.conv_dilation,
@@ -315,7 +324,12 @@ def forward(
     tokens = tokens[:, : cfg.total_seq_len]
     n = tokens.shape[1]
 
+    if cfg.stable:  # the gradient reaches the embeddings scaled by alpha
+        alpha = 0.1
+        tokens = tokens * alpha + tokens.detach() * (1 - alpha)
     out = apply_transformer(model.transformer, tokens, generator=generator)
+    if cfg.stable:
+        out = divide_max(out)
     logits = to_logits(model, out)
     logits = logits.masked_fill(
         logits_mask_slice(cfg, n, logits.device)[None], torch.finfo(logits.dtype).min

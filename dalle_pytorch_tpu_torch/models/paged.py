@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from dalle_pytorch_tpu_torch.models.reversible import twin_stream
 from dalle_pytorch_tpu_torch.models.transformer import (
     Attention,
     DecodePattern,
@@ -136,14 +137,15 @@ def _paged_attention_step(attn: Attention, cfg: TransformerConfig, layer_pool: d
         else:
             gather = sel[:, None, :, None].expand(b, h, sel.shape[-1], d)
             amask = valid[:, None, None]
-        out = attend(q, torch.gather(k_buf, 2, gather), torch.gather(v_buf, 2, gather), mask=amask)
+        out = attend(q, torch.gather(k_buf, 2, gather), torch.gather(v_buf, 2, gather), mask=amask,
+                     stable=cfg.stable)
         return attn.out(_merge_heads(out))
     mask = torch.arange(cfg.seq_len, device=x.device)[None] <= offsets[:, None]  # (S, seq)
     if pattern is not None:
         rows = _rows_at(pattern.rows, offsets)
         mask = mask[:, None] & rows if rows.ndim == 3 else mask & rows
     amask = mask[:, :, None] if mask.ndim == 3 else mask[:, None, None]
-    out = attend(q, k_buf, v_buf, mask=amask)
+    out = attend(q, k_buf, v_buf, mask=amask, stable=cfg.stable)
     return attn.out(_merge_heads(out))
 
 
@@ -165,8 +167,8 @@ def _paged_shift_step(cfg: TransformerConfig, ring: torch.Tensor, x: torch.Tenso
 
 def _paged_branch(cfg: TransformerConfig, layer: Layer, x, kind: str, layer_pool, block_tables, offsets,
                   ring_layer, pattern, rotary, block_size: int) -> torch.Tensor:
-    """The decode-mode residual branch (`_residual_branch`) over paged
-    per-slot state."""
+    """The decode-mode residual branch (`_residual_branch`, the sandwich
+    norm included) over paged per-slot state."""
     h = (layer.attn_norm if kind == "attn" else layer.ff_norm)(x)
     if cfg.shift_tokens:
         h = _paged_shift_step(cfg, ring_layer[f"shift_{kind}"], h, offsets)
@@ -175,6 +177,8 @@ def _paged_branch(cfg: TransformerConfig, layer: Layer, x, kind: str, layer_pool
                                   block_size)
     else:
         h = _feed_forward(layer.ff, h)
+    if cfg.sandwich_norm:
+        h = (layer.attn_norm_out if kind == "attn" else layer.ff_norm_out)(h)
     scale = layer.attn_scale if kind == "attn" else layer.ff_scale
     return h * scale.to(h.dtype)
 
@@ -188,9 +192,9 @@ def paged_decode_step(model: Transformer, x: torch.Tensor, pool: dict, block_tab
     slot's token takes; `block_tables`: (S, max_blocks) int64; `rings`:
     `init_slot_rings` state or None.  Writes each slot's KV column and ring
     slots in place and returns the output (S, 1, dim).  Layers run
-    sequentially (reversible execution is refused by `TransformerConfig`);
-    a layer range (`layer_start` / `layer_stop`, the speculative draft and
-    verify halves) is refused."""
+    sequentially, or under execution="reversible" as the twin stream over
+    the same pool and rings; a layer range (`layer_start` / `layer_stop`,
+    the speculative draft and verify halves) is refused."""
     cfg = model.cfg
     if layer_start != 0 or layer_stop is not None:
         raise NotImplementedError("a layer range (layer_start / layer_stop) is speculative decoding, "
@@ -199,13 +203,19 @@ def paged_decode_step(model: Transformer, x: torch.Tensor, pool: dict, block_tab
         raise ValueError(f"block tables must cover a full sequence: {block_tables.shape[1]} x {block_size} "
                          f"< {cfg.seq_len}")
     rotary = model.rotary(x.device)
-    h = x
-    for i, (layer, spec) in enumerate(zip(model.layers, model.specs)):
-        pattern = model.decode_inputs(_pattern_key(spec), x.device)
-        lp = pool["layers"][i]
+
+    def branch(i, kind, h, params=None):
+        pattern = model.decode_inputs(_pattern_key(model.specs[i]), x.device)
         ring = None if rings is None else rings["layers"][i]
-        fa = _paged_branch(cfg, layer, h, "attn", lp, block_tables, offsets, ring, pattern, rotary, block_size)
-        fb = _paged_branch(cfg, layer, h + fa, "ff", lp, block_tables, offsets, ring, pattern, rotary,
-                           block_size)
+        return _paged_branch(cfg, model.layers[i], h, kind, pool["layers"][i], block_tables, offsets, ring,
+                             pattern, rotary, block_size)
+
+    if cfg.execution == "reversible":
+        x1, x2 = twin_stream(branch, cfg.depth, x)
+        return (x1 + x2) / 2
+    h = x
+    for i in range(cfg.depth):
+        fa = branch(i, "attn", h)
+        fb = branch(i, "ff", h + fa)
         h = h + fa + fb
     return h

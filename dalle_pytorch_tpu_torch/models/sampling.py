@@ -34,6 +34,7 @@ from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.transformer import apply_transformer, decode_step, init_cache, prefill
 from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise, gumbel_sample, top_k_filter
+from dalle_pytorch_tpu_torch.ops.stable import divide_max
 
 DEFAULT_PRIME_FRACTION = 0.4375  # OpenAI used 14 * 32 initial tokens to prime
 # eager steps on a side stream before a capture: cuBLAS handles, workspaces
@@ -45,8 +46,11 @@ def _logits_at(model: DALLE, out_last: torch.Tensor, image: bool) -> torch.Tenso
     """Masked vocab logits (b, total_tokens) from the transformer output
     (b, 1, dim) at a position of the image region (`image`) or of the text
     region: the producing position's mask row, which is the same within a
-    region."""
+    region.  Under `stable` the output is divided by its max first, as the
+    training forward does."""
     cfg = model.cfg
+    if cfg.stable:
+        out_last = divide_max(out_last)
     logits = dalle_mod.to_logits(model, out_last)[:, 0]
     tok = torch.arange(cfg.total_tokens, device=logits.device)
     forbidden = tok < cfg.num_text_tokens_padded if image else tok >= cfg.num_text_tokens_padded

@@ -1,7 +1,10 @@
 """The transformer core (counterpart of `dalle_pytorch_tpu/models/transformer.py`),
-for sequential or rematerialised execution of unshared layers with full or
-pattern attention (`axial_row`, `axial_col`, `conv_like`, `sparse`, shared
-or per head).
+for sequential, rematerialised or reversible execution of layers with full
+or pattern attention (`axial_row`, `axial_col`, `conv_like`, `sparse`,
+shared or per head), weight sharing across layers (`shared_attn_ids`,
+`shared_ff_ids`: the ids cycle over depth, and layers with one id hold one
+`Attention` or `FeedForward` module), the `stable` softmax in the plain
+attention and the sandwich norm after each branch (`sandwich_norm`).
 
 Rematerialisation (`execution="remat"`) wraps each layer in a
 non-reentrant `torch.utils.checkpoint` and takes the JAX package's save
@@ -12,19 +15,30 @@ run keeps the flash forward's (out, lse) and the named projections'
 outputs (`_Kept`), and the recompute takes them back in place of running
 them again, so the backward runs each forward kernel no second time.
 
+Reversible execution (`execution="reversible"`) runs the layers as a twin
+stream (`models/reversible.py`): attention on the second stream into the
+first, then feed-forward on the first into the second, the output the mean
+of the two.  While a gradient is taken, `Reversible` keeps only the two
+final streams and rebuilds each layer's input in its backward; otherwise,
+and in prefill and the cached decode step, the twin stream runs as plain
+tensor ops over the same caches.
+
 Each layer is PreShiftToken? -> PreNorm -> attention or GEGLU feed-forward
-(-> dropout) -> LayerScale, run in three modes: a full sequence
-(`apply_transformer`, differentiable, the training mode), a prompt that also
-fills the KV cache (`prefill`), and one cached token (`decode_step`).
+(-> dropout) -> sandwich norm? -> LayerScale, run in three modes: a full
+sequence (`apply_transformer`, differentiable, the training mode), a prompt
+that also fills the KV cache (`prefill`), and one cached token
+(`decode_step`).
 Full-sequence attention, in the first two modes, goes through the flash
 attention of `kernels/flash_attention.py`: the CUDA kernels on the card, at
 any sequence length, with the backward kernels under autograd.  A pattern
 layer passes its static mask and the mask's tile tables, built once per
 pattern, length and device; the kernels take the compacted grid where the
 pattern kills tiles, and with `attn_vfa` run the two-pass VFA forward
-there.  The one-token decode attention is plain tensor ops over the cache,
-as in the JAX package: a pattern layer gathers only the keys its pattern
-row permits (`sparse_decode`) or masks the full cache with that row.
+there.  The online softmax is stable as it is, so `stable` changes only
+the plain attention.  The one-token decode attention is plain tensor ops
+over the cache, as in the JAX package: a pattern layer gathers only the
+keys its pattern row permits (`sparse_decode`) or masks the full cache with
+that row.
 
 The decode cache is a dict `{"offset": (), "layers": [per-layer dict]}`
 whose offset (an int64 tensor on the cache's device), k/v buffers and
@@ -53,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 from dalle_pytorch_tpu_torch.core.module import LayerNorm, dropout, fan_in_uniform_
 from dalle_pytorch_tpu_torch.kernels.flash_attention import PatternTables, flash_attention, mask_with_slack, pattern_tables
 from dalle_pytorch_tpu_torch.kernels.sparse_index import build_decode_tables
+from dalle_pytorch_tpu_torch.models.reversible import reversible, twin_stream
 from dalle_pytorch_tpu_torch.ops.attention import attend
 from dalle_pytorch_tpu_torch.ops.masks import ATTN_TYPES, _block_sparse_mask_np, _block_sparse_mask_np_heads, _pattern_mask_np
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary, build_dalle_rotary
@@ -79,6 +94,8 @@ class TransformerConfig:
     rotary_emb: bool = True
     shared_attn_ids: Optional[Tuple[int, ...]] = None
     shared_ff_ids: Optional[Tuple[int, ...]] = None
+    # "sequential", "remat" (each layer recomputed in the backward) or
+    # "reversible" (the twin stream, its layers' inputs rebuilt in the backward)
     execution: str = "sequential"
     # what execution="remat" keeps across a layer besides its input:
     #   "full"         nothing: the backward recomputes the whole layer, and
@@ -107,19 +124,8 @@ class TransformerConfig:
     sparse_decode: bool = True
 
     def __post_init__(self):
-        unsupported = {
-            "stable": self.stable,
-            "sandwich_norm": self.sandwich_norm,
-            "shared_attn_ids": self.shared_attn_ids is not None,
-            "shared_ff_ids": self.shared_ff_ids is not None,
-            "execution": self.execution not in ("sequential", "remat"),
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"the PyTorch port runs unshared, sequential or rematerialised "
-                f"layers only; unsupported settings: {', '.join(bad)}"
-            )
+        if self.execution not in ("sequential", "remat", "reversible"):
+            raise ValueError(f"execution must be sequential|remat|reversible, got {self.execution!r}")
         if self.attn_grid not in ("auto", "dense", "compact"):
             raise ValueError(f"attn_grid must be auto|dense|compact, got {self.attn_grid!r}")
 
@@ -144,13 +150,26 @@ class LayerSpec:
 
 
 def derive_layer_specs(cfg: TransformerConfig) -> List[LayerSpec]:
-    """Cycle attn_types over depth (layers are unshared in the port)."""
+    """Cycle attn_types over depth and the sharing ids over depth (each
+    layer its own id when they are None), as the JAX package does; a shared
+    attention id reused under another attention type raises."""
+    attn_ids = cfg.shared_attn_ids or tuple(range(cfg.depth))
+    ff_ids = cfg.shared_ff_ids or tuple(range(cfg.depth))
     specs = []
+    seen_attn_types: Dict[str, str] = {}
     for i in range(cfg.depth):
         attn_type = cfg.attn_types[i % len(cfg.attn_types)]
         if attn_type not in ATTN_TYPES:
             raise ValueError(f'attention type "{attn_type}" is not valid')
-        specs.append(LayerSpec(i, attn_type, str(i), str(i)))
+        attn_id = str(attn_ids[i % len(attn_ids)])
+        ff_id = str(ff_ids[i % len(ff_ids)])
+        if attn_id in seen_attn_types and seen_attn_types[attn_id] != attn_type:
+            raise ValueError(
+                f"attn_types do not match shared_attn_ids (ind = {i}, "
+                f'attn_type = "{attn_type}", reused = "{seen_attn_types[attn_id]}")'
+            )
+        seen_attn_types[attn_id] = attn_type
+        specs.append(LayerSpec(i, attn_type, attn_id, ff_id))
     return specs
 
 
@@ -294,9 +313,10 @@ def _pattern_for(cfg: TransformerConfig, attn_type: str, seed: int = 0) -> Optio
 
 
 def _pattern_seed(spec: LayerSpec) -> int:
-    """Random-layout seed of a 'sparse' layer: its attention id (the layer
-    index: the port runs no shared layers), so distinct layers draw
-    distinct layouts, as the JAX package has it."""
+    """Random-layout seed of a 'sparse' layer: its attention id, so the
+    layout belongs to the attention module, as the JAX package has it:
+    distinct layers draw distinct layouts, and layers that share an id
+    (`shared_attn_ids`) share its layout."""
     return int(spec.attn_id)
 
 
@@ -346,19 +366,31 @@ class FeedForward(nn.Module):
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, index: int):
+    """One layer's own parameters (the pre-norms, the sandwich norms under
+    `sandwich_norm`, LayerScale) and the attention and feed-forward of its
+    ids: layers that share an id hold the same module."""
+
+    def __init__(self, cfg: TransformerConfig, index: int, attn: Attention, ff: FeedForward):
         super().__init__()
         eps = _layerscale_eps(index + 1)
         self.attn_norm = LayerNorm(cfg.dim)
         self.ff_norm = LayerNorm(cfg.dim)
         self.attn_scale = nn.Parameter(torch.full((1, 1, cfg.dim), eps))
         self.ff_scale = nn.Parameter(torch.full((1, 1, cfg.dim), eps))
-        self.attn = Attention(cfg)
-        self.ff = FeedForward(cfg)
+        if cfg.sandwich_norm:
+            self.attn_norm_out = LayerNorm(cfg.dim)
+            self.ff_norm_out = LayerNorm(cfg.dim)
+        self.attn = attn
+        self.ff = ff
 
-    def forward(self, cfg, x, mode, rotary, key_mask, layer_cache, offset, text_mode, seeds, pattern):
+    def forward(self, cfg, x, mode, rotary, key_mask, layer_cache, offset, text_mode, seeds, pattern,
+                kind: Optional[str] = None):
         """The layer's attention then feed-forward residual branches
-        (`_residual_branch`, with the branch's dropout seed)."""
+        (`_residual_branch`, with the branch's dropout seed); with `kind`
+        ("attn" or "ff"), that branch's output alone (the twin stream)."""
+        if kind is not None:
+            return _residual_branch(cfg, self, x, kind, mode, rotary, key_mask, layer_cache, offset, text_mode,
+                                    seeds[kind == "ff"], pattern)
         for kind, seed in zip(("attn", "ff"), seeds):
             x = x + _residual_branch(cfg, self, x, kind, mode, rotary, key_mask,
                                      layer_cache, offset, text_mode, seed, pattern)
@@ -370,7 +402,16 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.specs = derive_layer_specs(cfg)
-        self.layers = nn.ModuleList(Layer(cfg, s.index) for s in self.specs)
+        attns: Dict[str, Attention] = {}
+        ffs: Dict[str, FeedForward] = {}
+        layers = []
+        for s in self.specs:
+            if s.attn_id not in attns:
+                attns[s.attn_id] = Attention(cfg)
+            if s.ff_id not in ffs:
+                ffs[s.ff_id] = FeedForward(cfg)
+            layers.append(Layer(cfg, s.index, attns[s.attn_id], ffs[s.ff_id]))
+        self.layers = nn.ModuleList(layers)
         # f32 angle tables by device; kept out of the buffers so that casting
         # the module to bf16 leaves the angles in f32
         self._rotary: Dict[torch.device, torch.Tensor] = {}
@@ -443,10 +484,14 @@ class Transformer(nn.Module):
 @torch.no_grad()
 def init_transformer_(model: Transformer, generator: Optional[torch.Generator] = None) -> None:
     """Seeded in-place initialisation with the JAX package's distributions
-    (norms and LayerScale keep their constructor values)."""
+    (norms and LayerScale keep their constructor values); a shared module
+    is drawn once, at its first layer."""
+    seen = set()
     for layer in model.layers:
         for lin in (layer.attn.qkv, layer.attn.out, layer.ff.w1, layer.ff.w1g, layer.ff.w2):
-            fan_in_uniform_(lin, generator)
+            if id(lin) not in seen:
+                seen.add(id(lin))
+                fan_in_uniform_(lin, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -525,14 +570,14 @@ def _attention_cached(attn, cfg, layer_cache, x, rotary, offset: torch.Tensor,
         else:
             k_sel, v_sel = k_buf.index_select(2, sel[0]), v_buf.index_select(2, sel[0])
             amask = valid[None, None]
-        out = attend(q, k_sel, v_sel, mask=amask)
+        out = attend(q, k_sel, v_sel, mask=amask, stable=cfg.stable)
         decode_step.gathers += 1
         return attn.out(_merge_heads(out))
     mask = torch.arange(cfg.seq_len, device=offset.device) <= offset  # (seq,)
     if pattern is not None:
         mask = mask & _at(pattern.rows, offset, -2)  # (1, seq) or per head (h, 1, seq)
     amask = mask[None] if mask.ndim == 3 else mask.view(1, 1, 1, -1)
-    out = attend(q, k_buf, v_buf, mask=amask)
+    out = attend(q, k_buf, v_buf, mask=amask, stable=cfg.stable)
     return attn.out(_merge_heads(out))
 
 
@@ -575,10 +620,11 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
                      text_mode: bool = False, dropout_seed: Optional[int] = None,
                      pattern=None):
     """PreShiftToken? -> PreNorm -> attention or feed-forward (-> dropout)
-    -> LayerScale, in mode 'full', 'prefill' or 'decode'; `pattern` is the
-    layer's `Transformer.attention_inputs` (or, decoding, `decode_inputs`).
-    The dropout generator is built here from `dropout_seed`, so a
-    rematerialised layer draws the same masks again when it is recomputed."""
+    -> sandwich norm? -> LayerScale, in mode 'full', 'prefill' or 'decode';
+    `pattern` is the layer's `Transformer.attention_inputs` (or, decoding,
+    `decode_inputs`).  The dropout generator is built here from
+    `dropout_seed`, so a rematerialised or reversible layer draws the same
+    masks again when it is recomputed."""
     gen = None if dropout_seed is None else torch.Generator(device=x.device).manual_seed(dropout_seed)
     h = (layer.attn_norm if kind == "attn" else layer.ff_norm)(x)
     if cfg.shift_tokens:
@@ -602,36 +648,54 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
             h = dropout(h, cfg.attn_dropout, gen)
     else:
         h = _feed_forward(layer.ff, h, cfg.ff_dropout, gen)
+    if cfg.sandwich_norm:
+        h = (layer.attn_norm_out if kind == "attn" else layer.ff_norm_out)(h)
     scale = layer.attn_scale if kind == "attn" else layer.ff_scale
     return h * scale.to(h.dtype)
 
 
 def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mode=False,
-                seeds=None, remat=False):
+                seeds=None, remat=False, rebuild=False):
     """seeds: per layer, the (attention, feed-forward) dropout seeds, or
     None.  remat: wrap each layer in a non-reentrant checkpoint under the
     config's `remat_policy` (`remat_run`): under "full" the backward
     recomputes the layer, its forward kernels (the VFA pair with
     `attn_vfa`) included; the selective policies keep the flash forward's
-    outputs, so it runs once."""
+    outputs, so it runs once.  Under execution="reversible" the layers run
+    as the twin stream, over the same caches in the cached modes; rebuild:
+    through `Reversible`, which rebuilds each layer's input in its
+    backward, else as plain tensor ops."""
     cfg = model.cfg
     names = remat_names(cfg.remat_policy) if remat else ()
     rotary = model.rotary(x.device)
     offset = None if cache is None else cache["offset"]
     causal = cfg.causal or mode == "prefill"
-    for i, (layer, spec) in enumerate(zip(model.layers, model.specs)):
-        lc = None if cache is None else cache["layers"][i]
-        key = _pattern_key(spec)
+
+    def args(i: int, h: torch.Tensor) -> tuple:
+        key = _pattern_key(model.specs[i])
         if mode == "decode":
             pattern = model.decode_inputs(key, x.device)
         else:
-            pattern = model.attention_inputs(key, x.shape[1], causal, x.device)
-        args = (cfg, x, mode, rotary, key_mask, lc, offset, text_mode,
+            pattern = model.attention_inputs(key, h.shape[1], causal, x.device)
+        return (cfg, h, mode, rotary, key_mask, None if cache is None else cache["layers"][i], offset, text_mode,
                 (None, None) if seeds is None else seeds[i], pattern)
+
+    if cfg.execution == "reversible":
+        def branch(i, kind, h, params):
+            layer = model.layers[i]
+            if params is None:
+                return layer(*args(i, h), kind=kind)
+            return functional_call(layer, params, args(i, h), {"kind": kind})
+
+        if rebuild:  # the parameters this forward runs on (a caller's functional_call's)
+            return reversible(branch, [dict(layer.named_parameters()) for layer in model.layers], x)
+        x1, x2 = twin_stream(branch, cfg.depth, x)
+        return (x1 + x2) / 2
+    for i, layer in enumerate(model.layers):
         if remat:
-            x = checkpoint(remat_run(layer, names), *args, use_reentrant=False)
+            x = checkpoint(remat_run(layer, names), *args(i, x), use_reentrant=False)
         else:
-            x = layer(*args)
+            x = layer(*args(i, x))
     return x
 
 
@@ -651,17 +715,21 @@ def _dropout_seeds(cfg: TransformerConfig, generator: Optional[torch.Generator])
 
 def apply_transformer(model: Transformer, x: torch.Tensor,
                       key_mask: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      rebuild: bool = True) -> torch.Tensor:
     """x: (batch, n, dim), n <= seq_len.  Full-sequence (training) mode,
     differentiable.  `generator` draws the dropout masks (none when it is
     None); a CPU generator draws the per-layer seeds without a device sync.
     execution="remat" recomputes each layer in the backward under
-    `remat_policy` (an unknown policy raises ValueError); it only matters
-    while a gradient is taken."""
+    `remat_policy` (an unknown policy raises ValueError); execution=
+    "reversible" runs the twin stream, through `Reversible` (each layer's
+    input rebuilt in the backward) unless `rebuild` is False, which takes
+    plain autograd through the same loop.  Both only matter while a
+    gradient is taken."""
     cfg = model.cfg
-    remat = cfg.execution == "remat" and torch.is_grad_enabled()
-    return _run_layers(model, x, "full", key_mask=key_mask,
-                       seeds=_dropout_seeds(cfg, generator), remat=remat)
+    grad = torch.is_grad_enabled()
+    return _run_layers(model, x, "full", key_mask=key_mask, seeds=_dropout_seeds(cfg, generator),
+                       remat=cfg.execution == "remat" and grad, rebuild=rebuild and grad)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, dtype=torch.float32, device=None) -> dict:

@@ -22,6 +22,7 @@ from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.core.module import conv_transpose_weight, conv_weight, linear_weight
 from dalle_pytorch_tpu_torch.models.clip import CLIP, CLIPConfig
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig
+from dalle_pytorch_tpu_torch.models.transformer import TransformerConfig, derive_layer_specs
 from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE, DiscreteVAEConfig
 from dalle_pytorch_tpu_torch.models.vae_registry import config_from_meta
 
@@ -29,6 +30,9 @@ StateDict = Dict[str, torch.Tensor]
 
 # the learned position tables of a DALL-E without rotary
 _POSITION_TABLES = ("text_pos", "image_pos_h", "image_pos_w")
+# a transformer layer's norms, and its sandwich norms under `sandwich_norm`
+_LAYER_NORMS = ("attn_norm", "ff_norm")
+_SANDWICH_NORMS = ("attn_norm_out", "ff_norm_out")
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -86,18 +90,22 @@ def migrate_transformer_layout(tparams: dict, heads: int, dim_head: int) -> dict
     return {**tparams, "shared_attn": attn_out, "shared_ff": ff_out}
 
 
-def _transformer_state_dict(prefix: str, tp: dict, depth: int) -> StateDict:
+def _transformer_state_dict(prefix: str, tp: dict, tcfg: TransformerConfig) -> StateDict:
     """A transformer tree (current layout) -> the state dict of the port's
-    `Transformer` under `prefix`; layer i reads its attention and
-    feed-forward weights under id str(i)."""
-    if len(tp["layers"]) != depth:
-        raise ValueError(f"tree has {len(tp['layers'])} layers, config depth {depth}")
+    `Transformer` under `prefix`: layer i reads its attention and
+    feed-forward weights under its ids (`derive_layer_specs`; str(i) for
+    unshared layers), so layers that share an id get the same tensors, and
+    its sandwich norms under `sandwich_norm`."""
+    specs = derive_layer_specs(tcfg)
+    if len(tp["layers"]) != len(specs):
+        raise ValueError(f"tree has {len(tp['layers'])} layers, config depth {len(specs)}")
+    norms = _LAYER_NORMS + (_SANDWICH_NORMS if tcfg.sandwich_norm else ())
     sd: StateDict = {}
-    for i, layer in enumerate(tp["layers"]):
-        pre = f"{prefix}.layers.{i}"
-        attn, ff = tp["shared_attn"][str(i)], tp["shared_ff"][str(i)]
-        sd.update(_norm(f"{pre}.attn_norm", layer["attn_norm"]))
-        sd.update(_norm(f"{pre}.ff_norm", layer["ff_norm"]))
+    for spec, layer in zip(specs, tp["layers"]):
+        pre = f"{prefix}.layers.{spec.index}"
+        attn, ff = tp["shared_attn"][spec.attn_id], tp["shared_ff"][spec.ff_id]
+        for name in norms:
+            sd.update(_norm(f"{pre}.{name}", layer[name]))
         sd[f"{pre}.attn_scale"] = _t(layer["attn_scale"])
         sd[f"{pre}.ff_scale"] = _t(layer["ff_scale"])
         sd.update(_linear(f"{pre}.attn.qkv", attn["qkv"]))
@@ -109,11 +117,10 @@ def _transformer_state_dict(prefix: str, tp: dict, depth: int) -> StateDict:
 
 def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
     """The JAX package's DALL-E parameter tree (either transformer layout,
-    `migrate_transformer_layout`) -> the port's `DALLE` state dict.  Layer i
-    reads its attention and feed-forward weights under id str(i): the
-    port's layers are unshared."""
+    `migrate_transformer_layout`) -> the port's `DALLE` state dict, the keys
+    of every layer included (a shared module's under each of its layers)."""
     tp = migrate_transformer_layout(params["transformer"], cfg.heads, cfg.dim_head)
-    sd = _transformer_state_dict("transformer", tp, cfg.depth)
+    sd = _transformer_state_dict("transformer", tp, cfg.transformer_config())
     sd.update(_norm("logits_norm", params["logits_norm"]))
     sd.update(_linear("logits_linear", params["logits_linear"]))
     if not cfg.share_input_output_emb:  # tied: the tree has no embedding tables
@@ -128,8 +135,8 @@ def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
 def clip_state_dict(params: dict, cfg: CLIPConfig) -> StateDict:
     """The JAX package's CLIP parameter tree -> the port's `CLIP` state dict."""
     sd: StateDict = {}
-    for side, depth in (("text", cfg.text_enc_depth), ("visual", cfg.visual_enc_depth)):
-        sd.update(_transformer_state_dict(f"{side}_transformer", params[f"{side}_transformer"], depth))
+    for side, tcfg in (("text", cfg.text_transformer_config()), ("visual", cfg.visual_transformer_config())):
+        sd.update(_transformer_state_dict(f"{side}_transformer", params[f"{side}_transformer"], tcfg))
         sd.update(_linear(f"to_{side}_latent", params[f"to_{side}_latent"]))
         sd[f"{side}_pos.weight"] = _t(params[f"{side}_pos"]["table"])
     sd["text_emb.weight"] = _t(params["text_emb"]["table"])
@@ -186,32 +193,36 @@ def _conv_tree(sd: StateDict, prefix: str, transpose: bool = False) -> dict:
     return out
 
 
-def _transformer_tree(sd: StateDict, prefix: str, depth: int) -> dict:
-    """The inverse of `_transformer_state_dict`."""
+def _transformer_tree(sd: StateDict, prefix: str, tcfg: TransformerConfig) -> dict:
+    """The inverse of `_transformer_state_dict`: each attention and
+    feed-forward id once, read at the first layer that holds it (the name
+    `named_parameters` keeps for a shared tensor)."""
     layers, shared_attn, shared_ff = [], {}, {}
-    for i in range(depth):
-        pre = f"{prefix}.layers.{i}"
-        layers.append({
-            "attn_norm": _norm_tree(sd, f"{pre}.attn_norm"),
-            "ff_norm": _norm_tree(sd, f"{pre}.ff_norm"),
-            "attn_scale": _leaf(sd[f"{pre}.attn_scale"]),
-            "ff_scale": _leaf(sd[f"{pre}.ff_scale"]),
-        })
-        shared_attn[str(i)] = {"qkv": _linear_tree(sd, f"{pre}.attn.qkv"),
-                               "out": _linear_tree(sd, f"{pre}.attn.out")}
-        shared_ff[str(i)] = {name: _linear_tree(sd, f"{pre}.ff.{name}") for name in ("w1", "w1g", "w2")}
+    norms = _LAYER_NORMS + (_SANDWICH_NORMS if tcfg.sandwich_norm else ())
+    for spec in derive_layer_specs(tcfg):
+        pre = f"{prefix}.layers.{spec.index}"
+        layer = {name: _norm_tree(sd, f"{pre}.{name}") for name in norms}
+        layer["attn_scale"] = _leaf(sd[f"{pre}.attn_scale"])
+        layer["ff_scale"] = _leaf(sd[f"{pre}.ff_scale"])
+        layers.append(layer)
+        if spec.attn_id not in shared_attn:
+            shared_attn[spec.attn_id] = {"qkv": _linear_tree(sd, f"{pre}.attn.qkv"),
+                                         "out": _linear_tree(sd, f"{pre}.attn.out")}
+        if spec.ff_id not in shared_ff:
+            shared_ff[spec.ff_id] = {name: _linear_tree(sd, f"{pre}.ff.{name}") for name in ("w1", "w1g", "w2")}
     return {"layers": layers, "shared_attn": shared_attn, "shared_ff": shared_ff}
 
 
 def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
     """The inverse of `dalle_state_dict`: a `DALLE` state dict (or any dict
     of tensors under its parameter names, such as gradients or optimizer
-    moments) -> the JAX package's parameter tree, (in, out) linears, layer
-    i's attention and feed-forward under id str(i).  Leaves are detached
+    moments, whose keys may be `named_parameters`' alone) -> the JAX
+    package's parameter tree, (in, out) linears, each attention and
+    feed-forward id once.  Leaves are detached
     CPU tensors in their own dtype (`.numpy()` gives the JAX package's
     arrays where numpy has the dtype)."""
     tree = {
-        "transformer": _transformer_tree(sd, "transformer", cfg.depth),
+        "transformer": _transformer_tree(sd, "transformer", cfg.transformer_config()),
         "logits_norm": _norm_tree(sd, "logits_norm"),
         "logits_linear": _linear_tree(sd, "logits_linear"),
     }
@@ -228,8 +239,8 @@ def clip_tree(sd: StateDict, cfg: CLIPConfig) -> dict:
     """The inverse of `clip_state_dict`."""
     tree = {"text_emb": {"table": _leaf(sd["text_emb.weight"])}, "patch_emb": _linear_tree(sd, "patch_emb"),
             "temperature": _leaf(sd["temperature"])}
-    for side, depth in (("text", cfg.text_enc_depth), ("visual", cfg.visual_enc_depth)):
-        tree[f"{side}_transformer"] = _transformer_tree(sd, f"{side}_transformer", depth)
+    for side, tcfg in (("text", cfg.text_transformer_config()), ("visual", cfg.visual_transformer_config())):
+        tree[f"{side}_transformer"] = _transformer_tree(sd, f"{side}_transformer", tcfg)
         tree[f"to_{side}_latent"] = _linear_tree(sd, f"to_{side}_latent")
         tree[f"{side}_pos"] = {"table": _leaf(sd[f"{side}_pos.weight"])}
     return tree

@@ -438,12 +438,12 @@ def test_cli_dummy_run_exits_zero(tmp_path):
 
 # each flag that used to wait, beside what still refuses on its path: the
 # folder without a VAE (the JAX CLI downloads one), --resume beside
-# --dalle_path, --lr_decay with the stable softmax, a remote shard spec,
-# no data at all
+# --dalle_path, --lr_decay with the Hugging Face tokenizer, a remote shard
+# spec, no data at all
 _REFUSED = {
     "--image_text_folder": (["--image_text_folder", "data"], "without --vae_path.*item 5"),
     "--resume": (["--resume", "auto", "--dalle_path", "x.pt", "--dummy_run", "1"], "mutually exclusive"),
-    "--lr_decay": (["--lr_decay", "--stable_softmax", "--dummy_run", "1"], "stable softmax.*item 3"),
+    "--lr_decay": (["--lr_decay", "--hug", "--dummy_run", "1"], "Hugging Face tokenizer.*item 4"),
     "--mesh_dp": (["--mesh_dp", "2", "--dummy_run", "1"], "meshes.*item 7"),
     "--wds": (["--wds", "--image_text_folder", "gs://bucket/s-{0..3}.tar"], "remote tar shards.*item 10"),
 }

@@ -229,13 +229,26 @@ def test_tar_shards_train_and_the_checkpoint_generates(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--stable_softmax"], 3), (["--execution", "reversible"], 3), (["--shared_attn_ids", "0,0"], 3),
+    (["--mesh_fsdp", "2"], 7), (["--mesh_pp", "2"], 7), (["--vqgan_config_path", "v.yaml"], 5),
     (["--chinese"], 4), (["--hug"], 4), (["--taming"], 5), (["--vqgan_model_path", "v.ckpt"], 5),
     (["--zero_stage", "2"], 7), (["--mesh_tp", "2"], 7), (["--sample_every_n_steps", "10"], 8),
     (["--bpe_path", "bpe.model"], 4)])
 def test_flags_that_wait_name_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 item {item}"):
         tcli.main(["--dummy_run", "1", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags,setting", [
+    (["--stable_softmax"], {"stable": True}), (["--execution", "reversible"], {"execution": "reversible"}),
+    (["--shared_attn_ids", "0,0"], {"shared_attn_ids": [0, 0]})])
+def test_flags_of_the_transformer_settings_train(flags, setting, tmp_path, capsys):
+    """The flags that waited for the transformer settings now train a
+    dummy run, the setting in the printed config."""
+    records, _ = _run(["--dummy_run", "1", "--device", "cpu", "--dalle_output_file_name", str(tmp_path / "s"),
+                       *flags], capsys)
+    assert len(records) == 1 and np.isfinite(records[0]["loss"])
+    config = resume.load_checkpoint(str(tmp_path / "s.pt"))[1]["hparams"]
+    assert {k: config[k] for k in setting} == setting
 
 
 def test_refusals_of_the_data_path(data, tmp_path):

@@ -77,9 +77,14 @@ def test_prefill_then_decode_matches(models, n_pre):
 
 
 def test_unsupported_settings_raise():
-    """Pattern layers and the VFA forward run; shared layers raise."""
+    """Pattern layers, the VFA forward and shared layers build; a shared
+    attention id reused under another attention type raises."""
     ttr.TransformerConfig(dim=8, depth=1, seq_len=8, image_fmap_size=2, attn_types=("axial_row",))
     ttr.TransformerConfig(dim=8, depth=1, seq_len=8, image_fmap_size=2, attn_types=("axial_row",),
                           attn_vfa=True)
-    with pytest.raises(NotImplementedError, match="shared_attn_ids"):
-        ttr.TransformerConfig(dim=8, depth=2, seq_len=8, shared_attn_ids=(0, 0))
+    shared = ttr.Transformer(ttr.TransformerConfig(dim=8, depth=2, seq_len=8, heads=1, dim_head=8,
+                                                   shared_attn_ids=(0, 0)))
+    assert shared.layers[0].attn is shared.layers[1].attn and shared.layers[0].ff is not shared.layers[1].ff
+    with pytest.raises(ValueError, match="attn_types do not match shared_attn_ids"):
+        ttr.Transformer(ttr.TransformerConfig(dim=8, depth=2, seq_len=8, image_fmap_size=2,
+                                              attn_types=("full", "axial_row"), shared_attn_ids=(0, 0)))
