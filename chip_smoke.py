@@ -18,7 +18,7 @@ CPU, and runs the training CLI's dummy run with `--remat_policy flash_qkv
 (`train_real_data`): the 12-layer model at full width with learned
 positions and the BPE tokenizer's vocabulary, trained by `cli.train_dalle`
 from a folder of PNGs the script writes (through the port's PNG reader and
-loader) and from a tar shard of them, resumed from a step checkpoint to
+loader), resumed from a step checkpoint to
 the uninterrupted run's losses, then served from its checkpoint through
 `cli.generate`, replayed decode graphs and the engine.  Then the same for
 the README's
@@ -48,10 +48,8 @@ the text mask, its kernel path held against its plain path.  Each path runs
 with every launch counter set to 0 just before it and read just after.
 
 The transformer settings: the flagship's weights under `reversible=True`
-(the same tensors, `twin_module`) serve (`reversible_flagship_serve`: a
-primed CFG generation, the replayed twin-stream decode against the eager
-one and beside the sequential flagship's step, the engine's codes against
-batch-1 loops) and train (`reversible_flagship_train`: reversible against
+(the same tensors, `twin_module`) serve (`reversible_flagship_serve`: the
+engine's codes against batch-1 loops) and train (`reversible_flagship_train`: reversible against
 remat "full" steps, bf16 on f32 masters, at depths 64 and 16, with step
 times, peaks and activation peaks; gradients against plain autograd
 through the twin stream at depth 8; the rebuilt input of layer 0 at depth
@@ -73,6 +71,21 @@ clipped Adam steps on the card against the CPU; `train_clip_cli` runs
 forward, dq and dk/dv non-causal, the text encoder's under the caption key
 mask, and holds its f32 losses against the plain attention path's.
 
+BASELINE.json configs[4], the reversible flagship on the taming VQGAN-16k
+reranked by CLIP (`configs4_generate`): the VQGAN's published geometry
+with seeded weights, seq 512 and 26,640 logits; a primed CFG generation
+reranked by CLIP, the replayed decode against the eager one at n 512, the
+model written as a v3 checkpoint with `vae_class_name` VQGanVAE and served
+through `cli.generate` and `cli.generate --engine` (its PNG the batch-1
+image under one seed); `configs4_kernel_vs_plain` holds the pattern masks,
+tile tables and VFA pair at that shape (fmap 16) against their plain
+versions.  The pretrained families and other formats:
+`vae_families_parity` (the VQGAN-16k and OpenAI's dVAE, card against CPU:
+codes, pixels, times), `train_openai_taming` (the 12-layer model trained
+by `cli.train_dalle` on OpenAI's dVAE from a converted cache and with
+--taming, then served), `legacy_formats` (a torch-reference dalle.pt and
+a v2 checkpoint through `cli.generate`).
+
 Serving replays the decode step from CUDA graphs (`models/sampling.py`
 `DecodeGraphs`).  The `decode_graphs` lines hold the replayed loop against
 the same step run eagerly, at full width, over the last 128 steps of a
@@ -91,14 +104,14 @@ decode step captured in one CUDA graph per engine): `engine_parity` on the
 12-layer and pattern models at full width, f32, six requests on four lanes
 (two guided, one at temperature 0.7) with staggered submits, holds each
 request's codes equal to its batch-1 `sample_image_codes` under its
-generator seed, replayed, and on the 12-layer model also under its
-injected noise and eagerly (two of them), and one seeded request alone in
+generator seed, replayed, and on the 12-layer model the first codes of
+two requests run eagerly under their noise, and one seeded request alone in
 lane 0 equal to its run beside the others;
 `engine_flagship` serves the flagship on eight lanes (two requests held to
 their batch-1 codes under noise, the paged step's times replayed and
-eager, a profiled window, a Poisson load of 8 requests over 2 streams
-through `tools/loadgen.py` offered at twice the engine's capacity, and batch-1
-`generate_images` beside it); `serve_cli` runs `cli.serve --synthetic
+eager, a profiled window, a Poisson load of 6 requests over 2 streams
+through `tools/loadgen.py` offered at twice the engine's capacity);
+`serve_cli` runs `cli.serve --synthetic
 --loadgen 8` and `cli.generate --engine` against `cli.generate` under one
 seed.  Each admission's prefill must launch its layer cycle's kernels.
 
@@ -149,13 +162,22 @@ PATTERNS = ("axial_row", "axial_col", "conv_like", "sparse", "sparse_per_head")
 # the default prime fraction's codes (0.4375 of 1,024)
 PRIME_LEN = 448
 # the primed replayed-against-eager decode checks (pattern model, flagship)
-# run the last 128 steps: their eager loops take 32 and 110 ms a step
+# run the last 128 steps, the flagship's the last 64: their eager loops take
+# 32 and 110 ms a step
 GRAPHS_PRIME_LEN = 896
+FLAGSHIP_GRAPHS_PRIME_LEN = 960
 
 # the flagship 1.3B model (BASELINE.json configs[3], tools/flagship_sweep.py)
 FLAGSHIP = dict(dim=1152, depth=64, heads=8, dim_head=128, num_text_tokens=10000, text_seq_len=256,
                 attn_types=SLICE["attn_types"], rotary_emb=True, shift_tokens=True,
                 share_input_output_emb=True, attn_vfa=True)
+
+# BASELINE.json configs[4]: the flagship under reversible execution on the
+# taming VQGAN-16k (vqgan_imagenet_f16_16384's ddconfig: 256 px, a 16 x 16
+# map of 16,384 codes; seq 256 + 256), reranked by CLIP
+VQGAN16K = dict(ch=128, ch_mult=(1, 1, 2, 2, 4), num_res_blocks=2, attn_resolutions=(16,), resolution=256,
+                z_channels=256, n_embed=16384, embed_dim=256)
+CONFIGS4 = dict(FLAGSHIP, reversible=True)
 
 # kernels-line name -> (wrapper in kernels/flash_attention.py, its counter);
 # flash_fwd_masked counts the flash_fwd launches that took a pattern
@@ -523,6 +545,7 @@ def phase_kernel_vs_plain(fa):
         ("padded_noncausal", 2, 16, 300, 64, False, random_keys_first_dead),
         ("train", 4, 16, 1280, 64, True, None),  # the training step, batch 4
         ("flagship", 4, 8, 1280, 128, True, None),  # the flagship's full layers, batch 4
+        ("configs4", 4, 8, 512, 128, True, None),  # the flagship on the VQGAN-16k's map, 2 prompts x CFG
         ("clip_text", 4, 8, 256, 64, False, caption_keys),  # CLIP's text encoder
         ("clip_image", 4, 8, 64, 64, False, None),  # CLIP's image encoder, 64 patches
         ("text_prompt", 2, 16, 7, 64, True, None),  # a --gentxt prompt's prefill
@@ -584,6 +607,7 @@ def phase_backward_vs_plain(fa):
     cases = [  # (name, b, h, n, d, causal, key mask builder or None)
         ("train", 4, 16, 1280, 64, True, None),
         ("flagship", 4, 8, 1280, 128, True, None),  # the flagship's full layers, batch 4
+        ("configs4", 4, 8, 512, 128, True, None),  # the flagship on the VQGAN-16k's map, 2 prompts x CFG
         ("prefill", 4, 16, 257, 64, True, None),
         ("padded_noncausal", 2, 16, 300, 64, False, random_keys_last_batch_dead),
         ("clip_text", 16, 8, 256, 64, False, caption_keys),  # CLIP training's text encoder
@@ -669,14 +693,14 @@ def delta_error(fa, delta, out, lse, do, v) -> float:
     return (diff / fa._delta_limit(out, lse, do, v).clamp_min(1e-300)).max().item()
 
 
-def pattern_mask(masks, kind, n, h):
+def pattern_mask(masks, kind, n, h, fmap=32):
     """The slice's (n, n) pattern, or (h, n, n) for per-head 'sparse', at
-    seq 1280 on the 32 x 32 map."""
+    seq n on the fmap x fmap map."""
     if kind == "sparse":
-        return masks.build_block_sparse_mask(n, 32)
+        return masks.build_block_sparse_mask(n, fmap)
     if kind == "sparse_per_head":
-        return masks.build_block_sparse_mask(n, 32, heads=h)
-    return masks.build_pattern_mask(kind, n, 32)
+        return masks.build_block_sparse_mask(n, fmap, heads=h)
+    return masks.build_pattern_mask(kind, n, fmap)
 
 
 def vfa_vs_plain(fa, q, k, v, do, mask, h, t, online):
@@ -737,6 +761,126 @@ def vfa_vs_plain(fa, q, k, v, do, mask, h, t, online):
                 vfa_fwd_bound_ms=fwd_bound[0], vfa_fwd_bound_by=fwd_bound[1])
 
 
+def sparse_case(fa, masks, b, h, d, n, fmap, dtype, kind, always_vfa=False):
+    """One pattern at one shape and dtype (`phase_sparse_kernel_vs_plain`);
+    `always_vfa` runs the VFA pair on the compacted tables where the grid
+    rule would take the dense grid too."""
+    dev = torch.device("cuda")
+    bh, scale = b * h, d ** -0.5
+    mask = pattern_mask(masks, kind, n, h, fmap).to(dev)
+    tabs = {grid: fa.pattern_tables(mask, n, d, grid=grid, device=dev) for grid in ("dense", "compact")}
+    td, tc = tabs["dense"], tabs["compact"]
+    g = torch.Generator(device=dev).manual_seed(d + len(kind))
+    q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev).to(dtype) for _ in range(4))
+    res = {}
+    for grid, t in tabs.items():
+        out, lse = fa.flash_fwd(q, k, v, h=h, mask=mask, grid=grid, tables=t)
+        res[grid] = (out, lse, *fa.flash_bwd(q, k, v, out, lse, do, h=h, mask=mask, grid=grid, tables=t))
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, c) for a, c in zip(res["dense"], res["compact"]))
+    check(bit_equal, f"{kind} d {d} {dtype}: the compacted grid differs from the dense grid")
+    out, lse, dq, dk, dv = res["dense"]
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, h, True, scale, mask)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(err <= TOLERANCE[dtype] and lse_err <= LSE_TOLERANCE,
+          f"{kind} d {d} {dtype} forward: max abs err {err}, lse err {lse_err}")
+    ref = fa.flash_attention_backward_reference(q, k, v, out, lse, do, h, True, scale, mask)
+    bwd_err = {}
+    for gname, port, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        abs_err = (port.float() - r.float()).abs().max().item()
+        bwd_err[gname] = (abs_err, abs_err / r.float().abs().max().item())
+        check(bwd_err[gname][1] <= TOLERANCE[dtype],
+              f"{kind} d {d} {dtype} {gname}: error {bwd_err[gname][1]} over the reference's max")
+
+    # each kernel alone, through its entry point, as the wrappers call it
+    m, mh = fa._device_mask(q, mask, h)
+    o, l_ = torch.empty_like(q), torch.empty_like(lse)
+    gq, gk, gv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    gq2, delta, delta2 = torch.empty_like(q), torch.empty_like(lse), torch.empty_like(lse)
+    calls = {
+        "fwd_dense": ("flash_fwd", (q, k, v, None, m, td.live_rows, o, l_), 0, td.row_tile),
+        "fwd_compact": ("flash_fwd_compact", (q, k, v, None, m, tc.row_ptr, tc.col, o, l_),
+                        tc.col.shape[1], tc.row_tile),
+        "dq_dense": ("flash_bwd_dq", (q, k, v, do, out, lse, None, m, td.live_rows, gq, delta), 0,
+                     td.row_tile),
+        "dq_compact": ("flash_dq_compact",
+                       (q, k, v, do, out, lse, None, m, tc.row_ptr, tc.col, gq2, delta2),
+                       tc.col.shape[1], tc.row_tile),
+        "dkv_dense": ("flash_bwd_dkv", (q, k, v, do, lse, delta, None, m, td.live_cols, gk, gv), 0,
+                      td.col_tile),
+        "dkv_compact": ("flash_dkv_compact",
+                        (q, k, v, do, lse, delta, None, m, tc.col_ptr, tc.row, gk, gv),
+                        tc.row.shape[1], tc.col_tile),
+    }
+    launch = {key: functools.partial(fa._call, entry, q, ptrs, h, True, scale, mh,
+                                     (td if key.endswith("dense") else tc).heads, tab_len, tile)
+              for key, (entry, ptrs, tab_len, tile) in calls.items()}
+    # the dq kernels' delta, which dk/dv read: the same bits on both grids, near the plain one
+    launch["dq_dense"]()
+    launch["dq_compact"]()
+    torch.cuda.synchronize()
+    check(torch.equal(gq, gq2) and torch.equal(delta, delta2),
+          f"{kind} d {d} {dtype}: the compacted dq kernel's dq or delta differs from the dense one's")
+    delta_err = delta_error(fa, delta, out, lse, do, v)
+    check(delta_err <= 1.0, f"{kind} d {d} {dtype}: delta at {delta_err} of its limit")
+    ms = {key: time_ms(fn, 10) for key, fn in launch.items()}
+    plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, h, True, scale, mask), 10)
+    plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, out, lse, do, h, True, scale, mask), 10)
+    causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+    sdpa_mask = (mask & causal) if mask.ndim == 2 else (mask & causal)[None]
+    q4, k4, v4 = (t.view(b, h, n, d).detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=sdpa_mask)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do.view(b, h, n, d))
+
+    sdpa_ms = time_ms(sdpa_fwd, 10)
+    sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, 10) - sdpa_ms
+    dtimes = device_times({"flash_fwd_kernel": launch["fwd_dense"],
+                           "flash_fwd_compact_kernel": launch["fwd_compact"],
+                           "flash_bwd_dq_kernel": launch["dq_dense"],
+                           "flash_dq_compact_kernel": launch["dq_compact"],
+                           "flash_bwd_dkv_kernel": launch["dkv_dense"],
+                           "flash_dkv_compact_kernel": launch["dkv_compact"], None: sdpa_fwd})
+    sdpa_bwd_device_ms = device_difference(sdpa_fwd_bwd, sdpa_fwd)
+    compact_auto = fa.pattern_tables(mask, n, d, device=dev).compact
+    vfa = vfa_vs_plain(fa, q, k, v, do, mask, h, tc, res["compact"][:2]) if compact_auto or always_vfa else {}
+    # live tiles per (batch, head), at each kernel's tile
+    live_fwd, live_dkv = tc.live_tiles / tc.heads, tc.live_tiles_dkv / tc.heads
+    bound = {  # fwd: q, k, v, out, lse; dq: q, k, v, do, out, dq, lse, delta; dk/dv: q, k, v, do,
+        # dk, dv, lse, delta
+        "fwd": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 2, 4, 1),
+        "dq": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 3, 6, 2),
+        "dkv": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles_dkv, tc.heads, tc.col_tile[::-1], 4, 6, 2),
+    }
+    row = dict(pattern=kind, dtype=str(dtype).replace("torch.", ""), bh=bh, h=h, n=n, d=d, fmap=fmap,
+               grid_auto="compact" if compact_auto else "dense",
+               live_tiles=live_fwd, causal_tiles=tc.causal_tiles / tc.heads,
+               live_tiles_dkv=live_dkv, causal_tiles_dkv=tc.causal_tiles_dkv / tc.heads,
+               row_tile=tc.row_tile, col_tile=tc.col_tile, bit_equal=bit_equal,
+               delta_err_over_limit=delta_err,
+               max_abs_err=err, lse_err=lse_err, tolerance=TOLERANCE[dtype],
+               **{f"{gname}_max_abs_err": e[0] for gname, e in bwd_err.items()},
+               **{f"{gname}_err_over_ref_max": e[1] for gname, e in bwd_err.items()},
+               **{f"{key}_ms": value for key, value in ms.items()},
+               plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_ms,
+               sdpa_bwd_ms=sdpa_bwd_ms, sdpa_backend=sdpa_backend(sdpa_fwd),
+               fwd_dense_device_ms=dtimes["flash_fwd_kernel"],
+               fwd_compact_device_ms=dtimes["flash_fwd_compact_kernel"], sdpa_fwd_device_ms=dtimes[None],
+               dq_dense_device_ms=dtimes["flash_bwd_dq_kernel"],
+               dq_compact_device_ms=dtimes["flash_dq_compact_kernel"],
+               dkv_dense_device_ms=dtimes["flash_bwd_dkv_kernel"],
+               dkv_compact_device_ms=dtimes["flash_dkv_compact_kernel"],
+               sdpa_bwd_device_ms=sdpa_bwd_device_ms,
+               **{f"{key}_bound_ms": value[0] for key, value in bound.items()},
+               **{f"{key}_bound_by": value[1] for key, value in bound.items()}, **vfa)
+    return row
+
+
 def phase_sparse_kernel_vs_plain(fa, masks):
     """For each pattern at bh 64, n 1280, d 64 and bh 32, n 1280, d 128, in
     f32 and bf16: forward, dq and dk/dv on the dense grid with the mask and
@@ -746,125 +890,30 @@ def phase_sparse_kernel_vs_plain(fa, masks):
     versions and SDPA with the boolean mask pattern & causal (forward, and
     forward + backward - forward for the backward).  Where the grid rule
     compacts the pattern, also the VFA pair (`vfa_vs_plain`)."""
-    dev = torch.device("cuda")
     results = []
     for b, h, d in ((4, 16, 64), (4, 8, 128)):
-        n, bh, scale = 1280, b * h, d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             for kind in PATTERNS:
-                mask = pattern_mask(masks, kind, n, h).to(dev)
-                tabs = {grid: fa.pattern_tables(mask, n, d, grid=grid, device=dev) for grid in ("dense", "compact")}
-                td, tc = tabs["dense"], tabs["compact"]
-                g = torch.Generator(device=dev).manual_seed(d + len(kind))
-                q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev).to(dtype) for _ in range(4))
-                res = {}
-                for grid, t in tabs.items():
-                    out, lse = fa.flash_fwd(q, k, v, h=h, mask=mask, grid=grid, tables=t)
-                    res[grid] = (out, lse, *fa.flash_bwd(q, k, v, out, lse, do, h=h, mask=mask, grid=grid, tables=t))
-                torch.cuda.synchronize()
-                bit_equal = all(torch.equal(a, c) for a, c in zip(res["dense"], res["compact"]))
-                check(bit_equal, f"{kind} d {d} {dtype}: the compacted grid differs from the dense grid")
-                out, lse, dq, dk, dv = res["dense"]
-                ref_out, ref_lse = fa.flash_attention_reference(q, k, v, h, True, scale, mask)
-                err = (out.float() - ref_out.float()).abs().max().item()
-                lse_err = (lse - ref_lse).abs().max().item()
-                check(err <= TOLERANCE[dtype] and lse_err <= LSE_TOLERANCE,
-                      f"{kind} d {d} {dtype} forward: max abs err {err}, lse err {lse_err}")
-                ref = fa.flash_attention_backward_reference(q, k, v, out, lse, do, h, True, scale, mask)
-                bwd_err = {}
-                for gname, port, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-                    abs_err = (port.float() - r.float()).abs().max().item()
-                    bwd_err[gname] = (abs_err, abs_err / r.float().abs().max().item())
-                    check(bwd_err[gname][1] <= TOLERANCE[dtype],
-                          f"{kind} d {d} {dtype} {gname}: error {bwd_err[gname][1]} over the reference's max")
-
-                # each kernel alone, through its entry point, as the wrappers call it
-                m, mh = fa._device_mask(q, mask, h)
-                o, l_ = torch.empty_like(q), torch.empty_like(lse)
-                gq, gk, gv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-                gq2, delta, delta2 = torch.empty_like(q), torch.empty_like(lse), torch.empty_like(lse)
-                calls = {
-                    "fwd_dense": ("flash_fwd", (q, k, v, None, m, td.live_rows, o, l_), 0, td.row_tile),
-                    "fwd_compact": ("flash_fwd_compact", (q, k, v, None, m, tc.row_ptr, tc.col, o, l_),
-                                    tc.col.shape[1], tc.row_tile),
-                    "dq_dense": ("flash_bwd_dq", (q, k, v, do, out, lse, None, m, td.live_rows, gq, delta), 0,
-                                 td.row_tile),
-                    "dq_compact": ("flash_dq_compact",
-                                   (q, k, v, do, out, lse, None, m, tc.row_ptr, tc.col, gq2, delta2),
-                                   tc.col.shape[1], tc.row_tile),
-                    "dkv_dense": ("flash_bwd_dkv", (q, k, v, do, lse, delta, None, m, td.live_cols, gk, gv), 0,
-                                  td.col_tile),
-                    "dkv_compact": ("flash_dkv_compact",
-                                    (q, k, v, do, lse, delta, None, m, tc.col_ptr, tc.row, gk, gv),
-                                    tc.row.shape[1], tc.col_tile),
-                }
-                launch = {key: functools.partial(fa._call, entry, q, ptrs, h, True, scale, mh,
-                                                 (td if key.endswith("dense") else tc).heads, tab_len, tile)
-                          for key, (entry, ptrs, tab_len, tile) in calls.items()}
-                # the dq kernels' delta, which dk/dv read: the same bits on both grids, near the plain one
-                launch["dq_dense"]()
-                launch["dq_compact"]()
-                torch.cuda.synchronize()
-                check(torch.equal(gq, gq2) and torch.equal(delta, delta2),
-                      f"{kind} d {d} {dtype}: the compacted dq kernel's dq or delta differs from the dense one's")
-                delta_err = delta_error(fa, delta, out, lse, do, v)
-                check(delta_err <= 1.0, f"{kind} d {d} {dtype}: delta at {delta_err} of its limit")
-                ms = {key: time_ms(fn, 10) for key, fn in launch.items()}
-                plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, h, True, scale, mask), 10)
-                plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
-                    q, k, v, out, lse, do, h, True, scale, mask), 10)
-                causal = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
-                sdpa_mask = (mask & causal) if mask.ndim == 2 else (mask & causal)[None]
-                q4, k4, v4 = (t.view(b, h, n, d).detach().requires_grad_(True) for t in (q, k, v))
-
-                def sdpa_fwd():
-                    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=sdpa_mask)
-
-                def sdpa_fwd_bwd():
-                    return torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do.view(b, h, n, d))
-
-                sdpa_ms = time_ms(sdpa_fwd, 10)
-                sdpa_bwd_ms = time_ms(sdpa_fwd_bwd, 10) - sdpa_ms
-                dtimes = device_times({"flash_fwd_kernel": launch["fwd_dense"],
-                                       "flash_fwd_compact_kernel": launch["fwd_compact"],
-                                       "flash_bwd_dq_kernel": launch["dq_dense"],
-                                       "flash_dq_compact_kernel": launch["dq_compact"],
-                                       "flash_bwd_dkv_kernel": launch["dkv_dense"],
-                                       "flash_dkv_compact_kernel": launch["dkv_compact"], None: sdpa_fwd})
-                sdpa_bwd_device_ms = device_difference(sdpa_fwd_bwd, sdpa_fwd)
-                compact_auto = fa.pattern_tables(mask, n, d, device=dev).compact
-                vfa = vfa_vs_plain(fa, q, k, v, do, mask, h, tc, res["compact"][:2]) if compact_auto else {}
-                # live tiles per (batch, head), at each kernel's tile
-                live_fwd, live_dkv = tc.live_tiles / tc.heads, tc.live_tiles_dkv / tc.heads
-                bound = {  # fwd: q, k, v, out, lse; dq: q, k, v, do, out, dq, lse, delta; dk/dv: q, k, v, do,
-                    # dk, dv, lse, delta
-                    "fwd": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 2, 4, 1),
-                    "dq": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 3, 6, 2),
-                    "dkv": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles_dkv, tc.heads, tc.col_tile[::-1], 4, 6, 2),
-                }
-                row = dict(pattern=kind, dtype=str(dtype).replace("torch.", ""), bh=bh, h=h, n=n, d=d,
-                           grid_auto="compact" if compact_auto else "dense",
-                           live_tiles=live_fwd, causal_tiles=tc.causal_tiles / tc.heads,
-                           live_tiles_dkv=live_dkv, causal_tiles_dkv=tc.causal_tiles_dkv / tc.heads,
-                           row_tile=tc.row_tile, col_tile=tc.col_tile, bit_equal=bit_equal,
-                           delta_err_over_limit=delta_err,
-                           max_abs_err=err, lse_err=lse_err, tolerance=TOLERANCE[dtype],
-                           **{f"{gname}_max_abs_err": e[0] for gname, e in bwd_err.items()},
-                           **{f"{gname}_err_over_ref_max": e[1] for gname, e in bwd_err.items()},
-                           **{f"{key}_ms": value for key, value in ms.items()},
-                           plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, sdpa_fwd_ms=sdpa_ms,
-                           sdpa_bwd_ms=sdpa_bwd_ms, sdpa_backend=sdpa_backend(sdpa_fwd),
-                           fwd_dense_device_ms=dtimes["flash_fwd_kernel"],
-                           fwd_compact_device_ms=dtimes["flash_fwd_compact_kernel"], sdpa_fwd_device_ms=dtimes[None],
-                           dq_dense_device_ms=dtimes["flash_bwd_dq_kernel"],
-                           dq_compact_device_ms=dtimes["flash_dq_compact_kernel"],
-                           dkv_dense_device_ms=dtimes["flash_bwd_dkv_kernel"],
-                           dkv_compact_device_ms=dtimes["flash_dkv_compact_kernel"],
-                           sdpa_bwd_device_ms=sdpa_bwd_device_ms,
-                           **{f"{key}_bound_ms": value[0] for key, value in bound.items()},
-                           **{f"{key}_bound_by": value[1] for key, value in bound.items()}, **vfa)
+                row = sparse_case(fa, masks, b, h, d, 1280, 32, dtype, kind)
                 emit("sparse_kernel_vs_plain", **row)
                 results.append(row)
+    return results
+
+
+def phase_configs4_kernels(fa, masks):
+    """BASELINE.json configs[4]'s shape, new to the kernels: the flagship's
+    pattern layers at n 512 (256 text + a 16 x 16 map, the VQGAN-16k's),
+    bh 32 (2 prompts x CFG x 8 heads), d 128, f32 and bf16: the pattern
+    masks and tile tables at fmap 16 through the dense and compacted grids
+    (bit for bit), and the VFA pair against its plain versions, each time
+    against its bound (`sparse_case`, the VFA pair run on every pattern's
+    compacted tables)."""
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("axial_row", "axial_col", "conv_like"):
+            row = sparse_case(fa, masks, 4, 8, 128, 512, 16, dtype, kind, always_vfa=True)
+            emit("configs4_kernel_vs_plain", **row)
+            results.append(row)
     return results
 
 
@@ -1678,7 +1727,7 @@ def phase_remat_policies(fa, port, model_kwargs=SLICE):
     torch.cuda.empty_cache()
 
 
-def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1), batch=8, steps=3):
+def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1), batch=8, steps=2):
     """The remat policies' host time.  The flagship's 64 layers (its cycle,
     the VFA pair, head dim 128) at dim 128 and one head, so that a step's
     device time is small and its time is the host's: one bf16 gradient
@@ -1733,12 +1782,13 @@ def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1
 
 
 def phase_numerics_smoke():
-    """`python -m dalle_pytorch_tpu_torch.tools.numerics_smoke --steps 100`
+    """`python -m dalle_pytorch_tpu_torch.tools.numerics_smoke --steps 60`
     (flagship width, depth 8, batch 8, the JAX recipe; the tool's default
-    is 200 steps, and the loss falls past its 5 % bar well inside 100) in a
-    subprocess: its loss must fall."""
+    is 200 steps, and the loss falls past its 5 % bar inside 60: 9.2498 ->
+    8.6509, the mean of its last four losses, on an H100 80GB HBM3 at
+    700 W) in a subprocess: its loss must fall."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "dalle_pytorch_tpu_torch.tools.numerics_smoke", "--steps", "100"],
+    proc = subprocess.run([sys.executable, "-m", "dalle_pytorch_tpu_torch.tools.numerics_smoke", "--steps", "60"],
                           capture_output=True, text=True, cwd=ROOT, timeout=600)
     seconds = time.perf_counter() - t0
     lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
@@ -1878,17 +1928,18 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
     --save_every_n_steps 4 --keep_n_checkpoints 1 --lr_decay` (8 steps of
     batch 4); (2) `--resume` from its step-4 file: the steps after it give
     the uninterrupted run's losses within 1e-6 relative, and the two final
-    checkpoints hold the same global_step and plateau state; (3) `--wds` over
-    the shard, one epoch, finite losses; (4) `cli.generate` from the final
+    checkpoints hold the same global_step and plateau state (`--wds` over
+    the tar shard is `train_openai_taming`'s --taming run); (3)
+    `cli.generate` from the final
     checkpoint, two prompts with CFG, replayed, PNGs of 256 x 256 x 3, and
     the replayed loop's codes equal to the eager loop's under one noise
     (`decode_graphs`, the last 128 steps, and the replayed step's ms over a
-    whole image beside the rotary model's); (5) the engine: two requests
+    whole image beside the rotary model's); (4) the engine: two requests
     (one guided) give their batch-1 codes under their noise, and `generate
-    --engine` writes the PNGs `generate` writes under one seed; (6) a small
+    --engine` writes the PNGs `generate` writes under one seed; (5) a small
     model with learned positions on the card against the CPU
     (`rotary_off_parity`).  Also the host's PNG decode rate and the loader's
-    batches/s.  Returns the launches of (1)-(3)."""
+    batches/s.  Returns the launches of (1) and (2)."""
     import types
 
     from dalle_pytorch_tpu_torch.cli import train_dalle
@@ -1950,11 +2001,6 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
               and all(abs(ends[0][k] - ends[1][k]) <= 1e-6 * abs(ends[0][k]) for k in ("best_value", "avg_value")),
               f"the final checkpoints differ: {ends}")
         (tmp / "rest.pt").unlink()
-        wds, _, wds_launches, wds_s = run_train_cli(fa, [
-            "--image_text_folder", str(tmp / "pairs.tar"), "--wds", "--epochs", "1", *REAL_DATA_FLAGS,
-            "--vae_path", str(tmp / "vae.npz"), "--dalle_output_file_name", str(tmp / "wds")])
-        check(len(wds) == 4 and all(np.isfinite(r["loss"]) for r in wds), f"the shard run's steps: {wds}")
-        (tmp / "wds.pt").unlink()
         steady = [r["step_s"] for r in full[1:]]
         n_tokens = 4 * (256 + 1024)
         readings["train"] = dict(
@@ -1965,7 +2011,6 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
         readings["resume"] = dict(from_file="full_step4.npz", losses=[r["loss"] for r in rest],
                                   uninterrupted=[r["loss"] for r in full[5:]], max_rel_diff=rel, tolerance=1e-6,
                                   final_state=ends[1], wall_s=rest_s, launches=rest_launches)
-        readings["wds"] = dict(losses=[r["loss"] for r in wds], wall_s=wds_s, launches=wds_launches)
 
         prompts = ("a red cat on the table", "a painting of a river at night")
         common = ["--dalle_path", str(tmp / "full.pt"), "--text", "|".join(prompts), "--num_images", "1",
@@ -2013,7 +2058,7 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
     emit("train_real_data", model=dict(dim=1024, depth=12, heads=16, dim_head=64, text_seq_len=256,
                                        num_text_tokens=cfg.num_text_tokens, rotary_emb=False, shift_tokens=True,
                                        vae=FULL_VAE), **readings, parity_prefill_launches=parity_launches)
-    return {k: full_launches[k] + rest_launches[k] + wds_launches[k] for k in COUNTERS}
+    return {k: full_launches[k] + rest_launches[k] for k in COUNTERS}
 
 
 # the tokenizer's and the reranker's training (VAE and CLIP).  The options
@@ -2472,8 +2517,9 @@ def phase_engine_parity(fa, sampling, dalle, name, seed, noised=True, eagerly=Tr
     under that noise; (b) seeded, they equal its batch-1 call with a
     generator of that seed, with the step replayed from the engine's CUDA
     graph (the lanes' registered generators reseeded between replays); run
-    eagerly (`graphs=False`), the first two requests (one guided) give their
-    batch-1 codes too; one seeded request, run again alone in a fresh
+    eagerly (`graphs=False`), the first two requests (one guided) give the
+    first codes of their batch-1 loops under their noise
+    (`engine_prefix_parity`, 64 polls); one seeded request, run again alone in a fresh
     engine's lane 0, gives the codes it gave beside the others in another
     lane.  Each admission's prefill launches the layer cycle.  `noised` and
     `eagerly` False leave out (a) and the eager engine (the pattern model,
@@ -2527,14 +2573,14 @@ def phase_engine_parity(fa, sampling, dalle, name, seed, noised=True, eagerly=Tr
           f"{name}: request {moved} alone in lane 0 differs from its run in lanes {seeded[moved].lanes}")
     del alone_engine
 
-    # eagerly, two requests: an eager step takes ten times a replayed one
-    eager, eager_s, eager_steps, eager_launches = [], None, 0, nothing
+    # eagerly, two requests (one guided) over their first codes: an eager
+    # step takes ten times a replayed one
+    eager_launches, eager_step_ms, eager_codes = nothing, None, []
     if eagerly:
         eager_engine = GenerationEngine(m, engine_cfg=ecfg, graphs=False)
-        eager, eager_s, eager_steps, eager_launches = engine_run(fa, eager_engine, texts[:2], want, seed=seeds[:2])
-    for i in range(len(eager)):
-        check(np.array_equal(eager[i].codes, refs_seed[i]), f"{name}: request {i}'s eager codes differ from its "
-              f"batch-1 call under its seed")
+        eager_launches, eager_step_ms, eager_codes = engine_prefix_parity(fa, sampling, eager_engine, texts[:2],
+                                                                          ENGINE_COND[:2], noise[:2], polls=64)
+        del eager_engine
 
     def step_ms(reqs, wall_s, steps):
         return (wall_s - sum(r.phases["prefill"] for r in reqs)) / steps * 1e3
@@ -2544,13 +2590,12 @@ def phase_engine_parity(fa, sampling, dalle, name, seed, noised=True, eagerly=Tr
          pool_blocks=engine.pool.num_blocks, pool_gib=engine.pool.bytes() / 2 ** 30,
          noise_buffer_gib=engine.lanes.noise.numel() * 4 / 2 ** 30, build_and_capture_s=build_s,
          noise_codes_equal_batch1=dict(requests=len(noised)), seed_codes_equal_batch1_replayed=True,
-         seed_codes_equal_batch1_eager=dict(requests=len(eager)),
+         eager_codes_equal_batch1_under_noise=dict(codes_compared=eager_codes),
          alone_equals_beside=dict(request=moved, lanes_beside=seeded[moved].lanes, lanes_alone=alone.lanes),
          lanes_taken=[r.lanes for r in seeded], high_water_blocks=engine.pool.high_water,
-         decode_steps=dict(noise=noised_steps, seed=seeded_steps, eager=eager_steps),
-         wall_s=dict(noise=noised_s, seed=seeded_s, eager=eager_s, batch1_references=refs_s),
-         step_ms_replayed=step_ms(seeded, seeded_s, seeded_steps),
-         step_ms_eager=step_ms(eager, eager_s, eager_steps) if eager else None,
+         decode_steps=dict(noise=noised_steps, seed=seeded_steps),
+         wall_s=dict(noise=noised_s, seed=seeded_s, batch1_references=refs_s),
+         step_ms_replayed=step_ms(seeded, seeded_s, seeded_steps), step_ms_eager=eager_step_ms,
          ttft_s=[r.ttft_s for r in seeded], latency_s=[r.latency_s for r in seeded],
          launches=dict(noise=noised_launches, seed=seeded_launches, eager=eager_launches, alone=alone_launches))
     runs = (noised_launches, seeded_launches, eager_launches, alone_launches)
@@ -2568,7 +2613,7 @@ def engine_window(engine, steps):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8):
+def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=6):
     """The flagship served by the engine at full width, f32, eight lanes:
     two requests, one guided, hold property (a) over their first codes
     (`engine_prefix_parity`: drained after 32 polls, against batch-1
@@ -2577,8 +2622,7 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8)
     eight lanes decoding, and a profiled window of replays (device ms, busy
     share); then a Poisson load of `n_requests` over `streams` streams
     (`tools/loadgen.py`) offered at twice the engine's capacity (lanes /
-    (image_seq_len x the replayed step)); and the batch-1
-    `generate_images` images/s of the same model beside it."""
+    (image_seq_len x the replayed step))."""
     from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
     from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 
@@ -2629,12 +2673,6 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8)
     check(report["requests_completed"] == n_requests and report["requests_refused"] == 0,
           f"flagship loadgen: {report}")
 
-    t0 = time.perf_counter()
-    timings = {}
-    images = dalle.generate_images(texts[:1], 3, cond_scale=1.0, timings=timings)
-    torch.cuda.synchronize()
-    batch1_s = time.perf_counter() - t0
-    check(tuple(images.shape) == (1, 256, 256, 3), f"flagship batch-1 images {tuple(images.shape)}")
     emit("engine_flagship", lanes=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES,
          pool_blocks=engine.pool.num_blocks, blocks_per_seq=engine.pool.blocks_per_seq,
          pool_gib=engine.pool.bytes() / 2 ** 30, pool_block_mib=engine.pool.bytes() / (engine.pool.num_blocks + 1) / 2 ** 20,
@@ -2643,8 +2681,7 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=8)
          step_ms_eager=eager_ms,
          profile=window, capacity_images_per_s=capacity, loadgen_rate_per_stream=rate, loadgen_streams=streams,
          loadgen=report, loadgen_launches=load_launches, window_fill_launches=dict(
-             replayed=fill_launches, eager=eager_fill_launches), batch1_generate_images_s=batch1_s,
-         batch1_images_per_s=1 / batch1_s, batch1_timings=timings,
+             replayed=fill_launches, eager=eager_fill_launches),
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     runs = (launches, fill_launches, eager_fill_launches, load_launches)
     return {k: sum(run[k] for run in runs) for k in COUNTERS}
@@ -2764,29 +2801,20 @@ def naive_twin_stream():
         dalle_mod.apply_transformer = real
 
 
-def phase_reversible_serve(fa, tr, sampling, dalle, text, sequential):
-    """The flagship's weights under reversible=True serve: one primed CFG
-    `generate_images` (prime 448, CFG 3.0), its prefill launching the layer
-    cycle; the replayed decode loop against the eager twin-stream loop under
-    one noise (`decode_graphs`, the last 128 steps), its step beside the
-    sequential flagship's of this run (`sequential`, that decode_graphs
-    row); and the engine on 4 lanes: three requests (one guided) under
-    their noise admitted, 32 polls timed with every lane decoding, then
-    drained: each request's codes so far equal a batch-1 image loop of as
-    many codes under its noise (`engine_prefix_parity`).  Returns the
-    launches."""
+def phase_reversible_serve(fa, sampling, dalle):
+    """The flagship's weights under reversible=True serve through the engine
+    on 4 lanes: three requests (one guided) under their noise admitted, 32
+    polls timed with every lane decoding, then drained: each request's
+    codes so far equal a batch-1 image loop of as many codes under its noise
+    (`engine_prefix_parity`).  The twin's primed generate and its replayed
+    decode against the eager one run at configs[4]'s n 512
+    (`configs4_generate`).  Returns the launches."""
     from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
     from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 
     rev = twin_facade(dalle, sampling, reversible=True)
     m, cfg = rev.module, rev.cfg
     check(m.transformer.cfg.execution == "reversible", f"the twin runs {m.transformer.cfg.execution}")
-    pixels = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(23)).cuda()
-    run, launches = generate(fa, rev, text, 3.0, pixels)
-    check(launches["flash_max_compact"] > 0, f"the reversible prefill did not run the VFA pair: {launches}")
-    graphs_row = phase_decode_graphs(fa, tr, sampling, rev, text, "reversible flagship", 3.0,
-                                     prime_len=GRAPHS_PRIME_LEN)
-
     conds, lanes, polls = (3.0, 1.0, 1.0), 4, 32
     texts = engine_texts(cfg, len(conds), 81)
     noise = gumbel_noise((len(conds), cfg.image_seq_len, cfg.total_tokens),
@@ -2796,18 +2824,11 @@ def phase_reversible_serve(fa, tr, sampling, dalle, text, sequential):
     check(engine.graph is not None, "the reversible engine captured no graph")
     admitted, step_ms, made = engine_prefix_parity(fa, sampling, engine, texts, conds, noise, polls)
     del engine
-    emit("reversible_flagship_serve", generate=run,
-         decode_step_ms=dict(reversible_replayed=graphs_row["step_ms_replayed"],
-                             reversible_eager=graphs_row["step_ms_eager"],
-                             sequential_replayed=sequential["step_ms_replayed"],
-                             sequential_eager=sequential["step_ms_eager"],
-                             replayed_ratio=graphs_row["step_ms_replayed"] / sequential["step_ms_replayed"],
-                             prediction="reversible within 5 % of the sequential step"),
-         replayed_codes_equal_eager=graphs_row["codes_equal_under_noise"],
+    emit("reversible_flagship_serve",
          engine=dict(lanes=lanes, requests=len(conds), cond_scale=list(conds), step_ms_replayed=step_ms,
                      polls_timed=polls, codes_compared=made, codes_equal_batch1_under_noise=True,
                      admission_launches=admitted))
-    return {k: launches[k] + admitted[k] for k in COUNTERS}
+    return admitted
 
 
 def phase_reversible_train(fa, dalle):
@@ -3072,6 +3093,342 @@ def phase_clip_rerank(fa, port, tr, scored):
     return total
 
 
+CONFIGS4_PROMPTS = ("a red apple on a wooden table", "an astronaut riding a horse")
+# the `--engine` run's images held to batch 1: each prompt's, in lanes of their own
+CONFIGS4_BATCH1 = (0, 3)
+CONFIGS4_PRIME = 224  # the replayed-against-eager check: the last 32 of 256 codes
+# the primed call's codes: prefill n 449, where axial_row's last row tile
+# sees no key of the tile before it, so its layers compact and run the VFA
+# pair (at the default fraction, 112 codes and n 369, no tile dies)
+CONFIGS4_PRIMED = 192
+
+
+def phase_configs4_generate(fa, tr, port, weights, checkpoint, sampling):
+    """BASELINE.json configs[4] served end to end: the flagship's widths
+    under reversible execution on the taming VQGAN-16k (its published
+    geometry, decoder attention included; seeded weights), seq 512, 26,640
+    logits a position, and CLIP reranking.  (1) In memory: one
+    `generate_images` of two prompts (one padded) with CFG 3.0, primed from
+    an image (192 codes, prefill n 449: axial_row's layers compact and run
+    the VFA pair), reranked by CLIP at its default config (the
+    `clip_rerank` phase's): the launches are the layer cycle's plus CLIP's
+    12 layers.  (2) The
+    replayed decode loop against the eager one under one noise over the
+    last 32 codes (`decode_graphs`), the step's ms at n 512.  (3) The
+    model written as a v3 checkpoint with `vae_class_name` VQGanVAE, then
+    `cli.generate --engine` on it, two prompts x 2 images with CFG 3.0 (one
+    load of the 5.5 GB file): every admission's prefill launches the layer
+    cycle, every PNG is 256 x 256 x 3, and the first and the last image
+    (the two prompts, each in its own lane) equal the batch-1
+    `generate_images` image under its seed (image j of the run is seeded
+    with j).  Returns the launches of (1) and (3)."""
+    from dalle_pytorch_tpu_torch.cli.png import read_png
+    from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+    from dalle_pytorch_tpu_torch.models import vae_registry
+    from dalle_pytorch_tpu_torch.models.vqgan import VQGANConfig
+
+    t0 = time.perf_counter()
+    vae = port.VQGanVAE(cfg=VQGANConfig(**VQGAN16K), seed=0, decoder_attn=True)
+    dalle = port.DALLE(vae=vae, seed=1, **CONFIGS4)
+    clip = port.CLIP(seed=41, num_text_tokens=49408)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = dalle.cfg
+    check((cfg.total_seq_len, cfg.image_fmap_size, cfg.total_tokens, cfg.resolved_execution)
+          == (512, 16, 10000 + 256 + 16384, "reversible"), f"configs[4]'s config {cfg}")
+    n_params = sum(p.numel() for p in dalle.module.parameters())
+    vae_params = sum(p.numel() for p in vae.module.parameters())
+    text = torch.randint(1, cfg.num_text_tokens, (2, cfg.text_seq_len),
+                         generator=torch.Generator().manual_seed(52)).cuda()
+    text[1, 180:] = 0  # a padded prompt
+    pixels = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(53)).cuda()
+    prime_len = CONFIGS4_PRIMED
+    want, _ = forward_launches(dalle.module, cfg.text_seq_len + 1 + prime_len)
+    clip_layers = clip.cfg.text_enc_depth + clip.cfg.visual_enc_depth
+    want = {k: v + (clip_layers if k == "flash_fwd" else 0) for k, v in want.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    images, scores = dalle.generate_images(text, 3, cond_scale=3.0, img=pixels, num_init_img_tokens=prime_len,
+                                           timings=timings, clip=clip)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    primed = read_launches(fa)
+    check(primed == want, f"the primed CFG call launched {primed}; the layer cycle and CLIP give {want}")
+    check(primed["flash_max_compact"] > 0, f"the primed prefill at n {cfg.text_seq_len + 1 + prime_len} ran no "
+          f"VFA pair: {primed}")
+    shown = vae_registry.to_display(vae.cfg, images)
+    check(tuple(images.shape) == (2, 256, 256, 3) and bool(torch.isfinite(images).all())
+          and bool(torch.isfinite(scores).all()), f"images {tuple(images.shape)}, scores {scores.tolist()}")
+    primed_run = dict(cond_scale=3.0, prime_len=prime_len, prefill_len=cfg.text_seq_len + 1 + prime_len,
+                      capture_s=timings["capture_s"], prefill_s=timings["prefill_s"], decode_s=timings["decode_s"],
+                      vae_s=timings["vae_s"], clip_s=timings["clip_s"], total_s=total_s, images_per_s=2 / total_s,
+                      clip_scores=scores.tolist(), ranking=sorted(range(2), key=lambda i: -scores[i].item()),
+                      pixel_range=[shown.min().item(), shown.max().item()], launches=primed,
+                      peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    graphs_row = phase_decode_graphs(fa, tr, sampling, dalle, text, "configs4", 3.0, prime_len=CONFIGS4_PRIME)
+
+    tok = tokenizer_mod.tokenizer
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        save_dalle_checkpoint(checkpoint, weights, tmp / "configs4.pt", dalle, vae)
+        write_s = time.perf_counter() - t0
+        per_prompt = forward_launches(dalle.module, cfg.text_seq_len + 1)[0]
+        paths, cli_t, cli_launches, printed, cli_wall = run_cli(fa, [
+            "--dalle_path", str(tmp / "configs4.pt"), "--text", "|".join(CONFIGS4_PROMPTS), "--num_images", "2",
+            "--batch_size", "2", "--cond_scale", "3.0", "--seed", "0", "--engine", "--engine_slots", "4",
+            "--outputs_dir", str(tmp / "out")])
+        check(cli_launches == {k: 4 * v for k, v in per_prompt.items()},
+              f"the CLI's four admissions launched {cli_launches}; one prefill gives {per_prompt}")
+        pngs = [read_png(p) for p in paths]
+        check(len(pngs) == 4 and all(px.shape == (256, 256, 3) and px.dtype == np.uint8 for px in pngs),
+              f"the CLI wrote {paths}")
+    for j in CONFIGS4_BATCH1:
+        ids = torch.from_numpy(tok.tokenize(CONFIGS4_PROMPTS[j // 2], cfg.text_seq_len, truncate_text=True)).cuda()
+        batch1 = sampling.generate_images(dalle.module, vae.module, ids, torch.Generator(device="cuda").manual_seed(j),
+                                          filter_thres=0.9, cond_scale=3.0)
+        want_png = (np.clip(vae_registry.to_display(vae.cfg, batch1).cpu().numpy()[0], 0, 1) * 255).astype(np.uint8)
+        check(np.array_equal(pngs[j], want_png), f"generate --engine's image {j} differs from the batch-1 "
+              f"generate_images image under its seed ({int((pngs[j] != want_png).sum())} values differ)")
+    images_n = len(paths)
+    emit("configs4_generate", params=n_params, vae_params=vae_params, vqgan=VQGAN16K, decoder_attn=True,
+         seq_len=cfg.total_seq_len, vocab=cfg.total_tokens, depth=cfg.depth, execution="reversible",
+         init_s=init_s, primed_with_clip=primed_run,
+         decode_step_ms=dict(replayed=graphs_row["step_ms_replayed"], eager=graphs_row["step_ms_eager"]),
+         replayed_codes_equal_eager=graphs_row["codes_equal_under_noise"], checkpoint_write_s=write_s,
+         cli_engine=dict(prompts=list(CONFIGS4_PROMPTS), pngs=images_n, wall_s=cli_wall,
+                         images_per_s=images_n / cli_wall, seconds=cli_t,
+                         seconds_per_image={k: v / images_n for k, v in cli_t.items()},
+                         launches_per_admission=per_prompt, launches=cli_launches, png_equal_batch1=list(CONFIGS4_BATCH1)))
+    del dalle, vae, clip, batch1
+    torch.cuda.empty_cache()
+    return {k: primed[k] + cli_launches[k] for k in COUNTERS}
+
+
+def phase_vae_families_parity(port, weights):
+    """The two pretrained families at their published geometries, seeded,
+    on the card against the same weights on the CPU: the VQGAN-16k (decoder
+    attention included) and OpenAI's dVAE encode two 256 x 256 images
+    (indices equal at >= 0.99 of the positions; the CPU's margin between
+    the best and the second-best code at the positions that differ) and
+    decode two code maps (pixels within 1e-4); then the card's encode and
+    decode times at batch 2 and 8."""
+    from dalle_pytorch_tpu_torch.models import openai_vae, vae_registry
+    from dalle_pytorch_tpu_torch.models.vqgan import VQGANConfig
+
+    rows = {}
+    g = torch.Generator().manual_seed(61)
+    images = torch.rand(2, 256, 256, 3, generator=g)
+    for family in ("vqgan16k", "openai"):
+        if family == "vqgan16k":
+            card = port.VQGanVAE(cfg=VQGANConfig(**VQGAN16K), seed=3, decoder_attn=True).module
+        else:
+            card = port.OpenAIDiscreteVAE(seed=4).module
+        cpu = weights.load_vae(weights.vae_tree(card.state_dict(), card.cfg), card.cfg, "cpu")
+        t0 = time.perf_counter()
+        codes_cpu = vae_registry.get_codebook_indices(cpu, images)
+        codes = vae_registry.get_codebook_indices(card, images.cuda()).cpu()
+        agree = (codes == codes_cpu).float().mean().item()
+        check(agree >= 0.99, f"{family}: the card's codes agree with the CPU's at {agree} of the positions")
+        differ = (codes != codes_cpu).nonzero().tolist()
+        if family == "vqgan16k":  # the distance gap of the codes that differ, on the CPU
+            from dalle_pytorch_tpu_torch.models import vqgan
+
+            z = vqgan.encode(cpu, 2 * images - 1).reshape(2, -1, VQGAN16K["embed_dim"])
+            emb = cpu.codebook
+            d = (z ** 2).sum(-1, keepdim=True) - 2 * torch.einsum("bnd,ed->bne", z, emb) + (emb ** 2).sum(-1)
+        else:
+            d = -openai_vae.encoder_logits(cpu, images).reshape(2, -1, openai_vae.VOCAB)
+        top2 = d.topk(2, dim=-1, largest=False).values
+        gap = top2[..., 1] - top2[..., 0]
+        margins = [gap[b, i].item() for b, i in differ]
+        seq = torch.randint(0, card.cfg.num_tokens, (2, card.cfg.image_seq_len), generator=g)
+        pixels = vae_registry.decode_indices(card, seq.cuda()).cpu()
+        pixels_cpu = vae_registry.decode_indices(cpu, seq)
+        err = (pixels - pixels_cpu).abs().max().item()
+        check(bool(torch.isfinite(pixels).all()) and err <= 1e-4, f"{family}: decoded pixels differ by {err}")
+        parity_s = time.perf_counter() - t0
+        times = {}
+        for b in (2, 8):
+            x = torch.rand(b, 256, 256, 3, device="cuda")
+            s = torch.randint(0, card.cfg.num_tokens, (b, card.cfg.image_seq_len), device="cuda")
+            times[f"encode_ms_batch{b}"] = time_ms(lambda: vae_registry.get_codebook_indices(card, x), 3)
+            times[f"decode_ms_batch{b}"] = time_ms(lambda: vae_registry.decode_indices(card, s), 3)
+        rows[family] = dict(params=sum(p.numel() for p in card.parameters()), codes=card.cfg.image_seq_len,
+                            num_tokens=card.cfg.num_tokens, codes_agree=agree, codes_differ=len(differ),
+                            differing_code_margins=margins, min_margin_all=gap.min().item(), pixel_max_abs_err=err,
+                            tolerance=1e-4, parity_s=parity_s, **times)
+        del card, cpu
+        torch.cuda.empty_cache()
+    emit("vae_families_parity", **rows)
+
+
+TAMING16K_YAML = """model:
+  base_learning_rate: 4.5e-06
+  target: taming.models.vqgan.VQModel
+  params:
+    embed_dim: 256
+    n_embed: 16384
+    monitor: val/rec_loss
+    ddconfig:
+      double_z: false
+      z_channels: 256
+      resolution: 256
+      in_channels: 3
+      out_ch: 3
+      ch: 128
+      ch_mult:
+      - 1
+      - 1
+      - 2
+      - 2
+      - 4
+      num_res_blocks: 2
+      attn_resolutions:
+      - 16
+      dropout: 0.0
+"""
+
+
+def phase_train_openai_taming(fa, port, weights, checkpoint):
+    """BASELINE.json configs[2]'s 12-layer model trains from seeded PNGs
+    through `cli.train_dalle` on the two pretrained families, 3 steps of
+    batch 5 each: with no --vae_path, on OpenAI's dVAE from a converted
+    cache the phase writes into a temporary `DALLE_PYTORCH_TPU_CACHE` (the
+    fetch replaced by one that fails: no network) from the PNG folder; and
+    with --taming on a taming-format `.ckpt` (a Lightning-style dict holding
+    the seeded VQGAN-16k's state dict) and its yaml, from the same pairs'
+    tar shard through `--wds`.  Each checkpoint names its VAE and
+    serves one image through `cli.generate`.  Returns the launches."""
+    import os
+
+    from dalle_pytorch_tpu_torch.cli.png import read_png
+    from dalle_pytorch_tpu_torch.models import pretrained
+    from dalle_pytorch_tpu_torch.models.vqgan import VQGANConfig
+
+    def no_network(url, dst):
+        raise OSError(f"no network: {url}")
+
+    readings, total = {}, dict.fromkeys(COUNTERS, 0)
+    saved_env, saved_fetch = os.environ.get("DALLE_PYTORCH_TPU_CACHE"), pretrained._urllib_fetch
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            write_real_data(tmp, seed=91)
+            openai = port.OpenAIDiscreteVAE(seed=5)
+            checkpoint.save_checkpoint(str(tmp / "cache" / pretrained.OPENAI_CONVERTED),
+                                       {"params": weights.openai_vae_tree(openai.module.state_dict())},
+                                       {"source": "openai", "class": "OpenAIDiscreteVAE"})
+            vq = port.VQGanVAE(cfg=VQGANConfig(**VQGAN16K), seed=6, decoder_attn=True)
+            torch.save({"state_dict": vq.module.state_dict(), "epoch": 7, "global_step": 100},
+                       str(tmp / "vqgan.ckpt"))
+            (tmp / "vqgan.yaml").write_text(TAMING16K_YAML)
+            del openai, vq
+            torch.cuda.empty_cache()
+            os.environ["DALLE_PYTORCH_TPU_CACHE"] = str(tmp / "cache")
+            pretrained._urllib_fetch = no_network
+            common = ["--epochs", "1", *REAL_DATA_FLAGS, "--batch_size", "5"]
+            runs = {"openai": ["--image_text_folder", str(tmp / "pairs")],
+                    "taming": ["--image_text_folder", str(tmp / "pairs.tar"), "--wds", "--taming",
+                               "--vqgan_model_path", str(tmp / "vqgan.ckpt"),
+                               "--vqgan_config_path", str(tmp / "vqgan.yaml")]}
+            for name, flags in runs.items():
+                records, header, launches, wall_s = run_train_cli(fa, [
+                    *common, *flags, "--dalle_output_file_name", str(tmp / name)])
+                check(len(records) == 3 and all(np.isfinite(r["loss"]) for r in records),
+                      f"{name}: the run's steps {records}")
+                for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+                    check(launches[kernel] == 12 * len(records), f"{name}: {launches[kernel]} {kernel} launches in "
+                          f"{len(records)} steps of 12 layers")
+                with np.load(str(tmp / f"{name}.pt"), allow_pickle=False) as data:
+                    meta = json.loads(bytes(data["__meta"]).decode())
+                want_class = "OpenAIDiscreteVAE" if name == "openai" else "VQGanVAE"
+                check(meta["vae_class_name"] == want_class, f"{name}: the checkpoint names {meta['vae_class_name']}")
+                paths, gen_t, gen_launches, _, gen_s = run_cli(fa, [
+                    "--dalle_path", str(tmp / f"{name}.pt"), "--text", "a red cat on the table", "--num_images", "1",
+                    "--batch_size", "1", "--cond_scale", "3.0", "--outputs_dir", str(tmp / f"{name}_out")])
+                check(len(paths) == 1 and read_png(paths[0]).shape == (256, 256, 3)
+                      and gen_launches["flash_fwd"] == 12, f"{name}: generate wrote {paths}, launched {gen_launches}")
+                steady = [r["step_s"] for r in records[1:]]
+                hp = header["config"]
+                readings[name] = dict(vae_class_name=want_class, data="tar shard (--wds)" if "--wds" in flags
+                                      else "folder", params=header["params"],
+                                      seq_len=hp["text_seq_len"] + hp["image_fmap_size"] ** 2,
+                                      steps=len(records), batch=5, losses=[r["loss"] for r in records],
+                                      step_s=statistics.median(steady), step_s_all=[r["step_s"] for r in records],
+                                      data_s=[r["data_s"] for r in records], wall_s=wall_s, launches=launches,
+                                      generate_s=gen_s, generate_seconds=gen_t, generate_launches=gen_launches)
+                total = {k: total[k] + launches[k] + gen_launches[k] for k in COUNTERS}
+                for f in tmp.glob(f"{name}*.pt"):
+                    f.unlink()
+        finally:
+            pretrained._urllib_fetch = saved_fetch
+            if saved_env is None:
+                os.environ.pop("DALLE_PYTORCH_TPU_CACHE", None)
+            else:
+                os.environ["DALLE_PYTORCH_TPU_CACHE"] = saved_env
+    emit("train_openai_taming", model=dict(dim=1024, depth=12, heads=16, dim_head=64, text_seq_len=256), **readings)
+    return total
+
+
+def phase_legacy_formats(fa, port, weights):
+    """The checkpoints of other implementations, at the 12-layer model's full
+    width (seeded): a torch-reference `dalle.pt` (the reference's state
+    dict names, the DiscreteVAE under `vae.*`, written by
+    `tests/torch_port_refs.py`) and the JAX package's v2 format (a pickled
+    treedef, read through the restricted reader under
+    --allow_legacy_pickle) each generate one image through `cli.generate`:
+    both PNGs equal the in-memory model's batch-1 image under the seed.
+    Returns the launches."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_refs import reference_vae_state_dict, write_legacy_checkpoint, write_reference_dalle
+
+    from dalle_pytorch_tpu_torch.cli.png import read_png
+    from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+    from dalle_pytorch_tpu_torch.models import sampling, vae_registry
+    from dalle_pytorch_tpu_torch.version import __version__
+
+    vae = port.DiscreteVAE(seed=0, **FULL_VAE)
+    dalle = port.DALLE(vae=vae, seed=81, **FULL)
+    cfg, readings, total = dalle.cfg, {}, dict.fromkeys(COUNTERS, 0)
+    tree = weights.dalle_tree(dalle.module.state_dict(), cfg)
+    vae_tree = weights.vae_tree(vae.module.state_dict(), vae.cfg)
+    ids = torch.from_numpy(tokenizer_mod.tokenizer.tokenize("a red cat", cfg.text_seq_len, truncate_text=True))
+    want = sampling.generate_images(dalle.module, vae.module, ids.cuda(), torch.Generator(device="cuda").manual_seed(4),
+                                    filter_thres=0.9)
+    want = (np.clip(vae_registry.to_display(vae.cfg, want).cpu().numpy()[0], 0, 1) * 255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_reference_dalle(tmp / "reference.pt", tree, cfg, "DiscreteVAE", vae.cfg.to_dict(),
+                              reference_vae_state_dict(vae_tree, vae.cfg))
+        ref_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meta = {"hparams": cfg.to_dict(), "vae_params": vae.cfg.to_dict(), "vae_class_name": "DiscreteVAE",
+                "version": __version__}
+        write_legacy_checkpoint(tmp / "v2.npz", {"weights": tree, "vae_weights": vae_tree}, meta, fmt=2)
+        v2_write_s = time.perf_counter() - t0
+        del dalle, vae, tree, vae_tree
+        torch.cuda.empty_cache()
+        for name, argv, write_s in (("torch_reference", [str(tmp / "reference.pt")], ref_write_s),
+                                    ("v2", [str(tmp / "v2.npz"), "--allow_legacy_pickle"], v2_write_s)):
+            paths, gen_t, launches, printed, wall_s = run_cli(fa, [
+                "--dalle_path", *argv, "--text", "a red cat", "--num_images", "1", "--batch_size", "1", "--seed", "4",
+                "--outputs_dir", str(tmp / name)])
+            check(len(paths) == 1 and np.array_equal(read_png(paths[0]), want),
+                  f"{name}: the PNG differs from the in-memory model's under one seed")
+            check(launches["flash_fwd"] == cfg.depth, f"{name}: the prefill launched {launches}")
+            readings[name] = dict(write_s=write_s, bytes=sum(f.stat().st_size for f in tmp.glob(
+                "reference.pt" if name == "torch_reference" else "v2.npz")), wall_s=wall_s, seconds=gen_t,
+                png_equal_in_memory=True, launches=launches)
+            total = {k: total[k] + launches[k] for k in COUNTERS}
+    emit("legacy_formats", model=dict(dim=1024, depth=12, heads=16, dim_head=64), **readings)
+    return total
+
+
 def pattern_readings(sparse, kernel, d=64):
     """A kernel's readings at n 1280, f32, head dim d (bh 64 at d 64, 32 at
     d 128), one per pattern that runs it, from `sparse_kernel_vs_plain`
@@ -3114,6 +3471,7 @@ def main() -> int:
     compared = phase_kernel_vs_plain(fa)
     compared_bwd = phase_backward_vs_plain(fa)
     sparse = phase_sparse_kernel_vs_plain(fa, masks)
+    configs4_rows = phase_configs4_kernels(fa, masks)
     paths = {}
     dalle, text, paths["generate"] = phase_slice(fa, port)
     phase_forward(fa, dalle, text)
@@ -3135,6 +3493,11 @@ def main() -> int:
     phase_train_vae_cli(fa)
     phase_clip_train_parity(fa)
     paths["train_clip_cli"] = phase_train_clip_cli(fa)
+    torch.cuda.empty_cache()
+    # the pretrained VAE families and the checkpoint formats of other implementations
+    phase_vae_families_parity(port, weights)
+    paths["train_openai_taming"] = phase_train_openai_taming(fa, port, weights, checkpoint)
+    paths["legacy_formats"] = phase_legacy_formats(fa, port, weights)
     torch.cuda.empty_cache()
 
     dalle, text, paths["sparse_generate"] = phase_sparse_generate(fa, tr, port)
@@ -3165,16 +3528,18 @@ def main() -> int:
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
     # replayed only: the eager flagship window is the decode_graphs line's step_ms_eager
     profile = phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16, eager=False)
-    flagship_graphs = phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=GRAPHS_PRIME_LEN,
-                                          profile=profile)
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=FLAGSHIP_GRAPHS_PRIME_LEN,
+                        profile=profile)
     paths["engine_flagship"] = phase_engine_flagship(fa, sampling, loadgen, dalle)
     # the flagship's weights under reversible execution: serving, then training
-    paths["reversible_serve"] = phase_reversible_serve(fa, tr, sampling, dalle, text, flagship_graphs)
+    paths["reversible_serve"] = phase_reversible_serve(fa, sampling, dalle)
     reversible_step = phase_reversible_train(fa, dalle)
     entry_bytes = sum(e.loop.nbytes() for e in dalle.decode_graphs.entries().values())
     with_model = torch.cuda.memory_reserved()
     del dalle
     phase_graph_memory(reserved, with_model, entry_bytes)
+    # BASELINE.json configs[4]: the reversible flagship on the VQGAN-16k, reranked by CLIP
+    paths["configs4_generate"] = phase_configs4_generate(fa, tr, port, weights, checkpoint, sampling)
     parity = phase_parity(fa, port, sampling, "flagship_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE, prime_len=128)
     check(min(parity[k] for k in VFA_KERNELS) > 0, f"the small flagship's primed prefill ran no VFA pair: {parity}")
     parity = phase_train_parity(fa, port, "flagship_train_parity", SMALL_FLAGSHIP, SMALL_SPARSE_VAE)
@@ -3187,9 +3552,9 @@ def main() -> int:
     # one optimizer, two policies)
     paths["flagship_train"] = phase_train(fa, port, "flagship_train", FLAGSHIP, [
         Run(None, torch.bfloat16, 4, True), Run("remat", torch.float32, 2, False),
-        Run("remat", torch.bfloat16, 4, True, "flash_qkv", 8, True),
-        Run("remat", torch.bfloat16, 4, True, "flash_qkv_ff", 4, True),
-        Run("remat", torch.bfloat16, 4, False, "full", 4, True)])
+        Run("remat", torch.bfloat16, 3, True, "flash_qkv", 8, True),
+        Run("remat", torch.bfloat16, 3, True, "flash_qkv_ff", 4, True),
+        Run("remat", torch.bfloat16, 3, False, "full", 4, True)])
     phase_remat_host_cost(fa, port)
     phase_numerics_smoke()
     torch.cuda.empty_cache()
@@ -3288,6 +3653,8 @@ def main() -> int:
                                 for r in compared if r["case"] == case}
                          for case in ("clip_text", "clip_image", "text_prompt")},
         "masked": pattern_readings(sparse, "fwd_dense"),
+        # BASELINE.json configs[4]'s full layers: bh 32, n 512, d 128
+        "configs4": {r["dtype"]: {k: r[k] for k in fwd_keys} for r in compared if r["case"] == "configs4"},
     }, {
         "name": "flash_dq", "route": "cuda", "source": source_bwd, "replaces": replaces + "276",
         **launched("flash_dq", also=real), "max_abs_err": bwd["dq_max_abs_err"], "ms": bwd["dq_ms"],
@@ -3383,6 +3750,18 @@ def main() -> int:
            for name, dtype in (("f32", "float32"), ("bf16", "bfloat16"))},
         "by_pattern": pattern_readings(sparse, "vfa_fwd", 128),
     }]
+    def configs4_vfa(kind):
+        """a VFA pass at configs[4]'s pattern layers (n 512, fmap 16, bh 32,
+        d 128) by pattern and dtype (`configs4_kernel_vs_plain`)"""
+        err = "vfa_gmax_rel_err" if kind == "max" else "vfa_max_abs_err"
+        return {f"{r['pattern']}_{r['dtype']}": {
+            "ms": r[f"vfa_{kind}_ms"], "device_ms": r[f"vfa_{kind}_device_ms"], "plain_ms": r[f"vfa_plain_{kind}_ms"],
+            "bound_ms": r[f"vfa_{kind}_bound_ms"], "bound_by": r[f"vfa_{kind}_bound_by"],
+            "library_ms": r["sdpa_fwd_ms"], "live_tiles": r["live_tiles"], "causal_tiles": r["causal_tiles"],
+            "grid_auto": r["grid_auto"], err: r[err]} for r in configs4_rows}
+
+    kernels[-2]["configs4"] = configs4_vfa("max")
+    kernels[-1]["configs4"] = configs4_vfa("fwd")
     for k in kernels:  # a reversible training step of the flagship (`reversible_flagship_train`)
         k["reversible_step_launches"] = reversible_step[k["name"]]
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -1,6 +1,7 @@
 """Object-style facade (counterpart of `dalle_pytorch_tpu/api.py`):
-`DiscreteVAE(...)`, `DALLE(vae=vae, ...)` and `CLIP(...)` bundle a config
-with a module on one device.  Weights are drawn from a seed in float32, or
+`DiscreteVAE(...)`, `OpenAIDiscreteVAE(...)`, `VQGanVAE(...)`,
+`DALLE(vae=vae, ...)` and `CLIP(...)` bundle a config with a module on one
+device; `DALLE` takes any of the three VAEs.  Weights are drawn from a seed in float32, or
 carried over from a JAX package parameter tree with `params=`, in the
 tree's own dtype.
 
@@ -22,8 +23,12 @@ from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.models import clip as _clip
 from dalle_pytorch_tpu_torch.models import dalle as _dalle
+from dalle_pytorch_tpu_torch.models import openai_vae as _ovae
+from dalle_pytorch_tpu_torch.models import pretrained as _pretrained
 from dalle_pytorch_tpu_torch.models import sampling as _sampling
 from dalle_pytorch_tpu_torch.models import vae as _vae
+from dalle_pytorch_tpu_torch.models import vae_registry as _registry
+from dalle_pytorch_tpu_torch.models import vqgan as _vqgan
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
@@ -81,9 +86,94 @@ class DiscreteVAE:
         return _vae.decode_indices(self.module, img_seq)
 
 
+class _PretrainedVAE:
+    """What the pretrained families share: the config's geometry, and codes
+    to pixels and back through `models/vae_registry.py`."""
+
+    cfg: object
+    module: torch.nn.Module
+
+    @property
+    def image_size(self) -> int:
+        return self.cfg.image_size
+
+    @property
+    def num_tokens(self) -> int:
+        return self.cfg.num_tokens
+
+    @property
+    def num_layers(self) -> int:
+        return self.cfg.num_layers
+
+    @property
+    def channels(self) -> int:
+        return self.cfg.channels
+
+    def get_codebook_indices(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) pixels in [0, 1] -> (B, image_seq_len) codes."""
+        return _registry.get_codebook_indices(self.module, images)
+
+    def decode(self, img_seq: torch.Tensor) -> torch.Tensor:
+        """(B, image_seq_len) codes -> (B, H, W, C) pixels in [0, 1]."""
+        return _registry.decode_indices(self.module, img_seq)
+
+
+class OpenAIDiscreteVAE(_PretrainedVAE):
+    """OpenAI's pretrained dVAE (JAX `api.OpenAIDiscreteVAE`).  With no
+    arguments, the pretrained cache (`models/pretrained.py`: the converted
+    file, else the published pickles fetched and converted once); the
+    published `encoder_path` and `decoder_path` together; or, beyond the
+    JAX facade, a JAX-layout tree (`params`) or random weights from `seed`."""
+
+    def __init__(self, encoder_path: Optional[str] = None, decoder_path: Optional[str] = None,
+                 params: Optional[dict] = None, seed: Optional[int] = None, device: DeviceLike = None):
+        if (encoder_path is None) != (decoder_path is None):
+            raise ValueError("provide both encoder_path and decoder_path, or neither")
+        self.device = resolve_device(device)
+        self.cfg = _ovae.OpenAIVAEConfig()
+        if encoder_path is not None:
+            params = _ovae.load_openai_vae(encoder_path, decoder_path)
+        elif params is None and seed is None:
+            params, _ = _pretrained.load_openai_vae_pretrained()
+        if params is not None:
+            self.module = weights.load_vae(params, self.cfg, self.device)
+        else:
+            self.module = _ovae.init_random(_generator(seed, self.device), self.device)
+
+
+class VQGanVAE(_PretrainedVAE):
+    """A pretrained taming VQGAN or GumbelVQ (JAX `api.VQGanVAE`): a
+    checkpoint (`vqgan_model_path`) with its parsed taming config
+    (`vqgan_config`), or with neither the published default through the
+    pretrained cache; or, beyond the JAX facade, a JAX-layout tree
+    (`params`) or random weights from `seed` (with `decoder_attn`), for a
+    `VQGANConfig` (`cfg`)."""
+
+    def __init__(self, vqgan_model_path: Optional[str] = None, vqgan_config: Optional[dict] = None,
+                 params: Optional[dict] = None, cfg: Optional[_vqgan.VQGANConfig] = None,
+                 seed: Optional[int] = None, decoder_attn: bool = False, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if vqgan_model_path is not None:
+            params, cfg = _vqgan.load_vqgan(vqgan_model_path, vqgan_config)
+        elif vqgan_config is not None:
+            raise ValueError("a custom vqgan_config requires its vqgan_model_path")
+        elif params is None and seed is None:
+            params, cfg = _pretrained.load_vqgan_pretrained()
+        self.cfg = cfg if cfg is not None else _vqgan.VQGANConfig()
+        if params is not None:
+            self.module = weights.load_vae(params, self.cfg, self.device)
+        else:
+            self.module = _vqgan.init_random_like(self.cfg, _generator(seed, self.device), self.device,
+                                                  decoder_attn=decoder_attn)
+
+    @property
+    def is_gumbel(self) -> bool:
+        return self.cfg.is_gumbel
+
+
 class DALLE:
-    def __init__(self, *, vae: DiscreteVAE, seed: int = 1, params: Optional[dict] = None,
-                 device: DeviceLike = None, **cfg_kwargs):
+    def __init__(self, *, vae: Union[DiscreteVAE, OpenAIDiscreteVAE, VQGanVAE], seed: int = 1,
+                 params: Optional[dict] = None, device: DeviceLike = None, **cfg_kwargs):
         self.vae = vae
         self.device = resolve_device(device)
         self.cfg = _dalle.DALLEConfig.from_vae(vae.cfg, **cfg_kwargs)

@@ -8,11 +8,18 @@ Leaves of a dtype numpy lacks (bfloat16, the fp8 family) are stored as
 same-width unsigned bit-views; they are decoded here through torch, with no
 `ml_dtypes`.  Leaves come back as CPU torch tensors.
 
-Nothing is unpickled: v1 and v2 files, whose tree structure is a pickle, are
-refused.  A tree stored without a structure descriptor (an optax
-optimizer state, whose nodes are library types) comes back as a
-`TreeBundle` of its leaves and their key paths, which the reader checks
-against the paths of the state it restores (`training/resume.py`).
+A v3 file is read without unpickling anything.  v1 and v2 files store
+each tree's structure as a pickled JAX `PyTreeDef` (`__treedef_<name>`);
+they are refused unless the caller opts in with `allow_legacy_pickle`, and
+even then nothing of the pickle runs: a restricted unpickler admits the
+`PyTreeDef` class and `jax._src.tree_util.default_registry` as inert
+stubs, reads the post-order list of node tuples `(kind, arity,
+node_data, ..., num_leaves, num_nodes)` the treedef keeps as its state,
+and rebuilds leaves, None, tuples, lists and dicts; any other node kind
+or global raises, naming it.  A tree stored without a structure
+descriptor (an optax optimizer state, whose nodes are library types) comes
+back as a `TreeBundle` of its leaves and their key paths, which the reader
+checks against the paths of the state it restores (`training/resume.py`).
 
 `save_checkpoint` writes the same format from trees of dicts (string keys),
 lists, tuples and None around tensor, numpy or scalar leaves, and from
@@ -21,9 +28,11 @@ port trains and its `unflatten_like` restores the port's optimizer state.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
-from typing import Any, Dict, List, NamedTuple, Tuple
+import pickle
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,24 +88,109 @@ def _rebuild_pure(desc, leaves):
     raise ValueError(f"unknown structure node {kind!r}")
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """(trees, meta) of a v3 checkpoint: every tree with a structure
+# a pickled treedef's globals: the class in each jaxlib layout, and the registry
+_TREEDEF_CLASSES = {("jaxlib._jax.pytree", "PyTreeDef"), ("jaxlib.xla_extension.pytree", "PyTreeDef"),
+                    ("jaxlib.xla_extension", "PyTreeDef"), ("jaxlib._jax", "PyTreeDef")}
+_REGISTRY = ("jax._src.tree_util", "default_registry")
+# PyTreeKind: leaf, None, tuple, namedtuple, list, dict, custom, dataclass
+_LEAF, _NONE, _TUPLE, _LIST, _DICT = 0, 1, 2, 4, 5
+
+
+class _TreeDefStub:
+    """Stands in for a pickled `PyTreeDef`: keeps the state BUILD gives it."""
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+class _Registry:
+    pass
+
+
+class _TreeDefUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _TREEDEF_CLASSES:
+            return _TreeDefStub
+        if (module, name) == _REGISTRY:
+            return _Registry()
+        raise pickle.UnpicklingError(f"a legacy treedef refers to {module}.{name}, which it may not hold")
+
+
+def _read_treedef(blob: bytes) -> List[tuple]:
+    """The post-order node list of a pickled `PyTreeDef`."""
+    obj = _TreeDefUnpickler(io.BytesIO(blob)).load()
+    state = getattr(obj, "state", None)
+    if not isinstance(obj, _TreeDefStub) or not (isinstance(state, tuple) and len(state) == 2
+                                                 and isinstance(state[1], list)):
+        raise ValueError(f"a legacy treedef pickle holds {type(obj).__name__}, not a PyTreeDef's state")
+    return state[1]
+
+
+def _unflatten_nodes(nodes: List[tuple], leaves: list):
+    """Rebuild a tree from its post-order node list and its leaves."""
+    stack, it = [], iter(leaves)
+    for node in nodes:
+        kind, arity, data = node[0], node[1], node[2]
+        children = stack[len(stack) - arity:] if arity else []
+        del stack[len(stack) - arity:]
+        if kind == _LEAF:
+            stack.append(next(it))
+        elif kind == _NONE:
+            stack.append(None)
+        elif kind == _TUPLE:
+            stack.append(tuple(children))
+        elif kind == _LIST:
+            stack.append(list(children))
+        elif kind == _DICT:
+            stack.append(dict(zip(data, children)))
+        else:
+            raise ValueError(f"a legacy treedef holds a node of kind {kind} (a named tuple, a custom or "
+                             "dataclass node), which this reader does not rebuild")
+    if len(stack) != 1:
+        raise ValueError(f"a legacy treedef left {len(stack)} roots")
+    return stack[0]
+
+
+def _num_leaves(nodes: List[tuple]) -> int:
+    return sum(node[0] == _LEAF for node in nodes)
+
+
+def load_checkpoint(path: str, allow_legacy_pickle: bool = False,
+                    names: Optional[Tuple[str, ...]] = None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(trees, meta) of a checkpoint: every tree with a structure
     descriptor as nested dicts/lists of CPU tensors, every other one as a
-    `TreeBundle`."""
+    `TreeBundle`; with `names`, only those trees are read (inference reads
+    the weights and not a training run's optimizer moments).  A v1/v2 file
+    needs `allow_legacy_pickle` (its structure is a pickle; the module
+    docstring says how little of it is read)."""
     with np.load(path, allow_pickle=False) as data:
         fmt = int(data["__format"]) if "__format" in data.files else 1
-        if fmt != FORMAT_VERSION:
+        if fmt > FORMAT_VERSION:
             raise ValueError(
-                f"checkpoint {path!r} has format version {fmt}; this reader takes "
-                f"only v{FORMAT_VERSION} (older files store their tree structure "
-                "as a pickle, which it never loads)"
+                f"checkpoint {path!r} has format version {fmt}, newer than this "
+                f"reader's {FORMAT_VERSION}; upgrade the library to read it"
             )
         meta = json.loads(bytes(data["__meta"]).decode())
         trees: Dict[str, Any] = {}
+        if fmt < FORMAT_VERSION:
+            if not allow_legacy_pickle:
+                raise ValueError(
+                    f"checkpoint {path!r} has format version {fmt}: it is a legacy v{fmt} file whose tree "
+                    "structure is stored as a pickle — refusing to unpickle by default (a crafted file could "
+                    "execute code on load).  If the file comes from a trusted source, load it with "
+                    "load_checkpoint(path, allow_legacy_pickle=True) and re-save it to migrate to the "
+                    "pickle-free v3 format (save_checkpoint writes v3)."
+                )
+            for key in data.files:
+                name = key[len("__treedef_"):]
+                if key.startswith("__treedef_") and (names is None or name in names):
+                    nodes = _read_treedef(bytes(data[key]))
+                    trees[name] = _unflatten_nodes(nodes, _load_leaves(data, name, _num_leaves(nodes)))
+            return trees, meta
         for key in data.files:
-            if not key.startswith("__paths_"):
-                continue
             name = key[len("__paths_"):]
+            if not key.startswith("__paths_") or (names is not None and name not in names):
+                continue
             skey = f"__struct_{name}"
             paths = json.loads(bytes(data[key]).decode())
             leaves = _load_leaves(data, name, len(paths))
@@ -105,6 +199,11 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
             else:
                 trees[name] = TreeBundle(paths, leaves)
     return trees, meta
+
+
+def is_sharded_checkpoint(path) -> bool:
+    """True iff `path` is an orbax sharded checkpoint directory."""
+    return os.path.isdir(path) and os.path.exists(os.path.join(path, "state"))
 
 
 # ---------------------------------------------------------------------------

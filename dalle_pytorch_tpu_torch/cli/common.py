@@ -2,6 +2,10 @@
 `dalle_pytorch_tpu/cli/common.py`)."""
 from __future__ import annotations
 
+# the generate and serve CLIs' loader of any checkpoint format, as in the
+# JAX package; it lives with the weight converters it feeds
+from dalle_pytorch_tpu_torch.weights import load_dalle_bundle  # noqa: F401
+
 
 def warn_vocab_mismatch(num_text_tokens: int, tokenizer) -> None:
     """Out-of-vocab caption ids are clamped by the model

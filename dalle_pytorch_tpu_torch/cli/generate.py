@@ -16,9 +16,14 @@ package's bits (its threefry streams are not reproduced).
 (`serving/engine.py`, `--engine_slots` lanes, `--engine_block_size`-token
 KV blocks): one request an image, image j of the run (over all prompts)
 seeded with `--seed` + j, so that a run of one image gives the codes of the
-same run without `--engine`.  Flags whose machinery is not ported yet
-(speculative decoding, the taming VQGAN, pre-v3 checkpoints) exit with a
-message naming the `ROADMAP.md` item that brings them.  The JAX CLI's out-of-memory
+same run without `--engine`.  The checkpoint may be a v3 `.npz` whose VAE
+is any of the three families (the DiscreteVAE, the taming VQGAN, OpenAI's
+dVAE), a torch-reference `dalle.pt` (with `--vqgan_config_path` when its
+VAE is a VQGanVAE), or a pre-v3 file under `--allow_legacy_pickle`
+(`weights.load_dalle_bundle`); `--taming` and `--vqgan_model_path` are
+accepted and change nothing, as in the JAX CLI (the checkpoint names its
+VAE and holds its weights).  Speculative decoding exits with a message
+naming the `ROADMAP.md` item that brings it.  The JAX CLI's out-of-memory
 forensic report waits for the memory ledger (`ROADMAP.md` Queue 1 item 8).
 """
 from __future__ import annotations
@@ -44,9 +49,6 @@ from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngin
 _WAITING = {
     "spec_k": "speculative decoding (ROADMAP.md Queue 1 item 6, models/speculative.py)",
     "spec_draft_layers": "speculative decoding (ROADMAP.md Queue 1 item 6, models/speculative.py)",
-    "taming": "the taming VQGAN (ROADMAP.md Queue 1 item 5)",
-    "vqgan_config_path": "the taming VQGAN (ROADMAP.md Queue 1 item 5)",
-    "allow_legacy_pickle": "the pre-v3 checkpoint formats (ROADMAP.md Queue 1 item 5)",
 }
 
 
@@ -61,7 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cond_scale", type=float, default=1.0, help="classifier-free guidance scale")
     parser.add_argument("--outputs_dir", type=str, default="./outputs")
     parser.add_argument("--gentxt", action="store_true", help="complete the prompt with DALL-E first")
-    parser.add_argument("--taming", action="store_true", help="the checkpoint's VAE is a taming VQGAN")
+    parser.add_argument("--taming", action="store_true",
+                        help="the checkpoint's VAE is a taming VQGAN (reference-format checkpoints need its yaml "
+                             "via --vqgan_config_path)")
     parser.add_argument("--vqgan_config_path", type=str, default=None,
                         help="taming config yaml for a reference VQGanVAE checkpoint")
     parser.add_argument("--vqgan_model_path", type=str, default=None,
@@ -71,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bpe_path", type=str, default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--allow_legacy_pickle", action="store_true",
-                        help="permit loading pre-v3 (pickled) checkpoints")
+                        help="permit loading pre-v3 (pickled-treedef) checkpoints: trusted sources only")
     parser.add_argument("--engine", action="store_true",
                         help="sample through the continuous-batching serving engine")
     parser.add_argument("--engine_slots", type=int, default=4, help="decode lanes for --engine")
@@ -124,7 +128,8 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
     device = resolve_device(args.device)
 
     t0 = time.perf_counter()
-    model, vae = weights.load_dalle_checkpoint(args.dalle_path, device)
+    model, vae = weights.load_dalle_checkpoint(args.dalle_path, device, allow_legacy_pickle=args.allow_legacy_pickle,
+                                               vqgan_config_path=args.vqgan_config_path)
     dalle_cfg, vae_cfg = model.cfg, vae.cfg
     _sync(device)
     _add(timings, "load_s", time.perf_counter() - t0)
@@ -183,7 +188,7 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
                 _add(timings, key, seconds)
             t0 = time.perf_counter()
             # display space (the reference's save_image(normalize=True)):
-            # the DiscreteVAE decodes into its normalised space
+            # the DiscreteVAE decodes into its normalised space, the others into [0, 1]
             images = vae_registry.to_display(vae_cfg, images).cpu().numpy()
             for img in images:
                 arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)

@@ -46,8 +46,6 @@ _ITEM6 = "ROADMAP.md Queue 1 item 6"
 _ITEM8 = "ROADMAP.md Queue 1 item 8"
 # flag -> what it needs that the port does not have yet, and where ROADMAP.md lists it
 _WAITING = {
-    "allow_legacy_pickle": "the pre-v3 checkpoint formats (ROADMAP.md Queue 1 item 5)",
-    "vqgan_config_path": "the taming VQGAN (ROADMAP.md Queue 1 item 5)",
     "quantize_weights": f"weight quantization ({_ITEM6})",
     "quantize_kv": f"the quantized KV pool ({_ITEM6})",
     "spec_k": f"speculative decoding ({_ITEM6})",
@@ -82,7 +80,13 @@ _WAITING = {
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="DALL-E generation service")
     src = parser.add_argument_group("model")
-    src.add_argument("--dalle_path", type=str, default=None)
+    src.add_argument("--dalle_path", type=str, default=None,
+                     help="a v3 checkpoint (any VAE family), a torch-reference dalle.pt, or with "
+                          "--allow_legacy_pickle a pre-v3 file")
+    src.add_argument("--allow_legacy_pickle", action="store_true",
+                     help="permit loading pre-v3 (pickled-treedef) checkpoints: trusted sources only")
+    src.add_argument("--vqgan_config_path", type=str, default=None,
+                     help="taming config yaml for a reference VQGanVAE checkpoint")
     src.add_argument("--synthetic", action="store_true", help="serve a seeded random model (no checkpoint)")
     src.add_argument("--dim", type=int, default=64)
     src.add_argument("--depth", type=int, default=2)
@@ -124,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     waiting = parser.add_argument_group("not ported yet (each exits with the ROADMAP.md item that brings it)")
     for flag in _WAITING:
-        if flag in ("disaggregate", "degrade", "no_pool_recorder", "allow_legacy_pickle"):
+        if flag in ("disaggregate", "degrade", "no_pool_recorder"):
             waiting.add_argument(f"--{flag}", action="store_true")
         else:
             waiting.add_argument(f"--{flag}", type=str, default=None)
@@ -140,7 +144,8 @@ def _refuse_waiting_flags(args) -> None:
 def _build_model(args, device):
     """(model, vae or None)."""
     if args.dalle_path:
-        return weights.load_dalle_checkpoint(args.dalle_path, device)
+        return weights.load_dalle_checkpoint(args.dalle_path, device, allow_legacy_pickle=args.allow_legacy_pickle,
+                                             vqgan_config_path=args.vqgan_config_path)
     if not args.synthetic:
         raise SystemExit("provide --dalle_path or --synthetic")
     cfg = dalle_mod.DALLEConfig(dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,

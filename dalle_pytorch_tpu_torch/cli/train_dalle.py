@@ -6,7 +6,7 @@
     python -m dalle_pytorch_tpu_torch.cli.train_dalle --dummy_run [N] [--device cpu]
 
 The path: a folder of images and captions or local tar shards
-(`data/loader.py`, PNG through the port's own decoder) -> frozen DiscreteVAE
+(`data/loader.py`, PNG through the port's own decoder) -> the frozen VAE's
 codes -> the DALL-E weighted cross-entropy -> backward through the flash
 kernels -> global-norm clipping, the bad-step guard, Adam (optax's, on
 groups of leaves; `--lr_decay` chains reduce-on-plateau after it) -> v3
@@ -17,6 +17,16 @@ checkpoint holds the weights, the VAE, the optimizer state in the JAX
 layout and the data cursor, so that `--resume` continues a run batch for
 batch, and resumes the JAX CLI's checkpoints too.  It runs on the card
 unless `--device cpu` is given.
+
+The VAE (`reconstitute_vae`, the JAX CLI's): a resumed checkpoint's, of
+any family; `--vae_path`, a trained DiscreteVAE (v3, a torch-reference
+`vae.pt`, or a pre-v3 file under `--allow_legacy_pickle`); `--taming`, the
+taming VQGAN from `--vqgan_model_path` and `--vqgan_config_path`, or the
+published one through the pretrained cache (`models/pretrained.py`);
+otherwise OpenAI's dVAE through the same cache, which a machine with no
+network must hold already (`DALLE_PYTORCH_TPU_CACHE`).  `--dalle_path` also
+takes a torch-reference `dalle.pt` (its VQGanVAE's yaml through
+`--vqgan_config_path`), trained on with a fresh optimizer.
 
 The model flags and their defaults are the JAX CLI's: without
 `--rotary_emb` the model learns its positions, as the JAX CLI's default
@@ -55,6 +65,7 @@ from dalle_pytorch_tpu_torch.cli.common import refuse, warn_vocab_mismatch
 from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.data import loader
 from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
+from dalle_pytorch_tpu_torch.models import pretrained, torch_port
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig, init_dalle
@@ -68,9 +79,6 @@ from dalle_pytorch_tpu_torch.version import __version__
 _WAITING = {
     "chinese": ("the Chinese BERT tokenizer (`transformers`)", 4),
     "hug": ("the Hugging Face tokenizer (`tokenizers`)", 4),
-    "taming": ("the taming VQGAN", 5),
-    "vqgan_model_path": ("the taming VQGAN", 5),
-    "vqgan_config_path": ("the taming VQGAN", 5),
     "zero_stage": ("ZeRO sharding", 7),
     "mesh_dp": ("meshes", 7), "mesh_fsdp": ("meshes", 7), "mesh_tp": ("meshes", 7),
     "mesh_sp": ("meshes", 7), "mesh_pp": ("meshes", 7),
@@ -87,8 +95,18 @@ _DUMMY_VAE = dict(image_size=32, num_tokens=128, codebook_dim=32, num_layers=2,
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = parser.add_mutually_exclusive_group()
-    group.add_argument("--vae_path", type=str, default=None, help="a trained DiscreteVAE's v3 checkpoint")
-    group.add_argument("--dalle_path", type=str, default=None, help="a DALL-E checkpoint to resume")
+    group.add_argument("--vae_path", type=str, default=None,
+                       help="a trained DiscreteVAE: a v3 checkpoint or a torch-reference vae.pt")
+    group.add_argument("--dalle_path", type=str, default=None,
+                       help="a DALL-E checkpoint to resume: the port's, the JAX CLI's or a torch-reference "
+                            "dalle.pt")
+    parser.add_argument("--taming", action="store_true", help="use a pretrained taming VQGAN as the image tokenizer")
+    parser.add_argument("--vqgan_model_path", type=str, default=None,
+                        help="taming checkpoint (.ckpt); the published default through the cache when omitted")
+    parser.add_argument("--vqgan_config_path", type=str, default=None,
+                        help="taming config yaml matching --vqgan_model_path")
+    parser.add_argument("--allow_legacy_pickle", action="store_true",
+                        help="permit loading pre-v3 (pickled-treedef) checkpoints: trusted sources only")
     parser.add_argument("--image_text_folder", type=str, default=None,
                         help="folder of images and same-stem .txt captions, or a glob of local .tar shards with "
                              "--wds (required unless --dummy_run or a resume)")
@@ -149,10 +167,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--shared_ff_ids", type=str, default=None,
                         help="comma-separated feed-forward ids, cycled over depth")
     # not ported: each exits naming its ROADMAP.md item
-    for name in ("chinese", "hug", "taming"):
+    for name in ("chinese", "hug"):
         parser.add_argument(f"--{name}", action="store_true")
-    for name in ("vqgan_model_path", "vqgan_config_path"):
-        parser.add_argument(f"--{name}", type=str, default=None)
     for name in ("sample_every_n_steps", "zero_stage", "mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp", "mesh_pp"):
         parser.add_argument(f"--{name}", type=int, default=None)
     return parser
@@ -217,7 +233,7 @@ def get_tokenizer(args):
                          "lacks (ROADMAP.md Queue 1 item 4)") from e
 
 
-def model_config(args, vae_cfg: vae_mod.DiscreteVAEConfig, tokenizer) -> DALLEConfig:
+def model_config(args, vae_cfg, tokenizer) -> DALLEConfig:
     """The DALL-E config of the flags, as the JAX CLI builds it
     (`num_text_tokens` from the tokenizer's vocab unless given)."""
     return DALLEConfig.from_vae(
@@ -239,8 +255,8 @@ def _parse_ids(text: Optional[str]):
     return tuple(int(x) for x in text.split(","))
 
 
-def dummy_batches(seed: int, n: int, batch_size: int, cfg: DALLEConfig,
-                  vae_cfg: vae_mod.DiscreteVAEConfig, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+def dummy_batches(seed: int, n: int, batch_size: int, cfg: DALLEConfig, vae_cfg,
+                  epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """n synthetic batches of random captions and pixels, the JAX dummy
     run's draws (`RandomState(seed + epoch)`); the last one is half size
     when n >= 2."""
@@ -253,7 +269,7 @@ def dummy_batches(seed: int, n: int, batch_size: int, cfg: DALLEConfig,
         }
 
 
-def data_iterator(args, cfg: DALLEConfig, vae_cfg: vae_mod.DiscreteVAEConfig, tokenizer):
+def data_iterator(args, cfg: DALLEConfig, vae_cfg, tokenizer):
     """data_iter(epoch, skip) -> the epoch's batches from batch `skip` on,
     as the JAX CLI builds it: synthetic, tar shards (the skipped batches
     read and dropped: a stream has no random access) or the folder (the
@@ -283,17 +299,17 @@ def data_iterator(args, cfg: DALLEConfig, vae_cfg: vae_mod.DiscreteVAEConfig, to
                                                         num_workers=args.num_workers, skip_batches=skip)
 
 
-def dalle_loss_fn(model: DALLE, vae: vae_mod.DiscreteVAE, compute_dtype: torch.dtype):
+def dalle_loss_fn(model: DALLE, vae: torch.nn.Module, compute_dtype: torch.dtype):
     """loss_fn(params, batch, generator) for `make_train_step`: raw pixels
-    (batch["image"], (B, H, W, C) in [0, 1]) through the frozen VAE to codes,
-    then the DALL-E loss on batch["text"] with `params` in place of the
-    model's parameters.  The VAE encodes in the compute dtype, as the JAX
-    CLI runs it."""
+    (batch["image"], (B, H, W, C) in [0, 1]) through the frozen VAE, of any
+    family (`vae_registry`), to codes, then the DALL-E loss on
+    batch["text"] with `params` in place of the model's parameters.  The
+    VAE encodes in the compute dtype, as the JAX CLI runs it."""
     encoder = vae if compute_dtype == torch.float32 else copy.deepcopy(vae).to(compute_dtype)
 
     def loss_fn(params, batch, generator):
         with torch.no_grad():
-            codes = vae_mod.get_codebook_indices(encoder, batch["image"].to(compute_dtype))
+            codes = vae_registry.get_codebook_indices(encoder, batch["image"].to(compute_dtype))
         return functional_call(model, params, (batch["text"], codes),
                                {"return_loss": True, "generator": generator})
 
@@ -307,23 +323,64 @@ def write_vae_checkpoint(path: str, vae: vae_mod.DiscreteVAE) -> None:
                     {"hparams": vae.cfg.to_dict(), "version": __version__})
 
 
-def load_vae_checkpoint(path: str, device) -> vae_mod.DiscreteVAE:
-    """`--vae_path`: a v3 DiscreteVAE checkpoint (JAX `reconstitute_vae`).
-    A torch-reference `vae.pt` exits naming ROADMAP.md Queue 1 item 5."""
+def load_vae_checkpoint(path: str, device, allow_legacy_pickle: bool = False) -> torch.nn.Module:
+    """`--vae_path`: a trained DiscreteVAE, as a v3 checkpoint (a pre-v3 one
+    with `allow_legacy_pickle`) or a torch-reference `vae.pt` (converted on
+    load), as JAX `reconstitute_vae` reads it."""
     if not Path(path).exists():
         raise SystemExit(f"--vae_path {path} does not exist")
-    if weights._is_torch_checkpoint(Path(path)):
-        raise refuse(f"--vae_path {path} is a torch-reference checkpoint: converting it", 5)
-    trees, meta = load_checkpoint(path)
+    if torch_port.is_torch_checkpoint(path):
+        params, cfg = torch_port.load_reference_vae_checkpoint(path)
+        return weights.load_vae(params, cfg, device)
+    trees, meta = load_checkpoint(path, allow_legacy_pickle=allow_legacy_pickle)
     cfg = vae_mod.DiscreteVAEConfig.from_dict(meta["hparams"])
     return weights.load_vae(trees["weights"], cfg, device)
 
 
-def save_dalle(path: str, model: DALLE, vae: vae_mod.DiscreteVAE, state: TrainState, epoch: int,
+def reconstitute_vae(args, device, resumed=None) -> torch.nn.Module:
+    """The frozen VAE that tokenizes the training images (JAX
+    `reconstitute_vae`): the resumed checkpoint's (`resumed`, its (trees,
+    meta)) of any family, `--vae_path`, `--taming` (the VQGAN from its
+    paths or the published one), or OpenAI's dVAE through the pretrained
+    cache.  A fetch that fails exits naming the cache directory."""
+    if resumed is not None:
+        trees, meta = resumed
+        if "vae_weights" not in trees:
+            raise SystemExit("the resumed checkpoint holds no VAE weights")
+        cfg = vae_registry.config_from_meta(meta.get("vae_class_name", "DiscreteVAE"), meta["vae_params"])
+        return weights.load_vae(trees["vae_weights"], cfg, device)
+    if args.vae_path is not None:
+        return load_vae_checkpoint(args.vae_path, device, args.allow_legacy_pickle)
+    if (args.vqgan_model_path or args.vqgan_config_path) and not args.taming:
+        raise SystemExit("--vqgan_model_path/--vqgan_config_path require --taming "
+                         "(otherwise they would be silently ignored)")
+    if args.taming:
+        if args.vqgan_model_path is not None and not Path(args.vqgan_model_path).exists():
+            raise SystemExit(f"--vqgan_model_path {args.vqgan_model_path} does not exist")
+        try:
+            params, cfg = pretrained.load_vqgan_pretrained(args.vqgan_model_path, args.vqgan_config_path)
+        except ValueError as e:
+            raise SystemExit(f"--taming: {e}") from e
+        except OSError as e:
+            raise SystemExit(f"--taming: the published VQGAN is not in the cache {pretrained.default_cache_dir()} "
+                             f"and fetching it failed ({e!r})") from e
+        return weights.load_vae(params, cfg, device)
+    print("using OpenAI's pretrained VAE for encoding images to tokens", flush=True)
+    try:
+        params, cfg = pretrained.load_openai_vae_pretrained()
+    except OSError as e:  # urllib's URLError is an OSError
+        raise SystemExit(f"no --vae_path: OpenAI's pretrained dVAE is not in the cache "
+                         f"{pretrained.default_cache_dir()} (DALLE_PYTORCH_TPU_CACHE) and fetching it failed "
+                         f"({e!r})") from e
+    return weights.load_vae(params, cfg, device)
+
+
+def save_dalle(path: str, model: DALLE, vae: torch.nn.Module, state: TrainState, epoch: int,
                global_step: int, data_state: Optional[dict] = None) -> None:
     """The checkpoint the JAX CLI writes (`build_model_payload`), in v3:
-    weights, vae_weights and opt_state (the JAX layout, from the first
-    update on); hparams, vae_params, epoch, global_step, data_state."""
+    weights, vae_weights (the VAE's family's tree) and opt_state (the JAX
+    layout, from the first update on); hparams, vae_class_name,
+    vae_params, epoch, global_step, data_state."""
     cfg = model.cfg
     trees = {
         "weights": weights.dalle_tree(model.state_dict(), cfg),
@@ -348,9 +405,25 @@ def _resume_source(args, out_file: str) -> Optional[str]:
     path = args.resume or args.dalle_path
     if path is not None and not Path(path).exists():
         raise SystemExit(f"checkpoint {path} does not exist")
-    if path is not None and (Path(path).is_dir() or weights._is_torch_checkpoint(Path(path))):
-        raise refuse(f"{path}: resuming a sharded or torch-reference checkpoint", 8 if Path(path).is_dir() else 5)
+    if path is not None and Path(path).is_dir():
+        raise refuse(f"{path}: resuming a sharded checkpoint", 8)
     return path
+
+
+def _load_resumed(args, source: str):
+    """(trees, meta) of the checkpoint a run continues.  A torch-reference
+    `dalle.pt` is converted (its VQGanVAE's yaml from --vqgan_config_path)
+    into the trees and meta of a checkpoint without an optimizer state: the
+    reference's torch Adam state does not carry over."""
+    if not torch_port.is_torch_checkpoint(source):
+        return load_checkpoint(source, allow_legacy_pickle=args.allow_legacy_pickle)
+    ref = torch_port.read_reference_dalle(source, args.vqgan_config_path)
+    print(f"[resume] resuming from reference checkpoint {source} (epoch {ref['epoch']}, fresh optimizer state)",
+          flush=True)
+    vae_class_name, vae_params = vae_registry.config_to_meta(ref["vae_config"])
+    return ({"weights": ref["params"], "vae_weights": ref["vae_params"]},
+            {"hparams": ref["config"].to_dict(), "vae_class_name": vae_class_name, "vae_params": vae_params,
+             "epoch": ref["epoch"]})
 
 
 def main(argv=None) -> int:
@@ -361,20 +434,13 @@ def main(argv=None) -> int:
     tokenizer = get_tokenizer(args)
 
     source = _resume_source(args, out_file)
-    resumed = load_checkpoint(source) if source is not None else None
-    if resumed is not None:  # the checkpoint carries the VAE it trained with
-        trees, meta = resumed
-        vae_cfg = vae_registry.config_from_meta(meta.get("vae_class_name", "DiscreteVAE"), meta["vae_params"])
-        vae = weights.load_vae(trees["vae_weights"], vae_cfg, device)
-    elif args.dummy_run is not None:
+    resumed = _load_resumed(args, source) if source is not None else None
+    if resumed is None and args.dummy_run is not None:
         vae_cfg = vae_mod.DiscreteVAEConfig(**_DUMMY_VAE)
         vae = vae_mod.init_discrete_vae(vae_cfg, torch.Generator(device=device).manual_seed(args.seed), device)
-    elif args.vae_path is not None:
-        vae = load_vae_checkpoint(args.vae_path, device)
+    else:  # the resumed checkpoint carries the VAE it trained with
+        vae = reconstitute_vae(args, device, resumed)
         vae_cfg = vae.cfg
-    else:
-        raise refuse("training without --vae_path (the JAX CLI downloads OpenAI's pretrained dVAE here, and "
-                      "neither machine has a network): the pretrained VAEs", 5)
 
     if resumed is not None:
         trees, meta = resumed

@@ -20,7 +20,8 @@ package's `load_checkpoint` reads (its weights tree, `hparams` and
 `version` meta), written before the first step (an unwritable output fails
 before any compute), every `--save_every_n_steps` and at each epoch's end.
 `--resume auto|PATH` restores the weights and hparams of the port's or the
-JAX CLI's `vae.pt` and starts a fresh optimizer, as the JAX CLI does.  Each
+JAX CLI's `vae.pt` (or of a torch-reference one, converted) and starts a
+fresh optimizer, as the JAX CLI does.  Each
 step prints one JSON record.  It runs on the card unless `--device cpu`.
 
 The flags and defaults are the JAX CLI's, but for three whose JAX defaults
@@ -51,6 +52,7 @@ from dalle_pytorch_tpu_torch.cli.common import add_distributed_flags, refuse, re
 from dalle_pytorch_tpu_torch.cli.train_dalle import write_vae_checkpoint
 from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.data import loader
+from dalle_pytorch_tpu_torch.models import torch_port
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models.vae import DiscreteVAEConfig
 from dalle_pytorch_tpu_torch.optim.grouped import Adam
@@ -182,12 +184,14 @@ def _resume(args, device) -> Tuple[Optional[vae_mod.DiscreteVAE], Optional[str]]
             print(f"[resume] --resume auto: no checkpoint at {path}; starting fresh", flush=True)
             return None, None
         raise SystemExit(f"--resume {path} does not exist")
-    if weights._is_torch_checkpoint(Path(path)):
-        raise refuse(f"--resume {path} is a torch-reference checkpoint: converting it", 5)
     try:
-        trees, meta = load_checkpoint(path)
-        cfg = DiscreteVAEConfig.from_dict(meta["hparams"])
-        vae = weights.load_vae(trees["weights"], cfg, device)
+        if torch_port.is_torch_checkpoint(path):  # a torch-reference vae.pt, converted
+            params, cfg = torch_port.load_reference_vae_checkpoint(path)
+            vae = weights.load_vae(params, cfg, device)
+        else:
+            trees, meta = load_checkpoint(path)
+            cfg = DiscreteVAEConfig.from_dict(meta["hparams"])
+            vae = weights.load_vae(trees["weights"], cfg, device)
     except (OSError, ValueError, KeyError, TypeError, zipfile.BadZipFile) as e:
         if not auto:
             raise SystemExit(f"--resume {path}: not a VAE checkpoint this port reads ({e!r})") from e

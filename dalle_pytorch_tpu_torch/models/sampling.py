@@ -30,7 +30,7 @@ import torch
 
 from dalle_pytorch_tpu_torch.models import clip as clip_mod
 from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
-from dalle_pytorch_tpu_torch.models import vae as vae_mod
+from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.transformer import apply_transformer, decode_step, init_cache, prefill
 from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise, gumbel_sample, top_k_filter
@@ -456,7 +456,7 @@ def sample_image_codes(
 @torch.no_grad()
 def generate_images(
     model: DALLE,
-    vae: "vae_mod.DiscreteVAE",
+    vae: torch.nn.Module,
     text: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     filter_thres: float = 0.5,
@@ -469,10 +469,11 @@ def generate_images(
     clip: Optional["clip_mod.CLIP"] = None,
     graphs: Optional[bool] = None,
 ):
-    """Sample codes and decode them through the VAE.  img: optional (b, H,
-    W, C) pixels in [0, 1] whose first codes prime the image.  Returns
-    (b, H, W, C) images in the VAE's normalised pixel space, as the JAX
-    package does; with a `clip`, (images, scores): CLIP's score of each
+    """Sample codes and decode them through the VAE, of any family
+    (`vae_registry`).  img: optional (b, H, W, C) pixels in [0, 1] whose
+    first codes prime the image.  Returns (b, H, W, C) images as the VAE
+    decodes them (the DiscreteVAE's in its normalised pixel space), as the
+    JAX package does; with a `clip`, (images, scores): CLIP's score of each
     image against its text, for reranking.  `graphs` as in
     `sample_image_codes`.  With a `timings` dict, the device is
     synchronised after each phase and `prefill_s`, `decode_s`, `vae_s`
@@ -486,12 +487,12 @@ def generate_images(
         if not 0 <= prime_len < cfg.image_seq_len:
             raise ValueError(f"prime_len {prime_len} must lie in [0, {cfg.image_seq_len})")
         if prime_len:
-            primer = vae_mod.get_codebook_indices(vae, img)[:, :prime_len]
+            primer = vae_registry.get_codebook_indices(vae, img)[:, :prime_len]
 
     codes, _ = _sample_codes(model, text, generator, filter_thres, temperature, cond_scale, primer, prime_len,
                              noise_override, False, graphs, timings)
     t0 = time.perf_counter()
-    images = vae_mod.decode_indices(vae, codes)
+    images = vae_registry.decode_indices(vae, codes)
     t0 = _lap(timings, "vae_s", text.device, t0)
     if clip is None:
         return images

@@ -43,7 +43,7 @@ import torch
 
 from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
 from dalle_pytorch_tpu_torch.models import sampling as sampling_mod
-from dalle_pytorch_tpu_torch.models import vae as vae_mod
+from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.paged import (
     init_slot_rings,
@@ -96,7 +96,7 @@ class GenerationEngine:
     True needs the card.  `usage_fn` overrides the memory-usage reading of
     the headroom gate."""
 
-    def __init__(self, model: DALLE, vae: Optional["vae_mod.DiscreteVAE"] = None,
+    def __init__(self, model: DALLE, vae: Optional[torch.nn.Module] = None,
                  engine_cfg: EngineConfig = EngineConfig(), usage_fn: Optional[Callable[[], Optional[float]]] = None,
                  graphs: Optional[bool] = None):
         cfg = model.cfg
@@ -419,7 +419,7 @@ class GenerationEngine:
             if self.vae is not None:
                 t0 = time.perf_counter()
                 codes = torch.as_tensor(req.codes[None], device=self.device)
-                req.images = vae_mod.decode_indices(self.vae, codes).cpu()
+                req.images = vae_registry.decode_indices(self.vae, codes).cpu()
                 req.phases["vae_decode"] = time.perf_counter() - t0
                 req.latency_s = time.monotonic() - req.arrival_t
             req.phases["evict"] = max(req.latency_s - sum(req.phases.values()), 0.0)

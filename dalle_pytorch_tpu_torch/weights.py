@@ -7,13 +7,16 @@ dim).  The functions here take such a tree, as `jax.device_get` or
 `checkpoint.load_checkpoint` gives it (leaves numpy arrays or CPU tensors),
 and return the port's state dicts or modules, in PyTorch's layouts; and back
 again (`dalle_tree`, `vae_tree`, `clip_tree`), for the checkpoint writer and for tests that
-hold the port's gradients against the JAX package's.
+hold the port's gradients against the JAX package's.  The VAE functions
+take any of the three families (`models/vae_registry.py`): the DiscreteVAE,
+the taming VQGAN (`vqgan_state_dict` / `vqgan_tree`, the module's names
+being taming's) and OpenAI's dVAE (`openai_vae_state_dict` /
+`openai_vae_tree`).
 """
 from __future__ import annotations
 
-import zipfile
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,9 +25,10 @@ from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.core.module import conv_transpose_weight, conv_weight, linear_weight
 from dalle_pytorch_tpu_torch.models.clip import CLIP, CLIPConfig
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig
+from dalle_pytorch_tpu_torch.models.openai_vae import GROUP_COUNT, N_BLK_PER_GROUP, OpenAIVAE, OpenAIVAEConfig
 from dalle_pytorch_tpu_torch.models.transformer import TransformerConfig, derive_layer_specs
-from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE, DiscreteVAEConfig
-from dalle_pytorch_tpu_torch.models.vae_registry import config_from_meta
+from dalle_pytorch_tpu_torch.models.vae import DiscreteVAE
+from dalle_pytorch_tpu_torch.models.vqgan import VQGAN, VQGANConfig, has_decoder_attn
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -145,8 +149,13 @@ def clip_state_dict(params: dict, cfg: CLIPConfig) -> StateDict:
     return sd
 
 
-def vae_state_dict(params: dict, cfg: DiscreteVAEConfig) -> StateDict:
-    """The JAX package's DiscreteVAE parameter tree -> the port's state dict."""
+def vae_state_dict(params: dict, cfg: Any) -> StateDict:
+    """The JAX package's VAE parameter tree of any family -> the port's
+    state dict of that family's module."""
+    if isinstance(cfg, VQGANConfig):
+        return vqgan_state_dict(params, cfg)
+    if isinstance(cfg, OpenAIVAEConfig):
+        return openai_vae_state_dict(params)
     sd: StateDict = {"codebook.weight": _t(params["codebook"]["table"])}
     for i, p in enumerate(params["enc_convs"]):
         sd.update(_conv(f"enc_convs.{i}", p))
@@ -160,6 +169,112 @@ def vae_state_dict(params: dict, cfg: DiscreteVAEConfig) -> StateDict:
         if name in params:
             sd.update(_conv(name, params[name]))
     return sd
+
+
+# The VQGAN and OpenAI trees are walked through a tree of names: the JAX
+# package's structure with, at each conv or norm, the port's module prefix.
+
+
+def _vqgan_names(cfg: VQGANConfig, decoder_attn: bool) -> dict:
+    """The JAX VQGAN tree's structure, ("conv" | "gn" | "table", prefix) at
+    its leaves' parents: the port's module names, which are taming's."""
+    widths = [cfg.ch * m for m in cfg.ch_mult]
+    levels = len(widths)
+
+    def res(prefix, cin, cout):
+        p = {"norm1": ("gn", f"{prefix}.norm1"), "conv1": ("conv", f"{prefix}.conv1"),
+             "norm2": ("gn", f"{prefix}.norm2"), "conv2": ("conv", f"{prefix}.conv2")}
+        if cin != cout:
+            p["nin_shortcut"] = ("conv", f"{prefix}.nin_shortcut")
+        return p
+
+    def attn(prefix):
+        return {"norm": ("gn", f"{prefix}.norm"), **{n: ("conv", f"{prefix}.{n}") for n in ("q", "k", "v", "proj_out")}}
+
+    def mid(prefix, c):
+        return {"block_1": res(f"{prefix}.block_1", c, c), "attn_1": attn(f"{prefix}.attn_1"),
+                "block_2": res(f"{prefix}.block_2", c, c)}
+
+    def level(prefix, cin, w, n_blocks, has_attn):
+        p = {"blocks": [res(f"{prefix}.block.{i}", cin if i == 0 else w, w) for i in range(n_blocks)]}
+        if has_attn:
+            p["attns"] = [attn(f"{prefix}.attn.{i}") for i in range(n_blocks)]
+        return p
+
+    tree = {"conv_in": ("conv", "encoder.conv_in"), "down": [], "up": [None] * levels}
+    cin, res_now = cfg.ch, cfg.resolution
+    for lvl, w in enumerate(widths):
+        p = level(f"encoder.down.{lvl}", cin, w, cfg.num_res_blocks, res_now in cfg.attn_resolutions)
+        if lvl != levels - 1:
+            p["downsample"] = {"conv": ("conv", f"encoder.down.{lvl}.downsample.conv")}
+            res_now //= 2
+        tree["down"].append(p)
+        cin = w
+    tree.update(mid=mid("encoder.mid", cin), norm_out=("gn", "encoder.norm_out"),
+                conv_out=("conv", "encoder.conv_out"), quant_conv=("conv", "quant_conv"),
+                post_quant_conv=("conv", "post_quant_conv"), dec_conv_in=("conv", "decoder.conv_in"),
+                dec_mid=mid("decoder.mid", widths[-1]))
+    cin = widths[-1]
+    for lvl in reversed(range(levels)):
+        w = widths[lvl]
+        p = level(f"decoder.up.{lvl}", cin, w, cfg.num_res_blocks + 1,
+                  decoder_attn and res_now in cfg.attn_resolutions)
+        if lvl != 0:
+            p["upsample"] = {"conv": ("conv", f"decoder.up.{lvl}.upsample.conv")}
+            res_now *= 2
+        tree["up"][lvl] = p
+        cin = w
+    tree.update(dec_norm_out=("gn", "decoder.norm_out"), dec_conv_out=("conv", "decoder.conv_out"))
+    if cfg.is_gumbel:
+        tree.update(codebook=("table", "quantize.embed"), quant_proj=("conv", "quantize.proj"))
+    else:
+        tree["codebook"] = ("table", "quantize.embedding")
+    return tree
+
+
+def _openai_names() -> dict:
+    def half(side, widths_change):
+        groups = []
+        for g in range(GROUP_COUNT):
+            group = []
+            for i in range(N_BLK_PER_GROUP):
+                pre = f"{side}.groups.{g}.{i}"
+                blk = {f"c{j}": ("conv", f"{pre}.c{j}") for j in range(1, 5)}
+                if i == 0 and widths_change[g]:
+                    blk["id"] = ("conv", f"{pre}.id")
+                group.append(blk)
+            groups.append(group)
+        return {"input": ("conv", f"{side}.input"), "groups": groups, "output": ("conv", f"{side}.output")}
+
+    # block 0 of each group widens, but the encoder's first (its input conv is n_hid wide already)
+    return {"encoder": half("encoder", (False, True, True, True)), "decoder": half("decoder", (True, True, True, True))}
+
+
+def _names_state_dict(names, params) -> StateDict:
+    """The JAX tree `params` laid over `names` -> the port's state dict."""
+    if isinstance(names, tuple):
+        kind, prefix = names
+        if kind == "conv":
+            return _conv(prefix, params)
+        if kind == "gn":
+            return {f"{prefix}.weight": _t(params["scale"]), f"{prefix}.bias": _t(params["bias"])}
+        return {f"{prefix}.weight": _t(params["table"])}
+    sd: StateDict = {}
+    items = names.items() if isinstance(names, dict) else enumerate(names)
+    for key, sub in items:
+        sd.update(_names_state_dict(sub, params[key]))
+    return sd
+
+
+def vqgan_state_dict(params: dict, cfg: VQGANConfig) -> StateDict:
+    """The JAX package's VQGAN tree -> the port's `VQGAN` state dict (the
+    decoder's attention blocks where the tree holds them)."""
+    return _names_state_dict(_vqgan_names(cfg, has_decoder_attn(params)), params)
+
+
+def openai_vae_state_dict(params: dict) -> StateDict:
+    """The JAX package's OpenAI dVAE tree -> the port's `OpenAIVAE` state dict."""
+    return _names_state_dict(_openai_names(), params)
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +361,12 @@ def clip_tree(sd: StateDict, cfg: CLIPConfig) -> dict:
     return tree
 
 
-def vae_tree(sd: StateDict, cfg: DiscreteVAEConfig) -> dict:
-    """The inverse of `vae_state_dict`."""
+def vae_tree(sd: StateDict, cfg: Any) -> dict:
+    """The inverse of `vae_state_dict`, for any family."""
+    if isinstance(cfg, VQGANConfig):
+        return vqgan_tree(sd, cfg)
+    if isinstance(cfg, OpenAIVAEConfig):
+        return openai_vae_tree(sd)
     tree = {
         "codebook": {"table": _leaf(sd["codebook.weight"])},
         "enc_convs": [_conv_tree(sd, f"enc_convs.{i}") for i in range(cfg.num_layers)],
@@ -263,72 +382,105 @@ def vae_tree(sd: StateDict, cfg: DiscreteVAEConfig) -> dict:
     return tree
 
 
+def _names_tree(names, sd: StateDict):
+    """The port's state dict read through `names` -> the JAX tree."""
+    if isinstance(names, tuple):
+        kind, prefix = names
+        if kind == "conv":
+            return _conv_tree(sd, prefix)
+        if kind == "gn":
+            return {"scale": _leaf(sd[f"{prefix}.weight"]), "bias": _leaf(sd[f"{prefix}.bias"])}
+        return {"table": _leaf(sd[f"{prefix}.weight"])}
+    if isinstance(names, dict):
+        return {key: _names_tree(sub, sd) for key, sub in names.items()}
+    return [_names_tree(sub, sd) for sub in names]
+
+
+def vqgan_tree(sd: StateDict, cfg: VQGANConfig) -> dict:
+    """The inverse of `vqgan_state_dict`."""
+    decoder_attn = any(k.startswith("decoder.up.") and ".attn." in k for k in sd)
+    return _names_tree(_vqgan_names(cfg, decoder_attn), sd)
+
+
+def openai_vae_tree(sd: StateDict) -> dict:
+    """The inverse of `openai_vae_state_dict`."""
+    return _names_tree(_openai_names(), sd)
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
 
 
-def _load(module: torch.nn.Module, sd: StateDict, device) -> torch.nn.Module:
+def _load(build, sd: StateDict, device) -> torch.nn.Module:
+    """`build()` constructed on `device` (its own random init there is cheap
+    and is overwritten), holding `sd` in the state dict's dtype."""
     dtype = next(iter(sd.values())).dtype
+    with torch.device(device):
+        module = build()
     module.load_state_dict(sd, strict=True)
-    return module.to(device=device, dtype=dtype).eval().requires_grad_(False)
+    return module.to(dtype=dtype).eval().requires_grad_(False)
 
 
 def load_dalle(params: dict, cfg: DALLEConfig, device: DeviceLike = None) -> DALLE:
     """A `DALLE` holding the JAX tree's weights, in their own dtype."""
     device = resolve_device(device)
-    return _load(DALLE(cfg), dalle_state_dict(params, cfg), device)
+    return _load(lambda: DALLE(cfg), dalle_state_dict(params, cfg), device)
 
 
 def load_clip(params: dict, cfg: CLIPConfig, device: DeviceLike = None) -> CLIP:
     """A `CLIP` holding the JAX tree's weights, in their own dtype."""
     device = resolve_device(device)
-    return _load(CLIP(cfg), clip_state_dict(params, cfg), device)
+    return _load(lambda: CLIP(cfg), clip_state_dict(params, cfg), device)
 
 
-def load_vae(params: dict, cfg: DiscreteVAEConfig, device: DeviceLike = None) -> DiscreteVAE:
+def load_vae(params: dict, cfg: Any, device: DeviceLike = None) -> torch.nn.Module:
+    """The VAE module of `cfg`'s family holding the JAX tree's weights, in
+    their own dtype."""
     device = resolve_device(device)
-    return _load(DiscreteVAE(cfg), vae_state_dict(params, cfg), device)
+    if isinstance(cfg, VQGANConfig):
+        return _load(lambda: VQGAN(cfg, has_decoder_attn(params)), vqgan_state_dict(params, cfg), device)
+    if isinstance(cfg, OpenAIVAEConfig):
+        return _load(OpenAIVAE, openai_vae_state_dict(params), device)
+    return _load(lambda: DiscreteVAE(cfg), vae_state_dict(params, cfg), device)
 
 
-def _is_sharded_checkpoint(path: Path) -> bool:
-    """True iff `path` is an orbax sharded checkpoint directory."""
-    return path.is_dir() and (path / "state").exists()
-
-
-def _is_torch_checkpoint(path: Path) -> bool:
-    """True for a torch save file (a zip with a `data.pkl` member, or a raw
-    pickle), as opposed to the v3 `.npz`, which is a zip without one."""
-    try:
-        with zipfile.ZipFile(path) as z:
-            return any(name.endswith("data.pkl") for name in z.namelist())
-    except zipfile.BadZipFile:
-        with open(path, "rb") as f:
-            return f.read(1) == b"\x80"
-
-
-def load_dalle_checkpoint(path, device: DeviceLike = None) -> Tuple[DALLE, DiscreteVAE]:
-    """The DALL-E and its DiscreteVAE from a JAX package v3 checkpoint (the
-    `weights` and `vae_weights` trees, the `hparams`, `vae_class_name` and
-    `vae_params` meta), with a note when it was written by another version;
-    a tree in the pre-round-5 transformer layout is migrated as it is loaded
-    (`migrate_transformer_layout`).  An orbax sharded directory and a
-    torch-reference `dalle.pt` exit with what they need."""
-    from dalle_pytorch_tpu_torch.checkpoint import load_checkpoint
+def load_dalle_bundle(path, allow_legacy_pickle: bool = False, vqgan_config_path: Optional[str] = None):
+    """A trained DALL-E checkpoint of any format the port reads -> (DALL-E
+    config, its JAX-layout tree, VAE config, the VAE's tree): a v3 `.npz`
+    whose `vae_class_name` names any family, a torch-reference `dalle.pt`
+    (converted on load; a VQGanVAE one needs its taming yaml,
+    `vqgan_config_path`), or a v1/v2 file with `allow_legacy_pickle`.  The
+    JAX package's `cli/common.load_dalle_bundle`, which `cli/common.py`
+    re-exports.  An orbax sharded directory exits naming ROADMAP.md Queue 1
+    item 8."""
+    from dalle_pytorch_tpu_torch.checkpoint import is_sharded_checkpoint, load_checkpoint
+    from dalle_pytorch_tpu_torch.models import vae_registry
+    from dalle_pytorch_tpu_torch.models.torch_port import is_torch_checkpoint, read_reference_dalle
     from dalle_pytorch_tpu_torch.version import __version__
 
     path = Path(path)
     if not path.exists():
         raise SystemExit(f"trained DALL-E {path} does not exist")
-    if _is_sharded_checkpoint(path):
+    if is_sharded_checkpoint(path):
         raise SystemExit(f"{path} is an orbax sharded checkpoint: reading it needs the port of "
                          "training/checkpoint.py (ROADMAP.md Queue 1 item 8)")
-    if _is_torch_checkpoint(path):
-        raise SystemExit(f"{path} is a torch-reference checkpoint: converting it needs the port of "
-                         "models/torch_port.py (ROADMAP.md Queue 1 item 5)")
-    trees, meta = load_checkpoint(str(path))
+    if is_torch_checkpoint(path):
+        ref = read_reference_dalle(path, vqgan_config_path)
+        print(f"loaded reference-format checkpoint (version {ref.get('version')})")
+        return ref["config"], ref["params"], ref["vae_config"], ref["vae_params"]
+    trees, meta = load_checkpoint(str(path), allow_legacy_pickle=allow_legacy_pickle,
+                                  names=("weights", "vae_weights"))
     if meta.get("version") != __version__:
         print(f"note: checkpoint version {meta.get('version')} != library {__version__}")
-    vae_cfg = config_from_meta(meta.get("vae_class_name", "DiscreteVAE"), meta["vae_params"])
-    cfg = DALLEConfig.from_dict(meta["hparams"])
-    return load_dalle(trees["weights"], cfg, device), load_vae(trees["vae_weights"], vae_cfg, device)
+    vae_cfg = vae_registry.config_from_meta(meta.get("vae_class_name", "DiscreteVAE"), meta["vae_params"])
+    return DALLEConfig.from_dict(meta["hparams"]), trees["weights"], vae_cfg, trees["vae_weights"]
+
+
+def load_dalle_checkpoint(path, device: DeviceLike = None, allow_legacy_pickle: bool = False,
+                          vqgan_config_path: Optional[str] = None) -> Tuple[DALLE, torch.nn.Module]:
+    """The DALL-E and its VAE, of any family, from any checkpoint that
+    `load_dalle_bundle` reads."""
+    device = resolve_device(device)
+    cfg, params, vae_cfg, vae_params = load_dalle_bundle(path, allow_legacy_pickle, vqgan_config_path)
+    return load_dalle(params, cfg, device), load_vae(vae_params, vae_cfg, device)

@@ -2,7 +2,8 @@
 the JAX package writes loads through the port's `weights.load_dalle_checkpoint`, and
 `cli.generate.main` writes the JAX CLI's directories and file names, PNGs
 that decode (with zlib and struct, in this file) to the pixels the JAX package's
-`to_display` gives for the same images."""
+`to_display` gives for the same images; a torch-reference dalle.pt, a
+VQGanVAE checkpoint and a v2 file generate through their flags."""
 import os
 import struct
 import sys
@@ -19,13 +20,18 @@ from dalle_pytorch_tpu.models import dalle as jdalle  # noqa: E402
 from dalle_pytorch_tpu.models import transformer as jtransformer  # noqa: E402
 from dalle_pytorch_tpu.models import vae as jvae  # noqa: E402
 from dalle_pytorch_tpu.models import vae_registry as jregistry  # noqa: E402
+from dalle_pytorch_tpu.models import vqgan as jvqgan  # noqa: E402
 from dalle_pytorch_tpu.training.checkpoint import save_checkpoint as jax_save_checkpoint  # noqa: E402
 from dalle_pytorch_tpu_torch import weights  # noqa: E402
 from dalle_pytorch_tpu_torch.cli import png  # noqa: E402
 from dalle_pytorch_tpu_torch.cli import generate as cli  # noqa: E402
 from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod  # noqa: E402
 from dalle_pytorch_tpu_torch.models import sampling as tsamp  # noqa: E402
+from dalle_pytorch_tpu_torch.models import dalle as tdalle  # noqa: E402
+from dalle_pytorch_tpu_torch.models import vae as tvae  # noqa: E402
 from dalle_pytorch_tpu_torch.models import vae_registry  # noqa: E402
+from taming_fixture import make_taming_state_dict  # noqa: E402
+from torch_port_refs import reference_vae_state_dict, write_legacy_checkpoint, write_reference_dalle  # noqa: E402
 
 DALLE = dict(dim=32, depth=2, heads=2, dim_head=16, num_text_tokens=49408, text_seq_len=12, num_image_tokens=32,
              image_fmap_size=4, shift_tokens=True, attn_types=("full", "axial_row"))
@@ -104,14 +110,23 @@ def test_old_transformer_layout_is_migrated(checkpoint, tmp_path, capsys):
     _state_dicts_equal(model, weights.load_dalle(params, model.cfg, "cpu"))
 
 
-def test_other_formats_exit_with_what_they_need(tmp_path):
+def test_other_formats_exit_with_what_they_need(checkpoint, tmp_path):
+    """An orbax directory exits naming its item; a torch-reference dalle.pt
+    (the same weights, written by `tests/torch_port_refs.py`) loads to the
+    v3 checkpoint's models."""
     (tmp_path / "sharded" / "state").mkdir(parents=True)
     with pytest.raises(SystemExit, match="orbax sharded checkpoint.*Queue 1 item 8"):
         weights.load_dalle_checkpoint(tmp_path / "sharded", "cpu")
-    with zipfile.ZipFile(tmp_path / "ref.pt", "w") as z:
-        z.writestr("archive/data.pkl", b"\x80")
-    with pytest.raises(SystemExit, match="torch-reference checkpoint.*Queue 1 item 5"):
-        weights.load_dalle_checkpoint(tmp_path / "ref.pt", "cpu")
+    path, params, vae_params = checkpoint
+    cfg = tdalle.DALLEConfig(**DALLE)
+    write_reference_dalle(tmp_path / "ref.pt", params, cfg, "DiscreteVAE", VAE,
+                          reference_vae_state_dict(vae_params, tvae.DiscreteVAEConfig(**VAE)))
+    with zipfile.ZipFile(tmp_path / "ref.pt") as z:
+        assert any(name.endswith("data.pkl") for name in z.namelist())
+    model, vae = weights.load_dalle_checkpoint(tmp_path / "ref.pt", "cpu")
+    want_model, want_vae = weights.load_dalle_checkpoint(path, "cpu")
+    _state_dicts_equal(model, want_model)
+    _state_dicts_equal(vae, want_vae)
     with pytest.raises(SystemExit, match="does not exist"):
         weights.load_dalle_checkpoint(tmp_path / "missing.pt", "cpu")
 
@@ -195,13 +210,77 @@ def test_cli_gentxt_names_the_directory_after_the_completion(checkpoint, tmp_pat
 @pytest.mark.parametrize("flags,item", [
     (["--spec_k", "2"], "Queue 1 item 6"), (["--spec_k", "2", "--engine"], "Queue 1 item 6"),
     (["--spec_draft_layers", "1"], "Queue 1 item 6"), (["--spec_draft_layers", "1", "--engine"], "Queue 1 item 6"),
-    (["--spec_k", "4", "--engine", "--engine_slots", "8"], "Queue 1 item 6"), (["--taming"], "Queue 1 item 5"),
-    (["--vqgan_config_path", "v.yaml"], "Queue 1 item 5"), (["--allow_legacy_pickle"], "Queue 1 item 5"),
+    (["--spec_k", "4", "--engine", "--engine_slots", "8"], "Queue 1 item 6"),
 ])
 def test_refused_flags_exit_with_their_roadmap_item(checkpoint, flags, item):
     path, _, _ = checkpoint
     with pytest.raises(SystemExit, match=f"--{flags[0][2:]}: .*{item}"):
         cli.main(["--dalle_path", str(path), "--text", "a", "--device", "cpu", *flags])
+
+
+TAMING = dict(ch=8, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,), resolution=16, z_channels=8,
+              n_embed=32, embed_dim=8)
+VQ_DALLE = dict(DALLE, image_fmap_size=8)
+
+
+@pytest.fixture(scope="module")
+def vqgan_files(tmp_path_factory):
+    """A DALL-E on a small taming VQGAN as a v3 checkpoint (written by the
+    JAX package) and as a torch-reference dalle.pt with its yaml."""
+    root = tmp_path_factory.mktemp("vqgan")
+    vq = jvqgan.VQGANConfig(**TAMING)
+    state = make_taming_state_dict(vq, np.random.RandomState(2))
+    jcfg = jdalle.DALLEConfig(**VQ_DALLE)
+    params = jax.device_get(jdalle.init_dalle(jax.random.PRNGKey(3), jcfg))
+    jax_save_checkpoint(str(root / "v3.pt"), {"weights": params,
+                                              "vae_weights": jvqgan.convert_taming_state_dict(state, vq)},
+                        {"hparams": jcfg.to_dict(), "vae_params": vq.to_dict(), "vae_class_name": "VQGanVAE",
+                         "version": "0.1.0"})
+    write_reference_dalle(root / "ref.pt", params, tdalle.DALLEConfig(**VQ_DALLE), "VQGanVAE", None,
+                          {f"model.{k}": torch.from_numpy(v) for k, v in state.items()})
+    (root / "vq.yaml").write_text("""model:
+  params:
+    n_embed: 32
+    embed_dim: 8
+    ddconfig:
+      ch: 8
+      ch_mult: [1, 2]
+      num_res_blocks: 1
+      attn_resolutions: [8]
+      resolution: 16
+      z_channels: 8
+""")
+    return root
+
+
+@pytest.mark.parametrize("flag", ["--taming", "--vqgan_config_path", "--allow_legacy_pickle"])
+def test_the_vae_and_format_flags_generate(checkpoint, vqgan_files, tmp_path, flag):
+    """What the item-5 flags waited for: `--taming` on a v3 checkpoint whose
+    VAE is a VQGanVAE, `--vqgan_config_path` on a torch-reference VQGanVAE
+    dalle.pt, `--allow_legacy_pickle` on a v2 file.  Each writes the PNGs of
+    the same draws through the loaded models; the two VQGAN files give one
+    run's pixels, and the v2 file the v3 checkpoint's."""
+    common = ["--text", "a cat", "--num_images", "2", "--batch_size", "2", "--seed", "7", "--device", "cpu"]
+    if flag == "--allow_legacy_pickle":
+        path, params, vae_params = checkpoint
+        meta = {"hparams": jdalle.DALLEConfig(**DALLE).to_dict(), "vae_params": jvae.DiscreteVAEConfig(**VAE).to_dict(),
+                "vae_class_name": "DiscreteVAE", "version": "0.0.5"}
+        write_legacy_checkpoint(tmp_path / "v2.npz", {"weights": params, "vae_weights": vae_params}, meta, fmt=2)
+        argv, want_from = ["--dalle_path", str(tmp_path / "v2.npz"), flag], path
+    elif flag == "--taming":
+        argv, want_from = ["--dalle_path", str(vqgan_files / "v3.pt"), "--taming"], vqgan_files / "v3.pt"
+    else:
+        argv = ["--dalle_path", str(vqgan_files / "ref.pt"), flag, str(vqgan_files / "vq.yaml"), "--taming",
+                "--vqgan_model_path", "unused.ckpt"]
+        want_from = vqgan_files / "v3.pt"
+    paths = cli.main([*argv, *common, "--outputs_dir", str(tmp_path / "out")])
+    assert [p.name for p in paths] == ["0.png", "1.png"]
+    model, vae = weights.load_dalle_checkpoint(want_from, "cpu")
+    ids = torch.from_numpy(np.repeat(tokenizer_mod.tokenizer.tokenize("a cat", 12, truncate_text=True), 2, axis=0))
+    images = tsamp.generate_images(model, vae, ids, torch.Generator().manual_seed(7), filter_thres=0.9)
+    want = (np.clip(vae_registry.to_display(vae.cfg, images).numpy(), 0, 1) * 255).astype(np.uint8)
+    for i, p in enumerate(paths):
+        np.testing.assert_array_equal(png.read_png(p), want[i])
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(checkpoint, monkeypatch):

@@ -2,8 +2,9 @@
 on the CPU: `serve --synthetic --loadgen 4` end to end with the loadgen's
 report, `serve --prompts` from a v3 checkpoint writing one PNG a prompt
 (the images of each request's batch-1 codes), `generate --engine` writing
-the PNG that `generate` writes under the same seed, and every refused flag
-exiting with its ROADMAP.md item."""
+the PNG that `generate` writes under the same seed, a torch-reference
+VQGanVAE dalle.pt and a v2 file served through their flags, and every
+refused flag exiting with its ROADMAP.md item."""
 import json
 
 import numpy as np
@@ -19,7 +20,9 @@ from dalle_pytorch_tpu_torch.models import dalle as tdalle
 from dalle_pytorch_tpu_torch.models import sampling as tsamp
 from dalle_pytorch_tpu_torch.models import vae as tvae
 from dalle_pytorch_tpu_torch.models import vae_registry
+from dalle_pytorch_tpu_torch.models import vqgan as tvqgan
 from dalle_pytorch_tpu_torch.version import __version__
+from torch_port_refs import write_legacy_checkpoint, write_reference_dalle
 
 # the BPE tokenizer's vocabulary; seq 28 = text 12 + a 4 x 4 map
 DALLE = dict(dim=64, depth=2, heads=2, dim_head=32, num_text_tokens=49408, text_seq_len=12, num_image_tokens=32,
@@ -113,12 +116,68 @@ def test_generate_engine_seeds_each_image(ckpt, tmp_path):
     (["--degrade"], "item 6"), (["--quantize_weights", "int8"], "item 6"), (["--quantize_kv", "int8"], "item 6"),
     (["--spec_k", "2"], "item 6"), (["--spec_draft_layers", "1"], "item 6"), (["--telemetry", "t"], "item 8"),
     (["--slo_ttft_p99", "1"], "item 6"), (["--status_json", "s"], "item 6"), (["--inject_fault", "flood@3"], "item 6"),
-    (["--no_pool_recorder"], "item 6"), (["--vqgan_config_path", "v.yaml"], "item 5"),
-    (["--allow_legacy_pickle"], "item 5"), (["--deadline_s", "5"], "item 6"), (["--retries", "3"], "item 6"),
+    (["--no_pool_recorder"], "item 6"), (["--deadline_s", "5"], "item 6"), (["--retries", "3"], "item 6"),
 ])
 def test_serve_refuses_what_is_not_ported(flags, item):
     with pytest.raises(SystemExit, match=f"--{flags[0][2:]}: .*ROADMAP.md Queue 1 {item}"):
         serve.main(["--synthetic", "--loadgen", "1", "--device", "cpu", *flags])
+
+
+TAMING_YAML = """model:
+  params:
+    n_embed: 32
+    embed_dim: 8
+    ddconfig: {ch: 8, ch_mult: [1, 2], num_res_blocks: 1, attn_resolutions: [8], resolution: 16, z_channels: 8}
+"""
+
+
+def _vqgan_models():
+    """A DALL-E on a small taming VQGAN (its decoder with attention), seeded."""
+    vq_cfg = tvqgan.VQGANConfig(ch=8, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,), resolution=16,
+                                z_channels=8, n_embed=32, embed_dim=8)
+    vq = tvqgan.init_random_like(vq_cfg, torch.Generator().manual_seed(2), "cpu", decoder_attn=True)
+    cfg = tdalle.DALLEConfig(**dict(DALLE, image_fmap_size=8))
+    return tdalle.init_dalle(cfg, torch.Generator().manual_seed(3), "cpu"), vq
+
+
+@pytest.mark.parametrize("flag", ["--vqgan_config_path", "--allow_legacy_pickle"])
+def test_serve_takes_the_vae_and_format_flags(ckpt, tmp_path, flag):
+    """`--vqgan_config_path` serves a torch-reference dalle.pt whose VAE is a
+    taming VQGAN (its yaml in a flow mapping the port's reader does not
+    take refuses; block form below); `--allow_legacy_pickle` serves a v2
+    file of the v3 checkpoint's trees.  The PNGs are the in-memory models'
+    batch-1 images."""
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("a cat\na red dog\n")
+    if flag == "--allow_legacy_pickle":
+        trees, meta = checkpoint.load_checkpoint(str(ckpt))
+        write_legacy_checkpoint(tmp_path / "v2.npz", trees, meta, fmt=2)
+        argv = ["--dalle_path", str(tmp_path / "v2.npz"), flag]
+        model, vae = weights.load_dalle_checkpoint(ckpt, "cpu")
+    else:
+        model, vae = _vqgan_models()
+        params = weights.dalle_tree(model.state_dict(), model.cfg)
+        write_reference_dalle(tmp_path / "ref.pt", params, model.cfg, "VQGanVAE", None,
+                              {f"model.{k}": v for k, v in vae.state_dict().items()})
+        (tmp_path / "vq.yaml").write_text(TAMING_YAML)
+        with pytest.raises(ValueError, match="outside the yaml subset"):
+            serve.main(["--dalle_path", str(tmp_path / "ref.pt"), flag, str(tmp_path / "vq.yaml"), "--prompts",
+                        str(prompts), "--device", "cpu"])
+        block = TAMING_YAML.replace("    ddconfig: {ch: 8, ch_mult: [1, 2], num_res_blocks: 1, attn_resolutions: "
+                                    "[8], resolution: 16, z_channels: 8}\n",
+                                    "    ddconfig:\n      ch: 8\n      ch_mult: [1, 2]\n      num_res_blocks: 1\n"
+                                    "      attn_resolutions: [8]\n      resolution: 16\n      z_channels: 8\n")
+        (tmp_path / "vq.yaml").write_text(block)
+        argv = ["--dalle_path", str(tmp_path / "ref.pt"), flag, str(tmp_path / "vq.yaml")]
+    out = tmp_path / "out"
+    report = serve.main([*argv, "--prompts", str(prompts), "--slots", "2", "--block_size", "8", "--seed", "4",
+                         "--outputs_dir", str(out), "--device", "cpu"])
+    assert report["requests_completed"] == 2
+    for i, prompt in enumerate(("a cat", "a red dog")):
+        ids = torch.from_numpy(tokenizer_mod.tokenizer.tokenize(prompt, 12, truncate_text=True))
+        images = tsamp.generate_images(model, vae, ids, torch.Generator().manual_seed(4 + i), filter_thres=0.9)
+        want = (np.clip(vae_registry.to_display(vae.cfg, images).numpy()[0], 0, 1) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(png.read_png(out / prompt.replace(" ", "_") / "0.png"), want)
 
 
 def test_serve_needs_a_model_and_traffic():

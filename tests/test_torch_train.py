@@ -437,11 +437,13 @@ def test_cli_dummy_run_exits_zero(tmp_path):
 
 
 # each flag that used to wait, beside what still refuses on its path: the
-# folder without a VAE (the JAX CLI downloads one), --resume beside
+# folder without a VAE where OpenAI's dVAE is neither in the cache nor
+# fetchable (the fetch is injected: no network), --resume beside
 # --dalle_path, --lr_decay with the Hugging Face tokenizer, a remote shard
 # spec, no data at all
 _REFUSED = {
-    "--image_text_folder": (["--image_text_folder", "data"], "without --vae_path.*item 5"),
+    "--image_text_folder": (["--image_text_folder", "data"], "OpenAI's pretrained dVAE is not in the cache .*"
+                                                              "fetching it failed"),
     "--resume": (["--resume", "auto", "--dalle_path", "x.pt", "--dummy_run", "1"], "mutually exclusive"),
     "--lr_decay": (["--lr_decay", "--hug", "--dummy_run", "1"], "Hugging Face tokenizer.*item 4"),
     "--mesh_dp": (["--mesh_dp", "2", "--dummy_run", "1"], "meshes.*item 7"),
@@ -451,7 +453,14 @@ _REFUSED = {
 
 @pytest.mark.parametrize("argv", [["--image_text_folder", "data"], ["--resume", "auto"], ["--lr_decay"],
                                   ["--mesh_dp", "2"], ["--wds"], []])
-def test_cli_refuses_flags_that_wait(argv):
+def test_cli_refuses_flags_that_wait(argv, tmp_path, monkeypatch):
+    from dalle_pytorch_tpu_torch.models import pretrained
+
+    def no_network(url, dst):
+        raise OSError(f"no network to fetch {url}")
+
+    monkeypatch.setenv("DALLE_PYTORCH_TPU_CACHE", str(tmp_path))
+    monkeypatch.setattr(pretrained, "_urllib_fetch", no_network)
     argv, match = _REFUSED[argv[0]] if argv else ([], "--image_text_folder is required")
     with pytest.raises(SystemExit, match=match):
         tcli.main(argv + ["--device", "cpu"])

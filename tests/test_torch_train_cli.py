@@ -15,8 +15,10 @@ the CPU.
   --save_every_n_steps 1` wrote: its next loss is within 1e-5 relative of
   the JAX CLI's loss at that step.
 - Rotation keeps the JAX file names; `--resume auto` takes the newest
-  checkpoint that loads; the tar-shard path trains; the flags that still
-  wait exit naming their ROADMAP.md item."""
+  checkpoint that loads; the tar-shard path trains; `--taming` trains
+  through a taming VQGAN (its files, or the converted cache); a
+  torch-reference vae.pt trains; the flags that still wait exit naming
+  their ROADMAP.md item."""
 import json
 
 import numpy as np
@@ -229,8 +231,7 @@ def test_tar_shards_train_and_the_checkpoint_generates(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_fsdp", "2"], 7), (["--mesh_pp", "2"], 7), (["--vqgan_config_path", "v.yaml"], 5),
-    (["--chinese"], 4), (["--hug"], 4), (["--taming"], 5), (["--vqgan_model_path", "v.ckpt"], 5),
+    (["--mesh_fsdp", "2"], 7), (["--mesh_pp", "2"], 7), (["--chinese"], 4), (["--hug"], 4),
     (["--zero_stage", "2"], 7), (["--mesh_tp", "2"], 7), (["--sample_every_n_steps", "10"], 8),
     (["--bpe_path", "bpe.model"], 4)])
 def test_flags_that_wait_name_their_item(flags, item):
@@ -251,15 +252,99 @@ def test_flags_of_the_transformer_settings_train(flags, setting, tmp_path, capsy
     assert {k: config[k] for k in setting} == setting
 
 
-def test_refusals_of_the_data_path(data, tmp_path):
-    """No --vae_path (the JAX CLI would download OpenAI's dVAE), a torch
-    vae.pt, a remote shard spec; --resume beside --dalle_path."""
+# the reference derives the code map from the first attention resolution
+# (num_layers = log2(resolution / attn_resolutions[0])), the published
+# configs' last level: 4 x 4 codes here
+TAMING = dict(ch=8, ch_mult=(1, 2, 2), num_res_blocks=1, attn_resolutions=(4,), resolution=16, z_channels=8,
+              n_embed=32, embed_dim=8)
+TAMING_YAML = """model:
+  params:
+    n_embed: 32
+    embed_dim: 8
+    ddconfig:
+      ch: 8
+      ch_mult: [1, 2, 2]
+      num_res_blocks: 1
+      attn_resolutions: [4]
+      resolution: 16
+      z_channels: 8
+"""
+
+
+@pytest.mark.parametrize("case", ["paths", "gumbel_paths", "published_from_cache"])
+def test_taming_trains(case, data, tmp_path, monkeypatch, capsys):
+    """`--taming` trains on the folder through a taming VQGAN: a `.ckpt` and
+    its yaml (Euclidean, GumbelVQ), or the published default read from a
+    converted cache (`DALLE_PYTORCH_TPU_CACHE`) with no fetch.  The
+    checkpoint holds the VQGanVAE, which the JAX package's loader reads and
+    the port generates from."""
+    from dalle_pytorch_tpu.models import vae_registry as jregistry
+    from dalle_pytorch_tpu_torch import checkpoint, weights
+    from dalle_pytorch_tpu_torch.models import pretrained, sampling
+    from dalle_pytorch_tpu_torch.models import vqgan as tvqgan
+    from taming_fixture import make_taming_state_dict
+
+    def no_network(url, dst):
+        raise AssertionError(f"fetched {url}")
+
+    monkeypatch.setattr(pretrained, "_urllib_fetch", no_network)
+    cfg = tvqgan.VQGANConfig(**TAMING, is_gumbel=case == "gumbel_paths")
+    state = make_taming_state_dict(cfg, np.random.RandomState(1))
+    if case == "published_from_cache":
+        monkeypatch.setenv("DALLE_PYTORCH_TPU_CACHE", str(tmp_path / "cache"))
+        checkpoint.save_checkpoint(str(tmp_path / "cache" / pretrained.VQGAN_CONVERTED),
+                                   {"params": tvqgan.convert_taming_state_dict(state, cfg)},
+                                   {"vqgan_config": cfg.to_dict()})
+        flags = ["--taming"]
+    else:
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in state.items()}, "epoch": 7},
+                   tmp_path / "vq.ckpt")
+        (tmp_path / "vq.yaml").write_text(TAMING_YAML)
+        flags = ["--taming", "--vqgan_model_path", str(tmp_path / "vq.ckpt"), "--vqgan_config_path",
+                 str(tmp_path / "vq.yaml")]
+    out = tmp_path / "vq_run"
+    records, _ = _run(["--image_text_folder", str(data / "pairs"), *MODEL_FLAGS, *flags, "--epochs", "1",
+                       "--batch_size", "5", "--num_workers", "0", "--dalle_output_file_name", str(out)], capsys)
+    assert len(records) == 2 and all(np.isfinite(r["loss"]) for r in records)
+    trees, meta = jax_load(f"{out}.pt")
+    assert meta["vae_class_name"] == "VQGanVAE"
+    assert jregistry.config_from_meta("VQGanVAE", meta["vae_params"]).to_dict() == cfg.to_dict()
+    model, vae = weights.load_dalle_checkpoint(f"{out}.pt", "cpu")
+    assert model.cfg.image_fmap_size == 4 and model.cfg.num_image_tokens == 32 and vae.cfg == cfg
+    codes = sampling.sample_image_codes(model, torch.ones(1, 8, dtype=torch.long), torch.Generator().manual_seed(0))
+    assert codes.shape == (1, 16)
+
+
+def test_refusals_of_the_data_path(data, tmp_path, monkeypatch, capsys):
+    """No --vae_path with no OpenAI dVAE in the cache and no network (the
+    fetch is injected) exits naming the cache; a torch-reference vae.pt
+    trains, its codes those of the VAE it was written from; the VQGAN paths
+    without --taming, a remote shard spec and --resume beside --dalle_path
+    exit."""
+    from dalle_pytorch_tpu_torch import weights
+    from dalle_pytorch_tpu_torch.models import pretrained
+    from torch_port_refs import reference_vae_state_dict
+
+    def no_network(url, dst):
+        raise OSError(f"no network to fetch {url}")
+
+    monkeypatch.setenv("DALLE_PYTORCH_TPU_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setattr(pretrained, "_urllib_fetch", no_network)
     folder = ["--image_text_folder", str(data / "pairs"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="without --vae_path.*item 5"):
+    with pytest.raises(SystemExit, match=f"not in the cache {tmp_path / 'cache'}.*fetching it failed"):
         tcli.main(folder)
-    torch.save({"weights": {}}, tmp_path / "vae.pt")
-    with pytest.raises(SystemExit, match="torch-reference.*item 5"):
-        tcli.main([*folder, "--vae_path", str(tmp_path / "vae.pt")])
+    vae = tvae.init_discrete_vae(tvae.DiscreteVAEConfig(**VAE), torch.Generator().manual_seed(5), "cpu")
+    torch.save({"hparams": VAE, "weights": reference_vae_state_dict(weights.vae_tree(vae.state_dict(), vae.cfg),
+                                                                      vae.cfg)}, tmp_path / "vae.pt")
+    out = tmp_path / "ref_vae"
+    records, _ = _run([*folder, *MODEL_FLAGS, "--vae_path", str(tmp_path / "vae.pt"), "--epochs", "1",
+                       "--batch_size", "5", "--num_workers", "0", "--dalle_output_file_name", str(out)], capsys)
+    assert len(records) == 2 and all(np.isfinite(r["loss"]) for r in records)
+    trees, meta = resume.load_checkpoint(f"{out}.pt")
+    for name, value in weights.vae_tree(vae.state_dict(), vae.cfg)["enc_convs"][0].items():
+        torch.testing.assert_close(trees["vae_weights"]["enc_convs"][0][name], value, rtol=0, atol=0)
+    with pytest.raises(SystemExit, match="require --taming"):
+        tcli.main([*folder, "--vqgan_config_path", "v.yaml"])
     with pytest.raises(SystemExit, match="https://host/s-000.tar: remote tar shards.*item 10"):
         tcli.main(["--image_text_folder", "https://host/s-{000..003}.tar", "--wds", "--device", "cpu"])
     with pytest.raises(SystemExit, match="mutually exclusive"):
