@@ -27,14 +27,14 @@ conv_like): generation plain and primed, a decode profile, card-vs-CPU
 parity of a small pattern model, and training.  Then the flagship 1.3B
 DALL-E (dim 1152, depth 64, 8 heads x 128, the same cycle, tied input and
 output embeddings, the VFA forward on the compacted grid): one primed
-generation, a decode profile, card-vs-CPU parity of a small model with its
+generation, replayed decode graphs, card-vs-CPU parity of a small model with its
 features, and training (bf16 compute sequential and rematerialised, f32
 compute rematerialised, on f32 masters with Adam; then the JAX package's
 flagship recipe: `flash_qkv` remat at batch 8 and `flash_qkv_ff` and
 "full" at batch 4, bf16 parameter storage with stochastic rounding, bf16
 gradients, Adafactor), the same recipe on a small model held card against
-CPU under one set of rounding bits (`lowp_train_parity`), the policies'
-host time against "full" (`remat_host_cost`, the flagship's 64 layers at a
+CPU under one set of rounding bits (`lowp_train_parity`), the recipe's
+policy's host time against "full" (`remat_host_cost`, the flagship's 64 layers at a
 width where the host sets the pace), and the recipe's
 numerics smoke (`tools/numerics_smoke.py` at its defaults).  The pattern model also
 takes one gradient under each remat policy (`remat_policies`: equal to the
@@ -96,7 +96,7 @@ the 12-layer model with learned positions, and the --gentxt text loop at
 the CLI's vocabulary, whole: codes (ids) equal under one noise_override,
 two calls with one generator seed equal, step times replayed and eager,
 and the `*_decode_profile` windows' device time, busy share, kernels and
-host launches per step (eager too for the 12-layer model).  Freeing the
+host launches per step (replayed; the 12-layer and pattern models).  Freeing the
 flagship must return its graphs' memory.
 
 The continuous-batching serving engine (`serving/engine.py`, its paged
@@ -114,6 +114,18 @@ through `tools/loadgen.py` offered at twice the engine's capacity);
 `serve_cli` runs `cli.serve --synthetic
 --loadgen 8` and `cli.generate --engine` against `cli.generate` under one
 seed.  Each admission's prefill must launch its layer cycle's kernels.
+
+The serving levers: `quant_spec_parity` (a small flagship-like model
+quantized, card against CPU: the serving path's logits under int8 and fp8
+weights over the int8 pool, codes under injected noise, speculative ==
+sequential), `generate_spec` (`sample_image_codes` / `generate_images` with
+spec_k 4 on the 12-layer model: codes equal the sequential call's under one
+seed), `engine_quant_flagship` (the flagship with int8 weights and the int8
+pool on eight lanes: at-rest bytes, codes against batch-1 loops under
+noise, the replayed and eager step beside the f32 engine's, the quantize
+and dequantize ops of a step) and `engine_spec_flagship` (the same with
+speculative rounds, k 4, d 32: codes equal the sequential engine's, the
+round's ms and acceptance, the poison drill, reversible refused).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.  The
 last two lines are the kernel table and `{"ok": true, "device": {...}}`.  It
@@ -1151,7 +1163,8 @@ def phase_decode_graphs(fa, tr, sampling, dalle, text, model, cond_scale, prime_
     check(torch.equal(g1, g2), f"{model}: two replayed calls with one seed differ")
     check(all(len(torch.unique(row[prime_len:])) > 1 for row in g1), f"{model}: replayed codes do not vary over steps")
     stream_equal = torch.equal(g1, seeded(False)[0]) if eager_stream else None
-    entry = next(e for k, e in graphs.entries().items() if k[:5] == ("image", b, float(cond_scale), prime_len, 0.5))
+    entry = next(e for k, e in graphs.entries().items()
+                 if k[:6] == ("image", b, float(cond_scale), prime_len, 0.5, None))
     row = dict(model=model, loop="image", batch=b, cond_scale=cond_scale, prime_len=prime_len, n_gen=n_gen,
                codes_equal_under_noise=True, seeded_calls_equal=True, generator_stream_equals_eager=stream_equal,
                logit_stats=logit_stats,
@@ -1727,6 +1740,11 @@ def phase_remat_policies(fa, port, model_kwargs=SLICE):
     torch.cuda.empty_cache()
 
 
+# "full" and the recipe's policy; "flash" and "flash_qkv_ff" are left out
+# (`remat_policies` holds every policy's gradients, `flagship_train` times flash_qkv_ff)
+REMAT_HOST_POLICIES = ("full", "flash_qkv")
+
+
 def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1), batch=8, steps=2):
     """The remat policies' host time.  The flagship's 64 layers (its cycle,
     the VFA pair, head dim 128) at dim 128 and one head, so that a step's
@@ -1759,7 +1777,7 @@ def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1
 
     base = model.transformer.cfg
     results = {}
-    for name in ("full", "flash", "flash_qkv", "flash_qkv_ff"):
+    for name in REMAT_HOST_POLICIES:
         model.transformer.cfg = dataclasses.replace(base, remat_policy=name)
         loss = grad_step()  # warm-up: tables, allocator
         check(np.isfinite(loss), f"remat_host_cost {name}: loss {loss}")
@@ -2484,10 +2502,15 @@ def engine_prefix_parity(fa, sampling, engine, texts, conds, noise, polls=32):
     admitted together in one poll (their prefills launching the layer
     cycle each), `polls` more polls timed with their lanes decoding, then
     drained: each request's codes so far must equal a batch-1 image loop
-    of as many codes under its noise (replayed from the model's graphs).
-    Returns (admission launches, the replayed step's ms, codes compared
-    per request)."""
+    of as many codes under its noise (replayed from the model's graphs;
+    over an int8 pool, run eagerly over the prefilled dense cache quantized
+    per token, `quantization.quantize_cache_layers`, as the pool quantizes
+    it).  Returns (admission launches, the replayed step's ms, codes
+    compared per request)."""
+    from dalle_pytorch_tpu_torch.quantization import quantize_cache_layers
+
     m, cfg = engine.model, engine.model.cfg
+    quantized = engine.ecfg.quantize_kv not in (None, "none")
     want, _ = forward_launches(m, cfg.text_seq_len + 1)
     reset_launches(fa)
     reqs = [engine.submit(texts[i].cpu().numpy(), cond_scale=conds[i], noise=noise[i]) for i in range(len(conds))]
@@ -2501,8 +2524,10 @@ def engine_prefix_parity(fa, sampling, engine, texts, conds, noise, polls=32):
     made = []
     for i, req in enumerate(reqs):
         codes = exported[req.id]
-        loop, run = sampling.image_loop(m, 1, conds[i], 0, ENGINE_THRES, mode)
+        loop, run = sampling.image_loop(m, 1, conds[i], 0, ENGINE_THRES, mode, graphs=False if quantized else None)
         _, logits = sampling._prefill_phase(m, texts[i:i + 1], None, 0, conds[i], loop.cache)
+        if quantized:
+            loop.cache["layers"] = quantize_cache_layers(loop.cache["layers"])
         ref, _ = run(m, logits, len(codes), None, 1.0, noise[i][:, None], mode)
         check(np.array_equal(codes, ref[0].cpu().numpy()),
               f"request {i}'s {len(codes)} codes (lanes {req.lanes}) differ from its batch-1 loop's")
@@ -2658,7 +2683,7 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=6)
     eager_engine = GenerationEngine(m, None, EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK,
                                                           filter_thres=ENGINE_THRES), graphs=False)
     eager_fill_launches = fill(eager_engine)
-    eager_ms = engine_window(eager_engine, 32)
+    eager_ms = engine_window(eager_engine, 8)
     eager_engine.drain()
     del eager_engine
 
@@ -2683,8 +2708,392 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=6)
          loadgen=report, loadgen_launches=load_launches, window_fill_launches=dict(
              replayed=fill_launches, eager=eager_fill_launches),
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    READINGS["engine_flagship"] = dict(step_ms_replayed=replayed_ms, step_ms_eager=eager_ms,
+                                       kernels_per_step=window["kernels_per_step"],
+                                       pool_bytes=engine.pool.bytes(), pool_blocks=engine.pool.num_blocks)
     runs = (launches, fill_launches, eager_fill_launches, load_launches)
     return {k: sum(run[k] for run in runs) for k in COUNTERS}
+
+
+# readings a later phase sets beside its own: the f32 engine's step, for the quantized engines'
+READINGS = {}
+SPEC_K = 4
+# the poison drill's model: the flagship's widths and its first layers
+DRILL_DEPTH = 4
+QUANT_STEPS = 16  # quant_spec_parity's paged steps
+
+
+def quant_ops_per_step(step):
+    """The aten ops of one eager decode step that quantize (an int8 result)
+    or dequantize (an int8 or fp8 input cast to a float), and all of them,
+    recorded by a TorchDispatchMode: the quantize and dequantize kernels a
+    step launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    low = (torch.int8, torch.float8_e4m3fn)
+    counts = dict(quantize=0, dequantize=0, total=0)
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            counts["total"] += 1
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            if isinstance(out, torch.Tensor):
+                if out.dtype == torch.int8 and not any(a.dtype == torch.int8 for a in ins):
+                    counts["quantize"] += 1
+                elif out.is_floating_point() and out.dtype not in low and any(a.dtype in low for a in ins):
+                    counts["dequantize"] += 1
+            return out
+
+    with Count():
+        step()
+    torch.cuda.synchronize()
+    return counts
+
+
+def stepwise_logits(sampling, models, text, kv, steps, block_size=64):
+    """The serving path (prefill, `write_prefill_to_pool`, paged steps) of
+    one prompt on the CPU and on the card, the card fed the CPU's greedy
+    codes: the largest logit difference over `steps` positions.  Over an
+    int8 pool (`kv`) the card's pool and rings take the CPU's before each
+    step, so that both read the same int8 values: a value whose card and
+    CPU floats straddle a rounding boundary quantizes one step apart.
+    Returns (largest difference, int8 values of the prefilled pools that
+    differ between card and CPU)."""
+    from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
+    from dalle_pytorch_tpu_torch.models.paged import (init_paged_pool, init_slot_rings, paged_blocks_per_seq,
+                                                      paged_decode_step, write_prefill_to_pool)
+
+    cfg = models["cpu"].cfg
+    tcfg = cfg.transformer_config()
+    n_pre, bps = cfg.text_seq_len + 1, paged_blocks_per_seq(tcfg, block_size)
+    state, logits = {}, {}
+    for dev, m in models.items():
+        cache, logits[dev] = sampling._prefill_phase(m, text.to(dev)[None], None, 0, 1.0)
+        pool = init_paged_pool(tcfg, bps + 1, block_size, m.dtype, dev, quantize=kv)
+        tables = torch.arange(1, bps + 1, device=dev)[None]
+        write_prefill_to_pool(tcfg, pool, tables, cache["layers"], n_pre, block_size)
+        rings = init_slot_rings(tcfg, 1, m.dtype, dev)
+        for ring, layer in zip(rings["layers"], cache["layers"]):
+            for name in ring:
+                ring[name].copy_(layer[name])
+        state[dev] = pool, tables, rings
+    flips = sum(int((a[k].cpu() != b[k]).sum()) for a, b in zip(state["cuda"][0]["layers"], state["cpu"][0]["layers"])
+                for k in ("k", "v")) if kv else 0
+    err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
+    code = (logits["cpu"].argmax(-1) - cfg.num_text_tokens_padded).clamp(0, cfg.num_image_tokens - 1)
+    for t in range(steps):
+        if kv:
+            for dst, src in ((state["cuda"][0], state["cpu"][0]), (state["cuda"][2], state["cpu"][2])):
+                for a, b in zip(dst["layers"], src["layers"]):
+                    for k in a:
+                        a[k].copy_(b[k])
+        for dev, m in models.items():
+            pool, tables, rings = state[dev]
+            x = dalle_mod.embed_image_codes(m, code.to(dev)[:, None], torch.tensor([t], device=dev))
+            out = paged_decode_step(m.transformer, x, pool, tables, torch.tensor([n_pre + t], device=dev), rings,
+                                    block_size)
+            logits[dev] = sampling._logits_at(m, out, image=True)
+        err = max(err, (logits["cuda"].cpu() - logits["cpu"]).abs().max().item())
+        code = (logits["cpu"].argmax(-1) - cfg.num_text_tokens_padded).clamp(0, cfg.num_image_tokens - 1)
+    return err, flips
+
+
+def phase_quant_spec_parity(fa, port, sampling):
+    """A small model with the flagship's features (`SMALL_FLAGSHIP`: tied
+    embeddings, d_head 128, the layer cycle, VFA) quantized on the CPU and
+    copied to the card: the serving path's logits (`stepwise_logits`:
+    prefill, the pool's scatter, 16 paged steps fed the CPU's greedy codes)
+    card against CPU over the int8 pool under f32, int8 and fp8 weights,
+    within 1e-4 (f32, TF32 off); then codes under injected noise, int8
+    weights, speculative (k 4) against sequential: card == CPU on at least
+    0.99 of them, and card spec == card sequential."""
+    import copy
+
+    from dalle_pytorch_tpu_torch import quantization as quant
+
+    rng = np.random.default_rng(71)
+    small = SMALL_FLAGSHIP
+    cpu = port.DALLE(vae=port.DiscreteVAE(seed=0, device="cpu", **SMALL_SPARSE_VAE), seed=7, device="cpu", **small)
+    cfg = cpu.cfg
+    text = torch.from_numpy(rng.integers(1, cfg.num_text_tokens, (2, cfg.text_seq_len)))
+    noise = torch.from_numpy(rng.gumbel(size=(cfg.image_seq_len, 2, cfg.total_tokens)).astype(np.float32))
+    logits, codes = {}, {}
+    reset_launches(fa)
+    for kind, kv in ((None, "int8"), ("int8", "int8"), ("fp8", "int8")):
+        m_cpu = cpu.module if kind is None else quant.quantize_tree(copy.deepcopy(cpu.module), kind)
+        models = {"cpu": m_cpu, "cuda": copy.deepcopy(m_cpu).cuda()}
+        err, flips = stepwise_logits(sampling, models, text[0], kv, QUANT_STEPS)
+        name = f"weights_{kind or 'float32'}_pool_{kv or 'float32'}"
+        check(err <= 1e-4, f"{name}: logits card vs CPU differ by {err}")
+        logits[name] = dict(max_abs_err=err, prefill_int8_values_differing=flips)
+        if (kind, kv) == ("int8", "int8"):
+            m_gpu = models["cuda"]
+            timings = {}
+            spec_cpu = sampling.sample_image_codes(m_cpu, text, cond_scale=3.0, noise_override=noise, spec_k=SPEC_K)
+            spec_gpu = sampling.sample_image_codes(m_gpu, text.cuda(), cond_scale=3.0, noise_override=noise.cuda(),
+                                                   spec_k=SPEC_K, timings=timings)
+            seq_gpu = sampling.sample_image_codes(m_gpu, text.cuda(), cond_scale=3.0, noise_override=noise.cuda())
+            agree = (spec_gpu.cpu() == spec_cpu).float().mean().item()
+            check(agree >= 0.99, f"only {agree:.4f} of the int8 spec codes agree between card and CPU")
+            check(torch.equal(spec_gpu, seq_gpu), "the card's speculative codes differ from its sequential codes")
+            codes = dict(agree_card_cpu=agree, codes=int(spec_cpu.numel()), spec_equals_sequential_on_card=True,
+                         spec_rounds=timings["spec_rounds"])
+    launches = read_launches(fa)
+    emit("quant_spec_parity", model=small, tolerance=1e-4, steps=QUANT_STEPS, logits=logits, spec_codes_under_noise=codes,
+         spec_k=SPEC_K, launches=launches)
+    return launches
+
+
+def engine_prefix_codes(engine, texts, conds, seeds, codes):
+    """Requests of `texts` at `conds` under `seeds` through `engine`, all
+    admitted in one poll, polled until each has `codes` codes, then
+    drained: their first `codes` codes, and the polls taken."""
+    reqs = [engine.submit(texts[i].cpu().numpy(), seed=seeds[i], cond_scale=conds[i]) for i in range(len(conds))]
+    polls = 0
+    while min(r.codes_done for r in reqs) < codes:
+        engine.poll()
+        polls += 1
+    exported = {e["origin_id"]: e["codes"] for e in engine.drain()}
+    return [torch.as_tensor(exported[r.id][:codes]) for r in reqs], polls
+
+
+def phase_engine_quant_flagship(fa, sampling, dalle):
+    """The flagship with int8 weights (`quantization.quantize_tree` on a
+    twin holding the same tensors) and the int8 pool, served on 8 lanes:
+    at-rest weight and pool bytes against the f32 engine's (and the JAX
+    package's `weight_reduction`, against bf16 storage); two requests, one
+    guided, whose first 32 codes equal batch-1 loops of the quantized
+    model over a per-token int8 dense cache under their noise
+    (`engine_prefix_parity`; each admission launching the layer cycle:
+    64 flash_fwd, 48 masked); the replayed and eager step beside the f32
+    engine's replayed step of this run; and the quantize and dequantize
+    ops of one eager step.  Returns (the quantized module, the launches)."""
+    import dataclasses
+
+    from dalle_pytorch_tpu_torch import quantization as quant
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
+
+    plain, cfg = dalle.module, dalle.cfg
+    t0 = time.perf_counter()
+    qmodel = quant.quantize_tree(twin_module(plain, dataclasses.replace(cfg)).eval().requires_grad_(False), "int8")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    f32_bytes, q_bytes = quant.tree_weight_bytes(plain), quant.tree_weight_bytes(qmodel)
+    check(f32_bytes / q_bytes >= 3.8, f"int8 weights only {f32_bytes / q_bytes:.3f}x smaller than f32")
+    lanes = 8
+    ecfg = EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES, noise_override=True,
+                        quantize_kv="int8")
+    engine = GenerationEngine(qmodel, engine_cfg=ecfg)
+    check(engine.graph is not None, "the quantized engine captured no graph")
+    f32 = READINGS["engine_flagship"]
+    per_elem = engine.pool.bytes() / (f32["pool_bytes"] / 4)
+    check(abs(per_elem - (1 + 2 / cfg.dim_head)) < 1e-9, f"the int8 pool costs {per_elem} bytes an element")
+    texts = engine_texts(cfg, 8, 91)
+    noise = gumbel_noise((2, cfg.image_seq_len, cfg.total_tokens), torch.Generator(device="cuda").manual_seed(92),
+                         device="cuda")
+    admitted, _, made = engine_prefix_parity(fa, sampling, engine, texts, ENGINE_COND[:2], noise)
+
+    reset_launches(fa)
+    for i in range(lanes):
+        engine.submit(texts[i].cpu().numpy(), seed=i)
+    engine.poll()
+    fill_launches = read_launches(fa)
+    replayed_ms = engine_window(engine, 32)
+    window = profile_window(lambda: [engine.poll() for _ in range(8)], 8)
+    engine.drain()
+    eager = GenerationEngine(qmodel, engine_cfg=dataclasses.replace(ecfg, noise_override=False), graphs=False)
+    reset_launches(fa)
+    for i in range(lanes):
+        eager.submit(texts[i].cpu().numpy(), seed=i)
+    eager.poll()
+    eager_launches = read_launches(fa)
+    eager_ms = engine_window(eager, 8)
+    ops = quant_ops_per_step(eager._step)
+    eager.drain()
+    del eager
+    state = engine.quantization_state()
+    emit("engine_quant_flagship", lanes=lanes, weights="int8", kv="int8", quantize_s=quantize_s,
+         weight_bytes=dict(f32=f32_bytes, int8=q_bytes, reduction_vs_f32=f32_bytes / q_bytes,
+                           weight_reduction_vs_bf16=quant.weight_reduction(plain, qmodel)),
+         pool=dict(blocks=engine.pool.num_blocks, int8_gib=engine.pool.bytes() / 2 ** 30,
+                   f32_gib=f32["pool_bytes"] / 2 ** 30, bytes_per_elem=per_elem,
+                   kv_pool_reduction_vs_f32=f32["pool_bytes"] / engine.pool.bytes()),
+         noise_codes_equal_batch1=dict(codes_compared=made), admission_launches=admitted,
+         step_ms_replayed=replayed_ms, step_ms_eager=eager_ms, f32_step_ms_replayed=f32["step_ms_replayed"],
+         f32_kernels_per_step=f32["kernels_per_step"], profile=window, quant_ops_per_eager_step=ops,
+         dequant_frac_of_step=state["dequant_frac_of_step"], peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    READINGS["engine_quant_flagship"] = engine
+    READINGS["engine_quant_step_ms"] = replayed_ms
+    runs = (admitted, fill_launches, eager_launches)
+    return qmodel, {k: sum(run[k] for run in runs) for k in COUNTERS}
+
+
+def phase_engine_spec_flagship(fa, sampling, dalle, qmodel):
+    """The int8 flagship (int8 weights, int8 pool) served by speculative
+    rounds (k 4, d 32 of 64), the draft and the verification captured:
+    two requests, one guided, whose first 64 codes equal the same
+    engine's with speculation off (`torch.equal`) under their seeds; the
+    replayed round's ms with 8 lanes decoding, the codes a round gives and
+    the draft's share of the round (every draft of d 32 is accepted on
+    these seeded weights, so the rejection path runs on the first
+    `DRILL_DEPTH` layers of the flagship, int8, d 2 of 4: two requests,
+    one guided, whose whole images' codes equal the sequential engine's,
+    with drafts rejected); a poison-request drill on those layers
+    (speculative, one retry): the victim ends "poisoned" and its
+    neighbour's codes equal its codes in the clean speculative engine; and
+    the reversible flagship refused with `validate_spec`'s message."""
+    import dataclasses
+
+    from dalle_pytorch_tpu_torch import quantization as quant
+    from dalle_pytorch_tpu_torch.models import speculative as spec_mod
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
+    from dalle_pytorch_tpu_torch.training import resilience
+
+    cfg, lanes = dalle.cfg, 8
+    seq_engine = READINGS.pop("engine_quant_flagship")
+    ecfg = EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES, quantize_kv="int8",
+                        spec_k=SPEC_K)
+    t0 = time.perf_counter()
+    engine = GenerationEngine(qmodel, engine_cfg=ecfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(engine.spec_graphs is not None, "the speculative engine captured no graphs")
+    texts = engine_texts(cfg, 8, 101)
+    conds, seeds = ENGINE_COND[:2], (1010, 1011)
+    want, _ = forward_launches(qmodel, cfg.text_seq_len + 1)
+    reset_launches(fa)
+    spec_codes, rounds = engine_prefix_codes(engine, texts, conds, seeds, 64)
+    admitted = read_launches(fa)
+    check(admitted == {k: 2 * v for k, v in want.items()}, f"2 speculative admissions launched {admitted}")
+    seq_codes, polls = engine_prefix_codes(seq_engine, texts, conds, seeds, 64)
+    del seq_engine
+    for i in range(2):
+        check(torch.equal(spec_codes[i], seq_codes[i]),
+              f"request {i}'s first 64 speculative codes differ from the sequential engine's")
+
+    reset_launches(fa)
+    for i in range(lanes):
+        engine.submit(texts[i].cpu().numpy(), seed=i)
+    engine.poll()
+    fill_launches = read_launches(fa)
+    before = dict(engine.counts), engine.spec_draft_s, engine.spec_round_s
+    round_ms = engine_window(engine, 16)
+    accepted = (engine.counts["spec_accepted_tokens"] - before[0]["spec_accepted_tokens"]) / (
+        engine.counts["spec_request_rounds"] - before[0]["spec_request_rounds"])
+    draft_frac = (engine.spec_draft_s - before[1]) / (engine.spec_round_s - before[2])
+    engine.drain()
+    state = engine.spec_state()
+    del engine
+
+    # the flagship's first layers, int8: speculative rounds that reject (the
+    # lanes' rollback) against the sequential engine, then the poison drill
+    small = twin_module(dalle.module, dataclasses.replace(cfg, depth=DRILL_DEPTH)).eval().requires_grad_(False)
+    quant.quantize_tree(small, "int8")
+    drill_reqs = ((texts[0], 7, 3.0), (texts[1], 8, 1.0))
+    shallow = {}
+    for name, k in (("spec", SPEC_K), ("sequential", 0)):
+        eng = GenerationEngine(small, engine_cfg=dataclasses.replace(ecfg, spec_k=k))
+        reqs = [eng.submit(t.cpu().numpy(), seed=seed, cond_scale=c) for t, seed, c in drill_reqs]
+        eng.run_until_idle()
+        check(all(r.outcome == "completed" for r in reqs), f"shallow {name}: outcomes {[r.outcome for r in reqs]}")
+        shallow[name] = dict(codes=[torch.as_tensor(r.codes) for r in reqs], counts=dict(eng.counts),
+                             state=eng.spec_state() if k else None)
+        del eng
+    rejected = shallow["spec"]["counts"]["spec_rejected_tokens"]
+    check(rejected > 0, f"the {DRILL_DEPTH}-layer drafter had no draft rejected: the rollback did not run")
+    for i in range(len(drill_reqs)):
+        check(torch.equal(shallow["spec"]["codes"][i], shallow["sequential"]["codes"][i]),
+              f"the {DRILL_DEPTH}-layer model's request {i}: speculative codes differ from the sequential engine's")
+    drill = GenerationEngine(small, engine_cfg=dataclasses.replace(ecfg, poison_max_retries=1))
+    inj = resilience.FaultInjector(resilience.parse_fault("poison-request@2")).install()
+    try:
+        t0 = time.perf_counter()
+        victim, neighbour = (drill.submit(t.cpu().numpy(), seed=seed, cond_scale=c) for t, seed, c in drill_reqs)
+        drill.run_until_idle()
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t0
+    finally:
+        inj.uninstall()
+    check(victim.outcome == "poisoned" and victim.poison_retries == 1,
+          f"the victim ended {victim.outcome} after {victim.poison_retries} retries")
+    # the neighbour's codes: those of the clean engines of the same settings
+    # (the int8 pool's codes, not the f32 cache's)
+    check(neighbour.outcome == "completed"
+          and torch.equal(torch.as_tensor(neighbour.codes), shallow["spec"]["codes"][1]),
+          "the poisoned request's neighbour lost the codes it gets in a clean engine")
+    drill_state = drill.spec_state()
+    del drill, small
+
+    rev_cfg = dataclasses.replace(cfg, reversible=True)
+    try:
+        spec_mod.validate_spec(rev_cfg.transformer_config(), SPEC_K, None)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "requires sequential execution" in refused, f"reversible spec: {refused}")
+    emit("engine_spec_flagship", lanes=lanes, spec_k=SPEC_K, draft_layers=ecfg.spec_draft_layers or cfg.depth // 2,
+         weights="int8", kv="int8", build_and_capture_s=build_s,
+         codes_equal_sequential=dict(requests=2, cond_scale=list(conds), codes_compared=64, spec_rounds=rounds,
+                                     sequential_polls=polls),
+         admission_launches=admitted, round_ms_replayed=round_ms, accepted_tokens_per_round=accepted,
+         draft_time_frac=draft_frac, ms_per_code=round_ms / accepted,
+         int8_step_ms_replayed=READINGS.get("engine_quant_step_ms"), totals=state,
+         rejecting_drafter=dict(depth=DRILL_DEPTH, requests=len(drill_reqs), codes_equal_sequential=True,
+                                codes_compared=[len(c) for c in shallow["spec"]["codes"]], rejected_tokens=rejected,
+                                spec=shallow["spec"]["state"]),
+         poison_drill=dict(depth=DRILL_DEPTH, victim_outcome=victim.outcome, retries=victim.poison_retries,
+                           neighbour_codes_equal_clean=True, wall_s=drill_s, spec=drill_state),
+         reversible_refused=refused)
+    runs = (admitted, fill_launches)
+    return {k: sum(run[k] for run in runs) for k in COUNTERS}
+
+
+def phase_generate_spec(fa, sampling, dalle):
+    """Speculative sampling on the 12-layer model (configs[2]; k 4, d 6 of
+    12), two prompts with CFG 3.0, against the sequential call under one
+    seed: `sample_image_codes(spec_k=4)`'s codes equal (`torch.equal`),
+    the call capturing the rounds; then `generate_images(spec_k=4)`,
+    replaying them, its images within 1e-4 of the VAE's decode of the
+    sequential codes (the convolutions need not repeat bit for bit).
+    The rounds' ms, the codes a round gives and the draft's share, beside
+    the sequential step."""
+    from dalle_pytorch_tpu_torch.models import vae_registry
+
+    m, vae = dalle.module, dalle.vae.module
+    cfg = dalle.cfg
+    text = torch.randint(1, cfg.num_text_tokens, (2, cfg.text_seq_len),
+                         generator=torch.Generator().manual_seed(111)).cuda()
+    runs = {}
+    reset_launches(fa)
+    for name, k in (("sequential", 0), ("spec", SPEC_K)):
+        timings = {}
+        codes = sampling.sample_image_codes(m, text, torch.Generator(device="cuda").manual_seed(112),
+                                            filter_thres=ENGINE_THRES, cond_scale=3.0, spec_k=k, timings=timings)
+        runs[name] = dict(codes=codes, timings=timings)
+    timings = {}  # the second spec call replays the rounds the first captured
+    images = sampling.generate_images(m, vae, text, torch.Generator(device="cuda").manual_seed(112),
+                                      filter_thres=ENGINE_THRES, cond_scale=3.0, spec_k=SPEC_K, timings=timings)
+    launches = read_launches(fa)
+    seq, t = runs["sequential"], timings
+    check(torch.equal(runs["spec"]["codes"], seq["codes"]),
+          "speculative codes differ from the sequential call's under one seed")
+    image_err = (vae_registry.decode_indices(vae, seq["codes"]) - images).abs().max().item()
+    check(image_err <= 1e-4 and bool(torch.isfinite(images).all()),
+          f"generate_images(spec_k={SPEC_K})'s images differ from the sequential codes' by {image_err}")
+    n_gen = cfg.image_seq_len
+    emit("generate_spec", model="12-layer", spec_k=SPEC_K, draft_layers=cfg.depth // 2, cond_scale=3.0,
+         codes_equal_sequential=True, images_max_abs_err=image_err, spec_rounds=t["spec_rounds"],
+         accepted_tokens_per_round=(n_gen - 1) / t["spec_rounds"],
+         round_ms=(t["draft_s"] + t["verify_s"]) / t["spec_rounds"] * 1e3,
+         draft_time_frac=t["draft_s"] / (t["draft_s"] + t["verify_s"]), spec_decode_s=t["decode_s"],
+         sequential_decode_s=seq["timings"]["decode_s"],
+         sequential_step_ms=seq["timings"]["decode_s"] / (n_gen - 1) * 1e3,
+         capture_s=dict(sequential=seq["timings"]["capture_s"], spec=runs["spec"]["timings"]["capture_s"],
+                        generate_images=t["capture_s"]),
+         launches=launches)
+    return launches
 
 
 def phase_serve_cli(fa, port, weights, checkpoint):
@@ -3475,13 +3884,15 @@ def main() -> int:
     paths = {}
     dalle, text, paths["generate"] = phase_slice(fa, port)
     phase_forward(fa, dalle, text)
-    profile = phase_decode_profile(dalle, text, sampling)
+    profile = phase_decode_profile(dalle, text, sampling, eager=False)
     rotary_graphs = phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer", 3.0, prime_len=GRAPHS_PRIME_LEN,
                                         stats=True, profile=profile)
     # seeded, replayed and eager; two requests under injected noise run on the
     # learned-position 12-layer engine in train_real_data
     paths["engine_parity"] = phase_engine_parity(fa, sampling, dalle, "12-layer", 61, noised=False)
+    paths["generate_spec"] = phase_generate_spec(fa, sampling, dalle)
     del dalle
+    paths["quant_spec_parity"] = phase_quant_spec_parity(fa, port, sampling)
     phase_parity(fa, port, sampling)
     paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
     phase_train_parity(fa, port)
@@ -3526,14 +3937,16 @@ def main() -> int:
 
     reserved = torch.cuda.memory_reserved()
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
-    # replayed only: the eager flagship window is the decode_graphs line's step_ms_eager
-    profile = phase_decode_profile(dalle, text, sampling, phase="flagship_decode_profile", steps=16, eager=False)
-    phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=FLAGSHIP_GRAPHS_PRIME_LEN,
-                        profile=profile)
+    # no profiled window here: `engine_flagship` profiles the flagship's replayed engine step
+    phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=FLAGSHIP_GRAPHS_PRIME_LEN)
     paths["engine_flagship"] = phase_engine_flagship(fa, sampling, loadgen, dalle)
     # the flagship's weights under reversible execution: serving, then training
     paths["reversible_serve"] = phase_reversible_serve(fa, sampling, dalle)
     reversible_step = phase_reversible_train(fa, dalle)
+    # the serving levers on the flagship: int8 weights and pool, then speculative rounds
+    qmodel, paths["engine_quant_flagship"] = phase_engine_quant_flagship(fa, sampling, dalle)
+    paths["engine_spec_flagship"] = phase_engine_spec_flagship(fa, sampling, dalle, qmodel)
+    del qmodel
     entry_bytes = sum(e.loop.nbytes() for e in dalle.decode_graphs.entries().values())
     with_model = torch.cuda.memory_reserved()
     del dalle

@@ -22,8 +22,10 @@ dVAE), a torch-reference `dalle.pt` (with `--vqgan_config_path` when its
 VAE is a VQGanVAE), or a pre-v3 file under `--allow_legacy_pickle`
 (`weights.load_dalle_bundle`); `--taming` and `--vqgan_model_path` are
 accepted and change nothing, as in the JAX CLI (the checkpoint names its
-VAE and holds its weights).  Speculative decoding exits with a message
-naming the `ROADMAP.md` item that brings it.  The JAX CLI's out-of-memory
+VAE and holds its weights).  `--spec_k K` decodes by self-speculative rounds
+(K codes drafted through the first `--spec_draft_layers` layers, default
+half the depth), through `generate_images` or through `--engine`; the
+images are the ones the run gives without it.  The JAX CLI's out-of-memory
 forensic report waits for the memory ledger (`ROADMAP.md` Queue 1 item 8).
 """
 from __future__ import annotations
@@ -44,13 +46,6 @@ from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.sampling import _sync, generate_images, generate_texts
 from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
-
-# flag -> what it needs that the port does not have yet, and where ROADMAP.md lists it
-_WAITING = {
-    "spec_k": "speculative decoding (ROADMAP.md Queue 1 item 6, models/speculative.py)",
-    "spec_draft_layers": "speculative decoding (ROADMAP.md Queue 1 item 6, models/speculative.py)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Generate images from a trained DALL-E")
@@ -88,12 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_waiting_flags(args) -> None:
-    for flag, machinery in _WAITING.items():
-        if getattr(args, flag) not in (None, False, 0):
-            raise SystemExit(f"--{flag}: {machinery} is not ported yet")
-
-
 def get_tokenizer(args):
     if args.chinese:
         return _adapter(tokenizer_mod.ChineseTokenizer, "chinese", "transformers")
@@ -124,7 +113,6 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
     gentxt_s, prefill_s, decode_s, vae_s and png_s (the device is
     synchronised after each)."""
     args = build_parser().parse_args(argv)
-    _refuse_waiting_flags(args)
     device = resolve_device(args.device)
 
     t0 = time.perf_counter()
@@ -143,7 +131,8 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
     if args.engine:
         engine = GenerationEngine(model, vae, EngineConfig(num_slots=args.engine_slots,
                                                            block_size=args.engine_block_size,
-                                                           filter_thres=args.top_k))
+                                                           filter_thres=args.top_k, spec_k=args.spec_k,
+                                                           spec_draft_layers=args.spec_draft_layers))
     outputs_dir = Path(args.outputs_dir)
     ts = dalle_cfg.text_seq_len
 
@@ -183,7 +172,8 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
             else:
                 images = generate_images(model, vae, chunk, generator,
                                          filter_thres=args.top_k, temperature=args.temperature,
-                                         cond_scale=args.cond_scale, timings=phases)
+                                         cond_scale=args.cond_scale, timings=phases, spec_k=args.spec_k,
+                                         spec_draft_layers=args.spec_draft_layers)
             for key, seconds in (phases or {}).items():
                 _add(timings, key, seconds)
             t0 = time.perf_counter()

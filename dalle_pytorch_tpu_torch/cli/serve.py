@@ -18,9 +18,19 @@ model is a v3 checkpoint (`--dalle_path`) or a seeded random one
 images).  It runs on the card unless `--device cpu` is given.  Request i's
 generator seed is `--seed` + i.
 
-The JAX service's fleet, journal, degrade ladder, quantization,
-speculative decoding, telemetry and SLO flags exit with a message naming
-the `ROADMAP.md` item that brings them.
+`--quantize_weights int8|fp8` quantizes the loaded model's matmul weights
+and embedding tables (`quantization.quantize_tree`; a checkpoint already
+quantized is served as it is), `--quantize_kv int8` stores the KV pool as
+int8 with per-token scales, `--spec_k K` decodes by self-speculative rounds
+of K drafted codes through the first `--spec_draft_layers` layers (default
+half the depth), and `--inject_fault poison-request@N` / `flood@N:COUNT`
+run the engine's two drills.  The report carries `quantization` (the
+storage dtypes, weight and pool bytes, the dequant work of a step), the
+speculative accounting under `--spec_k`, and the quarantine's counts.
+
+The JAX service's fleet, journal, degrade ladder, telemetry and SLO flags,
+and its other fault kinds, exit with a message naming the `ROADMAP.md` item
+that brings them.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from dalle_pytorch_tpu_torch import quantization as quant_mod
 from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.cli.generate import get_tokenizer
 from dalle_pytorch_tpu_torch.cli.png import write_png
@@ -41,15 +52,12 @@ from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 from dalle_pytorch_tpu_torch.tools.loadgen import PoissonLoadGen, synthetic_request_maker
+from dalle_pytorch_tpu_torch.training import resilience
 
 _ITEM6 = "ROADMAP.md Queue 1 item 6"
 _ITEM8 = "ROADMAP.md Queue 1 item 8"
 # flag -> what it needs that the port does not have yet, and where ROADMAP.md lists it
 _WAITING = {
-    "quantize_weights": f"weight quantization ({_ITEM6})",
-    "quantize_kv": f"the quantized KV pool ({_ITEM6})",
-    "spec_k": f"speculative decoding ({_ITEM6})",
-    "spec_draft_layers": f"speculative decoding ({_ITEM6})",
     "replicas": f"the serving fleet and its router ({_ITEM6})",
     "disaggregate": f"prefill/decode disaggregation ({_ITEM6})",
     "stall_wedge_s": f"the serving fleet and its router ({_ITEM6})",
@@ -62,7 +70,6 @@ _WAITING = {
     "degrade": f"the degrade ladder ({_ITEM6})",
     "degrade_enter_s": f"the degrade ladder ({_ITEM6})",
     "degrade_exit_s": f"the degrade ladder ({_ITEM6})",
-    "inject_fault": f"fault injection and poison quarantine ({_ITEM6})",
     "no_pool_recorder": f"the pool flight recorder ({_ITEM6})",
     "pool_recorder_capacity": f"the pool flight recorder ({_ITEM6})",
     "slo_ttft_p99": f"the SLO monitor ({_ITEM6})",
@@ -104,6 +111,16 @@ def build_parser() -> argparse.ArgumentParser:
     eng.add_argument("--max_queue", type=int, default=64)
     eng.add_argument("--headroom_frac", type=float, default=0.92,
                      help="defer admissions above this device-memory usage fraction")
+    eng.add_argument("--quantize_weights", choices=["none", "int8", "fp8"], default="none",
+                     help="quantize the loaded model's weights (quantization.quantize_tree)")
+    eng.add_argument("--quantize_kv", choices=["none", "int8"], default="none",
+                     help="store the KV pool as int8 with per-token scales")
+    eng.add_argument("--spec_k", type=int, default=0,
+                     help="self-speculative decoding: codes drafted a round (0: the sequential step)")
+    eng.add_argument("--spec_draft_layers", type=int, default=None,
+                     help="layers of the draft prefix (default depth // 2), in [1, depth)")
+    eng.add_argument("--inject_fault", type=str, default=None,
+                     help="poison-request@N or flood@N[:COUNT]: the engine's drills at its iteration N")
 
     traffic = parser.add_argument_group("traffic")
     traffic.add_argument("--prompts", type=str, default=None, help="a file of prompts, one a line; - for stdin")
@@ -160,19 +177,35 @@ def main(argv=None) -> dict:
     _refuse_waiting_flags(args)
     if not (args.loadgen or args.prompts):
         raise SystemExit("provide --loadgen N or --prompts FILE")
+    injector = None
+    if args.inject_fault:
+        injector = resilience.FaultInjector(resilience.parse_fault(args.inject_fault)).install()
     device = resolve_device(args.device)
     model, vae = _build_model(args, device)
     if args.no_vae:
         vae = None
+    if args.quantize_weights != "none":
+        if quant_mod.tree_is_quantized(model):
+            print(f"[serving] checkpoint weights already quantized ({quant_mod.weight_quant_kind(model)})")
+        else:
+            plain_bytes = quant_mod.tree_weight_bytes(model, itemsize=2)
+            quant_mod.quantize_tree(model, args.quantize_weights)
+            reduction = plain_bytes / quant_mod.tree_weight_bytes(model, itemsize=2)
+            print(f"[serving] weights quantized to {args.quantize_weights}: {reduction:.2f}x at-rest reduction vs "
+                  "bf16 storage")
     engine = GenerationEngine(model, vae, EngineConfig(
         num_slots=args.slots, block_size=args.block_size, num_blocks=args.num_blocks, max_queue=args.max_queue,
-        headroom_frac=args.headroom_frac, filter_thres=args.top_k))
+        headroom_frac=args.headroom_frac, filter_thres=args.top_k,
+        quantize_kv=None if args.quantize_kv == "none" else args.quantize_kv, spec_k=args.spec_k,
+        spec_draft_layers=args.spec_draft_layers))
     print(f"[serving] paged pool: {engine.pool.num_blocks} blocks of {args.block_size} tokens "
-          f"(+1 trash), {engine.pool.bytes() / 2 ** 30:.3f} GiB; {args.slots} lanes")
+          f"(+1 trash), {engine.pool.bytes() / 2 ** 30:.3f} GiB ({engine.pool.quant or 'float'}); {args.slots} lanes")
     try:
         report = _run_traffic(args, engine, model, vae)
     finally:
         engine.close()
+        if injector is not None:
+            injector.uninstall()
     print("[serving] report:")
     for k, v in report.items():
         print(f"  {k:>26}: {v}")
@@ -210,6 +243,11 @@ def _run_traffic(args, engine: GenerationEngine, model, vae) -> dict:
     report["backpressure_alarms"] = engine.admission.counts["backpressure_alarms"]
     report["decode_steps"] = engine.decode_steps
     report["pool"] = engine.pool.summary()
+    report["quantization"] = engine.quantization_state()
+    for key in ("quarantined", "poison_retries", "flood_injected"):
+        report[key] = engine.counts[key]
+    if args.spec_k:
+        report["spec"] = engine.spec_state()
     return report
 
 

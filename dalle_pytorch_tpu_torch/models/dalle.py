@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dalle_pytorch_tpu_torch import quantization
 from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.core.module import LayerNorm, fan_in_uniform_
 from dalle_pytorch_tpu_torch.models.transformer import (
@@ -170,8 +171,13 @@ class DALLE(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The weight dtype: activations and the decode cache run in it."""
-        return self.logits_linear.weight.dtype
+        """The weight dtype (a quantized model's scale dtype): activations
+        and the decode cache run in it."""
+        return quantization.weight_dtype(self)
+
+    @property
+    def device(self) -> torch.device:
+        return self.logits_linear.bias.device
 
     def forward(self, text, image_codes=None, return_loss=False, null_cond_prob=0.0,
                 generator=None):
@@ -219,6 +225,24 @@ def remap_and_bos(cfg: DALLEConfig, text: torch.Tensor) -> torch.Tensor:
     return F.pad(text, (1, 0), value=0)
 
 
+def _table_rows(model: DALLE, ids: torch.Tensor, image: bool) -> torch.Tensor:
+    """The text or image embedding rows at `ids`.  Under the tie the table
+    is the logits weight's text or image rows (a view, so the gradient
+    reaches the weight).  A quantized table or tied weight dequantizes only
+    the gathered rows."""
+    cfg = model.cfg
+    ntp = cfg.num_text_tokens_padded
+    if cfg.share_input_output_emb:
+        lin = model.logits_linear
+        if isinstance(lin, quantization.QuantLinear):
+            return lin.rows(ids, ntp if image else 0)
+        return F.embedding(ids, lin.weight[ntp:] if image else lin.weight[:ntp])
+    emb = model.image_emb if image else model.text_emb
+    if isinstance(emb, quantization.QuantEmbedding):
+        return emb.rows(ids)
+    return F.embedding(ids, emb.weight)
+
+
 def embed_text_ids(model: DALLE, text_ids: torch.Tensor, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """text_ids: (b, n) post-remap ids incl. bos.  Under the tie the table is
     the logits weight's first num_text_tokens_padded rows, a view, so the
@@ -227,9 +251,7 @@ def embed_text_ids(model: DALLE, text_ids: torch.Tensor, positions: Optional[tor
     broadcasts against (b, n) (a decode step's device offset), clamped into
     the table as the JAX package's clip-mode take does."""
     cfg = model.cfg
-    tied = cfg.share_input_output_emb
-    table = model.logits_linear.weight[: cfg.num_text_tokens_padded] if tied else model.text_emb.weight
-    emb = F.embedding(text_ids, table)
+    emb = _table_rows(model, text_ids, image=False)
     if cfg.rotary_emb:
         return emb
     if positions is None:
@@ -264,9 +286,7 @@ def embed_image_codes(model: DALLE, codes: torch.Tensor, start: Optional[torch.T
     `dynamic_slice` clamps its start.  A tensor, never a Python int, so a
     captured step reads the position from the device."""
     cfg = model.cfg
-    tied = cfg.share_input_output_emb
-    table = model.logits_linear.weight[cfg.num_text_tokens_padded:] if tied else model.image_emb.weight
-    emb = F.embedding(codes.clamp(0, cfg.num_image_tokens - 1), table)
+    emb = _table_rows(model, codes.clamp(0, cfg.num_image_tokens - 1), image=True)
     if cfg.rotary_emb:
         return emb
     m = codes.shape[1]

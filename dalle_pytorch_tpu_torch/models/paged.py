@@ -10,8 +10,8 @@ column writes land there and can only clobber garbage.
 
 A decode step advances S independent sequences at per-slot offsets (S,).
 Each slot's attention gathers its blocks into a dense (heads, seq_len,
-dim_head) view and runs the dense cached step's math
-(`models/transformer._attention_cached`) under j <= offsets[s], with the
+dim_head) view and attends over it as the dense cached step does (both
+through `models/transformer._attend_view`) under j <= offsets[s], with the
 layer's `DecodePattern` on pattern layers.  Positions past a slot's offset
 hold stale values of evicted sequences; the mask fills their scores with
 the f32 minimum before the softmax, so they weigh exactly 0.  The pool, the
@@ -34,12 +34,13 @@ from dalle_pytorch_tpu_torch.models.transformer import (
     Layer,
     Transformer,
     TransformerConfig,
+    _attend_view,
     _feed_forward,
-    _merge_heads,
     _pattern_key,
     _qkv_heads,
+    resolve_layer_range,
 )
-from dalle_pytorch_tpu_torch.ops.attention import attend
+from dalle_pytorch_tpu_torch.quantization import KV_DTYPES, KV_SCALE_DTYPE, quantize_kv
 
 
 def paged_blocks_per_seq(cfg: TransformerConfig, block_size: int) -> int:
@@ -50,13 +51,21 @@ def paged_blocks_per_seq(cfg: TransformerConfig, block_size: int) -> int:
 def init_paged_pool(cfg: TransformerConfig, num_blocks: int, block_size: int, dtype=torch.float32,
                     device=None, quantize: Optional[str] = None) -> dict:
     """Zeroed pool: per layer, k/v of (num_blocks, heads, block_size,
-    dim_head).  The caller counts the trash block in `num_blocks`."""
-    if quantize not in (None, "none"):
-        raise NotImplementedError(f"the quantized KV pool (quantize={quantize!r}) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6)")
+    dim_head).  The caller counts the trash block in `num_blocks`.
+    `quantize="int8"` stores int8 k/v with per-token bf16 scales beside the
+    blocks (`k_scale` / `v_scale`, the block shape without dim_head); every
+    paged op keys off the scales' presence."""
     shape = (num_blocks, cfg.heads, block_size, cfg.dim_head)
-    return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)} for _ in range(cfg.depth)]}
+    if quantize in (None, "none"):
+        return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                            "v": torch.zeros(shape, dtype=dtype, device=device)} for _ in range(cfg.depth)]}
+    if quantize not in KV_DTYPES:
+        raise ValueError(f"kv quant must be one of {KV_DTYPES}, got {quantize!r}")
+    return {"layers": [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                        "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                        "k_scale": torch.zeros(shape[:-1], dtype=KV_SCALE_DTYPE, device=device),
+                        "v_scale": torch.zeros(shape[:-1], dtype=KV_SCALE_DTYPE, device=device)}
+                       for _ in range(cfg.depth)]}
 
 
 def init_slot_rings(cfg: TransformerConfig, num_slots: int, dtype=torch.float32, device=None) -> Optional[dict]:
@@ -71,14 +80,19 @@ def init_slot_rings(cfg: TransformerConfig, num_slots: int, dtype=torch.float32,
 
 def _pack(buf: torch.Tensor, n_pre: int, block_size: int) -> torch.Tensor:
     """(b, h, >= n_pre, dh) -> (b, nb, h, block_size, dh): the first n_pre
-    positions in blocks, the last block padded with zeros."""
+    positions in blocks, the last block padded with zeros; a scale buffer
+    (b, h, >= n_pre) -> (b, nb, h, block_size)."""
     nb = -(-n_pre // block_size)
+    scale = buf.ndim == 3
+    if scale:
+        buf = buf[..., None]
     buf = buf[:, :, :n_pre]
     pad = nb * block_size - n_pre
     if pad:
         buf = F.pad(buf, (0, 0, 0, pad))
     b, h, _, dh = buf.shape
-    return buf.reshape(b, h, nb, block_size, dh).transpose(1, 2)
+    out = buf.reshape(b, h, nb, block_size, dh).transpose(1, 2)
+    return out[..., 0] if scale else out
 
 
 @torch.no_grad()
@@ -86,12 +100,22 @@ def write_prefill_to_pool(cfg: TransformerConfig, pool: dict, block_tables: torc
                           n_pre: int, block_size: int) -> dict:
     """Scatter the first n_pre positions of a prefilled dense cache
     (`cache["layers"]`, b rows) into the blocks of `block_tables` (b,
-    max_blocks), in place.  Pure data movement."""
+    max_blocks), in place.  Pure data movement, except into a quantized
+    pool, where a float cache is quantized per token at the scatter (an
+    already quantized cache is moved as it is: per-token scales make the
+    two orders equal)."""
     nb = -(-n_pre // block_size)
     tables = block_tables[:, :nb]
     for lp, lc in zip(pool["layers"], cache_layers):
-        for name in ("k", "v"):
-            lp[name][tables] = _pack(lc[name], n_pre, block_size).to(lp[name].dtype)
+        packed = {name: _pack(lc[name], n_pre, block_size) for name in ("k", "v")}
+        if "k_scale" in lp:
+            if "k_scale" in lc:
+                packed.update({name: _pack(lc[name], n_pre, block_size) for name in ("k_scale", "v_scale")})
+            else:
+                (packed["k"], packed["k_scale"]), (packed["v"], packed["v_scale"]) = (
+                    quantize_kv(packed["k"]), quantize_kv(packed["v"]))
+        for name, value in packed.items():
+            lp[name][tables] = value.to(lp[name].dtype)
     return pool
 
 
@@ -104,17 +128,22 @@ def _rows_at(table: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
 
 
 def _gathered(buf: torch.Tensor, block_tables: torch.Tensor, seq: int) -> torch.Tensor:
-    """Each slot's blocks as a dense (S, h, seq, dh) view (a copy)."""
+    """Each slot's blocks as a dense (S, h, seq, dh) view (a copy); a scale
+    pool (blocks, h, block_size) as (S, h, seq)."""
     s, mb = block_tables.shape
-    _, h, bs, dh = buf.shape
-    return buf[block_tables].transpose(1, 2).reshape(s, h, mb * bs, dh)[:, :, :seq]
+    h, bs = buf.shape[1:3]
+    return buf[block_tables].transpose(1, 2).reshape(s, h, mb * bs, *buf.shape[3:])[:, :, :seq]
 
 
 def _paged_attention_step(attn: Attention, cfg: TransformerConfig, layer_pool: dict, block_tables, offsets,
                           x, rotary, pattern: Optional[DecodePattern], block_size: int) -> torch.Tensor:
     """One token per slot, x: (S, 1, dim) at positions `offsets` (S,): write
     each slot's key and value into its block, then attend over the slot's
-    gathered view as `_attention_cached` does over a dense cache."""
+    gathered view as `_attention_cached` does over a dense cache (both
+    through `_attend_view`).  On a quantized pool the column is quantized
+    once at the write, the gathered view stays int8 with its scales, and
+    attention reads dequantized values (in a gathering pattern layer only
+    the Kmax gathered keys')."""
     s = x.shape[0]
     lanes = torch.arange(s, device=x.device)
     ang = None if rotary is None else rotary.index_select(0, offsets)[:, None, None, None]
@@ -122,31 +151,21 @@ def _paged_attention_step(attn: Attention, cfg: TransformerConfig, layer_pool: d
     q = q * (cfg.dim_head ** -0.5)
     bids = block_tables[lanes, offsets // block_size]
     within = offsets % block_size
-    k_pool, v_pool = layer_pool["k"], layer_pool["v"]
-    k_pool[bids, :, within] = k[:, :, 0].to(k_pool.dtype)
-    v_pool[bids, :, within] = v[:, :, 0].to(v_pool.dtype)
-    k_buf = _gathered(k_pool, block_tables, cfg.seq_len)
-    v_buf = _gathered(v_pool, block_tables, cfg.seq_len)
+    cols = {"k": k[:, :, 0], "v": v[:, :, 0]}
+    if "k_scale" in layer_pool:
+        (cols["k"], cols["k_scale"]), (cols["v"], cols["v_scale"]) = quantize_kv(cols["k"]), quantize_kv(cols["v"])
+    for name, col in cols.items():
+        layer_pool[name][bids, :, within] = col.to(layer_pool[name].dtype)
+    view = {name: _gathered(buf, block_tables, cfg.seq_len) for name, buf in layer_pool.items()}
     if pattern is not None and pattern.idx is not None:
         sel = _rows_at(pattern.idx, offsets)  # (S, Kmax) or per head (S, h, Kmax)
         valid = _rows_at(pattern.valid, offsets)
-        b, h, _, d = k_buf.shape
-        if sel.ndim == 3:
-            gather = sel[..., None].expand(b, h, sel.shape[-1], d)
-            amask = valid[:, :, None]
-        else:
-            gather = sel[:, None, :, None].expand(b, h, sel.shape[-1], d)
-            amask = valid[:, None, None]
-        out = attend(q, torch.gather(k_buf, 2, gather), torch.gather(v_buf, 2, gather), mask=amask,
-                     stable=cfg.stable)
-        return attn.out(_merge_heads(out))
+        return _attend_view(attn, cfg, q, view, valid[:, :, None] if sel.ndim == 3 else valid[:, None, None], sel)
     mask = torch.arange(cfg.seq_len, device=x.device)[None] <= offsets[:, None]  # (S, seq)
     if pattern is not None:
         rows = _rows_at(pattern.rows, offsets)
         mask = mask[:, None] & rows if rows.ndim == 3 else mask & rows
-    amask = mask[:, :, None] if mask.ndim == 3 else mask[:, None, None]
-    out = attend(q, k_buf, v_buf, mask=amask, stable=cfg.stable)
-    return attn.out(_merge_heads(out))
+    return _attend_view(attn, cfg, q, view, mask[:, :, None] if mask.ndim == 3 else mask[:, None, None])
 
 
 def _paged_shift_step(cfg: TransformerConfig, ring: torch.Tensor, x: torch.Tensor,
@@ -193,12 +212,11 @@ def paged_decode_step(model: Transformer, x: torch.Tensor, pool: dict, block_tab
     `init_slot_rings` state or None.  Writes each slot's KV column and ring
     slots in place and returns the output (S, 1, dim).  Layers run
     sequentially, or under execution="reversible" as the twin stream over
-    the same pool and rings; a layer range (`layer_start` / `layer_stop`,
-    the speculative draft and verify halves) is refused."""
+    the same pool and rings.  `layer_start` / `layer_stop` run only those
+    layers (`resolve_layer_range`: the speculative draft and verify halves);
+    the other layers' pool and rings stay as they are."""
     cfg = model.cfg
-    if layer_start != 0 or layer_stop is not None:
-        raise NotImplementedError("a layer range (layer_start / layer_stop) is speculative decoding, "
-                                  "which is not ported yet (ROADMAP.md Queue 1 item 6)")
+    layers = resolve_layer_range(cfg, layer_start, layer_stop)
     if block_tables.shape[1] * block_size < cfg.seq_len:
         raise ValueError(f"block tables must cover a full sequence: {block_tables.shape[1]} x {block_size} "
                          f"< {cfg.seq_len}")
@@ -214,7 +232,7 @@ def paged_decode_step(model: Transformer, x: torch.Tensor, pool: dict, block_tab
         x1, x2 = twin_stream(branch, cfg.depth, x)
         return (x1 + x2) / 2
     h = x
-    for i in range(cfg.depth):
+    for i in layers:
         fa = branch(i, "attn", h)
         fb = branch(i, "ff", h + fa)
         h = h + fa + fb

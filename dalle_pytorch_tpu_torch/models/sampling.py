@@ -23,6 +23,7 @@ shared noise.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -103,10 +104,14 @@ class Mode(NamedTuple):
     """What a decode loop's step reads besides its buffers: `noise`, the
     row of the `noise_override` buffer at the step index in place of the
     generator's gumbel noise; `stats`, whether it records the logit max
-    and mean entropy of its sampling distribution."""
+    and mean entropy of its sampling distribution; `spec`, (k, d,
+    stochastic) for speculative rounds in place of the step (their noise
+    from the buffer, filled from the generator first when no noise is
+    given)."""
 
     noise: bool
     stats: bool
+    spec: Optional[Tuple[int, int, bool]] = None
 
 
 class DecodeLoop:
@@ -125,7 +130,7 @@ class DecodeLoop:
     def __init__(self, model: DALLE, image: bool, batch: int, n_rows: int, cond_scale: float = 1.0,
                  filter_thres: float = 0.5):
         cfg = model.cfg
-        device = model.logits_linear.weight.device
+        device = model.device
         self.image, self.cond_scale, self.filter_thres = image, float(cond_scale), float(filter_thres)
         self.guided = image and self.cond_scale != 1.0
         rows = 2 * batch if self.guided else batch
@@ -136,22 +141,29 @@ class DecodeLoop:
         self.codes = torch.zeros((n_rows, batch), dtype=torch.long, device=device)
         self.noise: Optional[torch.Tensor] = None
         self.stats: Optional[torch.Tensor] = None
-        self._total_tokens = cfg.total_tokens
+        self.spec = None  # speculative round buffers (`models/speculative.FusedSpecState`)
+        self._total_tokens, self._dim, self._dtype = cfg.total_tokens, cfg.dim, model.dtype
         model.transformer.prepare_decode(device)
 
     def prepare(self, mode: Mode) -> None:
         """Allocate the buffers `mode` reads, once."""
+        from dalle_pytorch_tpu_torch.models.speculative import FusedSpecState
+
         n_rows, batch = self.codes.shape
-        if mode.noise and self.noise is None:
+        if (mode.noise or mode.spec) and self.noise is None:
             self.noise = torch.zeros((n_rows, batch, self._total_tokens), device=self.step.device)
         if mode.stats and self.stats is None:
             self.stats = torch.zeros((2, n_rows), device=self.step.device)
+        if mode.spec and self.spec is None:  # a loop serves one spec setting (`image_loop` keys it)
+            self.spec = FusedSpecState(self, *mode.spec, self._dim, self._total_tokens, self._dtype)
 
     def buffers(self):
         for layer in self.cache["layers"]:
             yield from layer.values()
         yield from (t for t in (self.cache["offset"], self.prev, self.step, self.temperature, self.codes,
                                 self.noise, self.stats) if t is not None)
+        if self.spec is not None:
+            yield from self.spec.buffers()
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.buffers())
@@ -210,11 +222,15 @@ class DecodeLoop:
     @torch.no_grad()
     def run(self, model: DALLE, first_logits: torch.Tensor, n_gen: int, generator: Optional[torch.Generator],
             temperature: float, noise_override: Optional[torch.Tensor], mode: Mode,
-            graph: Optional["torch.cuda.CUDAGraph"] = None):
+            graph: Optional["torch.cuda.CUDAGraph"] = None, timings: Optional[dict] = None):
         """The loop from a prefilled cache: the first token from
         `first_logits`, then n_gen - 1 steps, eager or as replays of
         `graph` (a capture of `advance` in `mode`).  Returns (tokens (b,
-        n_gen), {"logit_max", "entropy_mean"} or None)."""
+        n_gen), {"logit_max", "entropy_mean"} or None).  In a `spec` mode
+        the steps are speculative rounds (`run_spec`)."""
+        if mode.spec:
+            return self.run_spec(model, first_logits, n_gen, generator, temperature, noise_override, graph,
+                                 timings=timings)
         self.step.zero_()
         self.temperature.fill_(temperature)
         if mode.noise:
@@ -231,6 +247,60 @@ class DecodeLoop:
         stats = self.stats[:, :n_gen]
         return codes, {"logit_max": stats[0].max(), "entropy_mean": stats[1].sum() / n_gen}
 
+    def fill_noise(self, model: DALLE, n_gen: int, generator: Optional[torch.Generator],
+                   noise_override: Optional[torch.Tensor]) -> None:
+        """The noise buffer's first n_gen rows: `noise_override`'s, or one
+        (batch, total_tokens) draw of `generator` a row, as the sequential
+        loop draws a step's noise."""
+        if noise_override is not None:
+            self.noise[:n_gen].copy_(noise_override[:n_gen])
+            return
+        for row in range(n_gen):
+            self.noise[row] = gumbel_noise(self.noise.shape[1:], generator, model.dtype, self.step.device)
+
+    @torch.no_grad()
+    def run_spec(self, model: DALLE, first_logits: torch.Tensor, n_gen: int, generator: Optional[torch.Generator],
+                 temperature: float, noise_override: Optional[torch.Tensor], graphs=None,
+                 round_generator: Optional[torch.Generator] = None, timings: Optional[dict] = None,
+                 filled: bool = False):
+        """The speculative loop from a prefilled cache: the noise buffer
+        takes `noise_override`, or n_gen draws of `generator` in the order
+        the sequential loop draws them; the first token from `first_logits`
+        (row 0); then rounds (`models/speculative.fused_draft`,
+        `fused_verify`), eager or as replays of `graphs` (their captures),
+        until n_gen codes exist, the host reading the step once a round.
+        `round_generator` draws the stochastic rounds' uniforms (default
+        `generator`); `filled`: the buffer is filled already.  Returns
+        (tokens (b, n_gen), None); a `timings` dict gets spec_rounds, and
+        draft_s and verify_s (synchronised)."""
+        from dalle_pytorch_tpu_torch.models.speculative import fused_draft, fused_verify
+
+        device = self.step.device
+        self.step.zero_()
+        self.temperature.fill_(temperature)
+        if not filled:
+            self.fill_noise(model, n_gen, generator, noise_override)
+        self.sample(model, first_logits, None, Mode(noise=True, stats=False))
+        rounds, draft_s, verify_s = 0, 0.0, 0.0
+        gen = generator if round_generator is None else round_generator
+        timed = timings is not None
+        while int(self.step) < n_gen:
+            t0 = time.perf_counter()
+            if graphs is None:
+                fused_draft(self, model)
+            else:
+                graphs[0].replay()
+            t1 = _clock(device, timed)
+            if graphs is None:
+                fused_verify(self, model, gen)
+            else:
+                graphs[1].replay()
+            t2 = _clock(device, timed)
+            rounds, draft_s, verify_s = rounds + 1, draft_s + t1 - t0, verify_s + t2 - t1
+        if timed:
+            timings.update(spec_rounds=rounds, draft_s=draft_s, verify_s=verify_s)
+        return self.codes[:n_gen].t().clone(), None
+
 
 class _Entry:
     """A `DecodeGraphs` entry: a loop's static buffers, its captured steps
@@ -243,18 +313,29 @@ class _Entry:
         self.generator = torch.Generator(device=loop.step.device)
         self.signature = signature
 
-    def run(self, model, first_logits, n_gen, generator, temperature, noise_override, mode):
+    def run(self, model, first_logits, n_gen, generator, temperature, noise_override, mode, timings=None):
         """`DecodeLoop.run` through the graph of `mode`.  The gumbel noise
         comes from the entry's registered generator, set to `generator`'s
         state (the device's default one when None) first and copied back
         after, so the caller's generator advances as the eager loop's
-        would."""
+        would.  A spec mode fills its noise buffer from `generator` itself
+        and gives the registered one to its rounds."""
         graph, gathers = self.graphs[mode]
         source = None
-        if not mode.noise:
+        if not mode.noise or mode.spec:
             device = self.loop.step.device
             source = generator if generator is not None else torch.cuda.default_generators[
                 device.index if device.index is not None else torch.cuda.current_device()]
+        if mode.spec:
+            spec_timings = {} if timings is None else timings
+            self.loop.fill_noise(model, n_gen, source, noise_override)
+            self.generator.set_state(source.get_state())
+            out = self.loop.run_spec(model, first_logits, n_gen, None, temperature, None, graph, self.generator,
+                                     spec_timings, filled=True)
+            source.set_state(self.generator.get_state())
+            decode_step.gathers += gathers * spec_timings["spec_rounds"]
+            return out
+        if source is not None:
             self.generator.set_state(source.get_state())
         out = self.loop.run(model, first_logits, n_gen, self.generator, temperature, noise_override, mode, graph)
         if source is not None:
@@ -264,31 +345,45 @@ class _Entry:
 
 
 @torch.no_grad()
-def _capture(model: DALLE, entry: _Entry, mode: Mode, pool) -> Tuple["torch.cuda.CUDAGraph", int]:
+def _capture(model: DALLE, entry: _Entry, mode: Mode, pool) -> Tuple[object, int]:
     """Warm `advance` up on a side stream, then capture it into a graph in
     `pool`; returns (graph, the gather-branch layer-steps one step makes).
-    The warm-up really runs: it writes the entry's buffers (reset after)
-    and draws from the entry's generator (whose state each call sets).
-    `decode_step.gathers` keeps its value: neither counts as a step."""
+    A spec mode captures its round instead, as two graphs (the draft, the
+    verification; the pair stands in the graph's place) and counts a
+    round's gather-branch layer-steps.  The warm-up really runs: it writes
+    the entry's buffers (reset after) and draws from the entry's generator
+    (whose state each call sets).  `decode_step.gathers` keeps its value:
+    neither counts as a step."""
+    from dalle_pytorch_tpu_torch.models.speculative import fused_draft, fused_verify
+
     loop, device = entry.loop, entry.loop.step.device
+    if mode.spec:
+        parts = (lambda: fused_draft(loop, model), lambda: fused_verify(loop, model, entry.generator))
+    else:
+        parts = (lambda: loop.advance(model, entry.generator, mode),)
     gathers = decode_step.gathers
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         for _ in range(WARMUP_STEPS):
             loop.reset()
-            loop.advance(model, entry.generator, mode)
+            for part in parts:
+                part()
     torch.cuda.current_stream(device).wait_stream(side)
     loop.reset()
-    graph = torch.cuda.CUDAGraph()
-    if not mode.noise:
-        graph.register_generator_state(entry.generator)
+    graphs = []
     before = decode_step.gathers
-    with torch.cuda.graph(graph, pool=pool):
-        loop.advance(model, entry.generator, mode)
+    draws = mode.spec[2] if mode.spec else not mode.noise  # the generator: the step's noise, stochastic rounds
+    for part in parts:
+        graph = torch.cuda.CUDAGraph()
+        if draws:
+            graph.register_generator_state(entry.generator)
+        with torch.cuda.graph(graph, pool=pool):
+            part()
+        graphs.append(graph)
     per_step = decode_step.gathers - before
     decode_step.gathers = gathers
-    return graph, per_step
+    return (tuple(graphs) if mode.spec else graphs[0]), per_step
 
 
 class DecodeGraphs:
@@ -320,9 +415,8 @@ class DecodeGraphs:
     def entry(self, model: DALLE, key: tuple, make_loop: Callable[[], DecodeLoop], mode: Mode) -> _Entry:
         """The entry of `key`, its graph of `mode` captured (a miss) or
         found (a hit)."""
-        weight = model.logits_linear.weight
-        key = key + (weight.dtype, weight.device)
-        signature = tuple(p.data_ptr() for p in model.parameters())
+        key = key + (model.dtype, model.device)
+        signature = tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers()))
         entry = self._entries.get(key)
         if entry is None or entry.signature != signature:
             entry = self._entries[key] = _Entry(make_loop(), signature)
@@ -348,7 +442,7 @@ def decode_graphs(model: DALLE) -> DecodeGraphs:
 def _graphs_on(model: DALLE, graphs: Optional[bool]) -> bool:
     """Whether a call replays CUDA graphs: by default where the model is on
     the card; True on a CPU model raises."""
-    on_card = model.logits_linear.weight.device.type == "cuda"
+    on_card = model.device.type == "cuda"
     if graphs and not on_card:
         raise ValueError("graphs=True needs the model on a CUDA device")
     return on_card if graphs is None else bool(graphs)
@@ -373,7 +467,7 @@ def image_loop(model: DALLE, batch: int, cond_scale: float, prime_len: int, filt
     first_logits, n_gen, generator, temperature, noise_override, mode)`
     samples the codes.  `graphs` as in `sample_image_codes`."""
     n_gen = model.cfg.image_seq_len - prime_len
-    return _loop(model, ("image", batch, float(cond_scale), prime_len, float(filter_thres)),
+    return _loop(model, ("image", batch, float(cond_scale), prime_len, float(filter_thres), mode.spec),
                  lambda: DecodeLoop(model, True, batch, n_gen, cond_scale, filter_thres), mode, graphs)
 
 
@@ -390,6 +484,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _clock(device: torch.device, synchronise: bool) -> float:
+    """The host clock, after a synchronise when asked."""
+    if synchronise:
+        _sync(device)
+    return time.perf_counter()
+
+
 def _lap(timings: Optional[dict], key: str, device: torch.device, t0: float) -> float:
     """With a `timings` dict, synchronise and record the seconds since t0
     under `key`; returns the clock."""
@@ -399,18 +500,34 @@ def _lap(timings: Optional[dict], key: str, device: torch.device, t0: float) -> 
     return time.perf_counter()
 
 
+def _spec_mode(model: DALLE, spec_k: int, spec_draft_layers: Optional[int], spec_stochastic: bool,
+               noise_override, return_logit_stats: bool) -> Optional[Tuple[int, int, bool]]:
+    """A spec mode's (k, d, stochastic) (`speculative.validate_spec`), or
+    None for spec_k 0."""
+    if not spec_k:
+        return None
+    from dalle_pytorch_tpu_torch.models.speculative import validate_spec
+
+    if return_logit_stats:
+        raise ValueError("return_logit_stats is not recorded under speculative decoding (spec_k > 0)")
+    if spec_stochastic and noise_override is not None:
+        raise ValueError("spec_stochastic draws from the generator; it takes no noise_override")
+    return (*validate_spec(model.cfg.transformer_config(), spec_k, spec_draft_layers), bool(spec_stochastic))
+
+
 @torch.no_grad()
 def _sample_codes(model: DALLE, text, generator, filter_thres, temperature, cond_scale, primer_codes, prime_len,
-                  noise_override, return_logit_stats, graphs, timings):
+                  noise_override, return_logit_stats, graphs, timings, spec=None):
     """Prefill, then the image loop (replayed or eager); writes capture_s
-    (replayed only), prefill_s and decode_s into `timings`.  Returns (codes
-    (b, image_seq_len) with the primer, stats or None)."""
+    (replayed only), prefill_s and decode_s into `timings` (and a spec
+    mode's spec_rounds, draft_s, verify_s).  Returns (codes (b,
+    image_seq_len) with the primer, stats or None)."""
     cfg = model.cfg
     n_gen = cfg.image_seq_len - prime_len
     if n_gen <= 0:
         raise ValueError("the primer must be shorter than the image sequence")
     b, device = text.shape[0], text.device
-    mode = Mode(noise_override is not None, return_logit_stats)
+    mode = Mode(noise_override is not None, return_logit_stats, spec)
 
     t0 = time.perf_counter()
     loop, run = image_loop(model, b, cond_scale, prime_len, filter_thres, mode, graphs)
@@ -418,7 +535,7 @@ def _sample_codes(model: DALLE, text, generator, filter_thres, temperature, cond
         t0 = _lap(timings, "capture_s", device, t0)
     _, last_logits = _prefill_phase(model, text, primer_codes, prime_len, cond_scale, loop.cache)
     t0 = _lap(timings, "prefill_s", device, t0)
-    codes, stats = run(model, last_logits, n_gen, generator, temperature, noise_override, mode)
+    codes, stats = run(model, last_logits, n_gen, generator, temperature, noise_override, mode, timings=timings)
     if prime_len > 0:
         codes = torch.cat([primer_codes, codes], dim=1)
     _lap(timings, "decode_s", device, t0)
@@ -439,6 +556,9 @@ def sample_image_codes(
     return_logit_stats: bool = False,
     graphs: Optional[bool] = None,
     timings: Optional[dict] = None,
+    spec_k: int = 0,
+    spec_draft_layers: Optional[int] = None,
+    spec_stochastic: bool = False,
 ):
     """text: (b, text_seq_len) raw ids (0 = pad); primer_codes: optional
     (b, prime_len) codes.  Returns (b, image_seq_len) image codes; with
@@ -447,9 +567,18 @@ def sample_image_codes(
     None replays CUDA graphs on the card (the model's `decode_graphs`) and
     runs eagerly on the CPU; False runs eagerly; True needs the card.  A
     `timings` dict gets prefill_s, decode_s and, replayed, capture_s (the
-    call's warm-up and capture; 0 on a hit)."""
+    call's warm-up and capture; 0 on a hit).
+
+    spec_k > 0 decodes by self-speculative rounds (`models/speculative`):
+    spec_k tokens drafted through the first `spec_draft_layers` layers
+    (default half the depth), verified by the full stack, the exact prefix
+    accepted.  The codes equal spec_k=0's under the same generator or
+    noise at any temperature; `spec_stochastic` accepts by rejection
+    sampling instead (the same distribution, another stream).  spec_k=0 is
+    the sequential loop and its graphs."""
+    spec = _spec_mode(model, spec_k, spec_draft_layers, spec_stochastic, noise_override, return_logit_stats)
     codes, stats = _sample_codes(model, text, generator, filter_thres, temperature, cond_scale, primer_codes,
-                                 prime_len, noise_override, return_logit_stats, graphs, timings)
+                                 prime_len, noise_override, return_logit_stats, graphs, timings, spec)
     return (codes, stats) if return_logit_stats else codes
 
 
@@ -468,17 +597,22 @@ def generate_images(
     timings: Optional[dict] = None,
     clip: Optional["clip_mod.CLIP"] = None,
     graphs: Optional[bool] = None,
+    spec_k: int = 0,
+    spec_draft_layers: Optional[int] = None,
+    spec_stochastic: bool = False,
 ):
     """Sample codes and decode them through the VAE, of any family
     (`vae_registry`).  img: optional (b, H, W, C) pixels in [0, 1] whose
     first codes prime the image.  Returns (b, H, W, C) images as the VAE
     decodes them (the DiscreteVAE's in its normalised pixel space), as the
     JAX package does; with a `clip`, (images, scores): CLIP's score of each
-    image against its text, for reranking.  `graphs` as in
-    `sample_image_codes`.  With a `timings` dict, the device is
+    image against its text, for reranking.  `graphs` and the spec settings
+    as in `sample_image_codes`.  With a `timings` dict, the device is
     synchronised after each phase and `prefill_s`, `decode_s`, `vae_s`
-    (`clip_s`, and replayed, `capture_s`) are written into it."""
+    (`clip_s`, and replayed, `capture_s`; speculative, `spec_rounds`,
+    `draft_s`, `verify_s`) are written into it."""
     cfg = model.cfg
+    spec = _spec_mode(model, spec_k, spec_draft_layers, spec_stochastic, noise_override, False)
     text = text[:, : cfg.text_seq_len]
     primer, prime_len = None, 0
     if img is not None:
@@ -490,7 +624,7 @@ def generate_images(
             primer = vae_registry.get_codebook_indices(vae, img)[:, :prime_len]
 
     codes, _ = _sample_codes(model, text, generator, filter_thres, temperature, cond_scale, primer, prime_len,
-                             noise_override, False, graphs, timings)
+                             noise_override, False, graphs, timings, spec)
     t0 = time.perf_counter()
     images = vae_registry.decode_indices(vae, codes)
     t0 = _lap(timings, "vae_s", text.device, t0)
@@ -524,7 +658,7 @@ def generate_texts(
     noise: `noise_override` (text_seq_len - n0, b, total_tokens), one row
     per generated token, in place of `generator`'s."""
     cfg = model.cfg
-    device = model.logits_linear.weight.device
+    device = model.device
     if text is None:
         text = torch.zeros((1, 1), dtype=torch.long, device=device)
     text = text.long()

@@ -72,6 +72,7 @@ from dalle_pytorch_tpu_torch.ops.attention import attend
 from dalle_pytorch_tpu_torch.ops.masks import ATTN_TYPES, _block_sparse_mask_np, _block_sparse_mask_np_heads, _pattern_mask_np
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary, build_dalle_rotary
 from dalle_pytorch_tpu_torch.ops.shift import token_shift
+from dalle_pytorch_tpu_torch.quantization import dequantize_kv, quantize_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -546,39 +547,61 @@ def _at(table: torch.Tensor, offset: torch.Tensor, dim: int = 0) -> torch.Tensor
     return table.index_select(dim, offset.view(1))
 
 
+def _attend_view(attn, cfg, q: torch.Tensor, view: dict, mask: torch.Tensor,
+                 sel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q's attention over a cache view (`view["k"]`, `view["v"]`: (b, h,
+    seq, dh)) under `mask`: over the whole view, or over the keys that
+    `sel` gathers ((b or 1, Kmax), per head (b or 1, h, Kmax)), `mask`
+    then covering the gathered keys.  A quantized view (int8 with
+    per-token `k_scale` / `v_scale`, (b, h, seq)) is dequantized on use,
+    in a gathering layer only the gathered keys.  The dense cached step
+    and the paged step (`models/paged.py`) both attend through it."""
+    k, v = view["k"], view["v"]
+    scales = (view["k_scale"], view["v_scale"]) if "k_scale" in view else None
+    if sel is not None:
+        b, h, _, d = k.shape
+        idx = (sel if sel.ndim == 3 else sel[:, None]).expand(b, h, sel.shape[-1])
+        gather = idx[..., None].expand(b, h, sel.shape[-1], d)
+        k, v = torch.gather(k, 2, gather), torch.gather(v, 2, gather)
+        if scales is not None:
+            scales = torch.gather(scales[0], 2, idx), torch.gather(scales[1], 2, idx)
+    if scales is not None:
+        k, v = dequantize_kv(k, scales[0], q.dtype), dequantize_kv(v, scales[1], q.dtype)
+    out = attend(q, k, v, mask=mask, stable=cfg.stable)
+    return attn.out(_merge_heads(out))
+
+
 def _attention_cached(attn, cfg, layer_cache, x, rotary, offset: torch.Tensor,
                       pattern: Optional[DecodePattern] = None):
     """One cached token x: (b, 1, dim) at position `offset` (a device
     scalar); writes its key and value into the cache and attends over the
     whole cache under j <= offset, or, in a pattern layer, over what its
     pattern row permits: the gathered Kmax keys (padded slots masked off)
-    or the whole cache masked with the row."""
+    or the whole cache masked with the row.  A quantized cache (int8 k/v
+    with per-token `k_scale` / `v_scale`, `quantization.quantize_cache_layers`)
+    takes the new column quantized once and attends over dequantized
+    values (`_attend_view`)."""
     ang = None if rotary is None else _at(rotary, offset)
     q, k, v = _qkv_heads(attn, cfg, x, ang)
     q = q * (cfg.dim_head ** -0.5)
-    k_buf, v_buf = layer_cache["k"], layer_cache["v"]
-    k_buf.index_copy_(2, offset.view(1), k.to(k_buf.dtype))
-    v_buf.index_copy_(2, offset.view(1), v.to(v_buf.dtype))
+    at = offset.view(1)
+    cols = {"k": k, "v": v}
+    if "k_scale" in layer_cache:
+        (cols["k"], cols["k_scale"]), (cols["v"], cols["v_scale"]) = quantize_kv(k), quantize_kv(v)
+    for name, col in cols.items():
+        layer_cache[name].index_copy_(2, at, col.to(layer_cache[name].dtype))
+    view = {name: layer_cache[name] for name in cols}
     if pattern is not None and pattern.idx is not None:
         sel = _at(pattern.idx, offset, -2)  # (1, Kmax) or per head (h, 1, Kmax)
         valid = _at(pattern.valid, offset, -2)
-        if sel.ndim == 3:
-            b, h, _, d = k_buf.shape
-            gather = sel[None, :, 0, :, None].expand(b, h, sel.shape[-1], d)
-            k_sel, v_sel = torch.gather(k_buf, 2, gather), torch.gather(v_buf, 2, gather)
-            amask = valid[None]
-        else:
-            k_sel, v_sel = k_buf.index_select(2, sel[0]), v_buf.index_select(2, sel[0])
-            amask = valid[None, None]
-        out = attend(q, k_sel, v_sel, mask=amask, stable=cfg.stable)
+        per_head = sel.ndim == 3
         decode_step.gathers += 1
-        return attn.out(_merge_heads(out))
+        return _attend_view(attn, cfg, q, view, valid[None] if per_head else valid[None, None],
+                            sel[:, 0][None] if per_head else sel)
     mask = torch.arange(cfg.seq_len, device=offset.device) <= offset  # (seq,)
     if pattern is not None:
         mask = mask & _at(pattern.rows, offset, -2)  # (1, seq) or per head (h, 1, seq)
-    amask = mask[None] if mask.ndim == 3 else mask.view(1, 1, 1, -1)
-    out = attend(q, k_buf, v_buf, mask=amask, stable=cfg.stable)
-    return attn.out(_merge_heads(out))
+    return _attend_view(attn, cfg, q, view, mask[None] if mask.ndim == 3 else mask.view(1, 1, 1, -1))
 
 
 def _shift_cached_step(cfg, rb: torch.Tensor, x: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
@@ -655,7 +678,7 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
 
 
 def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mode=False,
-                seeds=None, remat=False, rebuild=False):
+                seeds=None, remat=False, rebuild=False, layers: Optional[range] = None):
     """seeds: per layer, the (attention, feed-forward) dropout seeds, or
     None.  remat: wrap each layer in a non-reentrant checkpoint under the
     config's `remat_policy` (`remat_run`): under "full" the backward
@@ -664,7 +687,8 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
     outputs, so it runs once.  Under execution="reversible" the layers run
     as the twin stream, over the same caches in the cached modes; rebuild:
     through `Reversible`, which rebuilds each layer's input in its
-    backward, else as plain tensor ops."""
+    backward, else as plain tensor ops.  layers: the layer range a decode
+    step runs (`resolve_layer_range`), all of them when None."""
     cfg = model.cfg
     names = remat_names(cfg.remat_policy) if remat else ()
     rotary = model.rotary(x.device)
@@ -691,7 +715,8 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
             return reversible(branch, [dict(layer.named_parameters()) for layer in model.layers], x)
         x1, x2 = twin_stream(branch, cfg.depth, x)
         return (x1 + x2) / 2
-    for i, layer in enumerate(model.layers):
+    for i in range(cfg.depth) if layers is None else layers:
+        layer = model.layers[i]
         if remat:
             x = checkpoint(remat_run(layer, names), *args(i, x), use_reentrant=False)
         else:
@@ -761,14 +786,33 @@ def prefill(model: Transformer, x: torch.Tensor, cache: dict,
     return out, cache
 
 
+def resolve_layer_range(cfg: TransformerConfig, layer_start: int = 0, layer_stop: Optional[int] = None) -> range:
+    """The layers [layer_start, layer_stop) of a decode step: the speculative
+    drafter runs [0, d), the verifier continues [d, depth) from the stored
+    layer-d hidden.  An empty or out-of-range slice raises, and so does a
+    partial one under reversible execution, whose twin streams have no
+    single hidden to hand over."""
+    stop = cfg.depth if layer_stop is None else layer_stop
+    if not 0 <= layer_start < stop <= cfg.depth:
+        raise ValueError(f"layer range [{layer_start}, {stop}) invalid for depth {cfg.depth}")
+    if (layer_start != 0 or stop != cfg.depth) and cfg.execution == "reversible":
+        raise ValueError("partial layer ranges (speculative drafting) require sequential execution; reversible "
+                         "twin-stream layers cannot be split")
+    return range(layer_start, stop)
+
+
 @torch.no_grad()
-def decode_step(model: Transformer, x: torch.Tensor, cache: dict,
-                text_only: bool = False) -> Tuple[torch.Tensor, dict]:
+def decode_step(model: Transformer, x: torch.Tensor, cache: dict, text_only: bool = False,
+                layer_start: int = 0, layer_stop: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """Process one token x: (b, 1, dim) at position cache['offset'] and
     advance the offset, all on the device: the same ops at every position,
     so a CUDA graph may capture the step.  text_only: the position is in the
-    text region, where the token shift is the identity."""
-    out = _run_layers(model, x, "decode", cache=cache, text_mode=text_only)
+    text region, where the token shift is the identity.  layer_start /
+    layer_stop run only those layers (`resolve_layer_range`); the other
+    layers' cache entries stay as they are."""
+    layers = resolve_layer_range(model.cfg, layer_start, layer_stop)
+    full = len(layers) == model.cfg.depth
+    out = _run_layers(model, x, "decode", cache=cache, text_mode=text_only, layers=None if full else layers)
     cache["offset"].add_(1)
     return out, cache
 

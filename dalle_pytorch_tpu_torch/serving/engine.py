@@ -28,9 +28,29 @@ its [cond] and [null] sequences (`serving/lanes.py`).
 
 The host synchronises at admission (the first code exists: TTFT) and at
 eviction (the finished codes); the steady decode loop only launches.
-Telemetry, SLO monitoring, trace capture, the request journal, prefix
-accounting, the pool's flight recorder, quantized KV and speculative
-decoding are not ported (ROADMAP.md Queue 1 item 6).
+
+What changes what the card computes:
+- `quantize_kv="int8"`: the pool holds int8 k/v with per-token bf16 scales
+  (`models/paged.py`); a model quantized by `quantization.quantize_tree`
+  runs its products on weights dequantized on use.
+- `spec_k > 0`: each poll runs one self-speculative round in place of the
+  step (`models/speculative.engine_spec_draft`, `engine_spec_verify`), the
+  draft and the verification each captured in a graph; a lane advances by
+  its own accepted length, which the host reads once a round.  A lane's
+  noise comes from its table row of the position, filled at admission from
+  the request's seed in a batch-1 loop's draw order, so the codes equal
+  those of the sequential engine.
+- The nonfinite screen: a lane whose guided logits turn nonfinite is
+  flagged (`serving/lanes.py`); at eviction a flagged request is decoded
+  again from a new prefill, up to `poison_max_retries` times, then ends
+  "poisoned", while the lanes beside it go on as they were.
+  `--inject_fault poison-request@N` (`training/resilience.py`) makes one
+  in-flight request's logits NaN on every step of every retry; `flood@N`
+  submits a burst of synthetic requests.
+
+Telemetry, SLO monitoring, trace capture, the request journal, the fleet,
+the degrade ladder, prefix accounting and the pool's flight recorder are
+not ported (ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -41,8 +61,10 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from dalle_pytorch_tpu_torch import quantization as quant_mod
 from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
 from dalle_pytorch_tpu_torch.models import sampling as sampling_mod
+from dalle_pytorch_tpu_torch.models import speculative as spec_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE
 from dalle_pytorch_tpu_torch.models.paged import (
@@ -55,8 +77,7 @@ from dalle_pytorch_tpu_torch.models.transformer import init_cache
 from dalle_pytorch_tpu_torch.serving.kv_pool import BlockPool
 from dalle_pytorch_tpu_torch.serving.lanes import LaneState, sample_lanes
 from dalle_pytorch_tpu_torch.serving.scheduler import AdmissionController, AdmissionRefused, Request, RequestQueue
-
-_WAITING = "(ROADMAP.md Queue 1 item 6)"
+from dalle_pytorch_tpu_torch.training import resilience
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +86,11 @@ class EngineConfig:
     two).  `num_blocks` defaults to exactly `num_slots` full sequences;
     size it smaller to make the pool the admission bottleneck.
     `noise_override` keeps a (num_slots, image_seq_len, total_tokens) f32
-    buffer so that requests may bring their own gumbel noise."""
+    buffer so that requests may bring their own gumbel noise; speculation
+    (`spec_k` > 0, `spec_draft_layers` default half the depth) keeps it
+    always.  `quantize_kv`: None or "int8".  `poison_max_retries`: the
+    re-decodes of a request whose lanes turned nonfinite before it ends
+    "poisoned"."""
 
     num_slots: int = 4
     block_size: int = 32
@@ -75,16 +100,16 @@ class EngineConfig:
     filter_thres: float = 0.9
     noise_override: bool = False
     quantize_kv: Optional[str] = None
+    poison_max_retries: int = 2
     spec_k: int = 0
     spec_draft_layers: Optional[int] = None
 
     def __post_init__(self):
-        if self.quantize_kv not in (None, "none"):
-            raise NotImplementedError(f"quantize_kv={self.quantize_kv!r}: the quantized KV pool is not ported yet "
-                                      f"{_WAITING}")
-        if self.spec_k or self.spec_draft_layers is not None:
-            raise NotImplementedError(f"spec_k / spec_draft_layers: speculative decoding is not ported yet "
-                                      f"{_WAITING}")
+        quant_mod.kv_bytes_per_elem(self.quantize_kv, 1, 1)  # an unknown kind raises ValueError
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
+        if self.spec_draft_layers is not None and not self.spec_k:
+            raise ValueError("spec_draft_layers needs speculation: set spec_k > 0")
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be at least 1, got {self.num_slots}")
 
@@ -104,14 +129,18 @@ class GenerationEngine:
             raise ValueError("the engine needs at least 2 image tokens")
         self.model, self.vae, self.cfg, self.ecfg = model, vae, cfg, engine_cfg
         self.tcfg = cfg.transformer_config()
-        self.device = model.logits_linear.weight.device
+        self.device = model.device
         self.n_pre = cfg.text_seq_len + 1  # bos + text
         self.n_gen = cfg.image_seq_len
         S = engine_cfg.num_slots
         num_blocks = engine_cfg.num_blocks
         if num_blocks is None:
             num_blocks = S * paged_blocks_per_seq(self.tcfg, engine_cfg.block_size)
-        self.pool = BlockPool(self.tcfg, num_blocks, engine_cfg.block_size, dtype=model.dtype)
+        k_d = None
+        if engine_cfg.spec_k:
+            k_d = spec_mod.validate_spec(self.tcfg, engine_cfg.spec_k, engine_cfg.spec_draft_layers)
+        self.pool = BlockPool(self.tcfg, num_blocks, engine_cfg.block_size, dtype=model.dtype,
+                              quant=engine_cfg.quantize_kv)
         self.queue = RequestQueue(max_depth=engine_cfg.max_queue)
         self.admission = AdmissionController(self.pool, headroom_frac=engine_cfg.headroom_frac, usage_fn=usage_fn,
                                              device=self.device)
@@ -124,16 +153,32 @@ class GenerationEngine:
         self.img_prev = torch.zeros(S, dtype=torch.long, device=dev)  # index of the last code made
         self.codes = torch.zeros((S, self.n_gen), dtype=torch.long, device=dev)
         self.active = torch.zeros(S, dtype=torch.bool, device=dev)
-        self.lanes = LaneState(S, cfg.total_tokens, dev, self.n_gen if engine_cfg.noise_override else 0)
+        self.poisoned = torch.zeros(S, dtype=torch.bool, device=dev)  # nonfinite logits since admission
+        noise_rows = self.n_gen if engine_cfg.noise_override or k_d else 0
+        self.lanes = LaneState(S, cfg.total_tokens, dev, noise_rows)
         self._all_lanes = torch.arange(S, device=dev)
         self._free_lanes: List[int] = list(range(S))
         self._inflight: List[Request] = []
         self._next_id = 0
+        self._iter = 0
+        self._flood_rng = np.random.RandomState(0)
+        self._poison_lane_host = -1
         self.decode_steps = 0
+        self.counts = {"poison_retries": 0, "quarantined": 0, "poison_injected": 0, "flood_injected": 0,
+                       "spec_rounds": 0, "spec_request_rounds": 0, "spec_accepted_tokens": 0,
+                       "spec_rejected_tokens": 0}
+        self.spec_draft_s = self.spec_round_s = 0.0
+        self.spec = None if k_d is None else spec_mod.EngineSpecState(self, *k_d)
         model.transformer.prepare_decode(dev)
         self.graph = None
+        self.spec_graphs = None
         if sampling_mod._graphs_on(model, graphs):
-            self.graph = self._capture()
+            if self.spec is None:
+                self.graph = self._capture(self._step)
+            else:
+                pool = torch.cuda.graph_pool_handle()
+                self.spec_graphs = tuple(self._capture(part, pool) for part in (
+                    lambda: spec_mod.engine_spec_draft(self), lambda: spec_mod.engine_spec_verify(self)))
 
     # ------------------------------------------------------------- the step
     @torch.no_grad()
@@ -149,7 +194,9 @@ class GenerationEngine:
                                 self.ecfg.block_size)
         logits = sampling_mod._logits_at(model, out, image=True)
         noise = self.lanes.draw(None, self.img_prev + 1, logits.dtype)
-        code = sample_lanes(model, logits, self.lanes.settings(), self.ecfg.filter_thres, noise)
+        code, bad = sample_lanes(model, logits, self.lanes.settings(), self.ecfg.filter_thres, noise, self.active,
+                                 self.lanes.poison_lane)
+        self.poisoned |= bad
         act = self.active
         made = self.img_prev + act.long()
         at = made.clamp(0, self.n_gen - 1)
@@ -160,23 +207,24 @@ class GenerationEngine:
         self.img_prev.copy_(made)
 
     @torch.no_grad()
-    def _capture(self) -> "torch.cuda.CUDAGraph":
-        """Warm the step up on a side stream, then capture it, with every
-        lane's generator registered with the graph.  Every lane is idle:
-        the warm-up writes only the trash block, idle lanes' rings and
-        generators, all of which an admission sets anew."""
+    def _capture(self, step, pool=None) -> "torch.cuda.CUDAGraph":
+        """Warm `step` (the decode step, or a half of the speculative round)
+        up on a side stream, then capture it, with every lane's generator
+        registered with the graph.  Every lane is idle: the warm-up writes
+        only the trash block, idle lanes' rings and generators, all of
+        which an admission sets anew (an idle lane's round advances by 0)."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(sampling_mod.WARMUP_STEPS):
-                self._step()
+                step()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         for gen in self.lanes.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph):
-            self._step()
+        with torch.cuda.graph(graph, pool=pool):
+            step()
         return graph
 
     # ------------------------------------------------------------ requests
@@ -246,12 +294,45 @@ class GenerationEngine:
         return len(self._free_lanes)
 
     def poll(self) -> List[Request]:
-        """One iteration: admissions, one decode step, evictions.  Returns
-        the requests completed in it (codes, and images with a VAE)."""
+        """One iteration: an armed flood or poison fault, admissions, one
+        decode step (or speculative round), evictions.  Returns the requests
+        completed in it (codes, and images with a VAE)."""
+        self._iter += 1
+        self._poll_flood()
+        if self._inflight and resilience.take_poison_fault(self._iter):
+            victim = self._inflight[0]
+            victim.poison_victim = True
+            self.counts["poison_injected"] += 1
+            print(f"[chaos] poison-request: request {victim.id} poisoned: NaN decode logits until its retry budget "
+                  "burns", flush=True)
         self._admit_ready()
+        self._track_poison_lane()
         if self._inflight:
             self._decode_once()
         return self._evict_finished()
+
+    def _poll_flood(self) -> None:
+        """An armed flood fault's burst of synthetic requests; refusals are
+        the drill's success mode."""
+        n = resilience.take_flood_fault(self._iter)
+        if n:
+            print(f"[chaos] flood: injecting {n} synthetic requests", flush=True)
+        for _ in range(n):
+            text = self._flood_rng.randint(1, self.cfg.num_text_tokens, size=(self.cfg.text_seq_len,))
+            try:
+                self.submit(text)
+                self.counts["flood_injected"] += 1
+            except AdmissionRefused:
+                pass
+
+    def _track_poison_lane(self) -> None:
+        """Point the NaN injection at the victim request's [cond] lane
+        wherever it sits now (its lanes change across retries); -1 when no
+        victim is in flight."""
+        lane = next((r.lanes[0] for r in self._inflight if r.poison_victim and r.lanes), -1)
+        if lane != self._poison_lane_host:
+            self._poison_lane_host = lane
+            self.lanes.poison_lane.fill_(lane)
 
     def run_until_idle(self, max_iters: Optional[int] = None) -> List[Request]:
         """poll() until the queue and the lanes drain; all completions."""
@@ -349,12 +430,14 @@ class GenerationEngine:
         req.phases["admission"] = t_dispatch - t_pop
 
         self.lanes.arm(lanes, req.temperature, req.cond_scale, req.seed, req.noise)
+        if self.spec is not None and req.noise is None:
+            self.lanes.fill_noise(lanes[0], req.seed)
         text = torch.as_tensor(req.text[None], device=dev)
         cache = init_cache(dataclasses.replace(self.tcfg, seq_len=self.n_pre), len(lanes), dtype=model.dtype,
                            device=dev)
         cache, logits = sampling_mod._prefill_phase(model, text, None, 0, req.cond_scale, cache)
         noise = self.lanes.draw(lanes, torch.zeros(len(lanes), dtype=torch.long, device=dev), logits.dtype)
-        code = sample_lanes(model, logits, self.lanes.settings(lanes), self.ecfg.filter_thres, noise)
+        code, _ = sample_lanes(model, logits, self.lanes.settings(lanes), self.ecfg.filter_thres, noise)
 
         idx = torch.tensor(lanes, device=dev)
         tables_t = torch.as_tensor(tables, device=dev)
@@ -378,6 +461,9 @@ class GenerationEngine:
         req.phases["prefill"] = now - t_dispatch
 
     def _decode_once(self) -> None:
+        if self.spec is not None:
+            self._spec_decode_once()
+            return
         if self.graph is not None:
             self.graph.replay()
         else:
@@ -385,6 +471,64 @@ class GenerationEngine:
         self.decode_steps += 1
         for req in self._inflight:
             req.codes_done += 1
+
+    def _spec_decode_once(self) -> None:
+        """One speculative round: the draft, then the verification, then
+        each request advanced by its lanes' accepted length, read once (the
+        round's one host sync; a second one between the halves times the
+        draft's share)."""
+        k = self.spec.k
+        t0 = time.perf_counter()
+        if self.spec_graphs is not None:
+            self.spec_graphs[0].replay()
+        else:
+            spec_mod.engine_spec_draft(self)
+        sampling_mod._sync(self.device)
+        t1 = time.perf_counter()
+        if self.spec_graphs is not None:
+            self.spec_graphs[1].replay()
+        else:
+            spec_mod.engine_spec_verify(self)
+        advance = self.spec.advance.tolist()
+        t2 = time.perf_counter()
+        accepted = 0
+        for req in self._inflight:
+            adv = advance[req.lanes[0]]
+            req.codes_done += adv
+            req.spec_rounds += 1
+            req.spec_accepted += adv
+            accepted += adv
+        self.decode_steps += 1
+        self.counts["spec_rounds"] += 1
+        self.counts["spec_request_rounds"] += len(self._inflight)
+        self.counts["spec_accepted_tokens"] += accepted
+        self.counts["spec_rejected_tokens"] += max((k + 1) * len(self._inflight) - accepted, 0)
+        self.spec_draft_s += t1 - t0
+        self.spec_round_s += t2 - t0
+
+    def spec_state(self) -> Dict[str, Any]:
+        """The speculative accounting: rounds, codes accepted and rejected,
+        codes a request gained a round, and the draft's share of the
+        rounds' wall time."""
+        c = self.counts
+        return {"spec_k": self.spec.k if self.spec else 0, "draft_layers": self.spec.d if self.spec else None,
+                "rounds": c["spec_rounds"], "accepted_tokens": c["spec_accepted_tokens"],
+                "rejected_tokens": c["spec_rejected_tokens"],
+                "accepted_tokens_per_round": (c["spec_accepted_tokens"] / c["spec_request_rounds"]
+                                              if c["spec_request_rounds"] else None),
+                "draft_time_frac": self.spec_draft_s / self.spec_round_s if self.spec_round_s else None}
+
+    def quantization_state(self) -> Dict[str, Any]:
+        """The weight and KV storage dtypes and the analytic dequant work of
+        one decode step, beside the step's matmul work."""
+        wk = quant_mod.weight_quant_kind(self.model)
+        over = quant_mod.dequant_overhead_flops(self.tcfg, self.pool.quant, wk, self.ecfg.num_slots,
+                                                emb_rows=self.cfg.total_tokens + self.cfg.num_image_tokens)
+        return {"weight_dtype": wk or str(self.model.dtype).replace("torch.", ""),
+                "kv_dtype": self.pool.quant or str(self.pool.dtype).replace("torch.", ""),
+                "weight_bytes": quant_mod.tree_weight_bytes(self.model), "pool_bytes": self.pool.bytes(),
+                "dequant_flops_per_step": over["dequant_flops_per_step"],
+                "dequant_frac_of_step": round(over["dequant_frac_of_step"], 6)}
 
     def _release(self, req: Request) -> None:
         for i in range(len(req.lanes)):
@@ -396,26 +540,49 @@ class GenerationEngine:
             return
         idx = torch.tensor(lanes, device=self.device)
         self.active[idx] = False
+        self.poisoned[idx] = False
         self.block_tables[idx] = 0
         self.offsets[idx] = 0
         self.img_prev[idx] = 0
 
     @torch.no_grad()
     def _evict_finished(self) -> List[Request]:
+        """Finish the requests whose codes are all made.  A request whose
+        lanes turned nonfinite is retried from a new prefill (at the head of
+        the queue) while it has retries left, else it ends "poisoned"; the
+        flags are read at this sync, which the codes' pull needs anyway.
+        Returns the completed ones."""
         done = [r for r in self._inflight if r.codes_done >= self.n_gen]
         if not done:
             return done
         t_evict = time.monotonic()
         self._inflight = [r for r in self._inflight if r.codes_done < self.n_gen]
+        flags = self.poisoned.cpu()
         lanes: List[int] = []
+        healthy: List[Request] = []
         for req in done:
             req.phases["decode"] = t_evict - req.admitted_t
-            req.codes = self.codes[req.lanes[0]].cpu().numpy().copy()  # a copy: the lane is reused
+            if not bool(flags[req.lanes].any()):
+                req.codes = self.codes[req.lanes[0]].cpu().numpy().copy()  # a copy: the lane is reused
+                healthy.append(req)
             self._release(req)
             lanes.extend(req.lanes)
             req.latency_s = time.monotonic() - req.arrival_t
         self._reset_lanes(lanes)
         for req in done:
+            if req in healthy:
+                continue
+            if req.poison_retries < self.ecfg.poison_max_retries:
+                req.poison_retries += 1
+                req.codes_done, req.lanes, req.admitted_t = 0, None, None
+                self.queue.requeue(req)
+                self.counts["poison_retries"] += 1
+            else:
+                req.phases["evict"] = max(req.latency_s - sum(req.phases.values()), 0.0)
+                req.outcome = "poisoned"
+                self.counts["quarantined"] += 1
+        self._track_poison_lane()
+        for req in healthy:
             if self.vae is not None:
                 t0 = time.perf_counter()
                 codes = torch.as_tensor(req.codes[None], device=self.device)
@@ -424,4 +591,4 @@ class GenerationEngine:
                 req.latency_s = time.monotonic() - req.arrival_t
             req.phases["evict"] = max(req.latency_s - sum(req.phases.values()), 0.0)
             req.outcome = "completed"
-        return done
+        return healthy

@@ -22,6 +22,7 @@ import torch
 
 from dalle_pytorch_tpu_torch.models.paged import init_paged_pool, paged_blocks_per_seq
 from dalle_pytorch_tpu_torch.models.transformer import TransformerConfig
+from dalle_pytorch_tpu_torch.quantization import kv_bytes_per_elem
 
 
 class PoolExhausted(RuntimeError):
@@ -38,11 +39,15 @@ class BlockPool:
     num_blocks: int
     block_size: int
     dtype: torch.dtype = torch.float32
+    quant: Optional[str] = None  # "int8": int8 blocks with per-token bf16 scales
 
     def __post_init__(self):
         if self.block_size <= 0 or self.num_blocks <= 0:
             raise ValueError(f"block_size and num_blocks must be positive, got {self.block_size}, "
                              f"{self.num_blocks}")
+        if self.quant == "none":
+            self.quant = None
+        kv_bytes_per_elem(self.quant, 1, self.cfg.dim_head)  # an unknown kind raises
         self.blocks_per_seq = paged_blocks_per_seq(self.cfg, self.block_size)
         # physical ids 1..num_blocks; 0 is the trash block
         self._free: List[int] = list(range(1, self.num_blocks + 1))
@@ -52,15 +57,17 @@ class BlockPool:
     def device_pool(self, device=None) -> dict:
         """Zeroed device tensors for this geometry, the trash block
         included."""
-        return init_paged_pool(self.cfg, self.num_blocks + 1, self.block_size, self.dtype, device)
+        return init_paged_pool(self.cfg, self.num_blocks + 1, self.block_size, self.dtype, device, self.quant)
 
     def bytes(self, itemsize: Optional[int] = None) -> float:
         """At-rest bytes of the device pool (k and v, every layer, the trash
-        block included)."""
+        block included), priced by `kv_bytes_per_elem`: an int8 pool at 1 +
+        2 / dim_head bytes an element."""
         if itemsize is None:
             itemsize = torch.empty((), dtype=self.dtype).element_size()
         cfg = self.cfg
-        return 2.0 * cfg.depth * (self.num_blocks + 1) * cfg.heads * self.block_size * cfg.dim_head * itemsize
+        per_elem = kv_bytes_per_elem(self.quant, itemsize, cfg.dim_head)
+        return 2.0 * cfg.depth * (self.num_blocks + 1) * cfg.heads * self.block_size * cfg.dim_head * per_elem
 
     @property
     def free_blocks(self) -> int:
@@ -122,15 +129,14 @@ class BlockPool:
         return {"num_blocks": self.num_blocks, "block_size": self.block_size,
                 "blocks_per_seq": self.blocks_per_seq, "occupancy_frac": round(self.occupancy_frac, 4),
                 "free_blocks": self.free_blocks, "high_water": self.high_water,
-                "fragmentation_frac": round(self.fragmentation_frac, 4), "bytes": self.bytes()}
+                "fragmentation_frac": round(self.fragmentation_frac, 4), "bytes": self.bytes(),
+                "kv_dtype": self.quant or str(self.dtype).replace("torch.", "")}
 
 
 def blocks_within_bytes(cfg: TransformerConfig, budget_bytes: float, block_size: int, itemsize: int = 2,
                         kv_quant: Optional[str] = None) -> int:
     """How many usable blocks fit an at-rest byte budget, the trash block's
-    cost included."""
-    if kv_quant not in (None, "none"):
-        raise NotImplementedError(f"the quantized KV pool ({kv_quant!r}) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6)")
-    per_block = 2.0 * cfg.depth * cfg.heads * block_size * cfg.dim_head * itemsize
+    cost included; a quantized pool (`kv_quant`) holds more of them."""
+    per_block = (2.0 * cfg.depth * cfg.heads * block_size * cfg.dim_head
+                 * kv_bytes_per_elem(kv_quant, itemsize, cfg.dim_head))
     return max(int(budget_bytes // per_block) - 1, 0)

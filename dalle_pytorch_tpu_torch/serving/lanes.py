@@ -13,13 +13,25 @@ one (1, total_tokens) draw a token, as a batch-1 `sample_image_codes` draws
 it; or, for a lane whose request brought its noise (`use_noise`), from its
 row of `noise` at the index of the code being made.
 
+In a decode step two more things happen, between the guidance and the
+top-k: poison injection (the lane `poison_lane` names, -1 for none, gets
+NaN logits before the guidance: the fault drill of `--inject_fault
+poison-request`) and the nonfinite screen (a live lane whose guided logits
+hold a NaN or an infinity is flagged `bad`, and its logits are set to 0 so
+that it samples something finite).  The engine accumulates the flags and
+quarantines the request at its eviction.  The degrade cap of the JAX
+pipeline comes with the degrade ladder (ROADMAP.md Queue 1 item 6).
+
 `LaneState` holds these per-lane tensors on the device; they are written
-in place at admission, so a captured step reads their new values.  Poison injection, the nonfinite screen and the degrade cap of the
-JAX pipeline are not ported (ROADMAP.md Queue 1 item 6).
+in place at admission, so a captured step reads their new values.  Under
+speculative decoding every lane reads its noise from the table: at
+admission the request's generator fills its rows in the order a batch-1
+loop draws them (`fill_noise`), so that the rounds read a position's row
+whatever order they take the positions in.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -41,6 +53,7 @@ class LaneState:
         self.noise = (torch.zeros((num_lanes, noise_rows, total_tokens), device=device) if noise_rows else None)
         self.generators: List[torch.Generator] = [torch.Generator(device=device) for _ in range(num_lanes)]
         self.total_tokens = total_tokens
+        self.poison_lane = torch.full((), -1, dtype=torch.long, device=device)
 
     def arm(self, lanes: List[int], temperature: float, cond_scale: float, seed: int,
             noise: Optional[torch.Tensor]) -> None:
@@ -63,6 +76,22 @@ class LaneState:
         self.use_noise[idx] = noise is not None
         if noise is not None:
             self.noise[cond].copy_(noise)
+
+    def fill_noise(self, lane: int, seed: int) -> None:
+        """Fill `lane`'s noise rows from a generator seeded with `seed`, one
+        (1, total_tokens) draw a row, as a batch-1 loop draws a token's
+        noise, and make the lane read them."""
+        gen = torch.Generator(device=self.temp.device).manual_seed(seed)
+        for row in range(self.noise.shape[1]):
+            self.noise[lane, row] = gumbel_noise((1, self.total_tokens), gen, self.noise.dtype, self.noise.device)[0]
+        self.use_noise[lane] = True
+
+    def table_rows(self, rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Every lane's noise row `rows[i]` (L, total_tokens), from the table
+        alone."""
+        table = self.noise
+        at = rows.clamp(0, table.shape[1] - 1)
+        return table[torch.arange(table.shape[0], device=table.device), at].to(dtype)
 
     def draw(self, lanes: Optional[List[int]], rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Gumbel noise (L, total_tokens) for `lanes` (all of them when
@@ -92,18 +121,28 @@ class LaneState:
         return self.temp[idx], self.cscale[idx], self.guided[idx], partner, torch.zeros_like(idx)
 
 
-def sample_lanes(model: DALLE, logits: torch.Tensor, settings, filter_thres: float,
-                 noise: torch.Tensor) -> torch.Tensor:
-    """Codes (L,) from the masked image logits (L, total_tokens) of L lanes
-    with their `LaneState.settings`: guidance across partners, top-k,
-    temperature, noise, the shift into the codebook and the feed-source
-    mirror."""
+def sample_lanes(model: DALLE, logits: torch.Tensor, settings, filter_thres: float, noise: torch.Tensor,
+                 active: Optional[torch.Tensor] = None,
+                 poison_lane: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(codes (L,), bad (L,) or None) from the masked image logits (L,
+    total_tokens) of L lanes with their `LaneState.settings`: poison
+    injection at `poison_lane`, guidance across partners, the nonfinite
+    screen of the `active` lanes (none without `active`: the admission's
+    first code), top-k, temperature, noise, the shift into the codebook and
+    the feed-source mirror."""
     cfg = model.cfg
     temp, cscale, guided, partner, feed_src = settings
+    if poison_lane is not None:
+        inject = torch.arange(logits.shape[0], device=logits.device) == poison_lane
+        logits = logits.masked_fill(inject[:, None], float("nan"))
     null = logits.index_select(0, partner)
     lg = torch.where(guided[:, None], null + (logits - null) * cscale[:, None], logits)
+    bad = None
+    if active is not None:
+        bad = ~torch.isfinite(lg).all(dim=-1) & active
+        lg = lg.masked_fill(bad[:, None], 0.0)
     filtered = top_k_filter(lg, thres=filter_thres)
     scaled = filtered / temp[:, None]
     tok = torch.argmax(scaled + noise, dim=-1)
     code = (tok - cfg.num_text_tokens_padded).clamp(0, cfg.num_image_tokens - 1)
-    return code.index_select(0, feed_src)
+    return code.index_select(0, feed_src), bad

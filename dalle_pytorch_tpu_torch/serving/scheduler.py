@@ -51,8 +51,12 @@ class Request:
     the fleet's router and journal, which are not ported; the engine does
     not act on them.  The engine stamps `phases` (queue_wait, admission,
     prefill, decode, vae_decode, evict seconds) and sets `outcome` once:
-    "completed", "shed" (refused at submit) or "deferred" (queued or in
-    flight when the engine closed or drained)."""
+    "completed", "shed" (refused at submit), "deferred" (queued or in
+    flight when the engine closed or drained) or "poisoned" (its lanes
+    produced nonfinite logits past `poison_retries` re-decodes).
+    `poison_victim` marks the target of the poison-request drill;
+    `spec_rounds` / `spec_accepted` count the speculative rounds the request
+    sat through and the codes they gave it."""
 
     id: int
     text: np.ndarray
@@ -72,6 +76,10 @@ class Request:
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
     deferrals: int = 0
     outcome: Optional[str] = None
+    poison_retries: int = 0
+    poison_victim: bool = False
+    spec_rounds: int = 0
+    spec_accepted: int = 0
     # results
     codes: Optional[np.ndarray] = None
     images: Optional[torch.Tensor] = None
@@ -83,6 +91,12 @@ class Request:
     @property
     def lanes_needed(self) -> int:
         return 2 if self.guided else 1
+
+    @property
+    def accepted_tokens_per_step(self) -> Optional[float]:
+        """Codes a speculative round gave this request on average; None
+        when it ran no round."""
+        return self.spec_accepted / self.spec_rounds if self.spec_rounds else None
 
 
 class RequestQueue:
@@ -100,6 +114,12 @@ class RequestQueue:
         if len(self._q) >= self.max_depth:
             raise AdmissionRefused(f"queue full ({self.max_depth} requests waiting)", kind="queue_overflow")
         self._q.append(req)
+
+    def requeue(self, req: Request) -> None:
+        """Put back at the head a request the engine already held (a poison
+        retry), past the depth cap: refusing an accepted request would drop
+        it."""
+        self._q.appendleft(req)
 
     def peek(self) -> Optional[Request]:
         return self._q[0] if self._q else None

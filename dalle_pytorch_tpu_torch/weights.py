@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dalle_pytorch_tpu_torch import quantization
 from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.core.module import conv_transpose_weight, conv_weight, linear_weight
 from dalle_pytorch_tpu_torch.models.clip import CLIP, CLIPConfig
@@ -40,18 +41,38 @@ _SANDWICH_NORMS = ("attn_norm_out", "ff_norm_out")
 
 
 def _t(x: Any) -> torch.Tensor:
-    if isinstance(x, dict):
-        raise NotImplementedError("quantized weights ({'qvalue', 'scale'}) are not ported yet")
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.array(x))  # a copy: jax.device_get gives read-only arrays
+    x = np.array(x)  # a copy: jax.device_get gives read-only arrays
+    if x.dtype.name == "float8_e4m3fn":  # ml_dtypes' fp8, which torch.from_numpy does not take
+        return torch.from_numpy(x.view(np.uint8)).view(quantization.FP8)
+    return torch.from_numpy(x)
+
+
+def _qvalue(x: Any) -> torch.Tensor:
+    """A quantized block's values as the port holds them: int8, or fp8 as
+    its uint8 bits."""
+    q = _t(x)
+    return q.view(torch.uint8) if q.dtype == quantization.FP8 else q
 
 
 def _linear(prefix: str, p: dict) -> StateDict:
-    out = {f"{prefix}.weight": linear_weight(_t(p["w"]))}
+    w = p["w"]
+    if isinstance(w, dict):  # {"qvalue" (in, out), "scale" (out,)}: a QuantLinear
+        out = {f"{prefix}.qvalue": _qvalue(w["qvalue"]).t().contiguous(), f"{prefix}.scale": _t(w["scale"])}
+    else:
+        out = {f"{prefix}.weight": linear_weight(_t(w))}
     if "b" in p:
         out[f"{prefix}.bias"] = _t(p["b"])
     return out
+
+
+def _table(prefix: str, p: dict) -> StateDict:
+    """An embedding table, or its per-row quantized block (a QuantEmbedding)."""
+    t = p["table"]
+    if isinstance(t, dict):
+        return {f"{prefix}.qvalue": _qvalue(t["qvalue"]), f"{prefix}.scale": _t(t["scale"])}
+    return {f"{prefix}.weight": _t(t)}
 
 
 def _norm(prefix: str, p: dict) -> StateDict:
@@ -122,14 +143,17 @@ def _transformer_state_dict(prefix: str, tp: dict, tcfg: TransformerConfig) -> S
 def dalle_state_dict(params: dict, cfg: DALLEConfig) -> StateDict:
     """The JAX package's DALL-E parameter tree (either transformer layout,
     `migrate_transformer_layout`) -> the port's `DALLE` state dict, the keys
-    of every layer included (a shared module's under each of its layers)."""
+    of every layer included (a shared module's under each of its layers).
+    A quantized tree (`quantize_tree`'s `{"qvalue", "scale"}` leaves) gives
+    the keys of `QuantLinear` / `QuantEmbedding` (`qvalue` (out, in) or (N,
+    dim), `scale`)."""
     tp = migrate_transformer_layout(params["transformer"], cfg.heads, cfg.dim_head)
     sd = _transformer_state_dict("transformer", tp, cfg.transformer_config())
     sd.update(_norm("logits_norm", params["logits_norm"]))
     sd.update(_linear("logits_linear", params["logits_linear"]))
     if not cfg.share_input_output_emb:  # tied: the tree has no embedding tables
-        sd["text_emb.weight"] = _t(params["text_emb"]["table"])
-        sd["image_emb.weight"] = _t(params["image_emb"]["table"])
+        sd.update(_table("text_emb", params["text_emb"]))
+        sd.update(_table("image_emb", params["image_emb"]))
     if not cfg.rotary_emb:  # learned positions: separate tables, tied or not
         for name in _POSITION_TABLES:
             sd[f"{name}.weight"] = _t(params[name]["table"])
@@ -287,11 +311,25 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
     return t.detach().contiguous().to("cpu")
 
 
+def _quant_leaf(q: torch.Tensor) -> torch.Tensor:
+    """A held block as the JAX package's leaf: int8, or fp8 from its bits."""
+    return _leaf(quantization._values(q))
+
+
 def _linear_tree(sd: StateDict, prefix: str) -> dict:
-    out = {"w": _leaf(sd[f"{prefix}.weight"].t())}
+    if f"{prefix}.qvalue" in sd:
+        out = {"w": {"qvalue": _quant_leaf(sd[f"{prefix}.qvalue"].t()), "scale": _leaf(sd[f"{prefix}.scale"])}}
+    else:
+        out = {"w": _leaf(sd[f"{prefix}.weight"].t())}
     if f"{prefix}.bias" in sd:
         out["b"] = _leaf(sd[f"{prefix}.bias"])
     return out
+
+
+def _table_tree(sd: StateDict, prefix: str) -> dict:
+    if f"{prefix}.qvalue" in sd:
+        return {"table": {"qvalue": _quant_leaf(sd[f"{prefix}.qvalue"]), "scale": _leaf(sd[f"{prefix}.scale"])}}
+    return {"table": _leaf(sd[f"{prefix}.weight"])}
 
 
 def _norm_tree(sd: StateDict, prefix: str) -> dict:
@@ -342,8 +380,8 @@ def dalle_tree(sd: StateDict, cfg: DALLEConfig) -> dict:
         "logits_linear": _linear_tree(sd, "logits_linear"),
     }
     if not cfg.share_input_output_emb:
-        tree["text_emb"] = {"table": _leaf(sd["text_emb.weight"])}
-        tree["image_emb"] = {"table": _leaf(sd["image_emb.weight"])}
+        tree["text_emb"] = _table_tree(sd, "text_emb")
+        tree["image_emb"] = _table_tree(sd, "image_emb")
     if not cfg.rotary_emb:
         for name in _POSITION_TABLES:
             tree[name] = {"table": _leaf(sd[f"{name}.weight"])}
@@ -414,10 +452,15 @@ def openai_vae_tree(sd: StateDict) -> dict:
 
 def _load(build, sd: StateDict, device) -> torch.nn.Module:
     """`build()` constructed on `device` (its own random init there is cheap
-    and is overwritten), holding `sd` in the state dict's dtype."""
+    and is overwritten), holding `sd` in the state dict's dtype; where `sd`
+    holds quantized blocks, the module's layers are quantized first (fp8
+    where the blocks are uint8 bits), so that it takes them."""
     dtype = next(iter(sd.values())).dtype
     with torch.device(device):
         module = build()
+    blocks = [v for k, v in sd.items() if k.endswith(".qvalue")]
+    if blocks:
+        quantization.quantize_tree(module, "fp8" if blocks[0].dtype == torch.uint8 else "int8")
     module.load_state_dict(sd, strict=True)
     return module.to(dtype=dtype).eval().requires_grad_(False)
 

@@ -207,15 +207,27 @@ def test_cli_gentxt_names_the_directory_after_the_completion(checkpoint, tmp_pat
     assert paths == [out / text.replace(" ", "_")[:100] / "0.png"] and paths[0].exists()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--spec_k", "2"], "Queue 1 item 6"), (["--spec_k", "2", "--engine"], "Queue 1 item 6"),
-    (["--spec_draft_layers", "1"], "Queue 1 item 6"), (["--spec_draft_layers", "1", "--engine"], "Queue 1 item 6"),
-    (["--spec_k", "4", "--engine", "--engine_slots", "8"], "Queue 1 item 6"),
+@pytest.mark.parametrize("flags", [
+    ["--spec_k", "2"], ["--spec_k", "2", "--engine"], ["--spec_k", "3", "--spec_draft_layers", "1"],
+    ["--spec_k", "3", "--spec_draft_layers", "1", "--engine"], ["--spec_k", "1", "--engine", "--engine_slots", "8"],
 ])
-def test_refused_flags_exit_with_their_roadmap_item(checkpoint, flags, item):
+def test_spec_flags_give_the_images_of_the_run_without_them(checkpoint, tmp_path, flags):
+    """`--spec_k` through `generate_images` and through `--engine`: the PNGs
+    of the same run without it (speculation keeps every code)."""
     path, _, _ = checkpoint
-    with pytest.raises(SystemExit, match=f"--{flags[0][2:]}: .*{item}"):
-        cli.main(["--dalle_path", str(path), "--text", "a", "--device", "cpu", *flags])
+    run = ["--dalle_path", str(path), "--text", "a cat|a dog", "--num_images", "2", "--batch_size", "2",
+           "--cond_scale", "2.0", "--seed", "4", "--engine_block_size", "8", "--device", "cpu"]
+    engine = ["--engine"] if "--engine" in flags else []
+    timings = {}
+    spec = cli.main(run + flags + ["--outputs_dir", str(tmp_path / "spec")], timings=timings)
+    plain = cli.main(run + engine + ["--outputs_dir", str(tmp_path / "plain")])
+    assert [p.relative_to(tmp_path / "spec") for p in spec] == [p.relative_to(tmp_path / "plain") for p in plain]
+    for a, b in zip(spec, plain):
+        np.testing.assert_array_equal(png.read_png(a), png.read_png(b))
+    if not engine:
+        assert 2 <= timings["spec_rounds"] < 2 * 15  # two chunks of 16 codes, more than one a round
+    with pytest.raises(ValueError, match="too large for image_fmap_size"):
+        cli.main(run + engine + ["--spec_k", "4", "--outputs_dir", str(tmp_path / "refused")])
 
 
 TAMING = dict(ch=8, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,), resolution=16, z_channels=8,

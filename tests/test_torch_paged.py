@@ -121,15 +121,23 @@ def test_paged_decode_step_matches_jax(name):
 
 
 def test_paged_decode_step_refuses_a_layer_range():
-    _, _, model = _load("full")
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        paged.paged_decode_step(model.transformer, torch.zeros(1, 1, 64), {}, torch.zeros(1, 6).long(),
+    """An empty or out-of-range layer range, and a partial one under
+    reversible execution (the JAX `_resolve_layer_range`'s refusals); short
+    block tables; a KV dtype other than int8."""
+    params, _, model = _load("full")
+    for start, stop in ((1, 1), (0, 3), (2, None)):
+        with pytest.raises(ValueError, match="invalid for depth"):
+            paged.paged_decode_step(model.transformer, torch.zeros(1, 1, 64), {}, torch.zeros(1, 6).long(),
+                                    torch.zeros(1).long(), None, BLOCK, layer_start=start, layer_stop=stop)
+    rev = weights.load_dalle(params, tdalle.DALLEConfig(**dict(FULL, reversible=True)), device="cpu")
+    with pytest.raises(ValueError, match="require sequential execution"):
+        paged.paged_decode_step(rev.transformer, torch.zeros(1, 1, 64), {}, torch.zeros(1, 6).long(),
                                 torch.zeros(1).long(), None, BLOCK, layer_stop=1)
     with pytest.raises(ValueError, match="cover a full sequence"):
         paged.paged_decode_step(model.transformer, torch.zeros(1, 1, 64), {}, torch.zeros(1, 2).long(),
                                 torch.zeros(1).long(), None, BLOCK)
-    with pytest.raises(NotImplementedError, match="quantized KV pool"):
-        paged.init_paged_pool(model.transformer.cfg, 4, BLOCK, quantize="int8")
+    with pytest.raises(ValueError, match="kv quant must be one of"):
+        paged.init_paged_pool(model.transformer.cfg, 4, BLOCK, quantize="fp8")
 
 
 @pytest.mark.parametrize("n_pre,block_size", [(7, 4), (8, 4), (7, 3)])

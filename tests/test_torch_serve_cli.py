@@ -113,14 +113,39 @@ def test_generate_engine_seeds_each_image(ckpt, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--replicas", "2"], "item 6"), (["--disaggregate"], "item 6"), (["--journal", "j"], "item 6"),
-    (["--degrade"], "item 6"), (["--quantize_weights", "int8"], "item 6"), (["--quantize_kv", "int8"], "item 6"),
-    (["--spec_k", "2"], "item 6"), (["--spec_draft_layers", "1"], "item 6"), (["--telemetry", "t"], "item 8"),
-    (["--slo_ttft_p99", "1"], "item 6"), (["--status_json", "s"], "item 6"), (["--inject_fault", "flood@3"], "item 6"),
-    (["--no_pool_recorder"], "item 6"), (["--deadline_s", "5"], "item 6"), (["--retries", "3"], "item 6"),
+    (["--degrade"], "item 6"), (["--hedge_frac", "0.1"], "item 6"), (["--stall_wedge_s", "2"], "item 6"),
+    (["--pool_recorder_capacity", "8"], "item 6"), (["--slo_latency_p99", "1"], "item 6"),
+    (["--telemetry", "t"], "item 8"), (["--slo_ttft_p99", "1"], "item 6"), (["--status_json", "s"], "item 6"),
+    (["--inject_fault", "kill-replica@3"], "item 6"), (["--no_pool_recorder"], "item 6"),
+    (["--deadline_s", "5"], "item 6"), (["--retries", "3"], "item 6"),
 ])
 def test_serve_refuses_what_is_not_ported(flags, item):
     with pytest.raises(SystemExit, match=f"--{flags[0][2:]}: .*ROADMAP.md Queue 1 {item}"):
         serve.main(["--synthetic", "--loadgen", "1", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--quantize_weights", "int8"], ["--quantize_weights", "fp8", "--quantize_kv", "int8"],
+    ["--quantize_kv", "int8", "--spec_k", "2"], ["--spec_k", "3", "--spec_draft_layers", "1"],
+    ["--inject_fault", "flood@3:2"],
+])
+def test_serve_runs_the_serving_levers(flags, capsys):
+    """Quantized weights (with the at-rest reduction printed), the int8
+    pool, speculative rounds and the flood drill: every request served,
+    the report naming what ran."""
+    report = serve.main(["--synthetic", "--dim", "32", "--depth", "2", "--image_fmap_size", "4", "--loadgen", "3",
+                         "--rate", "50", "--slots", "4", "--block_size", "8", "--device", "cpu", *flags])
+    q = report["quantization"]
+    assert report["requests_completed"] == 3 + report["flood_injected"] and report["quarantined"] == 0
+    if "--quantize_weights" in flags:
+        kind = flags[flags.index("--quantize_weights") + 1]
+        assert q["weight_dtype"] == kind and f"weights quantized to {kind}" in capsys.readouterr().out
+    assert q["kv_dtype"] == ("int8" if "--quantize_kv" in flags else "float32")
+    if "--spec_k" in flags:
+        spec = report["spec"]
+        assert spec["rounds"] == report["decode_steps"] and 1.0 <= spec["accepted_tokens_per_round"]
+    else:
+        assert "spec" not in report
 
 
 TAMING_YAML = """model:

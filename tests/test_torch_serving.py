@@ -236,10 +236,17 @@ def test_memory_pressure_holds_admissions_while_work_is_in_flight(model, inputs)
 
 
 def test_engine_config_refuses_what_is_not_ported(model):
-    for kw, what in ((dict(quantize_kv="int8"), "quantized KV"), (dict(spec_k=2), "speculative"),
-                     (dict(spec_draft_layers=1), "speculative")):
-        with pytest.raises(NotImplementedError, match=what):
+    """What the engine cannot run: a KV dtype other than int8, a negative
+    spec_k, a drafter depth without speculation, speculation the model
+    refuses (`validate_spec`)."""
+    for kw, what in ((dict(quantize_kv="fp8"), "kv quant must be one of"), (dict(spec_k=-1), "spec_k must be"),
+                     (dict(spec_draft_layers=1), "spec_draft_layers needs speculation")):
+        with pytest.raises(ValueError, match=what):
             EngineConfig(**kw)
+    for kw, what in ((dict(spec_k=4), "too large for image_fmap_size"), (dict(spec_k=2, spec_draft_layers=2),
+                                                                          "1 <= d < depth")):
+        with pytest.raises(ValueError, match=what):
+            _engine(model, **kw)
     with pytest.raises(ValueError, match="graphs=True needs the model on a CUDA device"):
         GenerationEngine(model, graphs=True)
     with pytest.raises(ValueError, match="noise_override=True"):

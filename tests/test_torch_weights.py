@@ -161,8 +161,27 @@ def test_older_formats_are_refused(tmp_path, fmt):
         tckpt.load_checkpoint(str(path))
 
 
-def test_quantized_weights_are_refused():
+def test_quantized_tree_maps_to_quant_modules_keys(jax_trees):
+    """A quantized tree's `{"qvalue", "scale"}` leaves become the state dict
+    of `QuantLinear` / `QuantEmbedding` (values transposed to (out, in),
+    fp8 as its uint8 bits), and `dalle_tree` gives the tree back."""
+    import jax
+    import jax.numpy as jnp
+    from dalle_pytorch_tpu import quantization as jq
     from dalle_pytorch_tpu_torch import weights
+    from dalle_pytorch_tpu_torch.models import dalle as tdalle
 
-    with pytest.raises(NotImplementedError, match="quantized"):
-        weights._t({"qvalue": np.zeros(2, np.int8), "scale": np.ones(1, np.float32)})
+    params, jcfg, _, _ = jax_trees
+    for kind in ("int8", "fp8"):
+        quant = jq.quantize_tree(jax.tree_util.tree_map(jnp.asarray, params), kind)
+        sd = weights.dalle_state_dict(quant, tdalle.DALLEConfig(**SMALL))
+        w = np.asarray(quant["logits_linear"]["w"]["qvalue"])
+        q = sd["logits_linear.qvalue"]
+        assert q.dtype == (torch.int8 if kind == "int8" else torch.uint8) and "logits_linear.weight" not in sd
+        np.testing.assert_array_equal(q.t().numpy(), w if kind == "int8" else w.view(np.uint8))
+        assert sd["text_emb.scale"].shape == (jcfg.num_text_tokens_padded, 1)
+        back = weights.dalle_tree(sd, tdalle.DALLEConfig(**SMALL))
+        got = back["logits_linear"]["w"]["qvalue"]  # torch leaves: fp8 as torch's own dtype
+        assert got.dtype == (torch.int8 if kind == "int8" else torch.float8_e4m3fn)
+        np.testing.assert_array_equal(got.view(torch.uint8 if kind == "fp8" else torch.int8).numpy(),
+                                      w if kind == "int8" else w.view(np.uint8))
