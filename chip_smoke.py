@@ -101,19 +101,35 @@ flagship must return its graphs' memory.
 
 The continuous-batching serving engine (`serving/engine.py`, its paged
 decode step captured in one CUDA graph per engine): `engine_parity` on the
-12-layer and pattern models at full width, f32, six requests on four lanes
+pattern model at full width, f32, six requests on four lanes
 (two guided, one at temperature 0.7) with staggered submits, holds each
 request's codes equal to its batch-1 `sample_image_codes` under its
-generator seed, replayed, and on the 12-layer model the first codes of
-two requests run eagerly under their noise, and one seeded request alone in
+generator seed, replayed, the first codes of two requests run eagerly
+under their noise, and one seeded request alone in
 lane 0 equal to its run beside the others;
 `engine_flagship` serves the flagship on eight lanes (two requests held to
 their batch-1 codes under noise, the paged step's times replayed and
-eager, a profiled window, a Poisson load of 6 requests over 2 streams
-through `tools/loadgen.py` offered at twice the engine's capacity);
+eager, a profiled window);
 `serve_cli` runs `cli.serve --synthetic
---loadgen 8` and `cli.generate --engine` against `cli.generate` under one
+--loadgen 8`, the same with the fleet's flags, and `cli.generate --engine`
+against `cli.generate` under one
 seed.  Each admission's prefill must launch its layer cycle's kernels.
+
+The serving fleet (`serving/fleet.py`): `fleet_durability` serves the
+12-layer model through two replicas: a child process journals six
+requests and SIGKILLs itself, a fresh fleet replays the journal to every
+request's batch-1 codes under its seed (the replicas' seeded replayed
+engines, two guided requests, one at temperature 0.7) with no duplicate
+acknowledgement, an unmeetable TTFT target fires one SLO alarm, a stalled
+replica's breaker opens and recovers while its deadline request is hedged
+once, and a flood climbs the degrade ladder to cap_candidates, where the
+capped requests give the batch-1 codes of `degraded_filter_thres` and no
+speculative round runs; `fleet_flagship` serves the flagship through two
+replicas with prefill handed off by the prefill worker (one admission's
+launches, the handoff's bytes against its comms row, each replica's
+step), and a Poisson load of six requests through `tools/loadgen.py` with
+one replica lost mid-decode: every request completes, its first 34 codes
+equal to its batch-1 loop's under its noise.
 
 The serving levers: `quant_spec_parity` (a small flagship-like model
 quantized, card against CPU: the serving path's logits under int8 and fp8
@@ -138,6 +154,7 @@ and matmul precision "highest", so float32 means float32 on both sides.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -2638,24 +2655,23 @@ def engine_window(engine, steps):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=6):
+def phase_engine_flagship(fa, sampling, dalle):
     """The flagship served by the engine at full width, f32, eight lanes:
     two requests, one guided, hold property (a) over their first codes
     (`engine_prefix_parity`: drained after 32 polls, against batch-1
     loops of as many codes under their noise); then the paged step's time,
     replayed and eager, with all
     eight lanes decoding, and a profiled window of replays (device ms, busy
-    share); then a Poisson load of `n_requests` over `streams` streams
-    (`tools/loadgen.py`) offered at twice the engine's capacity (lanes /
-    (image_seq_len x the replayed step))."""
+    share).  The flagship's Poisson load runs through the fleet
+    (`fleet_flagship`)."""
     from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
     from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 
-    m, vae, cfg = dalle.module, dalle.vae.module, dalle.cfg
+    m, cfg = dalle.module, dalle.cfg
     lanes = 8
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine = GenerationEngine(m, vae, EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES,
+    engine = GenerationEngine(m, None, EngineConfig(num_slots=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES,
                                                    noise_override=True))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -2687,31 +2703,20 @@ def phase_engine_flagship(fa, sampling, loadgen, dalle, streams=2, n_requests=6)
     eager_engine.drain()
     del eager_engine
 
-    # offered at twice the engine's capacity: the lanes stay full and the
-    # queue, not the arrivals, sets TTFT
-    capacity = lanes / (cfg.image_seq_len * replayed_ms / 1e3)
-    rate = 2 * capacity / streams
-    reset_launches(fa)
-    report = loadgen.PoissonLoadGen(n_requests, rate, streams=streams, seed=0).run(
-        engine, loadgen.synthetic_request_maker(cfg, seed=0))
-    load_launches = read_launches(fa)
-    check(report["requests_completed"] == n_requests and report["requests_refused"] == 0,
-          f"flagship loadgen: {report}")
-
     emit("engine_flagship", lanes=lanes, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES,
          pool_blocks=engine.pool.num_blocks, blocks_per_seq=engine.pool.blocks_per_seq,
          pool_gib=engine.pool.bytes() / 2 ** 30, pool_block_mib=engine.pool.bytes() / (engine.pool.num_blocks + 1) / 2 ** 20,
          noise_buffer_gib=engine.lanes.noise.numel() * 4 / 2 ** 30, build_and_capture_s=build_s,
          noise_codes_equal_batch1=dict(codes_compared=parity_codes), step_ms_replayed=replayed_ms,
          step_ms_eager=eager_ms,
-         profile=window, capacity_images_per_s=capacity, loadgen_rate_per_stream=rate, loadgen_streams=streams,
-         loadgen=report, loadgen_launches=load_launches, window_fill_launches=dict(
+         profile=window, capacity_images_per_s=lanes / (cfg.image_seq_len * replayed_ms / 1e3),
+         window_fill_launches=dict(
              replayed=fill_launches, eager=eager_fill_launches),
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     READINGS["engine_flagship"] = dict(step_ms_replayed=replayed_ms, step_ms_eager=eager_ms,
                                        kernels_per_step=window["kernels_per_step"],
                                        pool_bytes=engine.pool.bytes(), pool_blocks=engine.pool.num_blocks)
-    runs = (launches, fill_launches, eager_fill_launches, load_launches)
+    runs = (launches, fill_launches, eager_fill_launches)
     return {k: sum(run[k] for run in runs) for k in COUNTERS}
 
 
@@ -3096,9 +3101,402 @@ def phase_generate_spec(fa, sampling, dalle):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serving fleet: replicas behind the router, disaggregated prefill, the
+# journal, the breaker and the hedge, the degrade ladder, the SLO monitor
+# ---------------------------------------------------------------------------
+
+FLEET_LANES = 4  # lanes a replica
+FLEET_KILL_AT = 36  # fleet_flagship's loss: the fleet iteration, 34-code prefixes made before it
+FLEET_PREFIX = 34
+CRASH_AT = 24  # fleet_durability's kill-fleet: the child's fleet iteration
+
+# the child of fleet_durability's crash drill: the 12-layer model served by a
+# journaled fleet that SIGKILLs itself at fleet iteration CRASH_AT
+CRASH_CHILD = r"""
+import sys
+root, journal_dir, texts = sys.argv[1], sys.argv[2], sys.argv[3]
+sys.path.insert(0, root)
+import numpy as np
+import chip_smoke as cs
+import dalle_pytorch_tpu_torch as port
+from dalle_pytorch_tpu_torch.serving.engine import EngineConfig
+from dalle_pytorch_tpu_torch.serving.fleet import FleetConfig, ServingFleet
+from dalle_pytorch_tpu_torch.serving.journal import RequestJournal
+from dalle_pytorch_tpu_torch.training import resilience
+
+dalle = port.DALLE(vae=port.DiscreteVAE(seed=0, **cs.FULL_VAE), seed=1, **cs.FULL)
+fleet = ServingFleet(dalle.module, fleet_cfg=FleetConfig(replicas=2, engine=EngineConfig(
+    num_slots=cs.FLEET_LANES, block_size=cs.ENGINE_BLOCK, filter_thres=cs.ENGINE_THRES)))
+fleet.attach_journal(RequestJournal(journal_dir))
+resilience.FaultInjector(resilience.parse_fault(f"kill-fleet@{cs.CRASH_AT}")).install()
+texts = np.load(texts)
+for i in range(len(cs.ENGINE_COND)):
+    fleet.submit(texts[i], seed=cs.FLEET_SEEDS[i], temperature=cs.ENGINE_TEMP[i], cond_scale=cs.ENGINE_COND[i])
+print("journaled", len(texts), flush=True)
+while fleet.busy:
+    fleet.poll()
+print("the fleet outlived its kill-fleet fault", flush=True)
+"""
+FLEET_SEEDS = tuple(7100 + i for i in range(6))
+
+
+class CompletionTap:
+    """A fleet as the loadgen drives it, keeping every completion."""
+
+    def __init__(self, fleet):
+        self.fleet, self.done = fleet, []
+
+    @property
+    def busy(self):
+        return self.fleet.busy
+
+    def submit(self, **kw):
+        return self.fleet.submit(**kw)
+
+    def poll(self):
+        out = self.fleet.poll()
+        self.done.extend(out)
+        return out
+
+
+def noise_prefix_refs(sampling, model, texts, noise, n):
+    """Batch-1 image loops of `n` codes under each request's noise, with the
+    ENGINE_COND / ENGINE_TEMP settings (replayed from the model's graphs)."""
+    mode = sampling.Mode(noise=True, stats=False)
+    refs = []
+    for i in range(noise.shape[0]):
+        loop, run = sampling.image_loop(model, 1, ENGINE_COND[i], 0, ENGINE_THRES, mode)
+        _, logits = sampling._prefill_phase(model, texts[i:i + 1], None, 0, ENGINE_COND[i], loop.cache)
+        ref, _ = run(model, logits, n, None, ENGINE_TEMP[i], noise[i][:, None], mode)
+        refs.append(ref[0].cpu().numpy())
+    return refs
+
+
+def handoff_bytes(handoff):
+    """(KV bytes, ring bytes) of a handoff's tensors."""
+    kv = sum(layer[name].nbytes for layer in handoff["layers"] for name in ("k", "v", "k_scale", "v_scale")
+             if name in layer)
+    ring = sum(layer[name].nbytes for layer in handoff["layers"] for name in ("shift_attn", "shift_ff")
+               if name in layer)
+    return kv, ring
+
+
+def phase_fleet_flagship(fa, sampling, loadgen, dalle):
+    """The flagship served by a fleet (`serving/fleet.py`) of 2 replicas x 4
+    lanes, f32, with disaggregated prefill: each replica's replayed step
+    with its lanes full; one guided admission handed off by the prefill
+    worker, its flash launches (the flagship's layer cycle: 64, 48 masked)
+    and its handoff's bytes from the tensors against `prefill_handoff_row`;
+    then six requests (two guided, one at temperature 0.7) under injected
+    noise through `tools/loadgen.py`, with `kill-replica@N:0` at a fixed
+    fleet iteration: replica 0's requests requeue on replica 1 and every
+    request completes; each one's first 34 codes equal its batch-1 loop's
+    under its noise; images/s and journey TTFT over the six."""
+    from dalle_pytorch_tpu_torch.observability import metrics as obs_metrics
+    from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig
+    from dalle_pytorch_tpu_torch.serving.fleet import FleetConfig, ServingFleet
+    from dalle_pytorch_tpu_torch.training import resilience
+
+    m, cfg = dalle.module, dalle.cfg
+    n = len(ENGINE_COND)
+    want, _ = forward_launches(m, cfg.text_seq_len + 1)
+    ecfg = EngineConfig(num_slots=FLEET_LANES, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES,
+                        noise_override=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = ServingFleet(m, dalle.vae.module, fleet_cfg=FleetConfig(replicas=2, disaggregate=True, engine=ecfg))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(all(e.graph is not None for e in fleet.engines), "a replica captured no graph on the card")
+    texts = engine_texts(cfg, 8, 71)
+
+    # each replica's replayed step with its lanes full, polled alone
+    reset_launches(fa)
+    step_ms = []
+    for eng in fleet.engines:
+        for i in range(FLEET_LANES):
+            eng.submit(texts[i].cpu().numpy(), seed=i)
+        eng.poll()
+        step_ms.append(engine_window(eng, 16))
+        eng.drain()
+    fill_launches = read_launches(fa)
+    check(fill_launches == {k: 2 * FLEET_LANES * v for k, v in want.items()},
+          f"{2 * FLEET_LANES} handed-off admissions launched {fill_launches}")
+
+    # one guided admission through the prefill worker
+    worker = fleet.prefill_worker
+    reset_launches(fa)
+    guided = fleet.submit(texts[1].cpu().numpy(), seed=9, cond_scale=3.0)
+    fleet.poll()
+    one_launches = read_launches(fa)
+    check(guided.codes_done == 2 and one_launches == want,
+          f"one handed-off admission launched {one_launches}; the layer cycle gives {want}")
+    kv, ring = handoff_bytes(worker.last_handoff)
+    row, lane_row = worker.last_handoff["comms_row"], worker.handoff_row(1)
+    n_pre = cfg.text_seq_len + 1
+    check(row == worker.handoff_row(2) and (kv, ring) == (row["payload_bytes"], row["ring_bytes"])
+          and lane_row["payload_bytes"] == 2 * cfg.depth * cfg.heads * n_pre * cfg.dim_head * 4,
+          f"handoff tensors {kv} + {ring} B against the row {row}")
+    fleet.engines[guided.replica].drain()
+
+    # six requests under noise through the loadgen, replica 0 lost mid-decode
+    noise = gumbel_noise((n, cfg.image_seq_len, cfg.total_tokens), torch.Generator(device="cuda").manual_seed(72),
+                         device="cuda")
+    tap = CompletionTap(fleet)
+    requeued0 = obs_metrics.counter("router/requeued").value
+    admitted0 = obs_metrics.counter("serving/admitted").value
+    kill_at = fleet._iter + FLEET_KILL_AT
+    inj = resilience.FaultInjector(resilience.parse_fault(f"kill-replica@{kill_at}:0")).install()
+    reset_launches(fa)
+    try:
+        report = loadgen.PoissonLoadGen(n, 1000.0, streams=2, seed=0).run(tap, lambda i: dict(
+            text=texts[i].cpu().numpy(), noise=noise[i], temperature=ENGINE_TEMP[i], cond_scale=ENGINE_COND[i]))
+    finally:
+        inj.uninstall()
+    load_launches = read_launches(fa)
+    requeued = int(obs_metrics.counter("router/requeued").value - requeued0)
+    lost = [a for a in fleet.router.alarms if a["type"] == "replica_lost"]
+    check(len(lost) == 1 and lost[0]["replica"] == 0 and requeued == lost[0]["requeued"] > 0,
+          f"the loss drill: alarms {fleet.router.alarms}, requeued {requeued}")
+    check(fleet.engines[0].kv is None and [r.id for r in fleet.router.alive()] == [1],
+          "the lost replica kept its pool or stays alive")
+    admitted = int(obs_metrics.counter("serving/admitted").value - admitted0)
+    check(admitted >= n and load_launches == {k: admitted * v for k, v in want.items()},
+          f"{admitted} admissions ({n} requests, {requeued} requeued) launched {load_launches}")
+    journeys = {}
+    for r in tap.done:
+        check(r.trace_uid not in journeys, f"journey {r.trace_uid} completed twice")
+        journeys[r.trace_uid] = r
+    check(len(journeys) == n and report["journeys_completed"] == n and report["requests_refused"] == 0,
+          f"the six journeys: {report}")
+    refs = noise_prefix_refs(sampling, m, texts, noise, FLEET_PREFIX)
+    hops = {}
+    for i in range(n):
+        uid = next(u for u, r in journeys.items() if np.array_equal(r.text, texts[i].cpu().numpy())
+                   and r.cond_scale == ENGINE_COND[i])
+        got = journeys[uid]
+        hops[i] = got.replica
+        check(len(got.codes) == cfg.image_seq_len and np.array_equal(got.codes[:FLEET_PREFIX], refs[i]),
+              f"request {i} (served by replica {got.replica}): its first {FLEET_PREFIX} codes differ from its "
+              "batch-1 loop's under its noise")
+    emit("fleet_flagship", replicas=2, lanes_per_replica=FLEET_LANES, disaggregate=True,
+         build_and_capture_s=build_s, step_ms_replayed_by_replica=step_ms,
+         step_ms_single_engine_8_lanes=READINGS.get("engine_flagship", {}).get("step_ms_replayed"),
+         one_admission_launches=one_launches,
+         handoff=dict(guided_row=row, lane_row=lane_row, tensor_bytes=kv + ring, kv_bytes=kv, ring_bytes=ring),
+         kill_at_fleet_iteration=kill_at, requeued=requeued, admissions=admitted, served_by=hops,
+         codes_equal_batch1=dict(requests=n, codes_compared=FLEET_PREFIX, whole_images=True),
+         loadgen=report, images_per_s=report["images_per_sec_per_chip"], ttft_p50_s=report["ttft_p50_s"],
+         ttft_p99_s=report["ttft_p99_s"], handoff_bytes_total=obs_metrics.counter("serving/handoff_bytes").value,
+         launches=dict(fill=fill_launches, one=one_launches, load=load_launches),
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    runs = (fill_launches, one_launches, load_launches)
+    del fleet, tap
+    return {k: sum(run[k] for run in runs) for k in COUNTERS}
+
+
+def seeded_prefix(sampling, model, text_row, seed, i, filter_thres=ENGINE_THRES, cond_scale=None):
+    """The first FLEET_PREFIX codes of a batch-1 image loop whose generator
+    has `seed`, at request i's ENGINE_TEMP and cond_scale (ENGINE_COND[i]
+    unless given; replayed from the model's graphs)."""
+    cond = ENGINE_COND[i] if cond_scale is None else cond_scale
+    mode = sampling.Mode(noise=False, stats=False)
+    loop, run = sampling.image_loop(model, 1, cond, 0, filter_thres, mode)
+    _, logits = sampling._prefill_phase(model, text_row[None], None, 0, cond, loop.cache)
+    codes, _ = run(model, logits, FLEET_PREFIX, torch.Generator(device="cuda").manual_seed(seed), ENGINE_TEMP[i],
+                   None, mode)
+    return codes[0].cpu().numpy()
+
+
+def whole_with_prefix(codes, ref, n_gen) -> bool:
+    """A request's codes: a whole image whose first codes are `ref`."""
+    return codes is not None and len(codes) == n_gen and np.array_equal(codes[:len(ref)], ref)
+
+
+def phase_fleet_durability(fa, sampling, dalle):
+    """The 12-layer model (configs[2]) at full width behind a fleet of 2
+    replicas x 4 lanes, f32, prefill fused.  Journal replay: a child
+    process serves six journaled requests (two guided, one at temperature
+    0.7) and SIGKILLs itself (`kill-fleet@N`); a fresh fleet replays the
+    journal: every unacknowledged request completes, its first 34 codes
+    those of its batch-1 loop under its seed, with no duplicate
+    acknowledgement; an unmeetable TTFT
+    target on that fleet fires one `slo_burn_rate` alarm and its status
+    file parses.  Stall: `stall-replica@N:1` opens replica 1's breaker once
+    and it recovers; its deadline request is hedged once on replica 0, and
+    the pair's second completion is suppressed.  Degrade: speculative
+    replicas (k 4) under a flood climb the ladder to cap_candidates (rung
+    2): the requests admitted there give the batch-1 loops' codes at
+    `degraded_filter_thres` under their seeds (34), from the replayed
+    sequential graph, and no speculative round runs at that rung."""
+    from dalle_pytorch_tpu_torch.observability import metrics as obs_metrics
+    from dalle_pytorch_tpu_torch.observability.slo import SloMonitor, SloTargets
+    from dalle_pytorch_tpu_torch.serving.degrade import DegradeConfig, DegradeLadder
+    from dalle_pytorch_tpu_torch.serving.engine import EngineConfig
+    from dalle_pytorch_tpu_torch.serving.fleet import FleetConfig, ServingFleet
+    from dalle_pytorch_tpu_torch.serving.journal import RequestJournal
+    from dalle_pytorch_tpu_torch.training import resilience
+
+    m, cfg = dalle.module, dalle.cfg
+    n = len(ENGINE_COND)
+    want, _ = forward_launches(m, cfg.text_seq_len + 1)
+    texts = engine_texts(cfg, n, 81)
+    ecfg = EngineConfig(num_slots=FLEET_LANES, block_size=ENGINE_BLOCK, filter_thres=ENGINE_THRES, telemetry_every=8)
+    counter = lambda name: obs_metrics.counter(name).value  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "texts.npy", texts.cpu().numpy())
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", CRASH_CHILD, str(ROOT), str(tmp / "journal"),
+                                str(tmp / "texts.npy")], capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == -9 and "kill-fleet" in child.stdout,
+              f"the crash child exited {child.returncode}: {child.stdout[-800:]} {child.stderr[-1500:]}")
+        journal = RequestJournal(str(tmp / "journal"))
+        before = journal.stats()
+        check(before == {"accepted": n, "acked": 0, "unacknowledged": n}, f"the journal after the crash: {before}")
+
+        fleet = ServingFleet(m, fleet_cfg=FleetConfig(replicas=2, engine=ecfg, stall_wedge_s=2.0, stall_after_s=0.2,
+                                                      probe_after_s=0.2, hedge_frac=0.1))
+        alarms = []
+        fleet.attach_journal(journal)
+        fleet.attach_slo(SloMonitor(SloTargets(ttft_p99_s=1e-6), on_alarm=alarms.append),
+                         status_path=str(tmp / "status.json"))
+        dup0 = counter("journal/duplicate_acks")
+        reset_launches(fa)
+        t0 = time.perf_counter()
+        payloads = journal.replay()
+        replayed = [fleet.submit_when_able(p["text"], seed=p["seed"], temperature=p["temperature"],
+                                           cond_scale=p["cond_scale"], replayed=True) for p in payloads]
+        fleet.run_until_idle()
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        replay_launches = read_launches(fa)
+        check(replay_launches == {k: n * v for k, v in want.items()}, f"{n} replayed admissions: {replay_launches}")
+        after = journal.stats()
+        dup = counter("journal/duplicate_acks") - dup0
+        check(after == {"accepted": n, "acked": n, "unacknowledged": 0} and dup == 0,
+              f"the journal after the replay: {after}, {dup} duplicate acks")
+        refs = [seeded_prefix(sampling, m, texts[i], FLEET_SEEDS[i], i) for i in range(n)]
+        for i, req in enumerate(replayed):
+            check(req.outcome == "completed" and req.replayed
+                  and whole_with_prefix(req.codes, refs[i], cfg.image_seq_len),
+                  f"replayed request {i} (replica {req.replica}): its codes differ from its batch-1 loop's")
+        fleet.close()
+        check([a["type"] for a in alarms] == ["slo_burn_rate"] and alarms[0]["slo"] == "ttft_p99",
+              f"the unmeetable TTFT target's alarms: {alarms}")
+        status = json.loads((tmp / "status.json").read_text())
+        check(status["active_alarms"] == ["ttft_p99"] and status["live"]["completed"] >= n,
+              f"status.json: {status}")
+        fleet.attach_slo(None)  # its status file goes with the directory
+        journal.close()
+
+    # each replica's replayed step with its lanes full (seeded), polled alone
+    fleet.attach_journal(None)
+    reset_launches(fa)
+    step_ms = []
+    for eng in fleet.engines:
+        for i in range(FLEET_LANES):
+            eng.submit(texts[i].cpu().numpy(), seed=900 + i)
+        eng.poll()
+        step_ms.append(engine_window(eng, 32))
+        eng.drain()
+    fill_launches = read_launches(fa)
+    check(fill_launches == {k: 2 * FLEET_LANES * v for k, v in want.items()}, f"the fills launched {fill_launches}")
+
+    # the stall drill on the same fleet, without the journal
+    base = {k: counter(f"router/{k}") for k in ("breaker_open", "breaker_closed", "hedged", "hedge_duplicates")}
+    inj = resilience.FaultInjector(resilience.parse_fault(f"stall-replica@{fleet._iter + 3}:1")).install()
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    try:
+        stalled = [fleet.submit(texts[i].cpu().numpy(), seed=FLEET_SEEDS[i], temperature=ENGINE_TEMP[i],
+                                cond_scale=ENGINE_COND[i], deadline_s=4.0) for i in (0, 2)]
+        done = fleet.run_until_idle()
+    finally:
+        inj.uninstall()
+    stall_s = time.perf_counter() - t0
+    stall_launches = read_launches(fa)
+    moved = {k: counter(f"router/{k}") - v for k, v in base.items()}
+    check(sorted(r.replica for r in stalled) == [0, 1], f"the stall drill's placements: {[r.replica for r in stalled]}")
+    check(moved["breaker_open"] == 1 and moved["breaker_closed"] >= 1 and moved["hedged"] == 1
+          and moved["hedge_duplicates"] == 1, f"the stall drill: {moved}")
+    check(sorted(r.trace_uid for r in done) == sorted(r.trace_uid for r in stalled),
+          "the stall drill delivered a request twice or lost one")
+    for r in done:
+        i = 0 if r.trace_uid == stalled[0].trace_uid else 2
+        check(whole_with_prefix(r.codes, refs[i], cfg.image_seq_len),
+              f"stall drill: request {i}'s delivered codes differ from its batch-1 loop's")
+    check(stall_launches == {k: 3 * v for k, v in want.items()}, f"2 admissions and a hedge: {stall_launches}")
+    del fleet
+
+    # the degrade ladder on speculative replicas
+    # a flood of 4 x lanes fills a replica's lanes and its queue of 2 x lanes: a queue fraction of 0.5
+    spec_cfg = dataclasses.replace(ecfg, max_queue=2 * FLEET_LANES, spec_k=SPEC_K)
+    fleet = ServingFleet(m, fleet_cfg=FleetConfig(replicas=2, engine=spec_cfg))
+    check(all(e.graph is None and e.spec_graphs is not None for e in fleet.engines),
+          "a speculative replica without a ladder lacks its speculative graphs or has a sequential one")
+    ladder = DegradeLadder(DegradeConfig(enter_after_s=0.05, exit_after_s=600.0, queue_frac_hi=0.5,
+                                         queue_frac_lo=0.1, max_rung=2), text_seq_len=cfg.text_seq_len)
+    fleet.attach_degrade(ladder)
+    check(all(e.graph is not None for e in fleet.engines),
+          "attaching the ladder did not capture a speculative replica's sequential step")
+    admitted0 = counter("serving/admitted")
+    inj = resilience.FaultInjector(resilience.parse_fault(f"flood@{fleet.engines[0]._iter + 1}:{4 * FLEET_LANES}"))
+    inj.install()
+    reset_launches(fa)
+    try:
+        polls = 0
+        while ladder.rung < 2:
+            fleet.poll()
+            polls += 1
+            check(polls < 2000, f"the flood left the ladder at rung {ladder.rung}")
+    finally:
+        inj.uninstall()
+    rounds_at_2 = counter("serving/spec_rounds")
+    check(rounds_at_2 > 0, "the speculative replicas ran no round before the ladder climbed")
+    probes = [fleet.submit(texts[i].cpu().numpy(), seed=FLEET_SEEDS[i] + 50, cond_scale=ENGINE_COND[i])
+              for i in (3, 4)]
+    check(all(p.degrade_rung == 2 and p.cond_scale == 1.0 for p in probes), "the probes were not shaped at rung 2")
+    while any(p.codes is None for p in probes):
+        fleet.poll()
+        check(ladder.rung == 2, f"the ladder left rung 2 ({ladder.rung}) while the probes decoded")
+    torch.cuda.synchronize()
+    check(counter("serving/spec_rounds") == rounds_at_2, "a speculative round ran at rung 2")
+    for eng in fleet.engines:
+        eng.drain()
+    degrade_launches = read_launches(fa)
+    admitted = int(counter("serving/admitted") - admitted0)
+    check(degrade_launches == {k: admitted * v for k, v in want.items()}, f"{admitted} admissions: {degrade_launches}")
+    thres = spec_cfg.degraded_filter_thres
+    for p, i in zip(probes, (3, 4)):
+        ref = seeded_prefix(sampling, m, texts[i], FLEET_SEEDS[i] + 50, i, filter_thres=thres, cond_scale=1.0)
+        check(whole_with_prefix(p.codes, ref, cfg.image_seq_len),
+              f"the capped probe {i}'s codes differ from its batch-1 loop's at {thres}")
+    emit("fleet_durability", replicas=2, lanes_per_replica=FLEET_LANES, crash_child_s=child_s,
+         crash_at_fleet_iteration=CRASH_AT, journal_before=before, journal_after=after, duplicate_acks=dup,
+         replay=dict(requests=n, whole_images=True, codes_equal_batch1=FLEET_PREFIX, wall_s=replay_s,
+                     launches=replay_launches),
+         step_ms_replayed_by_replica=step_ms, fill_launches=fill_launches,
+         slo=dict(alarms=len(alarms), alarm=alarms[0], status_keys=sorted(status)),
+         stall=dict(moved, wall_s=stall_s, launches=stall_launches, placements=[r.replica for r in stalled]),
+         degrade=dict(rung=ladder.rung, polls_to_rung_2=polls, rungs_entered=ladder.rungs_entered,
+                      degraded_filter_thres=thres, probes_codes_equal_batch1=FLEET_PREFIX,
+                      spec_rounds_before=rounds_at_2,
+                      admitted=admitted, launches=degrade_launches))
+    runs = (replay_launches, fill_launches, stall_launches, degrade_launches)
+    del fleet
+    return {k: sum(run[k] for run in runs) for k in COUNTERS}
+
+
 def phase_serve_cli(fa, port, weights, checkpoint):
     """`python -m dalle_pytorch_tpu_torch.cli.serve --synthetic --loadgen 8`
-    in process at a small width (the report holds the loadgen's keys), then
+    in process at a small width (the report holds the loadgen's keys), the
+    same with the fleet's flags (`--replicas 2 --disaggregate --journal
+    --degrade --slo_ttft_p99 --status_json`: every request handed off and
+    acknowledged, one SLO alarm, the status file parsed), then
     `cli.generate --engine` for one prompt against a v3 checkpoint of a small
     model: its PNG equals the one `cli.generate` without `--engine` writes
     under the same seed."""
@@ -3123,6 +3521,24 @@ def phase_serve_cli(fa, port, weights, checkpoint):
             "images_per_sec_per_chip"}
     check(keys <= set(report) and report["requests_completed"] == 8, f"serve report {report}")
     check(serve_launches["flash_fwd"] == 8 * 2, f"serve: 8 admissions of a depth-2 model launched {serve_launches}")
+    # the fleet's flags: two replicas, prefill handed off, the journal, the ladder, an SLO and its status file
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
+        fleet_report = serve.main(["--synthetic", "--loadgen", "6", "--rate", "4", "--streams", "2", "--dim", "256",
+                                   "--depth", "2", "--heads", "4", "--dim_head", "64", "--text_seq_len", "63",
+                                   "--image_fmap_size", "8", "--slots", "4", "--cond_scale", "2.0", "--replicas",
+                                   "2", "--disaggregate", "--journal", str(Path(tmp) / "journal"), "--degrade",
+                                   "--slo_ttft_p99", "1e-6", "--status_json", str(Path(tmp) / "status.json")])
+        status = json.loads((Path(tmp) / "status.json").read_text())
+    fleet_s = time.perf_counter() - t0
+    fleet_launches = read_launches(fa)
+    check(fleet_report["requests_completed"] == 6 and fleet_report["replicas"] == 2
+          and fleet_report["handoff_requests"] == 6 and fleet_report["journal_acked"] == 6
+          and fleet_report["journal_unacknowledged"] == 0 and fleet_report["slo_alarms"] == 1
+          and "degrade_rung" in fleet_report and status["active_alarms"] == ["ttft_p99"],
+          f"serve --replicas 2 --disaggregate ...: {fleet_report}")
+    check(fleet_launches["flash_fwd"] == 6 * 2, f"serve: 6 handed-off admissions launched {fleet_launches}")
 
     vae = port.DiscreteVAE(seed=0, **SMALL_VAE)
     dalle = port.DALLE(vae=vae, seed=51, **SMALL)
@@ -3137,9 +3553,10 @@ def phase_serve_cli(fa, port, weights, checkpoint):
         check(np.array_equal(read_png(plain), read_png(engined)),
               "generate --engine wrote another image than generate under the same seed")
     emit("serve_cli", serve_wall_s=serve_s, report=report, launches=serve_launches,
+         fleet=dict(wall_s=fleet_s, report=fleet_report, launches=fleet_launches),
          generate_engine=dict(png_equal_to_plain=True, plain_s=plain_s, engine_s=engine_s,
                               launches=engine_launches))
-    return {k: serve_launches[k] + engine_launches[k] for k in COUNTERS}
+    return {k: serve_launches[k] + fleet_launches[k] + engine_launches[k] for k in COUNTERS}
 
 
 # ---------------------------------------------------------------------------
@@ -3887,9 +4304,10 @@ def main() -> int:
     profile = phase_decode_profile(dalle, text, sampling, eager=False)
     rotary_graphs = phase_decode_graphs(fa, tr, sampling, dalle, text, "12-layer", 3.0, prime_len=GRAPHS_PRIME_LEN,
                                         stats=True, profile=profile)
-    # seeded, replayed and eager; two requests under injected noise run on the
-    # learned-position 12-layer engine in train_real_data
-    paths["engine_parity"] = phase_engine_parity(fa, sampling, dalle, "12-layer", 61, noised=False)
+    # the fleet's durability on the 12-layer model: journal replay (its replicas' seeded codes against
+    # batch-1), the breaker and the hedge, the degrade ladder; two requests under injected noise run on
+    # the learned-position 12-layer engine in train_real_data
+    paths["fleet_durability"] = phase_fleet_durability(fa, sampling, dalle)
     paths["generate_spec"] = phase_generate_spec(fa, sampling, dalle)
     del dalle
     paths["quant_spec_parity"] = phase_quant_spec_parity(fa, port, sampling)
@@ -3915,8 +4333,7 @@ def main() -> int:
     profile = phase_decode_profile(dalle, text, sampling, phase="sparse_decode_profile", eager=False)
     phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 3.0, prime_len=GRAPHS_PRIME_LEN, profile=profile)
     phase_decode_graphs(fa, tr, sampling, dalle, text, "pattern", 1.0, prime_len=GRAPHS_PRIME_LEN, eager_stream=True)
-    paths["sparse_engine_parity"] = phase_engine_parity(fa, sampling, dalle, "pattern", 62, noised=False,
-                                                        eagerly=False)
+    paths["sparse_engine_parity"] = phase_engine_parity(fa, sampling, dalle, "pattern", 62, noised=False)
     del dalle
     torch.cuda.empty_cache()
     parity = phase_parity(fa, port, sampling, "sparse_parity", SMALL_SPARSE, SMALL_SPARSE_VAE, prime_len=128)
@@ -3939,7 +4356,9 @@ def main() -> int:
     dalle, text, paths["flagship_generate"] = phase_flagship_generate(fa, tr, port)
     # no profiled window here: `engine_flagship` profiles the flagship's replayed engine step
     phase_decode_graphs(fa, tr, sampling, dalle, text, "flagship", 3.0, prime_len=FLAGSHIP_GRAPHS_PRIME_LEN)
-    paths["engine_flagship"] = phase_engine_flagship(fa, sampling, loadgen, dalle)
+    paths["engine_flagship"] = phase_engine_flagship(fa, sampling, dalle)
+    # two replicas of the flagship behind the router, prefill handed off, one lost mid-decode
+    paths["fleet_flagship"] = phase_fleet_flagship(fa, sampling, loadgen, dalle)
     # the flagship's weights under reversible execution: serving, then training
     paths["reversible_serve"] = phase_reversible_serve(fa, sampling, dalle)
     reversible_step = phase_reversible_train(fa, dalle)
@@ -4035,6 +4454,8 @@ def main() -> int:
                 "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
 
     real = ("train_real_data", "train_clip_cli")  # the real-data and CLIP training add to rows 1-3
+    # the fleet's admissions add to row 1 (at n 257 the flagship's pattern layers take the dense grid: no VFA)
+    fleet = ("fleet_flagship", "fleet_durability")
     clip_bwd_keys = ("bh", "n", "d", "live_keys", "dq_ms", "dq_device_ms", "dkv_ms", "dkv_device_ms", "plain_ms",
                      "dq_bound_ms", "dq_bound_by", "dkv_bound_ms", "dkv_bound_by", "library_bwd_ms",
                      "library_bwd_device_ms", "sdpa_backend", "dq_err_over_ref_max", "dk_err_over_ref_max",
@@ -4048,7 +4469,7 @@ def main() -> int:
 
     kernels = [{
         "name": "flash_fwd", "route": "cuda", "source": "dalle_pytorch_tpu_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": replaces + "126", **launched("flash_fwd", also=real),
+        "replaces": replaces + "126", **launched("flash_fwd", also=real + fleet),
         "masked_launches_by_path": {path: counts["flash_fwd_masked"] for path, counts in paths.items()},
         "max_abs_err": main_shape["max_abs_err"],
         "max_abs_err_all_cases": {r["dtype"]: max(x["max_abs_err"] for x in compared if x["dtype"] == r["dtype"])

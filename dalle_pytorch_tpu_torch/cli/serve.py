@@ -28,9 +28,21 @@ run the engine's two drills.  The report carries `quantization` (the
 storage dtypes, weight and pool bytes, the dequant work of a step), the
 speculative accounting under `--spec_k`, and the quarantine's counts.
 
-The JAX service's fleet, journal, degrade ladder, telemetry and SLO flags,
-and its other fault kinds, exit with a message naming the `ROADMAP.md` item
-that brings them.
+The fleet (`serving/fleet.py`): `--replicas N` serves through N engines
+behind the router (one card: they share the model's weights), and
+`--disaggregate` runs each admission's prefill in a prefill worker that
+hands the prefix over.  `--inject_fault kill-replica@N[:IDX]` loses a
+replica mid-run (its requests requeue on the others),
+`stall-replica@N[:IDX]` wedges one (the router's breaker opens, and
+requests past `--hedge_frac` of `--deadline_s` are hedged),
+`kill-fleet@N` kills the process.  `--journal DIR` journals every accepted
+request (`serving/journal.py`) and replays, at start, those a crash left
+unacknowledged; with no other traffic the journal is the traffic.
+`--degrade` arms the degrade ladder, `--slo_*` the SLO monitor
+(`observability/slo.py`), `--status_json PATH` its status file; the pool's
+flight recorder is on unless `--no_pool_recorder`.  The report reads the
+process's metrics registry, counted from the run's start, under the JAX
+report's keys.  The telemetry flags exit naming ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -50,33 +62,15 @@ from dalle_pytorch_tpu_torch.cli.png import write_png
 from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
+from dalle_pytorch_tpu_torch.observability import metrics as obs_metrics
+from dalle_pytorch_tpu_torch.observability.slo import SloMonitor, SloTargets
 from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 from dalle_pytorch_tpu_torch.tools.loadgen import PoissonLoadGen, synthetic_request_maker
 from dalle_pytorch_tpu_torch.training import resilience
 
-_ITEM6 = "ROADMAP.md Queue 1 item 6"
 _ITEM8 = "ROADMAP.md Queue 1 item 8"
 # flag -> what it needs that the port does not have yet, and where ROADMAP.md lists it
 _WAITING = {
-    "replicas": f"the serving fleet and its router ({_ITEM6})",
-    "disaggregate": f"prefill/decode disaggregation ({_ITEM6})",
-    "stall_wedge_s": f"the serving fleet and its router ({_ITEM6})",
-    "stall_after_s": f"the serving fleet and its router ({_ITEM6})",
-    "hedge_frac": f"the serving fleet and its router ({_ITEM6})",
-    "requeue_budget_s": f"the serving fleet and its router ({_ITEM6})",
-    "deadline_s": f"the serving fleet and its router ({_ITEM6})",
-    "retries": f"the serving fleet and its router ({_ITEM6})",
-    "journal": f"the request journal ({_ITEM6})",
-    "degrade": f"the degrade ladder ({_ITEM6})",
-    "degrade_enter_s": f"the degrade ladder ({_ITEM6})",
-    "degrade_exit_s": f"the degrade ladder ({_ITEM6})",
-    "no_pool_recorder": f"the pool flight recorder ({_ITEM6})",
-    "pool_recorder_capacity": f"the pool flight recorder ({_ITEM6})",
-    "slo_ttft_p99": f"the SLO monitor ({_ITEM6})",
-    "slo_latency_p99": f"the SLO monitor ({_ITEM6})",
-    "slo_images_per_sec": f"the SLO monitor ({_ITEM6})",
-    "slo_shed_rate": f"the SLO monitor ({_ITEM6})",
-    "status_json": f"the SLO monitor's status file ({_ITEM6})",
     "telemetry": f"serving telemetry ({_ITEM8})",
     "telemetry_every": f"serving telemetry ({_ITEM8})",
     "telemetry_heartbeat_s": f"serving telemetry ({_ITEM8})",
@@ -120,7 +114,40 @@ def build_parser() -> argparse.ArgumentParser:
     eng.add_argument("--spec_draft_layers", type=int, default=None,
                      help="layers of the draft prefix (default depth // 2), in [1, depth)")
     eng.add_argument("--inject_fault", type=str, default=None,
-                     help="poison-request@N or flood@N[:COUNT]: the engine's drills at its iteration N")
+                     help="poison-request@N, flood@N[:COUNT], kill-replica@N[:IDX], stall-replica@N[:IDX] or "
+                          "kill-fleet@N: a drill at iteration N")
+    eng.add_argument("--replicas", type=int, default=1, help="engine replicas behind the router (one card)")
+    eng.add_argument("--disaggregate", action="store_true",
+                     help="run prefill in a prefill worker that hands the prefix to the decode replicas")
+    eng.add_argument("--no_pool_recorder", action="store_true", help="turn the pool's flight recorder off")
+    eng.add_argument("--pool_recorder_capacity", type=int, default=4096,
+                     help="the recorder's ring, in events (overflow drops the oldest, counted)")
+
+    slo = parser.add_argument_group("slo")
+    slo.add_argument("--slo_ttft_p99", type=float, default=None, help="p99 time-to-first-token target, seconds")
+    slo.add_argument("--slo_latency_p99", type=float, default=None, help="p99 request latency target, seconds")
+    slo.add_argument("--slo_images_per_sec", type=float, default=None, help="completed images a second, floor")
+    slo.add_argument("--slo_shed_rate", type=float, default=None, help="refused over arrivals, ceiling (0..1)")
+    slo.add_argument("--status_json", type=str, default=None,
+                     help="a status file rewritten atomically at every window's close")
+
+    dur = parser.add_argument_group("durability")
+    dur.add_argument("--journal", type=str, default=None,
+                     help="request journal directory: accepted requests survive a crash and are replayed at start")
+    dur.add_argument("--deadline_s", type=float, default=None,
+                     help="a deadline on loadgen requests; past --hedge_frac of it on a stalled replica, hedged")
+    dur.add_argument("--retries", type=int, default=3, help="requeue budget of a request")
+    dur.add_argument("--degrade", action="store_true",
+                     help="arm the degrade ladder (no CFG, capped candidates, short prompts, shed)")
+    dur.add_argument("--degrade_enter_s", type=float, default=0.5, help="sustained pressure before a rung up")
+    dur.add_argument("--degrade_exit_s", type=float, default=2.0, help="sustained calm before a rung down")
+    dur.add_argument("--stall_wedge_s", type=float, default=3.0, help="how long stall-replica wedges its replica")
+    dur.add_argument("--stall_after_s", type=float, default=1.0,
+                     help="breaker: a busy replica without progress this long opens")
+    dur.add_argument("--hedge_frac", type=float, default=0.5,
+                     help="hedge a request off a stalled replica past this share of its deadline")
+    dur.add_argument("--requeue_budget_s", type=float, default=30.0,
+                     help="give up requeueing a lost replica's request after this long (requeue_exhausted)")
 
     traffic = parser.add_argument_group("traffic")
     traffic.add_argument("--prompts", type=str, default=None, help="a file of prompts, one a line; - for stdin")
@@ -145,10 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     waiting = parser.add_argument_group("not ported yet (each exits with the ROADMAP.md item that brings it)")
     for flag in _WAITING:
-        if flag in ("disaggregate", "degrade", "no_pool_recorder"):
-            waiting.add_argument(f"--{flag}", action="store_true")
-        else:
-            waiting.add_argument(f"--{flag}", type=str, default=None)
+        waiting.add_argument(f"--{flag}", type=str, default=None)
     return parser
 
 
@@ -175,11 +199,18 @@ def main(argv=None) -> dict:
     """Run the service on `argv`; returns the report."""
     args = build_parser().parse_args(argv)
     _refuse_waiting_flags(args)
-    if not (args.loadgen or args.prompts):
-        raise SystemExit("provide --loadgen N or --prompts FILE")
+    if not (args.loadgen or args.prompts or args.journal):
+        raise SystemExit("provide --loadgen N or --prompts FILE (or --journal DIR to replay it)")
     injector = None
     if args.inject_fault:
         injector = resilience.FaultInjector(resilience.parse_fault(args.inject_fault)).install()
+    start = {k: v["total"] for k, v in obs_metrics.REGISTRY.snapshot(reset_window=False).items()
+             if v["kind"] == "counter"}
+
+    def counted(name):
+        """The run's count: the counter less its value at the start."""
+        return obs_metrics.counter(name).value - start.get(name, 0.0)
+
     device = resolve_device(args.device)
     model, vae = _build_model(args, device)
     if args.no_vae:
@@ -193,19 +224,69 @@ def main(argv=None) -> dict:
             reduction = plain_bytes / quant_mod.tree_weight_bytes(model, itemsize=2)
             print(f"[serving] weights quantized to {args.quantize_weights}: {reduction:.2f}x at-rest reduction vs "
                   "bf16 storage")
-    engine = GenerationEngine(model, vae, EngineConfig(
+    engine_cfg = EngineConfig(
         num_slots=args.slots, block_size=args.block_size, num_blocks=args.num_blocks, max_queue=args.max_queue,
         headroom_frac=args.headroom_frac, filter_thres=args.top_k,
         quantize_kv=None if args.quantize_kv == "none" else args.quantize_kv, spec_k=args.spec_k,
-        spec_draft_layers=args.spec_draft_layers))
-    print(f"[serving] paged pool: {engine.pool.num_blocks} blocks of {args.block_size} tokens "
-          f"(+1 trash), {engine.pool.bytes() / 2 ** 30:.3f} GiB ({engine.pool.quant or 'float'}); {args.slots} lanes")
+        spec_draft_layers=args.spec_draft_layers, pool_recorder=not args.no_pool_recorder,
+        pool_recorder_capacity=args.pool_recorder_capacity)
+    if args.replicas > 1 or args.disaggregate:
+        from dalle_pytorch_tpu_torch.serving.fleet import FleetConfig, ServingFleet
+
+        engine = ServingFleet(model, vae, FleetConfig(
+            replicas=args.replicas, disaggregate=args.disaggregate, engine=engine_cfg,
+            stall_wedge_s=args.stall_wedge_s, stall_after_s=args.stall_after_s, hedge_frac=args.hedge_frac,
+            requeue_budget_s=args.requeue_budget_s))
+        one = engine.engine
+    else:
+        engine = one = GenerationEngine(model, vae, engine_cfg)
+    journal = ladder = None
+    if args.journal:
+        from dalle_pytorch_tpu_torch.serving.journal import RequestJournal
+
+        journal = RequestJournal(args.journal)
+        engine.attach_journal(journal)
+    if args.degrade:
+        from dalle_pytorch_tpu_torch.serving.degrade import DegradeConfig, DegradeLadder
+
+        ladder = DegradeLadder(DegradeConfig(enter_after_s=args.degrade_enter_s, exit_after_s=args.degrade_exit_s),
+                               text_seq_len=model.cfg.text_seq_len)
+        engine.attach_degrade(ladder)
+    targets = SloTargets(ttft_p99_s=args.slo_ttft_p99, latency_p99_s=args.slo_latency_p99,
+                         images_per_sec_floor=args.slo_images_per_sec, shed_rate_ceiling=args.slo_shed_rate)
+    monitor = SloMonitor(targets) if targets.any() else None
+    if monitor is not None or args.status_json:
+        engine.attach_slo(monitor, status_path=args.status_json)
+    print(f"[serving] paged pool: {one.pool.num_blocks} blocks of {args.block_size} tokens "
+          f"(+1 trash), {one.pool.bytes() / 2 ** 30:.3f} GiB ({one.pool.quant or 'float'}); {args.slots} lanes"
+          + (f" a replica, {args.replicas} replicas" if engine is not one else ""))
+    replayed = []
     try:
-        report = _run_traffic(args, engine, model, vae)
+        if journal is not None:
+            replayed = _replay_journal(engine, journal, args.retries)
+        if args.loadgen or args.prompts:
+            report = _run_traffic(args, engine, model, vae, counted)
+        else:  # a restart that only replays: the journal is the traffic
+            report = {"requests_completed": sum(1 for r in replayed if r.codes is not None),
+                      "pool_blocks": engine.pool.num_blocks}
     finally:
         engine.close()
+        if journal is not None:
+            journal.close()  # what was queued or in flight stays open for the next replay
         if injector is not None:
             injector.uninstall()
+    if journal is not None:
+        report["journal_replayed"] = len(replayed)
+        report["journal_replay_completed"] = sum(1 for r in replayed if r.codes is not None)
+        for k, v in journal.stats().items():
+            report[f"journal_{k}"] = v
+        report["journal_duplicate_acks"] = counted("journal/duplicate_acks")
+    if ladder is not None:
+        report["degrade_rung"] = ladder.rung
+        report["degrade_max_rung"] = ladder.max_rung_seen
+        report["degrade_rungs_entered"] = dict(ladder.rungs_entered)
+    if monitor is not None:
+        report["slo_alarms"] = monitor.alarms_total
     print("[serving] report:")
     for k, v in report.items():
         print(f"  {k:>26}: {v}")
@@ -214,13 +295,32 @@ def main(argv=None) -> dict:
     return report
 
 
-def _run_traffic(args, engine: GenerationEngine, model, vae) -> dict:
+def _replay_journal(engine, journal, retries: int) -> list:
+    """Submit again every request the journal holds unacknowledged (a
+    crashed run's), and serve them before new traffic: a request's codes
+    are a function of its text, seed and settings, so the replay gives the
+    codes the crashed run was making."""
+    payloads = journal.replay()
+    if not payloads:
+        return []
+    print(f"[journal] replaying {len(payloads)} unacknowledged request(s) from {journal.path}", flush=True)
+    reqs = [engine.submit_when_able(p["text"], seed=p["seed"], temperature=p["temperature"],
+                                    cond_scale=p["cond_scale"], deadline_s=p["deadline_s"],
+                                    retries_left=p["retries_left"] if p["retries_left"] is not None else retries,
+                                    synthetic=p["synthetic"], replayed=True) for p in payloads]
+    engine.run_until_idle()
+    print(f"[journal] replay complete: {sum(1 for r in reqs if r.codes is not None)}/{len(reqs)} finished",
+          flush=True)
+    return reqs
+
+
+def _run_traffic(args, engine, model, vae, counted) -> dict:
     cfg = model.cfg
     if args.loadgen:
         gen = PoissonLoadGen(args.loadgen, args.rate, streams=args.streams, seed=args.seed)
         report = gen.run(engine, synthetic_request_maker(
             cfg, seed=args.seed, temperature=args.temperature, cond_scale=args.cond_scale,
-            zipf_s=args.zipf, prompt_pool=args.prompt_pool))
+            zipf_s=args.zipf, prompt_pool=args.prompt_pool, deadline_s=args.deadline_s, retries=args.retries))
     else:
         tokenizer = get_tokenizer(args)
         source = sys.stdin if args.prompts == "-" else open(args.prompts)
@@ -238,16 +338,34 @@ def _run_traffic(args, engine: GenerationEngine, model, vae) -> dict:
         if vae is not None:
             _save_images(args, vae, reqs, lines)
         report = PoissonLoadGen(max(len(lines), 1), 1.0).report(done, refused=0, elapsed_s=elapsed)
+    one = engine.engine if hasattr(engine, "router") else engine
     report["pool_blocks"] = engine.pool.num_blocks
-    report["refused_total"] = engine.admission.counts["refused"]
-    report["backpressure_alarms"] = engine.admission.counts["backpressure_alarms"]
-    report["decode_steps"] = engine.decode_steps
-    report["pool"] = engine.pool.summary()
-    report["quantization"] = engine.quantization_state()
+    report["refused_total"] = counted("serving/refused")
+    report["backpressure_alarms"] = counted("serving_backpressure_alarms")
+    report["decode_steps"] = counted("serving/decode_steps")
+    report["pool"] = engine.pool_observability()
+    report["prefix_redundancy"] = engine.prefix_redundancy()
+    report["quantization"] = one.quantization_state()
     for key in ("quarantined", "poison_retries", "flood_injected"):
-        report[key] = engine.counts[key]
+        report[key] = counted(f"serving/{key}")
     if args.spec_k:
-        report["spec"] = engine.spec_state()
+        rounds, accepted = counted("serving/spec_rounds"), counted("serving/spec_accepted_tokens")
+        report["spec"] = dict(one.spec_state(), rounds=rounds, accepted_tokens=accepted,
+                              rejected_tokens=counted("serving/spec_rejected_tokens"))
+    if hasattr(engine, "router"):  # the fleet: replicas, the router, the handoff
+        report["replicas"] = len(engine.engines)
+        report["replicas_alive"] = len(engine.router.alive())
+        report["replicas_lost"] = counted("router/replicas_lost")
+        report["requeued_total"] = counted("router/requeued")
+        report["router_shed"] = counted("router/shed")
+        report["breaker_opens"] = counted("router/breaker_open")
+        report["breaker_recoveries"] = counted("router/breaker_closed")
+        report["hedged"] = counted("router/hedged")
+        report["hedge_duplicates"] = counted("router/hedge_duplicates")
+        report["requeue_exhausted"] = counted("router/requeue_exhausted")
+        if engine.prefill_worker is not None:
+            report["handoff_requests"] = counted("serving/handoff_requests")
+            report["handoff_bytes"] = counted("serving/handoff_bytes")
     return report
 
 

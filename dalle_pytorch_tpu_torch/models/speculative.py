@@ -174,15 +174,16 @@ class EngineSpecState:
 
 def _lane_codes(engine, out: torch.Tensor, rows: torch.Tensor):
     """The engine's emit pipeline on a round's position: masked logits, the
-    table's noise rows `rows`, `sample_lanes` with the screen and the
-    poison lane.  Returns (codes (S,), bad (S,))."""
+    table's noise rows `rows`, `sample_lanes` with the screen, the
+    poison lane and the degrade cap.  Returns (codes (S,), bad (S,))."""
     from dalle_pytorch_tpu_torch.models import sampling as sampling_mod
     from dalle_pytorch_tpu_torch.serving.lanes import sample_lanes
 
     model, lanes = engine.model, engine.lanes
     logits = sampling_mod._logits_at(model, out, image=True)
     return sample_lanes(model, logits, lanes.settings(), engine.ecfg.filter_thres,
-                        lanes.table_rows(rows, logits.dtype), engine.active, lanes.poison_lane)
+                        lanes.table_rows(rows, logits.dtype), engine.active, lanes.poison_lane, lanes.cand_cap,
+                        engine.ecfg.degraded_filter_thres)
 
 
 def _engine_pass(engine, x: torch.Tensor, offsets: torch.Tensor, **layer_range) -> torch.Tensor:

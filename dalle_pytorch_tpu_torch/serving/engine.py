@@ -48,15 +48,38 @@ What changes what the card computes:
   in-flight request's logits NaN on every step of every retry; `flood@N`
   submits a burst of synthetic requests.
 
-Telemetry, SLO monitoring, trace capture, the request journal, the fleet,
-the degrade ladder, prefix accounting and the pool's flight recorder are
-not ported (ROADMAP.md Queue 1 item 6).
+Admission is two halves: `prefill_handoff` (the prefill and the first
+code: the flash forward kernels on the card) and the ingest (the dense
+prefix scattered into the pool, the lanes armed).  A disaggregated fleet
+(`serving/fleet.py`) runs the first half in its `PrefillWorker` and hands
+the prefix over; a fused admission runs the same function in the engine.
+The request's first noise row comes from a fresh generator with its seed
+(or from its noise), and its lanes' generators start where that draw
+left it, so the two paths give the same codes.
+
+The fleet's surface: `replica_id` (set by the router), `wedge` (the
+stall-replica drill: poll() does nothing for a while, the engine stays
+alive), `attach_journal` (every accepted request journaled before submit
+returns, every terminal outcome acknowledged: `_finish_record`),
+`attach_degrade` (the ladder shapes each submit; a capped lane samples
+from `degraded_filter_thres`'s candidates; speculation stops at rung 2),
+`attach_slo` (the SLO monitor and the status file at each window's close,
+every `telemetry_every` polls), the pool's flight recorder and its gauges
+(`pool_observability`), and the prefix accounting (`prefix_redundancy`).
+Counts go into the process's metrics registry under the JAX package's
+names; `counts` is a view of the engine's counters there.  In a fleet the
+router numbers each replica's requests apart (`number_requests`), so an
+unseeded request's seed and journal uid are the fleet's own.  Telemetry
+spans and trace events come with ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import signal
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,10 +97,20 @@ from dalle_pytorch_tpu_torch.models.paged import (
     write_prefill_to_pool,
 )
 from dalle_pytorch_tpu_torch.models.transformer import init_cache
-from dalle_pytorch_tpu_torch.serving.kv_pool import BlockPool
-from dalle_pytorch_tpu_torch.serving.lanes import LaneState, sample_lanes
+from dalle_pytorch_tpu_torch.observability import metrics as obs_metrics
+from dalle_pytorch_tpu_torch.observability import tracing
+from dalle_pytorch_tpu_torch.observability.pool import PoolGauges
+from dalle_pytorch_tpu_torch.ops.sampling import gumbel_noise
+from dalle_pytorch_tpu_torch.serving.kv_pool import BlockPool, PoolFlightRecorder
+from dalle_pytorch_tpu_torch.serving.lanes import LaneState, request_settings, sample_lanes
 from dalle_pytorch_tpu_torch.serving.scheduler import AdmissionController, AdmissionRefused, Request, RequestQueue
 from dalle_pytorch_tpu_torch.training import resilience
+
+# outcomes that acknowledge a journaled request
+_ACKED = ("completed", "shed", "poisoned", "requeue_exhausted")
+# the engine's counters in the registry, `serving/<name>`, that `counts` shows
+_COUNTS = ("poison_retries", "quarantined", "poison_injected", "flood_injected", "spec_rounds", "spec_request_rounds",
+           "spec_accepted_tokens", "spec_rejected_tokens")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +123,12 @@ class EngineConfig:
     (`spec_k` > 0, `spec_draft_layers` default half the depth) keeps it
     always.  `quantize_kv`: None or "int8".  `poison_max_retries`: the
     re-decodes of a request whose lanes turned nonfinite before it ends
-    "poisoned"."""
+    "poisoned".  `degraded_filter_thres`: the top-k threshold of a lane
+    admitted at the degrade ladder's cap_candidates rung or above.
+    `telemetry_every`: polls a window (the SLO monitor's evaluation, the
+    status file, the window gauges).  `pool_recorder`: the pool's flight
+    recorder, a ring of `pool_recorder_capacity` events (off: the pool's
+    hooks are one `is None` test)."""
 
     num_slots: int = 4
     block_size: int = 32
@@ -103,6 +141,10 @@ class EngineConfig:
     poison_max_retries: int = 2
     spec_k: int = 0
     spec_draft_layers: Optional[int] = None
+    degraded_filter_thres: float = 0.98
+    telemetry_every: int = 32
+    pool_recorder: bool = True
+    pool_recorder_capacity: int = 4096
 
     def __post_init__(self):
         quant_mod.kv_bytes_per_elem(self.quantize_kv, 1, 1)  # an unknown kind raises ValueError
@@ -141,6 +183,13 @@ class GenerationEngine:
             k_d = spec_mod.validate_spec(self.tcfg, engine_cfg.spec_k, engine_cfg.spec_draft_layers)
         self.pool = BlockPool(self.tcfg, num_blocks, engine_cfg.block_size, dtype=model.dtype,
                               quant=engine_cfg.quantize_kv)
+        self._pool_gauges = None
+        if engine_cfg.pool_recorder:
+            rec = PoolFlightRecorder(capacity=engine_cfg.pool_recorder_capacity)
+            self.pool.recorder = rec
+            self._pool_gauges = PoolGauges(num_blocks=self.pool.num_blocks, block_size=engine_cfg.block_size,
+                                           blocks_per_seq=self.pool.blocks_per_seq)
+            rec.on_event = self._pool_gauges.observe
         self.queue = RequestQueue(max_depth=engine_cfg.max_queue)
         self.admission = AdmissionController(self.pool, headroom_frac=engine_cfg.headroom_frac, usage_fn=usage_fn,
                                              device=self.device)
@@ -160,24 +209,46 @@ class GenerationEngine:
         self._free_lanes: List[int] = list(range(S))
         self._inflight: List[Request] = []
         self._next_id = 0
+        self._id_step = 1
         self._iter = 0
         self._flood_rng = np.random.RandomState(0)
         self._poison_lane_host = -1
         self.decode_steps = 0
-        self.counts = {"poison_retries": 0, "quarantined": 0, "poison_injected": 0, "flood_injected": 0,
-                       "spec_rounds": 0, "spec_request_rounds": 0, "spec_accepted_tokens": 0,
-                       "spec_rejected_tokens": 0}
+        self._counts_base = {n: obs_metrics.counter(f"serving/{n}").value for n in _COUNTS}
         self.spec_draft_s = self.spec_round_s = 0.0
+        # the fleet's hooks: the router sets `replica_id`; a disaggregated
+        # fleet sets `prefill_backend` (its PrefillWorker); the journal and
+        # the ladder are attached; `_stall_until` wedges poll()
+        self.replica_id: Optional[int] = None
+        self.prefill_backend = None
+        self.journal = None
+        self.degrade = None
+        self.degrade_observe = True
+        self._stall_until = 0.0
+        self._slo = None
+        self._status_path: Optional[str] = None
+        self._phase = "idle"
+        self._phase_acc = {"admit": 0.0, "dispatch": 0.0, "evict": 0.0}
+        self._win = {"decode_steps": 0, "lane_tokens": 0, "spec_rounds": 0, "spec_accepted": 0, "spec_draft_s": 0.0,
+                     "spec_total_s": 0.0}
+        self._win_t = time.monotonic()
+        # prefix accounting: each admitted prompt's hash, and the prefill KV
+        # bytes a prefix cache would save (the null lane's, repeated prompts')
+        self._prefix_seen: Dict[str, int] = {}
+        self._prefix = {"admissions": 0, "repeats": 0, "repeat_bytes": 0.0, "null_bytes": 0.0, "total_bytes": 0.0}
         self.spec = None if k_d is None else spec_mod.EngineSpecState(self, *k_d)
         model.transformer.prepare_decode(dev)
         self.graph = None
         self.spec_graphs = None
+        self._graph_pool = None
         if sampling_mod._graphs_on(model, graphs):
             if self.spec is None:
                 self.graph = self._capture(self._step)
             else:
-                pool = torch.cuda.graph_pool_handle()
-                self.spec_graphs = tuple(self._capture(part, pool) for part in (
+                # the rounds; the sequential step that the degrade ladder runs in
+                # their place is captured into the same pool by attach_degrade
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self.spec_graphs = tuple(self._capture(part, self._graph_pool) for part in (
                     lambda: spec_mod.engine_spec_draft(self), lambda: spec_mod.engine_spec_verify(self)))
 
     # ------------------------------------------------------------- the step
@@ -195,7 +266,7 @@ class GenerationEngine:
         logits = sampling_mod._logits_at(model, out, image=True)
         noise = self.lanes.draw(None, self.img_prev + 1, logits.dtype)
         code, bad = sample_lanes(model, logits, self.lanes.settings(), self.ecfg.filter_thres, noise, self.active,
-                                 self.lanes.poison_lane)
+                                 self.lanes.poison_lane, self.lanes.cand_cap, self.ecfg.degraded_filter_thres)
         self.poisoned |= bad
         act = self.active
         made = self.img_prev + act.long()
@@ -228,9 +299,13 @@ class GenerationEngine:
         return graph
 
     # ------------------------------------------------------------ requests
-    def _make_request(self, text, seed, temperature, cond_scale, noise, deadline_s, retries_left) -> Request:
+    def _make_request(self, text, seed, temperature, cond_scale, noise, deadline_s, retries_left, synthetic,
+                      replayed) -> Request:
         text = np.asarray(text, np.int64).reshape(self.cfg.text_seq_len)
         if noise is not None:
+            if self.journal is not None:
+                raise ValueError("a request with noise cannot be journaled (a replay would need its noise): submit "
+                                 "it with a seed, or serve without a journal")
             noise = torch.as_tensor(noise, dtype=torch.float32)
             want = (self.n_gen, self.cfg.total_tokens)
             if tuple(noise.shape) != want:
@@ -239,49 +314,75 @@ class GenerationEngine:
                 raise ValueError("a request with noise needs EngineConfig(noise_override=True)")
         req = Request(id=self._next_id, text=text, seed=self._next_id if seed is None else int(seed),
                       temperature=float(temperature), cond_scale=float(cond_scale), noise=noise,
-                      deadline_s=None if deadline_s is None else float(deadline_s))
+                      deadline_s=None if deadline_s is None else float(deadline_s), synthetic=synthetic,
+                      replayed=replayed)
         if retries_left is not None:
             req.retries_left = int(retries_left)
-        self._next_id += 1
+        req.replica = self.replica_id
+        tracing.journey_uid(req)
+        self._next_id += self._id_step
         return req
 
+    def _screen(self, req: Request) -> None:
+        """The degrade ladder's shaping and admission's screen; a refusal
+        is counted, recorded "shed" and raised."""
+        try:
+            if self.degrade is not None:
+                self.degrade.shape_request(req)
+            self.admission.screen_submit(req)
+        except AdmissionRefused as e:
+            self._shed(req, e)
+            raise
+
     def _shed(self, req: Request, err: AdmissionRefused) -> None:
+        obs_metrics.counter("serving/refused").inc()
         self.admission.note_refusal(err.reason, kind=err.kind)
         req.phases["queue_wait"] = time.monotonic() - req.arrival_t
-        req.outcome = "shed"
+        self._finish_record(req, "shed")
+
+    def _accepted(self, req: Request) -> Request:
+        obs_metrics.counter("serving/submitted").inc()
+        if self.journal is not None:
+            self.journal.accepted(req)  # the durability point: fsynced before submit returns
+        return req
 
     def submit(self, text, seed: Optional[int] = None, temperature: float = 1.0, cond_scale: float = 1.0,
-               noise=None, deadline_s: Optional[float] = None,
-               retries_left: Optional[int] = None) -> Request:
+               noise=None, deadline_s: Optional[float] = None, retries_left: Optional[int] = None,
+               synthetic: bool = False, replayed: bool = False) -> Request:
         """Enqueue one prompt: `text` (text_seq_len,) raw ids; `seed` the
         request's generator seed (default: the request id); `noise`
         (image_seq_len, total_tokens) in place of the draws.  Raises
-        AdmissionRefused when the queue is full or the request can never fit
-        the pool."""
-        req = self._make_request(text, seed, temperature, cond_scale, noise, deadline_s, retries_left)
+        AdmissionRefused when the queue is full, the request can never fit
+        the pool or the degrade ladder refuses it; with a journal attached,
+        the request is journaled before this returns."""
+        req = self._make_request(text, seed, temperature, cond_scale, noise, deadline_s, retries_left, synthetic,
+                                 replayed)
+        self._screen(req)
         try:
-            self.admission.screen_submit(req)
             self.queue.push(req)
         except AdmissionRefused as e:
             self._shed(req, e)
             raise
-        return req
+        return self._accepted(req)
 
     def submit_when_able(self, text, seed: Optional[int] = None, temperature: float = 1.0,
-                         cond_scale: float = 1.0, noise=None, deadline_s: Optional[float] = None, retries_left: Optional[int] = None) -> Request:
+                         cond_scale: float = 1.0, noise=None, deadline_s: Optional[float] = None,
+                         retries_left: Optional[int] = None, synthetic: bool = False,
+                         replayed: bool = False) -> Request:
         """`submit` for batch callers: a full queue waits (the engine polls
         until there is room) instead of refusing.  A request that can never
         fit the pool still refuses."""
-        req = self._make_request(text, seed, temperature, cond_scale, noise, deadline_s, retries_left)
-        try:
-            self.admission.screen_submit(req)
-        except AdmissionRefused as e:
-            self._shed(req, e)
-            raise
+        req = self._make_request(text, seed, temperature, cond_scale, noise, deadline_s, retries_left, synthetic,
+                                 replayed)
+        self._screen(req)
+        waited = False
         while len(self.queue) >= self.queue.max_depth:
+            if not waited:
+                obs_metrics.counter("serving/submit_waits").inc()
+                waited = True
             self.poll()  # a full queue implies work in flight, so this makes progress
         self.queue.push(req)
-        return req
+        return self._accepted(req)
 
     @property
     def busy(self) -> bool:
@@ -293,23 +394,108 @@ class GenerationEngine:
         """Lanes free now."""
         return len(self._free_lanes)
 
+    def wedge(self, seconds: float) -> None:
+        """The stall-replica drill: poll() does nothing for `seconds`; the
+        engine keeps its queue and its lanes, but its iteration count stops."""
+        self._stall_until = time.monotonic() + float(seconds)
+        obs_metrics.counter("serving/wedged").inc()
+
+    @property
+    def stalled(self) -> bool:
+        return bool(self._stall_until and time.monotonic() < self._stall_until)
+
+    def number_requests(self, first: int, step: int) -> None:
+        """Number this engine's requests first, first + step, ...: the
+        router gives replica r of N the ids r, r + N, ..., so that an
+        unseeded request's seed (its id) and its journal uid are the
+        fleet's own."""
+        self._next_id, self._id_step = int(first), int(step)
+        self._skip_journaled_seeds()
+
+    def _skip_journaled_seeds(self) -> None:
+        """Move the next id past every seed the journal holds (keeping its
+        place in the numbering), so that an unseeded request after a
+        restart does not take the uid of one journaled before it."""
+        behind = 0 if self.journal is None else self.journal.next_free_seed() - self._next_id
+        if behind > 0:
+            self._next_id += -(-behind // self._id_step) * self._id_step
+
+    def attach_journal(self, journal) -> None:
+        """Journal every accepted request and acknowledge every terminal
+        outcome (`serving/journal.RequestJournal`)."""
+        self.journal = journal
+        self._skip_journaled_seeds()
+
+    def attach_degrade(self, ladder, observe: bool = True) -> None:
+        """Shape every submit by `ladder`; with `observe`, feed it this
+        engine's queue fraction once a poll (a fleet observes it instead).
+        A speculative engine on the card captures here the sequential step
+        that rung 2 runs in place of its rounds: attach before serving."""
+        if self.spec_graphs is not None and self.graph is None:
+            if self.busy:
+                raise RuntimeError("attach the degrade ladder before serving: its step is captured while every "
+                                   "lane is idle")
+            self.graph = self._capture(self._step, self._graph_pool)
+        self.degrade = ladder
+        self.degrade_observe = observe
+
+    def attach_slo(self, monitor, status_path: Optional[str] = None) -> None:
+        """Evaluate `monitor` (an `observability/slo.SloMonitor`, or None)
+        and write `status_path` atomically at each window's close."""
+        self._slo = monitor
+        self._status_path = status_path
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        """A view of the registry's `serving/<name>` counters since this
+        engine was built (the replicas of a fleet share them)."""
+        return {n: int(obs_metrics.counter(f"serving/{n}").value - base) for n, base in self._counts_base.items()}
+
+    def _count(self, name: str, n: int = 1) -> None:
+        obs_metrics.counter(f"serving/{name}").inc(n)
+
     def poll(self) -> List[Request]:
-        """One iteration: an armed flood or poison fault, admissions, one
-        decode step (or speculative round), evictions.  Returns the requests
-        completed in it (codes, and images with a VAE)."""
+        """One iteration: an armed fault, the degrade ladder's sample,
+        admissions, one decode step (or speculative round), evictions, and
+        every `telemetry_every` polls a window's close.  Returns the
+        requests completed in it (codes, and images with a VAE).  A wedged
+        engine returns at once."""
+        if self._stall_until:
+            if time.monotonic() < self._stall_until:
+                return []
+            self._stall_until = 0.0
         self._iter += 1
         self._poll_flood()
+        if self.replica_id is None and resilience.take_kill_fleet_fault(self._iter):
+            # one engine's crash drill: killed here with no cleanup (a fleet fires it from its own poll)
+            print(f"[chaos] kill-fleet: SIGKILL of the whole process at engine iteration {self._iter}", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        if self.degrade is not None and self.degrade_observe:
+            self.degrade.observe(len(self.queue) / max(self.queue.max_depth, 1), slo=self._slo)
         if self._inflight and resilience.take_poison_fault(self._iter):
             victim = self._inflight[0]
             victim.poison_victim = True
-            self.counts["poison_injected"] += 1
+            self._count("poison_injected")
             print(f"[chaos] poison-request: request {victim.id} poisoned: NaN decode logits until its retry budget "
                   "burns", flush=True)
+        self._phase = "admit"
+        t0 = time.monotonic()
         self._admit_ready()
         self._track_poison_lane()
+        t1 = time.monotonic()
+        self._phase_acc["admit"] += t1 - t0
         if self._inflight:
+            self._phase = "dispatch"
             self._decode_once()
-        return self._evict_finished()
+        t2 = time.monotonic()
+        self._phase_acc["dispatch"] += t2 - t1
+        self._phase = "evict"
+        done = self._evict_finished()
+        self._phase_acc["evict"] += time.monotonic() - t2
+        self._phase = "idle"
+        if self.ecfg.telemetry_every and self._iter % self.ecfg.telemetry_every == 0:
+            self._window_event()
+        return done
 
     def _poll_flood(self) -> None:
         """An armed flood fault's burst of synthetic requests; refusals are
@@ -320,8 +506,8 @@ class GenerationEngine:
         for _ in range(n):
             text = self._flood_rng.randint(1, self.cfg.num_text_tokens, size=(self.cfg.text_seq_len,))
             try:
-                self.submit(text)
-                self.counts["flood_injected"] += 1
+                self.submit(text, synthetic=True)
+                self._count("flood_injected")
             except AdmissionRefused:
                 pass
 
@@ -369,38 +555,68 @@ class GenerationEngine:
 
         def export(req: Request, codes: Optional[np.ndarray]) -> Dict[str, Any]:
             return {"text": req.text, "seed": req.seed, "noise": req.noise, "temperature": req.temperature,
-                    "cond_scale": req.cond_scale, "codes_done": req.codes_done,
-                    "codes": codes, "origin_id": req.id, "deadline_s": req.deadline_s,
-                    "retries_left": req.retries_left}
+                    "cond_scale": req.cond_scale, "synthetic": req.synthetic, "codes_done": req.codes_done,
+                    "codes": codes, "origin_id": req.id, "origin_replica": self.replica_id,
+                    "deadline_s": req.deadline_s, "retries_left": req.retries_left}
 
         now = time.monotonic()
         while self.queue.peek() is not None:
             req = self.queue.pop()
             req.phases["queue_wait"] = now - req.arrival_t
             exports.append(export(req, None))
-            req.outcome = "deferred"
+            self._finish_record(req, "deferred")
         lanes: List[int] = []
         for req in self._inflight:
             req.phases["decode"] = now - req.admitted_t
             exports.append(export(req, self.codes[req.lanes[0], :req.codes_done].cpu().numpy().copy()))
-            req.outcome = "deferred"
+            self._finish_record(req, "deferred")
             self._release(req)
             lanes.extend(req.lanes)
         self._inflight = []
         self._reset_lanes(lanes)
+        obs_metrics.counter("serving/drained").inc(len(exports))
+        self._window_event()
         return exports
 
     def close(self) -> None:
-        """Give every queued and in-flight request the outcome "deferred"."""
+        """Give every queued and in-flight request the outcome "deferred"
+        (a journaled one stays open for the next replay) and close the
+        window."""
         now = time.monotonic()
         while self.queue.peek() is not None:
             req = self.queue.pop()
             req.phases["queue_wait"] = now - req.arrival_t
-            req.outcome = "deferred"
+            self._finish_record(req, "deferred")
         for req in self._inflight:
             req.phases["decode"] = now - req.admitted_t
-            req.outcome = "deferred"
+            self._finish_record(req, "deferred")
         self._inflight = []
+        self._window_event()
+
+    def release(self) -> None:
+        """Free the device state of an engine that will serve no more (a
+        lost replica): its graphs, pool, rings and lane buffers."""
+        self.graph = self.spec_graphs = self._graph_pool = None
+        self.kv = self.rings = None
+        self.lanes.noise = None
+        self.spec = None
+
+    def _finish_record(self, req: Request, outcome: str) -> None:
+        """The request's one terminal outcome.  A terminal outcome
+        acknowledges its journal entry; the first acknowledgement wins, and
+        a duplicate (a hedged copy, a replay racing a completion) is
+        counted by the journal."""
+        req.outcome = outcome
+        if self.journal is not None and outcome in _ACKED:
+            self.journal.ack(req, outcome)
+
+    def phase_state(self) -> Dict[str, Any]:
+        """Where the engine is: its iteration, the poll phase it is in, the
+        queue, the free lanes and every in-flight request's progress."""
+        return {"iter": self._iter, "phase": self._phase, "queue_depth": len(self.queue),
+                "free_lanes": len(self._free_lanes),
+                "inflight": [{"id": r.id, "codes_done": r.codes_done, "lanes": r.lanes,
+                              "phases": {k: round(v, 3) for k, v in r.phases.items()}} for r in self._inflight]}
 
     # ----------------------------------------------------------- internals
     def _admit_ready(self) -> None:
@@ -408,60 +624,111 @@ class GenerationEngine:
             req = self.queue.peek()
             if req is None:
                 return
-            reason, _ = self.admission.may_admit_ex(req, free_lanes=len(self._free_lanes),
-                                                    in_flight=len(self._inflight))
+            reason, kind = self.admission.may_admit_ex(req, free_lanes=len(self._free_lanes),
+                                                       in_flight=len(self._inflight))
             if reason is not None:
                 req.deferrals += 1
                 self.admission.note_deferral(reason)
+                rec = self.pool.recorder
+                if rec is not None:
+                    rec.record("defer", req=req.id, defer_kind=kind, lanes_needed=req.lanes_needed,
+                               blocks_needed=req.lanes_needed * self.pool.blocks_per_seq, free=self.pool.free_blocks,
+                               free_lanes=len(self._free_lanes), replica=self.replica_id)
                 return
             self._do_admit(self.queue.pop())
             self.admission.note_flow()
 
     @torch.no_grad()
     def _do_admit(self, req: Request) -> None:
-        """Prefill the prompt, sample its first code, and arm its lanes."""
+        """Allocate the request's lanes and blocks, take its prefill and
+        first code (from the fleet's prefill worker, or made here by the
+        same `prefill_handoff`), and ingest them."""
         t_pop = time.monotonic()
         req.phases["queue_wait"] = t_pop - req.arrival_t
         lanes = [self._free_lanes.pop(0) for _ in range(req.lanes_needed)]
         req.lanes = lanes
+        phash = hashlib.sha1(req.text.tobytes()).hexdigest()[:12]
+        rec = self.pool.recorder
+        if rec is not None:
+            rec.ctx = {"req": req.id, "journey": tracing.journey_uid(req), "lanes": req.lanes_needed,
+                       "guided": req.guided, "prefix_hash": phash, "replica": self.replica_id}
         tables = np.stack([self.pool.alloc_table(owner=(req.id << 1) | i) for i in range(len(lanes))])
-        model, dev = self.model, self.device
+        if rec is not None:
+            rec.ctx = None
         t_dispatch = time.monotonic()
         req.phases["admission"] = t_dispatch - t_pop
+        if self.prefill_backend is not None:
+            handoff = self.prefill_backend.prefill(req)
+        else:
+            handoff = prefill_handoff(self.model, req, self.ecfg.filter_thres, self.ecfg.degraded_filter_thres)
+        self._ingest(req, lanes, tables, handoff)
+        self._inflight.append(req)
+        req.codes_done = 1  # the first code came with the prefill
+        sampling_mod._sync(self.device)  # the first code exists: time to first token
+        now = time.monotonic()
+        req.admitted_t = now
+        req.ttft_s = now - req.arrival_t
+        req.phases["prefill"] = now - t_dispatch
+        obs_metrics.counter("serving/admitted").inc()
+        obs_metrics.histogram("serving/ttft_s").observe(req.ttft_s)
+        self._publish_lanes()
+        self._note_prefix(req, phash)
 
-        self.lanes.arm(lanes, req.temperature, req.cond_scale, req.seed, req.noise)
-        if self.spec is not None and req.noise is None:
-            self.lanes.fill_noise(lanes[0], req.seed)
-        text = torch.as_tensor(req.text[None], device=dev)
-        cache = init_cache(dataclasses.replace(self.tcfg, seq_len=self.n_pre), len(lanes), dtype=model.dtype,
-                           device=dev)
-        cache, logits = sampling_mod._prefill_phase(model, text, None, 0, req.cond_scale, cache)
-        noise = self.lanes.draw(lanes, torch.zeros(len(lanes), dtype=torch.long, device=dev), logits.dtype)
-        code, _ = sample_lanes(model, logits, self.lanes.settings(lanes), self.ecfg.filter_thres, noise)
-
+    def _ingest(self, req: Request, lanes: List[int], tables: np.ndarray, handoff: Dict[str, Any]) -> None:
+        """The second half of admission, on the handoff of either path:
+        the dense prefix into the lanes' blocks and rings, the first code,
+        and the lanes armed (their generators where the first draw left
+        the request's; a speculative engine's noise table filled)."""
+        dev = self.device
         idx = torch.tensor(lanes, device=dev)
         tables_t = torch.as_tensor(tables, device=dev)
-        write_prefill_to_pool(self.tcfg, self.kv, tables_t, cache["layers"], self.n_pre, self.ecfg.block_size)
+        layers, code = handoff["layers"], handoff["code"]
+        write_prefill_to_pool(self.tcfg, self.kv, tables_t, layers, self.n_pre, self.ecfg.block_size)
         if self.rings is not None:
-            for ring, layer in zip(self.rings["layers"], cache["layers"]):
+            for ring, layer in zip(self.rings["layers"], layers):
                 for name in ("shift_attn", "shift_ff"):
                     ring[name][idx] = layer[name].to(ring[name].dtype)
+        self.lanes.arm(lanes, req.temperature, req.cond_scale, req.seed, req.noise, cap=req.degrade_rung >= 2,
+                       rng_state=handoff["rng_state"])
+        if self.spec is not None and req.noise is None:
+            self.lanes.fill_noise(lanes[0], req.seed)
         self.block_tables[idx] = tables_t
         self.codes[idx, 0] = code
         self.prev_code[idx] = code
         self.offsets[idx] = self.n_pre
         self.img_prev[idx] = 0
         self.active[idx] = True
-        self._inflight.append(req)
-        req.codes_done = 1  # the first code came with the prefill
-        sampling_mod._sync(dev)  # the first code exists: time to first token
-        now = time.monotonic()
-        req.admitted_t = now
-        req.ttft_s = now - req.arrival_t
-        req.phases["prefill"] = now - t_dispatch
+
+    def _note_prefix(self, req: Request, h: str) -> None:
+        """Prefix accounting for one admission: the prefill KV bytes of its
+        lanes, those of the null lane (the same for every guided request)
+        and those of a prompt seen before (hedges, requeues, replays)."""
+        per_lane = self.pool.prefix_bytes(self.n_pre)
+        p = self._prefix
+        p["admissions"] += 1
+        p["total_bytes"] += per_lane * req.lanes_needed
+        if req.guided:
+            p["null_bytes"] += per_lane
+        if h in self._prefix_seen:
+            p["repeats"] += 1
+            p["repeat_bytes"] += per_lane
+        self._prefix_seen[h] = self._prefix_seen.get(h, 0) + 1
+        obs_metrics.gauge("prefix/duplicate_bytes").set(p["null_bytes"] + p["repeat_bytes"])
+        obs_metrics.gauge("prefix/repeat_hit_frac").set(p["repeats"] / p["admissions"])
+
+    def prefix_redundancy(self) -> Dict[str, Any]:
+        """How many prefill KV bytes a prefix cache would have saved: the
+        null lanes' (`null_lane_bytes`) and repeated prompts'."""
+        p = self._prefix
+        dup, total = p["null_bytes"] + p["repeat_bytes"], p["total_bytes"]
+        return {"admissions": p["admissions"], "unique_prefixes": len(self._prefix_seen),
+                "repeat_hits": p["repeats"],
+                "repeat_hit_frac": p["repeats"] / p["admissions"] if p["admissions"] else 0.0,
+                "null_lane_bytes": p["null_bytes"], "repeat_prefill_bytes": p["repeat_bytes"],
+                "duplicate_bytes": dup, "prefill_bytes": total, "duplicate_frac": dup / total if total else 0.0}
 
     def _decode_once(self) -> None:
-        if self.spec is not None:
+        if self.spec is not None and not (self.degrade is not None and self.degrade.suppress_spec):
             self._spec_decode_once()
             return
         if self.graph is not None:
@@ -469,8 +736,14 @@ class GenerationEngine:
         else:
             self._step()
         self.decode_steps += 1
+        obs_metrics.counter("serving/decode_steps").inc()
+        obs_metrics.counter("serving/decode_lane_tokens").inc(len(self._inflight))
+        self._win["decode_steps"] += 1
+        self._win["lane_tokens"] += len(self._inflight)
         for req in self._inflight:
             req.codes_done += 1
+            if self.journal is not None and req.codes_done % self.journal.progress_every == 0:
+                self.journal.progress(req)
 
     def _spec_decode_once(self) -> None:
         """One speculative round: the draft, then the verification, then
@@ -491,18 +764,34 @@ class GenerationEngine:
             spec_mod.engine_spec_verify(self)
         advance = self.spec.advance.tolist()
         t2 = time.perf_counter()
-        accepted = 0
+        accepted = lane_tokens = 0
+        every = self.journal.progress_every if self.journal is not None else 0
         for req in self._inflight:
             adv = advance[req.lanes[0]]
+            old = req.codes_done
             req.codes_done += adv
             req.spec_rounds += 1
             req.spec_accepted += adv
             accepted += adv
+            lane_tokens += adv * len(req.lanes)
+            for i in range(len(req.lanes)):  # the host's commit point: the verified prefix
+                self.pool.truncate_slot((req.id << 1) | i, self.n_pre + req.codes_done - 1)
+            if every and adv and old // every != req.codes_done // every:
+                self.journal.progress(req)
         self.decode_steps += 1
-        self.counts["spec_rounds"] += 1
-        self.counts["spec_request_rounds"] += len(self._inflight)
-        self.counts["spec_accepted_tokens"] += accepted
-        self.counts["spec_rejected_tokens"] += max((k + 1) * len(self._inflight) - accepted, 0)
+        self._count("spec_rounds")
+        self._count("spec_request_rounds", len(self._inflight))
+        self._count("spec_accepted_tokens", accepted)
+        self._count("spec_rejected_tokens", max((k + 1) * len(self._inflight) - accepted, 0))
+        obs_metrics.counter("serving/decode_steps").inc()
+        obs_metrics.counter("serving/decode_lane_tokens").inc(lane_tokens)
+        w = self._win
+        w["decode_steps"] += 1
+        w["lane_tokens"] += lane_tokens
+        w["spec_rounds"] += len(self._inflight)
+        w["spec_accepted"] += accepted
+        w["spec_draft_s"] += t1 - t0
+        w["spec_total_s"] += t2 - t0
         self.spec_draft_s += t1 - t0
         self.spec_round_s += t2 - t0
 
@@ -530,9 +819,65 @@ class GenerationEngine:
                 "dequant_flops_per_step": over["dequant_flops_per_step"],
                 "dequant_frac_of_step": round(over["dequant_frac_of_step"], 6)}
 
+    def pool_observability(self) -> Dict[str, Any]:
+        """The pool's free-list state, and with the recorder on its gauges'
+        summary (block lifetimes, reserved-but-unused blocks, footprints,
+        the overcommit forecast) and its drops."""
+        out = self.pool.summary()
+        if self._pool_gauges is not None:
+            out.update(self._pool_gauges.summary())
+            out["recorder_dropped"] = self.pool.recorder.dropped
+        return out
+
+    def _window_event(self) -> None:
+        """Close a window: the poll-phase split, the goodput (lane-codes made
+        against every lane busy every step) and speculation gauges, the
+        pool gauges, the SLO monitor's evaluation and the status file."""
+        now = time.monotonic()
+        elapsed = max(now - self._win_t, 1e-9)
+        w = self._win
+        ideal = w["decode_steps"] * self.ecfg.num_slots
+        for k, v in self._phase_acc.items():
+            obs_metrics.gauge(f"serving/phase_{k}_s").set(v)
+        if ideal:
+            obs_metrics.gauge("serving/goodput_frac").set(w["lane_tokens"] / ideal)
+        obs_metrics.gauge("serving/lane_tokens_per_s").set(w["lane_tokens"] / elapsed)
+        if w["spec_rounds"]:
+            obs_metrics.gauge("spec/accepted_tokens_per_step").set(w["spec_accepted"] / w["spec_rounds"])
+            if w["spec_total_s"] > 0:
+                obs_metrics.gauge("spec/draft_time_frac").set(w["spec_draft_s"] / w["spec_total_s"])
+        self._phase_acc = dict.fromkeys(self._phase_acc, 0.0)
+        self._win = dict.fromkeys(w, 0)
+        self._win_t = now
+        if self._pool_gauges is not None:
+            self._pool_gauges.publish(dropped=self.pool.recorder.dropped)
+        if self._slo is not None:
+            self._slo.observe(self._iter)
+        if self._status_path:
+            self._write_status()
+
+    def _write_status(self) -> None:
+        from dalle_pytorch_tpu_torch.observability.slo import write_status_json
+
+        payload: Dict[str, Any] = self._slo.status() if self._slo is not None else {}
+        payload["serving"] = {"iter": self._iter, "replica": self.replica_id, "queue_depth": len(self.queue),
+                              "active_lanes": self.ecfg.num_slots - len(self._free_lanes),
+                              "inflight": len(self._inflight), "pool_occupancy_frac": self.pool.occupancy_frac,
+                              "pool_free_blocks": self.pool.free_blocks}
+        payload["pool"] = self.pool_observability()
+        payload["quantization"] = self.quantization_state()
+        write_status_json(self._status_path, payload)
+
+    def _publish_lanes(self) -> None:
+        obs_metrics.gauge("serving/active_lanes").set(self.ecfg.num_slots - len(self._free_lanes))
+        obs_metrics.gauge("serving/pool_occupancy_frac").set(self.pool.occupancy_frac)
+        obs_metrics.gauge("serving/pool_free_blocks").set(self.pool.free_blocks)
+
     def _release(self, req: Request) -> None:
+        # a lane wrote the prefix and one column a code fed back (the last code made is never fed)
+        written = self.n_pre + max(req.codes_done - 1, 0)
         for i in range(len(req.lanes)):
-            self.pool.free_table((req.id << 1) | i)
+            self.pool.free_table((req.id << 1) | i, written_tokens=written)
         self._free_lanes.extend(req.lanes)
 
     def _reset_lanes(self, lanes: List[int]) -> None:
@@ -541,6 +886,7 @@ class GenerationEngine:
         idx = torch.tensor(lanes, device=self.device)
         self.active[idx] = False
         self.poisoned[idx] = False
+        self.lanes.cand_cap[idx] = False
         self.block_tables[idx] = 0
         self.offsets[idx] = 0
         self.img_prev[idx] = 0
@@ -576,11 +922,11 @@ class GenerationEngine:
                 req.poison_retries += 1
                 req.codes_done, req.lanes, req.admitted_t = 0, None, None
                 self.queue.requeue(req)
-                self.counts["poison_retries"] += 1
+                self._count("poison_retries")
             else:
                 req.phases["evict"] = max(req.latency_s - sum(req.phases.values()), 0.0)
-                req.outcome = "poisoned"
-                self.counts["quarantined"] += 1
+                self._count("quarantined")
+                self._finish_record(req, "poisoned")
         self._track_poison_lane()
         for req in healthy:
             if self.vae is not None:
@@ -590,5 +936,47 @@ class GenerationEngine:
                 req.phases["vae_decode"] = time.perf_counter() - t0
                 req.latency_s = time.monotonic() - req.arrival_t
             req.phases["evict"] = max(req.latency_s - sum(req.phases.values()), 0.0)
-            req.outcome = "completed"
+            obs_metrics.counter("serving/completed").inc()
+            obs_metrics.histogram("serving/request_s").observe(req.latency_s)
+            self._finish_record(req, "completed")
+        self._publish_lanes()
         return healthy
+
+
+def first_noise(req: Request, total_tokens: int, device: torch.device,
+                dtype: torch.dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The gumbel noise (1, total_tokens) of a request's first code and the
+    state its generator is left in: one draw from a fresh generator with
+    the request's seed, as a batch-1 loop draws its first token's, or the
+    first row of the request's noise (the state then None: its lanes read
+    their rows from the table)."""
+    if req.noise is not None:
+        return req.noise[:1].to(device), None
+    gen = torch.Generator(device=device).manual_seed(req.seed)
+    row = gumbel_noise((1, total_tokens), gen, dtype, device)
+    return row, gen.get_state()
+
+
+@torch.no_grad()
+def prefill_handoff(model: DALLE, req: Request, filter_thres: float,
+                    degraded_filter_thres: float = 0.98) -> Dict[str, Any]:
+    """The first half of an admission, which needs only the model and the
+    request: the prompt's prefill (the flash forward kernels on the card)
+    into a dense cache of its lanes ([cond] or [cond, null]) and the first
+    code, sampled as the engine's lanes sample (guidance, top-k capped
+    at the degrade ladder's rung 2, temperature, the request's first
+    noise).  Returns the handoff: the cache's layers, the code (a 0-d
+    tensor), the lanes and the generator state the lanes continue from."""
+    cfg = model.cfg
+    n_lanes = req.lanes_needed
+    dev = model.device
+    tcfg = dataclasses.replace(cfg.transformer_config(), seq_len=cfg.text_seq_len + 1)
+    cache = init_cache(tcfg, n_lanes, dtype=model.dtype, device=dev)
+    text = torch.as_tensor(req.text[None], device=dev)
+    cache, logits = sampling_mod._prefill_phase(model, text, None, 0, req.cond_scale, cache)
+    noise, state = first_noise(req, cfg.total_tokens, dev, logits.dtype)
+    cap = torch.full((n_lanes,), req.degrade_rung >= 2, dtype=torch.bool, device=dev)
+    code, _ = sample_lanes(model, logits, request_settings(n_lanes, req.temperature, req.cond_scale, dev),
+                           filter_thres, noise.expand(n_lanes, -1), cand_cap=cap,
+                           degraded_filter_thres=degraded_filter_thres)
+    return {"layers": cache["layers"], "code": code[0], "lanes": n_lanes, "rng_state": state}

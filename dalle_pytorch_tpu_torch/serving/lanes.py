@@ -19,8 +19,11 @@ NaN logits before the guidance: the fault drill of `--inject_fault
 poison-request`) and the nonfinite screen (a live lane whose guided logits
 hold a NaN or an infinity is flagged `bad`, and its logits are set to 0 so
 that it samples something finite).  The engine accumulates the flags and
-quarantines the request at its eviction.  The degrade cap of the JAX
-pipeline comes with the degrade ladder (ROADMAP.md Queue 1 item 6).
+quarantines the request at its eviction.  The degrade cap: a lane whose
+`cand_cap` is set (a request admitted at the degrade ladder's
+cap_candidates rung or above) keeps only the first max(int((1 -
+degraded_filter_thres) V), 1) of its top-k candidates, chosen per lane by
+`torch.where`, so the captured step has no host branch.
 
 `LaneState` holds these per-lane tensors on the device; they are written
 in place at admission, so a captured step reads their new values.  Under
@@ -50,27 +53,30 @@ class LaneState:
         self.partner = torch.arange(num_lanes, device=device)
         self.feed_src = torch.arange(num_lanes, device=device)
         self.use_noise = torch.zeros(num_lanes, dtype=torch.bool, device=device)
+        self.cand_cap = torch.zeros(num_lanes, dtype=torch.bool, device=device)
         self.noise = (torch.zeros((num_lanes, noise_rows, total_tokens), device=device) if noise_rows else None)
         self.generators: List[torch.Generator] = [torch.Generator(device=device) for _ in range(num_lanes)]
         self.total_tokens = total_tokens
         self.poison_lane = torch.full((), -1, dtype=torch.long, device=device)
 
     def arm(self, lanes: List[int], temperature: float, cond_scale: float, seed: int,
-            noise: Optional[torch.Tensor]) -> None:
-        """Set a request's lanes: its sampling settings, the pair's partner
-        and feed source, and its randomness (each lane's generator seeded
-        with `seed`, as a fresh `torch.Generator(device).manual_seed(seed)`
-        is; the noise rows copied in)."""
+            noise: Optional[torch.Tensor], cap: bool = False, rng_state: Optional[torch.Tensor] = None) -> None:
+        """Set a request's lanes: its sampling settings, the degrade cap,
+        the pair's partner and feed source, and its randomness (each lane's
+        generator at `rng_state`, or seeded with `seed` as a fresh
+        `torch.Generator(device).manual_seed(seed)` is; the noise rows
+        copied in)."""
         device = self.temp.device
         idx = torch.tensor(lanes, device=device)
         self.temp[idx] = temperature
         self.cscale[idx] = cond_scale
+        self.cand_cap[idx] = cap
         cond, null = lanes[0], lanes[-1]  # one lane: its own partner
         self.guided[idx] = False
         self.guided[cond] = len(lanes) == 2
         self.partner[idx] = null
         self.feed_src[idx] = cond
-        state = torch.Generator(device=device).manual_seed(seed).get_state()
+        state = torch.Generator(device=device).manual_seed(seed).get_state() if rng_state is None else rng_state
         for lane in lanes:
             self.generators[lane].set_state(state)
         self.use_noise[idx] = noise is not None
@@ -121,15 +127,41 @@ class LaneState:
         return self.temp[idx], self.cscale[idx], self.guided[idx], partner, torch.zeros_like(idx)
 
 
+def request_settings(n_lanes: int, temperature: float, cond_scale: float, device):
+    """One request's lane settings, as `LaneState.settings(lanes)` gives
+    them once its lanes are armed: what a prefill worker samples the first
+    code with, away from any engine's lanes."""
+    idx = torch.arange(n_lanes, device=device)
+    temp = torch.full((n_lanes,), float(temperature), device=device)
+    cscale = torch.full((n_lanes,), float(cond_scale), device=device)
+    return temp, cscale, (idx == 0) & (n_lanes == 2), torch.full_like(idx, n_lanes - 1), torch.zeros_like(idx)
+
+
+def capped_top_k(logits: torch.Tensor, filter_thres: float, cand_cap: Optional[torch.Tensor] = None,
+                 degraded_filter_thres: float = 0.98) -> torch.Tensor:
+    """`top_k_filter` at `filter_thres`, with a `cand_cap` lane keeping only
+    the first max(int((1 - degraded_filter_thres) V), 1) of its top k (at
+    most k): the JAX pipeline's `k_cap`."""
+    if cand_cap is None:
+        return top_k_filter(logits, thres=filter_thres)
+    v = logits.shape[-1]
+    k = max(int((1.0 - filter_thres) * v), 1)
+    k_cap = min(max(int((1.0 - degraded_filter_thres) * v), 1), k)
+    val, ind = torch.topk(logits, k, dim=-1)
+    drop = cand_cap[:, None] & (torch.arange(k, device=logits.device) >= k_cap)
+    return torch.full_like(logits, float("-inf")).scatter(-1, ind, val.masked_fill(drop, float("-inf")))
+
+
 def sample_lanes(model: DALLE, logits: torch.Tensor, settings, filter_thres: float, noise: torch.Tensor,
-                 active: Optional[torch.Tensor] = None,
-                 poison_lane: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 active: Optional[torch.Tensor] = None, poison_lane: Optional[torch.Tensor] = None,
+                 cand_cap: Optional[torch.Tensor] = None,
+                 degraded_filter_thres: float = 0.98) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(codes (L,), bad (L,) or None) from the masked image logits (L,
     total_tokens) of L lanes with their `LaneState.settings`: poison
     injection at `poison_lane`, guidance across partners, the nonfinite
     screen of the `active` lanes (none without `active`: the admission's
-    first code), top-k, temperature, noise, the shift into the codebook and
-    the feed-source mirror."""
+    first code), top-k (capped on the `cand_cap` lanes), temperature,
+    noise, the shift into the codebook and the feed-source mirror."""
     cfg = model.cfg
     temp, cscale, guided, partner, feed_src = settings
     if poison_lane is not None:
@@ -141,7 +173,7 @@ def sample_lanes(model: DALLE, logits: torch.Tensor, settings, filter_thres: flo
     if active is not None:
         bad = ~torch.isfinite(lg).all(dim=-1) & active
         lg = lg.masked_fill(bad[:, None], 0.0)
-    filtered = top_k_filter(lg, thres=filter_thres)
+    filtered = capped_top_k(lg, filter_thres, cand_cap, degraded_filter_thres)
     scaled = filtered / temp[:, None]
     tok = torch.argmax(scaled + noise, dim=-1)
     code = (tok - cfg.num_text_tokens_padded).clamp(0, cfg.num_image_tokens - 1)

@@ -16,7 +16,10 @@ gates, in order:
 pool is smaller than its lanes' sequences), and the queue refuses past its
 depth: `AdmissionRefused` with `kind` "never_fits" or "queue_overflow".
 Refusals, deferrals and backpressure episodes are counted in the
-controller's `counts`.
+controller's `counts` (this engine's) and in the process's metrics
+registry under the JAX package's names (`serving/refused_<kind>`,
+`serving/admission_deferrals`, `serving_backpressure_alarms`), which the
+serve report reads.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from dalle_pytorch_tpu_torch.observability import metrics as obs_metrics
 
 
 class AdmissionRefused(RuntimeError):
@@ -47,16 +52,20 @@ class Request:
     generator of that seed draws it; `noise`, (image_seq_len, total_tokens)
     float32, replaces the draws as `noise_override` does there.
 
-    `deadline_s` (seconds from arrival) and `retries_left` are carried for
-    the fleet's router and journal, which are not ported; the engine does
-    not act on them.  The engine stamps `phases` (queue_wait, admission,
+    `deadline_s` (seconds from arrival) makes a request on a stalled
+    replica a candidate for the router's hedge; `retries_left` bounds its
+    requeue hops.  The engine stamps `phases` (queue_wait, admission,
     prefill, decode, vae_decode, evict seconds) and sets `outcome` once:
     "completed", "shed" (refused at submit), "deferred" (queued or in
     flight when the engine closed or drained) or "poisoned" (its lanes
     produced nonfinite logits past `poison_retries` re-decodes).
     `poison_victim` marks the target of the poison-request drill;
     `spec_rounds` / `spec_accepted` count the speculative rounds the request
-    sat through and the codes they gave it."""
+    sat through and the codes they gave it.  `synthetic` marks a flood
+    drill's request; `journal_uid` / `trace_uid` its content uid (one for
+    every hop of a logical request); `replica` the engine that made this
+    hop; `hedged` / `hedge_uid` a hedged pair; `degrade_rung` the rung it
+    was admitted under; `replayed` a resubmission from the journal."""
 
     id: int
     text: np.ndarray
@@ -67,6 +76,7 @@ class Request:
     arrival_t: float = dataclasses.field(default_factory=time.monotonic)
     deadline_s: Optional[float] = None
     retries_left: int = 3
+    synthetic: bool = False
     # engine-owned
     lanes: Optional[List[int]] = None
     codes_done: int = 0
@@ -80,6 +90,14 @@ class Request:
     poison_victim: bool = False
     spec_rounds: int = 0
     spec_accepted: int = 0
+    # the fleet's and the journal's
+    journal_uid: Optional[str] = None
+    trace_uid: Optional[str] = None
+    replica: Optional[int] = None
+    hedged: bool = False
+    hedge_uid: Optional[str] = None
+    degrade_rung: int = 0
+    replayed: bool = False
     # results
     codes: Optional[np.ndarray] = None
     images: Optional[torch.Tensor] = None
@@ -98,6 +116,14 @@ class Request:
         when it ran no round."""
         return self.spec_accepted / self.spec_rounds if self.spec_rounds else None
 
+    def deadline_frac(self, now: Optional[float] = None) -> Optional[float]:
+        """The share of the deadline spent (past 1 when late); None without
+        a deadline."""
+        if self.deadline_s is None or self.deadline_s <= 0:
+            return None
+        now = time.monotonic() if now is None else now
+        return (now - self.arrival_t) / self.deadline_s
+
 
 class RequestQueue:
     """Bounded FIFO; `push` raises AdmissionRefused ("queue_overflow") at
@@ -114,18 +140,25 @@ class RequestQueue:
         if len(self._q) >= self.max_depth:
             raise AdmissionRefused(f"queue full ({self.max_depth} requests waiting)", kind="queue_overflow")
         self._q.append(req)
+        obs_metrics.gauge("serving/queue_depth").set(len(self._q))
 
     def requeue(self, req: Request) -> None:
         """Put back at the head a request the engine already held (a poison
         retry), past the depth cap: refusing an accepted request would drop
         it."""
         self._q.appendleft(req)
+        obs_metrics.gauge("serving/queue_depth").set(len(self._q))
 
     def peek(self) -> Optional[Request]:
         return self._q[0] if self._q else None
 
     def pop(self) -> Request:
-        return self._q.popleft()
+        req = self._q.popleft()
+        obs_metrics.gauge("serving/queue_depth").set(len(self._q))
+        return req
+
+    def __iter__(self):
+        return iter(self._q)
 
 
 def _default_usage_fn(device: Optional[torch.device] = None) -> Callable[[], Optional[float]]:
@@ -178,6 +211,7 @@ class AdmissionController:
             if in_flight > 0:
                 return f"HBM headroom ({usage:.2f} >= {self.headroom_frac:.2f} usage fraction)", "headroom"
             self.counts["headroom_overrides"] += 1
+            obs_metrics.counter("serving/headroom_overrides").inc()
         return None, None
 
     def _alarm_once(self) -> None:
@@ -186,16 +220,19 @@ class AdmissionController:
         if not self._alarmed:
             self._alarmed = True
             self.counts["backpressure_alarms"] += 1
+            obs_metrics.counter("serving_backpressure_alarms").inc()
 
     def note_deferral(self, reason: str) -> None:
         """A queued request waited this iteration."""
         self.counts["admission_deferrals"] += 1
+        obs_metrics.counter("serving/admission_deferrals").inc()
         self._alarm_once()
 
     def note_refusal(self, reason: str, kind: str = "other") -> None:
         """A request was shed outright."""
         self.counts["refused"] += 1
         self.counts[f"refused_{kind}"] += 1
+        obs_metrics.counter(f"serving/refused_{kind}").inc()
         self._alarm_once()
 
     def note_flow(self) -> None:

@@ -7,8 +7,10 @@ for draw, for the same seed).  `run` walks the wall clock: due requests are
 submitted (refusals counted: shedding load is a measured outcome), the
 engine is polled, and each completed request's TTFT and latency go into the
 report, whose percentiles are exact (numpy over the records).  Its keys are
-the JAX report's; on one engine every journey is one hop, so the journey
-(`ttft_*`, `latency_*`) and per-hop (`hop_*`) percentiles are equal.
+the JAX report's: journey percentiles (`ttft_*`, `latency_*`: a logical
+request's hops, requeues and hedged copies, grouped by content uid) and
+per-hop ones (`hop_*`), equal on one engine without requeues.  A fleet
+(`serving/fleet.py`) is driven as an engine is.
 
 As a command, against a synthetic model on the card (`--device cpu` for the
 CPU):
@@ -27,6 +29,12 @@ import numpy as np
 from dalle_pytorch_tpu_torch.serving.scheduler import AdmissionRefused
 
 
+def _journey_key(r) -> Any:
+    """What groups a logical request's hops: its content uid (the same for
+    a requeue, a hedged copy and a replay), else the object itself."""
+    return getattr(r, "journal_uid", None) or getattr(r, "trace_uid", None) or getattr(r, "hedge_uid", None) or id(r)
+
+
 class PoissonLoadGen:
     def __init__(self, n_requests: int, rate: float, streams: int = 2, seed: int = 0):
         if n_requests <= 0 or rate <= 0 or streams <= 0:
@@ -43,9 +51,13 @@ class PoissonLoadGen:
 
     def run(self, engine, make_request: Callable[[int], Dict[str, Any]],
             max_wall_s: Optional[float] = None) -> Dict[str, Any]:
-        """Drive `engine` through the schedule; `make_request(i)` gives the
-        i-th arrival's submit() keywords.  Returns the report."""
+        """Drive `engine` (or a fleet) through the schedule; `make_request(i)`
+        gives the i-th arrival's submit() keywords.  A flood drill's
+        synthetic requests are kept out of the report's numbers.  Returns
+        the report."""
         completed: List[Any] = []
+        submitted: List[Any] = []
+        synthetic_done = 0
         refused = 0
         idx = 0
         t0 = time.monotonic()
@@ -55,59 +67,91 @@ class PoissonLoadGen:
                 break
             while idx < len(self.arrivals) and self.arrivals[idx][0] <= now:
                 try:
-                    engine.submit(**make_request(idx))
+                    submitted.append(engine.submit(**make_request(idx)))
                 except AdmissionRefused:
                     refused += 1
                 idx += 1
             if engine.busy:
-                completed.extend(engine.poll())
+                for r in engine.poll():
+                    if getattr(r, "synthetic", False):
+                        synthetic_done += 1
+                    else:
+                        completed.append(r)
             elif idx < len(self.arrivals):
                 time.sleep(min(max(self.arrivals[idx][0] - now, 0.0), 0.02))
         elapsed = time.monotonic() - t0
-        report = self.report(completed, refused, elapsed)
-        report["synthetic_completed"] = 0  # the JAX engine's flood-fault requests; none here
+        report = self.report(completed, refused, elapsed, submitted=submitted)
+        report["synthetic_completed"] = synthetic_done
         return report
 
-    def report(self, completed: List[Any], refused: int, elapsed_s: float) -> Dict[str, Any]:
+    def report(self, completed: List[Any], refused: int, elapsed_s: float,
+               submitted: Optional[List[Any]] = None) -> Dict[str, Any]:
         """TTFT, queue wait and latency percentiles, completions, refusals
-        and images/s over the completed requests."""
+        and images/s.  The TTFT and latency percentiles are a journey's:
+        its hops (the submitted requests and the completions, which alone
+        carry a requeue's or a hedge's hop) grouped by content uid, from
+        the first hop's arrival to the first token anywhere and to the
+        first completion; the `hop_*` ones are each completion's own."""
         ttfts = np.asarray([r.ttft_s for r in completed if r.ttft_s is not None])
         lats = np.asarray([r.latency_s for r in completed if r.latency_s is not None])
-        qwaits = np.asarray([r.phases["queue_wait"] for r in completed if "queue_wait" in r.phases])
+        qwaits = np.asarray([r.phases["queue_wait"] for r in completed
+                             if getattr(r, "phases", None) and "queue_wait" in r.phases])
+        accepts = np.asarray([r.accepted_tokens_per_step for r in completed
+                              if getattr(r, "accepted_tokens_per_step", None) is not None])
 
         def pct(a, q):
             return float(np.percentile(a, q)) if a.size else None
 
+        hops: Dict[Any, Dict[str, Any]] = {}
+        for r in list(submitted or []) + list(completed):
+            if getattr(r, "synthetic", False):
+                continue
+            arr = getattr(r, "arrival_t", None) or 0.0
+            j = hops.setdefault(_journey_key(r), {"arrival": arr, "first": [], "final": []})
+            j["arrival"] = min(j["arrival"], arr)
+            if getattr(r, "ttft_s", None) is not None:
+                j["first"].append(arr + r.ttft_s)
+            if getattr(r, "latency_s", None) is not None:
+                j["final"].append(arr + r.latency_s)
+        done = [j for j in hops.values() if j["final"]]
+        j_ttfts = np.asarray([min(j["first"]) - j["arrival"] for j in done if j["first"]])
+        j_lats = np.asarray([min(j["final"]) - j["arrival"] for j in done])
         n = len(completed)
+        spec = {}
+        if accepts.size:
+            spec = {"accepted_tokens_per_step_p50": pct(accepts, 50),
+                    "accepted_tokens_per_step_mean": float(accepts.mean()),
+                    "accepted_tokens_per_step_min": float(accepts.min())}
         return {
             "requests_completed": n,
             "requests_refused": refused,
-            "journeys_completed": n,
+            "journeys_completed": len(done),
             "streams": self.streams,
             "elapsed_s": round(elapsed_s, 4),
-            # a journey is every hop of one logical request: one engine
-            # without requeues makes each request its own journey
-            "ttft_p50_s": pct(ttfts, 50),
-            "ttft_p99_s": pct(ttfts, 99),
+            "ttft_p50_s": pct(j_ttfts, 50),
+            "ttft_p99_s": pct(j_ttfts, 99),
             "queue_wait_p50_s": pct(qwaits, 50),
             "queue_wait_p99_s": pct(qwaits, 99),
-            "latency_p50_s": pct(lats, 50),
-            "latency_p99_s": pct(lats, 99),
+            "latency_p50_s": pct(j_lats, 50),
+            "latency_p99_s": pct(j_lats, 99),
             "hop_ttft_p50_s": pct(ttfts, 50),
             "hop_ttft_p99_s": pct(ttfts, 99),
             "hop_latency_p50_s": pct(lats, 50),
             "hop_latency_p99_s": pct(lats, 99),
-            # the engine runs on one card
+            # a replica runs on one card, and the fleet's replicas share it
             "images_per_sec_per_chip": (n / elapsed_s if elapsed_s > 0 else None),
+            **spec,
         }
 
 
 def synthetic_request_maker(cfg, seed: int = 0, temperature: float = 1.0, cond_scale: float = 1.0,
-                            zipf_s: Optional[float] = None, prompt_pool: int = 16):
+                            zipf_s: Optional[float] = None, prompt_pool: int = 16, deadline_s: Optional[float] = None,
+                            retries: Optional[int] = None):
     """submit() keywords for random prompts: fresh ones, or with `zipf_s`
     Zipf(zipf_s)-distributed draws from a fixed pool of `prompt_pool`
     prompts (the JAX tool's prompts for the same seed).  The i-th request's
-    seed is seed * 100003 + i."""
+    seed is seed * 100003 + i; `deadline_s` and `retries` attach the
+    router's deadline and requeue budget to every request."""
     rng = np.random.RandomState(seed)
     pool = weights = None
     if zipf_s is not None:
@@ -123,7 +167,12 @@ def synthetic_request_maker(cfg, seed: int = 0, temperature: float = 1.0, cond_s
             text = rng.randint(1, cfg.num_text_tokens, size=(cfg.text_seq_len,))
         else:
             text = pool[rng.choice(len(pool), p=weights)]
-        return {"text": text, "seed": seed * 100003 + i, "temperature": temperature, "cond_scale": cond_scale}
+        kw = {"text": text, "seed": seed * 100003 + i, "temperature": temperature, "cond_scale": cond_scale}
+        if deadline_s is not None:
+            kw["deadline_s"] = deadline_s
+        if retries is not None:
+            kw["retries_left"] = retries
+        return kw
 
     return make
 

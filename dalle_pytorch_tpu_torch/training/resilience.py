@@ -6,10 +6,13 @@ of writing NaN into the parameters and the optimizer's moments.  The JAX
 package decides inside the compiled step with `lax.cond`; PyTorch runs
 eagerly, so the guard reads the flag on the host, one device sync per step.
 
-`parse_fault`, `FaultInjector`, `take_poison_fault`, `take_flood_fault`:
-`--inject_fault poison-request@N` and `flood@N:COUNT` for the serving
-engine.  The other kinds wait for the fleet (ROADMAP.md Queue 1 item 6) and
-for the training loop's resilience (item 8).
+`parse_fault`, `FaultInjector` and the `take_*` functions: the serving
+drills.  `poison-request@N` and `flood@N:COUNT` for the engine;
+`kill-replica@N[:IDX]` (drain replica IDX and requeue its work),
+`kill-fleet@N` (SIGKILL of the whole process, for the journal's replay)
+and `stall-replica@N[:IDX]` (wedge replica IDX, alive) for the fleet, at
+its iteration N.  The training kinds wait for the training loop's
+resilience (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -30,21 +33,22 @@ def nonfinite_guard(update_fn: Callable[[], None], finite: Union[bool, torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# fault injection: the serving engine's two drills
+# fault injection: the serving drills
 # ---------------------------------------------------------------------------
 
-# the JAX package's fault kinds; the port runs the engine's two drills and
-# names the ROADMAP.md item that brings each of the others
+# the JAX package's fault kinds; the port runs the serving drills and names
+# the ROADMAP.md item that brings the training loop's
 FAULT_KINDS = ("kill-process", "preempt", "corrupt-checkpoint", "truncate-checkpoint", "stall-data",
                "drop-remote-stream", "oom", "shrink", "grow", "flood", "kill-replica", "kill-fleet",
                "stall-replica", "poison-request")
 ENGINE_FAULTS = ("flood", "poison-request")
-_FLEET_FAULTS = ("kill-replica", "kill-fleet", "stall-replica")
+FLEET_FAULTS = ("kill-replica", "kill-fleet", "stall-replica")
 
 
 @dataclasses.dataclass(frozen=True)
 class Fault:
-    """`kind` at engine iteration `step`; `count` is flood's burst size."""
+    """`kind` at engine (or fleet) iteration `step`; `count` is flood's
+    burst size and the replica index of kill-replica and stall-replica."""
 
     kind: str
     step: int
@@ -53,15 +57,14 @@ class Fault:
 
 def parse_fault(spec: str) -> Fault:
     """`KIND@STEP`, STEP 0 when left out; `flood@STEP:COUNT` (COUNT 32 when
-    left out).  An unknown kind raises ValueError; a kind the port does not
-    run yet exits naming the ROADMAP.md item that brings it: item 6 for the
-    fleet's, item 8 for the training loop's."""
+    left out); `kill-replica@STEP:IDX` and `stall-replica@STEP:IDX` (IDX 0
+    when left out).  An unknown kind raises ValueError; a training kind
+    exits naming ROADMAP.md Queue 1 item 8, which brings it."""
     kind, _, at = spec.partition("@")
     if kind not in FAULT_KINDS:
         raise ValueError(f"unknown fault kind {kind!r}; choose from {', '.join(FAULT_KINDS)}")
-    if kind not in ENGINE_FAULTS:
-        item = 6 if kind in _FLEET_FAULTS else 8
-        raise SystemExit(f"--inject_fault: the {kind} drill is not ported yet (ROADMAP.md Queue 1 item {item})")
+    if kind not in ENGINE_FAULTS + FLEET_FAULTS:
+        raise SystemExit(f"--inject_fault: the {kind} drill is not ported yet (ROADMAP.md Queue 1 item 8)")
     count = 32 if kind == "flood" else 0
     if ":" in at:
         at, _, number = at.partition(":")
@@ -113,3 +116,26 @@ def take_flood_fault(step: int) -> int:
     many synthetic requests, which it must queue or refuse."""
     fault = _take("flood", step)
     return 0 if fault is None else fault.count
+
+
+def take_kill_replica_fault(step: int) -> Optional[int]:
+    """The replica index to kill, once, when a `kill-replica` fault is
+    armed and the fleet's iteration count reaches its step (None
+    otherwise): the fleet drains it and requeues its work on the others."""
+    fault = _take("kill-replica", step)
+    return None if fault is None else fault.count
+
+
+def take_kill_fleet_fault(step: int) -> bool:
+    """True once, when a `kill-fleet` fault is armed and the iteration
+    count reaches its step: the process kills itself with SIGKILL (no
+    cleanup), and the journal must let the next one replay what it held."""
+    return _take("kill-fleet", step) is not None
+
+
+def take_stall_replica_fault(step: int) -> Optional[int]:
+    """The replica index to wedge, once, when a `stall-replica` fault is
+    armed and the fleet's iteration count reaches its step: it stays alive
+    but makes no progress, and the router's breaker must open."""
+    fault = _take("stall-replica", step)
+    return None if fault is None else fault.count

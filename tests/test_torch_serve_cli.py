@@ -3,8 +3,10 @@ on the CPU: `serve --synthetic --loadgen 4` end to end with the loadgen's
 report, `serve --prompts` from a v3 checkpoint writing one PNG a prompt
 (the images of each request's batch-1 codes), `generate --engine` writing
 the PNG that `generate` writes under the same seed, a torch-reference
-VQGanVAE dalle.pt and a v2 file served through their flags, and every
-refused flag exiting with its ROADMAP.md item."""
+VQGanVAE dalle.pt and a v2 file served through their flags, the fleet's,
+the journal's, the degrade ladder's, the recorder's and the SLO monitor's
+flags serving, and the telemetry flags exiting with their ROADMAP.md
+item."""
 import json
 
 import numpy as np
@@ -112,16 +114,43 @@ def test_generate_engine_seeds_each_image(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--replicas", "2"], "item 6"), (["--disaggregate"], "item 6"), (["--journal", "j"], "item 6"),
-    (["--degrade"], "item 6"), (["--hedge_frac", "0.1"], "item 6"), (["--stall_wedge_s", "2"], "item 6"),
-    (["--pool_recorder_capacity", "8"], "item 6"), (["--slo_latency_p99", "1"], "item 6"),
-    (["--telemetry", "t"], "item 8"), (["--slo_ttft_p99", "1"], "item 6"), (["--status_json", "s"], "item 6"),
-    (["--inject_fault", "kill-replica@3"], "item 6"), (["--no_pool_recorder"], "item 6"),
-    (["--deadline_s", "5"], "item 6"), (["--retries", "3"], "item 6"),
+    (["--telemetry", "t"], "item 8"), (["--telemetry_every", "4"], "item 8"),
+    (["--telemetry_heartbeat_s", "5"], "item 8"), (["--profile_on_alarm", "2"], "item 8"),
 ])
 def test_serve_refuses_what_is_not_ported(flags, item):
     with pytest.raises(SystemExit, match=f"--{flags[0][2:]}: .*ROADMAP.md Queue 1 {item}"):
         serve.main(["--synthetic", "--loadgen", "1", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--replicas", "2"], ["--disaggregate"], ["--journal", "{tmp}/j"], ["--degrade"],
+    ["--replicas", "2", "--hedge_frac", "0.1"], ["--replicas", "2", "--stall_wedge_s", "2"],
+    ["--pool_recorder_capacity", "8"], ["--slo_latency_p99", "1"], ["--slo_ttft_p99", "1"],
+    ["--status_json", "{tmp}/status.json"], ["--replicas", "2", "--inject_fault", "kill-replica@3"],
+    ["--no_pool_recorder"], ["--deadline_s", "5"], ["--retries", "3"],
+])
+def test_serve_runs_the_fleet_flags(flags, tmp_path):
+    """The flags of the fleet, the journal, the degrade ladder, the pool's
+    recorder and the SLO monitor, which the port once refused, serve
+    every request, and the report carries what ran."""
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    report = serve.main(["--synthetic", "--dim", "32", "--depth", "2", "--image_fmap_size", "4", "--loadgen", "3",
+                         "--rate", "50", "--slots", "2", "--block_size", "8", "--device", "cpu", *flags])
+    assert report["requests_completed"] == 3 and report["refused_total"] == 0
+    if "--replicas" in flags or "--disaggregate" in flags:
+        assert report["replicas"] == int(flags[flags.index("--replicas") + 1]) if "--replicas" in flags else 1
+        assert report["replicas_lost"] == (1 if "--inject_fault" in flags else 0)
+    if "--disaggregate" in flags:
+        assert report["handoff_requests"] == 3 and report["handoff_bytes"] > 0
+    if "--journal" in flags:
+        assert report["journal_acked"] == report["journal_accepted"] == 3
+    if "--status_json" in flags:
+        assert json.loads((tmp_path / "status.json").read_text())["serving"]["queue_depth"] == 0
+    pool = report["pool"]
+    assert ("recorder_dropped" in pool) == ("--no_pool_recorder" not in flags)
+    if "--pool_recorder_capacity" in flags:  # every event past the ring's 8 dropped the oldest
+        events = pool["allocs"] + pool["frees"] + pool["truncates"] + sum(pool["defer_events"].values())
+        assert pool["allocs"] == pool["frees"] == 3 and pool["recorder_dropped"] == events - 8
 
 
 @pytest.mark.parametrize("flags", [
@@ -136,7 +165,9 @@ def test_serve_runs_the_serving_levers(flags, capsys):
     report = serve.main(["--synthetic", "--dim", "32", "--depth", "2", "--image_fmap_size", "4", "--loadgen", "3",
                          "--rate", "50", "--slots", "4", "--block_size", "8", "--device", "cpu", *flags])
     q = report["quantization"]
-    assert report["requests_completed"] == 3 + report["flood_injected"] and report["quarantined"] == 0
+    # the flood's synthetic requests are reported apart, as the JAX loadgen reports them
+    assert report["requests_completed"] == 3 and report["synthetic_completed"] == report["flood_injected"]
+    assert report["quarantined"] == 0
     if "--quantize_weights" in flags:
         kind = flags[flags.index("--quantize_weights") + 1]
         assert q["weight_dtype"] == kind and f"weights quantized to {kind}" in capsys.readouterr().out
