@@ -30,13 +30,11 @@ output embeddings, the VFA forward on the compacted grid): one primed
 generation, replayed decode graphs, card-vs-CPU parity of a small model with its
 features, and training (bf16 compute sequential and rematerialised, f32
 compute rematerialised, on f32 masters with Adam; then the JAX package's
-flagship recipe: `flash_qkv` remat at batch 8 and `flash_qkv_ff` and
-"full" at batch 4, bf16 parameter storage with stochastic rounding, bf16
-gradients, Adafactor), the same recipe on a small model held card against
-CPU under one set of rounding bits (`lowp_train_parity`), the recipe's
-policy's host time against "full" (`remat_host_cost`, the flagship's 64 layers at a
-width where the host sets the pace), and the recipe's
-numerics smoke (`tools/numerics_smoke.py` at its defaults).  The pattern model also
+flagship recipe: `flash_qkv` remat at batch 8 and "full" at batch 4, bf16
+parameter storage with stochastic rounding, bf16 gradients, Adafactor),
+the same recipe on a small model held card against CPU under one set of
+rounding bits (`lowp_train_parity`), and the recipe's numerics smoke
+(`tools/numerics_smoke.py` at its defaults).  The pattern model also
 takes one gradient under each remat policy (`remat_policies`: equal to the
 sequential one, the forward launched once under the selective policies,
 peak memory in the policies' order).  Then text in, PNG out: the generate CLI
@@ -85,6 +83,15 @@ codes, pixels, times), `train_openai_taming` (the 12-layer model trained
 by `cli.train_dalle` on OpenAI's dVAE from a converted cache and with
 --taming, then served), `legacy_formats` (a torch-reference dalle.pt and
 a v2 checkpoint through `cli.generate`).
+
+Distributed training (`parallel/`): `dist_parity` runs the sharded train
+step of the flagship's widths at depth 4 on two ranks that share the card
+over gloo with CUDA tensors (dp2, fsdp2 at ZeRO-1 and ZeRO-3, tp2; a mesh
+whose collective gloo refuses there is named and left to the CPU tests),
+each against the one-process card step on the same global batches, and
+`dist_train_cli` runs `cli.train_dalle` under torchrun over NCCL at ZeRO-3
+against the one-process CLI on `train_real_data`'s data, then resumes its
+checkpoint in the one-process CLI.
 
 Serving replays the decode step from CUDA graphs (`models/sampling.py`
 `DecodeGraphs`).  The `decode_graphs` lines hold the replayed loop against
@@ -1757,102 +1764,48 @@ def phase_remat_policies(fa, port, model_kwargs=SLICE):
     torch.cuda.empty_cache()
 
 
-# "full" and the recipe's policy; "flash" and "flash_qkv_ff" are left out
-# (`remat_policies` holds every policy's gradients, `flagship_train` times flash_qkv_ff)
-REMAT_HOST_POLICIES = ("full", "flash_qkv")
-
-
-def phase_remat_host_cost(fa, port, model_kwargs=dict(FLAGSHIP, dim=128, heads=1), batch=8, steps=2):
-    """The remat policies' host time.  The flagship's 64 layers (its cycle,
-    the VFA pair, head dim 128) at dim 128 and one head, so that a step's
-    device time is small and its time is the host's: one bf16 gradient
-    (batch 8, bf16 leaves, as the recipe takes them) under "full" and under
-    the three policies (which keep their values by hand, `remat_run`).  Per
-    variant: the median step time and the device time of one profiled
-    step."""
-    import dataclasses
-
-    from torch.func import functional_call
-
-    from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
-
-    dev = torch.device("cuda")
-    vae = port.DiscreteVAE(seed=0, **FULL_VAE)
-    cfg = DALLEConfig.from_vae(vae.cfg, **model_kwargs)
-    model = init_dalle(dataclasses.replace(cfg, execution="remat"), torch.Generator(device=dev).manual_seed(1),
-                       dev).train().to(torch.bfloat16)
-    rng = np.random.default_rng(12)
-    text = torch.from_numpy(rng.integers(1, cfg.num_text_tokens, (batch, cfg.text_seq_len))).to(dev)
-    codes = torch.from_numpy(rng.integers(0, cfg.num_image_tokens, (batch, cfg.image_seq_len))).to(dev)
-    params = dict(model.named_parameters())
-
-    def grad_step():
-        work = {n: p.detach().requires_grad_(True) for n, p in params.items()}
-        loss = functional_call(model, work, (text, codes), {"return_loss": True})
-        loss.backward()
-        return float(loss.detach())
-
-    base = model.transformer.cfg
-    results = {}
-    for name in REMAT_HOST_POLICIES:
-        model.transformer.cfg = dataclasses.replace(base, remat_policy=name)
-        loss = grad_step()  # warm-up: tables, allocator
-        check(np.isfinite(loss), f"remat_host_cost {name}: loss {loss}")
-        secs = []
-        for _ in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            grad_step()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        device_ms = sum(ms for _, ms, _ in device_profile(grad_step))
-        step_ms = statistics.median(secs) * 1e3
-        results[name] = dict(step_ms=step_ms, steps_ms=[x * 1e3 for x in secs], device_ms=device_ms,
-                             device_share=device_ms / step_ms)
-    model.transformer.cfg = base
-    emit("remat_host_cost", dim=cfg.dim, heads=cfg.heads, dim_head=cfg.dim_head, depth=cfg.depth, batch=batch,
-         n=cfg.total_seq_len, **results)
-    del model, params
-    torch.cuda.empty_cache()
-
-
 def phase_numerics_smoke():
-    """`python -m dalle_pytorch_tpu_torch.tools.numerics_smoke --steps 60`
-    (flagship width, depth 8, batch 8, the JAX recipe; the tool's default
-    is 200 steps, and the loss falls past its 5 % bar inside 60: 9.2498 ->
-    8.6509, the mean of its last four losses, on an H100 80GB HBM3 at
-    700 W) in a subprocess: its loss must fall."""
+    """`tools/numerics_smoke.py --steps 60` (flagship width, depth 8, batch
+    8, the JAX recipe; the tool's default is 200 steps, and the loss falls
+    past its 5 % bar inside 60: 9.2498 -> 8.6509, the mean of its last four
+    losses, on an H100 80GB HBM3 at 700 W) in process (a subprocess's
+    start costs tens of seconds on the card's machine): its loss must
+    fall."""
+    import io
+
+    from dalle_pytorch_tpu_torch.tools import numerics_smoke
+
+    out = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "dalle_pytorch_tpu_torch.tools.numerics_smoke", "--steps", "60"],
-                          capture_output=True, text=True, cwd=ROOT, timeout=600)
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = numerics_smoke.main(["--steps", "60"])
+        except SystemExit as e:  # the tool exits 1 on an error, 2 when the loss did not fall
+            rc = e.code
     seconds = time.perf_counter() - t0
-    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
-    check(bool(lines), f"numerics_smoke printed no result (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    out = json.loads(lines[-1])
-    emit("numerics_smoke", rc=proc.returncode, seconds=seconds, **out)
-    check(proc.returncode == 0 and out.get("decreased") is True,
-          f"numerics_smoke: rc {proc.returncode}, decreased {out.get('decreased')}")
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("{")]
+    check(bool(lines), f"numerics_smoke printed no result (rc {rc})")
+    result = json.loads(lines[-1])
+    emit("numerics_smoke", rc=rc, seconds=seconds, **result)
+    check(rc == 0 and result.get("decreased") is True, f"numerics_smoke: rc {rc}, decreased {result.get('decreased')}")
 
 
-def phase_train_cli(weights, checkpoint):
-    """`python -m dalle_pytorch_tpu_torch.cli.train_dalle --dummy_run 4
-    --execution remat --remat_policy flash_qkv --param_dtype bfloat16` in a
-    subprocess (the dummy model at head dim 32, which the kernels take): its
-    checkpoint loads back through the port's reader with bf16 leaves and
-    gives finite logits.  The dummy run's default f32 path is the real-data
-    phase's (`train_real_data`)."""
+def phase_train_cli(fa, weights, checkpoint):
+    """`cli.train_dalle --dummy_run 4 --execution remat --remat_policy
+    flash_qkv --param_dtype bfloat16` in process (the dummy model at head
+    dim 32, which the kernels take; the `python -m` entry runs under
+    torchrun in `dist_train_cli`): its checkpoint loads back through the
+    port's reader with bf16 leaves and gives finite logits.  The dummy
+    run's default f32 path is the real-data phase's (`train_real_data`).
+    Returns the launches."""
+    from dalle_pytorch_tpu_torch.cli import train_dalle
+
     flags = ["--execution", "remat", "--remat_policy", "flash_qkv", "--param_dtype", "bfloat16", "--dim_head", "32"]
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "dalle"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle", "--dummy_run", "4",
-             "--dalle_output_file_name", str(out), *flags],
-            capture_output=True, text=True, cwd=ROOT, timeout=300,
-        )
-        seconds = time.perf_counter() - t0
-        check(proc.returncode == 0, f"train_dalle {flags} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-        steps = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"step"')]
+        lines, launches, _, seconds = run_main(fa, train_dalle.main, ["--dummy_run", "4", "--dalle_output_file_name",
+                                                                     str(out), *flags])
+        steps = [r for r in lines if "loss" in r]
         losses = [s["loss"] for s in steps]
         check(len(steps) == 4 and all(np.isfinite(losses)), f"train_dalle {flags} steps {steps}")
         trees, meta = checkpoint.load_checkpoint(f"{out}.pt")
@@ -1862,11 +1815,12 @@ def phase_train_cli(weights, checkpoint):
         text = torch.randint(0, model.cfg.num_text_tokens, (1, model.cfg.text_seq_len), device="cuda")
         with torch.no_grad():
             check(bool(torch.isfinite(model(text)).all()), "the trained checkpoint gives non-finite logits")
-    emit("train_cli", remat_flash_qkv_bf16=dict(rc=proc.returncode, flags=flags, losses=losses, seconds=seconds,
+    emit("train_cli", remat_flash_qkv_bf16=dict(flags=flags, losses=losses, seconds=seconds,
                                                batches=[s["batch"] for s in steps], trees=sorted(trees),
                                                global_step=meta["global_step"], leaf_dtypes=dtypes,
                                                remat_policy=meta["hparams"].get("remat_policy"),
-                                               rotary_emb=meta["hparams"].get("rotary_emb")))
+                                               rotary_emb=meta["hparams"].get("rotary_emb"), launches=launches))
+    return launches
 
 
 # the real-data phase: the 12-layer full-attention model at full width with
@@ -1961,10 +1915,9 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
     full width of the 12-layer model with learned positions:
     (1) `train_dalle --image_text_folder --vae_path --epochs 2
     --save_every_n_steps 4 --keep_n_checkpoints 1 --lr_decay` (8 steps of
-    batch 4); (2) `--resume` from its step-4 file: the steps after it give
-    the uninterrupted run's losses within 1e-6 relative, and the two final
-    checkpoints hold the same global_step and plateau state (`--wds` over
-    the tar shard is `train_openai_taming`'s --taming run); (3)
+    batch 4); (2) `--resume` of a step file is `dist_train_cli`'s (the
+    torchrun run's file, with --lr_decay), and `--wds` over the tar shard
+    is `train_openai_taming`'s --taming run; (3)
     `cli.generate` from the final
     checkpoint, two prompts with CFG, replayed, PNGs of 256 x 256 x 3, and
     the replayed loop's codes equal to the eager loop's under one noise
@@ -1974,7 +1927,7 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
     --engine` writes the PNGs `generate` writes under one seed; (5) a small
     model with learned positions on the card against the CPU
     (`rotary_off_parity`).  Also the host's PNG decode rate and the loader's
-    batches/s.  Returns the launches of (1) and (2)."""
+    batches/s.  Returns the launches of (1)."""
     import types
 
     from dalle_pytorch_tpu_torch.cli import train_dalle
@@ -2023,19 +1976,6 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
         for name in ("flash_fwd", "flash_dq", "flash_dkv"):
             check(full_launches[name] == 12 * len(full), f"{name}: {full_launches[name]} launches in "
                   f"{len(full)} steps of 12 layers")
-        rest, _, rest_launches, rest_s = run_train_cli(fa, [
-            *folder, "--resume", str(tmp / "full_step4.npz"), "--dalle_output_file_name", str(tmp / "rest")])
-        check([r["step"] for r in rest] == [r["step"] for r in full[5:]],
-              f"the resumed run took steps {[r['step'] for r in rest]}")
-        rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(rest, full[5:]))
-        ends = [plateau_and_step(tmp / f"{name}.pt") for name in ("full", "rest")]
-        check(rel <= 1e-6, f"the resumed losses differ from the uninterrupted run's by {rel} relative")
-        # the counts and the scale exactly; the averaged losses as the losses
-        check(all(ends[0][k] == ends[1][k] for k in ("global_step", "scale", "plateau_count", "cooldown_count",
-                                                     "count"))
-              and all(abs(ends[0][k] - ends[1][k]) <= 1e-6 * abs(ends[0][k]) for k in ("best_value", "avg_value")),
-              f"the final checkpoints differ: {ends}")
-        (tmp / "rest.pt").unlink()
         steady = [r["step_s"] for r in full[1:]]
         n_tokens = 4 * (256 + 1024)
         readings["train"] = dict(
@@ -2043,9 +1983,6 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
             data_s=[r["data_s"] for r in full], tokens_per_s=n_tokens / statistics.median(steady),
             peak_memory_gib=peak_gib, losses=losses, lr_scale=[r["lr_scale"] for r in full], wall_s=full_s,
             launches=full_launches)
-        readings["resume"] = dict(from_file="full_step4.npz", losses=[r["loss"] for r in rest],
-                                  uninterrupted=[r["loss"] for r in full[5:]], max_rel_diff=rel, tolerance=1e-6,
-                                  final_state=ends[1], wall_s=rest_s, launches=rest_launches)
 
         prompts = ("a red cat on the table", "a painting of a river at night")
         common = ["--dalle_path", str(tmp / "full.pt"), "--text", "|".join(prompts), "--num_images", "1",
@@ -2093,7 +2030,7 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
     emit("train_real_data", model=dict(dim=1024, depth=12, heads=16, dim_head=64, text_seq_len=256,
                                        num_text_tokens=cfg.num_text_tokens, rotary_emb=False, shift_tokens=True,
                                        vae=FULL_VAE), **readings, parity_prefill_launches=parity_launches)
-    return {k: full_launches[k] + rest_launches[k] for k in COUNTERS}
+    return full_launches
 
 
 # the tokenizer's and the reranker's training (VAE and CLIP).  The options
@@ -4127,8 +4064,9 @@ def phase_train_openai_taming(fa, port, weights, checkpoint):
     fetch replaced by one that fails: no network) from the PNG folder; and
     with --taming on a taming-format `.ckpt` (a Lightning-style dict holding
     the seeded VQGAN-16k's state dict) and its yaml, from the same pairs'
-    tar shard through `--wds`.  Each checkpoint names its VAE and
-    serves one image through `cli.generate`.  Returns the launches."""
+    tar shard through `--wds`.  Each checkpoint names its VAE, and the
+    OpenAI one serves one image through `cli.generate` (a VQGanVAE
+    checkpoint is `configs4_generate`'s).  Returns the launches."""
     import os
 
     from dalle_pytorch_tpu_torch.cli.png import read_png
@@ -4173,11 +4111,15 @@ def phase_train_openai_taming(fa, port, weights, checkpoint):
                     meta = json.loads(bytes(data["__meta"]).decode())
                 want_class = "OpenAIDiscreteVAE" if name == "openai" else "VQGanVAE"
                 check(meta["vae_class_name"] == want_class, f"{name}: the checkpoint names {meta['vae_class_name']}")
-                paths, gen_t, gen_launches, _, gen_s = run_cli(fa, [
-                    "--dalle_path", str(tmp / f"{name}.pt"), "--text", "a red cat on the table", "--num_images", "1",
-                    "--batch_size", "1", "--cond_scale", "3.0", "--outputs_dir", str(tmp / f"{name}_out")])
-                check(len(paths) == 1 and read_png(paths[0]).shape == (256, 256, 3)
-                      and gen_launches["flash_fwd"] == 12, f"{name}: generate wrote {paths}, launched {gen_launches}")
+                gen = {}
+                if name == "openai":  # a VQGanVAE checkpoint goes through cli.generate in configs4_generate
+                    paths, gen_t, gen_launches, _, gen_s = run_cli(fa, [
+                        "--dalle_path", str(tmp / f"{name}.pt"), "--text", "a red cat on the table", "--num_images",
+                        "1", "--batch_size", "1", "--cond_scale", "3.0", "--outputs_dir", str(tmp / f"{name}_out")])
+                    check(len(paths) == 1 and read_png(paths[0]).shape == (256, 256, 3)
+                          and gen_launches["flash_fwd"] == 12, f"{name}: generate wrote {paths}, launched {gen_launches}")
+                    gen = dict(generate_s=gen_s, generate_seconds=gen_t, generate_launches=gen_launches)
+                    launches = {k: launches[k] + gen_launches[k] for k in COUNTERS}
                 steady = [r["step_s"] for r in records[1:]]
                 hp = header["config"]
                 readings[name] = dict(vae_class_name=want_class, data="tar shard (--wds)" if "--wds" in flags
@@ -4185,9 +4127,8 @@ def phase_train_openai_taming(fa, port, weights, checkpoint):
                                       seq_len=hp["text_seq_len"] + hp["image_fmap_size"] ** 2,
                                       steps=len(records), batch=5, losses=[r["loss"] for r in records],
                                       step_s=statistics.median(steady), step_s_all=[r["step_s"] for r in records],
-                                      data_s=[r["data_s"] for r in records], wall_s=wall_s, launches=launches,
-                                      generate_s=gen_s, generate_seconds=gen_t, generate_launches=gen_launches)
-                total = {k: total[k] + launches[k] + gen_launches[k] for k in COUNTERS}
+                                      data_s=[r["data_s"] for r in records], wall_s=wall_s, launches=launches, **gen)
+                total = {k: total[k] + launches[k] for k in COUNTERS}
                 for f in tmp.glob(f"{name}*.pt"):
                     f.unlink()
         finally:
@@ -4255,6 +4196,272 @@ def phase_legacy_formats(fa, port, weights):
     return total
 
 
+# distributed training (the sharded step over torch.distributed): the
+# flagship's widths, its attention cycle with VFA and its tied embeddings,
+# with depth cut to 4; two ranks share the one card over gloo
+DIST_MODEL = dict(FLAGSHIP, depth=4, num_image_tokens=FULL_VAE["num_tokens"], image_fmap_size=32)
+DIST_MESHES = {"dp2": ({"dp": 2}, 0), "fsdp2_zero1": ({"fsdp": 2}, 1), "fsdp2_zero3": ({"fsdp": 2}, 3),
+               "tp2": ({"tp": 2}, 0)}
+# the collectives each mesh's step calls (`parallel/sharding.MeshPlan`,
+# `parallel/tensor_parallel.py`); gloo's support of each on CUDA tensors is
+# probed first
+DIST_OPS = {"dp2": ("all_reduce",), "fsdp2_zero1": ("all_reduce", "all_gather_into_tensor"),
+            "fsdp2_zero3": ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"),
+            "tp2": ("all_reduce", "all_reduce_max")}
+DIST_STEPS, DIST_BATCH, DIST_SEED = 2, 2, 81
+
+
+def dist_steps(fa, mesh, zero_stage):
+    """DIST_STEPS Adam steps of the DIST_MODEL DALL-E (seeded weights and
+    batches, f32) on `mesh` (None: the one-process step), with every launch
+    counter set to 0 just before them; (losses, grad norms, step seconds,
+    launches, resident parameter and moment bytes, and the most bytes the
+    process's allocator held during the steps)."""
+    from torch.func import functional_call
+
+    from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
+    from dalle_pytorch_tpu_torch.optim.grouped import Adam
+    from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
+    from dalle_pytorch_tpu_torch.weights import dalle_param_paths
+
+    cfg = DALLEConfig(**DIST_MODEL)
+    model = init_dalle(cfg, torch.Generator(device="cuda").manual_seed(DIST_SEED), "cuda")
+    model.train().requires_grad_(True)
+
+    def loss_fn(params, batch, generator):
+        return functional_call(model, params, (batch["text"], batch["codes"]), {"return_loss": True})
+
+    init_fn, step_fn = make_train_step(loss_fn, Adam(1e-4), StepSettings(zero_stage=zero_stage), mesh=mesh,
+                                       paths=None if mesh is None else dalle_param_paths(cfg), module=model)
+    state = init_fn(dict(model.named_parameters()))
+    g = torch.Generator(device="cuda").manual_seed(DIST_SEED + 1)
+    batches = [{"text": torch.randint(0, cfg.num_text_tokens, (DIST_BATCH, cfg.text_seq_len), generator=g,
+                                      device="cuda"),
+                "codes": torch.randint(0, cfg.num_image_tokens, (DIST_BATCH, cfg.image_seq_len), generator=g,
+                                       device="cuda")} for _ in range(DIST_STEPS)]
+    losses, norms, seconds = [], [], []
+    if mesh is not None:
+        batches = [step_fn.local_batch(batch) for batch in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = read_launches(fa)
+    resident = (step_fn.resident_bytes(state) if mesh is not None else
+                {"params": sum(p.numel() * p.element_size() for p in state.params.values()),
+                 "moments": sum(v.numel() * v.element_size() for grp in state.opt_state.groups
+                                for v in grp.stats.values())})
+    return dict(losses=losses, grad_norms=norms, step_s=seconds, launches=launches, resident_bytes=resident,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def probe_gloo_cuda(rank: int) -> dict:
+    """{collective: None, or the error gloo raised} for each collective of
+    DIST_OPS on CUDA tensors, through the helpers the step calls."""
+    import torch.distributed as dist
+
+    from dalle_pytorch_tpu_torch.parallel import tensor_parallel as tpar
+
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "all_gather_into_tensor": lambda: tpar.all_gather_into(torch.empty(8, device="cuda"), x, None),
+        "reduce_scatter_tensor": lambda: tpar.reduce_scatter_into(torch.empty(2, device="cuda"), x, None),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = None
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return out
+
+
+def dist_parity_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
+    """One rank of `dist_parity`: the card's first device, a gloo process
+    group, every mesh of DIST_MESHES whose collectives gloo runs on CUDA
+    tensors; its readings to `out_dir/rank<r>.json`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from dalle_pytorch_tpu_torch.kernels import flash_attention as fa
+    from dalle_pytorch_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        probe = probe_gloo_cuda(rank)
+        out = {"probe": probe, "backend": dist.get_backend()}
+        for name, (axes, stage) in DIST_MESHES.items():
+            refused = {op: probe[op] for op in DIST_OPS[name] if probe[op] is not None}
+            if refused:
+                out[name] = {"refused_by_gloo_on_cuda": refused}
+                continue
+            # the mesh names the gloo groups; the tensors lie on the card
+            out[name] = dist_steps(fa, make_mesh(MeshConfig(**axes), "cpu"), stage)
+            torch.cuda.empty_cache()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_parity(fa):
+    """The sharded train step (`parallel/train_step.py` on a mesh), two
+    ranks on the one card over gloo with CUDA tensors (NCCL puts one rank on
+    a card): dp2, fsdp2 at ZeRO-1 and ZeRO-3, tp2, DIST_STEPS steps each,
+    against the one-process card step on the same global batches: loss and
+    gradient norm within 1e-4 relative, every flash kernel of the path
+    launched on each rank as often as in the one-process step, and under
+    ZeRO-3 each rank's resident parameter and moment bytes at most 0.55 of
+    dp2's and the most its allocator held during the steps at most 0.8 of
+    dp2's (ZeRO-3 gathers one layer's parameters at a time).  A mesh whose collective gloo
+    refuses on CUDA tensors is named with the refused op and left to the
+    CPU tests (`tests/test_torch_parallel_steps.py`); any other error fails
+    the phase.  The step times go over gloo's host transport: not a speed."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks start while the one-process reference runs
+        ctx = mp.spawn(dist_parity_rank, args=(2, str(Path(tmp) / "rendezvous"), tmp), nprocs=2, join=False)
+        try:
+            one = dist_steps(fa, None, 0)
+            torch.cuda.empty_cache()
+        finally:
+            while not ctx.join():
+                pass
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    meshes, refused = {}, {}
+    for name in DIST_MESHES:
+        if "refused_by_gloo_on_cuda" in ranks[0][name]:
+            refused[name] = ranks[0][name]["refused_by_gloo_on_cuda"]
+            print(f"dist_parity: gloo refuses {sorted(refused[name])} on CUDA tensors: {name}'s two-rank parity "
+                  "rests on the CPU tests", flush=True)
+            continue
+        rel = max(max(abs(a - b) / abs(b) for a, b in zip(r[name][key], one[key]))
+                  for r in ranks for key in ("losses", "grad_norms"))
+        check(rel <= 1e-4, f"dist_parity {name}: loss or grad norm {rel} relative from the one-process step")
+        for r, reading in enumerate(ranks):
+            check(reading[name]["launches"] == one["launches"] and one["launches"]["flash_fwd"] > 0,
+                  f"dist_parity {name}: rank {r} launched {reading[name]['launches']}, the one-process step "
+                  f"{one['launches']}")
+        meshes[name] = dict(max_rel_diff=rel, losses=ranks[0][name]["losses"], grad_norms=ranks[0][name]["grad_norms"],
+                            step_s_gloo_host_transport=[r[name]["step_s"] for r in ranks],
+                            launches_by_rank=[r[name]["launches"] for r in ranks],
+                            resident_bytes_by_rank=[r[name]["resident_bytes"] for r in ranks],
+                            peak_bytes_by_rank=[r[name]["peak_bytes"] for r in ranks])
+    if "fsdp2_zero3" in meshes and "dp2" in meshes:
+        for r in range(2):
+            z3, dp = (sum(meshes[m]["resident_bytes_by_rank"][r].values()) for m in ("fsdp2_zero3", "dp2"))
+            check(z3 <= 0.55 * dp, f"dist_parity: rank {r} holds {z3} bytes under ZeRO-3 against dp2's {dp}")
+            z3, dp = (meshes[m]["peak_bytes_by_rank"][r] for m in ("fsdp2_zero3", "dp2"))
+            check(z3 <= 0.8 * dp, f"dist_parity: rank {r}'s step peak {z3} bytes under ZeRO-3 against dp2's {dp}")
+    check(len(meshes) + len(refused) == len(DIST_MESHES) and meshes, f"dist_parity ran {sorted(meshes)}")
+    emit("dist_parity", model={k: v for k, v in DIST_MODEL.items() if k != "attn_types"},
+         attn_types=list(DIST_MODEL["attn_types"]), cut="depth 64 -> 4", batch=DIST_BATCH, steps=DIST_STEPS,
+         tolerance=1e-4, backend=ranks[0]["backend"], gloo_cuda_probe=ranks[0]["probe"], one_process=one,
+         meshes=meshes, refused=refused, spawn_s=spawn_s,
+         note="step_s over gloo's host transport on one card: not a speed")
+    return {name: m["launches_by_rank"] for name, m in meshes.items()}
+
+
+DIST_CLI_FLAGS = ("--dim", "1152", "--depth", "4", "--heads", "8", "--dim_head", "128", "--num_text_tokens", "10000",
+                  "--text_seq_len", "256", "--attn_types", "full,axial_row,axial_col,conv_like",
+                  "--share_input_output_emb", "--rotary_emb", "--shift_tokens", "--truncate_captions",
+                  "--batch_size", "4", "--epochs", "1", "--save_every_n_steps", "2", "--lr_decay",
+                  "--num_workers", "4")
+
+
+def phase_dist_train_cli(fa, checkpoint):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    dalle_pytorch_tpu_torch.cli.train_dalle --distributed_backend torch
+    --zero_stage 3` over NCCL on `train_real_data`'s data (its PNGs and
+    VAE, written again from its seed) at the flagship's widths (depth 4):
+    its losses equal the one-process CLI's on the same seed to 1e-4
+    relative, its checkpoint carries the run's `topology`, and the
+    one-process CLI resumed from its step file gives its last step's loss
+    within 1e-6 and ends in the same global_step and reduce-on-plateau
+    state (the resume check of the real-data CLI path).
+    The in-process runs take a fresh process's precision settings (cuDNN's
+    TF32 on, which this script turns off), as the torchrun process has
+    them: the VAE's codes then agree."""
+    from dalle_pytorch_tpu_torch.cli import train_dalle
+    from dalle_pytorch_tpu_torch.models import vae as vae_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_real_data(tmp, seed=71)
+        vae = vae_mod.init_discrete_vae(vae_mod.DiscreteVAEConfig(**FULL_VAE),
+                                        torch.Generator(device="cuda").manual_seed(0), "cuda")
+        train_dalle.write_vae_checkpoint(str(tmp / "vae.npz"), vae)
+        del vae
+        flags = ["--image_text_folder", str(tmp / "pairs"), "--vae_path", str(tmp / "vae.npz"), *DIST_CLI_FLAGS]
+        # the torchrun process starts while the one-process run trains beside it (its start dominates)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
+             "dalle_pytorch_tpu_torch.cli.train_dalle", "--distributed_backend", "torch", "--zero_stage", "3",
+             *flags, "--dalle_output_file_name", str(tmp / "dist")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        torch.backends.cudnn.allow_tf32 = True  # a fresh process's default
+        try:
+            one, _, one_launches, one_s = run_train_cli(fa, [*flags, "--dalle_output_file_name", str(tmp / "one")])
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        dist_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        check(proc.returncode == 0, f"torchrun train_dalle exited {proc.returncode}:\n{stderr[-4000:]}")
+        lines = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+        header = next(x for x in lines if "config" in x)
+        dist = [x for x in lines if "loss" in x]
+        check(header["distributed"] == {"backend": "nccl", "world_size": 1} and header["device"] == "cuda:0",
+              f"the torchrun run's backend and device: {header.get('distributed')}, {header['device']}")
+        check(len(dist) == len(one) == 4, f"steps: torchrun {len(dist)}, one process {len(one)}")
+        rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(dist, one))
+        check(rel <= 1e-4, f"the torchrun losses differ from the one-process CLI's by {rel} relative")
+        _, meta = checkpoint.load_checkpoint(str(tmp / "dist.pt"))
+        check(meta.get("topology", {}).get("mesh") == {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1, "pp": 1}
+              and meta["topology"]["device_count"] == 1, f"the checkpoint's topology: {meta.get('topology')}")
+        rest, _, rest_launches, rest_s = run_train_cli(fa, [*flags, "--resume", str(tmp / "dist_step2.npz"),
+                                                            "--dalle_output_file_name", str(tmp / "rest")])
+        torch.backends.cudnn.allow_tf32 = False
+        check([r["step"] for r in rest] == [4], f"the resumed run took steps {[r['step'] for r in rest]}")
+        rest_rel = abs(rest[0]["loss"] - dist[-1]["loss"]) / abs(dist[-1]["loss"])
+        check(rest_rel <= 1e-6, f"the resumed step's loss is {rest_rel} relative from the torchrun run's")
+        ends = [plateau_and_step(tmp / f"{name}.pt") for name in ("dist", "rest")]
+        # the counts and the scale exactly; the averaged losses as the losses
+        check(all(ends[0][k] == ends[1][k] for k in ("global_step", "scale", "plateau_count", "cooldown_count",
+                                                     "count"))
+              and all(abs(ends[0][k] - ends[1][k]) <= 1e-6 * abs(ends[0][k]) for k in ("best_value", "avg_value")),
+              f"the final checkpoints differ: {ends}")
+    emit("dist_train_cli", flags=list(DIST_CLI_FLAGS), cut="depth 64 -> 4", zero_stage=3,
+         distributed=header["distributed"], topology=meta["topology"], losses=[r["loss"] for r in dist],
+         one_process_losses=[r["loss"] for r in one], max_rel_diff=rel, resumed_loss=rest[0]["loss"],
+         resumed_rel_diff=rest_rel, final_state=ends[1], step_s=[r["step_s"] for r in dist], one_process_step_s=[r["step_s"] for r in one],
+         torchrun_wall_s=dist_s, one_process_wall_s=one_s, resume_wall_s=rest_s, launches=one_launches,
+         resume_launches=rest_launches)
+    return one_launches
+
+
 def pattern_readings(sparse, kernel, d=64):
     """A kernel's readings at n 1280, f32, head dim d (bh 64 at d 64, 32 at
     d 128), one per pattern that runs it, from `sparse_kernel_vs_plain`
@@ -4314,7 +4521,7 @@ def main() -> int:
     phase_parity(fa, port, sampling)
     paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
     phase_train_parity(fa, port)
-    phase_train_cli(weights, checkpoint)
+    paths["train_cli"] = phase_train_cli(fa, weights, checkpoint)
     paths["train_real_data"] = phase_train_real_data(fa, port, tr, sampling, weights,
                                                      rotary_graphs["step_ms_replayed"])
     torch.cuda.empty_cache()
@@ -4379,16 +4586,19 @@ def main() -> int:
     phase_lowp_train_parity(fa, port)
     # the port's f32-master runs (bf16 sequential; f32 under "full" remat,
     # the flagship's only full-width f32 training), then the JAX package's
-    # flagship training recipe (`bench.py`: flash_qkv at batch 8, its
-    # alternative flash_qkv_ff at batch 4, and "full" at batch 4 beside it:
-    # one optimizer, two policies)
+    # flagship training recipe (`bench.py`: flash_qkv at batch 8, and "full"
+    # at batch 4 beside it: one optimizer, two policies; `remat_policies`
+    # holds flash_qkv_ff on the pattern model)
     paths["flagship_train"] = phase_train(fa, port, "flagship_train", FLAGSHIP, [
         Run(None, torch.bfloat16, 4, True), Run("remat", torch.float32, 2, False),
         Run("remat", torch.bfloat16, 3, True, "flash_qkv", 8, True),
-        Run("remat", torch.bfloat16, 3, True, "flash_qkv_ff", 4, True),
         Run("remat", torch.bfloat16, 3, False, "full", 4, True)])
-    phase_remat_host_cost(fa, port)
     phase_numerics_smoke()
+    torch.cuda.empty_cache()
+    # distributed training: the sharded step's meshes on two ranks over gloo,
+    # then the training CLI under torchrun over NCCL
+    dist_rank_launches = phase_dist_parity(fa)
+    paths["dist_train_cli"] = phase_dist_train_cli(fa, checkpoint)
     torch.cuda.empty_cache()
 
     # shared layers, the stable model and the sandwich norm at configs[2]'s
@@ -4598,6 +4808,9 @@ def main() -> int:
     kernels[-1]["configs4"] = configs4_vfa("fwd")
     for k in kernels:  # a reversible training step of the flagship (`reversible_flagship_train`)
         k["reversible_step_launches"] = reversible_step[k["name"]]
+        # each rank's launches in the sharded steps of `dist_parity` (DIST_STEPS steps a mesh)
+        k["dist_parity_launches_by_rank"] = {mesh: [r[k["name"]] for r in by_rank]
+                                             for mesh, by_rank in dist_rank_launches.items()}
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not unlaunched, f"kernels never launched on their path: {unlaunched}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,6 +2,9 @@
 `dalle_pytorch_tpu/cli/common.py`)."""
 from __future__ import annotations
 
+from dalle_pytorch_tpu_torch.core.device import resolve_device
+from dalle_pytorch_tpu_torch.parallel import backend as backend_mod
+from dalle_pytorch_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 # the generate and serve CLIs' loader of any checkpoint format, as in the
 # JAX package; it lives with the weight converters it feeds
 from dalle_pytorch_tpu_torch.weights import load_dalle_bundle  # noqa: F401
@@ -27,19 +30,49 @@ def refuse(what: str, item: int) -> SystemExit:
                       f"{item})")
 
 
-def add_distributed_flags(parser) -> None:
-    """The JAX CLIs' distributed-backend flags (`parallel/backend.py`
-    `wrap_arg_parser`); any value but the default exits naming Queue 1
-    item 7 (`refuse_distributed`)."""
-    parser.add_argument("--distributed_backend", "--distr_backend", type=str, default="none",
-                        help="none (the only backend ported); others wait for ROADMAP.md Queue 1 item 7")
-    for name, kind in (("coordinator_address", str), ("num_processes", int), ("process_id", int)):
-        parser.add_argument(f"--{name}", type=kind, default=None, help="distributed training (Queue 1 item 7)")
+def add_mesh_flags(parser, pipeline: bool = False) -> None:
+    """--zero_stage and the mesh's axis sizes, the JAX CLIs' flags; with
+    `pipeline` also --mesh_sp and --mesh_pp, which exit above 1 (Queue 1
+    item 7)."""
+    parser.add_argument("--zero_stage", type=int, default=0, choices=[0, 1, 2, 3],
+                        help="ZeRO: 1/2 shard the optimizer moments over fsdp, 3 the parameters too")
+    axes = (("dp", -1), ("fsdp", 1), ("tp", 1)) + ((("sp", 1), ("pp", 1)) if pipeline else ())
+    for name, default in axes:
+        parser.add_argument(f"--mesh_{name}", type=int, default=default,
+                            help="-1 absorbs the ranks the other axes leave" if name == "dp" else None)
 
 
-def refuse_distributed(args) -> None:
-    if args.distributed_backend.lower() != "none":
-        raise refuse(f"--distributed_backend {args.distributed_backend}: distributed training", 7)
-    for name in ("coordinator_address", "num_processes", "process_id"):
-        if getattr(args, name) is not None:
-            raise refuse(f"--{name}: distributed training", 7)
+def start_backend(args):
+    """The backend of the flags, initialised: (backend, device).  A torch
+    backend joins its process group (gloo under --device cpu, NCCL on the
+    card) and each rank takes the card of its local rank."""
+    be = backend_mod.set_backend_from_args(args)
+    be.initialize()
+    return be, resolve_device(args.device, rank=be.get_local_rank() if backend_mod.is_distributed else None)
+
+
+def build_mesh(args, be, device):
+    """The (dp, fsdp, tp) DeviceMesh of the flags over the backend's
+    processes, or None for a one-process run.  sp or pp above 1 exit
+    naming Queue 1 item 7; a mesh of more ranks than processes exits, and
+    under the dummy backend says how to launch them."""
+    cfg = MeshConfig(args.mesh_dp, args.mesh_fsdp, args.mesh_tp, getattr(args, "mesh_sp", 1),
+                     getattr(args, "mesh_pp", 1))
+    for axis in ("sp", "pp"):
+        if getattr(cfg, axis) > 1:
+            raise refuse(f"--mesh_{axis} {getattr(cfg, axis)}: "
+                         f"{'ring attention' if axis == 'sp' else 'the pipeline'}", 7)
+    world = be.get_world_size()
+    try:
+        resolved = cfg.resolve(world)
+    except ValueError:
+        n = max(cfg.dp, 1) * cfg.fsdp * cfg.tp
+        if not backend_mod.is_distributed:
+            raise SystemExit(f"a mesh of {n} ranks runs one process per device: launch {n} processes, "
+                             f"python -m torch.distributed.run --nproc_per_node {n} -m <this module> "
+                             "--distributed_backend torch ...") from None
+        raise SystemExit(f"the mesh dp {cfg.dp} x fsdp {cfg.fsdp} x tp {cfg.tp} does not fit {world} "
+                         "processes") from None
+    if not backend_mod.is_distributed:
+        return None, resolved
+    return make_mesh(resolved, device.type), resolved

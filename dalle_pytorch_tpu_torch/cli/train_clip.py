@@ -17,9 +17,13 @@ tree, `hparams` and `version` meta), is written at the start, every
 goes to `<name>.metrics.jsonl` (`training/logging.py`); each step prints
 one JSON record.  It runs on the card unless `--device cpu`.
 
-The flags and defaults are the JAX CLI's; `--zero_stage`, `--mesh_*` and
-the distributed-backend flags exit naming ROADMAP.md Queue 1 item 7
-unless they are left at their defaults.
+The flags and defaults are the JAX CLI's.  Under `--distributed_backend
+torch` (one process per card, launched by torchrun; gloo with --device
+cpu) `--mesh_dp/fsdp/tp` and `--zero_stage` shard the step: each data rank
+reads batch_size / (dp·fsdp) pairs of its share, the contrastive loss runs
+over the global batch (`models/clip.forward` gathers the latents), the
+printed loss is the mean over the processes, and rank 0 alone prints and
+writes the checkpoint, the full weights gathered.
 """
 from __future__ import annotations
 
@@ -33,19 +37,19 @@ from torch.func import functional_call
 
 from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.checkpoint import save_checkpoint
-from dalle_pytorch_tpu_torch.cli.common import add_distributed_flags, refuse, refuse_distributed
-from dalle_pytorch_tpu_torch.core.device import resolve_device
+from dalle_pytorch_tpu_torch.cli.common import add_mesh_flags, build_mesh, start_backend
 from dalle_pytorch_tpu_torch.data import loader
 from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
 from dalle_pytorch_tpu_torch.models.clip import CLIP, CLIPConfig, init_clip
 from dalle_pytorch_tpu_torch.optim.grouped import Adam
+from dalle_pytorch_tpu_torch.parallel import backend as backend_mod
+from dalle_pytorch_tpu_torch.parallel.mesh import active_mesh, mesh_context
 from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
 from dalle_pytorch_tpu_torch.training.logging import MetricLogger
 from dalle_pytorch_tpu_torch.version import __version__
 
 LOG_EVERY = 10  # the loss's logging cadence, in steps
 LOADER_THREADS = 4  # decode/crop threads; the batches are the JAX CLI's, which loads in its loop
-_MESH_DEFAULTS = {"zero_stage": 0, "mesh_dp": -1, "mesh_fsdp": 1, "mesh_tp": 1}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,27 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--learning_rate", type=float, default=1e-3)
     parser.add_argument("--clip_grad_norm", type=float, default=0.5)
     parser.add_argument("--bf16", action="store_true", help="bf16 compute on f32 parameters")
-    parser.add_argument("--zero_stage", type=int, default=0, choices=[0, 1, 2, 3],
-                        help="0 only; ZeRO sharding waits for ROADMAP.md Queue 1 item 7")
-    for name, default in (("mesh_dp", -1), ("mesh_fsdp", 1), ("mesh_tp", 1)):
-        parser.add_argument(f"--{name}", type=int, default=default,
-                            help="its default only; meshes wait for Queue 1 item 7")
+    add_mesh_flags(parser)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--wandb", action="store_true", help="log to Weights & Biases where wandb imports")
     parser.add_argument("--save_every_n_steps", type=int, default=1000)
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
-    add_distributed_flags(parser)
+    backend_mod.wrap_arg_parser(parser)
     return parser
 
 
 def resolve_args(argv=None) -> argparse.Namespace:
-    """Parse the flags and exit on those whose machinery waits."""
-    args = build_parser().parse_args(argv)
-    for flag, default in _MESH_DEFAULTS.items():
-        if getattr(args, flag) != default:
-            raise refuse(f"--{flag} {getattr(args, flag)}: ZeRO sharding and meshes", 7)
-    refuse_distributed(args)
-    return args
+    return build_parser().parse_args(argv)
 
 
 def clip_config(args, tokenizer) -> CLIPConfig:
@@ -114,16 +108,28 @@ def clip_loss_fn(model: CLIP, compute_dtype: torch.dtype = torch.float32):
     return loss_fn
 
 
-def save_clip(path: str, model: CLIP) -> None:
+def save_clip(path: str, model: CLIP, params=None) -> None:
     """The checkpoint the JAX CLI writes: the weights tree, `hparams` and
-    `version`."""
-    save_checkpoint(path, {"weights": weights.clip_tree(model.state_dict(), model.cfg)},
+    `version`; `params` (name -> full tensor) in place of the model's own,
+    for a sharded run."""
+    sd = model.state_dict() if params is None else {**model.state_dict(), **params}
+    save_checkpoint(path, {"weights": weights.clip_tree(sd, model.cfg)},
                     {"hparams": model.cfg.to_dict(), "version": __version__})
 
 
 def main(argv=None) -> int:
     args = resolve_args(argv)
-    device = resolve_device(args.device)
+    be, device = start_backend(args)
+    try:
+        with mesh_context(build_mesh(args, be, device)[0]):  # the step is built on it
+            return _train(args, be, device)
+    finally:
+        be.shutdown()
+
+
+def _train(args, be, device) -> int:
+    mesh = active_mesh()
+    is_root = be.is_root_worker()
     torch.manual_seed(args.seed)
     tokenizer = tokenizer_mod.tokenizer
     cfg = clip_config(args, tokenizer)
@@ -136,20 +142,37 @@ def main(argv=None) -> int:
         raise SystemExit(f"{args.image_text_folder} holds no image with a same-stem caption file")
 
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
-    settings = StepSettings(compute_dtype=compute_dtype, clip_grad_norm=args.clip_grad_norm)
-    init_fn, step_fn = make_train_step(clip_loss_fn(model, compute_dtype), Adam(args.learning_rate), settings)
+    settings = StepSettings(compute_dtype=compute_dtype, clip_grad_norm=args.clip_grad_norm,
+                            zero_stage=args.zero_stage)
+    init_fn, step_fn = make_train_step(clip_loss_fn(model, compute_dtype), Adam(args.learning_rate), settings,
+                                       module=model, paths=weights.clip_param_paths(cfg) if mesh is not None else None)
+    n_params = sum(p.numel() for p in model.parameters())  # before init_fn keeps this rank's pieces
     state = init_fn(dict(model.named_parameters()))
-    logger = MetricLogger(run_name=args.clip_output_file_name, use_wandb=args.wandb, config=cfg.to_dict())
+    plan = step_fn.plan() if mesh is not None else None
+    shares, share = (1, 0) if plan is None else (plan.D, plan.data_coord)
+    if args.batch_size % shares:
+        raise SystemExit(f"--batch_size {args.batch_size} does not split over {shares} data ranks")
+    logger = MetricLogger(run_name=args.clip_output_file_name, use_wandb=args.wandb, config=cfg.to_dict(),
+                          is_root=is_root)
     out_file = f"{args.clip_output_file_name}.pt"
-    save_clip(out_file, model)
-    print(json.dumps({"config": cfg.to_dict(), "params": sum(p.numel() for p in state.params.values()),
-                      "device": str(device), "compute_dtype": str(compute_dtype).replace("torch.", ""),
-                      "batch_size": args.batch_size, "pairs": len(dataset)}), flush=True)
+
+    def save():
+        full = None if plan is None else step_fn.full_state(state)  # on the root alone
+        if is_root:
+            save_clip(out_file, model, None if full is None else full.params)
+        be.local_barrier()
+
+    save()
+    if is_root:
+        print(json.dumps({"config": cfg.to_dict(), "params": n_params,
+                          "device": str(device), "compute_dtype": str(compute_dtype).replace("torch.", ""),
+                          "batch_size": args.batch_size, "pairs": len(dataset)}), flush=True)
 
     step = 0
     for epoch in range(args.epochs):
-        batches = iter(loader.iterate_batches(dataset, args.batch_size, seed=args.seed + epoch,
-                                              num_workers=LOADER_THREADS))
+        batches = iter(loader.iterate_batches(dataset, args.batch_size // shares, seed=args.seed + epoch,
+                                              num_workers=LOADER_THREADS, process_index=share,
+                                              process_count=shares))
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -159,18 +182,20 @@ def main(argv=None) -> int:
             batch = {"text": torch.from_numpy(batch["text"]).long().to(device),
                      "image": torch.from_numpy(batch["image"]).to(device)}
             state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])
-            print(json.dumps({"step": step, "epoch": epoch, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
-                              "skipped": metrics["skipped"], "step_s": time.perf_counter() - t_data,
-                              "data_s": t_data - t0}), flush=True)
+            loss = float(metrics["loss"])  # the step's mean over the data ranks
+            if is_root:
+                print(json.dumps({"step": step, "epoch": epoch, "loss": loss,
+                                  "grad_norm": float(metrics["grad_norm"]), "skipped": metrics["skipped"],
+                                  "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}), flush=True)
             if step % LOG_EVERY == 0:
                 logger.log({"loss": loss, "epoch": epoch}, step=step)
             if args.save_every_n_steps and step and step % args.save_every_n_steps == 0:
-                save_clip(out_file, model)
+                save()
             step += 1
-        save_clip(out_file, model)
+        save()
     logger.finish()
-    print(json.dumps({"checkpoint": out_file, "global_step": step}), flush=True)
+    if is_root:
+        print(json.dumps({"checkpoint": out_file, "global_step": step}), flush=True)
     return 0
 
 

@@ -41,6 +41,20 @@ the backward instead; `--stable_softmax` trains the stable model, and
 `--param_dtype bfloat16` stores the parameters in bf16 with no f32 master,
 Adam's math on f32 views and stochastic-rounded updates.  Flags whose
 machinery is not ported exit with a message naming their ROADMAP.md item.
+
+Across processes, one per card, under torchrun (NCCL; gloo with --device
+cpu):
+
+    python -m torch.distributed.run --nproc_per_node N -m dalle_pytorch_tpu_torch.cli.train_dalle \
+        --distributed_backend torch [--mesh_fsdp F --zero_stage 3] [--mesh_tp T] ...
+
+`--mesh_dp/fsdp/tp` and `--zero_stage` shard the step
+(`parallel/train_step.py`); `--batch_size` is the global batch, each data
+rank reading its share (the dummy run's batches are drawn whole on every
+rank, which takes its rows, so that the losses are the one-process run's);
+the loss printed is the step's mean over the data ranks, and only rank 0 prints
+records and writes checkpoints, the full state gathered onto it into the same v3
+file with the mesh in its `topology` meta.
 """
 from __future__ import annotations
 
@@ -49,6 +63,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import os
 import sys
 import time
 from glob import glob
@@ -61,8 +76,13 @@ from torch.func import functional_call
 
 from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
-from dalle_pytorch_tpu_torch.cli.common import refuse, warn_vocab_mismatch
-from dalle_pytorch_tpu_torch.core.device import resolve_device
+from dalle_pytorch_tpu_torch.cli.common import (
+    add_mesh_flags,
+    build_mesh,
+    refuse,
+    start_backend,
+    warn_vocab_mismatch,
+)
 from dalle_pytorch_tpu_torch.data import loader
 from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
 from dalle_pytorch_tpu_torch.models import pretrained, torch_port
@@ -71,6 +91,9 @@ from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig, init_dalle
 from dalle_pytorch_tpu_torch.optim.grouped import Adam
 from dalle_pytorch_tpu_torch.optim.plateau import ReduceOnPlateau
+from dalle_pytorch_tpu_torch.parallel import backend as backend_mod
+from dalle_pytorch_tpu_torch.parallel import registry as registry_mod
+from dalle_pytorch_tpu_torch.parallel.mesh import active_mesh, mesh_context
 from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, TrainState, make_train_step
 from dalle_pytorch_tpu_torch.training import resume as resume_mod
 from dalle_pytorch_tpu_torch.version import __version__
@@ -79,9 +102,6 @@ from dalle_pytorch_tpu_torch.version import __version__
 _WAITING = {
     "chinese": ("the Chinese BERT tokenizer (`transformers`)", 4),
     "hug": ("the Hugging Face tokenizer (`tokenizers`)", 4),
-    "zero_stage": ("ZeRO sharding", 7),
-    "mesh_dp": ("meshes", 7), "mesh_fsdp": ("meshes", 7), "mesh_tp": ("meshes", 7),
-    "mesh_sp": ("meshes", 7), "mesh_pp": ("meshes", 7),
     "sample_every_n_steps": ("sample logging (`training/logging.py`)", 8),
 }
 
@@ -169,8 +189,9 @@ def build_parser() -> argparse.ArgumentParser:
     # not ported: each exits naming its ROADMAP.md item
     for name in ("chinese", "hug"):
         parser.add_argument(f"--{name}", action="store_true")
-    for name in ("sample_every_n_steps", "zero_stage", "mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_sp", "mesh_pp"):
-        parser.add_argument(f"--{name}", type=int, default=None)
+    parser.add_argument("--sample_every_n_steps", type=int, default=None)
+    add_mesh_flags(parser, pipeline=True)
+    backend_mod.wrap_arg_parser(parser)
     return parser
 
 
@@ -182,13 +203,14 @@ def _refuse_waiting_flags(args) -> None:
 
 def _apply_dummy_run_defaults(args) -> None:
     """The JAX CLI's `_apply_dummy_run_defaults`: its tiny model (explicit
-    model flags win here), a batch of 2 x the devices the run uses (one),
-    one epoch, at most 2 workers, quiet cadences unless given."""
+    model flags win here), a batch of 2 x the devices the run uses (its
+    processes), one epoch, at most 2 workers, quiet cadences unless
+    given."""
     for name, value in _DUMMY_MODEL.items():
         if getattr(args, name) is None:
             setattr(args, name, value)
     if args.batch_size is None:
-        args.batch_size = 2
+        args.batch_size = 2 * max(args.num_processes or int(os.environ.get("WORLD_SIZE", 1)), 1)
     args.epochs = 1
     args.num_workers = min(args.num_workers, 2)
     if args.save_every_n_steps is None:
@@ -269,11 +291,15 @@ def dummy_batches(seed: int, n: int, batch_size: int, cfg: DALLEConfig, vae_cfg,
         }
 
 
-def data_iterator(args, cfg: DALLEConfig, vae_cfg, tokenizer):
+def data_iterator(args, cfg: DALLEConfig, vae_cfg, tokenizer, share: int = 0, shares: int = 1):
     """data_iter(epoch, skip) -> the epoch's batches from batch `skip` on,
     as the JAX CLI builds it: synthetic, tar shards (the skipped batches
     read and dropped: a stream has no random access) or the folder (the
-    skipped ones never decoded)."""
+    skipped ones never decoded).  On a mesh a data rank (`share` of
+    `shares`) reads batches of batch_size / shares from its share of the
+    items; the synthetic batches are whole, each rank taking its rows in
+    the step."""
+    local = args.batch_size // shares
     if args.dummy_run is not None:
         return lambda epoch, skip=0: itertools.islice(
             dummy_batches(args.seed, args.dummy_run, args.batch_size, cfg, vae_cfg, epoch), skip, None)
@@ -285,8 +311,9 @@ def data_iterator(args, cfg: DALLEConfig, vae_cfg, tokenizer):
         def shard_batches(epoch, skip=0):
             stream = loader.iterate_tar_shards(shards, vae_cfg.image_size, cfg.text_seq_len, tokenizer,
                                                truncate_captions=args.truncate_captions, seed=args.seed + epoch,
-                                               num_workers=args.num_workers)
-            return itertools.islice(loader.batch_tar_stream(stream, args.batch_size), skip, None)
+                                               num_workers=args.num_workers, process_index=share,
+                                               process_count=shares)
+            return itertools.islice(loader.batch_tar_stream(stream, local), skip, None)
 
         return shard_batches
     dataset = loader.TextImageDataset(args.image_text_folder, text_len=cfg.text_seq_len,
@@ -295,8 +322,9 @@ def data_iterator(args, cfg: DALLEConfig, vae_cfg, tokenizer):
                                       shuffle=True)
     if not len(dataset):
         raise SystemExit(f"{args.image_text_folder} holds no image with a same-stem caption file")
-    return lambda epoch, skip=0: loader.iterate_batches(dataset, args.batch_size, seed=args.seed + epoch,
-                                                        num_workers=args.num_workers, skip_batches=skip)
+    return lambda epoch, skip=0: loader.iterate_batches(dataset, local, seed=args.seed + epoch,
+                                                        num_workers=args.num_workers, skip_batches=skip,
+                                                        process_index=share, process_count=shares)
 
 
 def dalle_loss_fn(model: DALLE, vae: torch.nn.Module, compute_dtype: torch.dtype):
@@ -376,20 +404,24 @@ def reconstitute_vae(args, device, resumed=None) -> torch.nn.Module:
 
 
 def save_dalle(path: str, model: DALLE, vae: torch.nn.Module, state: TrainState, epoch: int,
-               global_step: int, data_state: Optional[dict] = None) -> None:
+               global_step: int, data_state: Optional[dict] = None, topology: Optional[dict] = None) -> None:
     """The checkpoint the JAX CLI writes (`build_model_payload`), in v3:
     weights, vae_weights (the VAE's family's tree) and opt_state (the JAX
     layout, from the first update on); hparams, vae_class_name,
-    vae_params, epoch, global_step, data_state."""
+    vae_params, epoch, global_step, data_state and the run's `topology`.
+    `state` is a one-process state: a sharded run passes its full state
+    (`step_fn.full_state`)."""
     cfg = model.cfg
     trees = {
-        "weights": weights.dalle_tree(model.state_dict(), cfg),
+        "weights": weights.dalle_tree({**model.state_dict(), **state.params}, cfg),
         "vae_weights": weights.vae_tree(vae.state_dict(), vae.cfg),
         "opt_state": resume_mod.optimizer_bundle(state, cfg),
     }
     vae_class_name, vae_params = vae_registry.config_to_meta(vae.cfg)
     meta = {"hparams": cfg.to_dict(), "vae_params": vae_params, "vae_class_name": vae_class_name,
             "epoch": epoch, "global_step": int(global_step), "version": __version__, "data_state": data_state}
+    if topology is not None:
+        meta["topology"] = topology
     save_checkpoint(path, trees, meta)
 
 
@@ -428,10 +460,22 @@ def _load_resumed(args, source: str):
 
 def main(argv=None) -> int:
     args = resolve_args(argv)
-    device = resolve_device(args.device)
+    be, device = start_backend(args)
+    try:
+        mesh, mesh_cfg = build_mesh(args, be, device)
+        with mesh_context(mesh):  # the step is built on it
+            return _train(args, be, device, mesh_cfg)
+    finally:
+        be.shutdown()
+
+
+def _train(args, be, device, mesh_cfg) -> int:
+    mesh = active_mesh()
+    is_root = be.is_root_worker()
     torch.manual_seed(args.seed)
     out_file = f"{args.dalle_output_file_name}.pt"
     tokenizer = get_tokenizer(args)
+    topology = registry_mod.topology_meta(dataclasses.asdict(mesh_cfg), device_count=be.get_world_size())
 
     source = _resume_source(args, out_file)
     resumed = _load_resumed(args, source) if source is not None else None
@@ -449,24 +493,32 @@ def main(argv=None) -> int:
     else:
         cfg = model_config(args, vae_cfg, tokenizer)
         model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
-    warn_vocab_mismatch(cfg.num_text_tokens, tokenizer)
+    if is_root:
+        warn_vocab_mismatch(cfg.num_text_tokens, tokenizer)
     model.train().requires_grad_(True)
-    data_iter = data_iterator(args, cfg, vae_cfg, tokenizer)
 
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     loss_scale = args.loss_scale if args.loss_scale in (None, "dynamic") else float(args.loss_scale)
     lowp = args.param_dtype == "bfloat16"
     settings = StepSettings(grad_accum=args.ga_steps, compute_dtype=compute_dtype,
                             clip_grad_norm=args.clip_grad_norm, loss_scale=loss_scale,
-                            param_dtype=torch.bfloat16 if lowp else torch.float32)
+                            param_dtype=torch.bfloat16 if lowp else torch.float32, zero_stage=args.zero_stage)
     # optax.adam's math on groups of leaves, whatever the storage; under
     # --lr_decay the JAX CLI's reduce_on_plateau chained after it
     plateau = ReduceOnPlateau(factor=0.5, patience=10, cooldown=10,
                               min_scale=1e-6 / args.learning_rate) if args.lr_decay else None
     init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae, compute_dtype), Adam(args.learning_rate), settings,
-                                       plateau=plateau)
+                                       plateau=plateau, module=model,
+                                       paths=weights.dalle_param_paths(cfg) if mesh is not None else None)
+    n_params = sum(p.numel() for p in model.parameters())  # before init_fn keeps this rank's pieces
     state = init_fn(dict(model.named_parameters()), round_seed=args.seed)
     generator = torch.Generator().manual_seed(args.seed)  # dropout seeds, drawn on the host
+    plan = step_fn.plan() if mesh is not None else None
+    shares = 1 if plan is None else plan.D
+    if args.batch_size % shares:
+        raise SystemExit(f"--batch_size {args.batch_size} does not split over {shares} data ranks")
+    data_iter = data_iterator(args, cfg, vae_cfg, tokenizer, 0 if plan is None else plan.data_coord, shares)
+
 
     meta = resumed[1] if resumed is not None else {}
     data_state = meta.get("data_state") or {}
@@ -474,28 +526,37 @@ def main(argv=None) -> int:
     pending_skip = data_state.get("epoch_batches", 0) or 0
     global_step = meta.get("global_step", 0) or 0
     if resumed is not None and "opt_state" in resumed[0]:
+        full = state if plan is None else step_fn.full_template(state)
         try:
-            resume_mod.restore_optimizer(state, resumed[0]["opt_state"], cfg)
+            resume_mod.restore_optimizer(full, resumed[0]["opt_state"], cfg)
+            if plan is not None:
+                step_fn.load_opt_state(state, full)
         except ValueError as e:
-            print(f"note: optimizer state not restored ({e}); starting a fresh optimizer", flush=True)
+            if is_root:
+                print(f"note: optimizer state not restored ({e}); starting a fresh optimizer", flush=True)
+        del full
     gens = {"dropout": generator, "round": state.round_generator}
     for name, saved in (data_state.get("torch_generators") or {}).items():
         if gens.get(name) is not None:
             resume_mod.set_generator_state(gens[name], saved)
     state = dataclasses.replace(state, step=global_step)
 
-    n_params = sum(p.numel() for p in state.params.values())
-    print(json.dumps({"config": cfg.to_dict(), "params": n_params, "device": str(device),
-                      "compute_dtype": str(compute_dtype).replace("torch.", ""), "param_dtype": args.param_dtype,
-                      "batch_size": args.batch_size, "resumed_from": source, "epoch": resume_epoch,
-                      "skip_batches": pending_skip}),
-          flush=True)
+    if is_root:
+        print(json.dumps({"config": cfg.to_dict(), "params": n_params, "device": str(device),
+                          "compute_dtype": str(compute_dtype).replace("torch.", ""), "param_dtype": args.param_dtype,
+                          "batch_size": args.batch_size, "resumed_from": source, "epoch": resume_epoch,
+                          "skip_batches": pending_skip, "topology": topology, "distributed": be.describe()}),
+              flush=True)
 
     def save(path, epoch, ds_epoch, ds_batches, step=None, keep_n=None):
-        ds = resume_mod.data_state_dict(ds_epoch, ds_batches, args.seed, gens)
-        save_dalle(path, model, vae, state, epoch, global_step if step is None else step, ds)
-        if keep_n is not None:
-            resume_mod.rotate_checkpoints(str(Path(path).parent), resume_mod.rotation_glob(path), keep_n)
+        # the one-process state, gathered onto the root alone
+        full = state if plan is None else step_fn.full_state(state)
+        if is_root:
+            ds = resume_mod.data_state_dict(ds_epoch, ds_batches, args.seed, gens)
+            save_dalle(path, model, vae, full, epoch, global_step if step is None else step, ds, topology)
+            if keep_n is not None:
+                resume_mod.rotate_checkpoints(str(Path(path).parent), resume_mod.rotation_glob(path), keep_n)
+        be.local_barrier()
 
     save(out_file, resume_epoch, resume_epoch, pending_skip)
     for epoch in range(resume_epoch, args.epochs):
@@ -511,16 +572,20 @@ def main(argv=None) -> int:
             epoch_batches += 1
             batch = {"text": torch.from_numpy(batch["text"]).long().to(device),
                      "image": torch.from_numpy(batch["image"]).to(device)}
+            # the global batch's rows: a dummy batch is whole on every rank, which takes its rows
+            rows = int(batch["text"].shape[0]) * (1 if args.dummy_run is not None else shares)
+            if plan is not None and args.dummy_run is not None:
+                batch = step_fn.local_batch(batch)
             state, metrics = step_fn(state, batch, generator)
             record = {"step": state.step, "epoch": epoch, "loss": float(metrics["loss"]),
                       "grad_norm": float(metrics["grad_norm"]), "skipped": metrics["skipped"],
-                      "batch": int(batch["text"].shape[0]), "step_s": time.perf_counter() - t_data,
-                      "data_s": t_data - t0}
+                      "batch": rows, "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}
             if "loss_scale" in metrics:
                 record["loss_scale"] = metrics["loss_scale"]
             if state.plateau is not None:
                 record["lr_scale"] = float(state.plateau.scale)
-            print(json.dumps(record), flush=True)
+            if is_root:
+                print(json.dumps(record), flush=True)
             if args.save_every_n_steps and global_step and global_step % args.save_every_n_steps == 0:
                 step_file = f"{args.dalle_output_file_name}_step{global_step}.npz"
                 save(step_file, epoch, epoch, epoch_batches, step=global_step + 1, keep_n=args.keep_n_checkpoints)
@@ -533,7 +598,8 @@ def main(argv=None) -> int:
         # the JAX CLI saves once more after its loop; after a last epoch that
         # save would write the file its epoch-end save just wrote
         save(out_file, args.epochs, args.epochs, 0)
-    print(json.dumps({"checkpoint": out_file, "global_step": global_step}), flush=True)
+    if is_root:
+        print(json.dumps({"checkpoint": out_file, "global_step": global_step}), flush=True)
     return 0
 
 

@@ -48,14 +48,15 @@ from torch.func import functional_call
 
 from dalle_pytorch_tpu_torch import weights
 from dalle_pytorch_tpu_torch.checkpoint import load_checkpoint
-from dalle_pytorch_tpu_torch.cli.common import add_distributed_flags, refuse, refuse_distributed
+from dalle_pytorch_tpu_torch.cli.common import refuse, start_backend
 from dalle_pytorch_tpu_torch.cli.train_dalle import write_vae_checkpoint
-from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.data import loader
 from dalle_pytorch_tpu_torch.models import torch_port
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models.vae import DiscreteVAEConfig
 from dalle_pytorch_tpu_torch.optim.grouped import Adam
+from dalle_pytorch_tpu_torch.parallel import backend as backend_mod
+from dalle_pytorch_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
 from dalle_pytorch_tpu_torch.training.logging import MetricLogger
 
@@ -126,7 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile_on_alarm", type=int, default=3, metavar="N", help="inert without telemetry")
     parser.add_argument("--hbm_headroom_frac", type=float, default=0.9, metavar="FRAC",
                         help="inert without telemetry")
-    add_distributed_flags(parser)
+    backend_mod.wrap_arg_parser(parser)
     return parser
 
 
@@ -136,7 +137,6 @@ def resolve_args(argv=None) -> argparse.Namespace:
     for flag, (off, machinery, item) in _WAITING.items():
         if getattr(args, flag) != off:
             raise refuse(f"--{flag} {getattr(args, flag)}: {machinery}", item)
-    refuse_distributed(args)
     return args
 
 
@@ -163,11 +163,13 @@ def vae_loss_fn(vae: vae_mod.DiscreteVAE):
     return loss_fn
 
 
-def make_vae_step(vae: vae_mod.DiscreteVAE, lr: torch.Tensor):
+def make_vae_step(vae: vae_mod.DiscreteVAE, lr: torch.Tensor, mesh=None):
     """(init_fn, step_fn) of the JAX CLI's `train_step`: the loss and its
     gradient, then Adam's direction times `lr` (a 0-d tensor the caller
-    changes in place), no clipping and no guard (`parallel/train_step.py`)."""
-    return make_train_step(vae_loss_fn(vae), Adam(lr), StepSettings(skip_nonfinite=False))
+    changes in place), no clipping and no guard (`parallel/train_step.py`).
+    With `mesh` (every process on dp) the step is replicated data
+    parallel, as the JAX CLI's."""
+    return make_train_step(vae_loss_fn(vae), Adam(lr), StepSettings(skip_nonfinite=False), mesh=mesh)
 
 
 def _resume(args, device) -> Tuple[Optional[vae_mod.DiscreteVAE], Optional[str]]:
@@ -224,7 +226,19 @@ def _log_cadence(logger: MetricLogger, vae, images, generator, temp_t, step, epo
 
 def main(argv=None) -> int:
     args = resolve_args(argv)
-    device = resolve_device(args.device)
+    be, device = start_backend(args)
+    try:
+        return _train(args, be, device)
+    finally:
+        be.shutdown()
+
+
+def _train(args, be, device) -> int:
+    # every process on dp: the JAX CLI's replicated data-parallel step
+    mesh = make_mesh(MeshConfig(), device.type) if backend_mod.is_distributed else None
+    is_root, shares = be.is_root_worker(), be.get_world_size()
+    if args.batch_size % shares:
+        raise SystemExit(f"--batch_size {args.batch_size} does not split over {shares} processes")
     torch.manual_seed(args.seed)
     vae, source = _resume(args, device)
     cfg = vae.cfg if vae is not None else vae_config(args)
@@ -239,22 +253,30 @@ def main(argv=None) -> int:
     temp, lr = args.starting_temp, args.learning_rate
     temp_t = torch.tensor(temp, dtype=torch.float32, device=device)
     lr_t = torch.tensor(lr, dtype=torch.float32, device=device)
-    init_fn, step_fn = make_vae_step(vae, lr_t)
+    init_fn, step_fn = make_vae_step(vae, lr_t, mesh)
     state = init_fn(dict(vae.named_parameters()))
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)  # the gumbel draws
     logger = MetricLogger(run_name=args.vae_output_file_name, use_wandb=args.wandb,
-                          wandb_kwargs={"name": args.wandb_name}, config=cfg.to_dict())
+                          wandb_kwargs={"name": args.wandb_name}, config=cfg.to_dict(), is_root=is_root)
 
     out_file = f"{args.vae_output_file_name}.pt"
-    write_vae_checkpoint(out_file, vae)  # an unwritable output fails before any compute
-    print(json.dumps({"config": cfg.to_dict(), "params": sum(p.numel() for p in state.params.values()),
-                      "device": str(device), "batch_size": args.batch_size, "images": len(dataset),
-                      "resumed_from": source}), flush=True)
+
+    def save():  # the parameters are replicated: the root writes its own
+        if is_root:
+            write_vae_checkpoint(out_file, vae)
+        be.local_barrier()
+
+    save()  # an unwritable output fails before any compute
+    if is_root:
+        print(json.dumps({"config": cfg.to_dict(), "params": sum(p.numel() for p in state.params.values()),
+                          "device": str(device), "batch_size": args.batch_size, "images": len(dataset),
+                          "resumed_from": source}), flush=True)
     global_step = 0
     for epoch in range(args.epochs):
         t_epoch = time.time()
-        batches = iter(loader.iterate_image_batches(dataset, args.batch_size, seed=args.seed + epoch,
-                                                    num_workers=args.num_workers))
+        batches = iter(loader.iterate_image_batches(dataset, args.batch_size // shares, seed=args.seed + epoch,
+                                                    num_workers=args.num_workers, process_index=be.get_rank(),
+                                                    process_count=shares))
         while True:
             t0 = time.perf_counter()
             images = next(batches, None)
@@ -263,23 +285,26 @@ def main(argv=None) -> int:
             t_data = time.perf_counter()
             images = torch.from_numpy(images).to(device)
             state, metrics = step_fn(state, {"images": images, "temp": temp_t}, generator)
-            loss = float(metrics["loss"])
-            print(json.dumps({"step": global_step, "epoch": epoch, "loss": loss, "temperature": temp, "lr": lr,
-                              "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}), flush=True)
+            loss = float(metrics["loss"])  # the step's mean over the data ranks
+            if is_root:
+                print(json.dumps({"step": global_step, "epoch": epoch, "loss": loss, "temperature": temp, "lr": lr,
+                                  "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}), flush=True)
             if global_step % LOG_EVERY == 0:
                 temp = max(temp * math.exp(-args.anneal_rate * global_step), args.temp_min)
                 temp_t.fill_(temp)
+                # every rank draws, so that the gumbel generators stay in step
                 _log_cadence(logger, vae, images, generator, temp_t, global_step, epoch, args.num_images_save,
                              {"loss": loss, "temperature": temp, "lr": lr})
             if args.save_every_n_steps and global_step and global_step % args.save_every_n_steps == 0:
-                write_vae_checkpoint(out_file, vae)
+                save()
             global_step += 1
         lr *= args.lr_decay_rate
         lr_t.fill_(lr)
-        write_vae_checkpoint(out_file, vae)
+        save()
         logger.log({"epoch_time_s": time.time() - t_epoch, "epoch": epoch}, step=global_step)
     logger.finish()
-    print(json.dumps({"checkpoint": out_file, "global_step": global_step}), flush=True)
+    if is_root:
+        print(json.dumps({"checkpoint": out_file, "global_step": global_step}), flush=True)
     return 0
 
 

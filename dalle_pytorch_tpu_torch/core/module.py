@@ -16,6 +16,8 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from dalle_pytorch_tpu_torch.core.shard import uniform
+
 # ---------------------------------------------------------------------------
 # layout converters (JAX package -> PyTorch)
 # ---------------------------------------------------------------------------
@@ -103,15 +105,20 @@ def conv2d_transpose(
     return _nhwc(y)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+            cols: Optional[slice] = None, last_total: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate).  The identity when rate is 0 or no
     generator is given (the JAX package: no key).  `generator` lies on x's
-    device; the same generator state draws the same mask."""
+    device; the same generator state draws the same mask.  Under the
+    sharded train step x holds this rank's rows of the micro-batch (and,
+    with `cols`, those columns of a last dim of `last_total`): the mask is
+    drawn for those places alone, with the values a one-process run draws
+    there (`core/shard.uniform`)."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = uniform(x.shape, generator, x.device, cols, last_total) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

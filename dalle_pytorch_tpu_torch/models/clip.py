@@ -26,6 +26,7 @@ from dalle_pytorch_tpu_torch.models.transformer import (
     apply_transformer,
     init_transformer_,
 )
+from dalle_pytorch_tpu_torch.parallel import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +146,15 @@ def forward(model: CLIP, text: torch.Tensor, images: torch.Tensor, text_mask: Op
     """Per-pair similarity scores (b,), or the symmetric contrastive loss.
     The loss's similarities and softmax run in f32 whatever the compute
     dtype: under bf16 compute the JAX package's loss is f32 too, its f32
-    images promoting the image side."""
+    images promoting the image side.  Under the sharded train step's data
+    parallelism the loss is over the global batch, as the JAX package's
+    is: each rank gathers every rank's latents (`tensor_parallel.gather_rows`)."""
     tl = encode_text(model, text, text_mask)
     il = encode_image(model, images)
     temp = model.temperature.exp()
     if not return_loss:
         return (tl * il).sum(dim=-1) * temp
+    tl, il = tp.gather_rows(tl), tp.gather_rows(il)
     sim = tl.float() @ il.float().t() * temp.float()
     labels = torch.arange(sim.shape[0], device=sim.device)
     return (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(), labels)) / 2

@@ -14,6 +14,13 @@ the weight's gradient sums its three uses.  The model works on image
 *codes*; the VAE that turns pixels into codes is composed by the caller.
 The forward is differentiable: the training step takes its gradient
 (`parallel/train_step.py`).
+
+Under the sharded step's tensor parallelism (`parallel/tensor_parallel.py`)
+the logits weight and bias hold this rank's contiguous part of the
+vocabulary: the logits are vocab-parallel, the cross-entropy takes its
+log-sum-exp and the label's logit with one sum over tp each, and the tied
+tables are vocab-parallel embeddings (each rank looks up the ids it holds,
+the rows summed over tp).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dalle_pytorch_tpu_torch import quantization
+from dalle_pytorch_tpu_torch.core import shard as shard_mod
 from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.core.module import LayerNorm, fan_in_uniform_
 from dalle_pytorch_tpu_torch.models.transformer import (
@@ -34,6 +42,7 @@ from dalle_pytorch_tpu_torch.models.transformer import (
     init_transformer_,
 )
 from dalle_pytorch_tpu_torch.ops.stable import divide_max
+from dalle_pytorch_tpu_torch.parallel import tensor_parallel as tp
 
 # execution knobs of the JAX package's config that do not change what the
 # model computes (layer scan, XLA-or-Pallas choice, sharding axes): a
@@ -236,6 +245,13 @@ def _table_rows(model: DALLE, ids: torch.Tensor, image: bool) -> torch.Tensor:
         lin = model.logits_linear
         if isinstance(lin, quantization.QuantLinear):
             return lin.rows(ids, ntp if image else 0)
+        shard = shard_mod.current()
+        if shard.tp:  # vocab-parallel: this rank's rows [start, start + held) of the table
+            held = lin.weight.shape[0]
+            local = ids + (ntp if image else 0) - shard.tp_rank * held
+            mine = (local >= 0) & (local < held)
+            rows = F.embedding(local.clamp(0, held - 1), lin.weight) * mine[..., None].to(lin.weight.dtype)
+            return tp.reduce_from_tp(rows)
         return F.embedding(ids, lin.weight[ntp:] if image else lin.weight[:ntp])
     emb = model.image_emb if image else model.text_emb
     if isinstance(emb, quantization.QuantEmbedding):
@@ -296,16 +312,20 @@ def embed_image_codes(model: DALLE, codes: torch.Tensor, start: Optional[torch.T
     return emb + _image_pos_rows(model, idx)
 
 
-def logits_mask_slice(cfg: DALLEConfig, n: int, device=None) -> torch.Tensor:
-    """(n, total_tokens) bool; True = forbidden."""
+def logits_mask_slice(cfg: DALLEConfig, n: int, device=None, vocab: Optional[slice] = None) -> torch.Tensor:
+    """(n, total_tokens) bool, True = forbidden; with `vocab`, those
+    columns alone."""
     seq = torch.arange(n, device=device)[:, None]
-    tok = torch.arange(cfg.total_tokens, device=device)[None, :]
+    vocab = vocab or slice(0, cfg.total_tokens)
+    tok = torch.arange(vocab.start, vocab.stop, device=device)[None, :]
     in_text_vocab = tok < cfg.num_text_tokens_padded
     return ((seq >= cfg.text_seq_len) & in_text_vocab) | ((seq < cfg.text_seq_len) & ~in_text_vocab)
 
 
 def to_logits(model: DALLE, x: torch.Tensor) -> torch.Tensor:
-    return model.logits_linear(model.logits_norm(x))
+    """The logits (this rank's vocabulary columns under tensor
+    parallelism, the norm's output entering them through Megatron's f)."""
+    return model.logits_linear(tp.copy_to_tp(model.logits_norm(x)))
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +354,7 @@ def forward(
     if null_cond_prob > 0.0:
         if generator is None:
             raise ValueError("null_cond_prob needs a generator")
-        null = torch.rand(text.shape[0], generator=generator, device=generator.device) < null_cond_prob
+        null = shard_mod.uniform(text.shape[:1], generator, generator.device) < null_cond_prob
         text = text * (~null).to(text.device, text.dtype)[:, None]
     text_ids = remap_and_bos(cfg, text)
     tokens = embed_text_ids(model, text_ids)
@@ -350,18 +370,37 @@ def forward(
     out = apply_transformer(model.transformer, tokens, generator=generator)
     if cfg.stable:
         out = divide_max(out)
+    shard = shard_mod.current()
+    # this rank's columns of the vocabulary under tensor parallelism
+    vocab = tp.local_slice(cfg.total_tokens, shard.tp_rank, shard.tp_size) if shard.tp else None
     logits = to_logits(model, out)
     logits = logits.masked_fill(
-        logits_mask_slice(cfg, n, logits.device)[None], torch.finfo(logits.dtype).min
+        logits_mask_slice(cfg, n, logits.device, vocab)[None], torch.finfo(logits.dtype).min
     )
     if not return_loss:
-        return logits
+        return tp.gather_from_tp(logits)
 
     if image_codes is None:
         raise ValueError("the loss needs image codes")
     labels = torch.cat([text_ids[:, 1:], image_codes + cfg.num_text_tokens_padded], dim=1)
     logits32 = logits.float()
-    token_ll = logits32.gather(-1, labels[..., None])[..., 0] - torch.logsumexp(logits32, dim=-1)
+    if vocab is None:
+        token_ll = logits32.gather(-1, labels[..., None])[..., 0] - torch.logsumexp(logits32, dim=-1)
+    else:
+        token_ll = _vocab_parallel_ll(logits32, labels, vocab)
     loss_text = -token_ll[:, : cfg.text_seq_len].mean()
     loss_img = -token_ll[:, cfg.text_seq_len:].mean()
     return (loss_text + cfg.loss_img_weight * loss_img) / (cfg.loss_img_weight + 1)
+
+
+def _vocab_parallel_ll(logits32: torch.Tensor, labels: torch.Tensor, vocab: slice) -> torch.Tensor:
+    """log softmax(logits)[label] from this rank's vocabulary columns: the
+    max over tp (no gradient), the sum of exponentials and the label's
+    logit (zero on the ranks that do not hold it) each summed over tp."""
+    peak = tp.max_over_tp(logits32.detach().amax(dim=-1))
+    sumexp = tp.reduce_from_tp((logits32 - peak[..., None]).exp().sum(-1))
+    local = labels - vocab.start
+    mine = (local >= 0) & (local < vocab.stop - vocab.start)
+    picked = logits32.gather(-1, local.clamp(0, vocab.stop - vocab.start - 1)[..., None])[..., 0]
+    picked = tp.reduce_from_tp(torch.where(mine, picked, torch.zeros_like(picked)))
+    return picked - peak - sumexp.log()

@@ -64,6 +64,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from dalle_pytorch_tpu_torch.core import shard as shard_mod
 from dalle_pytorch_tpu_torch.core.module import LayerNorm, dropout, fan_in_uniform_
 from dalle_pytorch_tpu_torch.kernels.flash_attention import PatternTables, flash_attention, mask_with_slack, pattern_tables
 from dalle_pytorch_tpu_torch.kernels.sparse_index import build_decode_tables
@@ -72,6 +73,7 @@ from dalle_pytorch_tpu_torch.ops.attention import attend
 from dalle_pytorch_tpu_torch.ops.masks import ATTN_TYPES, _block_sparse_mask_np, _block_sparse_mask_np_heads, _pattern_mask_np
 from dalle_pytorch_tpu_torch.ops.rotary import apply_rotary, build_dalle_rotary
 from dalle_pytorch_tpu_torch.ops.shift import token_shift
+from dalle_pytorch_tpu_torch.parallel import tensor_parallel as tp
 from dalle_pytorch_tpu_torch.quantization import dequantize_kv, quantize_kv
 
 
@@ -436,14 +438,22 @@ class Transformer(nn.Module):
         """(mask, tables) of the layers with pattern key `key` for
         full-sequence attention at length n: the pattern cut to (n, n) on
         `device` (None for 'full'), and on a CUDA device its kernel tables
-        (None on the CPU, and for 'full' unless attn_grid is "compact")."""
+        (None on the CPU, and for 'full' unless attn_grid is "compact").
+        Under tensor parallelism a per-head pattern keeps this rank's
+        heads."""
         cfg = self.cfg
         pattern = self.patterns[key]
         if pattern is None and cfg.attn_grid != "compact":
             return None, None
-        cache_key = (key, n, causal, device)
+        shard = shard_mod.current()
+        heads = None  # a per-head pattern under tensor parallelism: this rank's heads
+        if pattern is not None and pattern.ndim == 3 and shard.tp:
+            heads = tp.local_slice(cfg.heads, shard.tp_rank, shard.tp_size)
+        cache_key = (key, n, causal, device, None if heads is None else (heads.start, heads.stop))
         got = self._attn_inputs.get(cache_key)
         if got is None:
+            if heads is not None:
+                pattern = pattern[heads]
             mask_np = None if pattern is None else np.ascontiguousarray(pattern[..., :n, :n])
             mask = None if mask_np is None else mask_with_slack(torch.from_numpy(mask_np).to(device))
             tables = None
@@ -508,9 +518,12 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 def _qkv_heads(attn: Attention, cfg: TransformerConfig, x: torch.Tensor, ang):
     """Project to qkv and split into (q, k, v), each (b, h, n_x, dh); the
     rotary rotation (`ang`: (n_x, rot) or None) runs on all three.  The
-    projection is kept as "attn_qkv" (before the reshape and the rotary)."""
+    projection is kept as "attn_qkv" (before the reshape and the rotary).
+    h is the heads the projection holds: all of them, or under tensor
+    parallelism this rank's (its qkv rows are head-major, so a contiguous
+    part of them is whole heads)."""
     b, n_x, _ = x.shape
-    qkv = _linear(attn.qkv, x, "attn_qkv").reshape(b, n_x, cfg.heads, 3, cfg.dim_head).permute(0, 2, 3, 1, 4)
+    qkv = _linear(attn.qkv, x, "attn_qkv").reshape(b, n_x, -1, 3, cfg.dim_head).permute(0, 2, 3, 1, 4)
     if ang is not None:
         qkv = apply_rotary(ang, qkv)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -531,14 +544,23 @@ def _attention_full(attn, cfg, x, rotary, key_mask, causal, layer_cache=None, pa
         key_mask=None if key_mask is None else key_mask[:, :n],
         grid=cfg.attn_grid, tables=tables, vfa=cfg.attn_vfa, keep=_keeper("flash_out"),
     )
-    return attn.out(_merge_heads(out))
+    return tp.tp_linear_out(_merge_heads(out), attn.out)
 
 
 def _feed_forward(ff: FeedForward, x: torch.Tensor, rate: float = 0.0,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """GEGLU; under tensor parallelism on this rank's hidden columns, the
+    dropout mask drawn for them with the values a one-process run draws
+    there, and w2 row-parallel."""
     a, gates = _linear(ff.w1, x, "ff_pre"), _linear(ff.w1g, x, "ff_pre")
     h = a * F.gelu(gates)  # exact-erf gelu
-    return ff.w2(dropout(h, rate, generator))
+    shard = shard_mod.current()
+    if shard.tp:
+        hidden = h.shape[-1] * shard.tp_size
+        h = dropout(h, rate, generator, tp.local_slice(hidden, shard.tp_rank, shard.tp_size), hidden)
+    else:
+        h = dropout(h, rate, generator)
+    return tp.tp_linear_out(h, ff.w2)
 
 
 def _at(table: torch.Tensor, offset: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -658,6 +680,8 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
             if mode == "prefill":  # the ring takes the normed, pre-shift values
                 _fill_ring(cfg, layer_cache[f"shift_{kind}"], h)
             h = token_shift(h, cfg.seq_len, cfg.image_fmap_size)
+    if mode != "decode":
+        h = tp.copy_to_tp(h)  # Megatron's f: the column-parallel projections' input
     if kind == "attn":
         if mode == "decode":
             h = _attention_cached(layer.attn, cfg, layer_cache, h, rotary, offset, pattern)

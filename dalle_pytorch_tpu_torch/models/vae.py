@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from dalle_pytorch_tpu_torch.core.device import DeviceLike, resolve_device
 from dalle_pytorch_tpu_torch.core.module import fan_in_uniform_
+from dalle_pytorch_tpu_torch.core.shard import uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,10 +216,10 @@ def codebook_health_from_logits(logits: torch.Tensor, num_tokens: int) -> Dict[s
 
 def gumbel_uniform(shape, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
     """A uniform f32 draw in [1e-20, 1), the range of the JAX package's
-    `jax.random.uniform(key, shape, float32, 1e-20, 1.0)`: torch's [0, 1)
-    draw with its zeros lifted to 1e-20, so that the noise's double log
+    `jax.random.uniform(key, shape, float32, 1e-20, 1.0)`: the port's [0, 1)
+    draw (`core/shard.uniform`) with its zeros lifted to 1e-20, so that the noise's double log
     stays finite."""
-    return torch.rand(shape, generator=generator, device=device).clamp_min_(1e-20)
+    return uniform(shape, generator, device).clamp_min_(1e-20)
 
 
 def gumbel_softmax(logits: torch.Tensor, tau, hard: bool, uniform: torch.Tensor) -> torch.Tensor:

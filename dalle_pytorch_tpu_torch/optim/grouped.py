@@ -44,6 +44,9 @@ class GroupedState:
 
 class GroupedOptimizer:
     group_elements = 1 << 26  # f32 elements of one stacked group at most
+    # each element's update reads that element's statistics alone, so the
+    # sharded step may run it on a rank's shard of a leaf
+    elementwise = False
 
     def _init_stats(self, shape: Tuple[int, ...], n: int, device) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -96,6 +99,7 @@ class Adam(GroupedOptimizer):
     scale(-1))` times a traced lr, the same product)."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
+    elementwise = True
 
     def __init__(self, learning_rate: float):
         self.lr = learning_rate

@@ -27,11 +27,22 @@ reads each step's loss and scales the update, as the JAX package chains
 `optax.contrib.reduce_on_plateau` after its optimizer; a skipped step
 leaves it as it was.
 
-Meshes, ZeRO and the diagnostic `with_health` step raise
-`NotImplementedError`: they come with later PRs (`ROADMAP.md`).
+On a mesh (`parallel/mesh.py`, one process per device) the step is
+sharded (`parallel/sharding.py` holds the placement): each rank runs the
+loss on its rows of the global batch, the gradients are averaged over
+dp·fsdp, ZeRO 1/2 shard the optimizer moments over fsdp and ZeRO-3 the
+parameters too, and tp splits the attention heads, the feed-forward hidden
+size and the vocabulary (Megatron's pattern, `parallel/tensor_parallel.py`).
+The numbers are those of the one-process step on the global batch: the
+loss is its mean, the gradient norm is global (each replicated leaf counted
+once), and dropout draws the one-process masks at this rank's places.
+
+The diagnostic `with_health` step raises `NotImplementedError`: it comes
+with a later PR (`ROADMAP.md`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
@@ -39,6 +50,8 @@ import torch
 
 from dalle_pytorch_tpu_torch.optim.grouped import GroupedOptimizer, GroupedState
 from dalle_pytorch_tpu_torch.optim.plateau import PlateauState, ReduceOnPlateau
+from dalle_pytorch_tpu_torch.parallel import sharding
+from dalle_pytorch_tpu_torch.parallel.mesh import active_mesh
 from dalle_pytorch_tpu_torch.training.resilience import nonfinite_guard
 
 Params = Dict[str, torch.Tensor]
@@ -130,6 +143,9 @@ def make_train_step(
     settings: StepSettings = StepSettings(),
     mesh: Any = None,
     plateau: Optional[ReduceOnPlateau] = None,
+    paths: Optional[Dict[str, Any]] = None,
+    registry: Any = None,
+    module: Optional[torch.nn.Module] = None,
 ) -> Tuple[Callable[..., TrainState], Callable[..., Tuple[TrainState, Dict[str, Any]]]]:
     """Build (init_fn, step_fn).
 
@@ -149,13 +165,26 @@ def make_train_step(
     micro-batch.  round_bits: name -> integers in [0, 65536) of the leaf's
     shape, the stochastic rounding's bits in place of the generator's.
     metrics: `loss` and `grad_norm` (0-d tensors, not synced), `skipped` (0
-    or 1) when the step is guarded, and `loss_scale` when scaling is on."""
-    if mesh is not None:
-        raise _later("a mesh (data, tensor or pipeline parallel training)")
-    if settings.zero_stage > 0:
-        raise _later(f"zero_stage={settings.zero_stage}")
+    or 1) when the step is guarded, and `loss_scale` when scaling is on.
+
+    mesh: a (dp, fsdp, tp) DeviceMesh (`parallel/mesh.make_mesh`) over the
+    initialised process group, by default the one `parallel/mesh.
+    mesh_context` publishes (`active_mesh()`); the step is then sharded
+    (`parallel/sharding.MeshPlan`), which takes a grouped optimizer.
+    `paths` maps each parameter name to its JAX path (`weights.
+    dalle_param_paths`), under which `registry` (default the default
+    rules) places it; without it the names are the paths.  init_fn then
+    takes every rank's same full parameters and keeps this rank's pieces;
+    step_fn takes this rank's rows of the global batch
+    (`step_fn.local_batch`), and `step_fn.full_state` (the one-process
+    state, on rank 0 alone), `full_template`, `load_opt_state` and
+    `resident_bytes` serve checkpoints and memory checks.  `module`: the
+    model the loss runs; ZeRO-3 needs it, to gather one layer's
+    parameters at a time (`sharding.Zero3Units`).  Without a mesh the ZeRO
+    stage changes nothing, as in the JAX package."""
     if settings.grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
+    mesh = active_mesh() if mesh is None else mesh
     param_dtype = settings.param_dtype
     lowp = param_dtype is not None and param_dtype.itemsize < 4
     sr = settings.stochastic_round if settings.stochastic_round is not None else lowp
@@ -174,10 +203,15 @@ def make_train_step(
         raise ValueError("bf16 parameters or gradients take a grouped optimizer (optim.grouped.Adam, "
                          "optim.adafactor.Adafactor): torch.optim writes each parameter with its own rounding")
 
+    if mesh is not None and not grouped:
+        raise ValueError("the sharded step takes a grouped optimizer (optim.grouped.Adam, optim.adafactor."
+                         "Adafactor): it updates this rank's pieces of the parameters")
+
     ls_enabled = settings.loss_scale is not None
     ls_dynamic = settings.loss_scale == "dynamic"
     guarded = ls_enabled or settings.skip_nonfinite is not False
     compute_dtype, grad_dtype = settings.compute_dtype, settings.grad_dtype
+    plan: Optional[sharding.MeshPlan] = None
 
     def init_fn(params: Params, round_seed: int = 0) -> TrainState:
         for name, p in params.items():
@@ -193,6 +227,7 @@ def make_train_step(
             for p in params.values():
                 p.requires_grad_(True)
             return TrainState(0, params, optimizer(list(params.values())), ls)
+        nonlocal plan
         with torch.no_grad():
             for p in params.values():
                 if param_dtype is not None and p.dtype != param_dtype:
@@ -201,8 +236,13 @@ def make_train_step(
         device = next(iter(params.values())).device
         if lowp and sr:
             gen = torch.Generator(device=device).manual_seed(round_seed)
-        return TrainState(0, params, optimizer.init(params), ls, gen,
-                          None if plateau is None else plateau.init(device))
+        if mesh is None:
+            opt_state = optimizer.init(params)
+        else:
+            plan = sharding.MeshPlan(mesh, params, settings.zero_stage, paths, registry,
+                                     elementwise=getattr(optimizer, "elementwise", False), module=module)
+            opt_state = optimizer.init(plan.place(params))
+        return TrainState(0, params, opt_state, ls, gen, None if plateau is None else plateau.init(device))
 
     def master_grads(state: TrainState, micro, scale, generator) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """torch.optim: the loss on a working copy cast inside the graph,
@@ -231,14 +271,18 @@ def make_train_step(
 
     def leaf_grads(state: TrainState, micro, scale, generator) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """Grouped: the gradients with respect to a compute-dtype copy of
-        the parameters (detached leaves), cast to `grad_dtype`; more than
+        the parameters (detached leaves; on a mesh, this rank's at-rest
+        pieces, and the loss run under `MeshPlan.context`, which gathers
+        ZeRO-3's shards around their use), cast to `grad_dtype`; more than
         one micro-batch accumulates in f32."""
         work = {name: p.detach().to(compute_dtype).requires_grad_(True) for name, p in state.params.items()}
         leaves = list(work.values())
         acc, loss_sum = None, None
         for mb in micro:
-            loss = loss_fn(work, mb, generator)
-            (loss if scale is None else loss * scale).backward()
+            # the backward too: remat and reversible execution run layers again in it
+            with contextlib.nullcontext() if plan is None else plan.context(next(iter(mb.values())).shape[0]):
+                loss = loss_fn(work if plan is None else plan.loss_params(work), mb, generator)
+                (loss if scale is None else loss * scale).backward()
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             grads = [torch.zeros_like(w) if w.grad is None else w.grad for w in leaves]
@@ -263,21 +307,29 @@ def make_train_step(
         if plateau is not None:
             plateau.update(state.plateau, loss)
 
+        targets = state.params if plan is None else plan.update_targets(state.params)
+
         def write(names, p32, u32):
-            params = [state.params[n] for n in names]
+            params = [targets[n] for n in names]
             if plateau is not None:
                 u32 = u32 * state.plateau.scale
             new = p32.add_(u32)
             if lowp and sr:
                 bits = None if round_bits is None else torch.stack(
-                    [round_bits[n].to(device=new.device, dtype=torch.int32) for n in names])
+                    [(round_bits[n] if plan is None else plan.piece(n, round_bits[n], full_piece=plan.full_update))
+                     .to(device=new.device, dtype=torch.int32) for n in names])
                 new = stochastic_round(new, bits, state.round_generator)
             elif new.dtype != params[0].dtype:
                 new = new.to(params[0].dtype)
             torch._foreach_copy_(params, list(new.unbind(0)))
 
         with torch.no_grad():
-            optimizer.step_groups(state.opt_state, dict(zip(state.params, grads)), state.params, write)
+            if plan is None:
+                optimizer.step_groups(state.opt_state, dict(zip(state.params, grads)), state.params, write)
+            else:
+                params, grads_in = plan.update_inputs(state.params, dict(zip(state.params, grads)))
+                optimizer.step_groups(state.opt_state, grads_in, params, write)
+                plan.finish_update(state.params, targets)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None, with_health: bool = False,
@@ -287,8 +339,14 @@ def make_train_step(
         scale = state.loss_scale["loss_scale"] if ls_enabled else None
         micro = _micro_batches(batch, settings.grad_accum)
         grads, loss = (leaf_grads if grouped else master_grads)(state, micro, scale, generator)
-
-        gnorm = _global_norm(grads)
+        if plan is not None:
+            # the global batch's mean loss and gradients; the norm over the
+            # pieces, each replicated leaf counted once
+            loss = plan.mean_over_data(loss)
+            grads = plan.reduce_grads(list(state.params), grads, grad_dtype)
+            gnorm = plan.global_norm(list(state.params), grads)
+        else:
+            gnorm = _global_norm(grads)
         if settings.clip_grad_norm is not None:
             # NaN propagates through the factor, so a poisoned norm stays poisoned
             factor = torch.clamp(settings.clip_grad_norm / (gnorm + 1e-6), max=1.0)
@@ -326,8 +384,15 @@ def make_train_step(
             metrics["loss_scale"] = new_ls["loss_scale"]
         return dataclasses.replace(state, step=state.step + 1, loss_scale=new_ls), metrics
 
-    if grouped:
+    if grouped and mesh is None:
         # the update alone, (state, gradients in parameter order, round_bits)
         # -> None, for a profile that separates it from the step
         step_fn.apply_update = grouped_update
+    if mesh is not None:
+        step_fn.plan = lambda: plan
+        step_fn.local_batch = lambda batch: plan.local_batch(batch, settings.grad_accum)
+        step_fn.full_state = lambda state: plan.full_state(state)
+        step_fn.full_template = lambda state: plan.full_template(state)
+        step_fn.load_opt_state = lambda state, full: plan.load_opt_state(state, full)
+        step_fn.resident_bytes = lambda state: plan.resident_bytes(state)
     return init_fn, step_fn

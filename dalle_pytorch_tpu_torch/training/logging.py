@@ -7,7 +7,8 @@ with a JSONL record of where; histograms are JSONL bin counts.  The same
 files and records as the JAX `MetricLogger`, which the JAX package's tests
 read.  `use_wandb` logs to Weights & Biases as well where `wandb` imports;
 where it does not, a note is printed and the JSONL file carries on, as the
-JAX logger does.
+JAX logger does.  On a distributed run only the root writes
+(`is_root=False`: every call is a no-op and no file is opened).
 """
 from __future__ import annotations
 
@@ -46,9 +47,13 @@ def make_grid(images: np.ndarray, nrow: int = 4, pad: int = 2, pad_value: float 
 
 class MetricLogger:
     def __init__(self, run_name: str = "run", log_dir: str = ".", use_wandb: bool = False,
-                 wandb_kwargs: Optional[dict] = None, config: Optional[dict] = None):
+                 wandb_kwargs: Optional[dict] = None, config: Optional[dict] = None, is_root: bool = True):
+        self.is_root = is_root
         self._wandb = None
+        self._file = None
         self._image_dir = Path(log_dir) / f"{run_name}.images"
+        if not is_root:
+            return
         if use_wandb:
             try:
                 import wandb
@@ -66,6 +71,8 @@ class MetricLogger:
         batch becomes a grid), each written as `step<N>_<name>.png` (spaces
         as underscores) under `<run>.images/`, with one JSONL record of the
         paths."""
+        if not self.is_root:
+            return
         record: Dict[str, Any] = {}
         wandb_payload = {}
         for name, arr in images.items():
@@ -89,6 +96,8 @@ class MetricLogger:
     def log_histogram(self, name: str, values, step: Optional[int] = None, bins: int = 64) -> None:
         """A distribution (the codebook's code use): `<name>_hist` with the
         bin counts, the outer edges and the number of distinct values."""
+        if not self.is_root:
+            return
         values = _numpy(values).reshape(-1)
         counts, edges = np.histogram(values, bins=bins)
         if self._wandb is not None:
@@ -100,6 +109,8 @@ class MetricLogger:
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None, quiet: bool = False) -> None:
         """One JSONL record {ts, step, **metrics}, printed as `[step] k=v`
         unless `quiet`."""
+        if not self.is_root:
+            return
         record = {"ts": time.time(), **({"step": step} if step is not None else {}), **metrics}
         if self._file is not None:
             self._file.write(json.dumps({k: _jsonable(v) for k, v in record.items()}) + "\n")

@@ -15,8 +15,9 @@ being taming's) and OpenAI's dVAE (`openai_vae_state_dict` /
 """
 from __future__ import annotations
 
+import functools
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -527,3 +528,61 @@ def load_dalle_checkpoint(path, device: DeviceLike = None, allow_legacy_pickle: 
     device = resolve_device(device)
     cfg, params, vae_cfg, vae_params = load_dalle_bundle(path, allow_legacy_pickle, vqgan_config_path)
     return load_dalle(params, cfg, device), load_vae(vae_params, vae_cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# the name map: the port's parameter names -> the JAX package's paths
+# ---------------------------------------------------------------------------
+
+
+class ParamPath(NamedTuple):
+    """Where a parameter of the port sits in the JAX package's tree: its
+    '/'-joined path, its JAX shape, and whether that is the port's shape
+    transposed (a linear weight, (in, out) there and (out, in) here)."""
+
+    path: str
+    shape: Tuple[int, ...]
+    transposed: bool
+
+
+def _param_paths(shapes: Dict[str, Tuple[int, ...]], to_tree) -> Dict[str, ParamPath]:
+    """Run the tree writer `to_tree` on stand-in tensors that carry each
+    parameter's index, and read back where each one landed."""
+    names = list(shapes)
+    tree = to_tree({n: torch.full((1,) * len(s), float(i)) for i, (n, s) in enumerate(shapes.items())})
+    out: Dict[str, ParamPath] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [str(k)])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + [str(i)])
+        else:
+            name = names[int(node.reshape(-1)[0])]
+            shape = tuple(shapes[name])
+            transposed = path[-1] == "w" and len(shape) == 2
+            out[name] = ParamPath("/".join(path), shape[::-1] if transposed else shape, transposed)
+
+    walk(tree, [])
+    return out
+
+
+def _meta_shapes(build) -> Dict[str, Tuple[int, ...]]:
+    with torch.device("meta"):
+        module = build()
+    return {n: tuple(p.shape) for n, p in module.named_parameters()}
+
+
+@functools.lru_cache(maxsize=8)
+def dalle_param_paths(cfg: DALLEConfig) -> Dict[str, ParamPath]:
+    """{`DALLE` parameter name (`named_parameters`): its JAX path}, the map
+    `dalle_tree` writes by."""
+    return _param_paths(_meta_shapes(lambda: DALLE(cfg)), lambda sd: dalle_tree(sd, cfg))
+
+
+@functools.lru_cache(maxsize=8)
+def clip_param_paths(cfg: CLIPConfig) -> Dict[str, ParamPath]:
+    """{`CLIP` parameter name: its JAX path}, the map `clip_tree` writes by."""
+    return _param_paths(_meta_shapes(lambda: CLIP(cfg)), lambda sd: clip_tree(sd, cfg))

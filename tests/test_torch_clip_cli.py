@@ -88,14 +88,6 @@ def test_checkpoint_gives_the_same_scores_in_jax(workspace, trained):
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("flags", [["--zero_stage", "1"], ["--mesh_dp", "2"], ["--mesh_fsdp", "2"],
-                                   ["--mesh_tp", "2"], ["--distributed_backend", "jax"],
-                                   ["--coordinator_address", "localhost:1234"]])
-def test_flags_that_wait_exit_naming_item_7(workspace, flags):
-    with pytest.raises(SystemExit, match=rf"{flags[0]}.*ROADMAP.md Queue 1 item 7\)"):
-        tcli.main(["--image_text_folder", str(workspace / "data"), *flags, "--device", "cpu"])
-
-
 def test_both_clis_learn_pairs_whose_captions_name_the_image(tmp_path):
     """The pairs of `chip_smoke.py`'s `train_clip_cli` (colour and pattern
     named by the caption), at this file's sizes with 32 px images: eight

@@ -243,15 +243,41 @@ def test_adam_matches_optax_step_by_step():
             np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("setting", ["zero_stage", "mesh", "with_health"])
+@pytest.mark.parametrize("setting", ["mesh_sp", "mesh_pp", "with_health"])
 def test_train_step_refuses_what_waits(setting):
-    kwargs = {"zero_stage": {"settings": tts.StepSettings(zero_stage=1)},
-              "mesh": {"mesh": object()}}.get(setting, {})
+    """The with_health step, and a mesh's sp and pp axes (ring attention
+    and the pipeline, Queue 1 item 7), still wait."""
+    if setting != "with_health":
+        from dalle_pytorch_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+        with pytest.raises(NotImplementedError, match="later PR.*item 7"):
+            make_mesh(MeshConfig(**{setting[len("mesh_"):]: 2}), "cpu", world_size=2)
+        return
     opt = functools.partial(torch.optim.Adam, lr=1e-3)
     with pytest.raises(NotImplementedError, match="later PR"):
-        init_fn, step_fn = tts.make_train_step(lambda p, b, g: p["w"].sum(), opt, **kwargs)
+        init_fn, step_fn = tts.make_train_step(lambda p, b, g: p["w"].sum(), opt)
         state = init_fn({"w": torch.zeros(2)})
         step_fn(state, {"x": torch.zeros(1)}, with_health=True)
+
+
+def test_zero_stage_without_a_mesh_is_the_one_process_step():
+    """As in the JAX package, the ZeRO stage shards over a mesh's fsdp axis
+    and changes nothing without one; a mesh takes a grouped optimizer."""
+    from dalle_pytorch_tpu_torch.optim.grouped import Adam
+
+    def run(stage):
+        w = torch.nn.Parameter(torch.linspace(-1.0, 1.0, 6))
+        init_fn, step_fn = tts.make_train_step(lambda p, b, g: (p["w"] * b["x"]).square().sum(), Adam(1e-2),
+                                               tts.StepSettings(zero_stage=stage))
+        state = init_fn({"w": w})
+        for _ in range(3):
+            state, _ = step_fn(state, {"x": torch.arange(6.0)})
+        return w.detach()
+
+    assert torch.equal(run(3), run(0))
+    with pytest.raises(ValueError, match="grouped optimizer"):
+        tts.make_train_step(lambda p, b, g: p["w"].sum(), functools.partial(torch.optim.Adam, lr=1e-3),
+                            mesh=object())
 
 
 def test_unguarded_step_applies_a_nonfinite_update():
@@ -446,7 +472,7 @@ _REFUSED = {
                                                               "fetching it failed"),
     "--resume": (["--resume", "auto", "--dalle_path", "x.pt", "--dummy_run", "1"], "mutually exclusive"),
     "--lr_decay": (["--lr_decay", "--hug", "--dummy_run", "1"], "Hugging Face tokenizer.*item 4"),
-    "--mesh_dp": (["--mesh_dp", "2", "--dummy_run", "1"], "meshes.*item 7"),
+    "--mesh_dp": (["--mesh_dp", "2", "--mesh_sp", "2", "--dummy_run", "1"], "--mesh_sp 2: ring attention.*item 7"),
     "--wds": (["--wds", "--image_text_folder", "gs://bucket/s-{0..3}.tar"], "remote tar shards.*item 10"),
 }
 

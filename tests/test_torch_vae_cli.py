@@ -156,7 +156,7 @@ def test_train_dalle_trains_on_the_port_vae(workspace, trained, capsys):
 @pytest.mark.parametrize("flags, item", [
     (["--telemetry", "tele"], 8), (["--profile_steps", "1:3"], 8), (["--health_every", "1"], 8),
     (["--inject_fault", "sigterm@2"], 8), (["--fleet_inject_skew", "0.5"], 8), (["--async_checkpoint", "1"], 8),
-    (["--prefetch_batches", "2"], 10), (["--distributed_backend", "jax"], 7), (["--num_processes", "2"], 7),
+    (["--prefetch_batches", "2"], 10),
 ])
 def test_flags_that_wait_exit_naming_their_item(workspace, flags, item):
     with pytest.raises(SystemExit, match=rf"{flags[0]}.*ROADMAP.md Queue 1 item {item}\)"):
