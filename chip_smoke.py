@@ -328,7 +328,7 @@ def read_launches(fa) -> dict:
     return {name: getattr(getattr(fa, wrapper), counter) for name, (wrapper, counter) in COUNTERS.items()}
 
 
-def forward_launches(model, n):
+def forward_launches(model, n, layers=None):
     """The flash launches of one full-sequence pass of `model` at length n
     and of its backward, from the layer cycle and the grid each pattern
     takes at the model's head dim (`Transformer.attention_inputs`, the
@@ -336,12 +336,13 @@ def forward_launches(model, n):
     in flash_fwd_masked too when it takes a pattern), then flash_dq and
     flash_dkv; a compacted one flash_fwd_compact or, with attn_vfa,
     flash_max_compact and flash_fwd_compact_vfa, then flash_dq_compact and
-    flash_dkv_compact.  Returns (forward launches, backward launches)."""
+    flash_dkv_compact.  `layers`: those layers' alone.  Returns (forward
+    launches, backward launches)."""
     from dalle_pytorch_tpu_torch.models.transformer import _pattern_key
 
     tr, vfa = model.transformer, model.cfg.attn_vfa
     fwd, bwd = dict.fromkeys(COUNTERS, 0), dict.fromkeys(COUNTERS, 0)
-    for spec in tr.specs:
+    for spec in tr.specs if layers is None else [tr.specs[i] for i in layers]:
         mask, tables = tr.attention_inputs(_pattern_key(spec), n, True, torch.device("cuda"))
         if tables is not None and tables.compact:
             for name in (("flash_max_compact", "flash_fwd_compact_vfa") if vfa else ("flash_fwd_compact",)):
@@ -370,6 +371,17 @@ def launches_per_step(model, n):
     return {name: times * fwd[name] + bwd[name] for name in COUNTERS}
 
 
+# The profiler can drop the kernels that run in the first moments of its
+# window: on an H100 it read none of the first twenty launches (about a
+# millisecond of work) in three windows running, late in a long process.  So
+# the measured work starts PROFILER_GAP_S after the window opens (and the
+# window closes a third of that after the work has finished); `device_times`
+# checks each label's kernel count and times with CUDA events what the
+# profiler still did not read whole.
+PROFILER_GAP_S = 0.03
+PROFILER_LOG = {"calls": 0, "windows": 0, "retaken": [], "event_timed": []}
+
+
 def device_profile(fn) -> list:
     """(kernel name, device ms, count) of one call of fn, by device time."""
     from torch.autograd import DeviceType
@@ -377,8 +389,10 @@ def device_profile(fn) -> list:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_GAP_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILER_GAP_S / 3)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     return sorted(rows, key=lambda r: -r[1])
@@ -390,23 +404,34 @@ def device_times(calls: dict, reps: int = 10, windows: int = 3) -> dict:
     kernels named `<label><...>(flash::Args)`; the label None takes every
     other kernel (a library call).  Unlike `time_ms` it leaves out the host
     time between launches, which bounds a wrapper's calls at small shapes.
-    Every label's calls launch, so none may read 0: a window in which one
-    does (the profiler kept none of its kernels) is taken again, up to
-    `windows` windows, and the phase fails if it still reads 0."""
+    Each call of a label's fn launches its kernel, so a window in which a
+    label's kernel count is 0 or no multiple of `reps`, or the library reads
+    0 ms, dropped some of them: it is taken again, up to `windows` windows,
+    and a label still short is timed with CUDA events (`time_ms`), which
+    `PROFILER_LOG` lists and the `profiler` phase line reports."""
 
     def ours(label, name):
         return f"{label}<" in name and "flash::Args" in name
 
     named = [label for label in calls if label is not None]
+    PROFILER_LOG["calls"] += 1
     for _ in range(windows):
+        PROFILER_LOG["windows"] += 1
         rows = device_profile(lambda: [fn() for fn in calls.values() for _ in range(reps)])
         out = {label: sum(ms for name, ms, _ in rows if ours(label, name)) / reps for label in named}
+        counts = {label: sum(c for name, _, c in rows if ours(label, name)) for label in named}
+        short = [label for label in named if not (counts[label] > 0 and counts[label] % reps == 0
+                                                  and out[label] > 0)]
         if None in calls:
             out[None] = sum(ms for name, ms, _ in rows if not any(ours(label, name) for label in named)) / reps
-        unread = [label for label, ms in out.items() if not ms > 0]
-        if not unread:
+            short += [None] * (not out[None] > 0)
+        if not short:
             return out
-    raise RuntimeError(f"device_times: {unread} read 0 ms in {windows} profiler windows")
+        PROFILER_LOG["retaken"].append({str(label): counts.get(label) for label in short})
+    for label in short:
+        out[label] = time_ms(calls[label], reps)
+        PROFILER_LOG["event_timed"].append(str(label))
+    return out
 
 
 def device_difference(whole, part, windows: int = 3) -> float:
@@ -1910,7 +1935,7 @@ def plateau_and_step(path) -> dict:
     return {"global_step": meta["global_step"], **leaves}
 
 
-def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
+def phase_train_real_data(fa, tr, sampling, weights, rotary_step_ms):
     """Train what the JAX CLI trains, on real data, then serve it, at the
     full width of the 12-layer model with learned positions:
     (1) `train_dalle --image_text_folder --vae_path --epochs 2
@@ -1924,10 +1949,9 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
     (`decode_graphs`, the last 128 steps, and the replayed step's ms over a
     whole image beside the rotary model's); (4) the engine: two requests
     (one guided) give their batch-1 codes under their noise, and `generate
-    --engine` writes the PNGs `generate` writes under one seed; (5) a small
-    model with learned positions on the card against the CPU
-    (`rotary_off_parity`).  Also the host's PNG decode rate and the loader's
-    batches/s.  Returns the launches of (1)."""
+    --engine` writes the PNGs `generate` writes under one seed.  Also the
+    host's PNG decode rate and the loader's batches/s.  Returns the
+    launches of (1)."""
     import types
 
     from dalle_pytorch_tpu_torch.cli import train_dalle
@@ -2026,10 +2050,9 @@ def phase_train_real_data(fa, port, tr, sampling, weights, rotary_step_ms):
                              engine_decode_steps=engine_steps, engine_wall_s=engine_wall_s,
                              decode_graphs_codes_equal=graphs_row["codes_equal_under_noise"],
                              replayed_step_ms=graphs_row["step_ms_replayed"], rotary_replayed_step_ms=rotary_step_ms)
-    parity_launches = phase_parity(fa, port, sampling, "rotary_off_parity", dict(SMALL, rotary_emb=False), SMALL_VAE)
     emit("train_real_data", model=dict(dim=1024, depth=12, heads=16, dim_head=64, text_seq_len=256,
                                        num_text_tokens=cfg.num_text_tokens, rotary_emb=False, shift_tokens=True,
-                                       vae=FULL_VAE), **readings, parity_prefill_launches=parity_launches)
+                                       vae=FULL_VAE), **readings)
     return full_launches
 
 
@@ -4200,33 +4223,63 @@ def phase_legacy_formats(fa, port, weights):
 # flagship's widths, its attention cycle with VFA and its tied embeddings,
 # with depth cut to 4; two ranks share the one card over gloo
 DIST_MODEL = dict(FLAGSHIP, depth=4, num_image_tokens=FULL_VAE["num_tokens"], image_fmap_size=32)
-DIST_MESHES = {"dp2": ({"dp": 2}, 0), "fsdp2_zero1": ({"fsdp": 2}, 1), "fsdp2_zero3": ({"fsdp": 2}, 3),
-               "tp2": ({"tp": 2}, 0)}
+# name -> (mesh axes, ZeRO stage, the model's mesh knobs): sp2 shards the
+# sequence through ring attention, pp2 pipelines the layers in 2
+# micro-batches, pp2_v2 interleaves 2 chunks a stage
+DIST_MESHES = {"dp2": ({"dp": 2}, 0, {}), "fsdp2_zero1": ({"fsdp": 2}, 1, {}), "fsdp2_zero3": ({"fsdp": 2}, 3, {}),
+               "tp2": ({"tp": 2}, 0, {}),
+               "sp2": ({"sp": 2}, 0, {"seq_shard_axis": "sp", "attn_kernel": "ring"}),
+               "pp2": ({"pp": 2}, 0, {"pipeline_axis": "pp", "pp_num_micro": 2}),
+               "pp2_v2": ({"pp": 2}, 0, {"pipeline_axis": "pp", "pp_num_micro": 2, "pp_interleave": 2})}
 # the collectives each mesh's step calls (`parallel/sharding.MeshPlan`,
 # `parallel/tensor_parallel.py`); gloo's support of each on CUDA tensors is
-# probed first
+# probed first.  The sp and pp hops go through `parallel/p2p.exchange`,
+# which under gloo moves CUDA tensors through host buffers (its route is
+# chosen by the backend's name: gloo's own send of a CUDA tensor aborts)
 DIST_OPS = {"dp2": ("all_reduce",), "fsdp2_zero1": ("all_reduce", "all_gather_into_tensor"),
             "fsdp2_zero3": ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"),
-            "tp2": ("all_reduce", "all_reduce_max")}
+            "tp2": ("all_reduce", "all_reduce_max"), "sp2": ("all_reduce",), "pp2": ("all_reduce",),
+            "pp2_v2": ("all_reduce",)}
 DIST_STEPS, DIST_BATCH, DIST_SEED = 2, 2, 81
 
 
-def dist_steps(fa, mesh, zero_stage):
+def dist_steps(fa, mesh, zero_stage, knobs=None):
     """DIST_STEPS Adam steps of the DIST_MODEL DALL-E (seeded weights and
-    batches, f32) on `mesh` (None: the one-process step), with every launch
-    counter set to 0 just before them; (losses, grad norms, step seconds,
-    launches, resident parameter and moment bytes, and the most bytes the
-    process's allocator held during the steps)."""
+    batches, f32; `knobs` the model's mesh knobs) on `mesh` (None: the
+    one-process step), with every launch counter and the point-to-point
+    counters set to 0 just before them; (losses, grad norms, step seconds,
+    launches, resident parameter and moment bytes, the bytes allocated
+    before the steps and the most the process's allocator held during them,
+    the hops and bytes `parallel/p2p.exchange` sent and its route).  The
+    one-process run also gives what the predictions read: each layer's
+    flash launches in a forward and a backward pass at n 1280
+    (`forward_launches`), and each pipeline stage's parameter bytes (its
+    layers, by the JAX chunk map, and every leaf outside the stack) beside
+    the JAX package's fold of pp into the data slot (`registry.shard_fraction`
+    over the JAX paths)."""
     from torch.func import functional_call
 
     from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
     from dalle_pytorch_tpu_torch.optim.grouped import Adam
+    from dalle_pytorch_tpu_torch.parallel import p2p, pipeline, registry
     from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
     from dalle_pytorch_tpu_torch.weights import dalle_param_paths
 
-    cfg = DALLEConfig(**DIST_MODEL)
+    cfg = DALLEConfig(**DIST_MODEL, **(knobs or {}))
     model = init_dalle(cfg, torch.Generator(device="cuda").manual_seed(DIST_SEED), "cuda")
     model.train().requires_grad_(True)
+    extra = {}
+    if mesh is None:
+        n = cfg.total_seq_len
+        extra["per_layer"] = [forward_launches(model, n, [i]) for i in range(cfg.depth)]
+        inside = {id(p) for layer in model.transformer.layers for p in layer.parameters()}
+        outside = sum(p.numel() for p in model.parameters() if id(p) not in inside)
+        extra["stage_param_bytes"] = {str(v): [4 * (outside + sum(
+            p.numel() for a, b in pipeline.stage_chunks(cfg.depth, 2, st, v) for i in range(a, b)
+            for p in model.transformer.layers[i].parameters())) for st in range(2)] for v in (1, 2)}
+        paths = dalle_param_paths(cfg)
+        jax_tree = {paths[k].path: torch.empty(paths[k].shape, device="meta") for k, _ in model.named_parameters()}
+        extra["jax_pp2_param_fraction"] = registry.default_registry().shard_fraction(jax_tree, {"pp": 2}, 0)
 
     def loss_fn(params, batch, generator):
         return functional_call(model, params, (batch["text"], batch["codes"]), {"return_loss": True})
@@ -4244,7 +4297,9 @@ def dist_steps(fa, mesh, zero_stage):
         batches = [step_fn.local_batch(batch) for batch in batches]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
     reset_launches(fa)
+    p2p.exchange.calls = p2p.exchange.bytes = 0
     for batch in batches:
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
@@ -4258,12 +4313,19 @@ def dist_steps(fa, mesh, zero_stage):
                  "moments": sum(v.numel() * v.element_size() for grp in state.opt_state.groups
                                 for v in grp.stats.values())})
     return dict(losses=losses, grad_norms=norms, step_s=seconds, launches=launches, resident_bytes=resident,
-                peak_bytes=torch.cuda.max_memory_allocated())
+                start_bytes=start_bytes, peak_bytes=torch.cuda.max_memory_allocated(), p2p_calls=p2p.exchange.calls,
+                p2p_bytes=p2p.exchange.bytes,
+                p2p_route=p2p.route(torch.device("cuda")) if p2p.exchange.calls else None,
+                **extra)
 
 
 def probe_gloo_cuda(rank: int) -> dict:
     """{collective: None, or the error gloo raised} for each collective of
-    DIST_OPS on CUDA tensors, through the helpers the step calls."""
+    DIST_OPS on CUDA tensors, through the helpers the step calls.  gloo's
+    own send and receive are not probed: on a CUDA tensor its send writes
+    from the device pointer and aborts the process (writev: Bad address,
+    on an H100 with torch 2.11), so `parallel/p2p.exchange` sends host
+    buffers under gloo."""
     import torch.distributed as dist
 
     from dalle_pytorch_tpu_torch.parallel import tensor_parallel as tpar
@@ -4307,32 +4369,76 @@ def dist_parity_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> No
     try:
         probe = probe_gloo_cuda(rank)
         out = {"probe": probe, "backend": dist.get_backend()}
-        for name, (axes, stage) in DIST_MESHES.items():
+        for name, (axes, stage, knobs) in DIST_MESHES.items():
             refused = {op: probe[op] for op in DIST_OPS[name] if probe[op] is not None}
             if refused:
                 out[name] = {"refused_by_gloo_on_cuda": refused}
                 continue
             # the mesh names the gloo groups; the tensors lie on the card
-            out[name] = dist_steps(fa, make_mesh(MeshConfig(**axes), "cpu"), stage)
+            out[name] = dist_steps(fa, make_mesh(MeshConfig(**axes), "cpu"), stage, knobs)
             torch.cuda.empty_cache()
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
+def dist_predictions(one) -> dict:
+    """What each new mesh's ranks should read, from the one-process run and
+    the schedules, written down before the ranks' readings are looked at:
+    each rank's flash launches (sp: none, as in the JAX package; a pp stage:
+    each of its layers' forward kernels 2·M times a step, the forward ticks
+    and the boundary recompute, and its backward kernels M times), each pp
+    rank's resident parameter bytes (its layers and the leaves outside the
+    stack; Adam's moments twice that), and the bytes `p2p.exchange` sends
+    (pp: the ledger's `pipeline_comm_bytes`; sp: the ledger's
+    `ring_comm_bytes` in every layer, plus the token shift's halo, a (batch,
+    fmap, dim) f32 block sent for each branch forward and backward)."""
+    from dalle_pytorch_tpu_torch.parallel import pipeline
+    from dalle_pytorch_tpu_torch.parallel.ring import ring_comm_bytes
+
+    depth, n, m = DIST_MODEL["depth"], DIST_MODEL["text_seq_len"] + DIST_MODEL["image_fmap_size"] ** 2, 2
+    pred = {"sp2": {"launches": [dict.fromkeys(COUNTERS, 0)] * 2,
+                    "p2p_bytes": DIST_STEPS * depth * int(
+                        ring_comm_bytes(DIST_BATCH, DIST_MODEL["heads"], n // 2, DIST_MODEL["dim_head"], 2)
+                        + 4 * DIST_BATCH * DIST_MODEL["image_fmap_size"] * DIST_MODEL["dim"] * 4)}}
+    for name, v in (("pp2", 1), ("pp2_v2", 2)):
+        launches = []
+        for stage in range(2):
+            got = dict.fromkeys(COUNTERS, 0)
+            for a, b in pipeline.stage_chunks(depth, 2, stage, v):
+                for i in range(a, b):
+                    fwd, bwd = one["per_layer"][i]
+                    for k in COUNTERS:
+                        got[k] += DIST_STEPS * (2 * m * fwd[k] + m * bwd[k])
+            launches.append(got)
+        params = one["stage_param_bytes"][str(v)]
+        pred[name] = {"launches": launches, "params": params, "moments": [2 * b for b in params],
+                      "param_ratio": [b / one["resident_bytes"]["params"] for b in params],
+                      "p2p_bytes": DIST_STEPS * int(pipeline.pipeline_comm_bytes(
+                          DIST_BATCH, n, DIST_MODEL["dim"], 2, num_micro=m, interleave=v))}
+    return pred
+
+
 def phase_dist_parity(fa):
     """The sharded train step (`parallel/train_step.py` on a mesh), two
     ranks on the one card over gloo with CUDA tensors (NCCL puts one rank on
-    a card): dp2, fsdp2 at ZeRO-1 and ZeRO-3, tp2, DIST_STEPS steps each,
-    against the one-process card step on the same global batches: loss and
-    gradient norm within 1e-4 relative, every flash kernel of the path
-    launched on each rank as often as in the one-process step, and under
-    ZeRO-3 each rank's resident parameter and moment bytes at most 0.55 of
-    dp2's and the most its allocator held during the steps at most 0.8 of
-    dp2's (ZeRO-3 gathers one layer's parameters at a time).  A mesh whose collective gloo
-    refuses on CUDA tensors is named with the refused op and left to the
-    CPU tests (`tests/test_torch_parallel_steps.py`); any other error fails
-    the phase.  The step times go over gloo's host transport: not a speed."""
+    a card): dp2, fsdp2 at ZeRO-1 and ZeRO-3, tp2, sp2 (ring attention), pp2
+    (M 2) and pp2_v2 (M 2, interleave 2), DIST_STEPS steps each, against
+    the one-process card step on the same global batches: loss and gradient
+    norm within 1e-4 relative; each rank's flash launches as in the
+    one-process step (dp, fsdp, tp) or as predicted (`dist_predictions`: sp
+    none, a pp stage its layers'); under ZeRO-3 each rank's resident
+    parameter and moment bytes at most 0.55 of dp2's and the most its
+    allocator held during the steps at most 0.8 of dp2's (ZeRO-3 gathers
+    one layer's parameters at a time); each pp rank's resident bytes the
+    predicted ones, below the one-process step's; each sp rank's step peak
+    (the most allocated during the steps less what was allocated before
+    them) below the one-process step's; the point-to-point bytes the
+    predicted ones.  A mesh whose collective gloo refuses on CUDA tensors
+    is named with the refused op and left to the CPU tests
+    (`tests/test_torch_parallel_steps.py`, `test_torch_seq_parallel.py`,
+    `test_torch_pipeline.py`); any other error fails the phase.  The step
+    times go over gloo's host transport: not a speed."""
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
@@ -4342,6 +4448,7 @@ def phase_dist_parity(fa):
         try:
             one = dist_steps(fa, None, 0)
             torch.cuda.empty_cache()
+            pred = dist_predictions(one)
         finally:
             while not ctx.join():
                 pass
@@ -4358,25 +4465,48 @@ def phase_dist_parity(fa):
                   for r in ranks for key in ("losses", "grad_norms"))
         check(rel <= 1e-4, f"dist_parity {name}: loss or grad norm {rel} relative from the one-process step")
         for r, reading in enumerate(ranks):
-            check(reading[name]["launches"] == one["launches"] and one["launches"]["flash_fwd"] > 0,
-                  f"dist_parity {name}: rank {r} launched {reading[name]['launches']}, the one-process step "
-                  f"{one['launches']}")
+            want = pred[name]["launches"][r] if name in pred else one["launches"]
+            check(reading[name]["launches"] == want and (name == "sp2" or sum(want.values()) > 0),
+                  f"dist_parity {name}: rank {r} launched {reading[name]['launches']}, predicted {want}")
+            if name in pred:
+                check(reading[name]["p2p_bytes"] == pred[name]["p2p_bytes"],
+                      f"dist_parity {name}: rank {r} sent {reading[name]['p2p_bytes']} bytes point to point, "
+                      f"predicted {pred[name]['p2p_bytes']}")
         meshes[name] = dict(max_rel_diff=rel, losses=ranks[0][name]["losses"], grad_norms=ranks[0][name]["grad_norms"],
                             step_s_gloo_host_transport=[r[name]["step_s"] for r in ranks],
                             launches_by_rank=[r[name]["launches"] for r in ranks],
                             resident_bytes_by_rank=[r[name]["resident_bytes"] for r in ranks],
-                            peak_bytes_by_rank=[r[name]["peak_bytes"] for r in ranks])
+                            start_bytes_by_rank=[r[name]["start_bytes"] for r in ranks],
+                            peak_bytes_by_rank=[r[name]["peak_bytes"] for r in ranks],
+                            p2p_calls_by_rank=[r[name]["p2p_calls"] for r in ranks],
+                            p2p_bytes_by_rank=[r[name]["p2p_bytes"] for r in ranks],
+                            p2p_route=ranks[0][name]["p2p_route"])
+        if name in pred:
+            print(f"dist_parity {name}: point-to-point route {ranks[0][name]['p2p_route']}, "
+                  f"{ranks[0][name]['p2p_calls']} hops, {ranks[0][name]['p2p_bytes']} bytes a rank", flush=True)
     if "fsdp2_zero3" in meshes and "dp2" in meshes:
         for r in range(2):
             z3, dp = (sum(meshes[m]["resident_bytes_by_rank"][r].values()) for m in ("fsdp2_zero3", "dp2"))
             check(z3 <= 0.55 * dp, f"dist_parity: rank {r} holds {z3} bytes under ZeRO-3 against dp2's {dp}")
             z3, dp = (meshes[m]["peak_bytes_by_rank"][r] for m in ("fsdp2_zero3", "dp2"))
             check(z3 <= 0.8 * dp, f"dist_parity: rank {r}'s step peak {z3} bytes under ZeRO-3 against dp2's {dp}")
+    for name in ("pp2", "pp2_v2"):
+        for r, got in enumerate(meshes.get(name, {}).get("resident_bytes_by_rank", [])):
+            want = {"params": pred[name]["params"][r], "moments": pred[name]["moments"][r]}
+            check(got == want and got["params"] < one["resident_bytes"]["params"],
+                  f"dist_parity {name}: rank {r} holds {got}, predicted {want} (one process "
+                  f"{one['resident_bytes']})")
+    if "sp2" in meshes:
+        own = one["peak_bytes"] - one["start_bytes"]
+        for r in range(2):
+            peak = meshes["sp2"]["peak_bytes_by_rank"][r] - meshes["sp2"]["start_bytes_by_rank"][r]
+            check(peak < own, f"dist_parity sp2: rank {r}'s step peak {peak} bytes against the one-process {own}")
     check(len(meshes) + len(refused) == len(DIST_MESHES) and meshes, f"dist_parity ran {sorted(meshes)}")
+    one = {k: v for k, v in one.items() if k != "per_layer"}
     emit("dist_parity", model={k: v for k, v in DIST_MODEL.items() if k != "attn_types"},
          attn_types=list(DIST_MODEL["attn_types"]), cut="depth 64 -> 4", batch=DIST_BATCH, steps=DIST_STEPS,
          tolerance=1e-4, backend=ranks[0]["backend"], gloo_cuda_probe=ranks[0]["probe"], one_process=one,
-         meshes=meshes, refused=refused, spawn_s=spawn_s,
+         predicted=pred, meshes=meshes, refused=refused, spawn_s=spawn_s,
          note="step_s over gloo's host transport on one card: not a speed")
     return {name: m["launches_by_rank"] for name, m in meshes.items()}
 
@@ -4522,7 +4652,7 @@ def main() -> int:
     paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
     phase_train_parity(fa, port)
     paths["train_cli"] = phase_train_cli(fa, weights, checkpoint)
-    paths["train_real_data"] = phase_train_real_data(fa, port, tr, sampling, weights,
+    paths["train_real_data"] = phase_train_real_data(fa, tr, sampling, weights,
                                                      rotary_graphs["step_ms_replayed"])
     torch.cuda.empty_cache()
     phase_vae_train_parity()
@@ -4813,6 +4943,7 @@ def main() -> int:
                                              for mesh, by_rank in dist_rank_launches.items()}
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not unlaunched, f"kernels never launched on their path: {unlaunched}")
+    emit("profiler", gap_s=PROFILER_GAP_S, **PROFILER_LOG)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -32,14 +32,20 @@ def refuse(what: str, item: int) -> SystemExit:
 
 def add_mesh_flags(parser, pipeline: bool = False) -> None:
     """--zero_stage and the mesh's axis sizes, the JAX CLIs' flags; with
-    `pipeline` also --mesh_sp and --mesh_pp, which exit above 1 (Queue 1
-    item 7)."""
+    `pipeline` also --mesh_sp and --mesh_pp, and the pipeline's
+    --pp_num_micro and --pp_interleave."""
     parser.add_argument("--zero_stage", type=int, default=0, choices=[0, 1, 2, 3],
                         help="ZeRO: 1/2 shard the optimizer moments over fsdp, 3 the parameters too")
     axes = (("dp", -1), ("fsdp", 1), ("tp", 1)) + ((("sp", 1), ("pp", 1)) if pipeline else ())
     for name, default in axes:
         parser.add_argument(f"--mesh_{name}", type=int, default=default,
                             help="-1 absorbs the ranks the other axes leave" if name == "dp" else None)
+    if pipeline:
+        parser.add_argument("--pp_num_micro", type=int, default=None,
+                            help="pipeline micro-batches (default: the JAX package's choice)")
+        parser.add_argument("--pp_interleave", type=int, default=1,
+                            help="circular pipeline: chunks a stage (needs depth %% (pp*v) == 0 and "
+                                 "num_micro >= pp)")
 
 
 def start_backend(args):
@@ -52,27 +58,23 @@ def start_backend(args):
 
 
 def build_mesh(args, be, device):
-    """The (dp, fsdp, tp) DeviceMesh of the flags over the backend's
-    processes, or None for a one-process run.  sp or pp above 1 exit
-    naming Queue 1 item 7; a mesh of more ranks than processes exits, and
-    under the dummy backend says how to launch them."""
+    """The (dp, fsdp, tp, sp, pp) DeviceMesh of the flags over the
+    backend's processes, or None for a one-process run; a mesh of more
+    ranks than processes exits, and under the dummy backend says how to
+    launch them."""
     cfg = MeshConfig(args.mesh_dp, args.mesh_fsdp, args.mesh_tp, getattr(args, "mesh_sp", 1),
                      getattr(args, "mesh_pp", 1))
-    for axis in ("sp", "pp"):
-        if getattr(cfg, axis) > 1:
-            raise refuse(f"--mesh_{axis} {getattr(cfg, axis)}: "
-                         f"{'ring attention' if axis == 'sp' else 'the pipeline'}", 7)
     world = be.get_world_size()
     try:
         resolved = cfg.resolve(world)
     except ValueError:
-        n = max(cfg.dp, 1) * cfg.fsdp * cfg.tp
+        n = max(cfg.dp, 1) * cfg.fsdp * cfg.tp * cfg.sp * cfg.pp
         if not backend_mod.is_distributed:
             raise SystemExit(f"a mesh of {n} ranks runs one process per device: launch {n} processes, "
                              f"python -m torch.distributed.run --nproc_per_node {n} -m <this module> "
                              "--distributed_backend torch ...") from None
-        raise SystemExit(f"the mesh dp {cfg.dp} x fsdp {cfg.fsdp} x tp {cfg.tp} does not fit {world} "
-                         "processes") from None
+        raise SystemExit(f"the mesh dp {cfg.dp} x fsdp {cfg.fsdp} x tp {cfg.tp} x sp {cfg.sp} x pp {cfg.pp} does "
+                         f"not fit {world} processes") from None
     if not backend_mod.is_distributed:
         return None, resolved
     return make_mesh(resolved, device.type), resolved

@@ -49,7 +49,11 @@ cpu):
         --distributed_backend torch [--mesh_fsdp F --zero_stage 3] [--mesh_tp T] ...
 
 `--mesh_dp/fsdp/tp` and `--zero_stage` shard the step
-(`parallel/train_step.py`); `--batch_size` is the global batch, each data
+(`parallel/train_step.py`); `--mesh_pp P` pipelines the layers over P stages
+(`--pp_num_micro`, `--pp_interleave`; the port unrolls its layers, so no
+`--scan_layers` is needed or taken); `--mesh_sp S`, as in the JAX CLI,
+repeats the step on S ranks unless the model's config shards its sequence
+(`seq_shard_axis="sp"`, with `attn_kernel="ring"` for ring attention); `--batch_size` is the global batch, each data
 rank reading its share (the dummy run's batches are drawn whole on every
 rank, which takes its rows, so that the losses are the one-process run's);
 the loss printed is the step's mean over the data ranks, and only rank 0 prints
@@ -418,7 +422,10 @@ def save_dalle(path: str, model: DALLE, vae: torch.nn.Module, state: TrainState,
         "opt_state": resume_mod.optimizer_bundle(state, cfg),
     }
     vae_class_name, vae_params = vae_registry.config_to_meta(vae.cfg)
-    meta = {"hparams": cfg.to_dict(), "vae_params": vae_params, "vae_class_name": vae_class_name,
+    # the pipeline's knobs follow each run's mesh (the topology records them), and the JAX package's
+    # forward refuses pipeline_axis on the unscanned layers the port writes
+    hparams = dataclasses.replace(cfg, pipeline_axis=None, pp_num_micro=None, pp_interleave=1).to_dict()
+    meta = {"hparams": hparams, "vae_params": vae_params, "vae_class_name": vae_class_name,
             "epoch": epoch, "global_step": int(global_step), "version": __version__, "data_state": data_state}
     if topology is not None:
         meta["topology"] = topology
@@ -476,6 +483,8 @@ def _train(args, be, device, mesh_cfg) -> int:
     out_file = f"{args.dalle_output_file_name}.pt"
     tokenizer = get_tokenizer(args)
     topology = registry_mod.topology_meta(dataclasses.asdict(mesh_cfg), device_count=be.get_world_size())
+    if mesh_cfg.pp > 1:
+        topology["pp_interleave"] = args.pp_interleave
 
     source = _resume_source(args, out_file)
     resumed = _load_resumed(args, source) if source is not None else None
@@ -486,12 +495,15 @@ def _train(args, be, device, mesh_cfg) -> int:
         vae = reconstitute_vae(args, device, resumed)
         vae_cfg = vae.cfg
 
+    # the pipeline follows this run's mesh, not the checkpoint's, as in the JAX CLI
+    pipe = dict(pipeline_axis="pp" if args.mesh_pp > 1 else None, pp_num_micro=args.pp_num_micro,
+                pp_interleave=args.pp_interleave)
     if resumed is not None:
         trees, meta = resumed
-        cfg = DALLEConfig.from_dict(meta["hparams"])
+        cfg = dataclasses.replace(DALLEConfig.from_dict(meta["hparams"]), **pipe)
         model = weights.load_dalle(trees["weights"], cfg, device)
     else:
-        cfg = model_config(args, vae_cfg, tokenizer)
+        cfg = dataclasses.replace(model_config(args, vae_cfg, tokenizer), **pipe)
         model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
     if is_root:
         warn_vocab_mismatch(cfg.num_text_tokens, tokenizer)

@@ -3,22 +3,24 @@ random draws that do not depend on how the batch is sharded.
 
 `ShardContext` is what the step (`parallel/sharding.MeshPlan.context`)
 publishes around its forward and backward: the tp group with this rank's
-place in it, and this rank's rows of the global micro-batch.  It is a plain
+place in it, this rank's rows of the global micro-batch, and, when the model
+shards the sequence over sp or pipelines its layers over pp, this rank's
+place on those axes (its part of the sequence, its stage's layers).  It is a plain
 module global, not a thread-local: the backward, which rebuilds layers
 under remat and reversible execution, may run on autograd's device threads.
 Outside a sharded step `current()` is the one-process context.
 
 `uniform` draws each element from a hash of (a key the generator draws,
 the element's row in the global micro-batch, its index within the row), so
-a rank computes its own rows and columns alone and gets the values a
-one-process run gets at the same places.
+a rank computes its own rows, sequence positions and columns alone and gets
+the values a one-process run gets at the same places.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -34,10 +36,33 @@ class ShardContext:
     row_total: Optional[int] = None
     data_group: Optional[object] = None
     data_size: int = 1
+    # the sequence sharded over sp: the group, this rank's place, the global
+    # ranks of the group in order (its ring), and the first global position
+    # of this rank's part
+    sp_group: Optional[object] = None
+    sp_rank: int = 0
+    sp_size: int = 1
+    sp_ranks: Tuple[int, ...] = ()
+    seq_start: int = 0
+    # the layers pipelined over pp: this rank's stage, the global ranks of
+    # the stages in order, and the stage's chunks of layers ((start, stop),
+    # in the order a micro-batch reaches them)
+    pp_rank: int = 0
+    pp_size: int = 1
+    pp_ranks: Tuple[int, ...] = ()
+    pp_chunks: Tuple[Tuple[int, int], ...] = ()
 
     @property
     def tp(self) -> bool:
         return self.tp_size > 1
+
+    @property
+    def sp(self) -> bool:
+        return self.sp_size > 1
+
+    @property
+    def pp(self) -> bool:
+        return self.pp_size > 1
 
 
 _current = ShardContext()
@@ -71,8 +96,9 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
 def uniform(shape: Sequence[int], generator: torch.Generator, device, cols: Optional[slice] = None,
             last_total: Optional[int] = None) -> torch.Tensor:
     """f32 draws in [0, 1) (24 bits) for this rank's part of a tensor whose
-    leading dim is rows of the micro-batch: its rows under `current()`
-    and, with `cols`, those columns of a last dim of `last_total`.  The
+    leading dim is rows of the micro-batch: its rows under `current()`,
+    for a (rows, positions, channels) tensor its sequence positions, and,
+    with `cols`, those columns of a last dim of `last_total`.  The
     generator gives one key a call, so every rank advances it alike."""
     ctx = current()
     shape = list(shape)
@@ -84,6 +110,8 @@ def uniform(shape: Sequence[int], generator: torch.Generator, device, cols: Opti
     inner = shape[1:]
     if inner:
         lead = torch.arange(math.prod(inner[:-1]), device=device, dtype=torch.int64)
+        if len(inner) == 2:  # (rows, positions, channels): positions are global under sp
+            lead = lead + ctx.seq_start
         index = (lead[:, None] * width + torch.arange(first, first + inner[-1], device=device,
                                                       dtype=torch.int64)).reshape(inner) & _M32
     else:

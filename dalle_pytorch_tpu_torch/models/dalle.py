@@ -21,6 +21,17 @@ vocabulary: the logits are vocab-parallel, the cross-entropy takes its
 log-sum-exp and the label's logit with one sum over tp each, and the tied
 tables are vocab-parallel embeddings (each rank looks up the ids it holds,
 the rows summed over tp).
+
+Under the sharded step's sequence parallelism (`seq_shard_axis`), each sp
+rank embeds, runs and scores its own positions of the sequence: the logits
+are masked by global position, and the loss is the rank's part of the
+global one (its text and image log-likelihoods summed over the global
+counts), so that the sp ranks' losses and gradients sum to the
+one-process ones; the text/image boundary may fall inside any rank's part.
+Under the pipeline (`pipeline_axis`), stage 0 embeds, the stages run their
+layers (`parallel/pipeline.py`), and the last stage computes the logits and
+the loss; the other stages return a 0-d zero that carries the backward to
+their layers.  `forward` is `embed`, the stack and `head`.
 """
 from __future__ import annotations
 
@@ -39,20 +50,21 @@ from dalle_pytorch_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     apply_transformer,
+    check_pipeline,
     init_transformer_,
+    stage_runner,
 )
 from dalle_pytorch_tpu_torch.ops.stable import divide_max
 from dalle_pytorch_tpu_torch.parallel import tensor_parallel as tp
+from dalle_pytorch_tpu_torch.parallel.pipeline import pipeline
 
-# execution knobs of the JAX package's config that do not change what the
-# model computes (layer scan, XLA-or-Pallas choice, sharding axes): a
-# checkpoint's hparams carry them, the port ignores them.  The pattern knobs
+# the execution knob of the JAX package's config that the port has no
+# counterpart of (it unrolls its layers): a checkpoint's hparams carry it,
+# the port ignores it.  The mesh knobs (attn_kernel, seq_shard_axis,
+# pipeline_axis, pp_num_micro, pp_interleave) and the pattern knobs
 # (conv_kernel_size, conv_dilation, sparse_block_size, sparse_per_head) are
-# real fields: they define the attention pattern.
-_EXECUTION_ONLY = (
-    "scan_layers", "attn_kernel", "seq_shard_axis", "pipeline_axis",
-    "pp_interleave", "pp_num_micro",
-)
+# real fields.
+_EXECUTION_ONLY = ("scan_layers",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +99,12 @@ class DALLEConfig:
     attn_grid: str = "auto"
     attn_vfa: bool = False
     sparse_decode: bool = True
+    # the mesh knobs (TransformerConfig): inert without a sharded step
+    attn_kernel: str = "auto"
+    seq_shard_axis: Optional[str] = None
+    pipeline_axis: Optional[str] = None
+    pp_interleave: int = 1
+    pp_num_micro: Optional[int] = None
 
     def __post_init__(self):
         self.transformer_config()  # raises on an invalid transformer setting
@@ -142,6 +160,11 @@ class DALLEConfig:
             attn_grid=self.attn_grid,
             attn_vfa=self.attn_vfa,
             sparse_decode=self.sparse_decode,
+            attn_kernel=self.attn_kernel,
+            seq_shard_axis=self.seq_shard_axis,
+            pipeline_axis=self.pipeline_axis,
+            pp_num_micro=self.pp_num_micro,
+            pp_interleave=self.pp_interleave,
         )
 
     def to_dict(self) -> dict:
@@ -312,10 +335,11 @@ def embed_image_codes(model: DALLE, codes: torch.Tensor, start: Optional[torch.T
     return emb + _image_pos_rows(model, idx)
 
 
-def logits_mask_slice(cfg: DALLEConfig, n: int, device=None, vocab: Optional[slice] = None) -> torch.Tensor:
-    """(n, total_tokens) bool, True = forbidden; with `vocab`, those
-    columns alone."""
-    seq = torch.arange(n, device=device)[:, None]
+def logits_mask_slice(cfg: DALLEConfig, n: int, device=None, vocab: Optional[slice] = None,
+                      start: int = 0) -> torch.Tensor:
+    """(n, total_tokens) bool, True = forbidden, for the positions start ..
+    start + n - 1; with `vocab`, those columns alone."""
+    seq = start + torch.arange(n, device=device)[:, None]
     vocab = vocab or slice(0, cfg.total_tokens)
     tok = torch.arange(vocab.start, vocab.stop, device=device)[None, :]
     in_text_vocab = tok < cfg.num_text_tokens_padded
@@ -347,7 +371,11 @@ def forward(
 
     `generator` draws the null-conditioning mask (each caption is blanked
     with probability `null_cond_prob`, for classifier-free guidance) and
-    then the transformer's dropout masks; without it neither is drawn."""
+    then the transformer's dropout masks; without it neither is drawn.
+
+    Under sequence sharding the logits are this rank's positions' and the
+    loss its part of the global loss; under the pipeline only the loss
+    runs, and a stage other than the last returns a 0-d zero."""
     cfg = model.cfg
     if text.shape[-1] != cfg.text_seq_len:
         raise ValueError(f"text length {text.shape[-1]} != text_seq_len {cfg.text_seq_len}")
@@ -357,25 +385,77 @@ def forward(
         null = shard_mod.uniform(text.shape[:1], generator, generator.device) < null_cond_prob
         text = text * (~null).to(text.device, text.dtype)[:, None]
     text_ids = remap_and_bos(cfg, text)
+    shard = shard_mod.current()
+    if cfg.pipeline_axis is not None:
+        check_pipeline(model.transformer.cfg)
+    if cfg.pipeline_axis is not None and shard.pp:
+        if not return_loss:
+            raise ValueError("the pipeline runs the training loss alone: call forward with return_loss=True")
+        first, last = shard.pp_rank == 0, shard.pp_rank == shard.pp_size - 1
+        tokens = embed(model, text_ids, image_codes) if first else None
+        n = min(text_ids.shape[1] + (0 if image_codes is None else image_codes.shape[1]), cfg.total_seq_len)
+        params, run = stage_runner(model.transformer, generator)
+        lin = model.logits_linear.weight
+        out = pipeline(run, tokens, params, text.shape[0], (_seq_part(cfg, n)[1], cfg.dim), shard.pp_ranks,
+                       shard.pp_rank, cfg.pp_num_micro, cfg.pp_interleave, lin.dtype, lin.device)
+        if not last:
+            return out
+    else:
+        tokens = embed(model, text_ids, image_codes)
+        out = apply_transformer(model.transformer, tokens, generator=generator)
+    return head(model, out, text_ids, image_codes, return_loss)
+
+
+def _seq_part(cfg: DALLEConfig, n: int) -> Tuple[int, int]:
+    """(first global position, length) of this rank's part of a sequence of
+    n: all of it, or under sequence sharding its sp rank's part, which must
+    be the one the step publishes (`ShardContext.seq_start`)."""
+    shard = shard_mod.current()
+    if cfg.seq_shard_axis is None or not shard.sp:
+        return 0, n
+    if n % shard.sp_size:
+        raise ValueError(f"a sequence of {n} does not split over sp {shard.sp_size}")
+    n_loc = n // shard.sp_size
+    if shard.seq_start != shard.sp_rank * n_loc:
+        raise ValueError(f"sp rank {shard.sp_rank} holds positions from {shard.seq_start}, not "
+                         f"{shard.sp_rank * n_loc}: the step shards a sequence of {cfg.total_seq_len}")
+    return shard.seq_start, n_loc
+
+
+def embed(model: DALLE, text_ids: torch.Tensor, image_codes: Optional[torch.Tensor]) -> torch.Tensor:
+    """The transformer's input: the text and image embeddings (the final
+    token dropped: it has nothing left to predict), blended under `stable`;
+    under sequence sharding this rank's positions."""
+    cfg = model.cfg
     tokens = embed_text_ids(model, text_ids)
     if image_codes is not None and image_codes.numel() > 0:
         tokens = torch.cat([tokens, embed_image_codes(model, image_codes)], dim=1)
-    # the final token has nothing left to predict
     tokens = tokens[:, : cfg.total_seq_len]
-    n = tokens.shape[1]
-
+    start, n = _seq_part(cfg, tokens.shape[1])
+    if n != tokens.shape[1]:
+        tokens = tokens[:, start:start + n]
     if cfg.stable:  # the gradient reaches the embeddings scaled by alpha
         alpha = 0.1
         tokens = tokens * alpha + tokens.detach() * (1 - alpha)
-    out = apply_transformer(model.transformer, tokens, generator=generator)
+    return tokens
+
+
+def head(model: DALLE, out: torch.Tensor, text_ids: torch.Tensor, image_codes: Optional[torch.Tensor],
+         return_loss: bool) -> torch.Tensor:
+    """The transformer's output to masked logits, or to the weighted
+    cross-entropy; under sequence sharding at this rank's positions, the
+    loss its part of the global one."""
+    cfg = model.cfg
     if cfg.stable:
         out = divide_max(out)
+    n_img = 0 if image_codes is None else image_codes.shape[1]
+    start, n = _seq_part(cfg, min(text_ids.shape[1] + n_img, cfg.total_seq_len))
     shard = shard_mod.current()
     # this rank's columns of the vocabulary under tensor parallelism
     vocab = tp.local_slice(cfg.total_tokens, shard.tp_rank, shard.tp_size) if shard.tp else None
     logits = to_logits(model, out)
     logits = logits.masked_fill(
-        logits_mask_slice(cfg, n, logits.device, vocab)[None], torch.finfo(logits.dtype).min
+        logits_mask_slice(cfg, n, logits.device, vocab, start)[None], torch.finfo(logits.dtype).min
     )
     if not return_loss:
         return tp.gather_from_tp(logits)
@@ -383,13 +463,21 @@ def forward(
     if image_codes is None:
         raise ValueError("the loss needs image codes")
     labels = torch.cat([text_ids[:, 1:], image_codes + cfg.num_text_tokens_padded], dim=1)
+    n_labels = labels.shape[1]
+    labels = labels[:, start:start + n]
     logits32 = logits.float()
     if vocab is None:
         token_ll = logits32.gather(-1, labels[..., None])[..., 0] - torch.logsumexp(logits32, dim=-1)
     else:
         token_ll = _vocab_parallel_ll(logits32, labels, vocab)
-    loss_text = -token_ll[:, : cfg.text_seq_len].mean()
-    loss_img = -token_ll[:, cfg.text_seq_len:].mean()
+    if n == n_labels:
+        loss_text = -token_ll[:, : cfg.text_seq_len].mean()
+        loss_img = -token_ll[:, cfg.text_seq_len:].mean()
+    else:  # this rank's part: its positions' sums over the global counts
+        split = min(max(cfg.text_seq_len - start, 0), n)
+        b = token_ll.shape[0]
+        loss_text = -token_ll[:, :split].sum() / (b * cfg.text_seq_len)
+        loss_img = -token_ll[:, split:].sum() / (b * (n_labels - cfg.text_seq_len))
     return (loss_text + cfg.loss_img_weight * loss_img) / (cfg.loss_img_weight + 1)
 
 

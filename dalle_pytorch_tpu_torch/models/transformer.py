@@ -40,6 +40,19 @@ over the cache, as in the JAX package: a pattern layer gathers only the
 keys its pattern row permits (`sparse_decode`) or masks the full cache with
 that row.
 
+Under the sharded train step (`parallel/`) the full-sequence mode also runs
+on a sequence sharded over sp, when `seq_shard_axis` names it: each rank
+holds its part of the sequence (global positions seq_start + i, which the
+rotary angles, the patterns, the token shift's halo and the dropout masks
+read).  No flash kernel runs there, as in the JAX package: with
+`attn_kernel="ring"` a layer whose pattern is 2-D (or none) takes ring
+attention (`parallel/ring.py`), every other layer all-gathers K and V over
+sp and attends its query rows with the plain attention under the global
+causal and pattern masks (what GSPMD makes of the JAX package's dense
+attention).  With `pipeline_axis` and a pipelined step the layers run as
+the stages of `parallel/pipeline.py` (`stage_runner`); reversible execution
+refuses a pipeline, as in the JAX package.
+
 The decode cache is a dict `{"offset": (), "layers": [per-layer dict]}`
 whose offset (an int64 tensor on the cache's device), k/v buffers and
 token-shift rings are updated in place (the JAX package returns new arrays
@@ -125,10 +138,23 @@ class TransformerConfig:
     # cached decode: a pattern layer gathers only the keys its pattern row
     # permits (Kmax per step) instead of masking the whole cache
     sparse_decode: bool = True
+    # the JAX package's execution knobs of a mesh: "ring" takes ring
+    # attention where the sequence is sharded over `seq_shard_axis` (the
+    # other values run the flash kernels, or under sequence sharding the
+    # gathered plain attention); `pipeline_axis` pipelines the layers over
+    # that axis in M micro-batches (None: the JAX choice), `pp_interleave`
+    # chunks a stage
+    attn_kernel: str = "auto"
+    seq_shard_axis: Optional[str] = None
+    pipeline_axis: Optional[str] = None
+    pp_num_micro: Optional[int] = None
+    pp_interleave: int = 1
 
     def __post_init__(self):
         if self.execution not in ("sequential", "remat", "reversible"):
             raise ValueError(f"execution must be sequential|remat|reversible, got {self.execution!r}")
+        if self.attn_kernel not in ("auto", "flash", "xla", "ring"):
+            raise ValueError(f"attn_kernel must be auto|flash|xla|ring, got {self.attn_kernel!r}")
         if self.attn_grid not in ("auto", "dense", "compact"):
             raise ValueError(f"attn_grid must be auto|dense|compact, got {self.attn_grid!r}")
 
@@ -462,6 +488,25 @@ class Transformer(nn.Module):
             got = self._attn_inputs[cache_key] = (mask, tables)
         return got
 
+    def sp_pattern(self, key, n: int, device: torch.device) -> Optional[torch.Tensor]:
+        """The pattern of the layers with pattern key `key` over the global
+        sequence of n on `device` ((n, n), per head (h, n, n), this rank's
+        heads under tensor parallelism), None for 'full': what a layer on a
+        sequence sharded over sp slices its rows and columns from."""
+        pattern = self.patterns[key]
+        if pattern is None:
+            return None
+        shard = shard_mod.current()
+        heads = None
+        if pattern.ndim == 3 and shard.tp:
+            heads = tp.local_slice(self.cfg.heads, shard.tp_rank, shard.tp_size)
+        cache_key = ("sp", key, n, device, None if heads is None else (heads.start, heads.stop))
+        got = self._attn_inputs.get(cache_key)
+        if got is None:
+            got = torch.from_numpy(np.ascontiguousarray((pattern if heads is None else pattern[heads])[..., :n, :n]))
+            got = self._attn_inputs[cache_key] = got.to(device)
+        return got
+
     def decode_inputs(self, key, device: torch.device) -> Optional[DecodePattern]:
         """The cached-decode inputs of the layers with pattern key `key`, or
         None for 'full'."""
@@ -488,7 +533,14 @@ class Transformer(nn.Module):
         for spec in self.specs:
             self.decode_inputs(_pattern_key(spec), device)
 
-    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None, stage=None) -> torch.Tensor:
+        """The full-sequence stack; with `stage` ((start, stop), dropout
+        seeds), those layers alone under autograd (a pipeline stage's
+        recompute, `stage_runner`)."""
+        if stage is not None:
+            (start, stop), seeds = stage
+            return _run_layers(self, x, "full", seeds=seeds, remat=self.cfg.execution == "remat",
+                               layers=range(start, stop))
         return apply_transformer(self, x, key_mask)
 
 
@@ -529,12 +581,55 @@ def _qkv_heads(attn: Attention, cfg: TransformerConfig, x: torch.Tensor, ang):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+def _use_ring(cfg, pattern, key_mask) -> bool:
+    """The JAX package's rule: the ring when asked for, on a sharded
+    sequence, for a layer with no pattern or a 2-D one and no key mask."""
+    return cfg.attn_kernel == "ring" and (pattern is None or pattern.ndim == 2) and key_mask is None
+
+
+def _attention_seq(cfg, q, k, v, key_mask, causal, pattern):
+    """Attention of this rank's queries on a sequence sharded over sp:
+    `pattern` is the layer's global pattern (`Transformer.sp_pattern`).
+    The ring, or K and V gathered over sp and the plain attention under
+    the global masks (the JAX package's dense attention, which GSPMD
+    partitions the same way)."""
+    shard = shard_mod.current()
+    n = q.shape[2]
+    if _use_ring(cfg, pattern, key_mask):
+        from dalle_pytorch_tpu_torch.parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, shard.sp_ranks, shard.sp_rank, causal=causal, scale=cfg.dim_head ** -0.5,
+                              mask=pattern)
+    k, v = tp.gather_seq(k, 2), tp.gather_seq(v, 2)
+    total = k.shape[2]
+    rows = shard.seq_start + torch.arange(n, device=q.device)
+    mask = None
+    if causal:
+        mask = torch.arange(total, device=q.device)[None, :] <= rows[:, None]
+    if pattern is not None:
+        pm = pattern[..., rows, :total]  # (n, total) or per head (h, n, total)
+        mask = pm if mask is None else mask & pm
+    if mask is not None:
+        mask = mask[None] if mask.ndim == 3 else mask[None, None]
+    if key_mask is not None:
+        km = key_mask[:, None, None, :total]
+        mask = km if mask is None else mask & km
+    return attend(q * (cfg.dim_head ** -0.5), k, v, mask=mask, stable=cfg.stable)
+
+
 def _attention_full(attn, cfg, x, rotary, key_mask, causal, layer_cache=None, pattern=(None, None)):
     """Full-sequence attention through flash attention; `pattern` is the
     layer's (mask, tables) at this length.  With a `layer_cache` (prefill)
-    the keys and values also fill the cache from position 0."""
+    the keys and values also fill the cache from position 0.  On a sequence
+    sharded over sp, `pattern` is the layer's global pattern and the
+    attention is `_attention_seq`'s."""
     n = x.shape[1]
-    q, k, v = _qkv_heads(attn, cfg, x, None if rotary is None else rotary[:n])
+    shard = shard_mod.current()
+    start = shard.seq_start  # 0 unless the sequence is sharded
+    q, k, v = _qkv_heads(attn, cfg, x, None if rotary is None else rotary[start:start + n])
+    if shard.sp:
+        out = _attention_seq(cfg, q, k, v, key_mask, causal, pattern)
+        return tp.tp_linear_out(_merge_heads(out), attn.out)
     if layer_cache is not None:
         layer_cache["k"][:, :, :n] = k
         layer_cache["v"][:, :, :n] = v
@@ -679,7 +774,9 @@ def _residual_branch(cfg, layer: Layer, x, kind: str, mode: str, rotary=None,
         else:
             if mode == "prefill":  # the ring takes the normed, pre-shift values
                 _fill_ring(cfg, layer_cache[f"shift_{kind}"], h)
-            h = token_shift(h, cfg.seq_len, cfg.image_fmap_size)
+            shard = shard_mod.current()  # under sp: this rank's positions, a halo from the previous rank
+            h = token_shift(h, cfg.seq_len, cfg.image_fmap_size, shard.seq_start,
+                            h.shape[1] * shard.sp_size if shard.sp else None)
     if mode != "decode":
         h = tp.copy_to_tp(h)  # Megatron's f: the column-parallel projections' input
     if kind == "attn":
@@ -719,10 +816,14 @@ def _run_layers(model: Transformer, x, mode, cache=None, key_mask=None, text_mod
     offset = None if cache is None else cache["offset"]
     causal = cfg.causal or mode == "prefill"
 
+    sp = shard_mod.current().sp and mode == "full"
+
     def args(i: int, h: torch.Tensor) -> tuple:
         key = _pattern_key(model.specs[i])
         if mode == "decode":
             pattern = model.decode_inputs(key, x.device)
+        elif sp:  # the global pattern: the layer slices its rows and columns
+            pattern = model.sp_pattern(key, h.shape[1] * shard_mod.current().sp_size, x.device)
         else:
             pattern = model.attention_inputs(key, h.shape[1], causal, x.device)
         return (cfg, h, mode, rotary, key_mask, None if cache is None else cache["layers"][i], offset, text_mode,
@@ -776,9 +877,44 @@ def apply_transformer(model: Transformer, x: torch.Tensor,
     plain autograd through the same loop.  Both only matter while a
     gradient is taken."""
     cfg = model.cfg
+    check_pipeline(cfg)
     grad = torch.is_grad_enabled()
     return _run_layers(model, x, "full", key_mask=key_mask, seeds=_dropout_seeds(cfg, generator),
                        remat=cfg.execution == "remat" and grad, rebuild=rebuild and grad)
+
+
+def check_pipeline(cfg: TransformerConfig) -> None:
+    """The JAX package's refusal: a pipeline of reversible layers."""
+    if cfg.pipeline_axis is not None and cfg.execution == "reversible":
+        raise ValueError("pipeline_axis is not supported with execution='reversible'; use execution='remat' (or "
+                         "'sequential')")
+
+
+def stage_runner(model: Transformer, generator: Optional[torch.Generator] = None) -> Tuple[list, object]:
+    """(the stage's parameters, the `parallel/pipeline.Run` of its chunks)
+    on the step's pipeline (`core/shard.ShardContext.pp_chunks`): each chunk
+    runs its layers on micro-batch `micro`, the dropout masks (seeds drawn
+    from `generator` here, as `apply_transformer` draws them) at the
+    micro-batch's rows of the global batch; on the module's own parameters
+    in the forward, and on the given leaves (through `functional_call`) in
+    the backward's recompute, under remat as the config says."""
+    shard = shard_mod.current()
+    seeds = _dropout_seeds(model.cfg, generator)
+    canon = {id(p): name for name, p in model.named_parameters()}
+    held = {canon[id(p)]: p for start, stop in shard.pp_chunks for i in range(start, stop)
+            for p in model.layers[i].parameters()}
+    names, params = list(held), list(held.values())
+
+    def run(chunk: int, h: torch.Tensor, micro: int, leaves=None) -> torch.Tensor:
+        outer = shard_mod.current()
+        ctx = dataclasses.replace(outer, row_start=outer.row_start + micro * h.shape[0])
+        with shard_mod.shard_context(ctx):
+            span = ctx.pp_chunks[chunk]
+            if leaves is None:
+                return _run_layers(model, h, "full", seeds=seeds, layers=range(*span))
+            return functional_call(model, dict(zip(names, leaves)), (h,), {"stage": (span, seeds)})
+
+    return params, run
 
 
 def init_cache(cfg: TransformerConfig, batch: int, dtype=torch.float32, device=None) -> dict:

@@ -12,12 +12,15 @@ step in `parallel/train_step.py`:
         reduce-scatter of the gradients
   tp    one activation all-reduce per residual branch and direction
         (Megatron's pattern: 2 branches x forward and backward per layer)
+  sp    ring attention in every layer (`parallel/ring.ring_comm_bytes`)
+  pp    the pipeline's stage hops (`parallel/pipeline.pipeline_comm_bytes`)
 
 A ring all-reduce moves 2·(n-1)/n of its payload over each rank's link, an
 all-gather or reduce-scatter (n-1)/n.  Everything here is host arithmetic
-on shapes, with the JAX package's numbers for the same inputs.  The `sp`
-and `pp` rows (ring attention, the pipeline) come with ROADMAP.md Queue 1
-item 7, and `CommsCrosscheck` with it.
+on shapes, with the JAX package's numbers for the same inputs (so the
+parameter share a dp or fsdp collective moves is the JAX placement's,
+1/(tp·pp) or the registry's, not the port's stage placement).
+`CommsCrosscheck` comes with ROADMAP.md Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -86,23 +89,26 @@ def step_comms_ledger(
     compute_itemsize: int = 4,
     zero_stage: int = 0,
     grad_accum: int = 1,
+    pp_num_micro: Optional[int] = None,
+    pp_interleave: int = 1,
     param_shard_fraction: Optional[float] = None,
 ) -> Dict[str, Any]:
     """Per-rank wire bytes per optimizer step for each active mesh axis.
     `axes`: {axis: size}; `batch`: the global batch (activations are split
-    over dp·fsdp, so the tp row is priced at the local batch).
-    `param_shard_fraction` replaces the 1/tp approximation of the share of
-    the parameters each rank holds with the registry's exact one."""
+    over dp·fsdp, so the tp, sp and pp rows are priced at the local batch).
+    `param_shard_fraction` replaces the 1/(tp·pp) approximation of the
+    share of the parameters each rank holds with the registry's exact one."""
+    from dalle_pytorch_tpu_torch.parallel.pipeline import default_num_micro, pipeline_comm_bytes
+    from dalle_pytorch_tpu_torch.parallel.ring import ring_comm_bytes
+
     d = int(axes.get("dp", 1))
     f = int(axes.get("fsdp", 1))
     t = int(axes.get("tp", 1))
-    for axis in ("sp", "pp"):
-        if int(axes.get(axis, 1)) > 1:
-            raise NotImplementedError(f"the {axis} row of the comms ledger is not ported yet; it comes with a "
-                                      "later PR of the port (ROADMAP.md Queue 1 item 7)")
+    s = int(axes.get("sp", 1))
+    p = int(axes.get("pp", 1))
 
     batch_local = max(batch // max(d * f, 1), 1)
-    param_shard = param_shard_fraction if param_shard_fraction is not None else 1.0 / max(t, 1)
+    param_shard = param_shard_fraction if param_shard_fraction is not None else 1.0 / max(t * p, 1)
     grad_local = grad_bytes * param_shard
     param_local = param_bytes * param_shard
     per_axis: List[Dict[str, Any]] = []
@@ -130,6 +136,18 @@ def step_comms_ledger(
         per_axis.append({"axis": "tp", "size": t, "op": "all_reduce",
                          "bytes_per_step": depth * 2 * 2 * ring_all_reduce_bytes(act, t), "payload_bytes": act,
                          "collectives": depth * 4})
+    if s > 1:
+        per_layer = ring_comm_bytes(batch_local, heads, max(seq_len // s, 1), dim_head, s,
+                                    itemsize=compute_itemsize)
+        per_axis.append({"axis": "sp", "size": s, "op": "ppermute_ring", "bytes_per_step": depth * per_layer,
+                         "payload_bytes": per_layer})
+    if p > 1:
+        num_micro = pp_num_micro or default_num_micro(batch_local, p)
+        per_axis.append({"axis": "pp", "size": p, "op": "ppermute",
+                         "bytes_per_step": pipeline_comm_bytes(batch_local, seq_len, dim, p, num_micro=num_micro,
+                                                               itemsize=compute_itemsize,
+                                                               interleave=max(pp_interleave, 1)),
+                         "num_micro": num_micro})
 
     total = sum(row["bytes_per_step"] for row in per_axis)
     return {"mesh": dict(axes), "batch": batch, "batch_local": batch_local, "per_axis": per_axis,
@@ -171,6 +189,7 @@ def dalle_step_comms(mesh: Any, params: Mapping[str, Any], cfg: Any, batch: int,
         compute_itemsize=compute_dtype.itemsize if compute_dtype is not None else 4,
         zero_stage=int(getattr(settings, "zero_stage", 0) or 0) if settings is not None else 0,
         grad_accum=int(getattr(settings, "grad_accum", 1) or 1) if settings is not None else 1,
+        pp_num_micro=getattr(cfg, "pp_num_micro", None), pp_interleave=int(getattr(cfg, "pp_interleave", 1) or 1),
         param_shard_fraction=shard_fraction,
     )
 

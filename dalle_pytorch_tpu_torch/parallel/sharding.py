@@ -14,14 +14,29 @@ Tensor parallelism splits the qkv, w1 and w1g rows (column parallel), the
 attention out and w2 columns (row parallel) and the logits rows (the
 vocabulary) over tp, the registry's `tp` entries.
 
+Sequence parallelism (sp, when the model's `seq_shard_axis` names it)
+keeps every leaf replicated over sp and sums the gradients over it (each sp
+rank's loss is its positions' part).  The pipeline (pp, when the model's
+`pipeline_axis` names it) places by stage, not by the registry: a stage
+holds its own layers whole (the JAX package's chunk map,
+`pipeline.stage_chunks`) and no piece of the others' (an empty tensor
+stands in), and every leaf outside the stack (the embeddings, the
+positions, the final norm, the logits; and a layer's leaf that layers of
+two stages share) is replicated over pp with its gradient summed over pp.
+The JAX package folds pp into the registry's data slot instead, so that
+each rank holds 1/P of every leaf that divides; the port's placement holds
+the leaves outside the stack on every stage, (P - 1)/P of their bytes more
+a rank.  Without those model knobs the sp or pp ranks are replicas of the
+step (the JAX CLI's `--mesh_sp` on a model with no `seq_shard_axis`).
+
 Which leaf gets which spec is `registry.DEFAULT_RULES`', on the leaf's JAX
-path and shape; a spec's dims are mapped onto PyTorch's layout here (a
-linear weight's dims swap).  A spec becomes one placement per mesh axis
-(`placements`: `Shard(d)` or `Replicate()`), and a rank's piece of a full
-tensor is its contiguous part along each sharded dim (`local_piece`, which
-`shard_tree` and every piece `MeshPlan` takes go through).  The
-tp split of the qkv rows is head-aligned: they are head-major, so a
-contiguous part is whole heads, JAX's layout as it is.
+path and shape on the (dp, fsdp, tp) axes; a spec's dims are mapped onto
+PyTorch's layout here (a linear weight's dims swap).  A spec becomes one
+placement per mesh axis (`placements`: `Shard(d)` or `Replicate()`), and a
+rank's piece of a full tensor is its contiguous part along each sharded dim
+(`local_piece`, which `shard_tree` and every piece `MeshPlan` takes go
+through).  The tp split of the qkv rows is head-aligned: they are
+head-major, so a contiguous part is whole heads, JAX's layout as it is.
 """
 from __future__ import annotations
 
@@ -39,8 +54,11 @@ from dalle_pytorch_tpu_torch.parallel import tensor_parallel as tp
 from dalle_pytorch_tpu_torch.parallel.mesh import (
     AXIS_DP,
     AXIS_FSDP,
+    AXIS_PP,
+    AXIS_SP,
     AXIS_TP,
     TORCH_MESH_AXES,
+    axis_ranks,
     mesh_coordinate,
     mesh_groups,
     resolve_axes,
@@ -264,12 +282,15 @@ class MeshPlan:
         self.T, self.F = self.axes[AXIS_TP], self.axes[AXIS_FSDP]
         self.D = self.axes[AXIS_DP] * self.F
         self.data_coord = self.coord[AXIS_DP] * self.F + self.coord[AXIS_FSDP]
+        self._model_axes(module, params)
+        # the registry places over (dp, fsdp, tp); sp replicates and pp places by stage
+        reg_axes = {**self.axes, AXIS_SP: 1, AXIS_PP: 1}
         self.layouts: Dict[str, Layout] = {}
         for name, p in params.items():
             path, shape, transposed = (paths[name] if paths is not None
                                        else (name.replace(".", "/"), tuple(p.shape), False))
-            rest = torch_spec(reg.resolve(path, shape, self.axes, zero_stage=zero_stage), transposed)
-            update = torch_spec(reg.resolve(path, shape, self.axes, zero_stage=zero_stage, moments=True), transposed)
+            rest = torch_spec(reg.resolve(path, shape, reg_axes, zero_stage=zero_stage), transposed)
+            update = torch_spec(reg.resolve(path, shape, reg_axes, zero_stage=zero_stage, moments=True), transposed)
             rest_dim, upd_dim, tp_dim = _dim_of(rest, AXIS_FSDP), _dim_of(update, AXIS_FSDP), _dim_of(rest, AXIS_TP)
             if rest_dim is not None and upd_dim != rest_dim:
                 raise ValueError(f"{name}: ZeRO-3 moments {update} are not placed as its parameter {rest}")
@@ -281,11 +302,49 @@ class MeshPlan:
                 raise ValueError(f"{name}: its dim {tp_dim} of {tuple(p.shape)} does not split over tp {self.T}")
             sub = _only(update, AXIS_FSDP) if rest_dim is None else P()
             self.layouts[name] = Layout(tuple(p.shape), rest, update, sub)
-        sharded = {n for n, lay in self.layouts.items() if lay.rest_dim is not None and self.F > 1}
+        sharded = {n for n, lay in self.layouts.items()
+                   if lay.rest_dim is not None and self.F > 1 and n not in self.elsewhere}
         if sharded and module is None:
             raise ValueError("ZeRO-3 gathers each layer's parameters around its use: pass the model the loss runs "
                              "(make_train_step(module=...))")
         self.units = Zero3Units(self, module, sharded) if sharded else None
+
+    def _model_axes(self, module: Optional[torch.nn.Module], params: Mapping[str, torch.Tensor]) -> None:
+        """What the model makes of sp and pp: `seq` (the sequence sharded
+        over sp, `seq_start` this rank's first position), `pipe` (the layers
+        pipelined over pp, `chunks` this stage's), `stage_of` (name -> the
+        stage that alone holds it; leaves absent are replicated over pp) and
+        `elsewhere` (the names other stages hold)."""
+        cfg = getattr(module, "cfg", None)
+        self.S, self.Pp = self.axes[AXIS_SP], self.axes[AXIS_PP]
+        self.seq = self.S > 1 and getattr(cfg, "seq_shard_axis", None) is not None
+        self.pipe = self.Pp > 1 and getattr(cfg, "pipeline_axis", None) is not None
+        self.seq_start, self.chunks, self.stage_of, self.elsewhere = 0, (), {}, set()
+        self.sp_ranks = tuple(axis_ranks(self.rank, AXIS_SP, self.axes))
+        self.pp_ranks = tuple(axis_ranks(self.rank, AXIS_PP, self.axes))
+        if self.seq:
+            if cfg.total_seq_len % self.S:
+                raise ValueError(f"a sequence of {cfg.total_seq_len} does not split over sp {self.S}")
+            self.seq_start = self.coord[AXIS_SP] * (cfg.total_seq_len // self.S)
+        if not self.pipe:
+            return
+        from dalle_pytorch_tpu_torch.parallel.pipeline import check_split, stage_chunks
+
+        if self.full_update:
+            raise ValueError("the pipelined step takes an optimizer that updates each element from its own "
+                             "statistics (optim.grouped.Adam): Adafactor's statistics span a leaf")
+        depth, v = cfg.depth, cfg.pp_interleave
+        check_split(depth, self.Pp, v)
+        me = self.coord[AXIS_PP]
+        self.chunks = stage_chunks(depth, self.Pp, me, v)
+        size = depth // (self.Pp * v)
+        by_id = {id(p): n for n, p in params.items()}
+        stages: Dict[str, set] = {}
+        for i, layer in enumerate(module.transformer.layers):
+            for p in layer.parameters():
+                stages.setdefault(by_id[id(p)], set()).add((i // size) % self.Pp)
+        self.stage_of = {n: next(iter(st)) for n, st in stages.items() if len(st) == 1}
+        self.elsewhere = {n for n, st in self.stage_of.items() if st != me}
 
     # -- pieces ---------------------------------------------------------------
 
@@ -298,12 +357,14 @@ class MeshPlan:
         or with `rest` its at-rest piece."""
         if full_piece:
             return full
+        if name in self.elsewhere:  # another stage's
+            return full.new_empty(0)
         lay = self.layouts[name]
         return self._local(full, lay.rest if rest else lay.update)
 
     def _sub(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """The update piece within the at-rest piece `x` (a view)."""
-        return self._local(x, self.layouts[name].sub)
+        return x if name in self.elsewhere else self._local(x, self.layouts[name].sub)
 
     def gather_shard(self, name: str, shard: torch.Tensor) -> torch.Tensor:
         """The tp piece of a ZeRO-3 shard, differentiable (`_GatherShard`)."""
@@ -311,6 +372,8 @@ class MeshPlan:
 
     def _gather(self, name: str, x: torch.Tensor, fsdp_dim: Optional[int], to_full: bool) -> torch.Tensor:
         x = x.detach()
+        if name in self.elsewhere:
+            return x
         if fsdp_dim is not None and self.F > 1:
             x = tp.gather_dim(x, fsdp_dim, self.groups[AXIS_FSDP], self.F)
         d = self.layouts[name].tp_dim
@@ -322,8 +385,9 @@ class MeshPlan:
 
     def place(self, params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Keep this rank's at-rest pieces in the parameters (in place: the
-        full storage is freed) and return the tensors the optimizer's state
-        is shaped on: the update pieces, or the full leaves."""
+        full storage is freed; another stage's leaf keeps an empty tensor)
+        and return the tensors the optimizer's state is shaped on: the
+        update pieces, or the full leaves."""
         shaped = {}
         with torch.no_grad():
             for name, p in params.items():
@@ -340,9 +404,13 @@ class MeshPlan:
     def context(self, local_rows: int):
         """The forward and backward of one micro-batch: the shard context
         the model reads, and ZeRO-3's gathers around each unit."""
+        seq = dict(sp_group=self.groups[AXIS_SP], sp_rank=self.coord[AXIS_SP], sp_size=self.S,
+                   sp_ranks=self.sp_ranks, seq_start=self.seq_start) if self.seq else {}
+        pipe = dict(pp_rank=self.coord[AXIS_PP], pp_size=self.Pp, pp_ranks=self.pp_ranks,
+                    pp_chunks=self.chunks) if self.pipe else {}
         with shard_context(ShardContext(
                 self.groups[AXIS_TP], self.coord[AXIS_TP], self.T, self.data_coord * local_rows, self.D * local_rows,
-                self.data_group, self.D)):
+                self.data_group, self.D, **seq, **pipe)):
             if self.units is None:
                 yield
                 return
@@ -380,6 +448,33 @@ class MeshPlan:
         dist.all_reduce(x, group=self.data_group)
         return x / self.D
 
+    def loss_of_model_axes(self, loss: torch.Tensor) -> torch.Tensor:
+        """This data rank's loss from its pp and sp ranks' parts: the last
+        stage's (the others hold 0), the sp ranks' parts summed."""
+        for on, axis in ((self.pipe, AXIS_PP), (self.seq, AXIS_SP)):
+            if on:
+                loss = loss.detach().clone()
+                dist.all_reduce(loss, group=self.groups[axis])
+        return loss
+
+    def reduce_model_axes(self, names: List[str], grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients of this data rank's loss: every leaf's summed over
+        sp (each sp rank's loss is its positions' part), and every leaf that
+        the stages share summed over pp (stage 0's embeddings and the last
+        stage's logits parts of a tied table); in f32, in one bucket an
+        axis."""
+        for on, axis, keep in ((self.seq, AXIS_SP, lambda n: True),
+                               (self.pipe, AXIS_PP, lambda n: n not in self.stage_of)):
+            picked = [i for i, n in enumerate(names) if on and keep(n)]
+            if not picked:
+                continue
+            flat = torch.cat([grads[i].float().reshape(-1) for i in picked])
+            dist.all_reduce(flat, group=self.groups[axis])
+            grads = list(grads)
+            for i, part in zip(picked, flat.split([grads[i].numel() for i in picked])):
+                grads[i] = part.view(grads[i].shape).to(grads[i].dtype)
+        return grads
+
     def reduce_grads(self, names: List[str], grads: List[torch.Tensor], grad_dtype) -> List[torch.Tensor]:
         """The gradients of the global batch: each leaf's mean over the data
         ranks, in f32, cast to `grad_dtype`.  A ZeRO-3 shard's gradient
@@ -409,11 +504,12 @@ class MeshPlan:
     def global_norm(self, names: List[str], grads: List[torch.Tensor]) -> torch.Tensor:
         """The f32 norm of the whole gradient: each piece's sum of squares
         divided by the number of ranks holding that same piece, summed over
-        the world."""
+        the world (a stage's own leaf is held by its stage's ranks alone)."""
         total = None
         for name, g in zip(names, grads):
             lay = self.layouts[name]
             pieces = (self.T if lay.tp_dim is not None else 1) * (self.F if lay.rest_dim is not None else 1)
+            pieces *= self.Pp if name in self.stage_of else 1
             sq = torch.linalg.vector_norm(g, dtype=torch.float32).square() * (pieces / self.world)
             total = sq if total is None else total + sq
         if self.world > 1:
@@ -444,24 +540,33 @@ class MeshPlan:
             if self.full_update:
                 p.copy_(self.piece(n, targets[n], rest=True))
                 continue
+            if n in self.elsewhere:
+                continue
             lay = self.layouts[n]
             if lay.rest_dim is None and lay.upd_dim is not None and self.F > 1:
                 p.copy_(tp.gather_dim(targets[n].contiguous(), lay.upd_dim, self.groups[AXIS_FSDP], self.F))
 
     # -- checkpoints and memory -------------------------------------------------
 
-    def _assemble(self, x: torch.Tensor, spec, shape) -> Optional[torch.Tensor]:
-        """The full tensor of every rank's piece `x` under `spec`, on rank 0
-        (None on the other ranks): gathered there alone."""
+    def _assemble(self, name: str, x: torch.Tensor, spec, shape) -> Optional[torch.Tensor]:
+        """The full tensor of every rank's piece `x` of `name` under `spec`,
+        on rank 0 (None on the other ranks): gathered there alone; a
+        stage's own leaf from that stage's ranks (the others send zeros)."""
         if self.world == 1:
             return x.detach()
+        shape_of = local_piece(torch.empty(shape, device="meta"), spec, self.axes, self.coord).shape
+        if name in self.elsewhere:
+            x = torch.zeros(shape_of, dtype=x.dtype, device=x.device)
         pieces = [torch.empty_like(x) for _ in range(self.world)] if self.rank == 0 else None
         dist.gather(x.detach().contiguous(), pieces, dst=0)
         if self.rank != 0:
             return None
         full = x.new_empty(shape)
+        owner = self.stage_of.get(name)
         for r, piece in enumerate(pieces):
-            local_piece(full, spec, self.axes, mesh_coordinate(r, self.axes)).copy_(piece)
+            coord = mesh_coordinate(r, self.axes)
+            if owner is None or coord[AXIS_PP] == owner:
+                local_piece(full, spec, self.axes, coord).copy_(piece)
         return full
 
     def full_state(self, state):
@@ -469,17 +574,18 @@ class MeshPlan:
         on the other ranks (collective: every rank calls it): full
         parameters, and the optimizer state over full leaves (one group a
         leaf), for the checkpoint writer."""
-        params = {n: self._assemble(p, self.layouts[n].rest, self.layouts[n].shape)
+        params = {n: self._assemble(n, p, self.layouts[n].rest, self.layouts[n].shape)
                   for n, p in state.params.items()}
         opt = state.opt_state
         if not self.full_update:
             groups = []
-            for group in opt.groups:
-                for i, name in enumerate(group.names):
-                    lay = self.layouts[name]
-                    stats = {k: self._assemble(v[i], lay.update, lay.shape) for k, v in group.stats.items()}
-                    if self.rank == 0:
-                        groups.append(Group((name,), lay.shape, {k: v[None] for k, v in stats.items()}))
+            at = {name: (group, i) for group in opt.groups for i, name in enumerate(group.names)}
+            for name in state.params:  # one order on every rank (the groups differ between stages)
+                group, i = at[name]
+                lay = self.layouts[name]
+                stats = {k: self._assemble(name, v[i], lay.update, lay.shape) for k, v in group.stats.items()}
+                if self.rank == 0:
+                    groups.append(Group((name,), lay.shape, {k: v[None] for k, v in stats.items()}))
             opt = GroupedState(opt.count, groups)
         if self.rank != 0:
             return None

@@ -13,6 +13,10 @@ annotations.  The port runs one process per device and calls them itself:
   gather_rows      the rows of every data rank, in rank order (CLIP's
                    contrastive loss over the global batch); backward, each
                    rank's rows of the summed gradient
+  gather_seq       the sequence parts of every sp rank along a dim (K and
+                   V of the attention that sp gathers, as GSPMD partitions
+                   the JAX package's dense attention); backward, this
+                   rank's part of the summed gradient (a reduce-scatter)
 
 They read the step's `core/shard.ShardContext` (the tp group and this
 rank's place in it, the data ranks' group).
@@ -108,13 +112,13 @@ class _GatherLast(torch.autograd.Function):
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, parts):
-        ctx.group, ctx.parts = group, parts
-        return gather_dim(x, 0, group, parts)
+    def forward(ctx, x, group, parts, dim=0):
+        ctx.group, ctx.parts, ctx.dim = group, parts, dim
+        return gather_dim(x, dim, group, parts)
 
     @staticmethod
     def backward(ctx, g):
-        return scatter_dim(g, 0, ctx.group, ctx.parts), None, None
+        return scatter_dim(g, ctx.dim, ctx.group, ctx.parts), None, None, None
 
 
 def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +153,14 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     the step averages the gradients over those ranks, the global gradient."""
     ctx = current()
     return x if ctx.data_size == 1 else _GatherRows.apply(x, ctx.data_group, ctx.data_size)
+
+
+def gather_seq(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every sp rank's part of `x` along `dim` (the sequence), in rank
+    order; backward, this rank's part of the gradient summed over the sp
+    ranks."""
+    ctx = current()
+    return x if not ctx.sp else _GatherRows.apply(x, ctx.sp_group, ctx.sp_size, dim)
 
 
 def tp_linear_out(x: torch.Tensor, linear: torch.nn.Module) -> torch.Tensor:

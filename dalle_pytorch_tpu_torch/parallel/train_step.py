@@ -33,9 +33,16 @@ loss on its rows of the global batch, the gradients are averaged over
 dp·fsdp, ZeRO 1/2 shard the optimizer moments over fsdp and ZeRO-3 the
 parameters too, and tp splits the attention heads, the feed-forward hidden
 size and the vocabulary (Megatron's pattern, `parallel/tensor_parallel.py`).
+When the model shards its sequence over sp (`seq_shard_axis`), each sp rank
+runs its positions and the gradients and losses are summed over sp; when it
+pipelines its layers over pp (`pipeline_axis`), each stage holds and
+updates its own layers, the loss is read from the last stage and the
+gradients of the leaves the stages share are summed over pp
+(`parallel/pipeline.py`); the batch splits over dp·fsdp alone.
 The numbers are those of the one-process step on the global batch: the
 loss is its mean, the gradient norm is global (each replicated leaf counted
-once), and dropout draws the one-process masks at this rank's places.
+once, each stage's own leaf once), and dropout draws the one-process masks
+at this rank's places.
 
 The diagnostic `with_health` step raises `NotImplementedError`: it comes
 with a later PR (`ROADMAP.md`).
@@ -167,7 +174,7 @@ def make_train_step(
     metrics: `loss` and `grad_norm` (0-d tensors, not synced), `skipped` (0
     or 1) when the step is guarded, and `loss_scale` when scaling is on.
 
-    mesh: a (dp, fsdp, tp) DeviceMesh (`parallel/mesh.make_mesh`) over the
+    mesh: a (dp, fsdp, tp, sp, pp) DeviceMesh (`parallel/mesh.make_mesh`) over the
     initialised process group, by default the one `parallel/mesh.
     mesh_context` publishes (`active_mesh()`); the step is then sharded
     (`parallel/sharding.MeshPlan`), which takes a grouped optimizer.
@@ -180,8 +187,10 @@ def make_train_step(
     state, on rank 0 alone), `full_template`, `load_opt_state` and
     `resident_bytes` serve checkpoints and memory checks.  `module`: the
     model the loss runs; ZeRO-3 needs it, to gather one layer's
-    parameters at a time (`sharding.Zero3Units`).  Without a mesh the ZeRO
-    stage changes nothing, as in the JAX package."""
+    parameters at a time (`sharding.Zero3Units`), and sp and pp read its
+    config (`seq_shard_axis`, `pipeline_axis`) and a pipeline its
+    layers.  Without a mesh the ZeRO stage changes nothing, as in the JAX
+    package."""
     if settings.grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
     mesh = active_mesh() if mesh is None else mesh
@@ -340,10 +349,12 @@ def make_train_step(
         micro = _micro_batches(batch, settings.grad_accum)
         grads, loss = (leaf_grads if grouped else master_grads)(state, micro, scale, generator)
         if plan is not None:
-            # the global batch's mean loss and gradients; the norm over the
-            # pieces, each replicated leaf counted once
-            loss = plan.mean_over_data(loss)
-            grads = plan.reduce_grads(list(state.params), grads, grad_dtype)
+            # the global batch's mean loss and gradients (each data rank's
+            # from its sp and pp ranks' parts); the norm over the pieces,
+            # each replicated leaf counted once
+            loss = plan.mean_over_data(plan.loss_of_model_axes(loss))
+            grads = plan.reduce_grads(list(state.params), plan.reduce_model_axes(list(state.params), grads),
+                                      grad_dtype)
             gnorm = plan.global_norm(list(state.params), grads)
         else:
             gnorm = _global_norm(grads)

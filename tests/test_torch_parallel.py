@@ -99,10 +99,21 @@ def test_mesh_config_resolve_matches_jax(cfg, n):
     assert (got.dp, got.fsdp, got.tp, got.sp, got.pp) == (want.dp, want.fsdp, want.tp, want.sp, want.pp)
 
 
-def test_mesh_refuses_sp_and_pp_naming_item_7():
-    for kw in ({"sp": 2}, {"pp": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            mesh.MeshConfig(**kw).check_ported()
+@pytest.mark.parametrize("cfg", [(1, 1, 1, 2, 1), (1, 1, 1, 1, 2), (2, 1, 1, 2, 2), (1, 2, 1, 1, 4), (1, 1, 2, 4, 1)])
+def test_mesh_lays_sp_and_pp_out_as_jax(cfg):
+    """sp and pp build meshes now: ranks take their coordinates where the
+    JAX package lays its devices, row-major over (dp, fsdp, tp, sp, pp), and
+    each rank's sp and pp groups are the JAX mesh's rows along those axes."""
+    jm = jmesh.make_mesh(jmesh.MeshConfig(*cfg), devices=jax.devices()[: int(np.prod(cfg))])
+    ids = np.vectorize(lambda d: d.id)(jm.devices)
+    axes = dict(zip(mesh.MESH_AXES, cfg))
+    assert mesh.MeshConfig(*cfg).resolve(int(np.prod(cfg))) == mesh.MeshConfig(*cfg)
+    for index in np.ndindex(ids.shape):
+        r = int(ids[index])
+        assert tuple(mesh.mesh_coordinate(r, axes).values()) == index
+        for d, axis in enumerate(mesh.MESH_AXES):
+            row = ids[index[:d] + (slice(None),) + index[d + 1:]]
+            assert mesh.axis_ranks(r, axis, axes) == [int(x) for x in row], (axis, r)
 
 
 def test_mesh_context_publishes_the_active_mesh():
@@ -169,10 +180,13 @@ def test_comms_ledger_matches_jax(axes, kw):
         assert comms.reduce_scatter_bytes(1e6, n) == jcomms.reduce_scatter_bytes(1e6, n)
 
 
-def test_comms_ledger_refuses_sp_and_pp():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        comms.step_comms_ledger({"sp": 2}, param_bytes=1, grad_bytes=1, batch=2, seq_len=4, dim=4, depth=1,
-                                heads=1, dim_head=4)
+def test_comms_ledger_prices_sp_and_pp_as_jax():
+    """The ledger's sp row (ring attention in every layer) and pp row (the
+    stage hops) give the JAX package's bytes."""
+    base = dict(param_bytes=1, grad_bytes=1, batch=2, seq_len=4, dim=4, depth=1, heads=1, dim_head=4)
+    for axes, kw in (({"sp": 2}, {}), ({"pp": 4}, {"pp_num_micro": 2, "pp_interleave": 2}),
+                     ({"dp": 2, "sp": 2, "pp": 2}, {"compute_itemsize": 2})):
+        assert comms.step_comms_ledger(axes, **base, **kw) == jcomms.step_comms_ledger(axes, **base, **kw)
 
 
 def test_dalle_step_comms_matches_jax_on_a_model(jax_params):
@@ -183,7 +197,8 @@ def test_dalle_step_comms_matches_jax_on_a_model(jax_params):
     paths = weights.dalle_param_paths(cfg)
     params = {name: torch.zeros(p.shape[::-1] if p.transposed else p.shape) for name, p in paths.items()}
     jtree = jax.tree_util.tree_map(jnp.asarray, jdalle.init_dalle(jax.random.PRNGKey(0), JDALLEConfig(**MODEL)))
-    for axes, stage in (({"dp": 2, "fsdp": 2, "tp": 2}, 3), ({"fsdp": 4}, 1), ({"tp": 4}, 0)):
+    for axes, stage in (({"dp": 2, "fsdp": 2, "tp": 2}, 3), ({"fsdp": 4}, 1), ({"tp": 4}, 0),
+                        ({"dp": 2, "pp": 2}, 0), ({"sp": 2, "tp": 2, "pp": 2}, 3)):
         got = comms.dalle_step_comms(axes, params, cfg, 16, StepSettings(zero_stage=stage),
                                      registry=registry.default_registry())
         want = jcomms.dalle_step_comms(axes, jtree, JDALLEConfig(**MODEL), 16, JStepSettings(zero_stage=stage),
@@ -207,7 +222,7 @@ def test_placements_and_shard_tree():
     from torch.distributed.tensor import Replicate, Shard
 
     spec = registry.P("fsdp", "tp")
-    assert sharding.placements(spec) == [Replicate(), Shard(0), Shard(1)]
+    assert sharding.placements(spec) == [Replicate(), Shard(0), Shard(1), Replicate(), Replicate()]
     x = torch.arange(32.0).view(4, 8)
     axes = {"dp": 1, "fsdp": 2, "tp": 2}
     pieces = [sharding.shard_tree({"x": x}, {"x": spec}, axes, rank=r)["x"] for r in range(4)]

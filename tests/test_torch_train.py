@@ -243,16 +243,10 @@ def test_adam_matches_optax_step_by_step():
             np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("setting", ["mesh_sp", "mesh_pp", "with_health"])
+@pytest.mark.parametrize("setting", ["with_health"])
 def test_train_step_refuses_what_waits(setting):
-    """The with_health step, and a mesh's sp and pp axes (ring attention
-    and the pipeline, Queue 1 item 7), still wait."""
-    if setting != "with_health":
-        from dalle_pytorch_tpu_torch.parallel.mesh import MeshConfig, make_mesh
-
-        with pytest.raises(NotImplementedError, match="later PR.*item 7"):
-            make_mesh(MeshConfig(**{setting[len("mesh_"):]: 2}), "cpu", world_size=2)
-        return
+    """The with_health step still waits (a mesh's sp and pp axes train now:
+    `tests/test_torch_seq_parallel.py`, `tests/test_torch_pipeline.py`)."""
     opt = functools.partial(torch.optim.Adam, lr=1e-3)
     with pytest.raises(NotImplementedError, match="later PR"):
         init_fn, step_fn = tts.make_train_step(lambda p, b, g: p["w"].sum(), opt)
@@ -472,7 +466,9 @@ _REFUSED = {
                                                               "fetching it failed"),
     "--resume": (["--resume", "auto", "--dalle_path", "x.pt", "--dummy_run", "1"], "mutually exclusive"),
     "--lr_decay": (["--lr_decay", "--hug", "--dummy_run", "1"], "Hugging Face tokenizer.*item 4"),
-    "--mesh_dp": (["--mesh_dp", "2", "--mesh_sp", "2", "--dummy_run", "1"], "--mesh_sp 2: ring attention.*item 7"),
+    # a mesh of dp 2 x sp 2 in one process: launch its 4 ranks (sp and pp train: tests/test_torch_mesh_cli.py)
+    "--mesh_dp": (["--mesh_dp", "2", "--mesh_sp", "2", "--dummy_run", "1"], "a mesh of 4 ranks runs one process per "
+                                                                              "device: launch 4 processes"),
     "--wds": (["--wds", "--image_text_folder", "gs://bucket/s-{0..3}.tar"], "remote tar shards.*item 10"),
 }
 

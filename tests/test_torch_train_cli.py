@@ -230,10 +230,9 @@ def test_tar_shards_train_and_the_checkpoint_generates(data, tmp_path, capsys):
     assert codes.shape == (2, 16)
 
 
+# the mesh flags of item 7 train now: tests/test_torch_mesh_cli.py runs the same four settings
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_sp", "2"], 7), (["--mesh_pp", "2"], 7), (["--chinese"], 4), (["--hug"], 4),
-    (["--mesh_fsdp", "2", "--mesh_pp", "2"], 7), (["--mesh_tp", "2", "--mesh_sp", "2"], 7),
-    (["--sample_every_n_steps", "10"], 8), (["--bpe_path", "bpe.model"], 4)])
+    (["--chinese"], 4), (["--hug"], 4), (["--sample_every_n_steps", "10"], 8), (["--bpe_path", "bpe.model"], 4)])
 def test_flags_that_wait_name_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 item {item}"):
         tcli.main(["--dummy_run", "1", "--device", "cpu", *flags])
