@@ -150,6 +150,25 @@ and dequantize ops of a step) and `engine_spec_flagship` (the same with
 speculative rounds, k 4, d 32: codes equal the sequential engine's, the
 round's ms and acceptance, the poison drill, reversible refused).
 
+The telemetry hub and the HBM ledger (`observability/`): the measured
+training runs of `slice_train` (12-layer f32) and `flagship_train` (bf16,
+f32 remat, the `flash_qkv` recipe) and each run of
+`reversible_flagship_train` print the ledger's rows and total beside the
+run's step peak (verdict `fits`, measured over ledger in (1/3, 3), a
+repeated `MemoryCrosscheck` quiet, the in-place audit of the last step);
+the measured runs count their step's FLOPs on the meta device (nothing
+taken on the card), each flash launch's tallied work equal to what the
+bound functions count for it (`kernels/work.py`) and the launches a step's
+counters', measured over analytic FLOPs in (1/3, 3), and the MFU at
+`training/profiling.chip_peak_flops`; a step taken after the count peaks
+where a plain step does, within 1 %, there and under each remat policy of
+`remat_policies`.  `train_real_data`'s CLI run has
+its telemetry (spans, step records, one ledger, the crosschecks);
+`telemetry_cli` takes a `--profile_steps` Chrome trace naming the flash
+kernels, one `hbm_headroom` alarm with its one capture, and a real
+allocator OOM under a per-process cap that exits 77 with its report and
+leaves the allocated bytes as it found them.
+
 Every phase prints one JSON line; any failure raises and exits non-zero.  The
 last two lines are the kernel table and `{"ok": true, "device": {...}}`.  It
 exits non-zero, printing no result, without a CUDA device or outside a
@@ -163,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import re
 import statistics
@@ -258,13 +278,11 @@ def time_ms(fn, reps: int) -> float:
 
 
 def attention_work(kmask, b, h, n, causal):
-    """What a key mask leaves of attention's work over the b*h batch-heads:
-    the (query, key) pairs that are scored, the live keys (rows of K and V to
-    read) and the query rows that see a key (rows of Q to read); with no
-    mask every key lives."""
-    live = torch.ones(b, n) if kmask is None else (kmask > 0).float().cpu()
-    seen = live.cumsum(1) if causal else live.sum(1, keepdim=True).expand(b, n)  # keys each query sees
-    return int(seen.sum()) * h, int(live.sum()) * h, int((seen > 0).sum()) * h
+    """`kernels/work.attention_work`: the scored pairs, live keys and the
+    query rows that see a key, over the b*h batch-heads."""
+    from dalle_pytorch_tpu_torch.kernels import work
+
+    return work.attention_work(kmask, b, h, n, causal)
 
 
 def bound(nbytes, flops, dtype):
@@ -279,44 +297,35 @@ def flash_bound_ms(b, h, n, d, dtype, causal, kmask):
     None): Q read for the rows that see a key, K and V for the live keys,
     the output and lse written for every row, the mask read once, over the
     memory rate; against the two matrix products over the scored pairs over
-    the dtype's peak; the larger of the two."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    pairs, live_keys, live_rows = attention_work(kmask, b, h, n, causal)
-    nbytes = (live_rows + 2 * live_keys + b * h * n) * d * esize + b * h * n * 4
-    nbytes += 0 if kmask is None else b * n * 4
-    return bound(nbytes, 4 * pairs * d, dtype)
+    the dtype's peak; the larger of the two (`kernels/work.dense_work`, the
+    arithmetic the FLOPs tally of a step shares)."""
+    from dalle_pytorch_tpu_torch.kernels import work
+
+    return bound(*work.dense_work("fwd", b, h, n, d, dtype, causal, kmask), dtype)
 
 
-def backward_bound_ms(b, h, n, d, dtype, causal, kmask, products, row_reads, float_reads, writes,
-                      float_writes):
-    """The least time for one backward kernel under key mask `kmask` (or
-    None): its `row_reads` (bh, n, d) query-side inputs and `float_reads`
-    (bh, n) f32 ones read for the rows that see a key, K and V read for the
-    live keys, its `writes` (bh, n, d) and `float_writes` (bh, n) outputs
-    written for every row, and the mask, over the memory rate (dq: q, do and
-    out, lse; dq and delta.  dk/dv: q and do, lse and delta; dk and dv);
-    against its `products` matrix products over the scored pairs (2 flops a
-    multiply-add) over the dtype's peak; the larger of the two."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    pairs, live_keys, live_rows = attention_work(kmask, b, h, n, causal)
-    nbytes = (row_reads * live_rows + 2 * live_keys + writes * b * h * n) * d * esize
-    nbytes += (float_reads * live_rows + float_writes * b * h * n) * 4 + (0 if kmask is None else b * n * 4)
-    return bound(nbytes, products * 2 * pairs * d, dtype)
+def backward_bound_ms(b, h, n, d, dtype, causal, kmask, kind):
+    """The least time for one backward kernel (`kind` "dq" or "dkv") under
+    key mask `kmask` (or None): its query-side inputs read for the rows that
+    see a key, K and V for the live keys, its outputs written for every row,
+    and the mask, over the memory rate (dq: q, do and out, lse; dq and
+    delta.  dk/dv: q and do, lse and delta; dk and dv); against its matrix
+    products (dq 3, dk/dv 4) over the scored pairs over the dtype's peak;
+    the larger of the two (`kernels/work.dense_work`)."""
+    from dalle_pytorch_tpu_torch.kernels import work
+
+    return bound(*work.dense_work(kind, b, h, n, d, dtype, causal, kmask), dtype)
 
 
-def pattern_bound_ms(bh, n, d, dtype, live_tiles, heads, tile, products, tensors, floats):
-    """The least time for one pattern kernel: its `tensors` (bh, n, d)
-    inputs and outputs and its `floats` (bh, n) f32 ones each moved once, and
-    the pattern's bytes of its `live_tiles` (tile[0] x tile[1]) tiles, over
-    `heads` table heads, read once, over the memory rate; against its
-    `products` matrix products over the live tiles' elements (2 flops a
-    multiply-add) over the dtype's peak; the larger of the two."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    tq, tk = tile
-    nbytes = tensors * bh * n * d * esize + floats * bh * n * 4 + live_tiles * tq * tk
-    flops = products * 2 * bh * live_tiles / heads * tq * tk * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def pattern_bound_ms(bh, n, d, dtype, live_tiles, heads, tile, kind):
+    """The least time for one pattern kernel (`kind` "fwd", "dq", "dkv",
+    "vfa_max" or "vfa_fwd"): its tensors moved once and the pattern's bytes
+    of its `live_tiles` tiles read once, over the memory rate; against its
+    matrix products over the live tiles' elements over the dtype's peak; the
+    larger of the two (`kernels/work.pattern_work`)."""
+    from dalle_pytorch_tpu_torch.kernels import work
+
+    return bound(*work.pattern_work(kind, bh, n, d, dtype, live_tiles, heads, tile), dtype)
 
 
 def reset_launches(fa) -> None:
@@ -729,8 +738,8 @@ def phase_backward_vs_plain(fa):
             library_ms = time_ms(sdpa_fwd_bwd, reps) - time_ms(sdpa_fwd, reps)
             dtimes = device_times({"flash_bwd_dq_kernel": dq_kernel, "flash_bwd_dkv_kernel": dkv_kernel})
             library_device_ms = device_difference(sdpa_fwd_bwd, sdpa_fwd)
-            dq_bound, dq_by = backward_bound_ms(b, h, n, d, dtype, causal, kmask, 3, 3, 1, 1, 1)
-            dkv_bound, dkv_by = backward_bound_ms(b, h, n, d, dtype, causal, kmask, 4, 2, 2, 2, 0)
+            dq_bound, dq_by = backward_bound_ms(b, h, n, d, dtype, causal, kmask, "dq")
+            dkv_bound, dkv_by = backward_bound_ms(b, h, n, d, dtype, causal, kmask, "dkv")
             row = dict(case=name, dtype=str(dtype).replace("torch.", ""), bh=b * h, n=n, d=d, causal=causal,
                        key_padding=kmask is not None, live_keys=attention_work(kmask, b, h, n, causal)[1] // h,
                        tolerance=TOLERANCE[dtype], delta_err_over_limit=delta_err,
@@ -806,8 +815,8 @@ def vfa_vs_plain(fa, q, k, v, do, mask, h, t, online):
                for g, a, r in zip(("dq", "dk", "dv"), grads, ref)}
     check(max(bwd_err.values()) <= TOLERANCE[dtype], f"{name}: backward from the VFA lse {bwd_err}")
     # max pass: q, k in, gmax out; fixed-max pass: q, k, v, gmax in, out, lse out
-    max_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, 1, 2, 1)
-    fwd_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, 2, 4, 2)
+    max_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, "vfa_max")
+    fwd_bound = pattern_bound_ms(bh, n, d, dtype, t.live_tiles, t.heads, t.row_tile, "vfa_fwd")
     dtimes = device_times({"flash_max_compact_kernel": max_pass, "flash_fwd_compact_vfa_kernel": fixed_max_pass})
     return dict(vfa_gmax_rel_err=gmax_err, vfa_gmax_max_abs_err=gmax_abs_err.max().item(),
                 vfa_max_abs_err=err, vfa_lse_err=lse_err,
@@ -914,9 +923,9 @@ def sparse_case(fa, masks, b, h, d, n, fmap, dtype, kind, always_vfa=False):
     live_fwd, live_dkv = tc.live_tiles / tc.heads, tc.live_tiles_dkv / tc.heads
     bound = {  # fwd: q, k, v, out, lse; dq: q, k, v, do, out, dq, lse, delta; dk/dv: q, k, v, do,
         # dk, dv, lse, delta
-        "fwd": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 2, 4, 1),
-        "dq": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, 3, 6, 2),
-        "dkv": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles_dkv, tc.heads, tc.col_tile[::-1], 4, 6, 2),
+        "fwd": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, "fwd"),
+        "dq": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles, tc.heads, tc.row_tile, "dq"),
+        "dkv": pattern_bound_ms(bh, n, d, dtype, tc.live_tiles_dkv, tc.heads, tc.col_tile[::-1], "dkv"),
     }
     row = dict(pattern=kind, dtype=str(dtype).replace("torch.", ""), bh=bh, h=h, n=n, d=d, fmap=fmap,
                grid_auto="compact" if compact_auto else "dense",
@@ -1391,7 +1400,8 @@ class Run(NamedTuple):
     policy, the batch, and whether it trains with the JAX package's
     flagship recipe (bf16 storage and gradients, Adafactor 1e-3, no
     clipping; `bench.py`, `tools/flagship_sweep.py`) instead of f32 masters
-    and Adam 3e-4 with clipping at 0.5."""
+    and Adam 3e-4 with clipping at 0.5; with `measure`, one more step under
+    the FLOPs count and the allocator's peak (`measured_step`)."""
 
     execution: Optional[str]
     dtype: torch.dtype
@@ -1400,6 +1410,7 @@ class Run(NamedTuple):
     policy: str = "full"
     batch: int = 4
     recipe: bool = False
+    measure: bool = False
 
 
 CUBLAS_KERNEL = re.compile(r"gemm|cutlass|nvjet|xmma|cublas", re.IGNORECASE)
@@ -1440,6 +1451,173 @@ def optimizer_profile(state, step_fn):
     return out
 
 
+# the kernels-line name of each tallied kernel -> its kind in `kernels/work.py`
+WORK_KIND = {"flash_fwd": "fwd", "flash_dq": "dq", "flash_dkv": "dkv", "flash_fwd_compact": "fwd",
+             "flash_max_compact": "vfa_max", "flash_fwd_compact_vfa": "vfa_fwd", "flash_dq_compact": "dq",
+             "flash_dkv_compact": "dkv"}
+LEDGER_BAND = (1 / 3, 3)  # measured over analytic, the JAX package's band (tests/test_memory.py)
+# a step taken after the FLOPs count against a plain step's peak, relative:
+# the count runs on the meta device and leaves the step as it was
+COUNT_PEAK_SLACK = 0.01
+
+
+def meta_count(step):
+    """The measured FLOPs count of `step`, a step on the meta device
+    (`observability/cuda.step_cost_analysis`), which must take nothing on
+    the card: the bytes allocated, and the allocator's peak across the
+    count, stay where they were."""
+    from dalle_pytorch_tpu_torch.observability import cuda as obs_cuda
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, ca = obs_cuda.step_cost_analysis(step)
+    torch.cuda.synchronize()
+    peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    check(peak == before == after, f"the count on meta moved the card's memory: {before} before, peak {peak}, "
+          f"{after} after")
+    return ca
+
+
+def step_under_counter(step, meta_ca, name):
+    """The same step on the card under the measured count
+    (`step_cost_analysis` around a real step, as the CLI first counted
+    its first step): its flash tally must be the meta count's record for
+    record (the meta route takes the card's grid); returns (the step's
+    result, its peak, its aten FLOPs over the meta count's), a reading of
+    what the counter's dispatch mode does to a step on the card."""
+    from dalle_pytorch_tpu_torch.observability import cuda as obs_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, ca = obs_cuda.step_cost_analysis(step)
+    torch.cuda.synchronize()
+    check([(r.name, r.flops) for r in ca["flash_records"]] == [(r.name, r.flops) for r in meta_ca["flash_records"]],
+          f"{name}: the card's tally differs from the meta count's")
+    return out, torch.cuda.max_memory_allocated(), ca["aten_flops"] / meta_ca["aten_flops"]
+
+
+def counted_step_peak(step, plain_peak, name):
+    """A step taken right after the FLOPs count, as the CLI takes its first
+    step: its peak (`max_memory_allocated` after a reset) must equal the
+    plain step's `plain_peak` within `COUNT_PEAK_SLACK`.  Returns (the
+    step's result, its peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(abs(peak - plain_peak) <= COUNT_PEAK_SLACK * plain_peak,
+          f"{name}: the step after the FLOPs count peaked at {peak}, a plain step at {plain_peak}")
+    return out, peak
+
+
+def ledger_reading(memory, ledger, peak, name):
+    """A ledger's rows and total beside a measured step peak: the verdict
+    must be `fits`, measured over ledger inside `LEDGER_BAND`, and a
+    `MemoryCrosscheck` fed the same reading twice must not alarm."""
+    total = ledger["total_bytes"]
+    ratio = peak / total
+    check(ledger["fits"] is True, f"{name}: the ledger's verdict is {ledger['fits']} ({total / 1e9:.3f} GB of "
+          f"{ledger['capacity_bytes']})")
+    check(LEDGER_BAND[0] < ratio < LEDGER_BAND[1], f"{name}: measured peak over ledger {ratio:.3f}")
+    chk = memory.MemoryCrosscheck(total, rtol=0.5)
+    chk.check(peak)
+    chk.check(peak)
+    check(not chk.alarmed, f"{name}: a repeated memory crosscheck alarmed")
+    return dict(rows={r["name"]: r["bytes"] for r in ledger["rows"]}, total_bytes=total, verdict="fits",
+                dominant=ledger["dominant"], capacity_bytes=ledger["capacity_bytes"], measured_peak_bytes=peak,
+                measured_over_ledger=ratio)
+
+
+def tally_against_bounds(fa, tr, records, cfg, rows, name):
+    """Each tallied flash launch against what the bound functions count
+    for it: its shape the model's (rows x heads, the sequence, the head
+    dim), a pattern call's live tiles those of one of the model's patterns
+    at the kernels' tiles, and its FLOPs `dense_work` / `pattern_work` of
+    that geometry, exactly.  Returns the FLOPs by kernel."""
+    from dalle_pytorch_tpu_torch.kernels import work
+
+    tcfg = cfg.transformer_config()
+    n, d, h = cfg.total_seq_len, cfg.dim_head, cfg.heads
+    live = {"row": set(), "col": set()}
+    for key in dict.fromkeys(tr._pattern_key(sp) for sp in tr.derive_layer_specs(tcfg)):
+        pm = tr._pattern_for(tcfg, *key)
+        if pm is not None:
+            t = fa.pattern_tables(pm, n, d)
+            live["row"].add(t.live_tiles)
+            live["col"].add(t.live_tiles_dkv)
+    by_kernel = {}
+    for r in records:
+        kind = WORK_KIND[r.name]
+        check((r.bh, r.n, r.d, r.causal, r.key_masked) == (rows * h, n, d, True, False),
+              f"{name}: a tallied {r.name} launch at {(r.bh, r.n, r.d, r.causal, r.key_masked)}")
+        if r.live_tiles is None:
+            flops = work.dense_work(kind, rows, h, n, d, r.dtype, True, None)[1]
+        else:
+            check(r.live_tiles in live["col" if kind == "dkv" else "row"],
+                  f"{name}: {r.name}'s {r.live_tiles} live tiles are no pattern's of the model")
+            flops = work.pattern_work(kind, r.bh, n, d, r.dtype, r.live_tiles, r.heads, r.tile)[1]
+        check(flops == r.flops, f"{name}: {r.name} tallied {r.flops} FLOPs, the bound counts {flops}")
+        by_kernel[r.name] = by_kernel.get(r.name, 0.0) + flops
+    return by_kernel
+
+
+def measured_step(fa, tr, cfg, vae, state, step_fn, batch, settings, dtype, step_s, name, peak, last_step,
+                  per_step, plain_peak):
+    """A training run's readings: the ledger beside the run's step peak
+    (`peak`: `max_memory_allocated` over its steps less what was allocated
+    before its model was made — the frozen VAE, what other phases keep;
+    `ledger_reading`), the in-place audit of its last step (`last_step`:
+    the bytes allocated before and after it), then the measured FLOPs count
+    of its step on the meta device (`train_dalle.dalle_meta_step`,
+    `meta_count`: nothing taken on the card): its launches the run's
+    `per_step` launches, each flash launch's tallied work against the
+    bounds (`tally_against_bounds`), the measured FLOPs over the analytic
+    ones (tile granularity) inside (1/3, 3), and the MFU of the run's step
+    time at the card's peak for the compute dtype; then one more step on
+    the card, whose peak must be the run's last plain step's `plain_peak`
+    (`counted_step_peak`), and one under the counter on the card
+    (`step_under_counter`: its tally the meta count's, its peak read).
+    Returns (the state after the steps, the readings)."""
+    from dalle_pytorch_tpu_torch.cli.train_dalle import dalle_meta_step
+    from dalle_pytorch_tpu_torch.observability import memory
+    from dalle_pytorch_tpu_torch.training import profiling
+
+    dev = torch.device("cuda")
+    rows = int(batch["text"].shape[0])
+    ledger = memory.dalle_step_memory(None, state.params, state.opt_state, cfg, rows, settings=settings, device=dev)
+    held = memory.state_bytes(state)
+    audit = memory.audit_donation({"output_bytes": last_step[1] - last_step[0]}, held)
+    check(audit["ok"], f"{name}: the last step left {audit['grown_bytes']} bytes more allocated (slack "
+          f"{audit['slack_bytes']}): a second copy of the state")
+    ca = meta_count(dalle_meta_step(cfg, vae, batch, dtype))
+    launched = {k: per_step[k] for k in WORK_KIND}
+    tallied = {k: ca["flash_launches"].get(k, 0) for k in WORK_KIND}
+    check(tallied == launched, f"{name}: the tally counted {tallied} launches, a step's counters {launched}")
+    flash = tally_against_bounds(fa, tr, ca["flash_records"], cfg, rows, name)
+    out, counted_peak = counted_step_peak(lambda: step_fn(state, batch), plain_peak, name)
+    out, under_counter, aten_ratio = step_under_counter(lambda: step_fn(out[0], batch), ca, name)
+    n_matmul = profiling.matmul_param_count(state.params)
+    analytic = profiling.dalle_step_flops(cfg, rows, n_matmul, granularity="tile")
+    ratio = ca["flops"] / analytic
+    check(LEDGER_BAND[0] < ratio < LEDGER_BAND[1], f"{name}: measured over analytic FLOPs {ratio:.3f}")
+    peak_flops = profiling.chip_peak_flops(dtype)
+    check(peak_flops is not None, f"no peak for {torch.cuda.get_device_name(0)} in {dtype}")
+    readings = dict(
+        memory=dict(ledger_reading(memory, ledger, peak, name), in_place_audit=audit),
+        flops=dict(measured=ca["flops"], aten=ca["aten_flops"], flash=ca["flash_flops"], flash_by_kernel=flash,
+                   analytic_tile=analytic,
+                   analytic_element=profiling.dalle_step_flops(cfg, rows, n_matmul, granularity="element"),
+                   measured_over_analytic=ratio, tallied_launches=tallied, peak_flops=peak_flops,
+                   mfu=profiling.mfu(analytic, step_s, dtype=dtype), mfu_measured=ca["flops"] / step_s / peak_flops),
+        counted_step=dict(peak_bytes=counted_peak, plain_step_peak_bytes=plain_peak,
+                          over_plain=counted_peak / plain_peak, slack=COUNT_PEAK_SLACK,
+                          under_counter_peak_bytes=under_counter, under_counter_over_plain=under_counter / plain_peak,
+                          under_counter_aten_over_meta=aten_ratio))
+    return out[0], readings
+
+
 def phase_train(fa, port, phase, model_kwargs, runs):
     """The training path at full width: pixels through the frozen VAE, the
     DALL-E loss, backward through the flash kernels, the guard and the
@@ -1454,6 +1632,7 @@ def phase_train(fa, port, phase, model_kwargs, runs):
     import dataclasses
 
     from dalle_pytorch_tpu_torch.cli.train_dalle import dalle_loss_fn
+    from dalle_pytorch_tpu_torch.models import transformer as tr
     from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
     from dalle_pytorch_tpu_torch.optim.adafactor import Adafactor
     from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
@@ -1472,7 +1651,7 @@ def phase_train(fa, port, phase, model_kwargs, runs):
             rng.random((extra, vae.image_size, vae.image_size, 3), dtype=np.float32)).to(dev)])
     adam = functools.partial(torch.optim.Adam, lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
 
-    def run(model, r: Run):
+    def run(model, r: Run, resident):
         batch = {"text": text[: r.batch], "image": pixels[: r.batch]}
         if r.recipe:
             settings = StepSettings(compute_dtype=r.dtype, grad_dtype=torch.bfloat16, param_dtype=torch.bfloat16)
@@ -1482,16 +1661,19 @@ def phase_train(fa, port, phase, model_kwargs, runs):
         init_fn, step_fn = make_train_step(dalle_loss_fn(model, vae.module, r.dtype), optimizer, settings)
         state = init_fn(dict(model.named_parameters()))
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_launches(fa)
-        losses, norms, secs = [], [], []
+        losses, norms, secs, step_peaks = [], [], [], []
         for _ in range(r.steps):
+            before_step = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             losses.append(float(metrics["loss"]))
             norms.append(float(metrics["grad_norm"]))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
+            step_peaks.append(torch.cuda.max_memory_allocated())
+        last_step = (before_step, torch.cuda.memory_allocated())
         launches = read_launches(fa)
         name = str(r.dtype).replace("torch.", "") + ("_remat" if r.execution == "remat" else "")
         if r.policy != "full":
@@ -1506,12 +1688,19 @@ def phase_train(fa, port, phase, model_kwargs, runs):
         want = launches_per_step(model, cfg.total_seq_len)
         check(per_step == want, f"{name}: launches per step {per_step}, the layer cycle gives {want}")
         step_s = statistics.median(secs[1:]) if r.steps > 2 else secs[-1]
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(step_peaks)
+        measured = None
+        if r.measure:
+            state, measured = measured_step(fa, tr, model.cfg, vae.module, state, step_fn, batch, settings, r.dtype,
+                                            step_s, f"{phase} {name}", peak - resident, last_step, per_step,
+                                            step_peaks[-1])
         out = dict(losses=losses, grad_norms=norms, step_s=step_s, first_step_s=secs[0], steps_s=secs,
                    tokens_per_s=r.batch * cfg.total_seq_len / step_s, batch=r.batch, remat_policy=r.policy,
                    peak_memory_gib=peak / 2 ** 30, peak_memory_gb=peak / 1e9, launches_per_step=per_step,
                    param_dtype=str(next(model.parameters()).dtype).replace("torch.", ""),
                    optimizer="adafactor" if r.recipe else "adam")
+        if measured is not None:
+            out.update(measured)
         if r.profile:
             rows = device_profile(lambda: step_fn(state, batch))
             total = sum(ms for _, ms, _ in rows)
@@ -1535,10 +1724,11 @@ def phase_train(fa, port, phase, model_kwargs, runs):
 
     results, total, n_params = {}, dict.fromkeys(COUNTERS, 0), None
     for r in runs:
+        resident = torch.cuda.memory_allocated()
         model = init_dalle(dataclasses.replace(cfg, execution=r.execution, remat_policy=r.policy),
                            torch.Generator(device=dev).manual_seed(1), dev).train().requires_grad_(True)
         n_params = sum(p.numel() for p in model.parameters())
-        name, results[name], launches = run(model, r)
+        name, results[name], launches = run(model, r, resident)
         total = {key: total[key] + launches[key] for key in COUNTERS}
         del model
         torch.cuda.empty_cache()
@@ -1548,10 +1738,10 @@ def phase_train(fa, port, phase, model_kwargs, runs):
     return total
 
 
-def standard_runs(steps):
-    """f32 then bf16 compute for `steps` steps each (the first profiled),
-    then 2 rematerialised f32 steps."""
-    return [Run(None, torch.float32, steps, True), Run(None, torch.bfloat16, steps, True),
+def standard_runs(steps, measure=False):
+    """f32 then bf16 compute for `steps` steps each (the first profiled; with
+    `measure`, the f32 run measured), then 2 rematerialised f32 steps."""
+    return [Run(None, torch.float32, steps, True, measure=measure), Run(None, torch.bfloat16, steps, True),
             Run("remat", torch.float32, 2, False)]
 
 
@@ -1735,12 +1925,17 @@ def phase_remat_policies(fa, port, model_kwargs=SLICE):
     norm equal the sequential step's to 1e-5 relative; the launches follow
     the policy (the forward twice under "full", once under the others);
     peak memory in the order full <= flash <= flash_qkv <= flash_qkv_ff <=
-    sequential."""
+    sequential.  Under each, the step's FLOPs counted on the meta device
+    (`meta_count`) tally the launches the policy gives, the same step
+    taken again after the count peaks where the plain one did
+    (`counted_step_peak`), and once more under the counter on the card
+    its tally is the meta count's and its peak is read
+    (`step_under_counter`)."""
     import dataclasses
 
     from torch.func import functional_call
 
-    from dalle_pytorch_tpu_torch.models.dalle import DALLEConfig, init_dalle
+    from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig, init_dalle
 
     dev = torch.device("cuda")
     vae = port.DiscreteVAE(seed=0, **FULL_VAE)
@@ -1756,24 +1951,40 @@ def phase_remat_policies(fa, port, model_kwargs=SLICE):
                               ("remat", "flash_qkv"), ("remat", "flash_qkv_ff")):
         model.transformer.cfg = dataclasses.replace(base, execution=execution, remat_policy=policy)
         name = "sequential" if execution == "sequential" else policy
+
+        def step():
+            work = {n: p.to(torch.bfloat16) for n, p in masters.items()}
+            loss = functional_call(model, work, (text, codes), {"return_loss": True})
+            grads = torch.autograd.grad(loss, list(masters.values()))
+            gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            return float(loss.detach()), float(gnorm)
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches(fa)
         t0 = time.perf_counter()
-        work = {n: p.to(torch.bfloat16) for n, p in masters.items()}
-        loss = functional_call(model, work, (text, codes), {"return_loss": True})
-        grads = torch.autograd.grad(loss, list(masters.values()))
-        gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        loss, gnorm = float(loss.detach()), float(gnorm)
+        loss, gnorm = step()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         launches = read_launches(fa)
         want = launches_per_step(model, cfg.total_seq_len)
         check(launches == want, f"{name}: launches {launches}, the policy gives {want}")
-        results[name] = dict(loss=loss, grad_norm=gnorm, step_s=seconds,
-                             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        with torch.device("meta"):
+            shapes = DALLE(dataclasses.replace(cfg, execution=execution, remat_policy=policy))
+        meta_params = {n: p.detach().to(torch.bfloat16).requires_grad_() for n, p in shapes.train().named_parameters()}
+        ca = meta_count(lambda: functional_call(shapes, meta_params, (text.to("meta"), codes.to("meta")),
+                                                {"return_loss": True}).backward())
+        tallied = {k: ca["flash_launches"].get(k, 0) for k in WORK_KIND}
+        check(tallied == {k: want[k] for k in WORK_KIND}, f"{name}: the count tallied {tallied}, the policy gives {want}")
+        counted, counted_peak = counted_step_peak(step, peak, f"remat_policies {name}")
+        _, under_counter, aten_ratio = step_under_counter(step, ca, f"remat_policies {name}")
+        check(all(abs(c - p) <= 1e-5 * abs(p) for c, p in zip(counted, (loss, gnorm))),
+              f"{name}: the step after the count gave {counted}, the plain one {(loss, gnorm)}")
+        results[name] = dict(loss=loss, grad_norm=gnorm, step_s=seconds, peak_memory_gib=peak / 2 ** 30,
+                             counted_step_peak_gib=counted_peak / 2 ** 30, flops_counted=ca["flops"],
+                             under_counter_peak_gib=under_counter / 2 ** 30, under_counter_aten_over_meta=aten_ratio,
                              flash_fwd=launches["flash_fwd"], vfa_pair=launches["flash_max_compact"])
-        del work, grads
     model.transformer.cfg = base
     seq = results["sequential"]
     for name, r in results.items():
@@ -1846,6 +2057,97 @@ def phase_train_cli(fa, weights, checkpoint):
                                                remat_policy=meta["hparams"].get("remat_policy"),
                                                rotary_emb=meta["hparams"].get("rotary_emb"), launches=launches))
     return launches
+
+
+def spans_of(directory: Path) -> list:
+    """The records of a telemetry directory's spans JSONL."""
+    files = sorted(Path(directory).glob("*.spans.jsonl"))
+    check(len(files) == 1, f"{directory}: spans files {files}")
+    return [json.loads(line) for line in files[0].read_text().splitlines() if line.strip()]
+
+
+LOOP_SPANS = {"data_wait", "dispatch", "block", "log", "checkpoint", "flops_crosscheck"}
+OOM_MARGIN = 256 * 2 ** 20  # what the capped allocator may take beyond what it holds
+
+
+def phase_telemetry_cli(fa):
+    """`cli.train_dalle`'s telemetry and out-of-memory exit on the card, in
+    process (the dummy model at head dim 32): `--dummy_run 4
+    --profile_steps 2:3` writes one Chrome trace of step 2 that names the
+    flash kernels; `--hbm_headroom_frac 1e-6 --profile_on_alarm 1` fires
+    exactly one `hbm_headroom` alarm and takes exactly one capture; then,
+    under a cap of the caching allocator
+    (`torch.cuda.set_per_process_memory_fraction`: what it holds now plus
+    `OOM_MARGIN`), the 12-layer model's widths run out of memory in the
+    allocator itself: SystemExit(77), an `oom_report_*.txt` with the
+    ledger's rows and the allocator's stats, and, with the cap lifted, the
+    bytes allocated back at their value before the call within 1 MiB."""
+    import gc
+
+    from dalle_pytorch_tpu_torch.cli import train_dalle
+    from dalle_pytorch_tpu_torch.training import resilience
+
+    small = ["--dummy_run", "4", "--dim_head", "32", "--log_every_n_steps", "1"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _, launches, _, seconds = run_main(fa, train_dalle.main, [
+            *small, "--profile_steps", "2:3", "--profile_on_alarm", "0", "--dalle_output_file_name",
+            str(tmp / "manual")])
+        traces = sorted((tmp / "manual.telemetry" / "traces").glob("*.json"))
+        check([t.name for t in traces] == ["trace_step2_manual.json"], f"--profile_steps 2:3 wrote {traces}")
+        text = traces[0].read_text()
+        named = {k: f"{k}_kernel" in text for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        check(all(named.values()), f"the captured trace names the flash kernels: {named}")
+        records = spans_of(tmp / "manual.telemetry")
+        check(LOOP_SPANS <= {r["name"] for r in records if r["kind"] == "span"},
+              f"spans {sorted({r['name'] for r in records if r['kind'] == 'span'})}")
+        out["manual_capture"] = dict(trace_bytes=len(text), names_flash_kernels=named, seconds=seconds,
+                                     launches=launches)
+
+        run_main(fa, train_dalle.main, [*small, "--hbm_headroom_frac", "1e-6", "--profile_on_alarm", "1",
+                                        "--dalle_output_file_name", str(tmp / "alarm")])
+        records = spans_of(tmp / "alarm.telemetry")
+        alarms = [r for r in records if r["kind"] == "alarm"]
+        starts = [r for r in records if r["kind"] == "trace_capture" and r["action"] == "start"]
+        check([a["type"] for a in alarms] == ["hbm_headroom"], f"alarms {alarms}")
+        check(len(starts) == 1 and len(list((tmp / "alarm.telemetry" / "traces").glob("*.json"))) == 1,
+              f"captures {starts}")
+        out["headroom_alarm"] = dict(alarm=alarms[0], capture=starts[0])
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        total = torch.cuda.get_device_properties(0).total_memory
+        cap = (torch.cuda.memory_reserved() + OOM_MARGIN) / total
+        argv = ["--dummy_run", "2", "--dim", "1024", "--depth", "12", "--heads", "16", "--dim_head", "64",
+                "--text_seq_len", "256", "--dalle_output_file_name", str(tmp / "oom")]
+        torch.cuda.set_per_process_memory_fraction(cap)
+        code = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                train_dalle.main(argv)
+        except SystemExit as e:
+            code = e.code
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated()
+        check(code == resilience.EXIT_OOM, f"the capped run exited {code}, not {resilience.EXIT_OOM}")
+        reports = sorted((tmp / "oom.telemetry").glob("oom_report_*.txt"))
+        check(len(reports) == 1, f"OOM reports {reports}")
+        report = reports[0].read_text()
+        for want in ("CUDA out of memory", "<-- dominant", "params", "activations", "bytes_in_use", "num_ooms",
+                     "memory_summary", "suggestions (ranked"):
+            check(want in report, f"the OOM report lacks {want!r}")
+        check(abs(after - before) <= 2 ** 20, f"allocated {before} before the capped run, {after} after")
+        out["oom"] = dict(exit_code=code, cap_fraction=cap, report=reports[0].name, report_lines=len(report.splitlines()),
+                          allocated_before=before, allocated_after=after,
+                          printed=[ln for ln in printed.getvalue().splitlines() if "[memory]" in ln])
+    emit("telemetry_cli", **out)
 
 
 # the real-data phase: the 12-layer full-attention model at full width with
@@ -1993,6 +2295,23 @@ def phase_train_real_data(fa, tr, sampling, weights, rotary_step_ms):
             *folder, "--vae_path", str(tmp / "vae.npz"), "--save_every_n_steps", "4", "--keep_n_checkpoints", "1",
             "--dalle_output_file_name", str(tmp / "full")])
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the run's telemetry, on by default: the loop's spans, a record a step, the ledger, the crosschecks
+        records = spans_of(tmp / "full.telemetry")
+        span_names = {r["name"] for r in records if r["kind"] == "span"}
+        kinds = [r["kind"] for r in records]
+        check(LOOP_SPANS <= span_names, f"the real-data run's spans {sorted(span_names)}")
+        check(kinds.count("step") == len(full) and kinds.count("mem_ledger") == 1,
+              f"the real-data run's records: {kinds.count('step')} steps, {kinds.count('mem_ledger')} ledgers")
+        crosschecks = {k: next(r for r in records if r["kind"] == k) for k in ("flops_crosscheck", "memory_crosscheck")}
+        check(crosschecks["memory_crosscheck"]["donation"]["ok"]
+              and not [r for r in records if r["kind"] == "alarm"], "the real-data run's in-place audit or alarms")
+        readings["telemetry"] = dict(
+            span_names=sorted(span_names), step_records=kinds.count("step"),
+            ledger={r["name"]: r["bytes"] for r in next(r for r in records if r["kind"] == "mem_ledger")["rows"]},
+            flops_ratio=crosschecks["flops_crosscheck"]["ratio"],
+            flash_launches=crosschecks["flops_crosscheck"]["flash_launches"],
+            memory_ratio=crosschecks["memory_crosscheck"]["ratio"],
+            measured_peak_bytes=crosschecks["memory_crosscheck"]["total_bytes"])
         losses = [r["loss"] for r in full]
         check(len(full) == 8 and all(np.isfinite(losses)), f"the real-data run's steps: {full}")
         steps_on_disk = sorted(p.name for p in tmp.glob("full_step*"))
@@ -3640,6 +3959,7 @@ def phase_reversible_train(fa, dalle):
     from dalle_pytorch_tpu_torch.cli.train_dalle import dalle_loss_fn
     from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
     from dalle_pytorch_tpu_torch.models.reversible import Reversible
+    from dalle_pytorch_tpu_torch.observability import memory
     from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, make_train_step
 
     base = dataclasses.replace(dalle.cfg, reversible=True)
@@ -3656,9 +3976,10 @@ def phase_reversible_train(fa, dalle):
         return dataclasses.replace(base, depth=depth, execution=execution, remat_policy="full")
 
     def train(execution, depth, steps):
+        resident = torch.cuda.memory_allocated()  # the flagship's own weights, the VAE
         model = twin_module(dalle.module, config(execution, depth), clone=True).train().requires_grad_(True)
-        init_fn, step_fn = make_train_step(dalle_loss_fn(model, dalle.vae.module, torch.bfloat16), adam,
-                                           StepSettings(compute_dtype=torch.bfloat16, clip_grad_norm=0.5))
+        settings = StepSettings(compute_dtype=torch.bfloat16, clip_grad_norm=0.5)
+        init_fn, step_fn = make_train_step(dalle_loss_fn(model, dalle.vae.module, torch.bfloat16), adam, settings)
         state = init_fn(dict(model.named_parameters()))
         losses, secs, before, peaks = [], [], [], []
         reset_launches(fa)
@@ -3674,6 +3995,10 @@ def phase_reversible_train(fa, dalle):
             peaks.append(torch.cuda.max_memory_allocated())
         per_step = {k: v / steps for k, v in read_launches(fa).items()}
         name = f"{execution}_depth{depth}"
+        # the ledger of the run's step beside its peak (the weights, masters, moments and VAE included)
+        ledger = ledger_reading(
+            memory, memory.dalle_step_memory(None, state.params, state.opt_state, model.cfg, 4, settings=settings,
+                                             device=dev), max(peaks) - resident, f"reversible_flagship_train {name}")
         want = launches_per_step(model, n)
         check(per_step == want, f"{name}: launches per step {per_step}, the layer cycle gives {want}")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{name}: losses {losses}")
@@ -3682,7 +4007,8 @@ def phase_reversible_train(fa, dalle):
         step_s = statistics.median(secs[1:])
         return name, dict(steps=steps, losses=losses, steps_s=secs, step_s=step_s, tokens_per_s=4 * n / step_s,
                           peak_memory_gib=max(peaks) / 2 ** 30, activation_peak_gib=(peaks[-1] - before[-1]) / 2 ** 30,
-                          allocated_before_last_step_gib=before[-1] / 2 ** 30, launches_per_step=per_step)
+                          allocated_before_last_step_gib=before[-1] / 2 ** 30, launches_per_step=per_step,
+                          memory=ledger)
 
     runs = dict(train(e, d, s) for e, d, s in (("reversible", 64, 3), ("remat", 64, 2), ("reversible", 16, 2),
                                                ("remat", 16, 2)))
@@ -4649,9 +4975,10 @@ def main() -> int:
     del dalle
     paths["quant_spec_parity"] = phase_quant_spec_parity(fa, port, sampling)
     phase_parity(fa, port, sampling)
-    paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6))
+    paths["train"] = phase_train(fa, port, "slice_train", FULL, standard_runs(6, measure=True))
     phase_train_parity(fa, port)
     paths["train_cli"] = phase_train_cli(fa, weights, checkpoint)
+    phase_telemetry_cli(fa)
     paths["train_real_data"] = phase_train_real_data(fa, tr, sampling, weights,
                                                      rotary_graphs["step_ms_replayed"])
     torch.cuda.empty_cache()
@@ -4720,8 +5047,8 @@ def main() -> int:
     # at batch 4 beside it: one optimizer, two policies; `remat_policies`
     # holds flash_qkv_ff on the pattern model)
     paths["flagship_train"] = phase_train(fa, port, "flagship_train", FLAGSHIP, [
-        Run(None, torch.bfloat16, 4, True), Run("remat", torch.float32, 2, False),
-        Run("remat", torch.bfloat16, 3, True, "flash_qkv", 8, True),
+        Run(None, torch.bfloat16, 4, True, measure=True), Run("remat", torch.float32, 2, False, measure=True),
+        Run("remat", torch.bfloat16, 3, True, "flash_qkv", 8, True, measure=True),
         Run("remat", torch.bfloat16, 3, False, "full", 4, True)])
     phase_numerics_smoke()
     torch.cuda.empty_cache()

@@ -25,8 +25,11 @@ accepted and change nothing, as in the JAX CLI (the checkpoint names its
 VAE and holds its weights).  `--spec_k K` decodes by self-speculative rounds
 (K codes drafted through the first `--spec_draft_layers` layers, default
 half the depth), through `generate_images` or through `--engine`; the
-images are the ones the run gives without it.  The JAX CLI's out-of-memory
-forensic report waits for the memory ledger (`ROADMAP.md` Queue 1 item 8).
+images are the ones the run gives without it.  An out-of-memory error
+writes `oom_report_sampling_*.txt` under `--outputs_dir` (the sampling
+ledger: the weights, the per-lane KV cache, the logits; the allocator's
+stats; what to change) and exits 77 (`resilience.EXIT_OOM`), as the JAX
+CLI does.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.data import tokenizer as tokenizer_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.sampling import _sync, generate_images, generate_texts
+from dalle_pytorch_tpu_torch.observability import memory as memory_mod
+from dalle_pytorch_tpu_torch.observability import telemetry
 from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,13 +132,27 @@ def main(argv=None, timings: Optional[dict] = None) -> List[Path]:
     _add(timings, "tokenize_s", time.perf_counter() - t0)
     warn_vocab_mismatch(dalle_cfg.num_text_tokens, tokenizer)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    outputs_dir = Path(args.outputs_dir)
+    # the sampling ledger: the weights, the KV cache of each lane (two a
+    # prompt under classifier-free guidance), the logits — what an OOM
+    # report needs (the cache is linear in --batch_size, the usual lever)
+    lanes = args.batch_size * (2 if args.cond_scale != 1.0 else 1)
+    mem_ledger = memory_mod.sampling_memory_ledger(dalle_cfg, lanes, model, device=device)
+    where = {"phase": "sampling", "ledger": mem_ledger,
+             "context": {"batch_size": args.batch_size, "num_images": args.num_images, "cond_scale": args.cond_scale}}
+    with telemetry.oom_exit(str(outputs_dir), where, device=device, advice="shrink --batch_size"):
+        return _generate_all(args, device, model, vae, tokenizer, generator, outputs_dir, timings)
+
+
+def _generate_all(args, device, model, vae, tokenizer, generator, outputs_dir: Path,
+                  timings: Optional[dict]) -> List[Path]:
+    dalle_cfg, vae_cfg = model.cfg, vae.cfg
     engine = None
     if args.engine:
         engine = GenerationEngine(model, vae, EngineConfig(num_slots=args.engine_slots,
                                                            block_size=args.engine_block_size,
                                                            filter_thres=args.top_k, spec_k=args.spec_k,
                                                            spec_draft_layers=args.spec_draft_layers))
-    outputs_dir = Path(args.outputs_dir)
     ts = dalle_cfg.text_seq_len
 
     paths: List[Path] = []

@@ -42,7 +42,9 @@ unacknowledged; with no other traffic the journal is the traffic.
 (`observability/slo.py`), `--status_json PATH` its status file; the pool's
 flight recorder is on unless `--no_pool_recorder`.  The report reads the
 process's metrics registry, counted from the run's start, under the JAX
-report's keys.  The telemetry flags exit naming ROADMAP.md Queue 1 item 8.
+report's keys.  At start it prints the paged pool's HBM ledger
+(`engine.memory_ledger()`).  The serving telemetry flags exit naming
+ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -62,6 +64,7 @@ from dalle_pytorch_tpu_torch.cli.png import write_png
 from dalle_pytorch_tpu_torch.core.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as dalle_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
+from dalle_pytorch_tpu_torch.observability import memory as memory_mod
 from dalle_pytorch_tpu_torch.observability import metrics as obs_metrics
 from dalle_pytorch_tpu_torch.observability.slo import SloMonitor, SloTargets
 from dalle_pytorch_tpu_torch.serving.engine import EngineConfig, GenerationEngine
@@ -260,6 +263,9 @@ def main(argv=None) -> dict:
     print(f"[serving] paged pool: {one.pool.num_blocks} blocks of {args.block_size} tokens "
           f"(+1 trash), {one.pool.bytes() / 2 ** 30:.3f} GiB ({one.pool.quant or 'float'}); {args.slots} lanes"
           + (f" a replica, {args.replicas} replicas" if engine is not one else ""))
+    print("[serving] paged-pool ledger" + (" (one replica's; the replicas share the weights)"
+                                           if engine is not one else "") + ":")
+    print(memory_mod.format_ledger(one.memory_ledger()), flush=True)
     replayed = []
     try:
         if journal is not None:

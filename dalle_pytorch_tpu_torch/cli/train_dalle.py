@@ -59,6 +59,21 @@ rank, which takes its rows, so that the losses are the one-process run's);
 the loss printed is the step's mean over the data ranks, and only rank 0 prints
 records and writes checkpoints, the full state gathered onto it into the same v3
 file with the mesh in its `topology` meta.
+
+Telemetry is on by default, as in the JAX CLI (`--telemetry DIR`, default
+`<output>.telemetry`; `--telemetry off` writes nothing): the loop's spans
+(`data_wait`, `dispatch`, `block`, `log`, `checkpoint`, `flops_crosscheck`)
+and per-step records in `<name>.spans.jsonl`, the HBM ledger priced before
+the model reaches the card (printed, and a `mem_ledger` event), the FLOPs
+crosscheck on the first step and after a rebuild and the memory crosscheck
+(the step's peak, the in-place audit) on the step after it, the headroom
+monitor (`--hbm_headroom_frac`) and the profiler captures on an alarm
+(`--profile_on_alarm`), on `--profile_steps A:B` or on SIGUSR2, under
+`traces/`.  Render a directory with
+`python -m dalle_pytorch_tpu_torch.tools.telemetry_report DIR` and
+`python -m dalle_pytorch_tpu_torch.tools.memory_report DIR`.  An
+out-of-memory error writes `oom_report_*.txt` there and exits 77
+(`resilience.EXIT_OOM`): a supervisor must not restart that config.
 """
 from __future__ import annotations
 
@@ -68,11 +83,12 @@ import dataclasses
 import itertools
 import json
 import os
+import statistics
 import sys
 import time
 from glob import glob
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -93,13 +109,21 @@ from dalle_pytorch_tpu_torch.models import pretrained, torch_port
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models import vae_registry
 from dalle_pytorch_tpu_torch.models.dalle import DALLE, DALLEConfig, init_dalle
+from dalle_pytorch_tpu_torch.observability import capture as capture_mod
+from dalle_pytorch_tpu_torch.observability import memory as memory_mod
+from dalle_pytorch_tpu_torch.observability import metrics as obs_metrics
+from dalle_pytorch_tpu_torch.observability import telemetry
+from dalle_pytorch_tpu_torch.observability.cuda import meta_module
 from dalle_pytorch_tpu_torch.optim.grouped import Adam
 from dalle_pytorch_tpu_torch.optim.plateau import ReduceOnPlateau
 from dalle_pytorch_tpu_torch.parallel import backend as backend_mod
 from dalle_pytorch_tpu_torch.parallel import registry as registry_mod
 from dalle_pytorch_tpu_torch.parallel.mesh import active_mesh, mesh_context
+from dalle_pytorch_tpu_torch.parallel.sharding import Placement
 from dalle_pytorch_tpu_torch.parallel.train_step import StepSettings, TrainState, make_train_step
 from dalle_pytorch_tpu_torch.training import resume as resume_mod
+from dalle_pytorch_tpu_torch.training.logging import MetricLogger
+from dalle_pytorch_tpu_torch.training.profiling import dalle_step_flops, matmul_param_count, mfu
 from dalle_pytorch_tpu_torch.version import __version__
 
 # flag -> (what it needs that the port does not have yet, its ROADMAP.md Queue 1 item)
@@ -194,6 +218,28 @@ def build_parser() -> argparse.ArgumentParser:
     for name in ("chinese", "hug"):
         parser.add_argument(f"--{name}", action="store_true")
     parser.add_argument("--sample_every_n_steps", type=int, default=None)
+    parser.add_argument("--log_every_n_steps", type=int, default=10,
+                        help="telemetry flush cadence (the per-step records print every step)")
+    parser.add_argument("--flops_profiler", action="store_true",
+                        help="capture a torch.profiler trace of step 199 into ./profile_trace.json and stop at 200")
+    # telemetry (observability/): on by default, JSONL only
+    parser.add_argument("--telemetry", type=str, default=None, metavar="DIR",
+                        help="telemetry directory (spans JSONL, hang dumps, traces, OOM reports); default "
+                             "<output>.telemetry; 'off' disables it")
+    parser.add_argument("--telemetry_heartbeat_s", type=float, default=900.0,
+                        help="hang-monitor deadline: no step completed within it dumps thread stacks, the last "
+                             "spans and the allocator's stats to the telemetry directory (0 disables)")
+    parser.add_argument("--telemetry_sync", type=int, default=1,
+                        help="1: synchronise the card after each step, so that its time splits into data_wait / "
+                             "dispatch / block; 0: never (block reads 0)")
+    parser.add_argument("--profile_on_alarm", type=int, default=3, metavar="N",
+                        help="capture a torch.profiler trace of the next N steps when an alarm fires (one capture "
+                             "per 15 min, 2 a run; under <telemetry>/traces; 0 disables); SIGUSR2 asks for one")
+    parser.add_argument("--profile_steps", type=str, default=None, metavar="A:B",
+                        help="capture a torch.profiler trace of steps [A, B) into <telemetry>/traces")
+    parser.add_argument("--hbm_headroom_frac", type=float, default=0.9, metavar="FRAC",
+                        help="alarm (once an episode) when the allocator's bytes in use cross FRAC of the card "
+                             "(0 disables); with --profile_on_alarm it captures the next steps")
     add_mesh_flags(parser, pipeline=True)
     backend_mod.wrap_arg_parser(parser)
     return parser
@@ -348,6 +394,22 @@ def dalle_loss_fn(model: DALLE, vae: torch.nn.Module, compute_dtype: torch.dtype
     return loss_fn
 
 
+def dalle_meta_step(cfg: DALLEConfig, vae: torch.nn.Module, batch: dict,
+                    compute_dtype: torch.dtype) -> Callable[[], None]:
+    """One training step of `cfg` at `batch`'s shapes on the meta device,
+    for the measured FLOPs count (`observability/cuda.step_cost_analysis`):
+    a model of `cfg` and a copy of the frozen `vae` there, the loss and its
+    backward in the compute dtype as `dalle_loss_fn` runs them — the VAE's
+    encode, the remat recompute, the flash kernels the card would launch —
+    with nothing allocated and nothing launched."""
+    with torch.device("meta"):
+        model = DALLE(cfg)
+    params = {n: p.detach().to(compute_dtype).requires_grad_() for n, p in model.train().named_parameters()}
+    shapes = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    loss_fn = dalle_loss_fn(model, meta_module(vae), compute_dtype)
+    return lambda: loss_fn(params, shapes, None).backward()
+
+
 def write_vae_checkpoint(path: str, vae: vae_mod.DiscreteVAE) -> None:
     """The VAE checkpoint the JAX package's `train_vae` writes, which
     `--vae_path` reads: its weights tree and its config as `hparams`."""
@@ -408,11 +470,13 @@ def reconstitute_vae(args, device, resumed=None) -> torch.nn.Module:
 
 
 def save_dalle(path: str, model: DALLE, vae: torch.nn.Module, state: TrainState, epoch: int,
-               global_step: int, data_state: Optional[dict] = None, topology: Optional[dict] = None) -> None:
+               global_step: int, data_state: Optional[dict] = None, topology: Optional[dict] = None,
+               memory_state: Optional[dict] = None) -> None:
     """The checkpoint the JAX CLI writes (`build_model_payload`), in v3:
     weights, vae_weights (the VAE's family's tree) and opt_state (the JAX
     layout, from the first update on); hparams, vae_class_name,
-    vae_params, epoch, global_step, data_state and the run's `topology`.
+    vae_params, epoch, global_step, data_state, the run's `topology` and
+    the headroom monitor's `memory_state`.
     `state` is a one-process state: a sharded run passes its full state
     (`step_fn.full_state`)."""
     cfg = model.cfg
@@ -429,6 +493,8 @@ def save_dalle(path: str, model: DALLE, vae: torch.nn.Module, state: TrainState,
             "epoch": epoch, "global_step": int(global_step), "version": __version__, "data_state": data_state}
     if topology is not None:
         meta["topology"] = topology
+    if memory_state is not None:
+        meta["memory_state"] = memory_state
     save_checkpoint(path, trees, meta)
 
 
@@ -499,22 +565,68 @@ def _train(args, be, device, mesh_cfg) -> int:
     pipe = dict(pipeline_axis="pp" if args.mesh_pp > 1 else None, pp_num_micro=args.pp_num_micro,
                 pp_interleave=args.pp_interleave)
     if resumed is not None:
-        trees, meta = resumed
-        cfg = dataclasses.replace(DALLEConfig.from_dict(meta["hparams"]), **pipe)
-        model = weights.load_dalle(trees["weights"], cfg, device)
+        cfg = dataclasses.replace(DALLEConfig.from_dict(resumed[1]["hparams"]), **pipe)
     else:
         cfg = dataclasses.replace(model_config(args, vae_cfg, tokenizer), **pipe)
-        model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
-    if is_root:
-        warn_vocab_mismatch(cfg.num_text_tokens, tokenizer)
-    model.train().requires_grad_(True)
-
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     loss_scale = args.loss_scale if args.loss_scale in (None, "dynamic") else float(args.loss_scale)
     lowp = args.param_dtype == "bfloat16"
     settings = StepSettings(grad_accum=args.ga_steps, compute_dtype=compute_dtype,
                             clip_grad_norm=args.clip_grad_norm, loss_scale=loss_scale,
                             param_dtype=torch.bfloat16 if lowp else torch.float32, zero_stage=args.zero_stage)
+    # the HBM ledger, priced before the model reaches the card: the
+    # parameters' shapes from a model on the meta device, this rank's
+    # placement on the mesh's shape (Adam's moments estimated), refreshed
+    # from the live state at the memory crosscheck
+    with torch.device("meta"):
+        shapes = DALLE(cfg)
+    shape_params = dict(shapes.named_parameters())
+    placement = None if mesh is None else Placement(
+        dataclasses.asdict(mesh_cfg), be.get_rank(), shape_params, args.zero_stage,
+        paths=weights.dalle_param_paths(cfg), module=shapes)
+    mem_ledger = memory_mod.dalle_step_memory(mesh, shape_params, None, cfg, args.batch_size, settings=settings,
+                                              plan=placement, device=device)
+    del shapes, shape_params, placement
+    run = telemetry.RunTelemetry.from_args(args, args.dalle_output_file_name, mem_ledger, device, be.get_rank(),
+                                           (resumed[1] if resumed is not None else {}).get("memory_state"))
+    logger = None
+    if run.tele is not None:
+        logger = MetricLogger(run_name=Path(args.dalle_output_file_name).name, log_dir=run.dir, is_root=is_root)
+        if is_root:
+            print(f"[telemetry] spans + metrics + hang dumps -> {run.dir} (render with python -m "
+                  "dalle_pytorch_tpu_torch.tools.telemetry_report)", flush=True)
+    if is_root:
+        fits = mem_ledger.get("fits")
+        verdict = "fits" if fits else "DOES NOT FIT" if fits is not None else "capacity unknown"
+        print("[memory] analytic HBM ledger: " + ", ".join(f"{r['name']}={r['bytes'] / 1e9:.2f}GB"
+                                                          for r in mem_ledger["rows"])
+              + f" per rank ({verdict}; dominant: {mem_ledger['dominant']})", flush=True)
+
+    # where an out-of-memory error struck, for its report
+    where = {"phase": "init", "ledger": mem_ledger,
+             "context": {"global_step": None, "mesh": mem_ledger.get("mesh"), "batch_size": args.batch_size,
+                         "ga_steps": args.ga_steps, "zero_stage": args.zero_stage}}
+    try:
+        with run.oom_exit(where, settings):
+            if resumed is not None:
+                model = weights.load_dalle(resumed[0]["weights"], cfg, device)
+            else:
+                model = init_dalle(cfg, torch.Generator(device=device).manual_seed(args.seed + 1), device)
+            if is_root:
+                warn_vocab_mismatch(cfg.num_text_tokens, tokenizer)
+            model.train().requires_grad_(True)
+            return _train_loop(args, be, device, mesh, is_root, topology, source, resumed, vae, vae_cfg, cfg, model,
+                               settings, tokenizer, out_file, run, logger, where)
+    finally:
+        run.close()
+        if logger is not None:
+            logger.finish()
+
+
+def _train_loop(args, be, device, mesh, is_root, topology, source, resumed, vae, vae_cfg, cfg, model, settings,
+                tokenizer, out_file, run, logger, where) -> int:
+    compute_dtype = settings.compute_dtype
+    tele = run.tele
     # optax.adam's math on groups of leaves, whatever the storage; under
     # --lr_decay the JAX CLI's reduce_on_plateau chained after it
     plateau = ReduceOnPlateau(factor=0.5, patience=10, cooldown=10,
@@ -523,6 +635,7 @@ def _train(args, be, device, mesh_cfg) -> int:
                                        plateau=plateau, module=model,
                                        paths=weights.dalle_param_paths(cfg) if mesh is not None else None)
     n_params = sum(p.numel() for p in model.parameters())  # before init_fn keeps this rank's pieces
+    n_matmul = matmul_param_count(dict(model.named_parameters()))
     state = init_fn(dict(model.named_parameters()), round_seed=args.seed)
     generator = torch.Generator().manual_seed(args.seed)  # dropout seeds, drawn on the host
     plan = step_fn.plan() if mesh is not None else None
@@ -530,7 +643,6 @@ def _train(args, be, device, mesh_cfg) -> int:
     if args.batch_size % shares:
         raise SystemExit(f"--batch_size {args.batch_size} does not split over {shares} data ranks")
     data_iter = data_iterator(args, cfg, vae_cfg, tokenizer, 0 if plan is None else plan.data_coord, shares)
-
 
     meta = resumed[1] if resumed is not None else {}
     data_state = meta.get("data_state") or {}
@@ -562,23 +674,62 @@ def _train(args, be, device, mesh_cfg) -> int:
 
     def save(path, epoch, ds_epoch, ds_batches, step=None, keep_n=None):
         # the one-process state, gathered onto the root alone
-        full = state if plan is None else step_fn.full_state(state)
-        if is_root:
-            ds = resume_mod.data_state_dict(ds_epoch, ds_batches, args.seed, gens)
-            save_dalle(path, model, vae, full, epoch, global_step if step is None else step, ds, topology)
-            if keep_n is not None:
-                resume_mod.rotate_checkpoints(str(Path(path).parent), resume_mod.rotation_glob(path), keep_n)
-        be.local_barrier()
+        with telemetry.span("checkpoint", path=str(path)):
+            full = state if plan is None else step_fn.full_state(state)
+            if is_root:
+                ds = resume_mod.data_state_dict(ds_epoch, ds_batches, args.seed, gens)
+                save_dalle(path, model, vae, full, epoch, global_step if step is None else step, ds, topology,
+                           run.monitor.state_dict() if run.monitor is not None else None)
+                if keep_n is not None:
+                    resume_mod.rotate_checkpoints(str(Path(path).parent), resume_mod.rotation_glob(path), keep_n)
+            be.local_barrier()
 
+    def count_flops(batch):
+        """The FLOPs crosscheck (at the first step, and after a rebuild):
+        this rank's step at `batch`'s shapes counted on the meta device
+        (`dalle_meta_step`), against the analytic FLOPs of this rank's
+        rows.  On a mesh the count is of those rows through the whole
+        model, as is the analytic side: it does not see the tp, sp or pp
+        split."""
+        analytic = dalle_step_flops(cfg, int(batch["text"].shape[0]), n_matmul, granularity="tile")
+        _, ratio = tele.crosscheck_flops(dalle_meta_step(cfg, vae, batch, compute_dtype), analytic)
+        if is_root and ratio is not None:
+            print(f"[telemetry] measured/analytic FLOPs ratio: {ratio:.3f}", flush=True)
+
+    def memory_step(batch, rows):
+        """The step after the first (whose peak also holds the builds and
+        the first-use buffers), its peak on the card against the ledger
+        refreshed from the live state at the global batch `rows` (a new
+        `mem_ledger` event where that changes it), and the in-place
+        audit."""
+        live = memory_mod.dalle_step_memory(mesh, state.params, state.opt_state, cfg, rows, settings=settings,
+                                            plan=plan, device=device)
+        if live["total_bytes"] != where["ledger"]["total_bytes"]:
+            where["ledger"] = live
+            run.publish_ledger(live)
+        out, ratio = tele.crosscheck_memory(lambda: step_fn(state, batch, generator), where["ledger"],
+                                            memory_mod.state_bytes(state), device=device)
+        if is_root and ratio is not None:
+            print(f"[memory] measured/analytic HBM ratio: {ratio:.3f} (analytic "
+                  f"{where['ledger']['total_bytes'] / 1e9:.2f}GB per rank)", flush=True)
+        return out
+
+    t_window = time.perf_counter()
+    window_start = global_step
+    checked_builds = memory_at = None
+    step_s = []
     save(out_file, resume_epoch, resume_epoch, pending_skip)
     for epoch in range(resume_epoch, args.epochs):
         skip_now, pending_skip = pending_skip, 0
         epoch_batches = skip_now
         batches = iter(data_iter(epoch, skip_now))
         while True:
+            run.begin(global_step)
             t0 = time.perf_counter()
-            batch = next(batches, None)
+            with telemetry.span("data_wait"):
+                batch = next(batches, None)
             if batch is None:
+                run.abort()  # the wait that found the epoch's end
                 break
             t_data = time.perf_counter()
             epoch_batches += 1
@@ -588,19 +739,50 @@ def _train(args, be, device, mesh_cfg) -> int:
             rows = int(batch["text"].shape[0]) * (1 if args.dummy_run is not None else shares)
             if plan is not None and args.dummy_run is not None:
                 batch = step_fn.local_batch(batch)
-            state, metrics = step_fn(state, batch, generator)
-            record = {"step": state.step, "epoch": epoch, "loss": float(metrics["loss"]),
-                      "grad_norm": float(metrics["grad_norm"]), "skipped": metrics["skipped"],
-                      "batch": rows, "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}
-            if "loss_scale" in metrics:
-                record["loss_scale"] = metrics["loss_scale"]
-            if state.plateau is not None:
-                record["lr_scale"] = float(state.plateau.scale)
-            if is_root:
-                print(json.dumps(record), flush=True)
+            if args.flops_profiler and global_step == 199:
+                capture_mod.start_trace("./profile_trace.json")
+            where["phase"] = "train_step" if where["context"]["global_step"] is not None else "compile"
+            where["context"]["global_step"] = global_step
+            builds = tele.compile_watcher.recompiles if tele is not None and tele.compile_watcher else 0
+            if tele is not None and checked_builds != builds:
+                with telemetry.span("flops_crosscheck"):
+                    count_flops(batch)
+                checked_builds = builds
+                memory_at = global_step + 1  # this step's peak holds what is built for it
+            with telemetry.span("dispatch"):
+                if global_step == memory_at:
+                    state, metrics = memory_step(batch, rows)
+                else:
+                    state, metrics = step_fn(state, batch, generator)
+            run.block()
+            with telemetry.span("log"):
+                record = {"step": state.step, "epoch": epoch, "loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]), "skipped": metrics["skipped"],
+                          "batch": rows, "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}
+                if "loss_scale" in metrics:
+                    record["loss_scale"] = metrics["loss_scale"]
+                if state.plateau is not None:
+                    record["lr_scale"] = float(state.plateau.scale)
+                if is_root:
+                    print(json.dumps(record), flush=True)
+                step_s.append(record["step_s"])
+                obs_metrics.counter("train_steps").inc()
+                if tele is not None and global_step % args.log_every_n_steps == 0:
+                    dt = time.perf_counter() - t_window
+                    tokens = args.batch_size * cfg.total_seq_len * (global_step - window_start + 1)
+                    obs_metrics.gauge("tokens_per_sec").set(tokens / max(dt, 1e-9))
+                    t_window, window_start = time.perf_counter(), global_step + 1
+                    run.flush(logger, step=global_step)
             if args.save_every_n_steps and global_step and global_step % args.save_every_n_steps == 0:
                 step_file = f"{args.dalle_output_file_name}_step{global_step}.npz"
                 save(step_file, epoch, epoch, epoch_batches, step=global_step + 1, keep_n=args.keep_n_checkpoints)
+            if args.flops_profiler and global_step == 200:
+                capture_mod.stop_trace()
+                if is_root:
+                    print("profiler trace written to ./profile_trace.json; stopping (parity with --flops_profiler)",
+                          flush=True)
+                return 0
+            run.end(global_step)
             global_step += 1
         if epoch_batches == 0:
             raise RuntimeError(f"epoch {epoch} produced no batch from {args.image_text_folder!r}: every shard "
@@ -610,6 +792,14 @@ def _train(args, be, device, mesh_cfg) -> int:
         # the JAX CLI saves once more after its loop; after a last epoch that
         # save would write the file its epoch-end save just wrote
         save(out_file, args.epochs, args.epochs, 0)
+    if tele is not None:
+        run.flush(logger, step=global_step)
+        summary = tele.summary()
+        if len(step_s) > 1:  # the first step's time holds the kernels' builds
+            flops = dalle_step_flops(cfg, args.batch_size // shares, n_matmul, granularity="tile")
+            summary["mfu"] = mfu(flops, statistics.median(step_s[1:]), dtype=compute_dtype, device=device)
+        if is_root:
+            print(f"[telemetry] run summary: {summary}", flush=True)
     if is_root:
         print(json.dumps({"checkpoint": out_file, "global_step": global_step}), flush=True)
     return 0

@@ -24,13 +24,18 @@ JAX CLI's `vae.pt` (or of a torch-reference one, converted) and starts a
 fresh optimizer, as the JAX CLI does.  Each
 step prints one JSON record.  It runs on the card unless `--device cpu`.
 
-The flags and defaults are the JAX CLI's, but for three whose JAX defaults
-turn on machinery the port does not have: `--telemetry` (default off here),
-`--async_checkpoint` (0) and `--prefetch_batches` (0); their JAX values,
-and every other flag whose machinery waits, exit naming their ROADMAP.md
-item.  The flags that act only under telemetry (`--fleet`,
-`--profile_on_alarm`, `--hbm_headroom_frac`, `--telemetry_*`) are taken and
-do nothing, as under the JAX CLI's `--telemetry off`.
+The flags and defaults are the JAX CLI's, but for two whose JAX defaults
+turn on machinery the port does not have: `--async_checkpoint` (0) and
+`--prefetch_batches` (0); their JAX values, and every other flag whose
+machinery waits (`--health_every`, `--inject_fault`,
+`--fleet_inject_skew`), exit naming their ROADMAP.md item; `--fleet` is
+taken and does nothing.  Telemetry is on by default, as in the JAX CLI
+(`--telemetry DIR`, default `<output>.telemetry`; `--telemetry off`): the
+loop's spans (`data_wait`, `dispatch`, `block`, `log`, `checkpoint`), the
+tree ledger (a lower bound: no activation row), the headroom monitor
+(`--hbm_headroom_frac`), the hang monitor (`--telemetry_heartbeat_s`) and
+profiler captures (`--profile_on_alarm`, `--profile_steps A:B`, SIGUSR2).
+An out-of-memory error writes `oom_report_*.txt` there and exits 77.
 """
 from __future__ import annotations
 
@@ -54,6 +59,8 @@ from dalle_pytorch_tpu_torch.data import loader
 from dalle_pytorch_tpu_torch.models import torch_port
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.models.vae import DiscreteVAEConfig
+from dalle_pytorch_tpu_torch.observability import memory as memory_mod
+from dalle_pytorch_tpu_torch.observability import telemetry
 from dalle_pytorch_tpu_torch.optim.grouped import Adam
 from dalle_pytorch_tpu_torch.parallel import backend as backend_mod
 from dalle_pytorch_tpu_torch.parallel.mesh import MeshConfig, make_mesh
@@ -64,8 +71,6 @@ LOG_EVERY = 100  # the annealing and logging cadence, in steps
 
 # flag -> (its value that leaves the machinery off, the machinery, its ROADMAP.md Queue 1 item)
 _WAITING = {
-    "telemetry": ("off", "telemetry (spans, hang dumps, fleet aggregation)", 8),
-    "profile_steps": (None, "profiler capture", 8),
     "health_every": (0, "the in-graph health diagnostic step", 8),
     "inject_fault": (None, "the fault-injection harness", 8),
     "fleet_inject_skew": (0.0, "the straggler injection of fleet telemetry", 8),
@@ -106,27 +111,31 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", type=str, default=None, metavar="auto|PATH",
                         help="'auto': <vae_output_file_name>.pt when it loads, else a fresh start; a path "
                              "resumes from that checkpoint.  Weights and hparams only: a fresh optimizer")
-    # the JAX defaults of these three turn machinery on that the port does not have
-    parser.add_argument("--telemetry", type=str, default="off", metavar="DIR",
-                        help="off (the port's default; the JAX CLI's default is on): telemetry waits for "
-                             "ROADMAP.md Queue 1 item 8")
+    parser.add_argument("--telemetry", type=str, default=None, metavar="DIR",
+                        help="telemetry directory (spans JSONL, hang dumps, traces, OOM reports); default "
+                             "<output>.telemetry; 'off' disables it")
+    # the JAX defaults of these two turn machinery on that the port does not have
     parser.add_argument("--async_checkpoint", type=int, default=0,
                         help="0 (the port's default; the JAX CLI's is 1): saves are synchronous; the "
                              "background writer waits for Queue 1 item 8")
     parser.add_argument("--prefetch_batches", type=int, default=0,
                         help="0 (the port's default; the JAX CLI's is 2): no device prefetch thread; it waits "
                              "for Queue 1 item 10")
-    parser.add_argument("--profile_steps", type=str, default=None, metavar="A:B", help="Queue 1 item 8")
+    parser.add_argument("--profile_steps", type=str, default=None, metavar="A:B",
+                        help="capture a torch.profiler trace of steps [A, B) into <telemetry>/traces")
     parser.add_argument("--health_every", type=int, default=0, metavar="N", help="N > 0: Queue 1 item 8")
     parser.add_argument("--inject_fault", type=str, default=None, metavar="KIND@STEP", help="Queue 1 item 8")
     parser.add_argument("--fleet_inject_skew", type=float, default=0.0, metavar="SECONDS", help="Queue 1 item 8")
-    # inert: they act only under telemetry, as under the JAX CLI's --telemetry off
-    parser.add_argument("--telemetry_heartbeat_s", type=float, default=900.0, help="inert without telemetry")
-    parser.add_argument("--telemetry_sync", type=int, default=1, help="inert without telemetry")
-    parser.add_argument("--fleet", type=int, default=1, help="inert without telemetry")
-    parser.add_argument("--profile_on_alarm", type=int, default=3, metavar="N", help="inert without telemetry")
+    parser.add_argument("--telemetry_heartbeat_s", type=float, default=900.0,
+                        help="hang-monitor deadline in seconds (0 disables)")
+    parser.add_argument("--telemetry_sync", type=int, default=1,
+                        help="1: synchronise the card after each step (the block span); 0: never")
+    parser.add_argument("--fleet", type=int, default=1,
+                        help="taken and inert: the fleet aggregator waits for ROADMAP.md Queue 1 item 7")
+    parser.add_argument("--profile_on_alarm", type=int, default=3, metavar="N",
+                        help="capture a torch.profiler trace of the next N steps when an alarm fires (0 disables)")
     parser.add_argument("--hbm_headroom_frac", type=float, default=0.9, metavar="FRAC",
-                        help="inert without telemetry")
+                        help="alarm when the allocator's bytes in use cross FRAC of the card (0 disables)")
     backend_mod.wrap_arg_parser(parser)
     return parser
 
@@ -259,12 +268,32 @@ def _train(args, be, device) -> int:
     logger = MetricLogger(run_name=args.vae_output_file_name, use_wandb=args.wandb,
                           wandb_kwargs={"name": args.wandb_name}, config=cfg.to_dict(), is_root=is_root)
 
+    # the VAE has no priced activation geometry (convolutions): the tree
+    # ledger, a LOWER bound that still names the dominant row in an OOM report
+    mem_ledger = memory_mod.generic_memory_ledger(state.params, state.opt_state, device=device)
+    run = telemetry.RunTelemetry.from_args(args, args.vae_output_file_name, mem_ledger, device, be.get_rank())
+    where = {"phase": "train_step", "ledger": mem_ledger,
+             "context": {"batch_size": args.batch_size, "image_size": cfg.image_size}}
+    progress = {"step": 0}  # the loop's step, for the last flush
+    try:
+        with run.oom_exit(where):
+            return _loop(args, be, device, vae, cfg, dataset, state, step_fn, generator, logger, run, temp, temp_t,
+                         lr, lr_t, is_root, shares, source, progress)
+    finally:
+        run.flush(logger, step=progress["step"])
+        run.close()
+        logger.finish()
+
+
+def _loop(args, be, device, vae, cfg, dataset, state, step_fn, generator, logger, run, temp, temp_t, lr,
+          lr_t, is_root, shares, source, progress) -> int:
     out_file = f"{args.vae_output_file_name}.pt"
 
     def save():  # the parameters are replicated: the root writes its own
-        if is_root:
-            write_vae_checkpoint(out_file, vae)
-        be.local_barrier()
+        with telemetry.span("checkpoint"):
+            if is_root:
+                write_vae_checkpoint(out_file, vae)
+            be.local_barrier()
 
     save()  # an unwritable output fails before any compute
     if is_root:
@@ -278,31 +307,40 @@ def _train(args, be, device) -> int:
                                                     num_workers=args.num_workers, process_index=be.get_rank(),
                                                     process_count=shares))
         while True:
+            run.begin(global_step)
             t0 = time.perf_counter()
-            images = next(batches, None)
+            with telemetry.span("data_wait"):
+                images = next(batches, None)
             if images is None:
+                run.abort()
                 break
             t_data = time.perf_counter()
             images = torch.from_numpy(images).to(device)
-            state, metrics = step_fn(state, {"images": images, "temp": temp_t}, generator)
-            loss = float(metrics["loss"])  # the step's mean over the data ranks
-            if is_root:
-                print(json.dumps({"step": global_step, "epoch": epoch, "loss": loss, "temperature": temp, "lr": lr,
-                                  "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}), flush=True)
-            if global_step % LOG_EVERY == 0:
-                temp = max(temp * math.exp(-args.anneal_rate * global_step), args.temp_min)
-                temp_t.fill_(temp)
-                # every rank draws, so that the gumbel generators stay in step
-                _log_cadence(logger, vae, images, generator, temp_t, global_step, epoch, args.num_images_save,
-                             {"loss": loss, "temperature": temp, "lr": lr})
+            with telemetry.span("dispatch"):
+                state, metrics = step_fn(state, {"images": images, "temp": temp_t}, generator)
+            run.block()
+            with telemetry.span("log"):
+                loss = float(metrics["loss"])  # the step's mean over the data ranks
+                if is_root:
+                    print(json.dumps({"step": global_step, "epoch": epoch, "loss": loss, "temperature": temp,
+                                      "lr": lr, "step_s": time.perf_counter() - t_data, "data_s": t_data - t0}),
+                          flush=True)
+                if global_step % LOG_EVERY == 0:
+                    temp = max(temp * math.exp(-args.anneal_rate * global_step), args.temp_min)
+                    temp_t.fill_(temp)
+                    # every rank draws, so that the gumbel generators stay in step
+                    _log_cadence(logger, vae, images, generator, temp_t, global_step, epoch, args.num_images_save,
+                                 {"loss": loss, "temperature": temp, "lr": lr})
+                    run.flush(logger, step=global_step)
             if args.save_every_n_steps and global_step and global_step % args.save_every_n_steps == 0:
                 save()
+            run.end(global_step)
             global_step += 1
+            progress["step"] = global_step
         lr *= args.lr_decay_rate
         lr_t.fill_(lr)
         save()
         logger.log({"epoch_time_s": time.time() - t_epoch, "epoch": epoch}, step=global_step)
-    logger.finish()
     if is_root:
         print(json.dumps({"checkpoint": out_file, "global_step": global_step}), flush=True)
     return 0

@@ -20,7 +20,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -30,6 +30,16 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# callables (kind, name, seconds) told of what the port builds at run time:
+# ("kernel", source, nvcc seconds) when a library is loaded in this process,
+# ("tables", key, seconds) when `flash_attention.pattern_tables` builds
+# (`observability/cuda.CompileWatcher`)
+LISTENERS: List[Callable[[str, str, float], None]] = []
+
+
+def notify(kind: str, name: str, seconds: float) -> None:
+    for fn in list(LISTENERS):
+        fn(kind, name, seconds)
 
 
 def _nvcc() -> str:
@@ -89,7 +99,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path, _ = build(name)
+        path, seconds = build(name)
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
+        notify("kernel", name, seconds)
     return lib

@@ -28,19 +28,28 @@ take the plain versions (`flash_attention_reference`,
 is no fallback from a kernel to a plain version.  `flash_attention` goes
 through the autograd function `FlashAttention` whenever a gradient is
 wanted, and straight to `flash_fwd` otherwise.
+
+Meta tensors take the card's route without running anything: the grid
+choice and the pattern checks of a CUDA call, outputs allocated on the meta
+device, no launch, so that a step can be counted before (or instead of)
+running it.  `tally_work` records the work (`work.py`) of each kernel the
+card's route runs, or would run on meta tensors, for the FLOPs count of a
+step (`observability/cuda.step_cost_analysis`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import re
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dalle_pytorch_tpu_torch.kernels import build
+from dalle_pytorch_tpu_torch.kernels import build, work
 from dalle_pytorch_tpu_torch.kernels.sparse_index import (
     block_causal_live_np,
     build_compacted_tables,
@@ -278,6 +287,7 @@ def pattern_tables(
     "compact"."""
     if grid not in _GRIDS:
         raise ValueError(f"grid must be one of {_GRIDS}, got {grid!r}")
+    t0 = time.perf_counter()
     (tq, tk), (cq, ck) = tile_shapes(d)
     if mask is None:
         m = np.ones((1, n, n), bool)
@@ -300,6 +310,8 @@ def pattern_tables(
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    build.notify("tables", f"n{n}_d{d}_h{heads}_causal{int(causal)}_{'compact' if compact else 'dense'}",
+                 time.perf_counter() - t0)
     return PatternTables(
         n=n, heads=heads, causal=causal, row_tile=(tq, tk), col_tile=(cq, ck), compact=compact,
         live_rows=put(live_r.astype(np.uint8)),
@@ -333,7 +345,7 @@ def _check_pattern(q, h, mask, tables, causal, grid) -> None:
 
 
 def _tables_for(q, mask, causal, grid, tables) -> Optional[PatternTables]:
-    """The tables a CUDA call runs with: the caller's, or built here from the
+    """The tables a CUDA (or meta) call runs with: the caller's, or built here from the
     mask (a copy of the mask to the host: callers on a hot path build them
     once with `pattern_tables`); None for the dense grid without a
     pattern."""
@@ -353,6 +365,16 @@ def _compact(tables: Optional[PatternTables], grid: str) -> bool:
 
 def _is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
+
+
+def _route(q, name: str) -> str:
+    """"cuda", "cpu" (the plain version) or "meta" (the card's route, no
+    launch); any other device raises."""
+    if _is_cuda(q):
+        return "cuda"
+    if q.device.type not in ("cpu", "meta"):
+        raise ValueError(f"{name} runs on CUDA, CPU or meta tensors, not {q.device}")
+    return q.device.type
 
 
 def _check_cuda_inputs(q, k, v, h, key_mask):
@@ -452,6 +474,70 @@ def _entry(name: str):
     return fn
 
 
+# ---------------------------------------------------------------------------
+# the work tally
+# ---------------------------------------------------------------------------
+
+
+class WorkRecord(NamedTuple):
+    """One kernel of one call as the card runs it: its kernels-line name,
+    the FLOPs and bytes `work` counts for it, and the geometry they come
+    from (`live_tiles`, `heads` and `tile` for a pattern's call, None on
+    the dense grid without one)."""
+
+    name: str
+    flops: float
+    nbytes: float
+    bh: int
+    n: int
+    d: int
+    dtype: torch.dtype
+    causal: bool
+    key_masked: bool
+    live_tiles: Optional[int]
+    heads: Optional[int]
+    tile: Optional[Tuple[int, int]]
+
+
+_TALLY: Optional[List[WorkRecord]] = None
+
+
+@contextlib.contextmanager
+def tally_work():
+    """Record the work of every kernel call in the block: yields a list
+    that gains one `WorkRecord` for each kernel the card runs for a call on
+    CUDA tensors, or would run for the same call on meta tensors (a VFA
+    forward two, a backward two).  A CPU call runs a plain version, no
+    kernel, and records nothing."""
+    global _TALLY
+    prev, _TALLY = _TALLY, []
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = prev
+
+
+def _record(name: str, kind: str, q, h: int, causal: bool, key_mask, tables: Optional["PatternTables"]) -> None:
+    if _TALLY is None:
+        return
+    bh, n, d = q.shape
+    if tables is None:
+        nbytes, flops = work.dense_work(kind, bh // h, h, n, d, q.dtype, causal, key_mask)
+        live = heads = tile = None
+    else:
+        live, tile = ((tables.live_tiles_dkv, tables.col_tile[::-1]) if kind == "dkv"
+                      else (tables.live_tiles, tables.row_tile))
+        heads = tables.heads
+        nbytes, flops = work.pattern_work(kind, bh, n, d, q.dtype, live, heads, tile)
+    _TALLY.append(WorkRecord(name, flops, nbytes, bh, n, d, q.dtype, causal, key_mask is not None, live, heads,
+                             tile))
+
+
+def _meta_outputs(*like) -> Tuple[torch.Tensor, ...]:
+    """A meta call's outputs: one empty tensor like each of `like`."""
+    return tuple(torch.empty_like(t) for t in like)
+
+
 def _call(name: str, q, tensors, h, causal, scale, mask_heads=1, tab_heads=1, tab_len=0,
           tile=(0, 0)) -> None:
     """Launch entry `name` on q's card, on its current stream; `tensors` are
@@ -496,15 +582,16 @@ def flash_fwd(
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
     _check_pattern(q, h, mask, tables, causal, grid)
-    cpu = q.device.type == "cpu"
-    if not (cpu or _is_cuda(q)):
-        raise ValueError(f"flash_fwd runs on CUDA or CPU tensors, not {q.device}")
-    if vfa or not cpu:
+    route = _route(q, "flash_fwd")
+    if vfa or route != "cpu":
         tables = _tables_for(q, mask, causal, grid, tables)
         if _compact(tables, grid):
             return flash_fwd_compact(q, k, v, tables, h, causal, scale, mask, key_mask, vfa)
-    if cpu:
+    if route == "cpu":
         return flash_attention_reference(q, k, v, h, causal, scale, mask, key_mask)
+    _record("flash_fwd", "fwd", q, h, causal, key_mask, tables)
+    if route == "meta":
+        return _meta_outputs(q, q[..., 0].float())
     _check_cuda_inputs(q, k, v, h, key_mask)
     m, mask_heads = _device_mask(q, mask, h)
     out = torch.empty_like(q)
@@ -550,13 +637,19 @@ def flash_fwd_compact(
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
     _check_pattern(q, h, mask, tables, causal, "compact")
-    if q.device.type == "cpu":
+    route = _route(q, "flash_fwd_compact")
+    if route == "cpu":
         if vfa:
             gmax = vfa_max_reference(q, k, h, causal, scale, mask, key_mask)
             return vfa_fwd_reference(q, k, v, gmax, h, causal, scale, mask, key_mask)
         return flash_attention_reference(q, k, v, h, causal, scale, mask, key_mask)
-    if not _is_cuda(q):
-        raise ValueError(f"flash_fwd_compact runs on CUDA or CPU tensors, not {q.device}")
+    if vfa:
+        _record("flash_max_compact", "vfa_max", q, h, causal, key_mask, tables)
+        _record("flash_fwd_compact_vfa", "vfa_fwd", q, h, causal, key_mask, tables)
+    else:
+        _record("flash_fwd_compact", "fwd", q, h, causal, key_mask, tables)
+    if route == "meta":
+        return _meta_outputs(q, q[..., 0].float())
     _check_cuda_inputs(q, k, v, h, key_mask)
     t = _device_tables(q, tables)
     m, mask_heads = _device_mask(q, mask, h)
@@ -612,13 +705,16 @@ def flash_bwd(
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
     _check_pattern(q, h, mask, tables, causal, grid)
-    if q.device.type == "cpu":
+    route = _route(q, "flash_bwd")
+    if route == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, scale, mask, key_mask)
-    if not _is_cuda(q):
-        raise ValueError(f"flash_bwd runs on CUDA or CPU tensors, not {q.device}")
     tables = _tables_for(q, mask, causal, grid, tables)
     if _compact(tables, grid):
         return flash_bwd_compact(q, k, v, out, lse, do, tables, h, causal, scale, mask, key_mask)
+    _record("flash_dq", "dq", q, h, causal, key_mask, tables)
+    _record("flash_dkv", "dkv", q, h, causal, key_mask, tables)
+    if route == "meta":
+        return _meta_outputs(q, k, v)
     _check_cuda_inputs(q, k, v, h, key_mask)
     _check_cuda_residuals(q, out, lse, do)
     m, mask_heads = _device_mask(q, mask, h)
@@ -677,10 +773,13 @@ def flash_bwd_compact(
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
     _check_pattern(q, h, mask, tables, causal, "compact")
-    if q.device.type == "cpu":
+    route = _route(q, "flash_bwd_compact")
+    if route == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, scale, mask, key_mask)
-    if not _is_cuda(q):
-        raise ValueError(f"flash_bwd_compact runs on CUDA or CPU tensors, not {q.device}")
+    _record("flash_dq_compact", "dq", q, h, causal, key_mask, tables)
+    _record("flash_dkv_compact", "dkv", q, h, causal, key_mask, tables)
+    if route == "meta":
+        return _meta_outputs(q, k, v)
     _check_cuda_inputs(q, k, v, h, key_mask)
     _check_cuda_residuals(q, out, lse, do)
     t = _device_tables(q, tables)
@@ -714,7 +813,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa, keep):
-        if _is_cuda(q):
+        if q.device.type != "cpu":
             tables = _tables_for(q, mask, causal, grid, tables)
         run = functools.partial(flash_fwd, q, k, v, h, causal, scale, mask, key_mask, grid, tables, vfa)
         out, lse = run() if keep is None else keep(run)

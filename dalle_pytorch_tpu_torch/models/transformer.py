@@ -463,8 +463,9 @@ class Transformer(nn.Module):
     def attention_inputs(self, key, n: int, causal: bool, device: torch.device):
         """(mask, tables) of the layers with pattern key `key` for
         full-sequence attention at length n: the pattern cut to (n, n) on
-        `device` (None for 'full'), and on a CUDA device its kernel tables
-        (None on the CPU, and for 'full' unless attn_grid is "compact").
+        `device` (None for 'full'), and on a CUDA or meta device its kernel
+        tables (None on the CPU, and for 'full' unless attn_grid is
+        "compact").
         Under tensor parallelism a per-head pattern keeps this rank's
         heads."""
         cfg = self.cfg
@@ -483,7 +484,7 @@ class Transformer(nn.Module):
             mask_np = None if pattern is None else np.ascontiguousarray(pattern[..., :n, :n])
             mask = None if mask_np is None else mask_with_slack(torch.from_numpy(mask_np).to(device))
             tables = None
-            if device.type == "cuda":
+            if device.type != "cpu":
                 tables = pattern_tables(mask_np, n, cfg.dim_head, causal, cfg.attn_grid, device)
             got = self._attn_inputs[cache_key] = (mask, tables)
         return got

@@ -219,6 +219,14 @@ class MetricsRegistry:
                 out[name] = rec
         return out
 
+    def flush_to(self, logger, step: Optional[int] = None, reset_window: bool = True) -> Dict[str, Any]:
+        """Push a snapshot through a `training.logging.MetricLogger` as one
+        quiet record under the 'telemetry' key; returns the snapshot."""
+        snap = self.snapshot(reset_window=reset_window)
+        if logger is not None and snap:
+            logger.log({"telemetry": snap}, step=step, quiet=True)
+        return snap
+
     def reset(self) -> None:
         """Drop every instrument (tests)."""
         with self._lock:

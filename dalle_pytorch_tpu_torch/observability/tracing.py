@@ -8,9 +8,11 @@ the same content uid (`serving/journal.request_uid`), which stitches them
 into one journey: the router suppresses a hedged pair's second completion
 by it, and the loadgen's journey percentiles group by it.
 
-The JAX module's `emit` writes trace events into the telemetry hub; the
-port has no hub yet (ROADMAP.md Queue 1 item 8), so the serving code makes
-no such calls, as the JAX package with telemetry off makes none.
+The JAX module's `emit` writes trace events into the telemetry hub.  The
+port's hub (`telemetry.py`) serves the training loops; serving telemetry,
+`emit` and its calls with it, waits (ROADMAP.md Queue 1 item 8), so the
+serving code makes no such calls, as the JAX package with telemetry off
+makes none.
 """
 from __future__ import annotations
 

@@ -258,27 +258,26 @@ class Zero3Units:
         return full.as_strided(x.size, x.stride, x.offset)
 
 
-class MeshPlan:
-    """The sharded step's view of the mesh: each parameter's `Layout` (from
-    the registry, on its JAX path), this rank's coordinate and groups, and
-    the collectives of the step.  A rank's piece of a tensor is always
-    `local_piece` of it under one of the layout's specs.  `elementwise`:
-    the optimizer updates each element from its own statistics (Adam), so
-    it runs on this rank's shards; otherwise (Adafactor, whose statistics
-    span a leaf) it runs on the gathered leaves with replicated statistics.
-    `module`: the model the loss runs, whose units ZeRO-3 gathers one at a
-    time (`Zero3Units`)."""
+class Placement:
+    """Where one rank of a mesh holds each parameter: its `Layout` (from
+    the registry, on its JAX path), the rank's coordinate, what the model
+    makes of sp and pp (`_model_axes`), with no process group: the memory
+    ledger prices a rank's share with it (`held_fraction`) before the mesh
+    runs, and `MeshPlan` builds the step on it.  `axes`: {axis: size} or a
+    DeviceMesh; `elementwise`: the optimizer updates each element from its
+    own statistics (Adam), so it runs on this rank's shards; otherwise
+    (Adafactor, whose statistics span a leaf) it runs on the gathered
+    leaves with replicated statistics.  `module`: the model the loss runs."""
 
-    def __init__(self, mesh, params: Mapping[str, torch.Tensor], zero_stage: int,
+    def __init__(self, axes, rank: int, params: Mapping[str, torch.Tensor], zero_stage: int,
                  paths: Optional[Mapping[str, Any]] = None, registry: Optional[PartitionRegistry] = None,
                  elementwise: bool = True, module: Optional[torch.nn.Module] = None):
         reg = registry if registry is not None else default_registry()
         self.full_update = not elementwise
-        self.axes = resolve_axes(mesh)
+        self.axes = resolve_axes(axes)
         self.world = math.prod(self.axes.values())
-        self.rank = dist.get_rank() if self.world > 1 else 0
+        self.rank = rank
         self.coord = mesh_coordinate(self.rank, self.axes)
-        self.groups, self.data_group = mesh_groups(mesh) if self.world > 1 else ({a: None for a in self.axes}, None)
         self.T, self.F = self.axes[AXIS_TP], self.axes[AXIS_FSDP]
         self.D = self.axes[AXIS_DP] * self.F
         self.data_coord = self.coord[AXIS_DP] * self.F + self.coord[AXIS_FSDP]
@@ -302,12 +301,6 @@ class MeshPlan:
                 raise ValueError(f"{name}: its dim {tp_dim} of {tuple(p.shape)} does not split over tp {self.T}")
             sub = _only(update, AXIS_FSDP) if rest_dim is None else P()
             self.layouts[name] = Layout(tuple(p.shape), rest, update, sub)
-        sharded = {n for n, lay in self.layouts.items()
-                   if lay.rest_dim is not None and self.F > 1 and n not in self.elsewhere}
-        if sharded and module is None:
-            raise ValueError("ZeRO-3 gathers each layer's parameters around its use: pass the model the loss runs "
-                             "(make_train_step(module=...))")
-        self.units = Zero3Units(self, module, sharded) if sharded else None
 
     def _model_axes(self, module: Optional[torch.nn.Module], params: Mapping[str, torch.Tensor]) -> None:
         """What the model makes of sp and pp: `seq` (the sequence sharded
@@ -346,8 +339,6 @@ class MeshPlan:
         self.stage_of = {n: next(iter(st)) for n, st in stages.items() if len(st) == 1}
         self.elsewhere = {n for n, st in self.stage_of.items() if st != me}
 
-    # -- pieces ---------------------------------------------------------------
-
     def _local(self, x: torch.Tensor, spec) -> torch.Tensor:
         return local_piece(x, spec, self.axes, self.coord)
 
@@ -361,6 +352,47 @@ class MeshPlan:
             return full.new_empty(0)
         lay = self.layouts[name]
         return self._local(full, lay.rest if rest else lay.update)
+
+    def held_fraction(self, names, moments: bool = False) -> float:
+        """The share of the elements of the parameters `names` this rank
+        holds at rest (`moments`: the share of their optimizer statistics):
+        its pieces under the layouts, nothing of another stage's leaves, the
+        whole leaves where the optimizer runs on gathered ones."""
+        full = held = 0
+        for name in names:
+            lay = self.layouts[name]
+            n = math.prod(lay.shape)
+            full += n
+            if moments and self.full_update:
+                held += n
+            elif name not in self.elsewhere:
+                spec = lay.update if moments else lay.rest
+                held += local_piece(torch.empty(lay.shape, device="meta"), spec, self.axes, self.coord).numel()
+        return held / full if full else 1.0
+
+
+class MeshPlan(Placement):
+    """The sharded step's view of the mesh: this rank's `Placement`, its
+    groups, and the collectives of the step.  A rank's piece of a tensor is
+    always `local_piece` of it under one of the layout's specs.  `module`:
+    the model the loss runs, whose units ZeRO-3 gathers one at a time
+    (`Zero3Units`)."""
+
+    def __init__(self, mesh, params: Mapping[str, torch.Tensor], zero_stage: int,
+                 paths: Optional[Mapping[str, Any]] = None, registry: Optional[PartitionRegistry] = None,
+                 elementwise: bool = True, module: Optional[torch.nn.Module] = None):
+        world = math.prod(resolve_axes(mesh).values())
+        super().__init__(mesh, dist.get_rank() if world > 1 else 0, params, zero_stage, paths, registry,
+                         elementwise, module)
+        self.groups, self.data_group = mesh_groups(mesh) if self.world > 1 else ({a: None for a in self.axes}, None)
+        sharded = {n for n, lay in self.layouts.items()
+                   if lay.rest_dim is not None and self.F > 1 and n not in self.elsewhere}
+        if sharded and module is None:
+            raise ValueError("ZeRO-3 gathers each layer's parameters around its use: pass the model the loss runs "
+                             "(make_train_step(module=...))")
+        self.units = Zero3Units(self, module, sharded) if sharded else None
+
+    # -- pieces ---------------------------------------------------------------
 
     def _sub(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """The update piece within the at-rest piece `x` (a view)."""

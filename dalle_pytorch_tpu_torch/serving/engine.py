@@ -578,6 +578,22 @@ class GenerationEngine:
         self._window_event()
         return exports
 
+    def memory_ledger(self, capacity_bytes: Optional[float] = None) -> Dict[str, Any]:
+        """The serving path's HBM ledger (JAX `GenerationEngine.memory_ledger`):
+        the weights, the paged pool at rest (the trash block included; an
+        int8 pool at 1 + 2/dim_head bytes an element) and the transient
+        one-layer view the paged step gathers per lane
+        (`observability/memory.sampling_memory_ledger`)."""
+        from dalle_pytorch_tpu_torch.observability import memory as memory_mod
+
+        pool = {"num_blocks": self.pool.num_blocks + 1, "block_size": self.ecfg.block_size,
+                "num_slots": self.ecfg.num_slots}
+        if self.pool.quant:
+            pool["kv_quant"] = self.pool.quant
+        return memory_mod.sampling_memory_ledger(self.cfg, self.ecfg.num_slots, self.model,
+                                                 capacity_bytes=capacity_bytes, paged_pool=pool,
+                                                 device=self.device)
+
     def close(self) -> None:
         """Give every queued and in-flight request the outcome "deferred"
         (a journaled one stays open for the next replay) and close the

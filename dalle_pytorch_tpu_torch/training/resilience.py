@@ -12,7 +12,8 @@ drills.  `poison-request@N` and `flood@N:COUNT` for the engine;
 `kill-fleet@N` (SIGKILL of the whole process, for the journal's replay)
 and `stall-replica@N[:IDX]` (wedge replica IDX, alive) for the fleet, at
 its iteration N.  The training kinds wait for the training loop's
-resilience (ROADMAP.md Queue 1 item 8).
+resilience (ROADMAP.md Queue 1 item 8).  `EXIT_OOM`: the out-of-memory exit
+of the training and generate CLIs.
 """
 from __future__ import annotations
 
@@ -20,6 +21,11 @@ import dataclasses
 from typing import Callable, Optional, Union
 
 import torch
+
+# the exit code of a run the allocator refused (JAX `resilience.EXIT_OOM`):
+# the one code a supervisor must not restart, since the same config runs out
+# of memory again (`observability/memory.write_oom_report` says what to change)
+EXIT_OOM = 77
 
 
 def nonfinite_guard(update_fn: Callable[[], None], finite: Union[bool, torch.Tensor]) -> bool:

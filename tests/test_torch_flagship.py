@@ -238,7 +238,7 @@ def test_cli_trains_a_tied_model_that_jax_reads(tmp_path):
     from dalle_pytorch_tpu.training.checkpoint import load_checkpoint, unflatten_like
 
     out = str(tmp_path / "tied")
-    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--shift_tokens", "--share_input_output_emb",
+    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--telemetry", "off", "--shift_tokens", "--share_input_output_emb",
                       "--dalle_output_file_name", out]) == 0
     trees, meta = load_checkpoint(out + ".pt")
     assert meta["hparams"]["share_input_output_emb"] and "text_emb" not in trees["weights"]

@@ -313,7 +313,7 @@ def test_cli_remat_policy_and_bf16_storage(tmp_path, policy):
     from dalle_pytorch_tpu.training.checkpoint import load_checkpoint, unflatten_like
 
     out = str(tmp_path / "run")
-    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--execution", "remat", "--remat_policy", policy,
+    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--telemetry", "off", "--execution", "remat", "--remat_policy", policy,
                       "--param_dtype", "bfloat16", "--dalle_output_file_name", out]) == 0
     trees, meta = load_checkpoint(out + ".pt")
     assert meta["hparams"]["remat_policy"] == policy and meta["hparams"]["execution"] == "remat"

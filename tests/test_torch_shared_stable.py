@@ -217,7 +217,7 @@ def test_port_resumes_a_jax_cli_run_with_these_settings(tmp_path, capsys):
     logged = [json.loads(x) for x in open(f"{out}.metrics.jsonl")]
     jax_losses = {r["step"]: r["loss"] for r in logged if "loss" in r}
     capsys.readouterr()
-    assert tcli.main(["--dummy_run", "3", "--batch_size", str(int(jax.device_count()) * 2), "--device", "cpu",
+    assert tcli.main(["--dummy_run", "3", "--batch_size", str(int(jax.device_count()) * 2), "--device", "cpu", "--telemetry", "off",
                       "--resume", f"{out}_step1.npz", "--dalle_output_file_name", str(tmp_path / "P")]) == 0
     printed = capsys.readouterr().out
     assert "optimizer state not restored" not in printed

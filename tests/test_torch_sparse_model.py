@@ -244,7 +244,7 @@ def test_api_takes_the_pattern_keywords():
 
 def test_cli_trains_a_pattern_model(tmp_path):
     out = str(tmp_path / "sparse")
-    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--shift_tokens", "--attn_types",
+    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--telemetry", "off", "--shift_tokens", "--attn_types",
                       "full,axial_row,sparse", "--sparse_per_head", "--depth", "3",
                       "--dalle_output_file_name", out]) == 0
     model, _ = weights.load_dalle_checkpoint(out + ".pt", device="cpu")

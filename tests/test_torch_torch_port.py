@@ -200,7 +200,7 @@ def test_train_cli_continues_a_reference_dalle(tmp_path, capsys):
     write_reference_dalle(tmp_path / "ref.pt", params, tcfg, "DiscreteVAE", VAE,
                           reference_vae_state_dict(vparams, tcfg_v), epoch=0)
     out = tmp_path / "continued"
-    assert tcli.main(["--dummy_run", "2", "--dalle_path", str(tmp_path / "ref.pt"), "--device", "cpu",
+    assert tcli.main(["--dummy_run", "2", "--dalle_path", str(tmp_path / "ref.pt"), "--device", "cpu", "--telemetry", "off",
                       "--dalle_output_file_name", str(out)]) == 0
     printed = capsys.readouterr().out
     assert "fresh optimizer state" in printed

@@ -412,7 +412,7 @@ def test_cli_checkpoint_loads_in_jax(tmp_path):
     from dalle_pytorch_tpu_torch.models import vae as tvae
 
     out = str(tmp_path / "run")
-    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--shift_tokens",
+    assert tcli.main(["--dummy_run", "2", "--device", "cpu", "--telemetry", "off", "--shift_tokens",
                       "--dalle_output_file_name", out]) == 0
     trees, meta = load_checkpoint(out + ".pt")
     jcfg = jdalle.DALLEConfig.from_dict(meta["hparams"])
@@ -443,7 +443,7 @@ def test_cli_dummy_run_exits_zero(tmp_path):
     checkpoint."""
     out = tmp_path / "dalle"
     proc = subprocess.run(
-        [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle", "--dummy_run", "3",
+        [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle", "--dummy_run", "3", "--telemetry", "off",
          "--device", "cpu", "--dalle_output_file_name", str(out)],
         capture_output=True, text=True, cwd=REPO, timeout=300,
         env=dict(os.environ, PYTHONPATH=str(REPO)),

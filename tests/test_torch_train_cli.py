@@ -68,8 +68,9 @@ def data(tmp_path_factory):
 
 
 def _run(argv, capsys):
-    """main(argv) in process: (the per-step records, the last line)."""
-    assert tcli.main(argv) == 0
+    """main(argv) in process, telemetry off: (the per-step records, the last
+    line)."""
+    assert tcli.main([*argv, "--telemetry", "off"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     return [r for r in lines if "loss" in r], lines[-1]
 

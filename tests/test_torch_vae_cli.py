@@ -55,8 +55,10 @@ def workspace(tmp_path_factory):
 
 
 def _port(argv, capsys):
-    """tcli.main(argv) on the CPU: (its JSON lines, everything it printed)."""
-    assert tcli.main([*argv, "--device", "cpu"]) == 0
+    """tcli.main(argv) on the CPU, telemetry off unless argv sets it: (its
+    JSON lines, everything it printed)."""
+    tele = [] if "--telemetry" in argv else ["--telemetry", "off"]
+    assert tcli.main([*argv, *tele, "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     return [json.loads(x) for x in out.splitlines() if x.startswith("{")], out
 
@@ -64,7 +66,7 @@ def _port(argv, capsys):
 @pytest.fixture(scope="module")
 def trained(workspace):
     """The port's run: one epoch of two steps, logged at step 0."""
-    assert tcli.main(["--image_folder", str(workspace / "data"), *SIZES, "--epochs", "1",
+    assert tcli.main(["--image_folder", str(workspace / "data"), *SIZES, "--epochs", "1", "--telemetry", "off",
                       "--vae_output_file_name", str(workspace / "vae"), "--device", "cpu"]) == 0
     return workspace / "vae.pt"
 
@@ -154,18 +156,43 @@ def test_train_dalle_trains_on_the_port_vae(workspace, trained, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--telemetry", "tele"], 8), (["--profile_steps", "1:3"], 8), (["--health_every", "1"], 8),
+    (["--telemetry", "tele"], None), (["--profile_steps", "1:3"], None), (["--health_every", "1"], 8),
     (["--inject_fault", "sigterm@2"], 8), (["--fleet_inject_skew", "0.5"], 8), (["--async_checkpoint", "1"], 8),
     (["--prefetch_batches", "2"], 10),
 ])
-def test_flags_that_wait_exit_naming_their_item(workspace, flags, item):
+def test_flags_that_wait_exit_naming_their_item(workspace, flags, item, capsys):
+    """The machinery that waits exits naming its item; `--telemetry DIR`
+    and `--profile_steps A:B` run (the hub came with item 8's telemetry)."""
+    argv = ["--image_folder", str(workspace / "data"), *SIZES, "--epochs", "1", *flags, "--vae_output_file_name",
+            str(workspace / f"flag_{flags[0][2:]}"), "--device", "cpu"]
+    if item is None:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.chdir(workspace)
+            assert tcli.main(argv) == 0
+        tele = workspace / ("tele" if flags[0] == "--telemetry" else "flag_profile_steps.telemetry")
+        assert (tele / f"flag_{flags[0][2:]}.spans.jsonl").exists()
+        assert (flags[0] != "--profile_steps") or len(list((tele / "traces").glob("*.json"))) == 1
+        return
     with pytest.raises(SystemExit, match=rf"{flags[0]}.*ROADMAP.md Queue 1 item {item}\)"):
-        tcli.main(["--image_folder", str(workspace / "data"), *flags, "--device", "cpu"])
+        tcli.main(argv)
 
 
-def test_telemetry_flags_are_inert(workspace, capsys):
-    lines, _ = _port(["--image_folder", str(workspace / "data"), *SIZES, "--epochs", "0", "--fleet", "0",
+def test_telemetry_flags_act(workspace, capsys):
+    """The flags that act under telemetry: the directory, the headroom
+    monitor's ledger gauges (no alarm on the CPU: no allocator), the sync
+    and the capture; `--telemetry off` writes nothing."""
+    lines, _ = _port(["--image_folder", str(workspace / "data"), *SIZES, "--epochs", "1", "--fleet", "0",
                       "--profile_on_alarm", "0", "--hbm_headroom_frac", "0.5", "--telemetry_sync", "0",
+                      "--telemetry_heartbeat_s", "0", "--telemetry", str(workspace / "acting"),
+                      "--vae_output_file_name", str(workspace / "acting")], capsys)
+    assert lines[-1] == {"checkpoint": str(workspace / "acting.pt"), "global_step": 2}
+    records = [json.loads(x) for x in (workspace / "acting" / "acting.spans.jsonl").read_text().splitlines()]
+    kinds = [r["kind"] for r in records]
+    assert kinds.count("step") == 2 and kinds.count("mem_ledger") == 1 and "alarm" not in kinds
+    flushed = [r["step"] for r in records if r["kind"] == "metrics"]
+    assert flushed == sorted(flushed) and flushed[-1] == 2  # the last flush at the loop's last step
+    assert {"data_wait", "dispatch", "log", "checkpoint"} <= {r["name"] for r in records if r["kind"] == "span"}
+    assert not list(workspace.glob("acting/hang_*")) and not (workspace / "acting" / "traces").exists()
+    lines, _ = _port(["--image_folder", str(workspace / "data"), *SIZES, "--epochs", "0", "--telemetry", "off",
                       "--vae_output_file_name", str(workspace / "inert")], capsys)
-    assert lines[-1] == {"checkpoint": str(workspace / "inert.pt"), "global_step": 0}
     assert not (workspace / "inert.telemetry").exists()
